@@ -1,0 +1,222 @@
+"""Deblocking on the device — PyTorch port of filters/dlf_jax.py around the
+CUDA kernel `csrc/dlf_edges.cu` (K4), with a plain PyTorch version beside it.
+
+Planes carry a leading frame dimension (F, H, W) int32. Filter-length maps
+are built on the host from per-8px-cell block-size maps (all-intra frames:
+an edge filters iff it is a transform edge), as in the reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .dlf import _limits  # noqa: F401 (re-exported: the filter limits of a level)
+
+
+def size_map_tx_w(size_map: np.ndarray, plane: int) -> np.ndarray:
+    """Per-8px-cell tx width in plane samples. size_map holds luma block
+    sizes (8/16/32/64); luma tx = block size (TX_MODE_LARGEST), chroma tx
+    width = clip(n/2, 4, 32)."""
+    if plane == 0:
+        return size_map.astype(np.int32)
+    return np.clip(size_map.astype(np.int32) >> 1, 4, 32)
+
+
+def flen_maps_from_sizes(size_map: np.ndarray, plane: int, transpose: bool) -> np.ndarray:
+    """(F, mi4_rows, K) filter-length map for vertical edges (columns at
+    x = 4(k+1) plane samples) of one plane, for ALL-INTRA frames.
+
+    size_map: (F, R8, C8) luma block size per 8px cell. transpose=True
+    builds the map for the horizontal pass (rows/cols swapped)."""
+    sm = np.swapaxes(size_map, 1, 2) if transpose else size_map
+    F, R8, C8 = sm.shape
+    ss = 0 if plane == 0 else 1
+    pw = C8 * (8 >> ss)
+    ph = R8 * (8 >> ss)
+    n_rows = ph // 4
+    K = pw // 4 - 1
+    tw = size_map_tx_w(sm, plane)
+    x = (np.arange(1, K + 1)) * 4
+    cell = x // (8 >> ss)
+    mid_cell = (x % (8 >> ss)) != 0
+    prev_cell = np.where(mid_cell, cell, np.maximum(cell - 1, 0))
+    tw_c = tw[:, :, cell]
+    tw_p = tw[:, :, prev_cell]
+    is_tx_edge = (x[None, None, :] % tw_c) == 0
+    min_tw = np.minimum(tw_c, tw_p)
+    if plane == 0:
+        f = np.where(min_tw == 4, 4, np.where(min_tw == 8, 8, 14))
+    else:
+        f = np.where(min_tw == 4, 4, 6)
+    flen_band = np.where(is_tx_edge, f, 0).astype(np.int8)
+    reps = (8 >> ss) // 4
+    return np.repeat(flen_band, reps, axis=1)[:, :n_rows]
+
+
+def filter_vertical_edges_plain(planes, flen4, lim: int, blim: int, thr: int, bd: int = 8):
+    """Plain PyTorch version of K4 (dlf_jax.filter_vertical_edges_j):
+    (F, H, W) int32 planes, flen4 (F, H//4, K) -> new filtered planes."""
+    F, H, W = planes.shape
+    K = flen4.shape[2]
+    if K == 0:
+        return planes.clone()
+    dev = planes.device
+    sh = bd - 8
+    lim, blim, thr = lim << sh, blim << sh, thr << sh
+    half = 128 << sh
+    fthr = 1 << sh
+    planes = planes.clone()
+
+    def clip8(v):
+        return v.clamp(-half, half - 1)
+
+    flen_s = flen4.to(torch.int32).repeat_interleave(4, dim=1)[:, :H]
+    cols = (np.arange(K) + 1) * 4
+
+    def col(off):
+        return planes[:, :, torch.as_tensor(np.clip(cols + off, 0, W - 1), device=dev)].to(torch.int32)
+
+    p = [col(-1 - i) for i in range(7)]
+    q = [col(i) for i in range(7)]
+    a = torch.abs
+
+    def narrow(mask):
+        ps1, ps0 = p[1] - half, p[0] - half
+        qs0, qs1 = q[0] - half, q[1] - half
+        hev = (a(p[1] - p[0]) > thr) | (a(q[1] - q[0]) > thr)
+        f = clip8(ps1 - qs1) * hev
+        f = clip8(f + 3 * (qs0 - ps0)) * mask
+        f1 = clip8(f + 4) >> 3
+        f2 = clip8(f + 3) >> 3
+        oq0 = clip8(qs0 - f1) + half
+        op0 = clip8(ps0 + f2) + half
+        t = ((f1 + 1) >> 1) * (~hev)
+        oq1 = clip8(qs1 - t) + half
+        op1 = clip8(ps1 + t) + half
+        return op1, op0, oq0, oq1
+
+    def fmask2():
+        return ((a(p[1] - p[0]) <= lim) & (a(q[1] - q[0]) <= lim) &
+                (a(p[0] - q[0]) * 2 + a(p[1] - q[1]) // 2 <= blim))
+
+    def fmask3():
+        return fmask2() & (a(p[2] - p[1]) <= lim) & (a(q[2] - q[1]) <= lim)
+
+    def fmask_full():
+        return fmask3() & (a(p[3] - p[2]) <= lim) & (a(q[3] - q[2]) <= lim)
+
+    def flat_n(nn):
+        m = (a(p[1] - p[0]) <= fthr) & (a(q[1] - q[0]) <= fthr)
+        for i in range(2, nn):
+            m &= (a(p[i] - p[0]) <= fthr) & (a(q[i] - q[0]) <= fthr)
+        return m
+
+    def r2(v, s):
+        return (v + (1 << (s - 1))) >> s
+
+    sel4, sel6, sel8, sel14 = flen_s == 4, flen_s == 6, flen_s == 8, flen_s == 14
+    w = torch.where
+    out = {}
+
+    def base(off):
+        return p[-off - 1] if off < 0 else q[off]
+
+    n4 = narrow(fmask2() & sel4)
+    for off, v in zip((-2, -1, 0, 1), n4):
+        out[off] = w(sel4, v, base(off))
+
+    mask6 = fmask3() & sel6
+    flat6 = flat_n(3) & mask6
+    n6 = narrow(mask6 & ~flat6)
+    l6 = {-2: r2(p[2] * 3 + p[1] * 2 + p[0] * 2 + q[0], 3),
+          -1: r2(p[2] + p[1] * 2 + p[0] * 2 + q[0] * 2 + q[1], 3),
+          0: r2(p[1] + p[0] * 2 + q[0] * 2 + q[1] * 2 + q[2], 3),
+          1: r2(p[0] + q[0] * 2 + q[1] * 2 + q[2] * 3, 3)}
+    for off, nar in zip((-2, -1, 0, 1), n6):
+        out[off] = w(sel6, w(flat6, l6[off], nar), out.get(off, base(off)))
+
+    mask8 = fmask_full() & sel8
+    flat8 = flat_n(4) & mask8
+    n8 = dict(zip((-2, -1, 0, 1), narrow(mask8 & ~flat8)))
+    l8 = {-3: r2(p[3] * 3 + p[2] * 2 + p[1] + p[0] + q[0], 3),
+          -2: r2(p[3] * 2 + p[2] + p[1] * 2 + p[0] + q[0] + q[1], 3),
+          -1: r2(p[3] + p[2] + p[1] + p[0] * 2 + q[0] + q[1] + q[2], 3),
+          0: r2(p[2] + p[1] + p[0] + q[0] * 2 + q[1] + q[2] + q[3], 3),
+          1: r2(p[1] + p[0] + q[0] + q[1] * 2 + q[2] + q[3] * 2, 3),
+          2: r2(p[0] + q[0] + q[1] + q[2] * 2 + q[3] * 3, 3)}
+    for off in range(-3, 3):
+        v = w(flat8, l8[off], n8.get(off, base(off)))
+        out[off] = w(sel8, v, out.get(off, base(off)))
+
+    mask14 = fmask_full() & sel14
+    flat14 = flat_n(4) & mask14
+    flat2 = ((a(p[6] - p[0]) <= fthr) & (a(p[5] - p[0]) <= fthr) &
+             (a(p[4] - p[0]) <= fthr) & (a(q[4] - q[0]) <= fthr) &
+             (a(q[5] - q[0]) <= fthr) & (a(q[6] - q[0]) <= fthr) &
+             (a(p[1] - p[0]) <= fthr) & (a(q[1] - q[0]) <= fthr)) & flat14
+    n14 = dict(zip((-2, -1, 0, 1), narrow(mask14 & ~flat14)))
+    l14 = {
+        -6: r2(p[6] * 7 + p[5] * 2 + p[4] * 2 + p[3] + p[2] + p[1] + p[0] + q[0], 4),
+        -5: r2(p[6] * 5 + p[5] * 2 + p[4] * 2 + p[3] * 2 + p[2] + p[1] + p[0] + q[0] + q[1], 4),
+        -4: r2(p[6] * 4 + p[5] + p[4] * 2 + p[3] * 2 + p[2] * 2 + p[1] + p[0] + q[0] + q[1] + q[2], 4),
+        -3: r2(p[6] * 3 + p[5] + p[4] + p[3] * 2 + p[2] * 2 + p[1] * 2 + p[0] + q[0] + q[1] + q[2]
+               + q[3], 4),
+        -2: r2(p[6] * 2 + p[5] + p[4] + p[3] + p[2] * 2 + p[1] * 2 + p[0] * 2 + q[0] + q[1] + q[2]
+               + q[3] + q[4], 4),
+        -1: r2(p[6] + p[5] + p[4] + p[3] + p[2] + p[1] * 2 + p[0] * 2 + q[0] * 2 + q[1] + q[2]
+               + q[3] + q[4] + q[5], 4),
+        0: r2(p[5] + p[4] + p[3] + p[2] + p[1] + p[0] * 2 + q[0] * 2 + q[1] * 2 + q[2] + q[3]
+              + q[4] + q[5] + q[6], 4),
+        1: r2(p[4] + p[3] + p[2] + p[1] + p[0] + q[0] * 2 + q[1] * 2 + q[2] * 2 + q[3] + q[4]
+              + q[5] + q[6] * 2, 4),
+        2: r2(p[3] + p[2] + p[1] + p[0] + q[0] + q[1] * 2 + q[2] * 2 + q[3] * 2 + q[4] + q[5]
+              + q[6] * 3, 4),
+        3: r2(p[2] + p[1] + p[0] + q[0] + q[1] + q[2] * 2 + q[3] * 2 + q[4] * 2 + q[5] + q[6] * 4, 4),
+        4: r2(p[1] + p[0] + q[0] + q[1] + q[2] + q[3] * 2 + q[4] * 2 + q[5] * 2 + q[6] * 5, 4),
+        5: r2(p[0] + q[0] + q[1] + q[2] + q[3] + q[4] * 2 + q[5] * 2 + q[6] * 7, 4),
+    }
+    for off in range(-6, 6):
+        orig = base(off)
+        v = w(flat2, l14[off], w(flat14, l8.get(off, orig), n14.get(off, orig)))
+        out[off] = w(sel14, v, out.get(off, orig))
+
+    def classmask(off):
+        m = sel14
+        if -3 <= off <= 2:
+            m = m | sel8
+        if -2 <= off <= 1:
+            m = m | sel4 | sel6
+        return m
+
+    # stores in offset order, as the reference (later offsets win)
+    for off in sorted(out):
+        tcols = cols + off
+        valid = (tcols >= 0) & (tcols < W)
+        tc = torch.as_tensor(tcols[valid], device=dev)
+        cur = planes[:, :, tc]
+        planes[:, :, tc] = w(classmask(off)[:, :, valid], out[off][:, :, valid], cur)
+    return planes
+
+
+def filter_vertical_edges(planes, flen4, lim: int, blim: int, thr: int, bd: int = 8):
+    """Deblock every vertical edge of (F, H, W) int32 planes (out of place):
+    K4 for CUDA tensors, the plain version for CPU tensors. A transposed
+    view (planes.transpose(1, 2)) filters the horizontal edges; the kernel
+    takes its strides and writes the result in the input's layout."""
+    if planes.device.type == "cpu":
+        return filter_vertical_edges_plain(planes, flen4, lim, blim, thr, bd)
+    F, H, W = planes.shape
+    K = flen4.shape[2]
+    kernels.check(flen4, "flen4", torch.int32, (F, H // 4, K))
+    if planes.dtype != torch.int32:
+        raise ValueError(f"planes: expected torch.int32, got {planes.dtype}")
+    if K == 0:
+        return planes.clone()
+    out = torch.empty_like(planes)  # same strides for a dense (transposed) view
+    if out.stride() != planes.stride():
+        raise ValueError("planes: expected a dense (possibly transposed) layout")
+    sF, sR, sC = planes.stride()
+    kernels.launch("dlf_edges", planes.data_ptr(), out.data_ptr(), flen4.data_ptr(), F, H, W, K,
+                   sF, sR, sC, int(lim), int(blim), int(thr), bd, kernels.stream_ptr(planes))
+    return out

@@ -1,0 +1,145 @@
+"""Build, load and count the hand-written CUDA kernels of the port.
+
+The sources in `csrc/*.cu` have a plain C interface. At first use they are
+compiled with `nvcc` for `sm_90a` (one `nvcc -c` per source, all started
+together), linked into one shared library under `build/` at the repository
+root and loaded with `ctypes`. Nothing is built when the package is imported:
+the CPU paths never reach this module's loader.
+
+Each kernel wrapper calls `launch(name, fn_name, *args)`, which calls the C
+entry point, raises if it returns a CUDA error code, and adds one to the
+kernel's launch count. `launches` is read by `chip_smoke.py` to show that the
+main path ran through every kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(os.path.dirname(_PKG), "build")
+LIB = os.path.join(BUILD, "libsvtav1_torch_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+# kernel name -> (source file, C entry point)
+KERNELS = {
+    "intra_pred": ("intra_pred.cu", "intra_pred_launch"),
+    "txfm_quant_recon": ("txfm_quant_recon.cu", "txfm_quant_recon_launch"),
+    "txb_rate": ("txb_rate.cu", "txb_rate_launch"),
+    "dlf_edges": ("dlf_edges.cu", "dlf_edges_launch"),
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+ARGTYPES = {
+    # above, left, tl, have_above, have_left, mode|NULL, weights, out, B, n, log2n, stream
+    "intra_pred_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # src, pred, v_adst, h_adst, tables, levels, recon|NULL, sse|NULL,
+    # L, rep, n, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
+    "txfm_quant_recon_launch": [_P] * 8 + [_I] * 13 + [_P],
+    # levels, flut, ilut, out, B, h, w, log2w, tx_class, stream
+    "txb_rate_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # in, out, flen, F, H, W, K, sF, sR, sC, lim, blim, thr, bd, stream
+    "dlf_edges_launch": [_P, _P, _P] + [_I] * 11 + [_P],
+}
+
+launches = {name: 0 for name in KERNELS}
+build_seconds: float | None = None
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of svtav1_tpu_torch are built "
+                       "with the CUDA toolkit at first use on a GPU machine")
+
+
+def build() -> str:
+    """Compile every source of csrc/ in parallel and link one .so (rebuilt
+    when a source is newer than the library). Returns the library path."""
+    global build_seconds
+    srcs = sorted({src for src, _ in KERNELS.values()})
+    paths = [os.path.join(CSRC, s) for s in srcs]
+    newest = max(os.path.getmtime(p) for p in paths + [os.path.join(CSRC, "common.cuh")])
+    if os.path.exists(LIB) and os.path.getmtime(LIB) >= newest:
+        return LIB
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    os.makedirs(BUILD, exist_ok=True)
+    tag = f"{os.getpid()}"
+    objs = [os.path.join(BUILD, f"{os.path.splitext(s)[0]}.{tag}.o") for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", p, "-o", o],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for p, o in zip(paths, objs)]
+    errors = []
+    for p, proc in zip(paths, procs):
+        out, _ = proc.communicate()
+        if proc.returncode:
+            errors.append(f"{os.path.basename(p)}:\n{out}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp = f"{LIB}.{tag}.tmp"
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+    os.replace(tmp, LIB)
+    for o in objs:
+        os.remove(o)
+    build_seconds = time.perf_counter() - t0
+    return LIB
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for fn, argtypes in ARGTYPES.items():
+                f = getattr(handle, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel `name`'s C entry point; raise on a CUDA error code."""
+    fn = getattr(lib(), KERNELS[name][1])
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    launches[name] += 1
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(t, name: str, dtype, shape=None) -> None:
+    """Validate a kernel argument: CUDA, dtype, contiguous, optional shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

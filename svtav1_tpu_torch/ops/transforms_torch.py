@@ -1,0 +1,266 @@
+"""PyTorch port of ops/transforms_jax.py for the square DCT/ADST blocks of the
+intra path: forward 2-D transform, dead-zone quant clipped to +-32767,
+dequant, inverse 2-D transform + prediction, and the recon's SSE — fused in
+the CUDA kernel `csrc/txfm_quant_recon.cu` (K2), with a plain PyTorch version
+beside it.
+
+`txfm_quant_recon` launches K2 for CUDA tensors and takes the plain version
+only for CPU tensors. Both run the same int32 stage networks as the
+reference (tables from constants/data/txfm_stages.npz via ops/transforms),
+with int32 arithmetic that wraps like XLA's, so levels and recon are
+bit-exact with fwd_txfm2d_j / quantize_j / dequantize_j / inv_txfm2d_add_j.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..constants.av1 import TX_TYPE_1D, Tx1D, TxType
+from . import quantize as quant_ops
+from . import transforms as T
+
+SIZES = (4, 8, 16, 32, 64)
+_HDR = 32
+
+
+def _cos_bits(n: int) -> tuple[int, int]:
+    wi = int(math.log2(n)) - 2
+    return T.FWD_COS_BIT_COL[wi][wi], T.FWD_COS_BIT_ROW[wi][wi]
+
+
+def numpy_stage_tables(n: int) -> dict:
+    """{(name, cos_bit): [(ia, wa, ib, wb, sh, clamp2), ...]} of every 1-D
+    network a square n-point DCT/ADST 2-D transform uses (ADST4 is not a
+    table: it is computed from sinpi)."""
+    cb_col, cb_row = _cos_bits(n)
+    names = [("fdct", cb_col), ("fdct", cb_row), ("idct", T.INV_COS_BIT)]
+    if 4 < n <= 16:
+        names += [("fadst", cb_col), ("fadst", cb_row), ("iadst", T.INV_COS_BIT)]
+    return {(f"{b}{n}", cb): T.stage_table(f"{b}{n}", cb) for b, cb in names}
+
+
+class StageTables:
+    """The stage networks of one block size on one device: per-table stage
+    tensors for the plain version and the packed int32 buffer K2 reads."""
+
+    def __init__(self, n: int, tables: dict, device):
+        self.n = n
+        self.device = torch.device(device)
+        self.cb_col, self.cb_row = _cos_bits(n)
+        self.stages = {}
+        for key, stages in tables.items():
+            self.stages[key] = [
+                (torch.as_tensor(np.asarray(ia), dtype=torch.long, device=device),
+                 torch.as_tensor(np.asarray(wa), dtype=torch.int32, device=device),
+                 torch.as_tensor(np.asarray(ib), dtype=torch.long, device=device),
+                 torch.as_tensor(np.asarray(wb), dtype=torch.int32, device=device),
+                 torch.as_tensor(np.asarray(sh), dtype=torch.int32, device=device),
+                 torch.as_tensor(np.where(np.asarray(sh) > 0,
+                                          (1 << np.maximum(np.asarray(sh), 1)) >> 1, 0),
+                                 dtype=torch.int32, device=device),
+                 torch.as_tensor(np.asarray(clamp2), dtype=torch.bool, device=device))
+                for ia, wa, ib, wb, sh, clamp2 in stages]
+        self.packed = torch.as_tensor(self._pack(tables), device=device)
+
+    def _pack(self, tables: dict) -> np.ndarray:
+        """Header (see csrc/txfm_quant_recon.cu) + stage data, int32."""
+        n, cbc, cbr, cbi = self.n, self.cb_col, self.cb_row, T.INV_COS_BIT
+        order = [(f"fdct{n}", cbc), (f"fadst{n}", cbc), (f"fdct{n}", cbr), (f"fadst{n}", cbr),
+                 (f"idct{n}", cbi), (f"iadst{n}", cbi)]
+        hdr = np.full(_HDR, -1, np.int64)
+        data = []
+        off = _HDR
+        for t, key in enumerate(order):
+            if key not in tables:
+                hdr[6 + t] = 0
+                continue
+            hdr[t] = off
+            hdr[6 + t] = len(tables[key])
+            for ia, wa, ib, wb, sh, clamp2 in tables[key]:
+                st = np.stack([ia, wa, ib, wb, sh, clamp2], axis=1).astype(np.int64)
+                data.append(st.ravel())
+                off += st.size
+        hdr[12:17] = T.sinpi_arr(cbc)
+        hdr[17:22] = T.sinpi_arr(cbr)
+        hdr[22:27] = T.sinpi_arr(cbi)
+        hdr[27], hdr[28] = cbc, cbr
+        return np.concatenate([hdr] + data).astype(np.int32)
+
+
+def stage_tables_from_numpy(tables: dict, n: int, device) -> StageTables:
+    """Device stage tables of block size n from numpy_stage_tables(n)'s
+    arrays (or the same arrays built by another builder)."""
+    return StageTables(n, tables, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(n: int, device: str) -> StageTables:
+    return stage_tables_from_numpy(numpy_stage_tables(n), n, device)
+
+
+def tables_for(n: int, device) -> StageTables:
+    return _tables(n, str(torch.device(device)))
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (written from transforms_jax.py)
+# ---------------------------------------------------------------------------
+
+
+def _round_shift(x, bit: int):
+    return x if bit == 0 else (x + (1 << (bit - 1))) >> bit
+
+
+def _apply_shift(x, bit: int):
+    if bit > 0:
+        return _round_shift(x, bit)
+    if bit < 0:
+        return x << (-bit)
+    return x
+
+
+def _clamp_bits(x, bits: int):
+    return x.clamp(-(1 << (bits - 1)), (1 << (bits - 1)) - 1)
+
+
+def _txfm1d_table(x, stages, clamp_range):
+    for ia, wa, ib, wb, sh, rnd, clamp2 in stages:
+        y = (x[..., ia] * wa + x[..., ib] * wb + rnd) >> sh
+        if clamp_range is not None:
+            y = torch.where(clamp2, _clamp_bits(y, clamp_range), y)
+        x = y
+    return x
+
+
+def _adst4(x, cos_bit: int, inverse: bool):
+    sp = [int(v) for v in T.sinpi_arr(cos_bit)]
+    x0, x1, x2, x3 = (x[..., i] for i in range(4))
+    if inverse:
+        s0 = sp[1] * x0 + sp[4] * x2 + sp[2] * x3
+        s1 = sp[2] * x0 - sp[1] * x2 - sp[4] * x3
+        s2 = sp[3] * ((x0 - x2) + x3)
+        s3 = sp[3] * x1
+        out = [s0 + s3, s1 + s3, s2, s0 + s1 - s3]
+    else:
+        a0 = sp[1] * x0 + sp[2] * x1 + sp[4] * x3
+        a1 = sp[3] * (x0 + x1 - x3)
+        a2 = sp[4] * x0 - sp[1] * x1 + sp[2] * x3
+        a3 = sp[3] * x2
+        out = [a0 + a3, a1, a2 - a3, a2 - a0 + a3]
+    return _round_shift(torch.stack(out, dim=-1), cos_bit)
+
+
+def _sel_kinds(x, adst, tabs: StageTables, prefix: str, cos_bit: int, clamp_range):
+    """1-D DCT, or ADST where `adst` (per lane) holds, along the last axis."""
+    n = tabs.n
+    inverse = prefix == "i"
+    xd = _txfm1d_table(x, tabs.stages[(f"{prefix}dct{n}", cos_bit)], clamp_range)
+    if n > 16:
+        return xd
+    if n == 4:
+        xa = _adst4(x, cos_bit, inverse)
+    else:
+        xa = _txfm1d_table(x, tabs.stages[(f"{prefix}adst{n}", cos_bit)], clamp_range)
+    return torch.where(adst.view(adst.shape + (1,) * (x.dim() - adst.dim())), xa, xd)
+
+
+def txfm_quant_recon_plain(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
+                           rep: int = 1, want_recon: bool = True, want_sse: bool = False,
+                           tables: StageTables | None = None):
+    """Plain PyTorch version of K2; same arguments and results as
+    txfm_quant_recon."""
+    L, n = pred.shape[0], pred.shape[-1]
+    tabs = tables if tables is not None else tables_for(n, pred.device)
+    s0, s1, s2 = T.FWD_SHIFTS[(n, n)]
+    sh_row, sh_col = T.INV_SHIFTS[(n, n)]
+    ls = quant_ops.tx_scale(n, n)
+    srcL = src.repeat_interleave(rep, dim=0) if rep > 1 else src
+    # forward (fwd_txfm2d_sel_j)
+    x = (srcL - pred).transpose(-1, -2)
+    x = _apply_shift(x, -s0)
+    x = _sel_kinds(x, v_adst, tabs, "f", tabs.cb_col, None)
+    x = _apply_shift(x, -s1).transpose(-1, -2)
+    x = _sel_kinds(x, h_adst, tabs, "f", tabs.cb_row, None)
+    x = _apply_shift(x, -s2)
+    if n == 64:
+        x = x.clone()
+        x[..., :, 32:] = 0
+        x[..., 32:, :] = 0
+    # quant (quantize_j) + clip, dequant (dequantize_j)
+    dq = torch.full((n, n), dq_ac, dtype=torch.int32, device=x.device)
+    dq[0, 0] = dq_dc
+    lv = torch.div((x.abs() << ls) + dq // 2, dq, rounding_mode="floor")
+    lv = (torch.sign(x) * lv).clamp(-32767, 32767).to(torch.int32)
+    dqc = torch.sign(lv) * ((lv.abs() * dq) >> ls).clamp(max=(1 << (bd + 7)) - 1)
+    # inverse (inv_txfm2d_add_sel_j)
+    y = _clamp_bits(dqc, bd + 8)
+    y = _sel_kinds(y, h_adst, tabs, "i", T.INV_COS_BIT, 16 if bd == 8 else 18)
+    y = _round_shift(y, sh_row).transpose(-1, -2)
+    y = _clamp_bits(y, max(bd + 6, 16))
+    y = _sel_kinds(y, v_adst, tabs, "i", T.INV_COS_BIT, 16)
+    y = _round_shift(y, sh_col).transpose(-1, -2)
+    recon = (pred + y).clamp(0, (1 << bd) - 1).to(torch.int32).contiguous()
+    adj = min(n, 32)
+    levels = lv[:, :adj, :adj].contiguous()
+    sse = None
+    if want_sse:
+        d = (recon - srcL).to(torch.int64)
+        sse = (d * d).sum(dim=(-2, -1))
+    return levels, (recon if want_recon else None), sse
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def txfm_quant_recon(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
+                     rep: int = 1, want_recon: bool = True, want_sse: bool = False,
+                     tables: StageTables | None = None):
+    """Transform, quantize and reconstruct L square blocks.
+
+    src (L // rep, n, n) int32 source blocks (lane i uses src[i // rep]);
+    pred (L, n, n) int32 predictions; v_adst / h_adst (L,) bool per-lane
+    vertical / horizontal ADST (DCT where False; ADST exists up to 16
+    points). Returns (levels (L, adj, adj) int32 with adj = min(n, 32),
+    recon (L, n, n) int32 or None, sse (L,) int64 or None)."""
+    if pred.device.type == "cpu":
+        return txfm_quant_recon_plain(src, pred, v_adst, h_adst, dq_dc, dq_ac, bd, rep,
+                                      want_recon, want_sse, tables)
+    L, n = pred.shape[0], pred.shape[-1]
+    if n not in SIZES or pred.shape[1:] != (n, n):
+        raise ValueError(f"txfm_quant_recon: square blocks of {SIZES} only, got {tuple(pred.shape)}")
+    if L % rep or src.shape[0] != L // rep:
+        raise ValueError("txfm_quant_recon: src must hold L // rep blocks")
+    tabs = tables if tables is not None else tables_for(n, pred.device)
+    kernels.check(src, "src", torch.int32, (L // rep, n, n))
+    kernels.check(pred, "pred", torch.int32)
+    kernels.check(v_adst, "v_adst", torch.bool, (L,))
+    kernels.check(h_adst, "h_adst", torch.bool, (L,))
+    adj = min(n, 32)
+    dev = pred.device
+    levels = torch.empty((L, adj, adj), dtype=torch.int32, device=dev)
+    recon = torch.empty((L, n, n), dtype=torch.int32, device=dev) if want_recon else None
+    sse = torch.empty((L,), dtype=torch.int64, device=dev) if want_sse else None
+    s0, s1, s2 = T.FWD_SHIFTS[(n, n)]
+    sh_row, sh_col = T.INV_SHIFTS[(n, n)]
+    kernels.launch("txfm_quant_recon", src.data_ptr(), pred.data_ptr(), v_adst.data_ptr(),
+                   h_adst.data_ptr(), tabs.packed.data_ptr(), levels.data_ptr(),
+                   recon.data_ptr() if recon is not None else None,
+                   sse.data_ptr() if sse is not None else None,
+                   L, rep, n, -s0, -s1, -s2, sh_row, sh_col, int(dq_dc), int(dq_ac),
+                   quant_ops.tx_scale(n, n), bd, int(math.log2(n)), kernels.stream_ptr(pred))
+    return levels, recon, sse
+
+
+def tx_flags(tx_type: int, L: int, device) -> tuple:
+    """(v_adst, h_adst) lanes for a static DCT/ADST 2-D type."""
+    vk, hk = TX_TYPE_1D[TxType(tx_type)]
+    if vk not in (Tx1D.DCT, Tx1D.ADST) or hk not in (Tx1D.DCT, Tx1D.ADST):
+        raise NotImplementedError("txfm_quant_recon covers the DCT/ADST types only")
+    return (torch.full((L,), vk == Tx1D.ADST, dtype=torch.bool, device=device),
+            torch.full((L,), hk == Tx1D.ADST, dtype=torch.bool, device=device))

@@ -1,0 +1,521 @@
+"""Device commit pass (PyTorch): conformant reconstruction of the decided
+plan, ported from svtav1_tpu's pipeline/device_commit.py for key frames.
+
+The decide pass chose modes and partitions open-loop; this pass produces
+the final quantized coefficients and the recon the decoder reproduces bit
+for bit. Intra prediction needs final neighbour recon, the one sequential
+dependence of AV1, so blocks run in mi8 anti-diagonal waves (w = r8 + c8 +
+n8 - 1, 8-px units): every provider of a block's above row, left column and
+top-left corner completes at a strictly smaller wave (proof in the
+reference module's NOTES). All blocks of a wave form one batch per size.
+
+Neighbour pixels live in frontier maps, not the recon plane:
+`bottom_rows[r8, x]` = recon row (r8+1)*8-1, `right_cols[c8, y]` = recon
+col (c8+1)*8-1, `corners[r8, c8]` = recon[(r8+1)*8-1, (c8+1)*8-1]. Each
+(band, pixel) cell has one writer, so the index writes of one wave never
+collide.
+
+Per wave and size the device work is two kernels per plane group: K1
+predicts the chosen mode of every lane, K2 transforms, quantizes and
+reconstructs; the gathers and frontier writes are plain PyTorch. Lanes are
+sized by exact counts (the host knows each wave's lanes), so there are no
+pad lanes. After the filters (K4 deblocking, display-edge replication) the
+recon is packed to uint8 and fetched in one transfer.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..codec.tile_codec import (BlockDecision, FrameParams, Plan, chroma_tx_type,
+                                chroma_tx_type_inter, max_uv_txsize)
+from ..ops import transforms_torch as TT
+from ..utils import profiler
+from .device_decide import MODES, SIZES, TX_SEARCH
+from .intra_device import BSIZE_BY_N, predict
+
+
+def _build_schedule(leaves_per_frame, dec_per_frame, region):
+    """Split each size's leaves into an INTER segment (no neighbor
+    dependence — committed in one batched step before the wavefront) and an
+    INTRA segment sorted by anti-diagonal wave. Returns per-size host arrays
+    laid out [inter (NI) | intra by wave (NW)] plus segment counts.
+
+    `region` = (x0, y0, w, h) pixels; coords are (f, REGION-LOCAL r8, c8).
+    Independent intra frames share one wavefront schedule — lanes from every
+    frame batch together at each wave. Returns {n: dict(coords (N,3),
+    mode (N,), tx (N,), uv_tx (N,), ref (N,), mv (N,2), offsets (W+1,)
+    INTRA-relative, NI, NW, kmax)} and W.
+
+    Wave safety with the split: an intra block's above/left/topleft
+    providers are written either in the inter phase (before any wave) or at
+    a strictly smaller wave (see module NOTES) — so removing inter lanes
+    from the wavefront preserves the dependence order while collapsing the
+    serial wave count of P/B frames to the (few) waves that contain intra
+    blocks. Fully vectorized (numpy lexsort + fancy gathers)."""
+    x0, y0, rw, rh = region
+    R8, C8 = rh // 8, rw // 8
+    W = R8 + C8 + 7  # max wave = (R8-1) + (C8-1) + 8 - 1 => W-1
+    out = {}
+    leaf_arr = [np.asarray(lv, np.int32).reshape(-1, 3) for lv in leaves_per_frame]
+    for n in SIZES:
+        n8 = n // 8
+        fs_l, r8_l, c8_l = [], [], []
+        for f, la in enumerate(leaf_arr):
+            if not len(la):
+                continue
+            sel = la[:, 2] == n
+            if not sel.any():
+                continue
+            fs_l.append(np.full(int(sel.sum()), f, np.int32))
+            r8_l.append(la[sel, 0] // 2 - y0 // 8)
+            c8_l.append(la[sel, 1] // 2 - x0 // 8)
+        if not fs_l:
+            # emit an empty entry so the set of sizes (and the commit
+            # program's static cfg) never depends on content
+            if rh >= n and rw >= n:
+                out[n] = dict(coords=np.zeros((0, 3), np.int32),
+                              mode=np.zeros(0, np.int32), tx=np.zeros(0, np.int32),
+                              uv_tx=np.zeros(0, np.int32), ref=np.zeros(0, np.int32),
+                              mv=np.zeros((0, 2), np.int32),
+                              ref2=np.zeros(0, np.int32), mv2=np.zeros((0, 2), np.int32),
+                              offsets=np.zeros(W + 1, np.int32), NI=0, NW=0, kmax=0)
+            continue
+        fs = np.concatenate(fs_l)
+        r8 = np.concatenate(r8_l)
+        c8 = np.concatenate(c8_l)
+        N = len(fs)
+        rs, cs = r8 * 8 // n, c8 * 8 // n
+        has_inter = "ref" in dec_per_frame[0][n]
+
+        def gather(key):
+            outv = np.empty(N, np.int32)
+            for f in range(len(dec_per_frame)):
+                m = fs == f
+                if m.any():
+                    outv[m] = dec_per_frame[f][n][key][rs[m], cs[m]]
+            return outv
+
+        mode = gather("mode")
+        tx = gather("tx")
+        if has_inter:
+            ref = gather("ref")
+            mv = np.stack([gather("mvy"), gather("mvx")], axis=1)
+            if "ref2" in dec_per_frame[0][n]:
+                ref2 = gather("ref2")
+                mv2 = np.stack([gather("mv2y"), gather("mv2x")], axis=1)
+            else:
+                ref2 = np.full(N, -1, np.int32)
+                mv2 = np.zeros((N, 2), np.int32)
+        else:
+            ref = np.full(N, -1, np.int32)
+            mv = np.zeros((N, 2), np.int32)
+            ref2 = np.full(N, -1, np.int32)
+            mv2 = np.zeros((N, 2), np.int32)
+        tx_uv_size = int(max_uv_txsize(BSIZE_BY_N[n]))
+        intra_map = np.array([TX_SEARCH.index(chroma_tx_type(m, tx_uv_size))
+                              for m in MODES], np.int32)
+        inter_map = np.array([TX_SEARCH.index(chroma_tx_type_inter(t, tx_uv_size))
+                              for t in TX_SEARCH], np.int32)
+        # inter uv tx assumes nonzero luma; the device swaps to DCT when the
+        # quantized luma comes out all-zero (tile_codec._chroma_tx_type rule)
+        uv_tx = np.where(ref >= 0, inter_map[tx], intra_map[np.where(ref >= 0, 0, mode)])
+        mode = np.where(ref >= 0, 0, mode)
+
+        is_int = ref >= 0
+        wave = r8 + c8 + (n8 - 1)
+        # order: inter first (raster), then intra by (wave, f, r8, c8)
+        seg = is_int.astype(np.int32) * -1 + 1  # inter -> 0, intra -> 1
+        order = np.lexsort((c8, r8, fs, np.where(is_int, 0, wave), seg))
+        fs, r8, c8 = fs[order], r8[order], c8[order]
+        mode, tx, uv_tx = mode[order], tx[order], uv_tx[order]
+        ref, mv, wave = ref[order], mv[order], wave[order]
+        ref2, mv2 = ref2[order], mv2[order]
+        NI = int(is_int.sum())
+        NW = N - NI
+        counts = np.bincount(wave[NI:], minlength=W).astype(np.int64)
+        offsets = np.zeros(W + 1, np.int32)
+        np.cumsum(counts, out=offsets[1:])
+        coords = np.stack([fs, r8, c8], axis=1).astype(np.int32)
+        out[n] = dict(coords=coords, mode=mode, tx=tx, uv_tx=uv_tx, ref=ref,
+                      mv=mv, ref2=ref2, mv2=mv2, offsets=offsets, NI=NI, NW=NW,
+                      kmax=int(counts.max()) if NW else 0)
+    return out, W
+
+
+def finish_levels(aux: dict) -> None:
+    """Complete the commit's level fetch: expand the packed int16 buffer
+    (aux["levels_raw"], on the host) to the int32 view + per-size slab
+    offsets + per-block skip flags the op-stream builder needs. Call once
+    per commit."""
+    levels_packed = aux.pop("levels_raw")
+    _t_unpack = time.perf_counter()
+    levels_i32 = levels_packed.astype(np.int32)
+    level_base = {}
+    off = 0
+    for n, s in aux["sched"].items():
+        N = len(s["coords"])
+        adj, nc = min(n, 32), n // 2
+        bY, bU, bV = off, off + N * adj * adj, off + N * (adj * adj + nc * nc)
+        level_base[n] = (bY, bU, bV)
+        off += N * (adj * adj + 2 * nc * nc)
+        ya = np.abs(levels_i32[bY:bU].reshape(N, adj * adj)).sum(1)
+        ua = np.abs(levels_i32[bU:bV].reshape(N, nc * nc)).sum(1)
+        va = np.abs(levels_i32[bV : bV + N * nc * nc].reshape(N, nc * nc)).sum(1)
+        s["skip"] = (ya + ua + va) == 0
+    aux["levels_i32"] = levels_i32
+    aux["level_base"] = level_base
+    profiler.add("commit/unpack_plan", time.perf_counter() - _t_unpack)
+
+
+def _tx_lanes(tx_idx, ntypes: int):
+    """(v_adst, h_adst) of TX_SEARCH indices (DCT_DCT, ADST_ADST, ADST_DCT,
+    DCT_ADST); all DCT where the size has one type."""
+    if ntypes == 1:
+        z = torch.zeros(tx_idx.shape, dtype=torch.bool, device=tx_idx.device)
+        return z, z
+    return (tx_idx == 1) | (tx_idx == 2), (tx_idx == 1) | (tx_idx == 3)
+
+
+def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
+                  bd: int, dq, tx_ntypes: int):
+    """Phase B of the reference's _commit_device: the intra wavefront over
+    all W waves, then recon and level assembly. src planes (F, H, W) on the
+    device (region crop). Returns (levels int16 packed in sched order,
+    recon y, u, v (F, AH, AW) int32)."""
+    dev = src_y8.device
+    F = src_y8.shape[0]
+    AW, AH = C8 * 8, R8 * 8
+    base = 1 << (bd - 1)
+    dq_dc, dq_ac = int(dq[0]), int(dq[1])
+    src = [src_y8.to(torch.int32), src_u8.to(torch.int32), src_v8.to(torch.int32)]
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    # frontier maps: bottom rows, right columns, per-cell corners per plane
+    bmap = [zeros(F, R8, AW), zeros(F, R8, AW // 2), zeros(F, R8, AW // 2)]
+    rmap = [zeros(F, C8, AH), zeros(F, C8, AH // 2), zeros(F, C8, AH // 2)]
+    cmap = [zeros(F, R8, C8), zeros(F, R8, C8), zeros(F, R8, C8)]
+    ar_cache = {m: torch.arange(m, device=dev) for m in (1, 2, 4, 8, 16, 32, 64)}
+
+    lanes = {}
+    for n, s in sched.items():
+        N = len(s["coords"])
+        adj, nc = min(n, 32), n // 2
+        lanes[n] = dict(
+            coords=torch.as_tensor(s["coords"], dtype=torch.long, device=dev),
+            mode=torch.as_tensor(s["mode"], dtype=torch.int32, device=dev),
+            tx=torch.as_tensor(s["tx"], dtype=torch.int32, device=dev),
+            uv_tx=torch.as_tensor(s["uv_tx"], dtype=torch.int32, device=dev),
+            offsets=s["offsets"],
+            ly=torch.empty((N, adj, adj), dtype=torch.int32, device=dev),
+            lu=torch.empty((N, nc, nc), dtype=torch.int32, device=dev),
+            lv=torch.empty((N, nc, nc), dtype=torch.int32, device=dev),
+            ry=torch.empty((N, n, n), dtype=torch.int32, device=dev),
+            ru=torch.empty((N, nc, nc), dtype=torch.int32, device=dev),
+            rv=torch.empty((N, nc, nc), dtype=torch.int32, device=dev))
+
+    def edges_from(pl, fidx, r8, c8, ha, hl, xx, yy, m):
+        ar_m = ar_cache[m]
+        rr = (r8 - 1).clamp(min=0)
+        cc = (c8 - 1).clamp(min=0)
+        ar = bmap[pl][fidx[:, None], rr[:, None], xx[:, None] + ar_m[None, :]]
+        lc = rmap[pl][fidx[:, None], cc[:, None], yy[:, None] + ar_m[None, :]]
+        tl = cmap[pl][fidx, rr, cc]
+        left_fill = torch.where(ha, ar[:, 0], base + 1)
+        above_fill = torch.where(hl, lc[:, 0], base - 1)
+        ar = torch.where(ha[:, None], ar, above_fill[:, None])
+        lc = torch.where(hl[:, None], lc, left_fill[:, None])
+        tl = torch.where(ha & hl, tl,
+                         torch.where(ha, ar[:, 0], torch.where(hl, lc[:, 0], base)))
+        return ar, lc, tl
+
+    def src_blocks(pl, fidx, xx, yy, m):
+        ar_m = ar_cache[m]
+        return src[pl][fidx[:, None, None], yy[:, None, None] + ar_m[None, :, None],
+                       xx[:, None, None] + ar_m[None, None, :]]
+
+    def frontier_write(pl, fidx, r8, c8, xx, yy, n8, rec, step):
+        m = rec.shape[-1]
+        ar_m = ar_cache[m]
+        bmap[pl][fidx[:, None], (r8 + n8 - 1)[:, None], xx[:, None] + ar_m[None, :]] = rec[:, -1, :]
+        rmap[pl][fidx[:, None], (c8 + n8 - 1)[:, None], yy[:, None] + ar_m[None, :]] = rec[:, :, -1]
+        ar8 = ar_cache[n8]
+        rr8 = r8[:, None, None] + ar8[None, :, None]
+        cc8 = c8[:, None, None] + ar8[None, None, :]
+        cmap[pl][fidx[:, None, None], rr8, cc8] = rec[:, step - 1::step, step - 1::step]
+
+    def wave_step(n: int, a: int, b: int):
+        L = lanes[n]
+        n8, nc = n // 8, n // 2
+        cnt = b - a
+        rc = L["coords"][a:b]
+        fidx, r8, c8 = rc[:, 0], rc[:, 1], rc[:, 2]
+        mode = L["mode"][a:b]
+        x, y = c8 * 8, r8 * 8
+        ha, hl = r8 > 0, c8 > 0
+        # luma: K1 predicts the chosen mode of every lane, K2 codes it
+        ar, lc, tl = edges_from(0, fidx, r8, c8, ha, hl, x, y, n)
+        pred = predict(ar, lc, tl, ha, hl, n, mode=mode)
+        va, hv = _tx_lanes(L["tx"][a:b], tx_ntypes if n <= 16 else 1)
+        lv_y, rec_y, _ = TT.txfm_quant_recon(src_blocks(0, fidx, x, y, n), pred, va, hv,
+                                             dq_dc, dq_ac, bd)
+        # chroma (uv_mode = y mode; tx type derived per mode): u and v are
+        # stacked into one 2*cnt-lane batch
+        xc, yc = x // 2, y // 2
+        eu = edges_from(1, fidx, r8, c8, ha, hl, xc, yc, nc)
+        ev = edges_from(2, fidx, r8, c8, ha, hl, xc, yc, nc)
+        puv = predict(torch.cat([eu[0], ev[0]]), torch.cat([eu[1], ev[1]]),
+                      torch.cat([eu[2], ev[2]]), torch.cat([ha, ha]), torch.cat([hl, hl]), nc,
+                      mode=torch.cat([mode, mode]))
+        suv = torch.cat([src_blocks(1, fidx, xc, yc, nc), src_blocks(2, fidx, xc, yc, nc)])
+        uv_tx = L["uv_tx"][a:b]
+        va, hv = _tx_lanes(torch.cat([uv_tx, uv_tx]), 4 if nc <= 16 else 1)
+        lv_uv, rec_uv, _ = TT.txfm_quant_recon(suv, puv, va, hv, dq_dc, dq_ac, bd)
+        rec_u, rec_v = rec_uv[:cnt], rec_uv[cnt:]
+        L["ly"][a:b] = lv_y
+        L["lu"][a:b] = lv_uv[:cnt]
+        L["lv"][a:b] = lv_uv[cnt:]
+        L["ry"][a:b] = rec_y
+        L["ru"][a:b] = rec_u
+        L["rv"][a:b] = rec_v
+        frontier_write(0, fidx, r8, c8, x, y, n8, rec_y, 8)
+        frontier_write(1, fidx, r8, c8, xc, yc, n8, rec_u, 4)
+        frontier_write(2, fidx, r8, c8, xc, yc, n8, rec_v, 4)
+
+    for w in range(W):
+        t0 = time.perf_counter()
+        busy = False
+        for n in lanes:
+            offs = lanes[n]["offsets"]
+            a, b = int(offs[w]), int(offs[w + 1])
+            if b > a:
+                wave_step(n, a, b)
+                busy = True
+        if busy:  # counts of "commit/wave" are the waves with work
+            profiler.add("commit/wave", time.perf_counter() - t0)
+
+    # assemble recon planes (one index write per size/plane) and pack levels
+    recon = [zeros(F, AH, AW), zeros(F, AH // 2, AW // 2), zeros(F, AH // 2, AW // 2)]
+    parts = []
+    for n, L in lanes.items():
+        nc = n // 2
+        coords = L["coords"]
+        fi, r8, c8 = coords[:, 0, None, None], coords[:, 1], coords[:, 2]
+        for pl, m, cell, key in ((0, n, 8, "ry"), (1, nc, 4, "ru"), (2, nc, 4, "rv")):
+            ar_m = ar_cache[m]
+            yy = (r8 * cell)[:, None, None] + ar_m[None, :, None]
+            xx = (c8 * cell)[:, None, None] + ar_m[None, None, :]
+            recon[pl][fi, yy, xx] = L[key]
+        parts += [L["ly"].reshape(-1), L["lu"].reshape(-1), L["lv"].reshape(-1)]
+    return torch.cat(parts).to(torch.int16), recon[0], recon[1], recon[2]
+
+
+def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, region,
+                   array_out: bool = False):
+    """Commit the decided leaves of one region: fills plans in place (or,
+    with array_out, returns the op-stream arrays) and returns the region's
+    DEVICE recon planes (ry, ru, rv).
+
+    `src_dev` are put_frames() (F, H, W) device planes; `leaves`/`dec`/
+    `plans` are per-frame lists. One d2h transfer (levels int16) for the
+    whole batch; recon stays on the device for the filter stage."""
+    from .device_decide import qparams_np
+
+    p = params
+    x0, y0, rw, rh = region
+    with profiler.stage("commit/schedule"):
+        sched_np, W = _build_schedule(leaves, dec, region)
+    R8, C8 = rh // 8, rw // 8
+    sy = src_dev[0][:, y0 : y0 + rh, x0 : x0 + rw]
+    su = src_dev[1][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
+    sv = src_dev[2][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
+    dqv, _lam = qparams_np(p.qindex, p.bd)
+    with profiler.stage("commit/device"):
+        levels_dev, ry, ru, rv = _commit_intra(sy, su, sv, sched_np, W, R8, C8, p.bd, dqv,
+                                               int(p.sf_tx_ntypes))
+        levels_packed = levels_dev.cpu().numpy()
+
+    if array_out:
+        # vectorized path: the op stream is built by codec/array_plan from
+        # the aux dict
+        aux = dict(sched=sched_np, ref_ids=None, levels_raw=levels_packed)
+        finish_levels(aux)
+        return ry, ru, rv, aux
+    _t_unpack = time.perf_counter()
+    off = 0
+    for n, s in sched_np.items():
+        N = len(s["coords"])
+        adj, nc = min(n, 32), n // 2
+        ly = levels_packed[off : off + N * adj * adj].reshape(N, adj, adj).astype(np.int32)
+        off += N * adj * adj
+        lu = levels_packed[off : off + N * nc * nc].reshape(N, nc, nc).astype(np.int32)
+        off += N * nc * nc
+        lvv = levels_packed[off : off + N * nc * nc].reshape(N, nc, nc).astype(np.int32)
+        off += N * nc * nc
+        fs, r8, c8 = s["coords"][:, 0], s["coords"][:, 1], s["coords"][:, 2]
+        skip = ((np.abs(ly).sum((1, 2)) + np.abs(lu).sum((1, 2)) + np.abs(lvv).sum((1, 2))) == 0)
+        for i in range(N):
+            mi_row = (y0 // 8 + int(r8[i])) * 2
+            mi_col = (x0 // 8 + int(c8[i])) * 2
+            sk = bool(skip[i])
+            m = MODES[int(s["mode"][i])]
+            d = BlockDecision(
+                y_mode=m, uv_mode=m, skip=int(sk),
+                tx_type=TX_SEARCH[int(s["tx"][i])],
+                levels_y=None if sk else ly[i], levels_u=None if sk else lu[i],
+                levels_v=None if sk else lvv[i])
+            plans[int(fs[i])].blocks[(mi_row, mi_col, BSIZE_BY_N[n])] = d
+    profiler.add("commit/unpack_plan", time.perf_counter() - _t_unpack)
+    return ry, ru, rv
+
+
+def _filter_device(ry, ru, rv, flens: list, levels: tuple, sharpness: int, bd: int,
+                   disp_dims=None):
+    """In-loop filters on the device: DLF (K4, vertical then horizontal
+    edges per plane, by-q levels, no level search), then display-edge
+    replication (spec 7.11.3.4 MC clamp; encoder.replicate_display_edges
+    twin) when disp_dims=(width, height), then the pack to one uint8 (bd 8)
+    or int16 buffer. flens: the six filter-length maps (plane, pass) as
+    (F, rows/4, K) int32 device tensors. Returns the packed buffer."""
+    from ..filters import dlf_torch
+
+    planes = [ry, ru, rv]
+    if any(levels):
+        def dlf_plane(pl, fi, lvl_v, lvl_h):
+            if lvl_v:
+                lim, blim, thr = dlf_torch._limits(lvl_v, sharpness)
+                pl = dlf_torch.filter_vertical_edges(pl, flens[fi], lim, blim, thr, bd)
+            if lvl_h:
+                lim, blim, thr = dlf_torch._limits(lvl_h, sharpness)
+                plT = dlf_torch.filter_vertical_edges(pl.transpose(1, 2), flens[fi + 1],
+                                                      lim, blim, thr, bd)
+                pl = plT.transpose(1, 2)
+            return pl
+
+        planes = [dlf_plane(planes[0], 0, levels[0], levels[1]),
+                  dlf_plane(planes[1], 2, levels[2], levels[2]),
+                  dlf_plane(planes[2], 4, levels[3], levels[3])]
+    if disp_dims is not None:
+        w, h = disp_dims
+        out = []
+        for pi, pl in enumerate(planes):
+            pw, ph = (w, h) if pi == 0 else (w >> 1, h >> 1)
+            pl = pl.contiguous().clone() if (pw < pl.shape[2] or ph < pl.shape[1]) else pl
+            if pw < pl.shape[2]:
+                pl[:, :, pw:] = pl[:, :, pw - 1 : pw]
+            if ph < pl.shape[1]:
+                pl[:, ph:, :] = pl[:, ph - 1 : ph, :]
+            out.append(pl)
+        planes = out
+    odt = torch.uint8 if bd == 8 else torch.int16
+    return torch.cat([pl.to(odt).reshape(-1) for pl in planes])
+
+
+def _lf_candidates(base: int) -> tuple:
+    """Frame-level DLF luma candidate ladder around the by-q guess
+    (svt_av1_pick_filter_level search neighborhood at honest scale)."""
+    if base <= 0:
+        return ()
+    return tuple(sorted({0, base // 2, base, min(63, base + max(base // 2, 2))}))
+
+
+def _size_maps(leaves, F: int, R8: int, C8: int) -> np.ndarray:
+    """(F, R8, C8) luma block size per 8px cell from the leaf lists."""
+    sm = np.zeros((F, R8, C8), np.int32)
+    for f, lv in enumerate(leaves):
+        for (mi_row, mi_col, n) in lv:
+            r8, c8, n8 = mi_row // 2, mi_col // 2, n // 8
+            sm[f, r8 : r8 + n8, c8 : c8 + n8] = n
+    return sm
+
+
+def encode_intra_frames(src_frames: list, params: FrameParams, device,
+                        apply_filters: bool = False, use_arrays: bool | None = None,
+                        walk_fcs: list | None = None):
+    """Device intra encoder over a BATCH of independent frames on `device`:
+    batched open-loop decide at all sizes, host partition DP per frame,
+    wavefront commit, then (apply_filters) DLF with the by-q levels and
+    p.lf_sharpness + display-edge replication, and the entropy payloads
+    built by the vectorized array-plan path with the native walker (None
+    when it is unavailable — the caller then walks the Plan). CDEF is not
+    in this slice.
+
+    Returns [(plan, recon, filt, payloads), ...] per frame: filt =
+    dict(lf_levels, cdef=(0, 0, 0, 0, damping)) when apply_filters else None.
+    src_frames: list of [y, u, v] plane lists (aligned dims)."""
+    from ..codec import array_plan
+    from ..codec.tile_walk_native import run_tile_ops
+    from ..constants.cdf import FrameContext
+    from ..entropy import native
+    from ..filters import cdef as cdef_mod
+    from ..filters import dlf as dlf_mod
+    from ..filters import dlf_torch
+    from . import device_decide
+    from .intra_md import rd_lambda
+
+    p = params
+    if p.sf_dlf_search:
+        raise NotImplementedError("DLF level search: ROADMAP queue 1, 'DLF level search' "
+                                  "— not ported yet")
+    if len(p.tiles()) > 1:
+        raise NotImplementedError("tiles: ROADMAP queue 1, 'tiles' — not ported yet")
+    F = len(src_frames)
+    fc = FrameContext(p.qindex)
+    lam = float(rd_lambda(p.qindex, p.bd))
+    aw, ah = p.aligned_width, p.aligned_height
+    region = (0, 0, aw, ah)
+    src_dev = device_decide.put_frames(src_frames, p.bd, device)
+    if use_arrays is None:
+        use_arrays = native.available() and not p.enable_filter_intra
+    plans = [Plan() for _ in range(F)]
+    if walk_fcs is None:
+        walk_fcs = [FrameContext(p.qindex) for _ in range(F)]
+    with profiler.stage("decide"):
+        decs = device_decide.decide_intra_frames(src_dev, p, region)
+    leaves, trees = [], []
+    with profiler.stage("partition_dp"):
+        for f in range(F):
+            partitions, lv, tree = device_decide.partition_dp(decs[f], p, fc, lam, region)
+            plans[f].partitions.update(partitions)
+            leaves.append(lv)
+            trees.append(tree)
+    out = commit_regions(src_dev, p, leaves, decs, plans, region, array_out=use_arrays)
+    payloads = [None] * F
+    if use_arrays:
+        ry, ru, rv, aux = out
+        with profiler.stage("entropy_walk"):
+            tiles = p.tiles()[0]
+            payloads = [[run_tile_ops(p, walk_fcs[f], array_plan.build_tile_ops(
+                p, trees[f], aux["sched"], aux["level_base"], f, region, tiles, None,
+                TX_SEARCH, MODES)[0], aux["levels_i32"], tiles)] for f in range(F)]
+    else:
+        ry, ru, rv = out
+
+    filt = [None] * F
+    with profiler.stage("filter"):
+        if apply_filters:
+            levels = dlf_mod.pick_filter_levels(p.qindex, p.bd, True, p.height)
+            sm = _size_maps(leaves, F, ah // 8, aw // 8)
+            flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr),
+                                     dtype=torch.int32, device=ry.device)
+                     for plane in range(3) for tr in (False, True)]
+            packed = _filter_device(ry, ru, rv, flens, tuple(levels), p.lf_sharpness, p.bd,
+                                    disp_dims=(p.width, p.height))
+            damping = cdef_mod.pick_damping(p.qindex)
+            filt = [dict(lf_levels=tuple(levels), cdef=(0, 0, 0, 0, damping))
+                    for _ in range(F)]
+        else:
+            odt = torch.uint8 if p.bd == 8 else torch.int16
+            packed = torch.cat([ry.to(odt).reshape(-1), ru.to(odt).reshape(-1),
+                                rv.to(odt).reshape(-1)])
+        packed = packed.cpu().numpy()
+
+    ysz, csz = ah * aw, (ah // 2) * (aw // 2)
+    yy = packed[: F * ysz].reshape(F, ah, aw).astype(np.int32)
+    uu = packed[F * ysz : F * (ysz + csz)].reshape(F, ah // 2, aw // 2).astype(np.int32)
+    vv = packed[F * (ysz + csz) :].reshape(F, ah // 2, aw // 2).astype(np.int32)
+    return [(plans[f], [yy[f], uu[f], vv[f]], filt[f], payloads[f]) for f in range(F)]

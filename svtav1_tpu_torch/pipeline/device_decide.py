@@ -1,0 +1,433 @@
+"""Device mode decision (PyTorch) — the batched open-loop intra "decide" of
+the frame pipeline, ported from svtav1_tpu's pipeline/device_decide.py.
+
+Every block of every size (8..64) evaluates its candidate modes in one
+batch per size, using source pixels as intra neighbours and exact CDF-LUT
+rates. The device work runs in three kernels: K1 predicts all modes, K2
+transforms, quantizes, reconstructs and takes the SSE, K3 counts the
+coefficient bits; the glue (neighbour gathers, RD cost, argmin) is plain
+PyTorch. Partition RD is the host quadtree DP over the per-size cost grids.
+
+This slice decides key frames with the fast preset's mode set: 7
+non-directional modes and DCT-only luma transforms (no tx-type search).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..codec import rate as rate_np
+from ..codec import rate_torch
+from ..codec.tile_codec import FrameParams, ext_tx_set_type_intra, max_uv_txsize
+from ..constants.av1 import MAX_TXSIZE_RECT, TxType
+from ..ops import quantize as quant_ops
+from ..ops import transforms_torch as TT
+from . import intra_md
+from .intra_device import BSIZE_BY_N, NMODES_MAX, _predict_modes, predict
+
+MODES = [int(m) for m in intra_md.MODES]  # 13: DC,V,H,SMOOTH*,PAETH,D45..D67
+SIZES = (8, 16, 32, 64)
+# luma tx-type search set (tx_type_candidates analog; DCT always first)
+TX_SEARCH = (int(TxType.DCT_DCT), int(TxType.ADST_ADST), int(TxType.ADST_DCT), int(TxType.DCT_ADST))
+
+
+def put_frames(srcs, bd: int, device):
+    """Stack F frames' planes onto the device: (F, H, W) per plane."""
+    if bd != 8:
+        raise NotImplementedError("10-bit encoding: ROADMAP queue 1, '10-bit at the encoder level'")
+    return tuple(torch.from_numpy(np.stack([np.asarray(s[i], np.uint8) for s in srcs])).to(device)
+                 for i in range(3))
+
+
+def _penalty_grid_np(p: FrameParams, y0: int, x0: int, R: int, C: int, n: int,
+                     region, mi_end) -> np.ndarray:
+    """Vectorized _mode_penalty_grid (the r1 version loops in Python — at
+    1080p/8px that is 32k iterations per frame). Same semantics: +BIG on
+    D45/D67 where the decoder would read real top-right pixels the wavefront
+    cannot schedule, and on D203 for bottom-left."""
+    from ..ops.intra import _avail_tables
+
+    bsize = BSIZE_BY_N[n]
+    n4 = n // 4
+    bwl = int(np.log2(n4))
+    BIG = np.float32(1e18)
+    r = np.arange(R)[:, None]
+    c = np.arange(C)[None, :]
+    mi_row = np.broadcast_to((y0 + r * n) // 4, (R, C))
+    mi_col = np.broadcast_to((x0 + c * n) // 4, (R, C))
+    ha = np.broadcast_to((r > 0) | (y0 > region[1]), (R, C))
+    hl = np.broadcast_to((c > 0) | (x0 > region[0]), (R, C))
+    right_av = (mi_col + n4) < mi_end[1]
+    yd = np.broadcast_to(p.mi_rows * 4 - (y0 + r * n + n), (R, C))
+    bottom_av = (yd > 0) & ((mi_row + n4) < mi_end[0])
+
+    blk_row = (mi_row & 15) >> bwl
+    blk_col = (mi_col & 15) >> bwl
+    tabs = _avail_tables()
+
+    def table_bit(name):
+        tbl = tabs[name]
+        idx = (blk_row << (4 - bwl)) + blk_col
+        return ((tbl[idx // 8] >> (idx % 8)) & 1).astype(bool)
+
+    # has_top_right
+    tr = ha & right_av
+    interior = blk_row > 0
+    edge_block = ((blk_col + 1) << bwl) >= 16
+    ttr = table_bit(f"has_tr_{n}x{n}")
+    has_tr = tr & (~interior | (~edge_block & ttr))
+    # has_bottom_left
+    bl = bottom_av & hl
+    col0 = blk_col == 0
+    col0_ok = ((blk_row + 1) << bwl) < 16
+    tbl_ = table_bit(f"has_bl_{n}x{n}")
+    has_bl = bl & np.where(col0, col0_ok, tbl_)
+
+    pen = np.zeros((R, C, 13), np.float32)
+    pen[:, :, 7] = np.where(has_tr, BIG, 0)   # D45
+    pen[:, :, 12] = np.where(has_tr, BIG, 0)  # D67
+    pen[:, :, 11] = np.where(has_bl, BIG, 0)  # D203
+    return pen
+
+
+def _grid_neighbors(planes, n: int, R: int, C: int):
+    """Open-loop neighbors for an (R, C) grid of n x n blocks of each of the
+    (F, H, W) `planes`: above rows / left cols / topleft corners, gathered
+    from the padded planes (edge lanes are masked by have_above/have_left
+    downstream). Returns (F*R*C, ...) flattened batches."""
+    F = planes.shape[0]
+    p = torch.nn.functional.pad(planes, (1, 0, 1, 0))[:, : 1 + R * n, : 1 + C * n]
+    rows = torch.arange(R, device=planes.device) * n  # padded-row index of each block's above row
+    cols = torch.arange(C, device=planes.device) * n
+    above = p[:, rows][:, :, 1:].reshape(F, R, C, n)
+    left = p[:, :, cols][:, 1:, :].reshape(F, R, n, C).permute(0, 1, 3, 2)
+    tl = p[:, rows][:, :, cols]
+    return (above.reshape(-1, n).contiguous(), left.reshape(-1, n).contiguous(),
+            tl.reshape(-1).contiguous())
+
+
+def _blocks_of(planes, n: int, R: int, C: int):
+    F = planes.shape[0]
+    return planes[:, : R * n, : C * n].reshape(F, R, n, C, n) \
+        .permute(0, 1, 3, 2, 4).reshape(-1, n, n).contiguous()
+
+
+def _eval_txfm(src, pred, dq, bd: int, rate_fn, rep: int = 1):
+    """DCT transform + quant + recon of the residual src - pred (lane i uses
+    src[i // rep]); returns (rate bits, integer SSE as float32) per lane."""
+    L = pred.shape[0]
+    va, ha = TT.tx_flags(int(TxType.DCT_DCT), L, pred.device)
+    lv, _rec, sse = TT.txfm_quant_recon(src, pred, va, ha, dq[0], dq[1], bd, rep=rep,
+                                        want_recon=False, want_sse=True)
+    return rate_fn(lv), sse.to(torch.float32)
+
+
+def intra_mode_cost_const(fc, n: int, is_key: bool) -> np.ndarray:
+    """(13,) float32 mode-signaling bits per MODES entry: y mode symbol
+    (ctx-0 approximation) + zero angle_delta for directional modes + uv mode
+    symbol (uv == y) + is-inter flag for inter frames."""
+    from ..constants.av1 import SIZE_GROUP
+
+    bsize = BSIZE_BY_N[n]
+    out = np.zeros(len(MODES), np.float32)
+    for i, m in enumerate(MODES):
+        if is_key:
+            bits = rate_np.symbol_bits(fc["kf_y_mode"][0][0], m, 13)
+        else:
+            bits = rate_np.symbol_bits(fc["y_mode"][int(SIZE_GROUP[bsize])], m, 13)
+            bits += rate_np.symbol_bits(fc["intra_inter"][0], 0, 2)
+        if intra_md.is_directional(m):
+            from ..constants.av1 import PredMode as PM
+
+            bits += rate_np.symbol_bits(fc["angle_delta"][m - int(PM.V_PRED)], 3, 7)
+            # directional uv adds its own zero angle_delta symbol
+            bits += rate_np.symbol_bits(fc["angle_delta"][m - int(PM.V_PRED)], 3, 7)
+        cfl_allowed = int(n <= 32)
+        bits += rate_np.symbol_bits(fc["uv_mode"][cfl_allowed][m], m, 14 if cfl_allowed else 13)
+        out[i] = bits
+    return out
+
+
+def intra_txtype_cost_const(fc, n: int) -> np.ndarray:
+    """(13, len(TX_SEARCH)) float32: tx-type signaling bits per (y mode, tx)
+    for intra blocks (intra_ext_tx cdf; 1e9 where the set forbids the type)."""
+    from ..constants.av1 import TX_SIZE_SQR
+    from ..codec.tile_codec import (AV1_EXT_TX_IND, AV1_EXT_TX_USED, AV1_NUM_EXT_TX_SET,
+                                    EXT_TX_SET_DCTONLY, EXT_TX_SET_INDEX_INTRA)
+
+    tx_size = int(MAX_TXSIZE_RECT[BSIZE_BY_N[n]])
+    set_type = ext_tx_set_type_intra(tx_size)
+    out = np.zeros((13, len(TX_SEARCH)), np.float32)
+    for i, m in enumerate(MODES):
+        for j, t in enumerate(TX_SEARCH):
+            if set_type == EXT_TX_SET_DCTONLY:
+                out[i, j] = 0.0 if t == int(TxType.DCT_DCT) else 1e9
+                continue
+            if not AV1_EXT_TX_USED[set_type][t]:
+                out[i, j] = 1e9
+                continue
+            eset = EXT_TX_SET_INDEX_INTRA[set_type]
+            nsyms = AV1_NUM_EXT_TX_SET[set_type]
+            cdf = fc["intra_ext_tx"][eset][int(TX_SIZE_SQR[tx_size])][m]
+            out[i, j] = rate_np.symbol_bits(cdf, int(AV1_EXT_TX_IND[set_type][t]), nsyms)
+    return out
+
+
+def _decide_intra_size(src_y, src_u, src_v, pen, mode_cost, txt_cost,
+                       n: int, rate_fns, dq, bd: int, R: int, C: int, lam, nmodes: int = 7):
+    """Batched open-loop intra decision for all (R, C) blocks of size n of
+    all F frames (src planes are (F, H, W) int32 on the device).
+
+    Returns (cost, mode_idx, tx_idx): cost (F, R, C) float32 total RD cost
+    (luma + chroma + mode bits + skip flag), mode_idx (F, R, C) int32 into
+    MODES, tx_idx (F, R, C) int32 into TX_SEARCH (always 0: DCT only)."""
+    dev = src_y.device
+    F = src_y.shape[0]
+    B = F * R * C
+    nc = n // 2
+    r_idx = torch.arange(R, device=dev).repeat_interleave(C).repeat(F)
+    c_idx = torch.arange(C, device=dev).repeat(F * R)
+    ha, hl = r_idx > 0, c_idx > 0
+    base = 1 << (bd - 1)
+
+    def edges(plane, m):
+        """Spec edge-fill rules on open-loop (source) neighbors."""
+        above, left, tl = _grid_neighbors(plane, m, R, C)
+        left_fill = torch.where(ha, above[:, 0], base + 1)
+        above_fill = torch.where(hl, left[:, 0], base - 1)
+        above = torch.where(ha[:, None], above, above_fill[:, None])
+        left = torch.where(hl[:, None], left, left_fill[:, None])
+        tl = torch.where(ha & hl, tl,
+                         torch.where(ha, above[:, 0], torch.where(hl, left[:, 0], base)))
+        return above.to(torch.int32), left.to(torch.int32), tl.to(torch.int32)
+
+    above, left, tl = edges(src_y, n)
+    preds = _predict_modes(above, left, tl, ha, hl, n, nmodes=nmodes)  # (B, nm, n, n)
+    srcb = _blocks_of(src_y, n, R, C)
+    rate, dist = _eval_txfm(srcb, preds.reshape(B * nmodes, n, n), dq, bd,
+                                 rate_fns["y"][0], rep=nmodes)
+    rate, dist = rate.reshape(B, nmodes), dist.reshape(B, nmodes)
+    penB = pen[..., :nmodes].reshape(1, R * C, nmodes).expand(F, R * C, nmodes).reshape(B, nmodes)
+    cost7 = dist + lam * (rate + mode_cost[None, :nmodes] + txt_cost[None, :nmodes, 0]) + penB
+    best_mode = torch.argmin(cost7, dim=1)
+    bi = torch.arange(B, device=dev)
+    best_cost = cost7[bi, best_mode]
+    mode32 = best_mode.to(torch.int32)
+
+    # chroma (uv_mode = y mode), cost at derived-DCT approximation; u and v
+    # are predicted and transformed as one 2B-lane batch
+    au, lu_, tlu = edges(src_u, nc)
+    av, lv_, tlv = edges(src_v, nc)
+    puv = predict(torch.cat([au, av]), torch.cat([lu_, lv_]), torch.cat([tlu, tlv]),
+                  torch.cat([ha, ha]), torch.cat([hl, hl]), nc, mode=torch.cat([mode32, mode32]))
+    suv = torch.cat([_blocks_of(src_u, nc, R, C), _blocks_of(src_v, nc, R, C)])
+    ratec, distc = _eval_txfm(suv, puv, dq, bd, rate_fns["uv"])
+    for k in range(2):
+        best_cost = best_cost + distc[k * B:(k + 1) * B] + lam * ratec[k * B:(k + 1) * B]
+    best_cost = best_cost + lam * 1.0  # skip flag
+    return (best_cost.reshape(F, R, C), mode32.reshape(F, R, C),
+            torch.zeros((F, R, C), dtype=torch.int32, device=dev))
+
+
+# FrameContext default CDFs depend on qindex ONLY through the 4-bucket
+# coefficient-CDF context (constants/cdf.get_q_ctx) — so every per-frame rate
+# table / penalty constant is keyed on qctx.
+QCTX_REP = (0, 40, 100, 200)  # representative qindex per q ctx bucket
+
+
+def fc_for_qctx(qctx: int):
+    from ..constants.cdf import FrameContext
+
+    return FrameContext(QCTX_REP[qctx])
+
+
+@functools.lru_cache(maxsize=None)
+def _rate_fns_cached(qctx: int, n: int, device: str):
+    fc = fc_for_qctx(qctx)
+    bsize = BSIZE_BY_N[n]
+    tx_y = int(MAX_TXSIZE_RECT[bsize])
+    tx_uv = int(max_uv_txsize(bsize))
+    return {
+        "y": [rate_torch.make_txb_bits_fn(fc, tx_y, int(TxType.DCT_DCT), 0, 0, 0, device=device)],
+        "uv": rate_torch.make_txb_bits_fn(fc, tx_uv, int(TxType.DCT_DCT), 1, 7, 0, device=device),
+    }
+
+
+def _rate_fns(qctx: int, n: int, device):
+    """{'y': [luma DCT rate tables], 'uv': chroma rate tables} per size."""
+    return _rate_fns_cached(qctx, n, str(torch.device(device)))
+
+
+def qparams_np(qindex: int, bd: int):
+    """(dqv, lam) runtime operands for the decide/commit programs."""
+    from .intra_md import rd_lambda
+
+    dqv = np.array([quant_ops.dc_q(qindex, bd), quant_ops.ac_q(qindex, bd)], np.int32)
+    return dqv, np.float32(rd_lambda(qindex, bd))
+
+
+@functools.lru_cache(maxsize=64)
+def _decide_region(width: int, height: int, region, qctx: int, bd: int, is_key: bool,
+                   device: str, nmodes: int = 7):
+    """Build the region's decide with all per-frame constants (penalty
+    grids, mode/tx rate tables) on the device once; qindex enters as runtime
+    operands (dqv, lam). Returns (run, layout)."""
+    p = FrameParams(width=width, height=height, qindex=QCTX_REP[qctx], bd=bd,
+                    frame_is_intra=is_key)
+    fc = fc_for_qctx(qctx)
+    x0, y0, rw, rh = region
+    mi_end = (min((y0 + rh) // 4, p.mi_rows), min((x0 + rw) // 4, p.mi_cols))
+    sizes = [n for n in SIZES if rh // n and rw // n]
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    consts = {n: (t(_penalty_grid_np(p, y0, x0, rh // n, rw // n, n, (x0, y0), mi_end)),
+                  t(intra_mode_cost_const(fc, n, is_key)),
+                  t(intra_txtype_cost_const(fc, n)),
+                  _rate_fns(qctx, n, dev)) for n in sizes}
+    layout = [(n, rh // n, rw // n) for n in sizes]
+
+    def run(sy8, su8, sv8, dqv, lam):
+        sy, su, sv = sy8.to(torch.int32), su8.to(torch.int32), sv8.to(torch.int32)
+        dq = (int(dqv[0]), int(dqv[1]))
+        lam_t = torch.tensor(lam, dtype=torch.float32, device=dev)
+        packed = []
+        for n, R, C in layout:
+            pen, mode_cost, txt_cost, rate_fns = consts[n]
+            cost, mode, tx = _decide_intra_size(sy, su, sv, pen, mode_cost, txt_cost, n,
+                                                rate_fns, dq, bd, R, C, lam_t, nmodes=nmodes)
+            packed += [cost.ravel(), mode.to(torch.float32).ravel(), tx.to(torch.float32).ravel()]
+        return torch.cat(packed)
+
+    return run, layout
+
+
+def decide_intra_frames(src_dev, params: FrameParams, region=None) -> list:
+    """Run the batched intra decide for every size over `region`
+    (x0, y0, w, h in pixels; default whole aligned frame) for ALL F frames
+    stacked in `src_dev` (put_frames()'s (F, H, W) device planes). Returns a
+    list of F per-frame dicts {n: dict(cost, mode, tx)} over the region's
+    (R_n, C_n) grid, fetched in ONE transfer."""
+    p = params
+    if int(p.sf_nmodes_key) > NMODES_MAX:
+        raise NotImplementedError("directional intra modes (dr_pred): ROADMAP queue 1, "
+                                  "'directional modes' — not ported yet")
+    if int(p.sf_tx_ntypes) > 1:
+        raise NotImplementedError("luma tx-type search: ROADMAP queue 1, "
+                                  "'luma tx-type search' — not ported yet")
+    region = region if region is not None else (0, 0, p.aligned_width, p.aligned_height)
+    x0, y0, rw, rh = region
+    F = src_dev[0].shape[0]
+    sy = src_dev[0][:, y0 : y0 + rh, x0 : x0 + rw]
+    su = src_dev[1][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
+    sv = src_dev[2][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
+    from ..constants.cdf import get_q_ctx
+
+    run, layout = _decide_region(p.width, p.height, region, get_q_ctx(p.qindex), p.bd,
+                                 bool(p.frame_is_intra), str(sy.device),
+                                 nmodes=int(p.sf_nmodes_key))
+    dqv, lam_op = qparams_np(p.qindex, p.bd)
+    flat = run(sy, su, sv, dqv, lam_op).cpu().numpy()
+    out = [{} for _ in range(F)]
+    off = 0
+    for n, R, C in layout:
+        sz = F * R * C
+        cost = flat[off : off + sz].reshape(F, R, C).astype(np.float64)
+        mode = flat[off + sz : off + 2 * sz].reshape(F, R, C).astype(np.int32)
+        tx = flat[off + 2 * sz : off + 3 * sz].reshape(F, R, C).astype(np.int32)
+        off += 3 * sz
+        for f in range(F):
+            out[f][n] = dict(cost=cost[f], mode=mode[f], tx=tx[f])
+    return out
+
+
+def partition_dp(decide: dict, params: FrameParams, fc, lam: float, region=None):
+    """Bottom-up quadtree DP over the per-size cost grids of one region —
+    VECTORIZED: per-size numpy min/argmin sweeps replace the per-node Python
+    recursion (~40k calls/frame at 1080p). Emission of the winning tree stays
+    a (small) recursion over chosen nodes only.
+
+    Returns (partitions, leaves, tree): partitions {(mi_row, mi_col, bsize):
+    Partition}, leaves list of (mi_row, mi_col, n) in GLOBAL mi coords, and
+    tree = {n: split_mask (padded SB-aligned bool grid)} for the vectorized
+    op-stream builder (codec/array_plan). Blocks that stick out of the region
+    are forced SPLIT (matching the sequential MD paths)."""
+    from ..constants.av1 import Partition
+
+    p = params
+    x0, y0, rw, rh = region if region is not None else (0, 0, p.aligned_width, p.aligned_height)
+    aw, ah = x0 + rw, y0 + rh
+
+    # partition-signal costs (ctx approximation: above/left ctx 0)
+    PARTITION_PLOFFSET = 4
+    part_cost = {}
+    for n in (64, 32, 16):
+        bsl = int(np.log2(n // 8))
+        ctx = bsl * PARTITION_PLOFFSET
+        part_cost[n] = (rate_np.symbol_bits(fc["partition"][ctx], int(Partition.PARTITION_NONE), 10),
+                        rate_np.symbol_bits(fc["partition"][ctx], int(Partition.PARTITION_SPLIT), 10))
+
+    # full SB-aligned per-size node grids; ragged region edges = +inf "none"
+    # cost (forces SPLIT down to sizes that fit, exactly like the recursion)
+    Rsb, Csb = -(-rh // 64), -(-rw // 64)
+    best = {}
+    split_flag = {}
+    for n in SIZES:
+        k = 64 // n
+        Rp, Cp = Rsb * k, Csb * k
+        Rn, Cn = rh // n, rw // n  # fitting rows/cols present in the grids
+        cn = np.full((Rp, Cp), np.inf, np.float64)
+        # a block fits iff fully inside the region (grid covers exactly those,
+        # except the ragged tail rows/cols, masked by Rn/Cn)
+        if n in decide and Rn and Cn:
+            cn[:Rn, :Cn] = decide[n]["cost"][:Rn, :Cn]
+        else:
+            Rn = Cn = 0
+        # void cells (topleft at/beyond the region end — outside the frame mi
+        # grid at ragged edges) cost 0 and are never emitted
+        void = np.zeros((Rp, Cp), bool)
+        k8 = n // 8
+        void[(np.arange(Rp) * k8) >= rh // 8, :] = True
+        void[:, (np.arange(Cp) * k8) >= rw // 8] = True
+        if n > 8:
+            fits = np.zeros((Rp, Cp), bool)
+            fits[:Rn, :Cn] = True
+            cn[:Rn, :Cn] += lam * part_cost[n][0]
+            half = best[n // 2]
+            cs = (half[0::2, 0::2] + half[0::2, 1::2]
+                  + half[1::2, 0::2] + half[1::2, 1::2]) \
+                + np.where(fits, lam * part_cost[n][1], 0.0)
+            take_split = cs < cn
+            best[n] = np.where(void, 0.0, np.where(take_split, cs, cn))
+            split_flag[n] = take_split
+        else:
+            best[n] = np.where(void, 0.0, cn)
+
+    partitions = {}
+    leaves = []
+    R8v, C8v = rh // 8, rw // 8
+
+    def emit(y: int, x: int, n: int) -> None:
+        if (y - y0) // 8 >= R8v or (x - x0) // 8 >= C8v:
+            return  # void: outside the frame mi grid (ragged edge child)
+        mi_row, mi_col = y // 4, x // 4
+        bsize = BSIZE_BY_N[n]
+        r, c = (y - y0) // n, (x - x0) // n
+        if n > 8 and split_flag[n][r, c]:
+            partitions[(mi_row, mi_col, bsize)] = int(Partition.PARTITION_SPLIT)
+            half = n // 2
+            for dy in (0, half):
+                for dx in (0, half):
+                    emit(y + dy, x + dx, half)
+            return
+        partitions[(mi_row, mi_col, bsize)] = int(Partition.PARTITION_NONE)
+        leaves.append((mi_row, mi_col, n))
+
+    for sy in range(y0, ah, 64):
+        for sx in range(x0, aw, 64):
+            emit(sy, sx, 64)
+    return partitions, leaves, split_flag

@@ -1,0 +1,94 @@
+"""The port's key-frame slice end to end on the CPU (plain versions of the
+kernels) against the JAX package's device path.
+
+Two frames of the synthetic clip through svtav1_tpu's
+Encoder(mode_decision="jax") and svtav1_tpu_torch's Encoder(device="cpu")
+in the slice configuration (1-intra, fast preset, CDEF off, DLF on): the
+temporal units must be byte-identical and the recon identical, and the
+port's stream must decode with the port's own decoder to the same recon.
+"""
+import numpy as np
+import pytest
+
+from svtav1_tpu.pipeline import encoder as ref_enc
+from svtav1_tpu_torch.decode.decoder import Decoder
+from svtav1_tpu_torch.pipeline import encoder as port_enc
+from svtav1_tpu_torch.utils.testclip import make_frames
+from tools.make_test_video import make_frames as ref_make_frames
+
+SLICE = dict(qindex=120, keyint=1, preset="fast", enable_cdef=False)
+
+
+@pytest.mark.parametrize("size", [(128, 96), (202, 122)])
+def test_slice_matches_jax_and_decodes(size):
+    w, h = size
+    frames = make_frames(w, h, 2)
+    for a, b in zip(frames, ref_make_frames(w, h, 2)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    ref = ref_enc.Encoder(ref_enc.EncoderConfig(w, h, mode_decision="jax", **SLICE))
+    port = port_enc.Encoder(port_enc.EncoderConfig(w, h, **SLICE), device="cpu")
+    dec = Decoder()
+    for f, (y, u, v) in enumerate(frames):
+        want_tu, want_rec = ref.encode_frame(y, u, v)
+        tu, rec = port.encode_frame(y, u, v)
+        for i in range(3):
+            np.testing.assert_array_equal(rec[i], want_rec[i], err_msg=f"frame {f} plane {i}")
+        assert tu == want_tu, f"frame {f}: {len(tu)} vs {len(want_tu)} bytes"
+        dy, du, dv, drec = dec.decode_tu(tu)
+        for i in range(3):
+            np.testing.assert_array_equal(drec[i], rec[i], err_msg=f"decode frame {f} plane {i}")
+        assert dy.shape == (h, w)
+
+
+def test_slice_without_deblocking_decodes():
+    w, h = 64, 64
+    (y, u, v), = make_frames(w, h, 1, seed=3)
+    port = port_enc.Encoder(port_enc.EncoderConfig(w, h, enable_dlf=False, **SLICE), device="cpu")
+    tu, rec = port.encode_frame(y, u, v)
+    _, _, _, drec = Decoder().decode_tu(tu)
+    for i in range(3):
+        np.testing.assert_array_equal(drec[i], rec[i])
+
+
+@pytest.mark.parametrize("override, item", [
+    (dict(keyint=8), "the inter path"),
+    (dict(preset="medium"), "directional modes"),
+    (dict(enable_cdef=True), "CDEF"),
+    (dict(enable_restoration=True), "restoration"),
+    (dict(enable_tf=True), "MCTF"),
+    (dict(scene_cut=True), "the inter path"),
+    (dict(film_grain=10), "film grain"),
+    (dict(tile_cols_log2=1), "tiles"),
+    (dict(intra_batch=2), "intra batching"),
+    (dict(rc_mode="crf"), "rate control"),
+    (dict(bd=10), "10-bit"),
+])
+def test_settings_outside_the_slice_raise(override, item):
+    cfg = port_enc.EncoderConfig(64, 64, **{**SLICE, **override})
+    with pytest.raises(NotImplementedError, match=item):
+        port_enc.Encoder(cfg, device="cpu")
+
+
+def test_plan_walk_matches_native_array_walk():
+    """The commit's BlockDecision plan (the path taken without the native
+    walker), coded by TileCodec, gives the payload of the array-plan walk."""
+    from svtav1_tpu_torch.codec.tile_codec import FrameParams, TileCodec
+    from svtav1_tpu_torch.constants.cdf import FrameContext
+    from svtav1_tpu_torch.pipeline import device_commit
+
+    w, h = 96, 64
+    (y, u, v), = make_frames(w, h, 1, seed=7)
+    p = FrameParams(width=w, height=h, qindex=120, frame_is_intra=True, enable_rdoq=False,
+                    **port_enc.PRESETS["fast"])
+    src = [port_enc.pad_to_aligned(np.asarray(x, np.int32), *s)
+           for x, s in ((y, (w, h)), (u, (w // 2, h // 2)), (v, (w // 2, h // 2)))]
+    fc = FrameContext(p.qindex)
+    _, rec_a, _, pay_a = device_commit.encode_intra_frames([src], p, "cpu", apply_filters=True,
+                                                           walk_fcs=[fc])[0]
+    plan, rec_b, _, pay_b = device_commit.encode_intra_frames([src], p, "cpu", apply_filters=True,
+                                                              use_arrays=False)[0]
+    assert pay_b is None and len(plan.blocks) > 0
+    assert TileCodec(p, FrameContext(p.qindex), tile=p.tiles()[0]).encode(plan) == pay_a[0]
+    for a, b in zip(rec_a, rec_b):
+        np.testing.assert_array_equal(a, b)

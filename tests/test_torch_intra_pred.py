@@ -1,0 +1,38 @@
+"""K1 (intra_pred) plain version against intra_device._predict_modes (JAX),
+nmodes=7, random edges and availability. Exact."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from svtav1_tpu.pipeline import intra_device as ref
+from svtav1_tpu_torch.pipeline import intra_device as port
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_predict_modes_plain_matches_jax(n, bd):
+    rng = np.random.default_rng(n + bd)
+    B = 12
+    hi = (1 << bd) - 1
+    above = rng.integers(0, hi + 1, (B, n)).astype(np.int32)
+    left = rng.integers(0, hi + 1, (B, n)).astype(np.int32)
+    tl = rng.integers(0, hi + 1, B).astype(np.int32)
+    ha = rng.integers(0, 2, B).astype(bool)
+    hl = rng.integers(0, 2, B).astype(bool)
+    ha[:4] = [True, True, False, False]
+    hl[:4] = [True, False, True, False]
+    want = np.asarray(ref._predict_modes(jnp.asarray(above), jnp.asarray(left), jnp.asarray(tl),
+                                         jnp.asarray(ha), jnp.asarray(hl), n, nmodes=7))
+    args = [torch.from_numpy(x) for x in (above, left, tl, ha, hl)]
+    got = port._predict_modes(*args, n, nmodes=7)
+    np.testing.assert_array_equal(got.numpy(), want)
+    mode = rng.integers(0, 7, B).astype(np.int32)
+    one = port.predict(*args, n, mode=torch.from_numpy(mode))
+    np.testing.assert_array_equal(one.numpy(), want[np.arange(B), mode])
+
+
+def test_directional_modes_raise():
+    z = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="directional"):
+        port._predict_modes(z, z, z[:, 0], z[:, 0] > 0, z[:, 0] > 0, 8, nmodes=13)

@@ -1,0 +1,72 @@
+"""svtav1_tpu_torch stands alone: no module of it imports jax or svtav1_tpu,
+and its entry point defaults to the card and refuses to fall back quietly."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from svtav1_tpu_torch.pipeline import encoder as port_enc
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        root = name.split(".")[0]
+        if root in ("jax", "jaxlib", "svtav1_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+for k in [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "svtav1_tpu")]:
+    del sys.modules[k]
+sys.meta_path.insert(0, Block())
+import svtav1_tpu_torch
+# Python modules only (the entropy package's built .so is not a module)
+names = [m.name for m in pkgutil.walk_packages(svtav1_tpu_torch.__path__, "svtav1_tpu_torch.")
+         if not m.name.rsplit(".", 1)[-1].startswith("lib")]
+for name in names:
+    importlib.import_module(name)
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "svtav1_tpu") for k in sys.modules)
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 30  # the whole package was walked
+
+
+def test_no_source_mentions_the_reference_package():
+    pkg = os.path.join(REPO, "svtav1_tpu_torch")
+    for dirpath, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                assert "import jax" not in text and "from jax" not in text, f
+                assert "from svtav1_tpu." not in text and "import svtav1_tpu\n" not in text, f
+
+
+def test_encoder_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_enc.EncoderConfig(64, 64, keyint=1, preset="fast", enable_cdef=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_enc.Encoder(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_enc.Encoder(cfg, device="cuda")
+    assert port_enc.Encoder(cfg, device="cpu").device.type == "cpu"
+
+
+def test_kernel_argument_check_rejects_cpu_tensors():
+    """The wrappers take the plain version only for CPU tensors; the kernel
+    argument check rejects a CPU tensor outright."""
+    from svtav1_tpu_torch import kernels
+
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.check(torch.zeros(4, dtype=torch.int32), "x", torch.int32)

@@ -1,0 +1,109 @@
+"""K2 (txfm_quant_recon) plain version against the JAX transforms.
+
+Same numpy inputs through transforms_jax (fwd + quantize + clip, dequantize
++ inverse + add) and through the port's plain version on the CPU. Levels and
+recon must be exact; the SSE must equal numpy's int64 sum exactly.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from svtav1_tpu.constants.av1 import TxType
+from svtav1_tpu.ops import quantize as quant_ref
+from svtav1_tpu.ops import transforms as T_ref
+from svtav1_tpu.ops import transforms_jax as TJ
+from svtav1_tpu_torch.ops import transforms_torch as TT
+
+TYPES = [int(TxType.DCT_DCT), int(TxType.ADST_DCT), int(TxType.DCT_ADST), int(TxType.ADST_ADST)]
+
+
+def _inputs(n, bd, L, seed):
+    rng = np.random.default_rng(seed)
+    hi = (1 << bd) - 1
+    src = rng.integers(0, hi + 1, (L, n, n)).astype(np.int32)
+    # predictions near the source (real residuals) and a few far ones
+    pred = np.clip(src + rng.integers(-40 << (bd - 8), 40 << (bd - 8), (L, n, n)), 0, hi)
+    pred[0] = rng.integers(0, hi + 1, (n, n))
+    return src, pred.astype(np.int32)
+
+
+def _jax_ref(src, pred, tx_type, dq_dc, dq_ac, bd):
+    n = src.shape[-1]
+    ls = quant_ref.tx_scale(n, n)
+    coeff = TJ.fwd_txfm2d_j(jnp.asarray(src - pred), tx_type, bd)
+    lv = jnp.clip(TJ.quantize_j(coeff, dq_dc, dq_ac, ls), -32767, 32767)
+    dqc = TJ.dequantize_j(lv, dq_dc, dq_ac, ls, bd)
+    rec = TJ.inv_txfm2d_add_j(dqc, jnp.asarray(pred), tx_type, bd)
+    return np.asarray(lv), np.asarray(rec)
+
+
+def test_stage_tables_match_reference_builder():
+    """The port's stage tables equal the JAX package's (transforms.stage_table)."""
+    for n in TT.SIZES:
+        port = TT.numpy_stage_tables(n)
+        for (name, cb), stages in port.items():
+            ref = T_ref.stage_table(name, cb)
+            assert len(ref) == len(stages)
+            for a, b in zip(ref, stages):
+                for x, y in zip(a, b):
+                    np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+def test_plain_matches_jax_static_types(n, bd):
+    types = TYPES if n <= 16 else TYPES[:1]
+    q = 90 if bd == 8 else 140
+    dq_dc, dq_ac = quant_ref.dc_q(q, bd), quant_ref.ac_q(q, bd)
+    L = 6 if n < 64 else 3
+    for t in types:
+        src, pred = _inputs(n, bd, L, seed=n * 7 + t + bd)
+        lv_ref, rec_ref = _jax_ref(src, pred, t, dq_dc, dq_ac, bd)
+        va, ha = TT.tx_flags(t, L, "cpu")
+        lv, rec, sse = TT.txfm_quant_recon(torch.from_numpy(src), torch.from_numpy(pred), va, ha,
+                                           dq_dc, dq_ac, bd, want_sse=True)
+        adj = min(n, 32)
+        np.testing.assert_array_equal(lv.numpy(), lv_ref[:, :adj, :adj])
+        assert not lv_ref[:, adj:, :].any() and not lv_ref[:, :, adj:].any()
+        np.testing.assert_array_equal(rec.numpy(), rec_ref)
+        d = rec_ref.astype(np.int64) - src
+        np.testing.assert_array_equal(sse.numpy(), (d * d).sum(axis=(1, 2)))
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_plain_matches_jax_sel_variants(n):
+    """Per-lane DCT/ADST (fwd_txfm2d_sel_j / inv_txfm2d_add_sel_j)."""
+    bd = 8
+    L = 8
+    src, pred = _inputs(n, bd, L, seed=100 + n)
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, 2, L).astype(bool)
+    h = rng.integers(0, 2, L).astype(bool)
+    dq_dc, dq_ac = quant_ref.dc_q(60, bd), quant_ref.ac_q(60, bd)
+    ls = quant_ref.tx_scale(n, n)
+    coeff = TJ.fwd_txfm2d_sel_j(jnp.asarray(src - pred), jnp.asarray(v), jnp.asarray(h), bd)
+    lv_ref = jnp.clip(TJ.quantize_j(coeff, dq_dc, dq_ac, ls), -32767, 32767)
+    rec_ref = TJ.inv_txfm2d_add_sel_j(TJ.dequantize_j(lv_ref, dq_dc, dq_ac, ls, bd),
+                                      jnp.asarray(pred), jnp.asarray(v), jnp.asarray(h), bd)
+    lv, rec, _ = TT.txfm_quant_recon(torch.from_numpy(src), torch.from_numpy(pred),
+                                     torch.from_numpy(v), torch.from_numpy(h), dq_dc, dq_ac, bd)
+    np.testing.assert_array_equal(lv.numpy(), np.asarray(lv_ref))
+    np.testing.assert_array_equal(rec.numpy(), np.asarray(rec_ref))
+
+
+def test_plain_repeated_source_lanes():
+    """rep > 1: lane i transforms src[i // rep] - pred[i] (the decide's
+    all-modes batch)."""
+    n, bd, rep = 8, 8, 7
+    src, _ = _inputs(n, bd, 3, seed=5)
+    _, pred = _inputs(n, bd, 3 * rep, seed=6)
+    va, ha = TT.tx_flags(int(TxType.DCT_DCT), 3 * rep, "cpu")
+    dq = (quant_ref.dc_q(120, bd), quant_ref.ac_q(120, bd))
+    lv, rec, sse = TT.txfm_quant_recon(torch.from_numpy(src), torch.from_numpy(pred), va, ha,
+                                       *dq, bd, rep=rep, want_recon=False, want_sse=True)
+    assert rec is None
+    lv_ref, rec_ref = _jax_ref(np.repeat(src, rep, 0), pred, int(TxType.DCT_DCT), *dq, bd)
+    np.testing.assert_array_equal(lv.numpy(), lv_ref)
+    d = rec_ref.astype(np.int64) - np.repeat(src, rep, 0)
+    np.testing.assert_array_equal(sse.numpy(), (d * d).sum(axis=(1, 2)))
