@@ -2,15 +2,20 @@
 """Smoke run of the PyTorch/CUDA port (svtav1_tpu_torch) on one GPU.
 
 Phases, each fatal on failure:
-  1. build the CUDA kernels from svtav1_tpu_torch/csrc with nvcc (sm_90a);
+  1. build the CUDA kernels from svtav1_tpu_torch/csrc with nvcc (sm_90a),
+     one nvcc per source, all started together;
   2. run each kernel and its plain PyTorch version on the card at the main
-     path's shapes and hold them equal (K3: rtol 1e-5, atol 1e-3 bits);
-  3. conformance: encode 2 CIF key frames on the card, decode them with the
+     path's shapes and hold them equal (K3: rtol 1e-5, atol 1e-3 bits; all
+     others exact, K5 counting its differing lanes), and time both;
+  3. conformance: encode 2 CIF key frames on the card at the fast preset
+     without CDEF and at the default medium preset, decode them with the
      port's decoder (recon bit-identical); encode the same clip with
      device="cpu" and report the share of bytes that match;
-  4. the main path: 1 warm + 4 timed 1920x1080 key frames through
-     Encoder(device="cuda") in the slice configuration, with every kernel's
-     launch count > 0, and the first TU decoded bit-exactly;
+  4. the paths: 1 warm + 1 timed 1920x1080 key frame at the fast preset
+     without CDEF (K1-K4 launched), then the main path, 1 warm + 4 timed
+     1920x1080 key frames at the medium preset with DLF, RDOQ and CDEF on,
+     with every kernel K1-K7 launched and the first TU decoded bit-exactly;
+     launch counts are reset just before each path and read just after;
   5. the card's name and power limit, the kernel table, and last the
      device line.
 
@@ -30,7 +35,19 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # H100 SXM runs 64 INT32 lanes per SM per clock, half its 128 FP32 lanes:
 # half of the 67 TFLOP/s float32 rate (multiply-add counted as two ops)
 INT32_OPS_PER_S = 33.5e12
-SLICE = dict(qindex=120, keyint=1, preset="fast", enable_cdef=False)
+FAST = dict(qindex=120, keyint=1, preset="fast", enable_cdef=False)
+MEDIUM = dict(qindex=120, keyint=1, preset="medium")  # DLF, CDEF and RDOQ on
+KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
+    "intra_pred": ("svtav1_tpu_torch/csrc/intra_pred.cu", "svtav1_tpu/pipeline/intra_device.py:31"),
+    "txfm_quant_recon": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu",
+                         "svtav1_tpu/ops/transforms_jax.py:136"),
+    "txb_rate": ("svtav1_tpu_torch/csrc/txb_rate.cu", "svtav1_tpu/codec/rate_jax.py:57"),
+    "dlf_edges": ("svtav1_tpu_torch/csrc/dlf_edges.cu", "svtav1_tpu/filters/dlf_jax.py:64"),
+    "rdoq": ("svtav1_tpu_torch/csrc/rdoq.cu", "svtav1_tpu/codec/rate_jax.py:220"),
+    "cdef_dir": ("svtav1_tpu_torch/csrc/cdef.cu", "svtav1_tpu/filters/cdef_jax.py:26"),
+    "cdef_filter": ("svtav1_tpu_torch/csrc/cdef.cu", "svtav1_tpu/filters/cdef_jax.py:166"),
+}
+FAST_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges")
 
 
 def log(msg):
@@ -64,13 +81,15 @@ def check_kernels(torch, dev):
     import numpy as np
 
     from svtav1_tpu_torch.codec import rate_torch
-    from svtav1_tpu_torch.constants.av1 import MAX_TXSIZE_RECT, TxType
-    from svtav1_tpu_torch.filters import dlf_torch
+    from svtav1_tpu_torch.constants.av1 import MAX_TXSIZE_RECT, TxSize, TxType
+    from svtav1_tpu_torch.constants.cdf import get_q_ctx
+    from svtav1_tpu_torch.filters import cdef_torch, dlf_torch
     from svtav1_tpu_torch.ops import quantize as quant_ops
     from svtav1_tpu_torch.ops import transforms_torch as TT
     from svtav1_tpu_torch.pipeline import intra_device
     from svtav1_tpu_torch.pipeline.device_decide import BSIZE_BY_N, fc_for_qctx
-    from svtav1_tpu_torch.constants.cdf import get_q_ctx
+    from svtav1_tpu_torch.pipeline.intra_md import rd_lambda
+    from svtav1_tpu_torch.utils.testclip import make_frames
 
     g = np.random.default_rng(1)
     res = {}
@@ -86,10 +105,10 @@ def check_kernels(torch, dev):
         hl = t(g.random(B) < 0.9, torch.bool)
         return above, left, tl, ha, hl
 
-    def record(name, shape, err, ms, plain_ms, nbytes, ops, main=False):
+    def record(name, shape, err, ms, plain_ms, nbytes, ops, main=False, **extra):
         b_ms, b_by = bound(nbytes, ops)
         log(json.dumps(dict(check=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by)))
+                            bound_ms=b_ms, bound_by=b_by, **extra)))
         if main:
             res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         elif name in res:
@@ -102,30 +121,33 @@ def check_kernels(torch, dev):
             raise SystemExit(f"{name}: kernel disagrees with its plain version (max err {err})")
         return err
 
-    # ---- K1 intra_pred: decide n=8 over 1080p (all 7 modes), commit waves
+    # ---- K1 intra_pred: decide n=8 over 1080p (all 13 modes), commit waves
     R8, C8 = 135, 240
     B = R8 * C8
     e = edges(B, 8)
-    k = intra_device.predict(*e, 8)
-    pl = intra_device.predict_plain(*e, 8)
-    err = assert_equal("intra_pred", k, pl)
-    record("intra_pred", [B, 7, 8, 8], err,
+    err = assert_equal("intra_pred", intra_device.predict(*e, 8), intra_device.predict_plain(*e, 8))
+    record("intra_pred", [B, 13, 8, 8], err,
            timed_ms(lambda: intra_device.predict(*e, 8), 20),
            timed_ms(lambda: intra_device.predict_plain(*e, 8), 5),
-           nbytes=B * (2 * 8 + 1) * 4 + 2 * B + B * 7 * 64 * 4, ops=B * 7 * 64 * 8, main=True)
-    for n, lanes in ((8, R8), (4, 2 * R8), (32, 34), (16, 2 * 34)):  # luma/chroma wave lanes
+           nbytes=B * (2 * 8 + 1) * 4 + 2 * B + B * 13 * 64 * 4, ops=B * 13 * 64 * 10, main=True)
+    for n, lanes in ((8, R8), (4, 2 * R8), (32, 34), (16, 2 * 34), (64, 17)):  # wave lanes
         e = edges(lanes, n)
-        mode = t(g.integers(0, 7, lanes))
+        mode = t(g.integers(0, 13, lanes))
         err = assert_equal("intra_pred", intra_device.predict(*e, n, mode=mode),
                            intra_device.predict_plain(*e, n, mode=mode))
-        record("intra_pred", [lanes, n, n], err,
+        record("intra_pred", [lanes, n, n, "13 modes"], err,
                timed_ms(lambda: intra_device.predict(*e, n, mode=mode), 20),
                timed_ms(lambda: intra_device.predict_plain(*e, n, mode=mode), 3),
-               lanes * (2 * n + 2) * 4 + lanes * n * n * 4, lanes * n * n * 8)
+               lanes * (2 * n + 2) * 4 + lanes * n * n * 4, lanes * n * n * 10)
 
-    # ---- K2 txfm_quant_recon: decide n=8 x 7 modes (SSE), n=64 x 7, commit
+    # ---- K2 txfm_quant_recon: decide n=8 x 13 modes (SSE), n=64, commit
     q = 120
     dq = (quant_ops.dc_q(q, 8), quant_ops.ac_q(q, 8))
+
+    def k2_ops(n, L):
+        tabs = TT.tables_for(n, dev)
+        nst = sum(len(v) for v in tabs.stages.values()) / max(len(tabs.stages), 1)
+        return L * (4 * nst * n * n * 5 + 40 * n * n)
 
     def k2_case(n, L, rep, flags, want_recon, want_sse, main=False, reps=20):
         """One K2 shape: kernel == plain, both timed; returns the levels."""
@@ -144,27 +166,64 @@ def check_kernels(torch, dev):
         for a, b in zip(out_k, out_p):
             if a is not None:
                 err = max(err, assert_equal("txfm_quant_recon", a, b))
-        tabs = TT.tables_for(n, dev)
-        nst = sum(len(v) for v in tabs.stages.values()) / max(len(tabs.stages), 1)
-        ops = L * (4 * nst * n * n * 5 + 40 * n * n)
         adj = min(n, 32)
         nbytes = (L // rep + L) * n * n * 4 + L * adj * adj * 4 + \
             (L * n * n * 4 if want_recon else 0) + (8 * L if want_sse else 0) + 2 * L
         record("txfm_quant_recon", [L, n, n, rep, flags], err,
                timed_ms(lambda: TT.txfm_quant_recon(*args, **kw), reps),
-               timed_ms(lambda: TT.txfm_quant_recon_plain(*args, **kw), 3), nbytes, ops, main=main)
+               timed_ms(lambda: TT.txfm_quant_recon_plain(*args, **kw), 3), nbytes,
+               k2_ops(n, L), main=main)
         return out_k[0]
 
-    lv8 = k2_case(8, B * 7, 7, "dct", False, True, main=True)
-    k2_case(64, 16 * 30 * 7, 7, "dct", False, True)
-    lv32 = k2_case(32, 33 * 60 * 7, 7, "dct", False, True)
-    k2_case(8, R8, 1, "dct", True, False)          # commit luma wave
+    lv8 = k2_case(8, B * 13, 13, "dct", False, True, main=True)
+    k2_case(64, 16 * 30 * 13, 13, "dct", False, True)
+    lv32 = k2_case(32, 33 * 60 * 13, 13, "dct", False, True)
+    k2_case(8, B, 1, "sel", False, True)           # decide tx search, one type
+    k2_case(8, R8, 1, "sel", True, False)          # commit luma wave, RDOQ off
     k2_case(4, 2 * R8, 1, "sel", True, False)      # commit chroma wave (ADST4)
-    k2_case(16, 2 * 60, 1, "sel", True, False)     # chroma of 32x32 blocks
     k2_case(64, 17, 1, "dct", True, False)         # 64x64 luma wave
 
-    # ---- K3 txb_rate on real levels: 8x8 (decide n=8) and 32x32
+    # K2's halves around RDOQ on real residuals: the clip's 1080p luma in
+    # n x n blocks against their rounded means (the forward half feeds K5)
+    (y_clip, u_clip, _v), = make_frames(1920, 1080, 1, seed=0)
     fc = fc_for_qctx(get_q_ctx(q))
+    lam = float(np.float32(rd_lambda(q, 8)))
+
+    def clip_blocks(plane, n, lanes):
+        H, W = plane.shape
+        R, C = H // n, W // n
+        b = plane[: R * n, : C * n].astype(np.int32).reshape(R, n, C, n).transpose(0, 2, 1, 3) \
+            .reshape(-1, n, n)[:lanes]
+        pred = np.broadcast_to(b.mean(axis=(1, 2), keepdims=True).round().astype(np.int32), b.shape)
+        return t(b), t(pred)
+
+    halves = {}
+    for n, lanes, flags, main in ((8, B, "sel", True), (8, R8, "sel", False),
+                                  (4, 2 * R8, "sel", False), (32, 34, "dct", False),
+                                  (64, 17, "dct", False)):
+        src, pred = clip_blocks(u_clip if n == 4 else y_clip, n, lanes)
+        L = src.shape[0]
+        va = t(g.random(L) < 0.5, torch.bool) if flags == "sel" else TT.tx_flags(0, L, dev)[0]
+        ha = t(g.random(L) < 0.5, torch.bool) if flags == "sel" else TT.tx_flags(0, L, dev)[1]
+        args = (src, pred, va, ha, dq[0], dq[1], 8)
+        lk, ck = TT.txfm_quant(*args)
+        lp, cp = TT.txfm_quant_plain(*args)
+        err = max(assert_equal("txfm_quant_recon", lk, lp), assert_equal("txfm_quant_recon", ck, cp))
+        adj = min(n, 32)
+        record("txfm_quant_recon", [L, n, n, "forward half", flags], err,
+               timed_ms(lambda: TT.txfm_quant(*args), 20),
+               timed_ms(lambda: TT.txfm_quant_plain(*args), 3),
+               2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L, k2_ops(n, L) // 2)
+        inv = (lk, pred, va, ha, dq[0], dq[1], 8)
+        err = assert_equal("txfm_quant_recon", TT.recon_from_levels(*inv),
+                           TT.recon_from_levels_plain(*inv))
+        record("txfm_quant_recon", [L, n, n, "inverse half", flags], err,
+               timed_ms(lambda: TT.recon_from_levels(*inv), 20),
+               timed_ms(lambda: TT.recon_from_levels_plain(*inv), 3),
+               L * adj * adj * 4 + 2 * L * n * n * 4 + 2 * L, k2_ops(n, L) // 2)
+        halves[(n, L)] = (lk, ck, main)
+
+    # ---- K3 txb_rate on real levels: 8x8 (decide n=8) and 32x32
     for n, lv, main in ((8, lv8, True), (32, lv32, False)):
         tx = int(MAX_TXSIZE_RECT[BSIZE_BY_N[n]])
         tabs = rate_torch.make_txb_bits_fn(fc, tx, int(TxType.DCT_DCT), 0, device=dev)
@@ -198,11 +257,71 @@ def check_kernels(torch, dev):
                timed_ms(lambda: dlf_torch.filter_vertical_edges(x, flen, lim, blim, thr, 8), 20),
                timed_ms(lambda: dlf_torch.filter_vertical_edges_plain(x, flen, lim, blim, thr, 8), 3),
                nbytes=2 * pl.numel() * 4 + flen.numel() * 4, ops=edges_on * 150, main=not tr)
+
+    # ---- K5 rdoq: a 1080p frame's 8x8 luma txbs, and the commit's waves
+    txs = {8: TxSize.TX_8X8, 4: TxSize.TX_4X4, 32: TxSize.TX_32X32, 64: TxSize.TX_64X64}
+    for (n, L), (lk, ck, main) in halves.items():
+        plane_type = 1 if n == 4 else 0
+        rt = rate_torch.make_rdoq_fn(fc, int(txs[n]), plane_type, txb_skip_ctx=7 if plane_type else 0,
+                                     device=dev)
+        args = (lk, ck, dq[0], dq[1], lam, rt)
+        a = rate_torch.rdoq(*args)
+        b = rate_torch.rdoq_plain(*args)
+        torch.cuda.synchronize()
+        differing = int((a != b).reshape(L, -1).any(dim=1).sum().item())
+        err = int((a - b).abs().max().item())
+        if differing:
+            raise SystemExit(f"rdoq: {differing} of {L} lanes differ from the plain version")
+        nn = lk.shape[1] * lk.shape[2]
+        record("rdoq", [L, lk.shape[1], lk.shape[2], "chroma" if plane_type else "luma"], err,
+               timed_ms(lambda: rate_torch.rdoq(*args), 20),
+               timed_ms(lambda: rate_torch.rdoq_plain(*args), 3),
+               nbytes=3 * L * nn * 4, ops=L * nn * 80, main=main, differing_lanes=differing,
+               changed_levels=int((a != lk).sum().item()))
+
+    # ---- K6 cdef_dir on the clip's 1080p luma (32,400 cells); K7
+    # cdef_filter: the 7-candidate luma search and the luma and chroma applies
+    yp = t(y_clip.astype(np.int32)[None])
+    a = cdef_torch.find_dir(yp)
+    b = cdef_torch.find_dir_plain(yp)
+    err = max(assert_equal("cdef_dir", a[0], b[0]), assert_equal("cdef_dir", a[1], b[1]))
+    cells = R8 * C8
+    record("cdef_dir", [1, R8, C8], err,
+           timed_ms(lambda: cdef_torch.find_dir(yp), 20),
+           timed_ms(lambda: cdef_torch.find_dir_plain(yp), 3),
+           nbytes=yp.numel() * 4 + 2 * cells * 4, ops=cells * (64 * 8 + 15 * 8 * 3), main=True)
+    dirs, var = a
+    rec_y = (yp + t(g.integers(-3, 4, yp.shape))).clamp(0, 255).to(torch.int32).contiguous()
+    mask = t(g.random((1, R8, C8)) < 0.8, torch.bool)
+    from svtav1_tpu_torch.filters.cdef import SEARCH_CANDIDATES
+
+    cand = t(np.array(SEARCH_CANDIDATES, np.int32))
+    pri, sec = cand[:, 0:1].contiguous(), cand[:, 1:2].contiguous()
+    K = pri.shape[0]
+    search = (rec_y, dirs, var, pri, sec, mask, 6)
+    a = cdef_torch.cdef_filter(*search, src=yp, want_out=False)[1]
+    b = cdef_torch.cdef_filter_plain(*search, src=yp, want_out=False)[1]
+    err = assert_equal("cdef_filter", a, b)
+    record("cdef_filter", [K] + list(yp.shape) + ["luma search (SSE)"], err,
+           timed_ms(lambda: cdef_torch.cdef_filter(*search, src=yp, want_out=False), 20),
+           timed_ms(lambda: cdef_torch.cdef_filter_plain(*search, src=yp, want_out=False), 3),
+           nbytes=2 * yp.numel() * 4 + cells * 9 + K * 8, ops=K * yp.numel() * 12 * 12, main=True)
+    up = t(u_clip.astype(np.int32)[None])
+    for name, pl_, v_, p_, s_, damp in (("luma apply", rec_y, var, pri[4:5], sec[4:5], 6),
+                                        ("chroma apply", up, None, pri[4:5] >> 1, sec[4:5] >> 1, 5)):
+        args = (pl_, dirs, v_, p_.contiguous(), s_.contiguous(), mask, damp)
+        err = assert_equal("cdef_filter", cdef_torch.cdef_filter(*args)[0],
+                           cdef_torch.cdef_filter_plain(*args)[0])
+        record("cdef_filter", [1] + list(pl_.shape) + [name], err,
+               timed_ms(lambda: cdef_torch.cdef_filter(*args), 20),
+               timed_ms(lambda: cdef_torch.cdef_filter_plain(*args), 3),
+               nbytes=2 * pl_.numel() * 4 + cells * 9, ops=pl_.numel() * 12 * 12)
     return res
 
 
 def conformance(torch):
-    """Phase 3: CIF on the card, decoded bit-exactly; byte match vs CPU."""
+    """Phase 3: CIF on the card at both presets, decoded bit-exactly; byte
+    match against the plain versions on the CPU."""
     import numpy as np
 
     from svtav1_tpu_torch.decode.decoder import Decoder
@@ -210,27 +329,31 @@ def conformance(torch):
     from svtav1_tpu_torch.utils.testclip import make_frames
 
     frames = make_frames(352, 288, 2, seed=0)
-    tus = {}
-    for dev in ("cuda", "cpu"):
-        enc = Encoder(EncoderConfig(352, 288, **SLICE), device=dev)
-        tus[dev] = [enc.encode_frame(*f) for f in frames]
-    torch.cuda.synchronize()
-    dec = Decoder()
-    for i, (tu, rec) in enumerate(tus["cuda"]):
-        _, _, _, drec = dec.decode_tu(tu)
-        for p in range(3):
-            if not np.array_equal(drec[p], rec[p]):
-                raise SystemExit(f"CIF frame {i} plane {p}: decoder recon differs from the encoder's")
-    same = sum(len(a) for (a, _), (b, _) in zip(tus["cuda"], tus["cpu"]) if a == b)
-    total = sum(len(a) for a, _ in tus["cuda"])
-    log(json.dumps(dict(phase="conformance", size=[352, 288], frames=len(frames),
-                        decode_bit_exact=True, bytes_cuda=[len(a) for a, _ in tus["cuda"]],
-                        bytes_cpu=[len(a) for a, _ in tus["cpu"]],
-                        identical_tu_byte_share=same / total)))
+    for label, cfg in (("fast", FAST), ("medium", MEDIUM)):
+        tus = {}
+        for dev in ("cuda", "cpu"):
+            enc = Encoder(EncoderConfig(352, 288, **cfg), device=dev)
+            tus[dev] = [enc.encode_frame(*f) for f in frames]
+        torch.cuda.synchronize()
+        dec = Decoder()
+        for i, (tu, rec) in enumerate(tus["cuda"]):
+            _, _, _, drec = dec.decode_tu(tu)
+            for p in range(3):
+                if not np.array_equal(drec[p], rec[p]):
+                    raise SystemExit(f"CIF {label} frame {i} plane {p}: decoder recon differs "
+                                     "from the encoder's")
+        same = sum(len(a) for (a, _), (b, _) in zip(tus["cuda"], tus["cpu"]) if a == b)
+        total = sum(len(a) for a, _ in tus["cuda"])
+        log(json.dumps(dict(phase="conformance", preset=label, config=cfg, size=[352, 288],
+                            frames=len(frames), decode_bit_exact=True,
+                            bytes_cuda=[len(a) for a, _ in tus["cuda"]],
+                            bytes_cpu=[len(a) for a, _ in tus["cpu"]],
+                            identical_tu_byte_share=same / total)))
 
 
-def main_path(torch):
-    """Phase 4: 1080p key frames through Encoder(device='cuda')."""
+def run_path(torch, label, cfg, n_timed, required, decode):
+    """Phase 4: 1080p key frames through Encoder(device='cuda'): launch
+    counts set to 0 just before the path and read just after it."""
     import numpy as np
 
     from svtav1_tpu_torch import kernels
@@ -239,10 +362,11 @@ def main_path(torch):
     from svtav1_tpu_torch.utils import profiler
     from svtav1_tpu_torch.utils.testclip import make_frames
 
-    W, H, N = 1920, 1080, 4
+    W, H, N = 1920, 1080, n_timed
     frames = make_frames(W, H, N + 1, seed=0)
+    enc = Encoder(EncoderConfig(W, H, **cfg), device="cuda")
+    torch.cuda.synchronize()
     kernels.reset_launches()
-    enc = Encoder(EncoderConfig(W, H, **SLICE), device="cuda")
     t0 = time.perf_counter()
     first_tu, first_rec = enc.encode_frame(*frames[0])  # warm frame
     torch.cuda.synchronize()
@@ -255,29 +379,30 @@ def main_path(torch):
     launches = dict(kernels.launches)
     stages = profiler.report()
     waves = profiler.counts().get("commit/wave", 0) / N
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in required if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"main path never launched: {missing}")
+        raise SystemExit(f"{label} path never launched: {missing}")
     psnr = []
     for (tu, rec), (y, _u, _v) in zip(out, frames[1:]):
+        if not all(np.isfinite(p).all() for p in rec):
+            raise SystemExit("non-finite recon")
         d = rec[0][:H, :W].astype(np.float64) - y
         mse = float((d * d).mean())
         psnr.append(10 * np.log10(255.0 ** 2 / max(mse, 1e-10)))
-        if not all(np.isfinite(p).all() for p in rec):
-            raise SystemExit("non-finite recon")
-    t1 = time.perf_counter()
-    _, _, _, drec = Decoder().decode_tu(first_tu)
-    dec_s = time.perf_counter() - t1
-    for p in range(3):
-        if not np.array_equal(drec[p], first_rec[p]):
-            raise SystemExit(f"1080p plane {p}: decoder recon differs from the encoder's")
-    log(json.dumps(dict(phase="main_path", size=[W, H], frames_timed=N, warm_frame_s=warm_s,
-                        fps=N / secs, seconds=secs,
+    dec_s = None
+    if decode:
+        t1 = time.perf_counter()
+        _, _, _, drec = Decoder().decode_tu(first_tu)
+        dec_s = time.perf_counter() - t1
+        for p in range(3):
+            if not np.array_equal(drec[p], first_rec[p]):
+                raise SystemExit(f"1080p {label} plane {p}: decoder recon differs from the encoder's")
+    log(json.dumps(dict(phase="path", preset=label, config=cfg, size=[W, H], frames_timed=N,
+                        warm_frame_s=warm_s, fps=N / secs, seconds=secs,
                         bytes_per_frame=sum(len(tu) for tu, _ in out) / N,
-                        y_psnr=sum(psnr) / N, waves_per_frame=waves,
-                        launches=launches,
+                        y_psnr=sum(psnr) / N, waves_per_frame=waves, launches=launches,
                         launches_per_frame={k: v / (N + 1) for k, v in launches.items()},
-                        stage_seconds=stages, decode_1080p_s=dec_s, decode_bit_exact=True)))
+                        stage_seconds=stages, decode_1080p_s=dec_s, decode_bit_exact=decode)))
     return launches
 
 
@@ -295,6 +420,7 @@ def main() -> int:
     except ImportError as err:
         print(f"svtav1_tpu_torch not found next to chip_smoke.py: {err}", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -308,22 +434,17 @@ def main() -> int:
 
     checks = check_kernels(torch, dev)
     conformance(torch)
-    launches = main_path(torch)
+    run_path(torch, "fast", FAST, 1, FAST_KERNELS, decode=False)
+    launches = run_path(torch, "medium", MEDIUM, 4, tuple(KERNEL_SOURCES), decode=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     if smi.returncode:
         raise SystemExit(f"nvidia-smi failed: {smi.stderr}")
+    log(json.dumps(dict(phase="done", seconds=time.perf_counter() - t_start)))
     log(smi.stdout.strip().splitlines()[0])
-    meta = {
-        "intra_pred": ("svtav1_tpu_torch/csrc/intra_pred.cu", "svtav1_tpu/pipeline/intra_device.py:31"),
-        "txfm_quant_recon": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu",
-                             "svtav1_tpu/ops/transforms_jax.py:136"),
-        "txb_rate": ("svtav1_tpu_torch/csrc/txb_rate.cu", "svtav1_tpu/codec/rate_jax.py:57"),
-        "dlf_edges": ("svtav1_tpu_torch/csrc/dlf_edges.cu", "svtav1_tpu/filters/dlf_jax.py:64"),
-    }
     table = []
-    for name, (src, repl) in meta.items():
+    for name, (src, repl) in KERNEL_SOURCES.items():
         c = checks[name]
         table.append(dict(name=name, route="cuda", source=src, replaces=repl,
                           launches=launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],

@@ -1,10 +1,12 @@
-"""PyTorch port of codec/rate_jax.py::make_txb_bits_fn: exact coefficient
-bits of transform blocks from CDF cost LUTs, around the CUDA kernel
-`csrc/txb_rate.cu` (K3), with a plain PyTorch version beside it.
+"""PyTorch port of codec/rate_jax.py: exact coefficient bits of transform
+blocks from CDF cost LUTs (make_txb_bits_fn) around the CUDA kernel
+`csrc/txb_rate.cu` (K3), and the commit's two-pass RDOQ (make_rdoq_fn)
+around `csrc/rdoq.cu` (K5), each with a plain PyTorch version beside it.
 
 The host part (`txb_rate_arrays`) builds one txb configuration's LUTs and
 maps from a FrameContext exactly as the reference does; `TxbRateTables`
-holds them on a device and is called on levels. Results agree with the
+holds them on a device and is called on levels, `RdoqTables` adds RDOQ's
+scalars and is called on levels and coefficients. Bits agree with the
 reference up to float32 summation order (codec/rate_jax.py:11-12).
 """
 from __future__ import annotations
@@ -217,3 +219,158 @@ def make_txb_bits_fn(fc, tx_size: int, tx_type: int, plane_type: int,
     """Counterpart of rate_jax.make_txb_bits_fn: a callable levels -> bits."""
     return TxbRateTables.from_numpy(
         txb_rate_arrays(fc, tx_size, tx_type, plane_type, txb_skip_ctx, dc_sign_ctx), device)
+
+
+# coefficient-domain -> pixel-domain distortion divisor per full tx width
+# (rate_jax.make_rdoq_fn); the 1.12 margin rejects borderline moves
+_RDOQ_DIV = {4: 132.0, 8: 124.0, 16: 120.0, 32: 36.0, 64: 6.0}
+
+
+class RdoqTables:
+    """One RDOQ configuration on one device (rate_jax.make_rdoq_fn): the
+    TX_CLASS_2D rate tables of the DCT scan plus the quant scale `ls` of the
+    ORIGINAL tx size (64-point transforms are optimized on their coded
+    32x32), the distortion scale, and the skip-flag delta. Call on (levels,
+    coeff, dq_dc, dq_ac, lam) -> new levels (K5 on CUDA, plain on CPU)."""
+
+    def __init__(self, fc, tx_size: int, plane_type: int, txb_skip_ctx: int = 0,
+                 dc_sign_ctx: int = 0, device=None):
+        from ..constants.av1 import TxType
+
+        arrays = txb_rate_arrays(fc, tx_size, int(TxType.DCT_DCT), plane_type, txb_skip_ctx,
+                                 dc_sign_ctx)
+        self.rate = TxbRateTables(arrays, device if device is not None else "cuda")
+        self.device = self.rate.device
+        self.h, self.w = self.rate.h, self.rate.w
+        full_w, full_h = int(TX_W[tx_size]), int(TX_H[tx_size])
+        self.ls = int(full_w * full_h > 256) + int(full_w * full_h > 1024)
+        self.dscale = float(np.float32(1.12 / _RDOQ_DIV[full_w]))
+        skip = np.asarray(arrays["skip_lut"], np.float32)
+        self.skip_delta = float(skip[1] - skip[0])
+        scan = np.argsort(np.asarray(arrays["iscan"])).astype(np.int32)
+        self.scan = torch.as_tensor(scan, device=self.device)
+
+    def __call__(self, levels, coeff, dq_dc: int, dq_ac: int, lam: float):
+        if levels.device.type == "cpu":
+            return rdoq_plain(levels, coeff, dq_dc, dq_ac, lam, self)
+        return rdoq(levels, coeff, dq_dc, dq_ac, lam, self)
+
+
+def _rdoq_ctx(a, t: TxbRateTables):
+    """(bctx, brctx) (B, n) long of TX_CLASS_2D levels a (B, h, w)."""
+    h, w, B = t.h, t.w, a.shape[0]
+    P = torch.nn.functional.pad(a.clamp(max=127), (0, 4, 0, 4))
+    M = P.clamp(max=3)
+    mag = (M[:, 0:h, 1:w + 1] + M[:, 1:h + 1, 0:w] + M[:, 1:h + 1, 1:w + 1]
+           + M[:, 0:h, 2:w + 2] + M[:, 2:h + 2, 0:w])
+    bctx = (((mag + 1) >> 1).clamp(max=4).reshape(B, -1) + t.nz_off[None]).long()
+    bctx[:, 0] = 0
+    magb = P[:, 0:h, 1:w + 1] + P[:, 1:h + 1, 0:w] + P[:, 1:h + 1, 1:w + 1]
+    grp = t.br_grp.clone()
+    grp[0] = 0  # position 0 takes no group offset
+    brctx = (((magb + 1) >> 1).clamp(max=6).reshape(B, -1) + grp[None]).long()
+    return bctx, brctx
+
+
+def rdoq_plain(levels, coeff, dq_dc: int, dq_ac: int, lam: float, rt: RdoqTables):
+    """Plain PyTorch version of K5 (written from rate_jax.make_rdoq_fn),
+    float32 in the reference's order of operations. The reverse-scan suffix
+    sums are taken in float64 and rounded to float32, in both this version
+    and the kernel, so that the two agree bit for bit."""
+    t = rt.rate
+    h, w = t.h, t.w
+    n = h * w
+    B = levels.shape[0]
+    dev = levels.device
+    f32 = torch.float32
+    lv = levels.to(torch.int32).reshape(B, n)
+    a0 = lv.abs()
+    c_abs = coeff.to(torch.int32).reshape(B, n).abs().to(f32)
+    dqv = torch.full((n,), int(dq_ac), dtype=torch.int32, device=dev)
+    dqv[0] = int(dq_dc)
+    lam_t = torch.tensor(lam, dtype=f32, device=dev)
+    dscale = torch.tensor(rt.dscale, dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+
+    def err(a):
+        return ((a * dqv[None]) >> rt.ls).to(f32) - c_abs
+
+    dc_cost = torch.where(lv[:, 0] < 0, t.dc_sign_lut[1], t.dc_sign_lut[0])
+    sign_cost = torch.ones((B, n), dtype=f32, device=dev)
+    sign_cost[:, 0] = dc_cost
+
+    def own_cost(a, bctx, brctx):
+        base = t.base_lut[bctx, a.clamp(max=3).long()]
+        brc = torch.where(a > 2, t.br_lut[brctx, (a - 3).clamp(0, 12).long()], zero)
+        gx = (a - 14).clamp(min=1).to(f32)
+        gol = torch.where(a > 14, 2.0 * (torch.floor(torch.log2(gx)) + 1.0) - 1.0, zero)
+        return base + brc + gol + torch.where(a > 0, sign_cost, zero)
+
+    # pass 1: eob truncation by reverse-scan suffix sums of the zeroing gain
+    bctx, brctx = _rdoq_ctx(a0.reshape(B, h, w), t)
+    e0 = err(a0)
+    zd = (c_abs * c_abs - e0 * e0) * dscale
+    g = torch.where(a0 > 0, zd, zero) - lam_t * own_cost(a0, bctx, brctx)
+    scan = rt.scan.long()
+    g_scan, a_scan, bctx_scan = g[:, scan], a0[:, scan], bctx[:, scan]
+    ks = torch.arange(1, n + 1, device=dev)
+    eob0 = torch.where(a_scan > 0, ks[None], torch.zeros_like(ks)[None]).amax(dim=-1)
+    g_scan = torch.where(ks[None] - 1 < eob0[:, None], g_scan, zero)
+    S = torch.cumsum(g_scan.to(torch.float64).flip(-1), dim=-1).flip(-1).to(f32)
+    S = torch.cat([S, torch.zeros((B, 1), dtype=f32, device=dev)], dim=-1)
+    sym = a_scan.clamp(max=3).long()
+    beob = t.base_eob_lut[t.ectx_lut[None], (sym - 1).clamp(min=0)]
+    bnorm = t.base_lut[bctx_scan, sym]
+    score_k = S[:, 1:] + lam_t * (t.eob_cost[1:][None] + beob - bnorm)
+    valid = (a_scan > 0) & (ks[None] <= eob0[:, None])
+    score_k = torch.where(valid, score_k, torch.full((), float("inf"), device=dev))
+    score_0 = S[:, 0] + lam_t * torch.tensor(rt.skip_delta, dtype=f32, device=dev)
+    kbest = torch.argmin(torch.cat([score_0[:, None], score_k], dim=-1), dim=-1)
+    isc = t.iscan[None]
+    keep = isc < kbest[:, None]
+    a1 = torch.where(keep, a0, torch.zeros_like(a0))
+
+    # pass 2: level-down with contexts refreshed from the truncated levels
+    bctx, brctx = _rdoq_ctx(a1.reshape(B, h, w), t)
+    is_eob = isc == (kbest[:, None] - 1)
+    e1 = err(a1)
+    adn = (a1 - 1).clamp(min=0)
+    edn = err(adn)
+    dd = (edn * edn - e1 * e1) * dscale
+    c_now = own_cost(a1, bctx, brctx)
+    c_dn = own_cost(adn, bctx, brctx)
+    ectx_k = t.ectx_lut[(kbest - 1).clamp(min=0)][:, None]
+    beob_now = t.base_eob_lut[ectx_k, (a1.clamp(max=3) - 1).clamp(min=0).long()]
+    beob_dn = t.base_eob_lut[ectx_k, (adn.clamp(max=3) - 1).clamp(min=0).long()]
+    b_now = t.base_lut[bctx, a1.clamp(max=3).long()]
+    b_dn = t.base_lut[bctx, adn.clamp(max=3).long()]
+    c_now = torch.where(is_eob, c_now - b_now + beob_now, c_now)
+    c_dn = torch.where(is_eob, c_dn - b_dn + beob_dn, c_dn)
+    allow = (a1 > 0) & keep & (~is_eob | (a1 >= 2))
+    better = allow & (dd + lam_t * (c_dn - c_now) < 0.0)
+    a2 = a1 - better.to(torch.int32)
+    return torch.where(lv < 0, -a2, a2).reshape(levels.shape).to(torch.int32)
+
+
+def rdoq(levels, coeff, dq_dc: int, dq_ac: int, lam: float, rt: RdoqTables):
+    """K5: RDOQ of B transform blocks (levels and unquantized coefficients
+    (B, h, w) int32 on the card) -> new levels."""
+    B = levels.shape[0]
+    kernels.check(levels, "levels", torch.int32, (B, rt.h, rt.w))
+    kernels.check(coeff, "coeff", torch.int32, (B, rt.h, rt.w))
+    if levels.device != rt.device:
+        raise ValueError(f"rdoq: levels on {levels.device}, tables on {rt.device}")
+    t = rt.rate
+    out = torch.empty_like(levels)
+    kernels.launch("rdoq", levels.data_ptr(), coeff.data_ptr(), t.flut.data_ptr(),
+                   t.ilut.data_ptr(), rt.scan.data_ptr(), out.data_ptr(), B, rt.h, rt.w,
+                   int(math.log2(rt.w)), rt.ls, int(dq_dc), int(dq_ac), float(lam), rt.dscale,
+                   rt.skip_delta, kernels.stream_ptr(levels))
+    return out
+
+
+def make_rdoq_fn(fc, tx_size: int, plane_type: int, txb_skip_ctx: int = 0,
+                 dc_sign_ctx: int = 0, device=None) -> RdoqTables:
+    """Counterpart of rate_jax.make_rdoq_fn: a callable (levels, coeff,
+    dq_dc, dq_ac, lam) -> levels."""
+    return RdoqTables(fc, tx_size, plane_type, txb_skip_ctx, dc_sign_ctx, device)

@@ -3,11 +3,15 @@
 // clipped to the bit depth; optionally the integer SSE of the recon against
 // the source. Square blocks n in {4, 8, 16, 32, 64}; per-lane vertical and
 // horizontal DCT/ADST choice (ADST only up to 16 points, ADST4 by sinpi).
+// Three entries (`stage`): 0 the whole chain; 1 the forward half, giving the
+// levels and, optionally, the unquantized coefficients of the coded (at most
+// 32x32) region; 2 the inverse half from levels (dequant, inverse, add,
+// clip). RDOQ (K5, csrc/rdoq.cu) runs between 1 and 2 in the commit.
 //
 // Replaces svtav1_tpu/ops/transforms_jax.py::fwd_txfm2d_j, fwd_txfm2d_sel_j,
 // quantize_j, dequantize_j, inv_txfm2d_add_j and inv_txfm2d_add_sel_j as the
 // decide (device_decide.py:128-147, :242-244, :270-276) and the commit's
-// select_txfm (device_commit.py:321-336, rdoq_fn=None) chain them.
+// select_txfm (device_commit.py:308-336) chain them.
 //
 // Bound: integer operations. Each 1-D stage is two multiply-adds and a shift
 // per sample; a 2-D block runs four 1-D networks of up to 12 stages, against
@@ -105,8 +109,9 @@ __global__ void txfm_quant_recon_kernel(const int* __restrict__ src, const int* 
                                         const uint8_t* __restrict__ v_adst,
                                         const uint8_t* __restrict__ h_adst,
                                         const int* __restrict__ tb, int* __restrict__ levels,
-                                        int* __restrict__ recon,
-                                        unsigned long long* __restrict__ sse, int rep, int n,
+                                        int* __restrict__ coeff, int* __restrict__ recon,
+                                        unsigned long long* __restrict__ sse, int stage, int rep,
+                                        int n,
                                         int log2n, int b0, int b1, int b2, int sh_row,
                                         int sh_col, int dq_dc, int dq_ac, int ls, int bd) {
   extern __shared__ int smem[];
@@ -126,29 +131,43 @@ __global__ void txfm_quant_recon_kernel(const int* __restrict__ src, const int* 
   const int adj = n < 32 ? n : 32;
   if (threadIdx.x == 0) s_sse = 0ull;
 
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
-    X[idx] = apply_shift(S[idx] - P[idx], b0);
-  __syncthreads();
-  pass1d(X, Y, tb, fcol, n, log2n, true, 0, tb + 12, tb[27], false);
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) X[idx] = apply_shift(X[idx], b1);
-  __syncthreads();
-  pass1d(X, Y, tb, frow, n, log2n, false, 0, tb + 17, tb[28], false);
-  // quant (+ 64-point zero-out), levels out, dequant in place
   const int dqmax = (1 << (bd + 7)) - 1;
+  if (stage != 2) {
+    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
+      X[idx] = apply_shift(S[idx] - P[idx], b0);
+    __syncthreads();
+    pass1d(X, Y, tb, fcol, n, log2n, true, 0, tb + 12, tb[27], false);
+    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) X[idx] = apply_shift(X[idx], b1);
+    __syncthreads();
+    pass1d(X, Y, tb, frow, n, log2n, false, 0, tb + 17, tb[28], false);
+  }
+  // quant (+ 64-point zero-out), levels out, dequant in place; stage 2 reads
+  // the levels instead
   for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
     const int r = idx >> log2n, c = idx & (n - 1);
-    int x = apply_shift(X[idx], b2);
-    if (n == 64 && (r >= 32 || c >= 32)) x = 0;
+    const bool coded = r < adj && c < adj;
+    const size_t at = (size_t)lane * adj * adj + r * adj + c;
     const int dq = idx == 0 ? dq_dc : dq_ac;
-    const int absc = (int)((unsigned)abs(x) << ls);
-    int lv = floordiv((int)((unsigned)absc + (unsigned)(dq >> 1)), dq);
-    lv = x > 0 ? lv : (x < 0 ? -lv : 0);
-    lv = clampi(lv, -32767, 32767);
-    if (r < adj && c < adj) levels[(size_t)lane * adj * adj + r * adj + c] = lv;
+    int lv;
+    if (stage == 2) {
+      lv = coded ? levels[at] : 0;
+    } else {
+      int x = apply_shift(X[idx], b2);
+      if (n == 64 && (r >= 32 || c >= 32)) x = 0;
+      const int absc = (int)((unsigned)abs(x) << ls);
+      lv = floordiv((int)((unsigned)absc + (unsigned)(dq >> 1)), dq);
+      lv = x > 0 ? lv : (x < 0 ? -lv : 0);
+      lv = clampi(lv, -32767, 32767);
+      if (coded) {
+        levels[at] = lv;
+        if (coeff) coeff[at] = x;
+      }
+    }
     int d = min((abs(lv) * dq) >> ls, dqmax);
     d = lv > 0 ? d : (lv < 0 ? -d : 0);
     X[idx] = clampi(d, -(1 << (bd + 7)), (1 << (bd + 7)) - 1);
   }
+  if (stage == 1) return;
   __syncthreads();
   pass1d(X, Y, tb, irow, n, log2n, false, bd == 8 ? 16 : 18, tb + 22, 12, true);
   const int cb = bd + 6 > 16 ? bd + 6 : 16;
@@ -161,8 +180,10 @@ __global__ void txfm_quant_recon_kernel(const int* __restrict__ src, const int* 
   for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
     const int rec = clampi(P[idx] + round_shift(X[idx], sh_col), 0, pmax);
     if (recon) recon[(size_t)lane * nn + idx] = rec;
-    const long long d = rec - S[idx];
-    acc += (unsigned long long)(d * d);
+    if (sse) {
+      const long long d = rec - S[idx];
+      acc += (unsigned long long)(d * d);
+    }
   }
   if (sse) {
     atomicAdd(&s_sse, acc);
@@ -175,16 +196,16 @@ __global__ void txfm_quant_recon_kernel(const int* __restrict__ src, const int* 
 
 extern "C" int txfm_quant_recon_launch(const int* src, const int* pred, const uint8_t* v_adst,
                                        const uint8_t* h_adst, const int* tables, int* levels,
-                                       int* recon, unsigned long long* sse, int L, int rep,
-                                       int n, int b0, int b1, int b2, int sh_row, int sh_col,
-                                       int dq_dc, int dq_ac, int ls, int bd, int log2n,
-                                       void* stream) {
+                                       int* coeff, int* recon, unsigned long long* sse,
+                                       int stage, int L, int rep, int n, int b0, int b1,
+                                       int b2, int sh_row, int sh_col, int dq_dc, int dq_ac,
+                                       int ls, int bd, int log2n, void* stream) {
   if (L == 0) return 0;
   const int nn = n * n;
   const int threads = nn >= 256 ? 256 : (nn < 32 ? 32 : nn);
   const size_t shm = 2 * (size_t)nn * sizeof(int);
   txfm_quant_recon_kernel<<<L, threads, shm, (cudaStream_t)stream>>>(
-      src, pred, v_adst, h_adst, tables, levels, recon, sse, rep, n, log2n, b0, b1, b2,
-      sh_row, sh_col, dq_dc, dq_ac, ls, bd);
+      src, pred, v_adst, h_adst, tables, levels, coeff, recon, sse, stage, rep, n, log2n, b0,
+      b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd);
   return launch_status();
 }

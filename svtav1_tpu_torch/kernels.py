@@ -33,20 +33,33 @@ KERNELS = {
     "txfm_quant_recon": ("txfm_quant_recon.cu", "txfm_quant_recon_launch"),
     "txb_rate": ("txb_rate.cu", "txb_rate_launch"),
     "dlf_edges": ("dlf_edges.cu", "dlf_edges_launch"),
+    "rdoq": ("rdoq.cu", "rdoq_launch"),
+    "cdef_dir": ("cdef.cu", "cdef_dir_launch"),
+    "cdef_filter": ("cdef.cu", "cdef_filter_launch"),
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 ARGTYPES = {
-    # above, left, tl, have_above, have_left, mode|NULL, weights, out, B, n, log2n, stream
-    "intra_pred_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # src, pred, v_adst, h_adst, tables, levels, recon|NULL, sse|NULL,
-    # L, rep, n, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
-    "txfm_quant_recon_launch": [_P] * 8 + [_I] * 13 + [_P],
+    # above, left, tl, have_above, have_left, mode|NULL, weights, dr, out, B, n, log2n,
+    # nmodes, stream
+    "intra_pred_launch": [_P] * 9 + [_I] * 4 + [_P],
+    # src|NULL, pred, v_adst, h_adst, tables, levels, coeff|NULL, recon|NULL, sse|NULL,
+    # stage, L, rep, n, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
+    "txfm_quant_recon_launch": [_P] * 9 + [_I] * 14 + [_P],
     # levels, flut, ilut, out, B, h, w, log2w, tx_class, stream
     "txb_rate_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # in, out, flen, F, H, W, K, sF, sR, sC, lim, blim, thr, bd, stream
     "dlf_edges_launch": [_P, _P, _P] + [_I] * 11 + [_P],
+    # levels, coeff, flut, ilut, scan, out, B, h, w, log2w, ls, dq_dc, dq_ac,
+    # lam, dscale, skip_delta, stream
+    "rdoq_launch": [_P] * 6 + [_I] * 7 + [_F] * 3 + [_P],
+    # plane, dirs, var, F, H, W, coeff_shift, stream
+    "cdef_dir_launch": [_P] * 3 + [_I] * 4 + [_P],
+    # plane, dirs, var|NULL, pri, sec, mask, src|NULL, sse|NULL, out|NULL, K, F, H, W,
+    # log2m, damping, coeff_shift, stream
+    "cdef_filter_launch": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 launches = {name: 0 for name in KERNELS}

@@ -2,10 +2,11 @@
 intra path: forward 2-D transform, dead-zone quant clipped to +-32767,
 dequant, inverse 2-D transform + prediction, and the recon's SSE — fused in
 the CUDA kernel `csrc/txfm_quant_recon.cu` (K2), with a plain PyTorch version
-beside it.
+beside it. K2 also runs as its two halves around RDOQ: `txfm_quant` (levels
+and unquantized coefficients) and `recon_from_levels`.
 
-`txfm_quant_recon` launches K2 for CUDA tensors and takes the plain version
-only for CPU tensors. Both run the same int32 stage networks as the
+Each wrapper launches K2 for CUDA tensors and takes the plain version only
+for CPU tensors. Both run the same int32 stage networks as the
 reference (tables from constants/data/txfm_stages.npz via ops/transforms),
 with int32 arithmetic that wraps like XLA's, so levels and recon are
 bit-exact with fwd_txfm2d_j / quantize_j / dequantize_j / inv_txfm2d_add_j.
@@ -168,18 +169,12 @@ def _sel_kinds(x, adst, tabs: StageTables, prefix: str, cos_bit: int, clamp_rang
     return torch.where(adst.view(adst.shape + (1,) * (x.dim() - adst.dim())), xa, xd)
 
 
-def txfm_quant_recon_plain(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
-                           rep: int = 1, want_recon: bool = True, want_sse: bool = False,
-                           tables: StageTables | None = None):
-    """Plain PyTorch version of K2; same arguments and results as
-    txfm_quant_recon."""
-    L, n = pred.shape[0], pred.shape[-1]
-    tabs = tables if tables is not None else tables_for(n, pred.device)
+def _forward_plain(src, pred, v_adst, h_adst, bd: int, rep: int, tabs: StageTables):
+    """Forward 2-D transform of src - pred (fwd_txfm2d_sel_j), with the
+    64-point zero-out: (L, n, n) int32 coefficients."""
+    n = pred.shape[-1]
     s0, s1, s2 = T.FWD_SHIFTS[(n, n)]
-    sh_row, sh_col = T.INV_SHIFTS[(n, n)]
-    ls = quant_ops.tx_scale(n, n)
     srcL = src.repeat_interleave(rep, dim=0) if rep > 1 else src
-    # forward (fwd_txfm2d_sel_j)
     x = (srcL - pred).transpose(-1, -2)
     x = _apply_shift(x, -s0)
     x = _sel_kinds(x, v_adst, tabs, "f", tabs.cb_col, None)
@@ -190,32 +185,112 @@ def txfm_quant_recon_plain(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd
         x = x.clone()
         x[..., :, 32:] = 0
         x[..., 32:, :] = 0
-    # quant (quantize_j) + clip, dequant (dequantize_j)
-    dq = torch.full((n, n), dq_ac, dtype=torch.int32, device=x.device)
+    return x
+
+
+def _dq_grid(n: int, dq_dc: int, dq_ac: int, device):
+    dq = torch.full((n, n), dq_ac, dtype=torch.int32, device=device)
     dq[0, 0] = dq_dc
-    lv = torch.div((x.abs() << ls) + dq // 2, dq, rounding_mode="floor")
-    lv = (torch.sign(x) * lv).clamp(-32767, 32767).to(torch.int32)
-    dqc = torch.sign(lv) * ((lv.abs() * dq) >> ls).clamp(max=(1 << (bd + 7)) - 1)
-    # inverse (inv_txfm2d_add_sel_j)
+    return dq
+
+
+def _quant_plain(x, dq_dc: int, dq_ac: int):
+    """quantize_j + clip to +-32767 of (L, n, n) coefficients."""
+    n = x.shape[-1]
+    dq = _dq_grid(n, dq_dc, dq_ac, x.device)
+    lv = torch.div((x.abs() << quant_ops.tx_scale(n, n)) + dq // 2, dq, rounding_mode="floor")
+    return (torch.sign(x) * lv).clamp(-32767, 32767).to(torch.int32)
+
+
+def _inverse_plain(lv, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
+                   tabs: StageTables):
+    """dequantize_j + inv_txfm2d_add_sel_j: (L, n, n) levels -> recon."""
+    n = pred.shape[-1]
+    sh_row, sh_col = T.INV_SHIFTS[(n, n)]
+    dq = _dq_grid(n, dq_dc, dq_ac, lv.device)
+    dqc = torch.sign(lv) * ((lv.abs() * dq) >> quant_ops.tx_scale(n, n)).clamp(max=(1 << (bd + 7)) - 1)
     y = _clamp_bits(dqc, bd + 8)
     y = _sel_kinds(y, h_adst, tabs, "i", T.INV_COS_BIT, 16 if bd == 8 else 18)
     y = _round_shift(y, sh_row).transpose(-1, -2)
     y = _clamp_bits(y, max(bd + 6, 16))
     y = _sel_kinds(y, v_adst, tabs, "i", T.INV_COS_BIT, 16)
     y = _round_shift(y, sh_col).transpose(-1, -2)
-    recon = (pred + y).clamp(0, (1 << bd) - 1).to(torch.int32).contiguous()
+    return (pred + y).clamp(0, (1 << bd) - 1).to(torch.int32).contiguous()
+
+
+def txfm_quant_recon_plain(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
+                           rep: int = 1, want_recon: bool = True, want_sse: bool = False,
+                           tables: StageTables | None = None):
+    """Plain PyTorch version of K2; same arguments and results as
+    txfm_quant_recon."""
+    n = pred.shape[-1]
+    tabs = tables if tables is not None else tables_for(n, pred.device)
+    lv = _quant_plain(_forward_plain(src, pred, v_adst, h_adst, bd, rep, tabs), dq_dc, dq_ac)
+    recon = _inverse_plain(lv, pred, v_adst, h_adst, dq_dc, dq_ac, bd, tabs)
     adj = min(n, 32)
     levels = lv[:, :adj, :adj].contiguous()
     sse = None
     if want_sse:
-        d = (recon - srcL).to(torch.int64)
+        d = (recon - (src.repeat_interleave(rep, dim=0) if rep > 1 else src)).to(torch.int64)
         sse = (d * d).sum(dim=(-2, -1))
     return levels, (recon if want_recon else None), sse
 
 
+def txfm_quant_plain(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
+                     tables: StageTables | None = None):
+    """Plain PyTorch version of K2's forward half; same arguments and
+    results as txfm_quant."""
+    n = pred.shape[-1]
+    tabs = tables if tables is not None else tables_for(n, pred.device)
+    x = _forward_plain(src, pred, v_adst, h_adst, bd, 1, tabs)
+    adj = min(n, 32)
+    return (_quant_plain(x, dq_dc, dq_ac)[:, :adj, :adj].contiguous(),
+            x[:, :adj, :adj].contiguous())
+
+
+def recon_from_levels_plain(levels, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
+                            tables: StageTables | None = None):
+    """Plain PyTorch version of K2's inverse half; same arguments and
+    results as recon_from_levels."""
+    L, n = pred.shape[0], pred.shape[-1]
+    tabs = tables if tables is not None else tables_for(n, pred.device)
+    adj = levels.shape[-1]
+    lv = levels
+    if adj < n:
+        lv = torch.zeros((L, n, n), dtype=torch.int32, device=levels.device)
+        lv[:, :adj, :adj] = levels
+    return _inverse_plain(lv, pred, v_adst, h_adst, dq_dc, dq_ac, bd, tabs)
+
+
 # ---------------------------------------------------------------------------
-# kernel wrapper
+# kernel wrappers
 # ---------------------------------------------------------------------------
+
+
+def _launch(stage: int, src, pred, v_adst, h_adst, levels, coeff, recon, sse, dq_dc: int,
+            dq_ac: int, bd: int, rep: int, tabs: StageTables) -> None:
+    L, n = pred.shape[0], pred.shape[-1]
+    s0, s1, s2 = T.FWD_SHIFTS[(n, n)]
+    sh_row, sh_col = T.INV_SHIFTS[(n, n)]
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    kernels.launch("txfm_quant_recon", ptr(src), pred.data_ptr(), v_adst.data_ptr(),
+                   h_adst.data_ptr(), tabs.packed.data_ptr(), levels.data_ptr(), ptr(coeff),
+                   ptr(recon), ptr(sse), stage, L, rep, n, -s0, -s1, -s2, sh_row, sh_col,
+                   int(dq_dc), int(dq_ac), quant_ops.tx_scale(n, n), bd, int(math.log2(n)),
+                   kernels.stream_ptr(pred))
+
+
+def _check_lanes(pred, v_adst, h_adst, tables):
+    L, n = pred.shape[0], pred.shape[-1]
+    if n not in SIZES or pred.shape[1:] != (n, n):
+        raise ValueError(f"txfm_quant_recon: square blocks of {SIZES} only, got {tuple(pred.shape)}")
+    kernels.check(pred, "pred", torch.int32)
+    kernels.check(v_adst, "v_adst", torch.bool, (L,))
+    kernels.check(h_adst, "h_adst", torch.bool, (L,))
+    return L, n, tables if tables is not None else tables_for(n, pred.device)
 
 
 def txfm_quant_recon(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
@@ -231,30 +306,49 @@ def txfm_quant_recon(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
     if pred.device.type == "cpu":
         return txfm_quant_recon_plain(src, pred, v_adst, h_adst, dq_dc, dq_ac, bd, rep,
                                       want_recon, want_sse, tables)
-    L, n = pred.shape[0], pred.shape[-1]
-    if n not in SIZES or pred.shape[1:] != (n, n):
-        raise ValueError(f"txfm_quant_recon: square blocks of {SIZES} only, got {tuple(pred.shape)}")
+    L, n, tabs = _check_lanes(pred, v_adst, h_adst, tables)
     if L % rep or src.shape[0] != L // rep:
         raise ValueError("txfm_quant_recon: src must hold L // rep blocks")
-    tabs = tables if tables is not None else tables_for(n, pred.device)
     kernels.check(src, "src", torch.int32, (L // rep, n, n))
-    kernels.check(pred, "pred", torch.int32)
-    kernels.check(v_adst, "v_adst", torch.bool, (L,))
-    kernels.check(h_adst, "h_adst", torch.bool, (L,))
     adj = min(n, 32)
     dev = pred.device
     levels = torch.empty((L, adj, adj), dtype=torch.int32, device=dev)
     recon = torch.empty((L, n, n), dtype=torch.int32, device=dev) if want_recon else None
     sse = torch.empty((L,), dtype=torch.int64, device=dev) if want_sse else None
-    s0, s1, s2 = T.FWD_SHIFTS[(n, n)]
-    sh_row, sh_col = T.INV_SHIFTS[(n, n)]
-    kernels.launch("txfm_quant_recon", src.data_ptr(), pred.data_ptr(), v_adst.data_ptr(),
-                   h_adst.data_ptr(), tabs.packed.data_ptr(), levels.data_ptr(),
-                   recon.data_ptr() if recon is not None else None,
-                   sse.data_ptr() if sse is not None else None,
-                   L, rep, n, -s0, -s1, -s2, sh_row, sh_col, int(dq_dc), int(dq_ac),
-                   quant_ops.tx_scale(n, n), bd, int(math.log2(n)), kernels.stream_ptr(pred))
+    _launch(0, src, pred, v_adst, h_adst, levels, None, recon, sse, dq_dc, dq_ac, bd, rep, tabs)
     return levels, recon, sse
+
+
+def txfm_quant(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
+               tables: StageTables | None = None):
+    """K2's forward half: transform and quantize L blocks (src and pred
+    (L, n, n) int32). Returns (levels, coeff), both (L, adj, adj) int32: the
+    levels clipped to +-32767 and the unquantized coefficients of the coded
+    region (adj = min(n, 32)), as RDOQ takes them."""
+    if pred.device.type == "cpu":
+        return txfm_quant_plain(src, pred, v_adst, h_adst, dq_dc, dq_ac, bd, tables)
+    L, n, tabs = _check_lanes(pred, v_adst, h_adst, tables)
+    kernels.check(src, "src", torch.int32, (L, n, n))
+    adj = min(n, 32)
+    levels = torch.empty((L, adj, adj), dtype=torch.int32, device=pred.device)
+    coeff = torch.empty_like(levels)
+    _launch(1, src, pred, v_adst, h_adst, levels, coeff, None, None, dq_dc, dq_ac, bd, 1, tabs)
+    return levels, coeff
+
+
+def recon_from_levels(levels, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
+                      tables: StageTables | None = None):
+    """K2's inverse half: dequantize (L, adj, adj) levels (zero outside the
+    coded region), inverse transform, add pred (L, n, n) and clip. Returns
+    the recon (L, n, n) int32."""
+    if pred.device.type == "cpu":
+        return recon_from_levels_plain(levels, pred, v_adst, h_adst, dq_dc, dq_ac, bd, tables)
+    L, n, tabs = _check_lanes(pred, v_adst, h_adst, tables)
+    adj = min(n, 32)
+    kernels.check(levels, "levels", torch.int32, (L, adj, adj))
+    recon = torch.empty((L, n, n), dtype=torch.int32, device=pred.device)
+    _launch(2, None, pred, v_adst, h_adst, levels, None, recon, None, dq_dc, dq_ac, bd, 1, tabs)
+    return recon
 
 
 def tx_flags(tx_type: int, L: int, device) -> tuple:

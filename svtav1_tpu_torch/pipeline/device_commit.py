@@ -17,13 +17,18 @@ collide.
 
 Per wave and size the device work is two kernels per plane group: K1
 predicts the chosen mode of every lane, K2 transforms, quantizes and
-reconstructs; the gathers and frontier writes are plain PyTorch. Lanes are
-sized by exact counts (the host knows each wave's lanes), so there are no
-pad lanes. After the filters (K4 deblocking, display-edge replication) the
-recon is packed to uint8 and fetched in one transfer.
+reconstructs; with RDOQ on, K2 runs as its forward half, K5 optimizes the
+levels and K2's inverse half reconstructs. The gathers and frontier writes
+are plain PyTorch. Lanes are sized by exact counts (the host knows each
+wave's lanes), so there are no pad lanes. The commit also leaves an 8x8
+skip map on the device for CDEF. The filters then run on the device: K4
+deblocking (with the frame-level luma level search), CDEF (K6 and K7, with
+its strength search), display-edge replication; the recon is packed to
+uint8 and fetched in one transfer.
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -31,6 +36,7 @@ import torch
 
 from ..codec.tile_codec import (BlockDecision, FrameParams, Plan, chroma_tx_type,
                                 chroma_tx_type_inter, max_uv_txsize)
+from ..constants.av1 import MAX_TXSIZE_RECT
 from ..ops import transforms_torch as TT
 from ..utils import profiler
 from .device_decide import MODES, SIZES, TX_SEARCH
@@ -179,12 +185,43 @@ def _tx_lanes(tx_idx, ntypes: int):
     return (tx_idx == 1) | (tx_idx == 2), (tx_idx == 1) | (tx_idx == 3)
 
 
+@functools.lru_cache(maxsize=None)
+def _rdoq_fns_cached(qctx: int, n: int, device: str):
+    from ..codec import rate_torch
+    from .device_decide import fc_for_qctx
+
+    fc = fc_for_qctx(qctx)
+    bsize = BSIZE_BY_N[n]
+    return (rate_torch.make_rdoq_fn(fc, int(MAX_TXSIZE_RECT[bsize]), 0, device=device),
+            rate_torch.make_rdoq_fn(fc, int(max_uv_txsize(bsize)), 1, txb_skip_ctx=7,
+                                    device=device))
+
+
+def _rdoq_fns(qctx: int, n: int, device):
+    """(luma, chroma) RDOQ tables of block size n, keyed on the
+    coefficient-CDF qindex bucket (reference device_commit._rdoq_fns)."""
+    return _rdoq_fns_cached(qctx, n, str(torch.device(device)))
+
+
+def _code(src, pred, va, ha, dq_dc: int, dq_ac: int, bd: int, rdoq_fn, lam):
+    """select_txfm + _quant_rdoq of the reference: (levels (L, adj, adj),
+    recon (L, n, n)); with rdoq_fn, K2's halves around K5, else fused K2."""
+    if rdoq_fn is None:
+        lv, rec, _ = TT.txfm_quant_recon(src, pred, va, ha, dq_dc, dq_ac, bd)
+        return lv, rec
+    lv, coeff = TT.txfm_quant(src, pred, va, ha, dq_dc, dq_ac, bd)
+    lv = rdoq_fn(lv, coeff, dq_dc, dq_ac, lam)
+    return lv, TT.recon_from_levels(lv, pred, va, ha, dq_dc, dq_ac, bd)
+
+
 def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
-                  bd: int, dq, tx_ntypes: int):
+                  bd: int, dq, tx_ntypes: int, lam: float, rdoq_qctx: int | None = None):
     """Phase B of the reference's _commit_device: the intra wavefront over
     all W waves, then recon and level assembly. src planes (F, H, W) on the
-    device (region crop). Returns (levels int16 packed in sched order,
-    recon y, u, v (F, AH, AW) int32)."""
+    device (region crop); rdoq_qctx: the coefficient-CDF bucket of the RDOQ
+    tables, None for no RDOQ. Returns (levels int16 packed in sched order,
+    recon y, u, v (F, AH, AW) int32, skip8 (F, R8, C8) bool: every plane's
+    levels zero in the block covering the 8x8 cell)."""
     dev = src_y8.device
     F = src_y8.shape[0]
     AW, AH = C8 * 8, R8 * 8
@@ -260,9 +297,10 @@ def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
         # luma: K1 predicts the chosen mode of every lane, K2 codes it
         ar, lc, tl = edges_from(0, fidx, r8, c8, ha, hl, x, y, n)
         pred = predict(ar, lc, tl, ha, hl, n, mode=mode)
+        rq_y, rq_uv = _rdoq_fns(rdoq_qctx, n, dev) if rdoq_qctx is not None else (None, None)
         va, hv = _tx_lanes(L["tx"][a:b], tx_ntypes if n <= 16 else 1)
-        lv_y, rec_y, _ = TT.txfm_quant_recon(src_blocks(0, fidx, x, y, n), pred, va, hv,
-                                             dq_dc, dq_ac, bd)
+        lv_y, rec_y = _code(src_blocks(0, fidx, x, y, n), pred, va, hv, dq_dc, dq_ac, bd, rq_y,
+                            lam)
         # chroma (uv_mode = y mode; tx type derived per mode): u and v are
         # stacked into one 2*cnt-lane batch
         xc, yc = x // 2, y // 2
@@ -274,7 +312,7 @@ def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
         suv = torch.cat([src_blocks(1, fidx, xc, yc, nc), src_blocks(2, fidx, xc, yc, nc)])
         uv_tx = L["uv_tx"][a:b]
         va, hv = _tx_lanes(torch.cat([uv_tx, uv_tx]), 4 if nc <= 16 else 1)
-        lv_uv, rec_uv, _ = TT.txfm_quant_recon(suv, puv, va, hv, dq_dc, dq_ac, bd)
+        lv_uv, rec_uv = _code(suv, puv, va, hv, dq_dc, dq_ac, bd, rq_uv, lam)
         rec_u, rec_v = rec_uv[:cnt], rec_uv[cnt:]
         L["ly"][a:b] = lv_y
         L["lu"][a:b] = lv_uv[:cnt]
@@ -298,11 +336,13 @@ def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
         if busy:  # counts of "commit/wave" are the waves with work
             profiler.add("commit/wave", time.perf_counter() - t0)
 
-    # assemble recon planes (one index write per size/plane) and pack levels
+    # assemble recon planes (one index write per size/plane), the skip map,
+    # and pack levels
     recon = [zeros(F, AH, AW), zeros(F, AH // 2, AW // 2), zeros(F, AH // 2, AW // 2)]
+    skip8 = torch.zeros((F, R8, C8), dtype=torch.bool, device=dev)
     parts = []
     for n, L in lanes.items():
-        nc = n // 2
+        nc, n8 = n // 2, n // 8
         coords = L["coords"]
         fi, r8, c8 = coords[:, 0, None, None], coords[:, 1], coords[:, 2]
         for pl, m, cell, key in ((0, n, 8, "ry"), (1, nc, 4, "ru"), (2, nc, 4, "rv")):
@@ -310,19 +350,26 @@ def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
             yy = (r8 * cell)[:, None, None] + ar_m[None, :, None]
             xx = (c8 * cell)[:, None, None] + ar_m[None, None, :]
             recon[pl][fi, yy, xx] = L[key]
+        blk_skip = (L["ly"].abs().sum(dim=(1, 2)) + L["lu"].abs().sum(dim=(1, 2))
+                    + L["lv"].abs().sum(dim=(1, 2))) == 0
+        ar8 = ar_cache[n8]
+        rr8 = r8[:, None, None] + ar8[None, :, None]
+        cc8 = c8[:, None, None] + ar8[None, None, :]
+        skip8[fi, rr8, cc8] = blk_skip[:, None, None].expand(-1, n8, n8)
         parts += [L["ly"].reshape(-1), L["lu"].reshape(-1), L["lv"].reshape(-1)]
-    return torch.cat(parts).to(torch.int16), recon[0], recon[1], recon[2]
+    return torch.cat(parts).to(torch.int16), recon[0], recon[1], recon[2], skip8
 
 
 def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, region,
                    array_out: bool = False):
     """Commit the decided leaves of one region: fills plans in place (or,
     with array_out, returns the op-stream arrays) and returns the region's
-    DEVICE recon planes (ry, ru, rv).
+    DEVICE recon planes and skip map (ry, ru, rv, skip8).
 
     `src_dev` are put_frames() (F, H, W) device planes; `leaves`/`dec`/
     `plans` are per-frame lists. One d2h transfer (levels int16) for the
     whole batch; recon stays on the device for the filter stage."""
+    from ..constants.cdf import get_q_ctx
     from .device_decide import qparams_np
 
     p = params
@@ -333,10 +380,11 @@ def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, regio
     sy = src_dev[0][:, y0 : y0 + rh, x0 : x0 + rw]
     su = src_dev[1][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
     sv = src_dev[2][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
-    dqv, _lam = qparams_np(p.qindex, p.bd)
+    dqv, lam = qparams_np(p.qindex, p.bd)
     with profiler.stage("commit/device"):
-        levels_dev, ry, ru, rv = _commit_intra(sy, su, sv, sched_np, W, R8, C8, p.bd, dqv,
-                                               int(p.sf_tx_ntypes))
+        levels_dev, ry, ru, rv, skip8 = _commit_intra(
+            sy, su, sv, sched_np, W, R8, C8, p.bd, dqv, int(p.sf_tx_ntypes), float(lam),
+            get_q_ctx(p.qindex) if p.enable_rdoq else None)
         levels_packed = levels_dev.cpu().numpy()
 
     if array_out:
@@ -344,7 +392,7 @@ def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, regio
         # the aux dict
         aux = dict(sched=sched_np, ref_ids=None, levels_raw=levels_packed)
         finish_levels(aux)
-        return ry, ru, rv, aux
+        return ry, ru, rv, skip8, aux
     _t_unpack = time.perf_counter()
     off = 0
     for n, s in sched_np.items():
@@ -370,21 +418,33 @@ def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, regio
                 levels_v=None if sk else lvv[i])
             plans[int(fs[i])].blocks[(mi_row, mi_col, BSIZE_BY_N[n])] = d
     profiler.add("commit/unpack_plan", time.perf_counter() - _t_unpack)
-    return ry, ru, rv
+    return ry, ru, rv, skip8
 
 
-def _filter_device(ry, ru, rv, flens: list, levels: tuple, sharpness: int, bd: int,
-                   disp_dims=None):
-    """In-loop filters on the device: DLF (K4, vertical then horizontal
-    edges per plane, by-q levels, no level search), then display-edge
-    replication (spec 7.11.3.4 MC clamp; encoder.replicate_display_edges
-    twin) when disp_dims=(width, height), then the pack to one uint8 (bd 8)
-    or int16 buffer. flens: the six filter-length maps (plane, pass) as
-    (F, rows/4, K) int32 device tensors. Returns the packed buffer."""
-    from ..filters import dlf_torch
+def _filter_device(ry, ru, rv, src_y8, skip8, flens: list, levels: tuple, sharpness: int,
+                   bd: int, damping: int, enable_cdef: bool, disp_dims=None, cdef_cands: int = 0,
+                   lf_search: tuple = ()):
+    """In-loop filters on the device (reference _filter_device): DLF (K4,
+    vertical then horizontal edges per plane), then CDEF search and apply
+    (K6, K7), then display-edge replication (spec 7.11.3.4 MC clamp;
+    encoder.replicate_display_edges twin) when disp_dims=(width, height),
+    then the pack to one uint8 (bd 8) or int16 buffer.
 
+    flens: the six filter-length maps (plane, pass) as (F, rows/4, K) int32
+    device tensors; src_y8 (F, H, W) source luma; skip8 (F, H/8, W/8) bool.
+    lf_search: candidate luma levels (ascending); each is applied and the
+    one with the least luma SSE against the source wins per frame (ties to
+    the smaller level; the SSE is an exact int64 sum). Empty: apply
+    levels[0] / levels[1]. Returns (packed, stats (F, 5) int32 device tensor
+    [cdef y_pri, y_sec, uv_pri, uv_sec, lf_pick] with lf_pick the chosen
+    lf_search index or -1)."""
+    from ..filters import cdef_torch, dlf_torch
+
+    F = ry.shape[0]
+    dev = ry.device
     planes = [ry, ru, rv]
-    if any(levels):
+    lf_pick = torch.full((F,), -1, dtype=torch.int32, device=dev)
+    if any(levels) or lf_search:
         def dlf_plane(pl, fi, lvl_v, lvl_h):
             if lvl_v:
                 lim, blim, thr = dlf_torch._limits(lvl_v, sharpness)
@@ -396,9 +456,24 @@ def _filter_device(ry, ru, rv, flens: list, levels: tuple, sharpness: int, bd: i
                 pl = plT.transpose(1, 2)
             return pl
 
-        planes = [dlf_plane(planes[0], 0, levels[0], levels[1]),
+        if lf_search:
+            src_y = src_y8.to(torch.int32)
+            cands = [dlf_plane(planes[0], 0, lvl, lvl) for lvl in lf_search]
+            sses = torch.stack([((c - src_y).to(torch.int64) ** 2).sum(dim=(1, 2))
+                                for c in cands])  # (K, F)
+            lf_pick = torch.argmin(sses, dim=0).to(torch.int32)
+            y_out = torch.stack(cands)[lf_pick.long(), torch.arange(F, device=dev)]
+        else:
+            y_out = dlf_plane(planes[0], 0, levels[0], levels[1])
+        planes = [y_out,
                   dlf_plane(planes[1], 2, levels[2], levels[2]),
                   dlf_plane(planes[2], 4, levels[3], levels[3])]
+    if enable_cdef:
+        planes, strengths = cdef_torch.cdef_frames(
+            [pl.contiguous() for pl in planes], src_y8.to(torch.int32), ~skip8, damping, bd=bd,
+            n_cand=cdef_cands)
+    else:
+        strengths = torch.zeros((F, 4), dtype=torch.int32, device=dev)
     if disp_dims is not None:
         w, h = disp_dims
         out = []
@@ -412,7 +487,8 @@ def _filter_device(ry, ru, rv, flens: list, levels: tuple, sharpness: int, bd: i
             out.append(pl)
         planes = out
     odt = torch.uint8 if bd == 8 else torch.int16
-    return torch.cat([pl.to(odt).reshape(-1) for pl in planes])
+    packed = torch.cat([pl.to(odt).reshape(-1) for pl in planes])
+    return packed, torch.cat([strengths.to(torch.int32), lf_pick[:, None]], dim=1)
 
 
 def _lf_candidates(base: int) -> tuple:
@@ -434,19 +510,22 @@ def _size_maps(leaves, F: int, R8: int, C8: int) -> np.ndarray:
 
 
 def encode_intra_frames(src_frames: list, params: FrameParams, device,
-                        apply_filters: bool = False, use_arrays: bool | None = None,
+                        apply_filters: bool = False, enable_dlf: bool = True,
+                        enable_cdef: bool = True, use_arrays: bool | None = None,
                         walk_fcs: list | None = None):
     """Device intra encoder over a BATCH of independent frames on `device`:
     batched open-loop decide at all sizes, host partition DP per frame,
-    wavefront commit, then (apply_filters) DLF with the by-q levels and
-    p.lf_sharpness + display-edge replication, and the entropy payloads
-    built by the vectorized array-plan path with the native walker (None
-    when it is unavailable — the caller then walks the Plan). CDEF is not
-    in this slice.
+    wavefront commit, then (apply_filters) DLF with the by-q levels (the
+    luma level searched when p.sf_dlf_search) and p.lf_sharpness, CDEF with
+    its strength search (the 4-entry ladder when p.sf_cdef_fast), and
+    display-edge replication; the entropy payloads are built by the
+    vectorized array-plan path with the native walker (None when it is
+    unavailable — the caller then walks the Plan).
 
     Returns [(plan, recon, filt, payloads), ...] per frame: filt =
-    dict(lf_levels, cdef=(0, 0, 0, 0, damping)) when apply_filters else None.
-    src_frames: list of [y, u, v] plane lists (aligned dims)."""
+    dict(lf_levels, cdef=(y_pri, y_sec, uv_pri, uv_sec, damping)) when
+    apply_filters else None. src_frames: list of [y, u, v] plane lists
+    (aligned dims)."""
     from ..codec import array_plan
     from ..codec.tile_walk_native import run_tile_ops
     from ..constants.cdf import FrameContext
@@ -458,9 +537,6 @@ def encode_intra_frames(src_frames: list, params: FrameParams, device,
     from .intra_md import rd_lambda
 
     p = params
-    if p.sf_dlf_search:
-        raise NotImplementedError("DLF level search: ROADMAP queue 1, 'DLF level search' "
-                                  "— not ported yet")
     if len(p.tiles()) > 1:
         raise NotImplementedError("tiles: ROADMAP queue 1, 'tiles' — not ported yet")
     F = len(src_frames)
@@ -486,28 +562,37 @@ def encode_intra_frames(src_frames: list, params: FrameParams, device,
     out = commit_regions(src_dev, p, leaves, decs, plans, region, array_out=use_arrays)
     payloads = [None] * F
     if use_arrays:
-        ry, ru, rv, aux = out
+        ry, ru, rv, skip8, aux = out
         with profiler.stage("entropy_walk"):
             tiles = p.tiles()[0]
             payloads = [[run_tile_ops(p, walk_fcs[f], array_plan.build_tile_ops(
                 p, trees[f], aux["sched"], aux["level_base"], f, region, tiles, None,
                 TX_SEARCH, MODES)[0], aux["levels_i32"], tiles)] for f in range(F)]
     else:
-        ry, ru, rv = out
+        ry, ru, rv, skip8 = out
 
     filt = [None] * F
     with profiler.stage("filter"):
         if apply_filters:
-            levels = dlf_mod.pick_filter_levels(p.qindex, p.bd, True, p.height)
+            levels = (dlf_mod.pick_filter_levels(p.qindex, p.bd, True, p.height)
+                      if enable_dlf else (0, 0, 0, 0))
             sm = _size_maps(leaves, F, ah // 8, aw // 8)
             flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr),
                                      dtype=torch.int32, device=ry.device)
                      for plane in range(3) for tr in (False, True)]
-            packed = _filter_device(ry, ru, rv, flens, tuple(levels), p.lf_sharpness, p.bd,
-                                    disp_dims=(p.width, p.height))
             damping = cdef_mod.pick_damping(p.qindex)
-            filt = [dict(lf_levels=tuple(levels), cdef=(0, 0, 0, 0, damping))
-                    for _ in range(F)]
+            lf_search = _lf_candidates(levels[0]) if p.sf_dlf_search else ()
+            packed, stats = _filter_device(
+                ry, ru, rv, src_dev[0], skip8, flens, tuple(levels), p.lf_sharpness, p.bd,
+                damping, enable_cdef, disp_dims=(p.width, p.height),
+                cdef_cands=4 if p.sf_cdef_fast else 0, lf_search=lf_search)
+            stats = stats.cpu().numpy()
+            filt = []
+            for f in range(F):
+                ylvl = lf_search[int(stats[f, 4])] if lf_search else levels[0]
+                filt.append(dict(lf_levels=(ylvl, ylvl, levels[2], levels[3]),
+                                 cdef=(int(stats[f, 0]), int(stats[f, 1]),
+                                       int(stats[f, 2]), int(stats[f, 3]), damping)))
         else:
             odt = torch.uint8 if p.bd == 8 else torch.int16
             packed = torch.cat([ry.to(odt).reshape(-1), ru.to(odt).reshape(-1),

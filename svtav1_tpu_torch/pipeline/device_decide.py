@@ -6,10 +6,9 @@ batch per size, using source pixels as intra neighbours and exact CDF-LUT
 rates. The device work runs in three kernels: K1 predicts all modes, K2
 transforms, quantizes, reconstructs and takes the SSE, K3 counts the
 coefficient bits; the glue (neighbour gathers, RD cost, argmin) is plain
-PyTorch. Partition RD is the host quadtree DP over the per-size cost grids.
-
-This slice decides key frames with the fast preset's mode set: 7
-non-directional modes and DCT-only luma transforms (no tx-type search).
+PyTorch. The winning mode of each block up to 16x16 then tries the other
+luma tx types of TX_SEARCH (medium and slow presets). Partition RD is the
+host quadtree DP over the per-size cost grids.
 """
 from __future__ import annotations
 
@@ -25,7 +24,7 @@ from ..constants.av1 import MAX_TXSIZE_RECT, TxType
 from ..ops import quantize as quant_ops
 from ..ops import transforms_torch as TT
 from . import intra_md
-from .intra_device import BSIZE_BY_N, NMODES_MAX, _predict_modes, predict
+from .intra_device import BSIZE_BY_N, _predict_modes, predict
 
 MODES = [int(m) for m in intra_md.MODES]  # 13: DC,V,H,SMOOTH*,PAETH,D45..D67
 SIZES = (8, 16, 32, 64)
@@ -44,9 +43,20 @@ def put_frames(srcs, bd: int, device):
 def _penalty_grid_np(p: FrameParams, y0: int, x0: int, R: int, C: int, n: int,
                      region, mi_end) -> np.ndarray:
     """Vectorized _mode_penalty_grid (the r1 version loops in Python — at
-    1080p/8px that is 32k iterations per frame). Same semantics: +BIG on
-    D45/D67 where the decoder would read real top-right pixels the wavefront
-    cannot schedule, and on D203 for bottom-left."""
+    1080p/8px that is 32k iterations per frame): +BIG on D45/D67 where the
+    decoder would read real top-right pixels the wavefront cannot schedule,
+    and on D203 for bottom-left.
+
+    The reference's vectorized grid reads the availability tables at a
+    64px-grid index, where the tables (and ops/intra.py's
+    intra_has_top_right / intra_has_bottom_left, which the decoder uses) are
+    laid out on the 128px grid, and skips the bottom-row rule of
+    has_bottom_left; its grid therefore both penalizes some legal modes and
+    misses some that the decoder predicts from real pixels, and the stream
+    then decodes to another recon. The port penalizes the union of the
+    reference's grid and the decoder's rule: every choice the decoder
+    reproduces is kept as the reference makes it, and the others are
+    excluded (ROADMAP queue 3)."""
     from ..ops.intra import _avail_tables
 
     bsize = BSIZE_BY_N[n]
@@ -67,23 +77,23 @@ def _penalty_grid_np(p: FrameParams, y0: int, x0: int, R: int, C: int, n: int,
     blk_col = (mi_col & 15) >> bwl
     tabs = _avail_tables()
 
-    def table_bit(name):
+    def table_bit(name, grid_log2):
         tbl = tabs[name]
-        idx = (blk_row << (4 - bwl)) + blk_col
+        idx = (blk_row << (grid_log2 - bwl)) + blk_col
         return ((tbl[idx // 8] >> (idx % 8)) & 1).astype(bool)
 
-    # has_top_right
+    # has_top_right: the reference's grid (64px index) and the decoder's rule
     tr = ha & right_av
     interior = blk_row > 0
     edge_block = ((blk_col + 1) << bwl) >= 16
-    ttr = table_bit(f"has_tr_{n}x{n}")
-    has_tr = tr & (~interior | (~edge_block & ttr))
-    # has_bottom_left
+    has_tr = tr & (~interior | (~edge_block & (table_bit(f"has_tr_{n}x{n}", 4)
+                                                | table_bit(f"has_tr_{n}x{n}", 5))))
+    # has_bottom_left: likewise, the decoder's rule adding the bottom row
     bl = bottom_av & hl
     col0 = blk_col == 0
     col0_ok = ((blk_row + 1) << bwl) < 16
-    tbl_ = table_bit(f"has_bl_{n}x{n}")
-    has_bl = bl & np.where(col0, col0_ok, tbl_)
+    spec_bl = col0_ok & table_bit(f"has_bl_{n}x{n}", 5)
+    has_bl = bl & np.where(col0, col0_ok, table_bit(f"has_bl_{n}x{n}", 4) | spec_bl)
 
     pen = np.zeros((R, C, 13), np.float32)
     pen[:, :, 7] = np.where(has_tr, BIG, 0)   # D45
@@ -114,11 +124,11 @@ def _blocks_of(planes, n: int, R: int, C: int):
         .permute(0, 1, 3, 2, 4).reshape(-1, n, n).contiguous()
 
 
-def _eval_txfm(src, pred, dq, bd: int, rate_fn, rep: int = 1):
-    """DCT transform + quant + recon of the residual src - pred (lane i uses
+def _eval_txfm(src, pred, dq, bd: int, rate_fn, rep: int = 1, tx_type: int = int(TxType.DCT_DCT)):
+    """Transform + quant + recon of the residual src - pred (lane i uses
     src[i // rep]); returns (rate bits, integer SSE as float32) per lane."""
     L = pred.shape[0]
-    va, ha = TT.tx_flags(int(TxType.DCT_DCT), L, pred.device)
+    va, ha = TT.tx_flags(tx_type, L, pred.device)
     lv, _rec, sse = TT.txfm_quant_recon(src, pred, va, ha, dq[0], dq[1], bd, rep=rep,
                                         want_recon=False, want_sse=True)
     return rate_fn(lv), sse.to(torch.float32)
@@ -176,13 +186,14 @@ def intra_txtype_cost_const(fc, n: int) -> np.ndarray:
 
 
 def _decide_intra_size(src_y, src_u, src_v, pen, mode_cost, txt_cost,
-                       n: int, rate_fns, dq, bd: int, R: int, C: int, lam, nmodes: int = 7):
+                       n: int, rate_fns, dq, bd: int, R: int, C: int, lam, nmodes: int = 13,
+                       tx_ntypes: int = 4):
     """Batched open-loop intra decision for all (R, C) blocks of size n of
     all F frames (src planes are (F, H, W) int32 on the device).
 
     Returns (cost, mode_idx, tx_idx): cost (F, R, C) float32 total RD cost
-    (luma + chroma + mode bits + skip flag), mode_idx (F, R, C) int32 into
-    MODES, tx_idx (F, R, C) int32 into TX_SEARCH (always 0: DCT only)."""
+    (luma incl. tx search + chroma + mode bits + skip flag), mode_idx (F, R,
+    C) int32 into MODES, tx_idx (F, R, C) int32 into TX_SEARCH."""
     dev = src_y.device
     F = src_y.shape[0]
     B = F * R * C
@@ -207,14 +218,26 @@ def _decide_intra_size(src_y, src_u, src_v, pen, mode_cost, txt_cost,
     preds = _predict_modes(above, left, tl, ha, hl, n, nmodes=nmodes)  # (B, nm, n, n)
     srcb = _blocks_of(src_y, n, R, C)
     rate, dist = _eval_txfm(srcb, preds.reshape(B * nmodes, n, n), dq, bd,
-                                 rate_fns["y"][0], rep=nmodes)
+                            rate_fns["y"][0], rep=nmodes)
     rate, dist = rate.reshape(B, nmodes), dist.reshape(B, nmodes)
     penB = pen[..., :nmodes].reshape(1, R * C, nmodes).expand(F, R * C, nmodes).reshape(B, nmodes)
-    cost7 = dist + lam * (rate + mode_cost[None, :nmodes] + txt_cost[None, :nmodes, 0]) + penB
-    best_mode = torch.argmin(cost7, dim=1)
+    costs = dist + lam * (rate + mode_cost[None, :nmodes] + txt_cost[None, :nmodes, 0]) + penB
+    best_mode = torch.argmin(costs, dim=1)
     bi = torch.arange(B, device=dev)
-    best_cost = cost7[bi, best_mode]
+    best_cost = costs[bi, best_mode]
+    best_tx = torch.zeros(B, dtype=torch.int32, device=dev)
     mode32 = best_mode.to(torch.int32)
+
+    # luma tx-type search on the winning mode (sizes with a non-DCT set)
+    if n <= 16 and tx_ntypes > 1:
+        best_pred = preds[bi, best_mode].contiguous()
+        for j, t in enumerate(TX_SEARCH[1:tx_ntypes], start=1):
+            ratej, dj = _eval_txfm(srcb, best_pred, dq, bd, rate_fns["y"][j], tx_type=t)
+            cj = dj + lam * (ratej + mode_cost[best_mode] + txt_cost[best_mode, j]) + \
+                penB[bi, best_mode]
+            take = cj < best_cost
+            best_cost = torch.where(take, cj, best_cost)
+            best_tx = torch.where(take, j, best_tx)
 
     # chroma (uv_mode = y mode), cost at derived-DCT approximation; u and v
     # are predicted and transformed as one 2B-lane batch
@@ -227,8 +250,7 @@ def _decide_intra_size(src_y, src_u, src_v, pen, mode_cost, txt_cost,
     for k in range(2):
         best_cost = best_cost + distc[k * B:(k + 1) * B] + lam * ratec[k * B:(k + 1) * B]
     best_cost = best_cost + lam * 1.0  # skip flag
-    return (best_cost.reshape(F, R, C), mode32.reshape(F, R, C),
-            torch.zeros((F, R, C), dtype=torch.int32, device=dev))
+    return best_cost.reshape(F, R, C), mode32.reshape(F, R, C), best_tx.reshape(F, R, C)
 
 
 # FrameContext default CDFs depend on qindex ONLY through the 4-bucket
@@ -250,13 +272,14 @@ def _rate_fns_cached(qctx: int, n: int, device: str):
     tx_y = int(MAX_TXSIZE_RECT[bsize])
     tx_uv = int(max_uv_txsize(bsize))
     return {
-        "y": [rate_torch.make_txb_bits_fn(fc, tx_y, int(TxType.DCT_DCT), 0, 0, 0, device=device)],
+        "y": [rate_torch.make_txb_bits_fn(fc, tx_y, t, 0, 0, 0, device=device) for t in TX_SEARCH],
         "uv": rate_torch.make_txb_bits_fn(fc, tx_uv, int(TxType.DCT_DCT), 1, 7, 0, device=device),
     }
 
 
 def _rate_fns(qctx: int, n: int, device):
-    """{'y': [luma DCT rate tables], 'uv': chroma rate tables} per size."""
+    """{'y': luma rate tables per TX_SEARCH type, 'uv': chroma rate tables}
+    per size."""
     return _rate_fns_cached(qctx, n, str(torch.device(device)))
 
 
@@ -270,7 +293,7 @@ def qparams_np(qindex: int, bd: int):
 
 @functools.lru_cache(maxsize=64)
 def _decide_region(width: int, height: int, region, qctx: int, bd: int, is_key: bool,
-                   device: str, nmodes: int = 7):
+                   device: str, nmodes: int = 13, tx_ntypes: int = 4):
     """Build the region's decide with all per-frame constants (penalty
     grids, mode/tx rate tables) on the device once; qindex enters as runtime
     operands (dqv, lam). Returns (run, layout)."""
@@ -299,7 +322,8 @@ def _decide_region(width: int, height: int, region, qctx: int, bd: int, is_key: 
         for n, R, C in layout:
             pen, mode_cost, txt_cost, rate_fns = consts[n]
             cost, mode, tx = _decide_intra_size(sy, su, sv, pen, mode_cost, txt_cost, n,
-                                                rate_fns, dq, bd, R, C, lam_t, nmodes=nmodes)
+                                                rate_fns, dq, bd, R, C, lam_t, nmodes=nmodes,
+                                                tx_ntypes=tx_ntypes)
             packed += [cost.ravel(), mode.to(torch.float32).ravel(), tx.to(torch.float32).ravel()]
         return torch.cat(packed)
 
@@ -313,12 +337,6 @@ def decide_intra_frames(src_dev, params: FrameParams, region=None) -> list:
     list of F per-frame dicts {n: dict(cost, mode, tx)} over the region's
     (R_n, C_n) grid, fetched in ONE transfer."""
     p = params
-    if int(p.sf_nmodes_key) > NMODES_MAX:
-        raise NotImplementedError("directional intra modes (dr_pred): ROADMAP queue 1, "
-                                  "'directional modes' — not ported yet")
-    if int(p.sf_tx_ntypes) > 1:
-        raise NotImplementedError("luma tx-type search: ROADMAP queue 1, "
-                                  "'luma tx-type search' — not ported yet")
     region = region if region is not None else (0, 0, p.aligned_width, p.aligned_height)
     x0, y0, rw, rh = region
     F = src_dev[0].shape[0]
@@ -329,7 +347,7 @@ def decide_intra_frames(src_dev, params: FrameParams, region=None) -> list:
 
     run, layout = _decide_region(p.width, p.height, region, get_q_ctx(p.qindex), p.bd,
                                  bool(p.frame_is_intra), str(sy.device),
-                                 nmodes=int(p.sf_nmodes_key))
+                                 nmodes=int(p.sf_nmodes_key), tx_ntypes=int(p.sf_tx_ntypes))
     dqv, lam_op = qparams_np(p.qindex, p.bd)
     flat = run(sy, su, sv, dqv, lam_op).cpu().numpy()
     out = [{} for _ in range(F)]

@@ -7,9 +7,9 @@ that become ready, `flush` drains the tail, `encode_frame` is the
 synchronous helper. Every frame is a key frame coded by
 `device_commit.encode_intra_frames` on `device`.
 
-This slice supports `keyint=1`, `preset="fast"`, 8-bit, CQP, one tile, DLF
-on or off, CDEF off. Every other setting raises NotImplementedError naming
-the ROADMAP item that brings it.
+This slice supports `keyint=1` with every preset ("fast", "medium", "slow"),
+8-bit, CQP, one tile, DLF and CDEF each on or off. Every other setting
+raises NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -48,20 +48,24 @@ class EncoderConfig:
     film_grain_table: str | None = None  # explicit aomenc "filmgrn1" table
 
 
-# preset -> speed features of the reference's ladder; this slice runs "fast"
-# (7 key modes, DCT-only luma, no DLF level search; its RDOQ is off)
+# preset -> speed features of the reference's ladder (svtav1_tpu's
+# pipeline/encoder.py PRESETS); key frames read sf_nmodes_key, sf_tx_ntypes,
+# sf_cdef_fast and sf_dlf_search, so "slow" codes them like "medium"
 PRESETS = {
     "fast": dict(sf_nmodes_inter=4, sf_nmodes_key=7, sf_tx_ntypes=1,
                  sf_fast_subpel=1, sf_cdef_fast=1, sf_dlf_search=0),
+    "medium": dict(sf_nmodes_inter=7, sf_nmodes_key=13, sf_tx_ntypes=4,
+                   sf_fast_subpel=1, sf_cdef_fast=0, sf_dlf_search=1),
+    "slow": dict(sf_nmodes_inter=13, sf_nmodes_key=13, sf_tx_ntypes=4,
+                 sf_fast_subpel=0, sf_cdef_fast=0, sf_dlf_search=1),
 }
+# preset -> batched RDOQ in the commit (the reference's PRESETS "rdoq")
+PRESET_RDOQ = {"fast": False, "medium": True, "slow": True}
 
 # setting -> (is it outside this slice?, the ROADMAP queue 1 item that brings it)
 _UNSUPPORTED = (
     (lambda c: c.keyint != 1, "keyint != 1 (inter frames)", "the inter path"),
     (lambda c: c.minigop != 1, "minigop != 1", "hierarchical-B/compound"),
-    (lambda c: c.preset != "fast", "preset != 'fast'",
-     "directional modes, luma tx-type search, RDOQ, DLF level search"),
-    (lambda c: c.enable_cdef, "enable_cdef", "CDEF"),
     (lambda c: c.enable_restoration, "enable_restoration", "restoration"),
     (lambda c: c.enable_tf, "enable_tf", "MCTF"),
     (lambda c: c.scene_cut, "scene_cut", "the inter path"),
@@ -130,6 +134,8 @@ class Encoder:
         # (always a multiple of 8) and cropped at display per the spec
         if cfg.width % 2 or cfg.height % 2:
             raise ValueError("4:2:0 requires even dims")
+        if cfg.preset not in PRESETS:
+            raise ValueError(f"unknown preset {cfg.preset!r}: one of {sorted(PRESETS)}")
         for outside, what, item in _UNSUPPORTED:
             if outside(cfg):
                 raise NotImplementedError(
@@ -138,6 +144,7 @@ class Encoder:
         self.device = resolve_device(device)
         self.cfg = cfg
         self._sf = PRESETS[cfg.preset]
+        self._rdoq = PRESET_RDOQ[cfg.preset]
         self.seq = SequenceConfig(width=cfg.width, height=cfg.height, bd=cfg.bd,
                                   enable_cdef=cfg.enable_cdef,
                                   enable_restoration=cfg.enable_restoration,
@@ -186,10 +193,11 @@ class Encoder:
             lf_levels = dlf.pick_filter_levels(qindex, cfg.bd, True, cfg.height)
         p = FrameParams(width=cfg.width, height=cfg.height, qindex=qindex, bd=cfg.bd,
                         frame_is_intra=True, order_hint=order_hint, ref_hints=(0,) * 8,
-                        lf_levels=lf_levels, enable_rdoq=False, **self._sf)
+                        lf_levels=lf_levels, enable_rdoq=self._rdoq, **self._sf)
         walk_fc = FrameContext(p.qindex)
         plan, recon, filt, payloads = device_commit.encode_intra_frames(
-            [src], p, self.device, apply_filters=cfg.enable_dlf, walk_fcs=[walk_fc])[0]
+            [src], p, self.device, apply_filters=cfg.enable_dlf or cfg.enable_cdef,
+            enable_dlf=cfg.enable_dlf, enable_cdef=cfg.enable_cdef, walk_fcs=[walk_fc])[0]
         if payloads is None:
             with profiler.stage("entropy_walk"):
                 payloads = [TileCodec(p, walk_fc, tile=p.tiles()[0]).encode(plan)]

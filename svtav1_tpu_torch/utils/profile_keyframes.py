@@ -1,17 +1,20 @@
 """Where the time of a key-frame encode goes on the card.
 
 Encodes one warm frame, then N frames of the synthetic clip through
-Encoder(device="cuda") in the slice configuration twice: untraced, for the
-wall time, and under torch.profiler, for the device time. Prints one JSON
-line: wall seconds per frame (untraced and traced: their difference is the
-tracing cost), the device's busy share (the device-side kernel and copy
+Encoder(device="cuda") at a preset (default medium, with DLF, CDEF and RDOQ
+on) twice: untraced, for the wall time, and under torch.profiler, for the
+device time. Prints one JSON line: wall seconds per frame (untraced and
+traced: their difference is the tracing cost), the device's busy share (the device-side kernel and copy
 time of the traced frames, one stream, over the untraced wall time),
 device milliseconds per frame of the busiest device functions, host seconds
-per pipeline stage (utils.profiler, untraced), and the card's name and
-power limit.
+per pipeline stage (utils.profiler, untraced), per stage (decide, commit,
+filter) the launches of each kernel and the sum of their bounds (the least
+time the card could take for each launch's work, from its arguments), and
+the card's name and power limit.
 
 Run on a GPU machine from the repository root:
-    python -m svtav1_tpu_torch.utils.profile_keyframes --width 1920 --height 1080 --frames 2
+    python -m svtav1_tpu_torch.utils.profile_keyframes --preset medium --frames 2
+    python -m svtav1_tpu_torch.utils.profile_keyframes --preset fast --no-cdef
 """
 from __future__ import annotations
 
@@ -21,6 +24,95 @@ import subprocess
 import sys
 import time
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+INT32_OPS_PER_S = 33.5e12  # half the 67 TFLOP/s float32 rate (64 INT32 lanes/SM/clock)
+
+
+def launch_bound(name: str, args: tuple) -> tuple[float, float]:
+    """(bytes, int32 operations) of one kernel launch from its C arguments
+    (kernels.ARGTYPES order): each input read once, each output written
+    once, and the arithmetic per element that chip_smoke.py also counts."""
+    if name == "intra_pred":
+        B, n, nmodes, one = args[9], args[10], args[12], args[5] is not None
+        out = B * (1 if one else nmodes) * n * n
+        return B * (2 * n + 1) * 4 + 2 * B + 4 * B * one + out * 4, out * 10
+    if name == "txfm_quant_recon":
+        from ..ops import transforms_torch as TT
+
+        coeff, recon, sse, stage, L, rep, n = args[6:13]
+        adj = min(n, 32)
+        tabs = TT.tables_for(n, "cpu")
+        nst = sum(len(v) for v in tabs.stages.values()) / max(len(tabs.stages), 1)
+        ops = L * (4 * nst * n * n * 5 + 40 * n * n)
+        if stage == 1:
+            return 2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L, ops / 2
+        if stage == 2:
+            return L * adj * adj * 4 + 2 * L * n * n * 4 + 2 * L, ops / 2
+        return ((L // rep + L) * n * n * 4 + L * adj * adj * 4 + (L * n * n * 4 if recon else 0)
+                + (8 * L if sse else 0) + 2 * L), ops
+    if name in ("txb_rate", "rdoq"):
+        B, h, w = args[4:7] if name == "txb_rate" else args[6:9]
+        return ((B * h * w * 4 + 4 * B, B * h * w * 30) if name == "txb_rate"
+                else (3 * B * h * w * 4, B * h * w * 80))
+    if name == "dlf_edges":
+        F, H, W, K = args[3:7]
+        return 2 * F * H * W * 4 + F * (H // 4) * K * 4, 0
+    if name == "cdef_dir":
+        F, H, W = args[3:6]
+        cells = F * (H // 8) * (W // 8)
+        return F * H * W * 4 + 2 * cells * 4, cells * (64 * 8 + 15 * 8 * 3)
+    if name == "cdef_filter":
+        src, out, (K, F, H, W, log2m) = args[6], args[8], args[9:14]
+        cells = F * (H >> log2m) * (W >> log2m)
+        return (F * H * W * 4 * (1 + (src is not None)) + (K * F * H * W * 4 if out else 0)
+                + cells * 9), K * F * H * W * 12 * 12
+    raise ValueError(name)
+
+
+def bound_ms(nbytes: float, ops: float) -> float:
+    return max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+
+
+def count_launches(fn):
+    """Run fn() with every kernel launch recorded against the pipeline stage
+    (decide, commit or filter) it belongs to. Returns {stage: {kernel:
+    [launches, summed bound ms]}}."""
+    from .. import kernels
+    from ..pipeline import device_commit, device_decide
+
+    current = ["other"]
+    out: dict = {}
+    real_launch = kernels.launch
+
+    def launch(name, *args):
+        real_launch(name, *args)
+        rec = out.setdefault(current[0], {}).setdefault(name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += bound_ms(*launch_bound(name, args))
+
+    def staged(stage, f):
+        def run(*a, **k):
+            current[0] = stage
+            try:
+                return f(*a, **k)
+            finally:
+                current[0] = "other"
+        return run
+
+    saved = [(device_decide, "decide_intra_frames"), (device_commit, "commit_regions"),
+             (device_commit, "_filter_device")]
+    originals = [getattr(m, a) for m, a in saved]
+    kernels.launch = launch
+    for (m, a), f, stage in zip(saved, originals, ("decide", "commit", "filter")):
+        setattr(m, a, staged(stage, f))
+    try:
+        fn()
+    finally:
+        kernels.launch = real_launch
+        for (m, a), f in zip(saved, originals):
+            setattr(m, a, f)
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -29,6 +121,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--qindex", type=int, default=120)
+    ap.add_argument("--preset", choices=("fast", "medium", "slow"), default="medium")
+    ap.add_argument("--no-cdef", action="store_true", help="encode with CDEF off")
     args = ap.parse_args()
 
     import torch
@@ -45,7 +139,7 @@ def main() -> int:
 
     frames = make_frames(args.width, args.height, args.frames + 1, seed=args.seed)
     enc = Encoder(EncoderConfig(args.width, args.height, qindex=args.qindex, keyint=1,
-                                preset="fast", enable_cdef=False), device="cuda")
+                                preset=args.preset, enable_cdef=not args.no_cdef), device="cuda")
     enc.encode_frame(*frames[0])
     torch.cuda.synchronize()
     n = args.frames
@@ -72,14 +166,20 @@ def main() -> int:
         dev_us[ev.key[:80]] = dev_us.get(ev.key[:80], 0.0) + us
     busy_s = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    launches = count_launches(encode_all)
+    bounds = {st: dict(kernels={k: dict(launches=v[0] / n, bound_ms=v[1] / n)
+                                for k, v in ks.items()},
+                       bound_ms_per_frame=sum(v[1] for v in ks.values()) / n)
+              for st, ks in launches.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps(dict(
-        size=[args.width, args.height], frames=n, wall_s_per_frame=wall / n,
+        size=[args.width, args.height], preset=args.preset, cdef=not args.no_cdef, frames=n,
+        wall_s_per_frame=wall / n,
         traced_wall_s_per_frame=traced_wall / n, device_busy_s_per_frame=busy_s / n,
         device_busy_share=(busy_s / wall) if busy_s else "not measured",
         device_ms_per_frame_by_kernel={k: v / 1e3 / n for k, v in top},
-        host_stage_s_per_frame=stages,
+        host_stage_s_per_frame=stages, stage_kernel_bounds_per_frame=bounds,
         card=smi)))
     return 0
 

@@ -1,44 +1,33 @@
-"""The port's key-frame slice end to end on the CPU (plain versions of the
-kernels) against the JAX package's device path.
+"""The port's key frames at the fast preset end to end on the CPU (plain
+versions of the kernels) against the JAX package's device path.
 
 Two frames of the synthetic clip through svtav1_tpu's
-Encoder(mode_decision="jax") and svtav1_tpu_torch's Encoder(device="cpu")
-in the slice configuration (1-intra, fast preset, CDEF off, DLF on): the
-temporal units must be byte-identical and the recon identical, and the
-port's stream must decode with the port's own decoder to the same recon.
+Encoder(mode_decision="jax") and svtav1_tpu_torch's Encoder(device="cpu"),
+all-intra, fast preset with CDEF off and on (the medium preset is in
+test_torch_encode_medium.py): the temporal units must be byte-identical and
+the recon identical, and the port's stream must decode with the port's own
+decoder to the same recon.
 """
 import numpy as np
 import pytest
 
-from svtav1_tpu.pipeline import encoder as ref_enc
 from svtav1_tpu_torch.decode.decoder import Decoder
 from svtav1_tpu_torch.pipeline import encoder as port_enc
 from svtav1_tpu_torch.utils.testclip import make_frames
-from tools.make_test_video import make_frames as ref_make_frames
+from torch_encode_parity import matches_jax_and_decodes
 
 SLICE = dict(qindex=120, keyint=1, preset="fast", enable_cdef=False)
 
 
 @pytest.mark.parametrize("size", [(128, 96), (202, 122)])
 def test_slice_matches_jax_and_decodes(size):
-    w, h = size
-    frames = make_frames(w, h, 2)
-    for a, b in zip(frames, ref_make_frames(w, h, 2)):
-        for x, y in zip(a, b):
-            np.testing.assert_array_equal(x, y)
-    ref = ref_enc.Encoder(ref_enc.EncoderConfig(w, h, mode_decision="jax", **SLICE))
-    port = port_enc.Encoder(port_enc.EncoderConfig(w, h, **SLICE), device="cpu")
-    dec = Decoder()
-    for f, (y, u, v) in enumerate(frames):
-        want_tu, want_rec = ref.encode_frame(y, u, v)
-        tu, rec = port.encode_frame(y, u, v)
-        for i in range(3):
-            np.testing.assert_array_equal(rec[i], want_rec[i], err_msg=f"frame {f} plane {i}")
-        assert tu == want_tu, f"frame {f}: {len(tu)} vs {len(want_tu)} bytes"
-        dy, du, dv, drec = dec.decode_tu(tu)
-        for i in range(3):
-            np.testing.assert_array_equal(drec[i], rec[i], err_msg=f"decode frame {f} plane {i}")
-        assert dy.shape == (h, w)
+    matches_jax_and_decodes(*size, SLICE)
+
+
+@pytest.mark.parametrize("size", [(128, 96), (202, 122)])
+def test_fast_with_cdef_matches_jax_and_decodes(size):
+    """CDEF with the fast preset's 4-candidate strength ladder."""
+    matches_jax_and_decodes(*size, dict(SLICE, enable_cdef=True))
 
 
 def test_slice_without_deblocking_decodes():
@@ -53,8 +42,6 @@ def test_slice_without_deblocking_decodes():
 
 @pytest.mark.parametrize("override, item", [
     (dict(keyint=8), "the inter path"),
-    (dict(preset="medium"), "directional modes"),
-    (dict(enable_cdef=True), "CDEF"),
     (dict(enable_restoration=True), "restoration"),
     (dict(enable_tf=True), "MCTF"),
     (dict(scene_cut=True), "the inter path"),

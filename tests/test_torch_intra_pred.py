@@ -1,5 +1,6 @@
 """K1 (intra_pred) plain version against intra_device._predict_modes (JAX),
-nmodes=7, random edges and availability. Exact."""
+nmodes=7 and 13 (the directional modes), random edges and availability.
+Exact."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,7 +33,31 @@ def test_predict_modes_plain_matches_jax(n, bd):
     np.testing.assert_array_equal(one.numpy(), want[np.arange(B), mode])
 
 
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_directional_plain_matches_jax(n, bd):
+    """All 13 modes, with every availability combination: exact."""
+    rng = np.random.default_rng(100 + n + bd)
+    B = 16
+    hi = (1 << bd) - 1
+    above = rng.integers(0, hi + 1, (B, n)).astype(np.int32)
+    left = rng.integers(0, hi + 1, (B, n)).astype(np.int32)
+    tl = rng.integers(0, hi + 1, B).astype(np.int32)
+    ha = np.arange(B) % 2 == 0
+    hl = np.arange(B) % 4 < 2
+    want = np.asarray(ref._predict_modes(jnp.asarray(above), jnp.asarray(left), jnp.asarray(tl),
+                                         jnp.asarray(ha), jnp.asarray(hl), n, nmodes=13))
+    args = [torch.from_numpy(x) for x in (above, left, tl, ha, hl)]
+    got = port._predict_modes(*args, n, nmodes=13)
+    assert got.shape == (B, 13, n, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    mode = (np.arange(B) % 6 + 7).astype(np.int32)
+    one = port.predict(*args, n, mode=torch.from_numpy(mode))
+    np.testing.assert_array_equal(one.numpy(), want[np.arange(B), mode])
+
+
 def test_directional_modes_raise():
+    """The thirteen key-frame modes are the whole set: asking for more raises."""
     z = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="directional"):
-        port._predict_modes(z, z, z[:, 0], z[:, 0] > 0, z[:, 0] > 0, 8, nmodes=13)
+    with pytest.raises(ValueError, match="nmodes"):
+        port._predict_modes(z, z, z[:, 0], z[:, 0] > 0, z[:, 0] > 0, 8, nmodes=14)

@@ -68,5 +68,7 @@ def test_plain_matches_jax(cfg, qctx):
 
 
 def test_decide_rate_fns_cover_luma_and_chroma():
+    """One luma table set per TX_SEARCH type (the tx-type search), one chroma."""
     fns = port_decide._rate_fns(1, 16, "cpu")
-    assert len(fns["y"]) == 1 and fns["uv"].h == 8
+    assert len(fns["y"]) == len(port_decide.TX_SEARCH) and fns["uv"].h == 8
+    assert all(t.h == 16 and t.tx_class == 0 for t in fns["y"])

@@ -107,3 +107,34 @@ def test_plain_repeated_source_lanes():
     np.testing.assert_array_equal(lv.numpy(), lv_ref)
     d = rec_ref.astype(np.int64) - np.repeat(src, rep, 0)
     np.testing.assert_array_equal(sse.numpy(), (d * d).sum(axis=(1, 2)))
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+def test_plain_halves_match_jax(n):
+    """K2's two halves around RDOQ: txfm_quant gives the levels and the
+    unquantized coefficients of the coded region; recon_from_levels
+    dequantizes edited levels, inverts and adds the prediction."""
+    bd = 8
+    L = 8 if n < 64 else 3
+    src, pred = _inputs(n, bd, L, seed=200 + n)
+    rng = np.random.default_rng(300 + n)
+    v = rng.integers(0, 2, L).astype(bool) & (n <= 16)
+    h = rng.integers(0, 2, L).astype(bool) & (n <= 16)
+    dq_dc, dq_ac = quant_ref.dc_q(100, bd), quant_ref.ac_q(100, bd)
+    ls = quant_ref.tx_scale(n, n)
+    adj = min(n, 32)
+    coeff = TJ.fwd_txfm2d_sel_j(jnp.asarray(src - pred), jnp.asarray(v), jnp.asarray(h), bd)
+    lv_ref = np.asarray(jnp.clip(TJ.quantize_j(coeff, dq_dc, dq_ac, ls), -32767, 32767))
+    args = (torch.from_numpy(v), torch.from_numpy(h), dq_dc, dq_ac, bd)
+    lv, co = TT.txfm_quant(torch.from_numpy(src), torch.from_numpy(pred), *args)
+    np.testing.assert_array_equal(lv.numpy(), lv_ref[:, :adj, :adj])
+    np.testing.assert_array_equal(co.numpy(), np.asarray(coeff)[:, :adj, :adj])
+    # lower every other nonzero level by one, as RDOQ may
+    edit = lv_ref.copy()
+    nz = np.flatnonzero(edit)[::2]
+    edit.flat[nz] -= np.sign(edit.flat[nz])
+    rec_ref = TJ.inv_txfm2d_add_sel_j(TJ.dequantize_j(jnp.asarray(edit), dq_dc, dq_ac, ls, bd),
+                                      jnp.asarray(pred), jnp.asarray(v), jnp.asarray(h), bd)
+    rec = TT.recon_from_levels(torch.from_numpy(np.ascontiguousarray(edit[:, :adj, :adj])),
+                               torch.from_numpy(pred), *args)
+    np.testing.assert_array_equal(rec.numpy(), np.asarray(rec_ref))

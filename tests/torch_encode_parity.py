@@ -1,0 +1,31 @@
+"""Shared check of the port's key-frame encodes against the JAX package's
+device path (svtav1_tpu's Encoder(mode_decision="jax")) on the CPU."""
+import numpy as np
+
+from svtav1_tpu.pipeline import encoder as ref_enc
+from svtav1_tpu_torch.decode.decoder import Decoder
+from svtav1_tpu_torch.pipeline import encoder as port_enc
+from svtav1_tpu_torch.utils.testclip import make_frames
+from tools.make_test_video import make_frames as ref_make_frames
+
+
+def matches_jax_and_decodes(w: int, h: int, cfg: dict) -> None:
+    """Two frames of the synthetic clip through both encoders in `cfg`:
+    identical TUs and recon, and the port's decoder reproduces the recon."""
+    frames = make_frames(w, h, 2)
+    for a, b in zip(frames, ref_make_frames(w, h, 2)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    ref = ref_enc.Encoder(ref_enc.EncoderConfig(w, h, mode_decision="jax", **cfg))
+    port = port_enc.Encoder(port_enc.EncoderConfig(w, h, **cfg), device="cpu")
+    dec = Decoder()
+    for f, (y, u, v) in enumerate(frames):
+        want_tu, want_rec = ref.encode_frame(y, u, v)
+        tu, rec = port.encode_frame(y, u, v)
+        for i in range(3):
+            np.testing.assert_array_equal(rec[i], want_rec[i], err_msg=f"frame {f} plane {i}")
+        assert tu == want_tu, f"frame {f}: {len(tu)} vs {len(want_tu)} bytes"
+        dy, du, dv, drec = dec.decode_tu(tu)
+        for i in range(3):
+            np.testing.assert_array_equal(drec[i], rec[i], err_msg=f"decode frame {f} plane {i}")
+        assert dy.shape == (h, w)
