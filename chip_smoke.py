@@ -6,16 +6,22 @@ Phases, each fatal on failure:
      one nvcc per source, all started together;
   2. run each kernel and its plain PyTorch version on the card at the main
      path's shapes and hold them equal (K3: rtol 1e-5, atol 1e-3 bits; all
-     others exact, K5 counting its differing lanes), and time both;
+     others exact, K5 counting its differing lanes; K9's prediction also
+     against K10 at the MVs it returns), and time both;
   3. conformance: encode 2 CIF key frames on the card at the fast preset
-     without CDEF and at the default medium preset, decode them with the
-     port's decoder (recon bit-identical); encode the same clip with
-     device="cpu" and report the share of bytes that match;
+     without CDEF and at the default medium preset, and a 6-frame CIF GOP
+     (a key frame and 5 P frames, keyint=6) at medium; decode every TU
+     with the port's decoder (recon bit-identical); encode the same clips
+     with device="cpu" and report the share of bytes that match;
   4. the paths: 1 warm + 1 timed 1920x1080 key frame at the fast preset
-     without CDEF (K1-K4 launched), then the main path, 1 warm + 4 timed
-     1920x1080 key frames at the medium preset with DLF, RDOQ and CDEF on,
-     with every kernel K1-K7 launched and the first TU decoded bit-exactly;
-     launch counts are reset just before each path and read just after;
+     without CDEF (K1-K4 launched), 1 warm + 2 timed key frames at the
+     medium preset (K1-K7 launched), then the main path, the bench's clip:
+     16 frames of 1920x1080 with keyint=16 (a key frame and 15 low-delay P
+     frames) at the medium preset with DLF, RDOQ, CDEF and global motion on,
+     through send_frame + flush on a fresh Encoder after a 2-frame warm
+     run, with every kernel K1-K10 launched and the first two TUs (the key
+     frame and the first P frame) decoded bit-exactly; launch counts are
+     reset just before each path and read just after;
   5. the card's name and power limit, the kernel table, and last the
      device line.
 
@@ -37,6 +43,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12
 FAST = dict(qindex=120, keyint=1, preset="fast", enable_cdef=False)
 MEDIUM = dict(qindex=120, keyint=1, preset="medium")  # DLF, CDEF and RDOQ on
+GOP = dict(qindex=120, keyint=16, preset="medium")  # the bench's 1080p clip (bench.py:92-139)
 KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "intra_pred": ("svtav1_tpu_torch/csrc/intra_pred.cu", "svtav1_tpu/pipeline/intra_device.py:31"),
     "txfm_quant_recon": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu",
@@ -46,7 +53,12 @@ KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "rdoq": ("svtav1_tpu_torch/csrc/rdoq.cu", "svtav1_tpu/codec/rate_jax.py:220"),
     "cdef_dir": ("svtav1_tpu_torch/csrc/cdef.cu", "svtav1_tpu/filters/cdef_jax.py:26"),
     "cdef_filter": ("svtav1_tpu_torch/csrc/cdef.cu", "svtav1_tpu/filters/cdef_jax.py:166"),
+    "me_sad": ("svtav1_tpu_torch/csrc/me.cu", "svtav1_tpu/ops/me_jax.py:86"),
+    "subpel_pred": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:300"),
+    "mc_lanes": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:183"),
 }
+KEY_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges", "rdoq", "cdef_dir",
+               "cdef_filter")
 FAST_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges")
 
 
@@ -316,32 +328,156 @@ def check_kernels(torch, dev):
                timed_ms(lambda: cdef_torch.cdef_filter(*args), 20),
                timed_ms(lambda: cdef_torch.cdef_filter_plain(*args), 3),
                nbytes=2 * pl_.numel() * 4 + cells * 9, ops=pl_.numel() * 12 * 12)
+
+    check_motion(torch, dev, g, t, record, assert_equal)
     return res
 
 
-def conformance(torch):
-    """Phase 3: CIF on the card at both presets, decoded bit-exactly; byte
-    match against the plain versions on the CPU."""
+def check_motion(torch, dev, g, t, record, assert_equal):
+    """Phase 2 for K8 me_sad, K9 subpel_pred and K10 mc_lanes at the shapes
+    of a 1080p P frame: the ME plane 1088x1920 (510 SBs), the subpel grids
+    of 8/16/32/64 blocks, the commit's 32,400 8x8 luma and 4x4 chroma lanes
+    from a 2-reference stack. All exact."""
+    import numpy as np
+
+    from svtav1_tpu_torch.ops import me_torch
+    from svtav1_tpu_torch.pipeline.inter_device import _edge_pad
+    from svtav1_tpu_torch.utils.testclip import make_frames
+
+    (y0, u0, v0), (y1, _u1, _v1) = make_frames(1920, 1080, 2, seed=0)
+    H, W, sbr, sbc = 1088, 1920, 17, 30
+    B_sb = sbr * sbc
+    ref = _edge_pad(t(y0), H, W)
+    src = _edge_pad(t(y1), H, W)
+
+    # ---- K8 me_sad: decimation, the three centred searches, the leaf maps
+    a = me_torch.decimate2(src)
+    err = assert_equal("me_sad", a, me_torch.decimate2_plain(src))
+    record("me_sad", [H, W, "decimate"], err, timed_ms(lambda: me_torch.decimate2(src), 20),
+           timed_ms(lambda: me_torch.decimate2_plain(src), 5), H * W * 4 + H * W, H * W // 4 * 5)
+    src1, ref1 = me_torch.decimate2(src), me_torch.decimate2(ref)
+    src2, ref2 = me_torch.decimate2(src1), me_torch.decimate2(ref1)
+    rr = torch.arange(sbr, device=dev, dtype=torch.int32).repeat_interleave(sbc)
+    cc = torch.arange(sbc, device=dev, dtype=torch.int32).repeat(sbr)
+    zero = torch.zeros((B_sb, 2), dtype=torch.int32, device=dev)
+    cen = t(g.integers(-3, 4, (B_sb, 2)))
+    for lvl, (s_, r_, n, r, scale, c_) in enumerate(((src2, ref2, 16, 16, 1, zero),
+                                                     (src1, ref1, 32, 2, 2, cen),
+                                                     (src, ref, 64, 2, 4, cen))):
+        args = (s_, r_, rr * n, cc * n, c_, n, r, scale)
+        err = assert_equal("me_sad", me_torch.search_centered(*args),
+                           me_torch.search_centered_plain(*args))
+        D = 2 * r + 1
+        record("me_sad", [B_sb, n, n, f"search L{2 - lvl} +-{r}"], err,
+               timed_ms(lambda: me_torch.search_centered(*args), 20),
+               timed_ms(lambda: me_torch.search_centered_plain(*args), 3),
+               nbytes=B_sb * (n * n + (n + 2 * r) ** 2) * 4 + B_sb * 16,
+               ops=B_sb * D * D * n * n * 3)
+    mv_sb = me_torch.search_centered(src, ref, rr * 64, cc * 64, cen, 64, 2, 4)
+    centers = torch.stack([mv_sb, zero])
+    args = (src, ref, centers, sbc, 4)
+    err = assert_equal("me_sad", me_torch.leaf_maps(*args), me_torch.leaf_maps_plain(*args))
+    record("me_sad", [2, B_sb * 64, 9, 9, "leaf maps"], err,
+           timed_ms(lambda: me_torch.leaf_maps(*args), 20),
+           timed_ms(lambda: me_torch.leaf_maps_plain(*args), 3),
+           nbytes=2 * H * W * 4 + 2 * B_sb * 8 + 2 * B_sb * 64 * 81 * 4,
+           ops=2 * B_sb * 64 * 81 * 64 * 3, main=True)
+    # the whole full-pel frame search (kernels and glue) against the plain
+    # versions on a CPU copy of the planes
+    mvs = me_torch.me_fullpel_frame(src, ref, sbr, sbc)[0]
+    want = me_torch.me_fullpel_frame(src.cpu(), ref.cpu(), sbr, sbc)
+    for n in me_torch.SIZES:
+        assert_equal("me_sad", mvs[n].cpu(), want[0][n])
+    log(json.dumps(dict(check="me_sad", shape=[H, W, "me_fullpel_frame, every size"],
+                        max_abs_err=0)))
+
+    # ---- K9 subpel_pred: every size of the 1080p grid (25-point lattice),
+    # and the 49-point lattice at n = 8; the prediction equals K10's MC
+    ref_y = t(y0, torch.uint8)
+    src_y = t(y1)
+    for n, fast, main in ((8, True, True), (16, True, False), (32, True, False),
+                          (64, True, False), (8, False, False)):
+        R, C = 1080 // n, 1920 // n
+        B = R * C
+        ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n
+        xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n
+        fp = mvs[n][:R, :C].reshape(B, 2).contiguous()
+        srcb = src_y[: R * n, : C * n].reshape(R, n, C, n).permute(0, 2, 1, 3) \
+            .reshape(B, n, n).contiguous()
+        args = (srcb, ref_y, ys, xs, fp, 0, 8, fast)
+        mk, pk = me_torch.subpel_pred_lanes(*args)
+        mp, pp = me_torch.subpel_pred_plain(*args)
+        err = max(assert_equal("subpel_pred", mk, mp), assert_equal("subpel_pred", pk, pp))
+        assert_equal("subpel_pred", pk, me_torch.mc_lanes(ref_y, ys, xs, mk[:, 0] * 2,
+                                                          mk[:, 1] * 2, n, n, 0, 8))
+        L = 5 if fast else 7
+        record("subpel_pred", [B, n, n, f"{L * L} points"], err,
+               timed_ms(lambda: me_torch.subpel_pred_lanes(*args), 20),
+               timed_ms(lambda: me_torch.subpel_pred_plain(*args), 3),
+               nbytes=B * n * n * (4 + 1 + 4) + 16 * B,
+               ops=B * (L * (n + 8) * n * 16 + L * L * n * n * 19), main=main)
+
+    # ---- K10 mc_lanes: the commit's 32,400 luma 8x8 and chroma 4x4 lanes
+    # from a 2-reference stack, MVs reaching past every edge
+    stacks = [t(np.stack([p, q]), torch.uint8) for p, q in ((y0, y1), (u0, _u1))]
+    for pl, (n, plane_h, plane_w) in enumerate(((8, 1080, 1920), (4, 540, 960))):
+        R, C = plane_h // n, plane_w // n
+        B = R * C
+        ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n
+        xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n
+        mvy = t(g.integers(-24 * 16, 24 * 16, B))
+        mvx = t(g.integers(-24 * 16, 24 * 16, B))
+        ri = t(g.integers(0, 2, B))
+        args = (stacks[pl], ys, xs, mvy, mvx, n, n, 0, 8, ri)
+        err = assert_equal("mc_lanes", me_torch.mc_lanes(*args), me_torch.mc_lanes_plain(*args))
+        record("mc_lanes", [B, n, n, "luma" if pl == 0 else "chroma", "2 refs"], err,
+               timed_ms(lambda: me_torch.mc_lanes(*args), 20),
+               timed_ms(lambda: me_torch.mc_lanes_plain(*args), 3),
+               nbytes=B * 20 + B * n * n + B * n * n * 4,
+               ops=B * ((n + 7) * n * 16 + n * n * 16 + n * n * 4), main=pl == 0)
+
+
+def encode_clip(cfg, frames, device):
+    """[(tu, recon)] of a clip through Encoder.send_frame + flush."""
+    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
+
+    h, w = frames[0][0].shape
+    enc = Encoder(EncoderConfig(w, h, **cfg), device=device)
+    pkts = []
+    for f in frames:
+        pkts += enc.send_frame(*f)
+    pkts += enc.flush()
+    return [(p.tu, p.recon) for p in pkts]
+
+
+def decode_all(label, pairs):
+    """Decode the TUs in order with one decoder; each recon must equal the
+    encoder's bit for bit."""
     import numpy as np
 
     from svtav1_tpu_torch.decode.decoder import Decoder
-    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
+
+    dec = Decoder()
+    for i, (tu, rec) in enumerate(pairs):
+        _, _, _, drec = dec.decode_tu(tu)
+        for p in range(3):
+            if not np.array_equal(drec[p], rec[p]):
+                raise SystemExit(f"{label} frame {i} plane {p}: decoder recon differs from the "
+                                 "encoder's")
+
+
+def conformance(torch):
+    """Phase 3: CIF key frames at both presets and a CIF low-delay GOP at
+    medium on the card, decoded bit-exactly; byte match against the plain
+    versions on the CPU."""
     from svtav1_tpu_torch.utils.testclip import make_frames
 
-    frames = make_frames(352, 288, 2, seed=0)
-    for label, cfg in (("fast", FAST), ("medium", MEDIUM)):
-        tus = {}
-        for dev in ("cuda", "cpu"):
-            enc = Encoder(EncoderConfig(352, 288, **cfg), device=dev)
-            tus[dev] = [enc.encode_frame(*f) for f in frames]
+    for label, cfg, n in (("fast", FAST, 2), ("medium", MEDIUM, 2),
+                          ("medium GOP", dict(GOP, keyint=6), 6)):
+        frames = make_frames(352, 288, n, seed=0)
+        tus = {dev: encode_clip(cfg, frames, dev) for dev in ("cuda", "cpu")}
         torch.cuda.synchronize()
-        dec = Decoder()
-        for i, (tu, rec) in enumerate(tus["cuda"]):
-            _, _, _, drec = dec.decode_tu(tu)
-            for p in range(3):
-                if not np.array_equal(drec[p], rec[p]):
-                    raise SystemExit(f"CIF {label} frame {i} plane {p}: decoder recon differs "
-                                     "from the encoder's")
+        decode_all(f"CIF {label}", tus["cuda"])
         same = sum(len(a) for (a, _), (b, _) in zip(tus["cuda"], tus["cpu"]) if a == b)
         total = sum(len(a) for a, _ in tus["cuda"])
         log(json.dumps(dict(phase="conformance", preset=label, config=cfg, size=[352, 288],
@@ -406,6 +542,74 @@ def run_path(torch, label, cfg, n_timed, required, decode):
     return launches
 
 
+def run_gop(torch):
+    """Phase 4, the main path: the bench's 16-frame 1080p clip with
+    keyint=16 (a key frame, then 15 low-delay P frames) at medium through
+    send_frame + flush on a fresh Encoder, after a 2-frame warm run on
+    another. Launch counts set to 0 just before the timed run, read just
+    after; the first two TUs are decoded bit-exactly."""
+    import numpy as np
+
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
+    from svtav1_tpu_torch.utils import profiler
+    from svtav1_tpu_torch.utils.testclip import make_frames
+
+    W, H, N = 1920, 1080, 16
+    frames = make_frames(W, H, N)
+    t0 = time.perf_counter()
+    warm = Encoder(EncoderConfig(W, H, **GOP), device="cuda")
+    for f in frames[:2]:
+        warm.send_frame(*f)
+    warm.flush()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del warm
+    enc = Encoder(EncoderConfig(W, H, **GOP), device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    profiler.reset()
+    t0 = time.perf_counter()
+    pkts = []
+    key_waves = 0
+    for i, f in enumerate(frames):
+        pkts += enc.send_frame(*f)
+        if i == 0:
+            key_waves = profiler.counts().get("commit/wave", 0)
+    pkts += enc.flush()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    stages = profiler.report()
+    counts = profiler.counts()
+    missing = [k for k in KERNEL_SOURCES if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"main path never launched: {missing}")
+    if [p.disp_idx for p in pkts] != list(range(N)):
+        raise SystemExit(f"packets out of order: {[p.disp_idx for p in pkts]}")
+    psnr = []
+    for p in pkts:
+        if p.recon[0].shape != (H, W) or not all(np.isfinite(pl).all() for pl in p.recon):
+            raise SystemExit(f"frame {p.disp_idx}: recon of the wrong shape or not finite")
+        y = frames[p.disp_idx][0].astype(np.float64)
+        d = p.recon[0][:H, :W].astype(np.float64) - y
+        psnr.append(10 * np.log10(255.0 ** 2 / max(float((d * d).mean()), 1e-12)))
+    t1 = time.perf_counter()
+    decode_all("1080p GOP", [(p.tu, p.recon) for p in pkts[:2]])
+    dec_s = time.perf_counter() - t1
+    log(json.dumps(dict(phase="path", preset="medium GOP", config=GOP, size=[W, H], frames=N,
+                        warm_2_frames_s=warm_s, fps=N / secs, seconds=secs,
+                        bytes_per_frame=sum(len(p.tu) for p in pkts) / N,
+                        bytes_key=len(pkts[0].tu),
+                        bytes_per_p_frame=sum(len(p.tu) for p in pkts[1:]) / (N - 1),
+                        y_psnr=float(np.mean(psnr)), key_waves=key_waves,
+                        p_waves_per_frame=(counts.get("commit/wave", 0) - key_waves) / (N - 1),
+                        launches=launches,
+                        launches_per_frame={k: v / N for k, v in launches.items()},
+                        stage_seconds=stages, decode_2_tus_s=dec_s, decode_bit_exact=True)))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -435,7 +639,8 @@ def main() -> int:
     checks = check_kernels(torch, dev)
     conformance(torch)
     run_path(torch, "fast", FAST, 1, FAST_KERNELS, decode=False)
-    launches = run_path(torch, "medium", MEDIUM, 4, tuple(KERNEL_SOURCES), decode=True)
+    run_path(torch, "medium", MEDIUM, 2, KEY_KERNELS, decode=True)
+    launches = run_gop(torch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

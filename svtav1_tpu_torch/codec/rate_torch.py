@@ -7,7 +7,9 @@ The host part (`txb_rate_arrays`) builds one txb configuration's LUTs and
 maps from a FrameContext exactly as the reference does; `TxbRateTables`
 holds them on a device and is called on levels, `RdoqTables` adds RDOQ's
 scalars and is called on levels and coefficients. Bits agree with the
-reference up to float32 summation order (codec/rate_jax.py:11-12).
+reference up to float32 summation order (codec/rate_jax.py:11-12). The
+inter decide's MV-rate LUTs (`mv_component_cost_lut`, `mv_joint_cost`) are
+host tables built as the reference builds them.
 """
 from __future__ import annotations
 
@@ -374,3 +376,27 @@ def make_rdoq_fn(fc, tx_size: int, plane_type: int, txb_skip_ctx: int = 0,
     """Counterpart of rate_jax.make_rdoq_fn: a callable (levels, coeff,
     dq_dc, dq_ac, lam) -> levels."""
     return RdoqTables(fc, tx_size, plane_type, txb_skip_ctx, dc_sign_ctx, device)
+
+
+def mv_component_cost_lut(fc, max_abs: int = 1 << 11) -> np.ndarray:
+    """(2, max_abs+1) float32 per component (0=row, 1=col): bits to code one
+    NEWMV difference of magnitude d (1/8-pel units; without allow_hp only even
+    values are codable — odd entries get an effectively-infinite cost). Cost
+    includes the sign bit. Host LUT for the inter decide's MV rates. d=0 -> 0."""
+    from .mv import MvCoder
+
+    out = np.zeros((2, max_abs + 1), np.float32)
+    coder = MvCoder(fc, update=False, allow_hp=False)
+    for comp in range(2):
+        for d in range(2, max_abs + 1, 2):
+            bc = rate_np.BitCounter()
+            coder._write_component(bc, comp, d)
+            out[comp, d] = bc.bits
+    out[:, 1::2] = 1e9
+    return out
+
+
+def mv_joint_cost(fc) -> np.ndarray:
+    """(2,2) float32: nmv joint symbol cost indexed [row!=0][col!=0]."""
+    j = rate_np.cdf_cost_table(fc["nmv_joints"], 4)
+    return np.array([[j[0], j[1]], [j[2], j[3]]], np.float32)

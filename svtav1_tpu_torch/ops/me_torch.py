@@ -1,0 +1,417 @@
+"""Motion estimation and motion compensation (PyTorch), ported from
+svtav1_tpu's ops/me_jax.py, around three CUDA kernels with a plain PyTorch
+version beside each:
+
+- K8 `me_sad` (`csrc/me.cu`): the 2x2 decimation of the ME pyramid, the
+  centred full search of (B, n, n) blocks (L2 16x16 at +-16 on the
+  quarter-resolution plane, L1 32x32 and L0 64x64 at +-2), and the 8x8 SAD
+  maps of every SB's 64 leaves around two centres (the SB winner and zero).
+  The quadtree sum of the leaf maps, the per-size biased argmin and the
+  two-centre merge are PyTorch glue in `me_fullpel_frame`.
+- K9 `subpel_pred` (`csrc/subpel.cu`): the subpel search on the 25-point
+  ({-4..4}) or 49-point ({-6..6}) 1/8-pel lattice from one (n+8)^2 patch per
+  block, with the winner's normative prediction.
+- K10 `mc_lanes` (`csrc/mc.cu`): normative separable subpel MC with a
+  per-lane phase, from one plane or a (NREF, H, W) stack by ref index.
+
+MVs are (row, col); the searches work in full pels and return 1/8 pel, MC
+takes 1/16 pel of the plane it reads. Each wrapper launches its kernel for
+CUDA tensors (or raises) and takes the plain version only for CPU tensors.
+The plain versions use int32 arithmetic like the reference, and floor
+negative positions with `>>` and phases with `& 15` as it does.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from .. import kernels
+from .convolve import FILTER_BITS, ROUND0, ROUND1, filter_for_dim, filter_kernels
+
+SIZES = (8, 16, 32, 64)
+# K8 modes (csrc/me.cu me_sad_launch)
+_ME_DECIMATE, _ME_SEARCH, _ME_LEAF = 0, 1, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _ftab(which: int, device: str) -> torch.Tensor:
+    """(16, 8) int32 subpel kernels of filter `which` on `device`."""
+    return torch.as_tensor(filter_kernels(which), dtype=torch.int32, device=device)
+
+
+def _i32(x) -> torch.Tensor:
+    return x.to(torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions (written from me_jax.py)
+# ---------------------------------------------------------------------------
+
+
+def decimate2_plain(p):
+    """2x2-average decimation (..., H, W) -> (..., H//2, W//2) (decimate2_j)."""
+    h, w = p.shape[-2] & ~1, p.shape[-1] & ~1
+    q = p[..., :h, :w]
+    return (q[..., 0::2, 0::2] + q[..., 0::2, 1::2] + q[..., 1::2, 0::2]
+            + q[..., 1::2, 1::2] + 2) >> 2
+
+
+def gather_windows(plane, ys, xs, wh: int, ww: int):
+    """(B,) top-left coords -> (B, wh, ww) windows of a (H, W) plane, each
+    coordinate clamped to the plane (the spec's reference-sample clamp)."""
+    H, W = plane.shape[-2:]
+    dev = plane.device
+    iy = (ys[:, None] + torch.arange(wh, device=dev)[None, :]).clamp(0, H - 1)
+    ix = (xs[:, None] + torch.arange(ww, device=dev)[None, :]).clamp(0, W - 1)
+    return plane[iy[:, :, None].long(), ix[:, None, :].long()]
+
+
+def sad_maps(src_blocks, windows, n: int, r: int):
+    """src (B, n, n), windows (B, n+2r, n+2r) -> SAD maps (B, D, D) int32,
+    D = 2r+1; map[dy, dx] = SAD at displacement (dy-r, dx-r)."""
+    D = 2 * r + 1
+    dev = windows.device
+    iy = torch.arange(D, device=dev)[:, None] + torch.arange(n, device=dev)[None, :]  # (D, n)
+    pat = windows[:, iy[:, None, :, None], iy[None, :, None, :]]  # (B, D, D, n, n)
+    diff = (pat.to(torch.int32) - src_blocks[:, None, None].to(torch.int32)).abs()
+    return diff.sum(dim=(-2, -1)).to(torch.int32)
+
+
+def _argmin2d(maps, r: int):
+    """(B, D, D) -> (B, 2) int32 displacement (row, col) in [-r, r]; the
+    first minimum in row-major order."""
+    D = 2 * r + 1
+    best = torch.argmin(maps.reshape(maps.shape[0], D * D), dim=1).to(torch.int32)
+    return torch.stack([torch.div(best, D, rounding_mode="floor") - r, best % D - r], dim=1)
+
+
+def _bias(r: int, scale: int, device):
+    d = torch.arange(-r, r + 1, device=device).abs()
+    return ((d[:, None] + d[None, :]) * scale).to(torch.int32)
+
+
+def search_centered_plain(src, ref, ys, xs, centers, n: int, r: int, scale: int):
+    """Full search of the (n, n) blocks of `src` at (ys, xs) against `ref`
+    (same dims) in a clamped (n+2r)^2 window around each full-pel centre,
+    plus the integer distance bias; returns the refined centres (B, 2)
+    (_search_centered)."""
+    src_b = gather_windows(src, ys, xs, n, n)
+    win = gather_windows(ref, ys + centers[:, 0] - r, xs + centers[:, 1] - r, n + 2 * r, n + 2 * r)
+    maps = sad_maps(src_b, win, n, r) + _bias(r, scale, src.device)[None]
+    return (centers + _argmin2d(maps, r)).to(torch.int32)
+
+
+def _leaf_src(src, sb_rows: int, sb_cols: int):
+    """(sb_rows*64, sb_cols*64) plane -> (B_sb*64, 8, 8) leaves, SB-major
+    and raster inside each SB."""
+    return src[: sb_rows * 64, : sb_cols * 64].reshape(sb_rows, 8, 8, sb_cols, 8, 8) \
+        .permute(0, 3, 1, 4, 2, 5).reshape(sb_rows * sb_cols * 64, 8, 8)
+
+
+def leaf_maps_plain(src, ref, centers, sb_cols: int, r: int):
+    """8x8 SAD maps of every SB leaf around each SB's full-pel centre:
+    centers (K, B_sb, 2) -> (K, B_sb*64, D, D) int32. The window of a leaf
+    is read with clamped coordinates (the reference's edge-padded plane at
+    centre zero, its gathered SB window at the MV centre)."""
+    K, B = centers.shape[:2]
+    sb_rows = B // sb_cols
+    dev = src.device
+    src8 = _leaf_src(src, sb_rows, sb_cols)
+    sbr = torch.arange(sb_rows, device=dev).repeat_interleave(sb_cols)
+    sbc = torch.arange(sb_cols, device=dev).repeat(sb_rows)
+    li = torch.arange(8, device=dev).repeat_interleave(8)
+    lj = torch.arange(8, device=dev).repeat(8)
+    out = []
+    for k in range(K):
+        c = centers[k]
+        ys = ((sbr * 64 + c[:, 0] - r)[:, None] + 8 * li[None, :]).reshape(-1)
+        xs = ((sbc * 64 + c[:, 1] - r)[:, None] + 8 * lj[None, :]).reshape(-1)
+        out.append(sad_maps(src8, gather_windows(ref, ys, xs, 8 + 2 * r, 8 + 2 * r), 8, r))
+    return torch.stack(out)
+
+
+def mc_lanes_plain(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int, bd: int,
+                   ref_idx=None):
+    """Plain PyTorch version of K10; same arguments and result as mc_lanes."""
+    dev = ys.device
+    fy0 = ys.to(torch.int32) * 16 + mv_q16_y.to(torch.int32)
+    fx0 = xs.to(torch.int32) * 16 + mv_q16_x.to(torch.int32)
+    iy, sy = fy0 >> 4, fy0 & 15
+    ix, sx = fx0 >> 4, fx0 & 15
+    H, W = ref.shape[-2:]
+    gy = (iy[:, None] - 3 + torch.arange(n_h + 7, device=dev)[None, :]).clamp(0, H - 1).long()
+    gx = (ix[:, None] - 3 + torch.arange(n_w + 7, device=dev)[None, :]).clamp(0, W - 1).long()
+    if ref.dim() == 2:
+        patch = ref[gy[:, :, None], gx[:, None, :]].to(torch.int32)
+    else:
+        ri = ref_idx.long().clamp(0, ref.shape[0] - 1)
+        patch = ref[ri[:, None, None], gy[:, :, None], gx[:, None, :]].to(torch.int32)
+    fxk = _ftab(filter_for_dim(which, n_w), str(dev))[sx.long()]  # (B, 8)
+    fyk = _ftab(filter_for_dim(which, n_h), str(dev))[sy.long()]
+    offset_bits = bd + 2 * FILTER_BITS - ROUND0
+    acc = torch.full((patch.shape[0], n_h + 7, n_w), 1 << (bd + FILTER_BITS - 1),
+                     dtype=torch.int32, device=dev)
+    for k in range(8):
+        acc = acc + fxk[:, k, None, None] * patch[:, :, k : k + n_w]
+    im = (acc + (1 << (ROUND0 - 1))) >> ROUND0
+    acc = torch.full((patch.shape[0], n_h, n_w), 1 << offset_bits, dtype=torch.int32, device=dev)
+    for k in range(8):
+        acc = acc + fyk[:, k, None, None] * im[:, k : k + n_h, :]
+    res = ((acc + (1 << (ROUND1 - 1))) >> ROUND1) \
+        - ((1 << (offset_bits - ROUND1)) + (1 << (offset_bits - ROUND1 - 1)))
+    assert 2 * FILTER_BITS - ROUND0 - ROUND1 == 0  # no third rounding for 8/10-bit
+    return res.clamp(0, (1 << bd) - 1).to(torch.int32)
+
+
+def extract_patches(ref, ys, xs, h: int, w: int):
+    """(B,) top-left plane coords -> (B, h, w) int32 patches with the spec's
+    edge replication (per-index clamp)."""
+    return gather_windows(ref, ys, xs, h, w).to(torch.int32)
+
+
+def _mc_patch_static(patch, idy: int, idx: int, sy: int, sx: int, n: int, which: int, bd: int):
+    """Normative 8-tap MC from a shared (B, n+8, n+8) patch at a static
+    integer shift (idy, idx in {-1, 0} relative to the patch's full-pel
+    origin) and static subpel phase (sy, sx in 0..15); equal to mc_lanes at
+    the same absolute MV."""
+    taps = filter_kernels(filter_for_dim(which, n))
+    fx, fy = taps[sx], taps[sy]
+    offset_bits = bd + 2 * FILTER_BITS - ROUND0
+    r0, c0 = 1 + idy, 1 + idx  # patch rows [-4 .. n+3] -> tap base iy-3
+    sub = patch[:, r0 : r0 + n + 7, c0 : c0 + n + 7]
+    acc = torch.full((sub.shape[0], n + 7, n), 1 << (bd + FILTER_BITS - 1), dtype=torch.int32,
+                     device=patch.device)
+    for k in range(8):
+        if fx[k]:
+            acc = acc + int(fx[k]) * sub[:, :, k : k + n]
+    im = (acc + (1 << (ROUND0 - 1))) >> ROUND0
+    acc = torch.full((sub.shape[0], n, n), 1 << offset_bits, dtype=torch.int32, device=patch.device)
+    for k in range(8):
+        if fy[k]:
+            acc = acc + int(fy[k]) * im[:, k : k + n, :]
+    res = ((acc + (1 << (ROUND1 - 1))) >> ROUND1) \
+        - ((1 << (offset_bits - ROUND1)) + (1 << (offset_bits - ROUND1 - 1)))
+    return res.clamp(0, (1 << bd) - 1)
+
+
+def _lattice(fast: bool) -> tuple:
+    return (-4, -2, 0, 2, 4) if fast else (-6, -4, -2, 0, 2, 4, 6)
+
+
+def subpel_pred_plain(src_b, ref, ys, xs, mv_fp, which: int, bd: int, fast: bool = False):
+    """Plain PyTorch version of K9; same arguments and results as
+    subpel_pred_lanes."""
+    B, n = src_b.shape[0], src_b.shape[-1]
+    dev = src_b.device
+    patch = extract_patches(ref, ys + mv_fp[:, 0] - 4, xs + mv_fp[:, 1] - 4, n + 8, n + 8)
+    lat = _lattice(fast)
+    preds, sads = {}, {}
+    for dy8 in lat:
+        for dx8 in lat:
+            fy0, fx0 = 2 * dy8, 2 * dx8  # 1/16 pel
+            p = _mc_patch_static(patch, fy0 >> 4, fx0 >> 4, fy0 & 15, fx0 & 15, n, which, bd)
+            preds[(dy8, dx8)] = p
+            sads[(dy8, dx8)] = (p - src_b).abs().sum(dim=(-2, -1))
+    bi = torch.arange(B, device=dev)
+    if fast:
+        # exhaustive: the first minimum in (dy, dx) raster order
+        keys = [(dy, dx) for dy in lat for dx in lat]
+        kbest = torch.argmin(torch.stack([sads[k] for k in keys]), dim=0)
+        best_d = torch.tensor(keys, dtype=torch.int32, device=dev)[kbest]
+        best_pred = torch.stack([preds[k] for k in keys])[kbest, bi]
+        return (mv_fp * 8 + best_d).to(torch.int32), best_pred.to(torch.int32)
+    # step 1: the half-pel 9 points (first minimum); step 2: the quarter-pel
+    # points around its winner, each taken only if strictly better
+    step1 = [(dy, dx) for dy in (-4, 0, 4) for dx in (-4, 0, 4)]
+    sads1 = torch.stack([sads[d] for d in step1])
+    k1 = torch.argmin(sads1, dim=0)
+    d1 = torch.tensor(step1, dtype=torch.int32, device=dev)[k1]
+    best_sad = sads1.min(dim=0).values
+    keys = [(dy, dx) for dy in lat for dx in lat]
+    sall = torch.stack([sads[k] for k in keys])  # (49, B)
+    pall = torch.stack([preds[k] for k in keys])
+    L = len(lat)
+
+    def lat_index(d):
+        return (d[:, 0] + 6) // 2 * L + (d[:, 1] + 6) // 2
+
+    best_d = d1
+    for o2 in [(dy, dx) for dy in (-2, 0, 2) for dx in (-2, 0, 2)]:
+        if o2 == (0, 0):
+            continue
+        cand = d1 + torch.tensor(o2, dtype=torch.int32, device=dev)
+        sad_o = sall[lat_index(cand).long(), bi]
+        take = sad_o < best_sad
+        best_sad = torch.where(take, sad_o, best_sad)
+        best_d = torch.where(take[:, None], cand, best_d)
+    best_pred = pall[lat_index(best_d).long(), bi]
+    return (mv_fp * 8 + best_d).to(torch.int32), best_pred.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _me_launch(mode: int, src, ref, ys, xs, centers, out, B: int, K: int, H: int, W: int,
+               n: int, r: int, scale: int, sb_cols: int) -> None:
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    kernels.launch("me_sad", mode, ptr(src), ptr(ref), ptr(ys), ptr(xs), ptr(centers),
+                   out.data_ptr(), B, K, H, W, n, r, scale, sb_cols, kernels.stream_ptr(out))
+
+
+def decimate2(p):
+    """2x2-average decimation of a (H, W) int32 plane (K8, mode 0)."""
+    if p.device.type == "cpu":
+        return decimate2_plain(p)
+    kernels.check(p, "plane", torch.int32)
+    if p.dim() != 2:
+        raise ValueError("decimate2: one (H, W) plane")
+    H, W = p.shape
+    out = torch.empty((H // 2, W // 2), dtype=torch.int32, device=p.device)
+    _me_launch(_ME_DECIMATE, p, None, None, None, None, out, 0, 0, H, W, 0, 0, 0, 0)
+    return out
+
+
+def search_centered(src, ref, ys, xs, centers, n: int, r: int, scale: int):
+    """Centred full search (K8, mode 1): src and ref (H, W) int32 planes of
+    the same dims, ys/xs (B,) block top-lefts, centers (B, 2) full-pel.
+    Returns centers + the first-minimum displacement of SAD + bias (B, 2)."""
+    if src.device.type == "cpu":
+        return search_centered_plain(src, ref, ys, xs, centers, n, r, scale)
+    kernels.check(src, "src", torch.int32)
+    kernels.check(ref, "ref", torch.int32, src.shape)
+    B = ys.shape[0]
+    ys, xs, centers = _i32(ys), _i32(xs), _i32(centers)
+    kernels.check(centers, "centers", torch.int32, (B, 2))
+    out = torch.empty((B, 2), dtype=torch.int32, device=src.device)
+    H, W = src.shape
+    _me_launch(_ME_SEARCH, src, ref, ys, xs, centers, out, B, 0, H, W, n, r, scale, 0)
+    return out
+
+
+def leaf_maps(src, ref, centers, sb_cols: int, r: int):
+    """8x8 SAD maps of every SB leaf around K full-pel centres per SB (K8,
+    mode 2): centers (K, B_sb, 2) -> (K, B_sb*64, D, D) int32."""
+    if src.device.type == "cpu":
+        return leaf_maps_plain(src, ref, centers, sb_cols, r)
+    kernels.check(src, "src", torch.int32)
+    kernels.check(ref, "ref", torch.int32, src.shape)
+    centers = _i32(centers)
+    K, B = centers.shape[:2]
+    D = 2 * r + 1
+    out = torch.empty((K, B * 64, D, D), dtype=torch.int32, device=src.device)
+    H, W = src.shape
+    _me_launch(_ME_LEAF, src, ref, None, None, centers, out, B, K, H, W, 8, r, 0, sb_cols)
+    return out
+
+
+def me_fullpel_frame(src_y, ref_y, sb_rows: int, sb_cols: int, l2_radius: int = 16,
+                     leaf_radius: int = 4):
+    """Full-pel per-size ME of one frame against one reference: src_y and
+    ref_y are (H, W) int32 planes, H and W multiples of 64. Returns
+    ({n: (R_n, C_n, 2) int32 full-pel MVs} for n in SIZES, SB MVs (B_sb, 2))."""
+    dev = src_y.device
+    B = sb_rows * sb_cols
+    src1, ref1 = decimate2(src_y), decimate2(ref_y)
+    src2, ref2 = decimate2(src1), decimate2(ref1)
+    rr = torch.arange(sb_rows, device=dev, dtype=torch.int32).repeat_interleave(sb_cols)
+    cc = torch.arange(sb_cols, device=dev, dtype=torch.int32).repeat(sb_rows)
+    # L2 (1/4 res): 16x16 blocks, exhaustive +-l2_radius; L1, L0: +-2 refines
+    mv = search_centered(src2, ref2, rr * 16, cc * 16, torch.zeros((B, 2), dtype=torch.int32,
+                                                                   device=dev), 16, l2_radius, 1)
+    mv = search_centered(src1, ref1, rr * 32, cc * 32, mv * 2, 32, 2, 2)
+    mv_sb = search_centered(src_y, ref_y, rr * 64, cc * 64, mv * 2, 64, 2, 4)
+
+    # 8x8 SAD maps around two centres per SB (the pyramid winner and zero
+    # MV), summed up the quadtree: each size argmins its own map
+    r = leaf_radius
+    D = 2 * r + 1
+    centers = (mv_sb, torch.zeros((B, 2), dtype=torch.int32, device=dev))
+    maps = leaf_maps(src_y, ref_y, torch.stack(centers), sb_cols, r) \
+        .reshape(2, sb_rows, sb_cols, 8, 8, D, D)
+    maps = [maps[0], maps[1]]
+    out = {}
+    for n in SIZES:
+        k = 8 // (n // 8)  # blocks per SB side at this size
+        bias = _bias(r, (n * n) // 16, dev)[None, None, None, None]
+        best_val = best_mv = None
+        for m, c in zip(maps, centers):
+            mm = (m + bias).reshape(-1, D, D)
+            off = _argmin2d(mm, r)
+            val = mm.reshape(-1, D * D).min(dim=1).values
+            mvn = c.repeat_interleave(k * k, dim=0) + off
+            if best_val is None:
+                best_val, best_mv = val, mvn
+            else:  # the MV centre wins ties
+                take = val < best_val
+                best_val = torch.where(take, val, best_val)
+                best_mv = torch.where(take[:, None], mvn, best_mv)
+        out[n] = best_mv.reshape(sb_rows, sb_cols, k, k, 2).permute(0, 2, 1, 3, 4) \
+            .reshape(sb_rows * k, sb_cols * k, 2).to(torch.int32)
+        if n < 64:  # sum 2x2 children -> parent maps
+            maps = [m[:, :, 0::2, 0::2] + m[:, :, 0::2, 1::2] + m[:, :, 1::2, 0::2]
+                    + m[:, :, 1::2, 1::2] for m in maps]
+    return out, mv_sb
+
+
+def mc_lanes(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int, bd: int,
+             ref_idx=None):
+    """Batched normative subpel MC with per-lane phases (K10).
+
+    ref: (H, W) plane or (NREF, H, W) stack with ref_idx (B,) given; uint8
+    on the card. ys/xs (B,) block top-left in plane coords; MVs in 1/16 pel
+    of this plane. Returns (B, n_h, n_w) int32 predictions; dims <= 4 use the
+    4-tap filter variant (spec 7.11.3.4)."""
+    if ys.device.type == "cpu":
+        return mc_lanes_plain(ref, ys, xs, mv_q16_y, mv_q16_x, n_h, n_w, which, bd, ref_idx)
+    kernels.check(ref, "ref", torch.uint8)
+    B = ys.shape[0]
+    nref = 1 if ref.dim() == 2 else ref.shape[0]
+    if ref.dim() == 3 and ref_idx is None:
+        raise ValueError("mc_lanes: a reference stack needs ref_idx")
+    args = [_i32(a) for a in (ys, xs, mv_q16_y, mv_q16_x)]
+    ri = _i32(ref_idx) if ref_idx is not None else None
+    out = torch.empty((B, n_h, n_w), dtype=torch.int32, device=ys.device)
+    if B == 0:
+        return out
+    dev = str(ys.device)
+    kernels.launch("mc_lanes", ref.data_ptr(), *[a.data_ptr() for a in args],
+                   ri.data_ptr() if ri is not None else None,
+                   _ftab(filter_for_dim(which, n_w), dev).data_ptr(),
+                   _ftab(filter_for_dim(which, n_h), dev).data_ptr(), out.data_ptr(), B, nref,
+                   ref.shape[-2], ref.shape[-1], n_h, n_w, bd, kernels.stream_ptr(out))
+    return out
+
+
+def subpel_pred_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int, fast: bool = False):
+    """Subpel search with the winner's prediction (K9).
+
+    src_b (B, n, n) int32 source blocks at (ys, xs) of the (H, W) reference
+    plane `ref` (uint8 on the card), mv_fp (B, 2) full-pel MVs. Every point
+    of the 1/8-pel lattice around mv_fp ({-4..4}^2 step 2 when fast, else
+    {-6..6}^2) is MC'd from one (n+8)^2 patch per block; fast takes the
+    first SAD minimum in (dy, dx) raster order, otherwise the half-pel step
+    (9 points) and then the quarter-pel step around its winner (strictly
+    better only). Returns (mv8 (B, 2) int32 = mv_fp*8 + d, pred (B, n, n)
+    int32), pred equal to mc_lanes at mv8."""
+    if src_b.device.type == "cpu":
+        return subpel_pred_plain(src_b, ref, ys, xs, mv_fp, which, bd, fast)
+    kernels.check(src_b, "src_b", torch.int32)
+    kernels.check(ref, "ref", torch.uint8)
+    B, n = src_b.shape[0], src_b.shape[-1]
+    if n < 8:
+        raise ValueError("subpel_pred_lanes: blocks of 8x8 and up (8-tap filters)")
+    ys, xs, mv_fp = _i32(ys), _i32(xs), _i32(mv_fp)
+    mv8 = torch.empty((B, 2), dtype=torch.int32, device=src_b.device)
+    pred = torch.empty((B, n, n), dtype=torch.int32, device=src_b.device)
+    if B == 0:
+        return mv8, pred
+    kernels.launch("subpel_pred", src_b.data_ptr(), ref.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+                   mv_fp.data_ptr(), _ftab(which, str(src_b.device)).data_ptr(), mv8.data_ptr(),
+                   pred.data_ptr(), B, ref.shape[-2], ref.shape[-1], n, bd, int(bool(fast)),
+                   kernels.stream_ptr(pred))
+    return mv8, pred

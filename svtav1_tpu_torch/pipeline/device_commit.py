@@ -1,5 +1,6 @@
 """Device commit pass (PyTorch): conformant reconstruction of the decided
-plan, ported from svtav1_tpu's pipeline/device_commit.py for key frames.
+plan, ported from svtav1_tpu's pipeline/device_commit.py for key frames and
+low-delay P frames.
 
 The decide pass chose modes and partitions open-loop; this pass produces
 the final quantized coefficients and the recon the decoder reproduces bit
@@ -14,6 +15,12 @@ Neighbour pixels live in frontier maps, not the recon plane:
 col (c8+1)*8-1, `corners[r8, c8]` = recon[(r8+1)*8-1, (c8+1)*8-1]. Each
 (band, pixel) cell has one writer, so the index writes of one wave never
 collide.
+
+Inter blocks need no neighbour recon: phase A codes every inter block of a
+size in one batch before the wavefront (K10 predicts Y, U and V from the
+reference stack, then the same transform path as below) and writes its
+frontier cells; phase B, the wavefront, then runs only the waves that hold
+intra blocks.
 
 Per wave and size the device work is two kernels per plane group: K1
 predicts the chosen mode of every lane, K2 transforms, quantizes and
@@ -154,9 +161,14 @@ def _build_schedule(leaves_per_frame, dec_per_frame, region):
 def finish_levels(aux: dict) -> None:
     """Complete the commit's level fetch: expand the packed int16 buffer
     (aux["levels_raw"], on the host) to the int32 view + per-size slab
-    offsets + per-block skip flags the op-stream builder needs. Call once
-    per commit."""
-    levels_packed = aux.pop("levels_raw")
+    offsets + per-block skip flags the op-stream builder needs. The levels
+    are aux["levels_raw"] (on the host) or aux["levels_dev"] (a device
+    tensor, fetched here). Call once per commit."""
+    if "levels_raw" in aux:
+        levels_packed = aux.pop("levels_raw")
+    else:
+        with profiler.stage("levels_d2h"):
+            levels_packed = aux.pop("levels_dev").cpu().numpy()
     _t_unpack = time.perf_counter()
     levels_i32 = levels_packed.astype(np.int32)
     level_base = {}
@@ -214,14 +226,20 @@ def _code(src, pred, va, ha, dq_dc: int, dq_ac: int, bd: int, rdoq_fn, lam):
     return lv, TT.recon_from_levels(lv, pred, va, ha, dq_dc, dq_ac, bd)
 
 
-def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
-                  bd: int, dq, tx_ntypes: int, lam: float, rdoq_qctx: int | None = None):
-    """Phase B of the reference's _commit_device: the intra wavefront over
-    all W waves, then recon and level assembly. src planes (F, H, W) on the
-    device (region crop); rdoq_qctx: the coefficient-CDF bucket of the RDOQ
-    tables, None for no RDOQ. Returns (levels int16 packed in sched order,
-    recon y, u, v (F, AH, AW) int32, skip8 (F, R8, C8) bool: every plane's
-    levels zero in the block covering the 8x8 cell)."""
+def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
+                   bd: int, dq, tx_ntypes: int, lam: float, rdoq_qctx: int | None = None,
+                   refs=None, which: int = 0):
+    """The reference's _commit_device: phase A codes the inter lanes of every
+    size in one batch each (MC from `refs`, the (NREF, H, W) uint8 Y, U, V
+    stacks, by the lanes' ref index; F == 1), phase B runs the intra
+    wavefront over the waves that hold intra lanes, then recon and level
+    assembly. src planes (F, H, W) on the device (region crop at the frame
+    origin when refs are given); rdoq_qctx: the coefficient-CDF bucket of
+    the RDOQ tables, None for no RDOQ. Returns (levels int16 packed in sched
+    order, recon y, u, v (F, AH, AW) int32, skip8 (F, R8, C8) bool: every
+    plane's levels zero in the block covering the 8x8 cell)."""
+    from ..ops import me_torch
+
     dev = src_y8.device
     F = src_y8.shape[0]
     AW, AH = C8 * 8, R8 * 8
@@ -247,7 +265,9 @@ def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
             mode=torch.as_tensor(s["mode"], dtype=torch.int32, device=dev),
             tx=torch.as_tensor(s["tx"], dtype=torch.int32, device=dev),
             uv_tx=torch.as_tensor(s["uv_tx"], dtype=torch.int32, device=dev),
-            offsets=s["offsets"],
+            ref=torch.as_tensor(s["ref"], dtype=torch.int32, device=dev),
+            mv=torch.as_tensor(s["mv"], dtype=torch.int32, device=dev),
+            NI=int(s["NI"]), offsets=s["offsets"],
             ly=torch.empty((N, adj, adj), dtype=torch.int32, device=dev),
             lu=torch.empty((N, nc, nc), dtype=torch.int32, device=dev),
             lv=torch.empty((N, nc, nc), dtype=torch.int32, device=dev),
@@ -284,6 +304,43 @@ def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
         rr8 = r8[:, None, None] + ar8[None, :, None]
         cc8 = c8[:, None, None] + ar8[None, None, :]
         cmap[pl][fidx[:, None, None], rr8, cc8] = rec[:, step - 1::step, step - 1::step]
+
+    def inter_step(n: int, NI: int):
+        """Phase A: code this size's NI inter lanes in one batch."""
+        L = lanes[n]
+        n8, nc = n // 8, n // 2
+        rc = L["coords"][:NI]
+        fidx, r8, c8 = rc[:, 0], rc[:, 1], rc[:, 2]
+        x, y = c8 * 8, r8 * 8
+        ri, mv = L["ref"][:NI], L["mv"][:NI]
+        # K10: luma at the 1/8-pel MV (1/16 of luma), chroma at the same MV
+        # (1/16 of chroma)
+        pred = me_torch.mc_lanes(refs[0], y, x, mv[:, 0] * 2, mv[:, 1] * 2, n, n, which, bd,
+                                 ref_idx=ri)
+        xc, yc = x // 2, y // 2
+        puv = torch.cat([me_torch.mc_lanes(refs[pl], yc, xc, mv[:, 0], mv[:, 1], nc, nc, which,
+                                           bd, ref_idx=ri) for pl in (1, 2)])
+        rq_y, rq_uv = _rdoq_fns(rdoq_qctx, n, dev) if rdoq_qctx is not None else (None, None)
+        va, hv = _tx_lanes(L["tx"][:NI], tx_ntypes if n <= 16 else 1)
+        lv_y, rec_y = _code(src_blocks(0, fidx, x, y, n), pred, va, hv, dq_dc, dq_ac, bd, rq_y,
+                            lam)
+        # inter chroma tx follows the effective luma type: DCT when the
+        # quantized luma is all zero (tile_codec._chroma_tx_type)
+        luma_zero = lv_y.abs().sum(dim=(1, 2)) == 0
+        uv_tx = torch.where(luma_zero, 0, L["uv_tx"][:NI])
+        va, hv = _tx_lanes(torch.cat([uv_tx, uv_tx]), 4 if nc <= 16 else 1)
+        suv = torch.cat([src_blocks(1, fidx, xc, yc, nc), src_blocks(2, fidx, xc, yc, nc)])
+        lv_uv, rec_uv = _code(suv, puv, va, hv, dq_dc, dq_ac, bd, rq_uv, lam)
+        rec_u, rec_v = rec_uv[:NI], rec_uv[NI:]
+        L["ly"][:NI] = lv_y
+        L["lu"][:NI] = lv_uv[:NI]
+        L["lv"][:NI] = lv_uv[NI:]
+        L["ry"][:NI] = rec_y
+        L["ru"][:NI] = rec_u
+        L["rv"][:NI] = rec_v
+        frontier_write(0, fidx, r8, c8, x, y, n8, rec_y, 8)
+        frontier_write(1, fidx, r8, c8, xc, yc, n8, rec_u, 4)
+        frontier_write(2, fidx, r8, c8, xc, yc, n8, rec_v, 4)
 
     def wave_step(n: int, a: int, b: int):
         L = lanes[n]
@@ -324,12 +381,23 @@ def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
         frontier_write(1, fidx, r8, c8, xc, yc, n8, rec_u, 4)
         frontier_write(2, fidx, r8, c8, xc, yc, n8, rec_v, 4)
 
-    for w in range(W):
+    t0 = time.perf_counter()
+    for n, L in lanes.items():
+        if L["NI"]:
+            if refs is None:
+                raise ValueError("inter lanes need the reference stacks")
+            inter_step(n, L["NI"])
+    if refs is not None:
+        profiler.add("commit/phase_a", time.perf_counter() - t0)
+    # phase B: the intra lanes sit after the NI inter lanes, by wave
+    waves = sorted(set().union(*[np.nonzero(np.diff(L["offsets"]))[0].tolist()
+                                 for L in lanes.values()]))
+    for w in waves:
         t0 = time.perf_counter()
         busy = False
-        for n in lanes:
-            offs = lanes[n]["offsets"]
-            a, b = int(offs[w]), int(offs[w + 1])
+        for n, L in lanes.items():
+            offs, NI = L["offsets"], L["NI"]
+            a, b = NI + int(offs[w]), NI + int(offs[w + 1])
             if b > a:
                 wave_step(n, a, b)
                 busy = True
@@ -361,37 +429,50 @@ def _commit_intra(src_y8, src_u8, src_v8, sched: dict, W: int, R8: int, C8: int,
 
 
 def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, region,
-                   array_out: bool = False):
+                   refs_dev=None, ref_ids=None, which: int = 0, array_out: bool = False,
+                   fetch_levels: bool = True):
     """Commit the decided leaves of one region: fills plans in place (or,
     with array_out, returns the op-stream arrays) and returns the region's
     DEVICE recon planes and skip map (ry, ru, rv, skip8).
 
     `src_dev` are put_frames() (F, H, W) device planes; `leaves`/`dec`/
-    `plans` are per-frame lists. One d2h transfer (levels int16) for the
-    whole batch; recon stays on the device for the filter stage."""
+    `plans` are per-frame lists. For inter frames pass `refs_dev` =
+    (refs_y, refs_u, refs_v) stacked (NREF, ...) uint8 device planes and
+    `ref_ids` mapping stack index -> RefFrame id. One d2h transfer (levels
+    int16) for the whole batch; with array_out and fetch_levels=False it is
+    left to finish_levels (aux["levels_dev"]), so the caller can do other
+    work first. The recon stays on the device for the filter stage."""
+    from ..constants.av1 import InterMode, RefFrame
     from ..constants.cdf import get_q_ctx
     from .device_decide import qparams_np
 
     p = params
     x0, y0, rw, rh = region
     with profiler.stage("commit/schedule"):
-        sched_np, W = _build_schedule(leaves, dec, region)
+        sched_np, _W = _build_schedule(leaves, dec, region)
     R8, C8 = rh // 8, rw // 8
     sy = src_dev[0][:, y0 : y0 + rh, x0 : x0 + rw]
     su = src_dev[1][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
     sv = src_dev[2][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
+    if refs_dev is not None and (x0, y0) != (0, 0):
+        raise NotImplementedError("inter regions other than the whole frame: ROADMAP queue 1, "
+                                  "'tiles' — not ported yet")
     dqv, lam = qparams_np(p.qindex, p.bd)
     with profiler.stage("commit/device"):
-        levels_dev, ry, ru, rv, skip8 = _commit_intra(
-            sy, su, sv, sched_np, W, R8, C8, p.bd, dqv, int(p.sf_tx_ntypes), float(lam),
-            get_q_ctx(p.qindex) if p.enable_rdoq else None)
-        levels_packed = levels_dev.cpu().numpy()
+        levels_dev, ry, ru, rv, skip8 = _commit_device(
+            sy, su, sv, sched_np, R8, C8, p.bd, dqv, int(p.sf_tx_ntypes), float(lam),
+            get_q_ctx(p.qindex) if p.enable_rdoq else None, refs=refs_dev, which=which)
+        levels_packed = levels_dev.cpu().numpy() if fetch_levels or not array_out else None
 
     if array_out:
         # vectorized path: the op stream is built by codec/array_plan from
         # the aux dict
-        aux = dict(sched=sched_np, ref_ids=None, levels_raw=levels_packed)
-        finish_levels(aux)
+        aux = dict(sched=sched_np, ref_ids=ref_ids)
+        if fetch_levels:
+            aux["levels_raw"] = levels_packed
+            finish_levels(aux)
+        else:
+            aux["levels_dev"] = levels_dev
         return ry, ru, rv, skip8, aux
     _t_unpack = time.perf_counter()
     off = 0
@@ -410,12 +491,23 @@ def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, regio
             mi_row = (y0 // 8 + int(r8[i])) * 2
             mi_col = (x0 // 8 + int(c8[i])) * 2
             sk = bool(skip[i])
-            m = MODES[int(s["mode"][i])]
-            d = BlockDecision(
-                y_mode=m, uv_mode=m, skip=int(sk),
-                tx_type=TX_SEARCH[int(s["tx"][i])],
-                levels_y=None if sk else ly[i], levels_u=None if sk else lu[i],
-                levels_v=None if sk else lvv[i])
+            ri = int(s["ref"][i])
+            if ri >= 0:
+                mv = (int(s["mv"][i, 0]), int(s["mv"][i, 1]))
+                gmv = tuple(p.gm_mvs[int(ref_ids[ri])])
+                d = BlockDecision(
+                    y_mode=int(InterMode.GLOBALMV) if mv == gmv else int(InterMode.NEWMV),
+                    ref_frame=int(ref_ids[ri]), ref_frame1=int(RefFrame.NONE), mv=mv,
+                    mv1=(0, 0), ref_mv_idx=0, skip=int(sk), tx_type=TX_SEARCH[int(s["tx"][i])],
+                    levels_y=None if sk else ly[i], levels_u=None if sk else lu[i],
+                    levels_v=None if sk else lvv[i])
+            else:
+                m = MODES[int(s["mode"][i])]
+                d = BlockDecision(
+                    y_mode=m, uv_mode=m, skip=int(sk),
+                    tx_type=TX_SEARCH[int(s["tx"][i])],
+                    levels_y=None if sk else ly[i], levels_u=None if sk else lu[i],
+                    levels_v=None if sk else lvv[i])
             plans[int(fs[i])].blocks[(mi_row, mi_col, BSIZE_BY_N[n])] = d
     profiler.add("commit/unpack_plan", time.perf_counter() - _t_unpack)
     return ry, ru, rv, skip8
@@ -437,7 +529,9 @@ def _filter_device(ry, ru, rv, src_y8, skip8, flens: list, levels: tuple, sharpn
     the smaller level; the SSE is an exact int64 sum). Empty: apply
     levels[0] / levels[1]. Returns (packed, stats (F, 5) int32 device tensor
     [cdef y_pri, y_sec, uv_pri, uv_sec, lf_pick] with lf_pick the chosen
-    lf_search index or -1)."""
+    lf_search index or -1, the [y, u, v] (F, H, W) uint8 (bd 8) or int16
+    planes that `packed` concatenates: with disp_dims they can enter a
+    device DPB as they are)."""
     from ..filters import cdef_torch, dlf_torch
 
     F = ry.shape[0]
@@ -487,8 +581,9 @@ def _filter_device(ry, ru, rv, src_y8, skip8, flens: list, levels: tuple, sharpn
             out.append(pl)
         planes = out
     odt = torch.uint8 if bd == 8 else torch.int16
-    packed = torch.cat([pl.to(odt).reshape(-1) for pl in planes])
-    return packed, torch.cat([strengths.to(torch.int32), lf_pick[:, None]], dim=1)
+    planes = [pl.to(odt).contiguous() for pl in planes]
+    packed = torch.cat([pl.reshape(-1) for pl in planes])
+    return packed, torch.cat([strengths.to(torch.int32), lf_pick[:, None]], dim=1), planes
 
 
 def _lf_candidates(base: int) -> tuple:
@@ -582,7 +677,7 @@ def encode_intra_frames(src_frames: list, params: FrameParams, device,
                      for plane in range(3) for tr in (False, True)]
             damping = cdef_mod.pick_damping(p.qindex)
             lf_search = _lf_candidates(levels[0]) if p.sf_dlf_search else ()
-            packed, stats = _filter_device(
+            packed, stats, _planes = _filter_device(
                 ry, ru, rv, src_dev[0], skip8, flens, tuple(levels), p.lf_sharpness, p.bd,
                 damping, enable_cdef, disp_dims=(p.width, p.height),
                 cdef_cands=4 if p.sf_cdef_fast else 0, lf_search=lf_search)

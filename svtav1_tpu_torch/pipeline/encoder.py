@@ -1,15 +1,21 @@
-"""Top-level encoder of the PyTorch port: all-intra (key-frame) CQP encoding
-on a CUDA device, ported from svtav1_tpu's pipeline/encoder.py.
+"""Top-level encoder of the PyTorch port: key frames and low-delay P frames,
+CQP, on a CUDA device, ported from svtav1_tpu's pipeline/encoder.py.
 
 API shape mirrors the reference's library API (EbSvtAv1Enc.h:966-1076
 svt_av1_enc_send_picture / _get_packet): `send_frame` returns the packets
-that become ready, `flush` drains the tail, `encode_frame` is the
-synchronous helper. Every frame is a key frame coded by
-`device_commit.encode_intra_frames` on `device`.
+that become ready (coding order), `flush` drains the tail, `encode_frame` is
+the synchronous helper. Key frames are coded by
+`device_commit.encode_intra_frames`; with `keyint > 1` the frames between
+keys are P frames (`minigop=1`) referencing the previous frame (LAST) and
+the last key (GOLDEN), coded through the three phases of
+`inter_device` with the DPB planes kept on `device`: the next frame's decide
+is dispatched before the previous frame's host walk runs.
 
-This slice supports `keyint=1` with every preset ("fast", "medium", "slow"),
-8-bit, CQP, one tile, DLF and CDEF each on or off. Every other setting
-raises NotImplementedError naming the ROADMAP item that brings it.
+This slice supports `keyint=1` (all-intra) and `keyint > 1` with
+`minigop=1`, every preset ("fast", "medium", "slow"), 8-bit, CQP, one tile,
+DLF and CDEF each on or off, translation global motion and CDF inheritance.
+Every other setting raises NotImplementedError naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -19,10 +25,12 @@ import numpy as np
 import torch
 
 from ..codec.tile_codec import FrameParams, TileCodec
+from ..constants.av1 import RefFrame
 from ..constants.cdf import FrameContext
 from ..entropy.bitstream import (FrameConfig, SequenceConfig, frame_obu, sequence_header_obu,
-                                 temporal_delimiter_obu)
+                                 show_existing_frame_obu, temporal_delimiter_obu)
 from ..utils import profiler
+from . import gop
 
 
 @dataclass
@@ -46,6 +54,19 @@ class EncoderConfig:
     preset: str = "medium"  # "fast" | "medium" | "slow"
     film_grain: int = 0  # film grain synthesis strength (0 = off)
     film_grain_table: str | None = None  # explicit aomenc "filmgrn1" table
+    # CDF lifecycle: seed each inter frame's symbol CDFs from the primary
+    # ref's saved frame context, and store the adapted end-of-frame CDFs
+    # with every refreshed DPB slot
+    cdf_inheritance: bool = True
+    # max reference frames per inter frame: 3 = LAST + GOLDEN (the last key)
+    # + ALTREF (future; hierarchical-B only)
+    n_refs: int = 3
+    # compound prediction for hierarchical-B frames (not in this slice)
+    enable_compound: bool = True
+    # translation global motion: host estimation against the LAST ref's
+    # source, a GLOBALMV lane at the global MV in the decide, and the spec's
+    # global_motion_params in the header (codec/gm.py); inter frames only
+    enable_gm: bool = True
 
 
 # preset -> speed features of the reference's ladder (svtav1_tpu's
@@ -64,11 +85,10 @@ PRESET_RDOQ = {"fast": False, "medium": True, "slow": True}
 
 # setting -> (is it outside this slice?, the ROADMAP queue 1 item that brings it)
 _UNSUPPORTED = (
-    (lambda c: c.keyint != 1, "keyint != 1 (inter frames)", "the inter path"),
     (lambda c: c.minigop != 1, "minigop != 1", "hierarchical-B/compound"),
     (lambda c: c.enable_restoration, "enable_restoration", "restoration"),
     (lambda c: c.enable_tf, "enable_tf", "MCTF"),
-    (lambda c: c.scene_cut, "scene_cut", "the inter path"),
+    (lambda c: c.scene_cut, "scene_cut", "scene cuts"),
     (lambda c: bool(c.film_grain or c.film_grain_table), "film_grain", "film grain"),
     (lambda c: c.tile_cols_log2 > 0 or c.tile_rows_log2 > 0, "tiles", "tiles"),
     (lambda c: c.intra_batch > 1, "intra_batch > 1", "intra batching"),
@@ -84,7 +104,7 @@ class Packet:
 
     tu: bytes
     disp_idx: int | None = None  # display idx of the frame coded in this TU
-    recon: list | None = None  # encoder recon (aligned planes)
+    recon: list | None = None  # encoder recon (aligned planes; None for SE)
     shown_disp_idx: int | None = None  # display idx output by this TU
 
 
@@ -151,24 +171,109 @@ class Encoder:
                                   enable_filter_intra=cfg.enable_filter_intra,
                                   film_grain_params_present=False)
         self.next_disp = 0  # next display index expected from the caller
+        self.anchor = -1  # display idx of the last coded anchor
+        self.pending: list = []  # buffered (disp_idx, src_planes)
+        # display idx -> {planes (device uint8 [y, u, v]), order_hint, slot}
+        self.dpb: dict = {}
+        self._cdf_slots: list = [None] * 8  # per-slot saved frame contexts
+        # global motion: per-slot saved gm params (PrevGmParams source) and
+        # the source lumas a later frame can still name as its LAST ref
+        self._gm_slots: list = [((0, 0),) * 8] * 8
+        self._gm_src: dict = {}
+        self._use_gm = bool(cfg.enable_gm and cfg.keyint != 1)
+        self._golden_disp = None  # last key's display idx (GOLDEN ref)
+        self._slot_occupant: dict = {}  # DPB slot -> display idx
+        # frame pipeline: FIFO of in-flight work, at most one frame's device
+        # work outstanding; the host walk of frame N runs while the device
+        # executes frame N+1's decide
+        self._pipe: list = []
         self._wrote_seq = False
 
     # ------------------------------------------------------------------- API
 
     def send_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray) -> list:
-        """Feed one display-order frame; returns the ready packets (every
-        frame is a key frame, so each call returns its own packet)."""
+        """Feed one display-order frame; returns the ready packets (coding
+        order). A P frame's packet is returned by a later call (or by flush)."""
+        cfg = self.cfg
         d = self.next_disp
         self.next_disp += 1
-        return [self._encode_one(d, self._pad(y, u, v))]
+        src = self._pad(y, u, v)
+        if cfg.keyint <= 1 or d % cfg.keyint == 0:
+            packets = self._drain_pending() + self._pipe_drain()
+            packets.append(self._encode_key(d, src))
+            self.anchor = d
+            return packets
+        self.pending.append((d, src))
+        packets = []
+        if len(self.pending) == cfg.minigop:
+            packets += self._code_minigop(self.pending)
+            self.pending = []
+        return packets
 
     def flush(self) -> list:
-        return []
+        return self._drain_pending() + self._pipe_drain()
 
     def encode_frame(self, y, u, v):
-        """Synchronous helper: returns (tu_bytes, recon_planes)."""
-        pkts = self.send_frame(y, u, v)
+        """Synchronous helper (minigop == 1): returns (tu_bytes,
+        recon_planes) of this display frame."""
+        pkts = self.send_frame(y, u, v) + self._pipe_drain()
+        if len(pkts) != 1:
+            raise RuntimeError(f"encode_frame expected one packet, got {len(pkts)}")
         return pkts[0].tu, pkts[0].recon
+
+    # ------------------------------------------------------------- scheduling
+
+    def _drain_pending(self) -> list:
+        packets = []
+        while self.pending:
+            size = 1
+            while size * 2 <= len(self.pending) and size * 2 <= self.cfg.minigop:
+                size *= 2
+            packets += self._code_minigop(self.pending[:size])
+            self.pending = self.pending[size:]
+        return packets
+
+    def _code_minigop(self, frames: list) -> list:
+        srcs = {d: s for d, s in frames}
+        sched = gop.schedule_minigop(self.anchor, len(frames))
+        # liveness-based DPB slot assignment over slots 0..6 (slot 7 is the
+        # GOLDEN key): a slot is reusable when its occupant is neither a ref
+        # of a not-yet-coded frame, nor awaiting show_existing, nor the
+        # mini-GoP's outgoing anchor
+        needed_after = [set() for _ in sched]
+        need: set = {frames[-1][0]}
+        for i in range(len(sched) - 1, -1, -1):
+            needed_after[i] = set(need)
+            f = sched[i]
+            need.update(x for x in (f.past_idx, f.future_idx) if x is not None)
+            need.update(f.show_existing)
+            if f.show is False:
+                need.add(f.disp_idx)  # hidden frame awaits its display
+        packets = []
+        for i, f in enumerate(sched):
+            if f.disp_idx not in needed_after[i] and f.show:
+                slot = None  # shown now, referenced never: skip the refresh
+            else:
+                # the GOLDEN key always has slot 7, so its copies in 0..6 are
+                # reusable; every other live ref is in needed_after
+                keep = needed_after[i] - {self._golden_disp}
+                slot = next((s for s in range(7)
+                             if self._slot_occupant.get(s) is None
+                             or self._slot_occupant[s] not in keep), None)
+                if slot is None:
+                    raise RuntimeError(f"live reference set {sorted(keep)} exceeds the 7 "
+                                       "rotating DPB slots")
+                self._slot_occupant[slot] = f.disp_idx
+            packets += self._encode_push(f.disp_idx, srcs[f.disp_idx], f.show, f.layer,
+                                         f.past_idx, f.future_idx, dpb_slot=slot)
+            for se in f.show_existing:
+                packets += self._push_done(self._show_existing(se))
+        self.anchor = frames[-1][0]
+        # drop DPB entries older than the new anchor (refs no longer
+        # needed), except the GOLDEN key the sequence still references
+        for k in [k for k in self.dpb if k < self.anchor and k != self._golden_disp]:
+            del self.dpb[k]
+        return packets
 
     # --------------------------------------------------------------- encoding
 
@@ -180,20 +285,137 @@ class Encoder:
                 pad_to_aligned(np.asarray(u, np.int32), aw >> 1, ah >> 1),
                 pad_to_aligned(np.asarray(v, np.int32), aw >> 1, ah >> 1)]
 
-    def _encode_one(self, disp_idx: int, src: list) -> Packet:
-        from . import device_commit
+    def _frame_qindex(self, is_key: bool, layer: int) -> int:
+        q = self.cfg.qindex
+        if self.cfg.minigop > 1 or self.cfg.keyint > 1:
+            q += gop.KEY_Q_OFFSET if is_key else gop.LAYER_Q_OFFSET[min(layer, 2)]
+        return max(1, min(255, q))
 
+    def _show_existing(self, disp_idx: int) -> Packet:
+        slot = self.dpb[disp_idx]["slot"]
+        tu = temporal_delimiter_obu() + show_existing_frame_obu(slot)
+        return Packet(tu=tu, shown_disp_idx=disp_idx)
+
+    def _gm_estimate(self, p, disp_idx: int, is_key: bool, past_idx, src) -> None:
+        """Translation global-motion estimation against the LAST ref's
+        source luma (codec/gm.py; global_me.c:126 analog), on the host. Also
+        keeps the source lumas for later estimates: only this frame's and
+        those of live DPB entries, the frames a later frame can name as
+        past_idx (the reference keeps up to 32)."""
+        if not self._use_gm:
+            return
+        cur = np.asarray(src[0])
+        if not is_key and past_idx is not None:
+            from ..codec import gm as gm_mod
+
+            ref = self._gm_src.get(past_idx)
+            if ref is not None and ref.shape == cur.shape:
+                with profiler.stage("gm"):
+                    mv = gm_mod.estimate_translation(cur, ref)
+                if mv != (0, 0):
+                    g = [(0, 0)] * 8
+                    g[int(RefFrame.LAST_FRAME)] = mv
+                    p.gm_mvs = tuple(g)
+        self._gm_src[disp_idx] = cur
+        for k in [k for k in self._gm_src if k != disp_idx and k not in self.dpb]:
+            del self._gm_src[k]
+
+    def _frame_setup(self, disp_idx: int, is_key: bool, layer: int, past_idx,
+                     future_idx) -> dict:
+        """Per-frame header/reference setup: qindex, ref map (id -> DPB
+        planes), ref slots/hints, loop-filter levels, FrameParams."""
         cfg = self.cfg
         order_hint = disp_idx & 0x7F
-        qindex = max(1, min(255, cfg.qindex))
+        qindex = self._frame_qindex(is_key, layer)
+        ref_hints = [0] * 8
+        refs = None
+        ref_slot = [0] * 7
+        if not is_key:
+            past = self.dpb[past_idx]
+            fut = self.dpb[future_idx] if future_idx is not None else None
+            refs = {int(RefFrame.LAST_FRAME): past["planes"]}
+            entries = {int(RefFrame.LAST_FRAME): past}
+            if fut is not None:
+                refs[int(RefFrame.ALTREF_FRAME)] = fut["planes"]
+                entries[int(RefFrame.ALTREF_FRAME)] = fut
+            # GOLDEN = the sequence's last key, kept even when it is also
+            # LAST so the reference count stays constant across the GOP
+            g = self._golden_disp
+            if cfg.n_refs >= 3 and g is not None and g in self.dpb and g != future_idx:
+                refs[int(RefFrame.GOLDEN_FRAME)] = self.dpb[g]["planes"]
+                entries[int(RefFrame.GOLDEN_FRAME)] = self.dpb[g]
+            for ref in range(1, 8):
+                if ref in entries:
+                    ent = entries[ref]
+                elif ref >= int(RefFrame.BWDREF_FRAME) and fut is not None:
+                    ent = fut
+                else:
+                    ent = past
+                ref_hints[ref] = ent["order_hint"]
+                ref_slot[ref - 1] = ent["slot"]
         lf_levels = (0, 0, 0, 0)
         if cfg.enable_dlf:
             from ..filters import dlf
 
-            lf_levels = dlf.pick_filter_levels(qindex, cfg.bd, True, cfg.height)
+            lf_levels = dlf.pick_filter_levels(qindex, cfg.bd, is_key, cfg.height)
+        ref_select = int(cfg.enable_compound and not is_key and future_idx is not None
+                         and not cfg.enable_restoration)
         p = FrameParams(width=cfg.width, height=cfg.height, qindex=qindex, bd=cfg.bd,
-                        frame_is_intra=True, order_hint=order_hint, ref_hints=(0,) * 8,
-                        lf_levels=lf_levels, enable_rdoq=self._rdoq, **self._sf)
+                        tile_cols_log2=cfg.tile_cols_log2, tile_rows_log2=cfg.tile_rows_log2,
+                        frame_is_intra=is_key, order_hint=order_hint,
+                        ref_hints=tuple(ref_hints), lf_levels=lf_levels,
+                        reference_select=ref_select,
+                        enable_filter_intra=cfg.enable_filter_intra,
+                        enable_rdoq=self._rdoq, enable_gm=int(self._use_gm), **self._sf)
+        return dict(p=p, refs=refs, ref_slot=ref_slot, order_hint=order_hint)
+
+    def _dpb_assign(self, disp_idx: int, is_key: bool, dpb_slot):
+        """DPB slot + refresh flag; GOLDEN bookkeeping for keys."""
+        refresh = True
+        if dpb_slot == "auto":
+            slot = 7 if is_key else disp_idx % 7
+        elif dpb_slot is None:
+            slot, refresh = 0, False
+        else:
+            slot = dpb_slot
+        if is_key:
+            self._golden_disp = disp_idx
+            self._slot_occupant = {s: disp_idx for s in range(7)}
+        return slot, refresh
+
+    def _stack_refs(self, refs: dict):
+        """(NREF, H, W) uint8 device stacks per plane from DPB entries, in
+        RefFrame id order (LAST first)."""
+        ref_ids = sorted(refs.keys())
+        return tuple(torch.stack([refs[r][pl] for r in ref_ids]) for pl in range(3)), ref_ids
+
+    def _write_tu(self, fr: FrameConfig, payload) -> bytes:
+        tu = temporal_delimiter_obu()
+        if not self._wrote_seq:
+            tu += sequence_header_obu(self.seq)
+            self._wrote_seq = True
+        return tu + frame_obu(self.seq, fr, payload)
+
+    def _save_contexts(self, walk_fc, p, slot: int, is_key: bool) -> None:
+        """Store the frame context (tile 0's adapted end state, its update
+        counters restarted) and the gm params with the refreshed slot(s)."""
+        saved_ctx = walk_fc if self.cfg.cdf_inheritance else None
+        if saved_ctx is not None:
+            saved_ctx.reset_counters()
+        if is_key:
+            self._cdf_slots = [saved_ctx] * 8
+            self._gm_slots = [tuple(p.gm_mvs)] * 8
+        else:
+            self._cdf_slots[slot] = saved_ctx
+            self._gm_slots[slot] = tuple(p.gm_mvs)
+
+    def _encode_key(self, disp_idx: int, src: list) -> Packet:
+        from . import device_commit
+
+        cfg = self.cfg
+        setup = self._frame_setup(disp_idx, True, 0, None, None)
+        p = setup["p"]
+        self._gm_estimate(p, disp_idx, True, None, src)
         walk_fc = FrameContext(p.qindex)
         plan, recon, filt, payloads = device_commit.encode_intra_frames(
             [src], p, self.device, apply_filters=cfg.enable_dlf or cfg.enable_cdef,
@@ -212,21 +434,104 @@ class Encoder:
         fr = FrameConfig(qindex=p.qindex, disable_cdf_update=p.disable_cdf_update,
                          show_frame=True,
                          tile_cols_log2=p.tile_cols_log2, tile_rows_log2=p.tile_rows_log2,
-                         frame_type=0, order_hint=order_hint, refresh_frame_flags=0xFF,
-                         ref_frame_idx=(0,) * 7,
+                         frame_type=0, order_hint=setup["order_hint"], refresh_frame_flags=0xFF,
+                         ref_frame_idx=tuple(setup["ref_slot"]),
                          lf_levels=hdr_lf, lf_sharpness=p.lf_sharpness,
                          cdef_damping=cdef_damping, cdef_y=cdef_y, cdef_uv=cdef_uv,
                          primary_ref_frame=7,  # PRIMARY_REF_NONE
-                         # the reference's default cdf_inheritance: adapted
-                         # end-of-frame CDFs are stored with every frame
-                         frame_end_update_cdf=True,
+                         frame_end_update_cdf=cfg.cdf_inheritance,
                          lr_types=p.lr_types, lr_unit_shift=p.lr_unit_shift,
                          lr_uv_shift=p.lr_uv_shift,
                          reference_select=p.reference_select, skip_mode_allowed=False,
                          gm_mvs=p.gm_mvs, prev_gm_mvs=None, film_grain=None)
-        tu = temporal_delimiter_obu()
-        if not self._wrote_seq:
-            tu += sequence_header_obu(self.seq)
-            self._wrote_seq = True
-        tu += frame_obu(self.seq, fr, payloads[0])
+        tu = self._write_tu(fr, payloads[0])
+        # keys park in slot 7 (they refresh all slots) so the GOLDEN
+        # reference survives the rotating non-key slots 0..6; nothing coded
+        # before a key can be referenced after it
+        slot, _ = self._dpb_assign(disp_idx, True, "auto")
+        if cfg.keyint > 1:
+            self.dpb = {disp_idx: {"planes": [torch.from_numpy(pl.astype(np.uint8)).to(self.device)
+                                              for pl in recon],
+                                   "order_hint": setup["order_hint"], "slot": slot}}
+        self._save_contexts(walk_fc, p, slot, True)
         return Packet(tu=tu, disp_idx=disp_idx, recon=recon, shown_disp_idx=disp_idx)
+
+    # --------------------------------------------------- pipelined inter path
+
+    def _pipe_drain(self) -> list:
+        """Finish every queued pipeline item in order."""
+        items, self._pipe = self._pipe, []
+        return [payload if kind == "done" else self._pipe_finish(payload)
+                for kind, payload in items]
+
+    def _push_done(self, pkt: Packet) -> list:
+        """Order an already-built packet behind any in-flight frame."""
+        if self._pipe:
+            self._pipe.append(("done", pkt))
+            return []
+        return [pkt]
+
+    def _encode_push(self, disp_idx: int, src: list, show: bool, layer: int, past_idx,
+                     future_idx, dpb_slot="auto") -> list:
+        """Pipelined inter encode: dispatch this frame's decide, finish older
+        frames on the host (overlapping the device), then dispatch commit and
+        filters and queue the host finish."""
+        from . import inter_device
+
+        cfg = self.cfg
+        setup = self._frame_setup(disp_idx, False, layer, past_idx, future_idx)
+        p = setup["p"]
+        self._gm_estimate(p, disp_idx, False, past_idx, src)
+        refs_dev, ref_ids = self._stack_refs(setup["refs"])
+        pend = inter_device.inter_start_decide(src, p, refs_dev, p.interp_filter, ref_ids)
+        out = self._pipe_drain()  # host walks of older frames overlap the decide
+        pend = inter_device.inter_start_commit(pend, enable_dlf=cfg.enable_dlf,
+                                               enable_cdef=cfg.enable_cdef)
+        slot, refresh = self._dpb_assign(disp_idx, False, dpb_slot)
+        self.dpb[disp_idx] = {"planes": pend.dpb_planes, "order_hint": setup["order_hint"],
+                              "slot": slot}
+        self._pipe.append(("frame", dict(pend=pend, setup=setup, show=show, disp_idx=disp_idx,
+                                         slot=slot, refresh=refresh)))
+        return out
+
+    def _pipe_finish(self, st: dict) -> Packet:
+        from ..entropy.bitstream import skip_mode_allowed
+        from . import inter_device
+
+        cfg = self.cfg
+        setup, pend = st["setup"], st["pend"]
+        p, ref_slot = setup["p"], setup["ref_slot"]
+        slot, refresh = st["slot"], st["refresh"]
+        disp_idx, show = st["disp_idx"], st["show"]
+        primary_ref = 7  # PRIMARY_REF_NONE
+        walk_fc = FrameContext(p.qindex)
+        if cfg.cdf_inheritance:
+            saved = self._cdf_slots[ref_slot[0]]
+            if saved is not None:
+                walk_fc = saved.clone()
+                primary_ref = 0  # LAST
+        plan, recon, filt, payloads = inter_device.inter_finish(pend, walk_fc)
+        ypri, ysec, upri, usec, cdef_damping = filt["cdef"]
+        fr = FrameConfig(qindex=p.qindex, disable_cdf_update=p.disable_cdf_update,
+                         show_frame=show,
+                         tile_cols_log2=p.tile_cols_log2, tile_rows_log2=p.tile_rows_log2,
+                         frame_type=1, order_hint=setup["order_hint"],
+                         refresh_frame_flags=(1 << slot) if refresh else 0,
+                         ref_frame_idx=tuple(ref_slot),
+                         lf_levels=filt["lf_levels"], lf_sharpness=p.lf_sharpness,
+                         cdef_damping=cdef_damping, cdef_y=((ypri, ysec),),
+                         cdef_uv=((upri, usec),),
+                         primary_ref_frame=primary_ref,
+                         frame_end_update_cdf=cfg.cdf_inheritance,
+                         reference_select=p.reference_select,
+                         skip_mode_allowed=bool(p.reference_select) and skip_mode_allowed(
+                             p.order_hint, p.order_hint_bits, list(p.ref_hints[1:])),
+                         gm_mvs=p.gm_mvs,
+                         prev_gm_mvs=(self._gm_slots[ref_slot[primary_ref]]
+                                      if primary_ref != 7 else None),
+                         film_grain=None)
+        tu = self._write_tu(fr, payloads[0])
+        if refresh:
+            self._save_contexts(walk_fc, p, slot, False)
+        return Packet(tu=tu, disp_idx=disp_idx, recon=recon,
+                      shown_disp_idx=disp_idx if show else None)

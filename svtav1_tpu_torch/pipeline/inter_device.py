@@ -1,0 +1,456 @@
+"""Device inter frame pipeline (PyTorch): batched ME + MC + mode decision,
+ported from svtav1_tpu's pipeline/inter_device.py for low-delay P frames.
+
+One decide program per frame computes, for every square block of every size
+8..64,
+
+  - hierarchical full-pel ME with per-size SAD-tree aggregation (K8) and
+    the subpel search with the winner's normative prediction (K9) against
+    each reference (ops/me_torch),
+  - full open-loop RD (K2 transform/quant/recon, K3 exact CDF txb rates)
+    for the NEWMV candidate per reference and the GLOBALMV candidate on the
+    first reference (K10 MC when the frame's global MV is not zero), the
+    luma tx-type search on the winner, chroma at the winning MV (K10),
+  - the intra candidates (device_decide._decide_intra_size, sf_nmodes_inter
+    modes), and the per-block winner (intra vs inter).
+
+Mode-rate contexts use the neighbour-free approximation (ctx 0, empty
+neighbour ref counts); coded inter modes are NEWMV (or GLOBALMV at the
+global MV); the normative MVP stack is built by the tile walk at write time.
+
+Partition RD and the commit are shared with the intra pipeline
+(device_decide.partition_dp, device_commit.commit_regions, whose phase A
+codes the inter blocks from K10 predictions). A frame runs in three phases
+so that its host work can overlap the next frame's device work:
+inter_start_decide, inter_start_commit (the DPB planes stay on the device)
+and inter_finish. Compound prediction (hierarchical-B) is not ported.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..codec import rate as rate_np
+from ..codec import rate_torch
+from ..codec.tile_codec import FrameParams
+from ..constants.av1 import RefFrame, TxType
+from ..ops import me_torch
+from ..utils import profiler
+from . import device_decide
+from .device_decide import MODES, SIZES, TX_SEARCH, _blocks_of, _eval_txfm
+
+MAX_MV_ABS = 4094  # 1/8-pel component clamp (within spec MV range, even)
+
+
+def single_ref_tree_bits(fc, ref_id: int) -> float:
+    """single-ref tree signaling bits for one RefFrame id, with the
+    empty-neighbor-count context approximation (every _ref_ctx() = 1 —
+    tile_codec._ref_ctx with zero counts)."""
+    sb = rate_np.symbol_bits
+    bits = 0.0
+    bit0 = ref_id >= int(RefFrame.BWDREF_FRAME)
+    bits += sb(fc["single_ref"][1][0], int(bit0), 2)
+    if bit0:
+        b = ref_id == int(RefFrame.ALTREF_FRAME)
+        bits += sb(fc["single_ref"][1][1], int(b), 2)
+        if not b:
+            bits += sb(fc["single_ref"][1][5], int(ref_id == int(RefFrame.ALTREF2_FRAME)), 2)
+    else:
+        b = ref_id in (int(RefFrame.LAST3_FRAME), int(RefFrame.GOLDEN_FRAME))
+        bits += sb(fc["single_ref"][1][2], int(b), 2)
+        if b:
+            bits += sb(fc["single_ref"][1][4], int(ref_id == int(RefFrame.GOLDEN_FRAME)), 2)
+        else:
+            bits += sb(fc["single_ref"][1][3], int(ref_id == int(RefFrame.LAST2_FRAME)), 2)
+    return bits
+
+
+def inter_cand_cost_const(fc, ref_ids, ref_select: bool = False) -> dict:
+    """Mode-signaling bit constants for the decide pass (ctx-0 / empty
+    neighbor-ref-count approximations; exact contexts are applied by the
+    tile walk): is_inter flag + single-ref tree per ref + {new,glob} mode
+    flags. ref_ids: the RefFrame id per stacked ref index. With
+    reference_select, single candidates pay the comp_inter=0 bit."""
+    sb = rate_np.symbol_bits
+    is_inter_b = sb(fc["intra_inter"][0], 1, 2)
+    single_b = sb(fc["comp_inter"][1], 0, 2) if ref_select else 0.0
+    b_new = sb(fc["newmv"][0], 0, 2)
+    b_glob = sb(fc["newmv"][0], 1, 2) + sb(fc["zeromv"][0], 0, 2)
+    ref_bits = [single_ref_tree_bits(fc, int(r)) for r in ref_ids]
+    return dict(new=[is_inter_b + single_b + rb + b_new for rb in ref_bits],
+                glob=is_inter_b + single_b + ref_bits[0] + b_glob)
+
+
+def inter_txtype_cost_const(fc, n: int) -> np.ndarray:
+    """(len(TX_SEARCH),) inter tx-type signaling bits (inter_ext_tx cdf)."""
+    from ..codec.tile_codec import (AV1_EXT_TX_IND, AV1_EXT_TX_USED, AV1_NUM_EXT_TX_SET,
+                                    EXT_TX_SET_DCTONLY, EXT_TX_SET_INDEX_INTER,
+                                    ext_tx_set_type_inter)
+    from ..constants.av1 import MAX_TXSIZE_RECT, TX_SIZE_SQR
+    from .intra_device import BSIZE_BY_N
+
+    tx_size = int(MAX_TXSIZE_RECT[BSIZE_BY_N[n]])
+    set_type = ext_tx_set_type_inter(tx_size)
+    out = np.zeros(len(TX_SEARCH), np.float32)
+    for j, t in enumerate(TX_SEARCH):
+        if set_type == EXT_TX_SET_DCTONLY:
+            out[j] = 0.0 if t == int(TxType.DCT_DCT) else 1e9
+        elif not AV1_EXT_TX_USED[set_type][t]:
+            out[j] = 1e9
+        else:
+            eset = EXT_TX_SET_INDEX_INTER[set_type]
+            nsyms = AV1_NUM_EXT_TX_SET[set_type]
+            sqr = int(TX_SIZE_SQR[tx_size])
+            out[j] = rate_np.symbol_bits(fc["inter_ext_tx"][eset][sqr],
+                                         int(AV1_EXT_TX_IND[set_type][t]), nsyms)
+    return out
+
+
+def _mv_rate(mv, pred, joint, comp):
+    """(B, 2) 1/8-pel MVs + predictors -> (B,) signaling bits via the exact
+    NMV LUTs (codec/rate_torch.mv_component_cost_lut)."""
+    d = (mv - pred).clamp(-MAX_MV_ABS, MAX_MV_ABS)
+    ady, adx = d[:, 0].abs().long(), d[:, 1].abs().long()
+    return joint[(ady != 0).long(), (adx != 0).long()] + comp[0, ady] + comp[1, adx]
+
+
+def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, pred_by_ref,
+                       intra_out, consts, n: int, rate_fns, dq, bd: int, R: int, C: int, lam,
+                       which: int, mc_by_ref, tx_ntypes: int = 4, gm8=None):
+    """Inter candidate evaluation for the (R, C) grid at size n, merged with
+    the intra decision `intra_out` = (cost, mode, tx) from device_decide.
+
+    src planes (1, H, W) int32; refs_* (NREF, H, W) uint8 stacks;
+    mv_by_ref: per reference (B, 2) subpel MVs, pred_by_ref (B, 2) MV-rate
+    predictors (the SB MV), mc_by_ref (B, n, n) the subpel search's
+    predictions at those MVs. The candidates are the NEWMV lane of every
+    reference and the GLOBALMV lane on reference 0, evaluated lane-major
+    (block, candidate) so that the argmin over candidates keeps the
+    reference's first-candidate tie order. Returns (cost, is_inter, mode,
+    tx, ref, mvy, mvx, ref2, mv2y, mv2x), each (R*C,)."""
+    dev = src_y.device
+    B = R * C
+    nc = n // 2
+    nref = len(mv_by_ref)
+    NC = nref + 1
+    r_idx = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C)
+    c_idx = torch.arange(C, device=dev, dtype=torch.int32).repeat(R)
+    ys, xs = r_idx * n, c_idx * n
+    srcb = _blocks_of(src_y, n, R, C)
+    joint, comp, cand_bits, txt_cost = consts
+
+    # GLOBALMV lane: the frame's global MV for ref 0 (a block copy of ref 0
+    # when global motion is off)
+    glob_mv = (torch.zeros((B, 2), dtype=torch.int32, device=dev) if gm8 is None
+               else gm8[None, :].expand(B, 2).to(torch.int32))
+    cand_mv = torch.stack([*mv_by_ref, glob_mv], dim=1)  # (B, NC, 2)
+    cand_ref = torch.tensor(list(range(nref)) + [0], dtype=torch.int32, device=dev)
+    bits = [cand_bits["new"][ri] + _mv_rate(mv, pred_by_ref[ri], joint, comp)
+            for ri, mv in enumerate(mv_by_ref)]
+    bits.append(cand_bits["glob"].expand(B))
+    cand_mbits = torch.stack(bits, dim=1)  # (B, NC)
+    if gm8 is None:
+        glob_pred = _blocks_of(refs_y[0:1].to(torch.int32), n, R, C)
+    else:
+        glob_pred = me_torch.mc_lanes(refs_y, ys, xs, glob_mv[:, 0] * 2, glob_mv[:, 1] * 2, n, n,
+                                      which, bd, ref_idx=torch.zeros(B, dtype=torch.int32,
+                                                                     device=dev))
+    pred = torch.stack([*mc_by_ref, glob_pred], dim=1)  # (B, NC, n, n)
+    rate, dist = _eval_txfm(srcb, pred.reshape(B * NC, n, n), dq, bd, rate_fns["y"][0], rep=NC)
+    cost_nc = dist.reshape(B, NC) + lam * (rate.reshape(B, NC) + cand_mbits)
+    pick = torch.argmin(cost_nc, dim=1)
+    bi = torch.arange(B, device=dev)
+    cost_i = cost_nc[bi, pick]
+    mv_i = cand_mv[bi, pick]
+    ref_i = cand_ref[pick]
+    mbits_i = cand_mbits[bi, pick]
+    pred_i = pred[bi, pick].contiguous()
+
+    # luma tx-type search on the inter winner (sizes with a non-DCT set)
+    tx_i = torch.zeros(B, dtype=torch.int32, device=dev)
+    if n <= 16 and tx_ntypes > 1:
+        for j in range(1, tx_ntypes):
+            ratej, dj = _eval_txfm(srcb, pred_i, dq, bd, rate_fns["y"][j], tx_type=TX_SEARCH[j])
+            cj = dj + lam * (ratej + mbits_i + txt_cost[j])
+            take = cj < cost_i
+            cost_i = torch.where(take, cj, cost_i)
+            tx_i = torch.where(take, j, tx_i)
+
+    # chroma at the winner's MV (DCT approximation, as the intra decide does)
+    ysc, xsc = r_idx * nc, c_idx * nc
+    for srcc, refc in ((src_u, refs_u), (src_v, refs_v)):
+        pc = me_torch.mc_lanes(refc, ysc, xsc, mv_i[:, 0], mv_i[:, 1], nc, nc, which, bd,
+                               ref_idx=ref_i)
+        ratec, distc = _eval_txfm(_blocks_of(srcc, nc, R, C), pc, dq, bd, rate_fns["uv"])
+        cost_i = cost_i + distc + lam * ratec
+    cost_i = cost_i + lam * 1.0  # skip flag
+
+    # merge with intra
+    cost_a, mode_a, tx_a = intra_out
+    ca = cost_a.reshape(B)
+    take_inter = cost_i < ca
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    minus1 = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    return (torch.where(take_inter, cost_i, ca), take_inter.to(torch.int32),
+            torch.where(take_inter, zero, mode_a.reshape(B)),
+            torch.where(take_inter, tx_i, tx_a.reshape(B)),
+            torch.where(take_inter, ref_i, minus1),
+            torch.where(take_inter, mv_i[:, 0], zero), torch.where(take_inter, mv_i[:, 1], zero),
+            minus1, zero, zero)
+
+
+def _edge_pad(plane, H: int, W: int):
+    """(h, w) -> (H, W) with the last row and column replicated."""
+    h, w = plane.shape
+    dev = plane.device
+    iy = torch.arange(H, device=dev).clamp(max=h - 1)
+    ix = torch.arange(W, device=dev).clamp(max=w - 1)
+    return plane[iy[:, None], ix[None, :]].contiguous()
+
+
+@functools.lru_cache(maxsize=32)
+def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int, which: int,
+                          ref_ids: tuple, sf: tuple, use_gm: bool, device: str):
+    """Whole-frame inter decide: ME + subpel + per-size inter/intra RD, with
+    the per-frame constants (CDF rate tables, penalty grids, MV LUTs) built
+    once per qctx bucket on the device; qindex enters as runtime operands
+    (dqv, lam). Returns (run, layout)."""
+    from .device_decide import (QCTX_REP, _decide_intra_size, _penalty_grid_np, _rate_fns,
+                                fc_for_qctx, intra_mode_cost_const, intra_txtype_cost_const)
+
+    p = FrameParams(width=width, height=height, qindex=QCTX_REP[qctx], bd=bd,
+                    frame_is_intra=False)
+    fc = fc_for_qctx(qctx)
+    dev = torch.device(device)
+    aw, ah = p.aligned_width, p.aligned_height
+    mi_end = (p.mi_rows, p.mi_cols)
+    sizes = [n for n in SIZES if ah // n and aw // n]
+    layout = [(n, ah // n, aw // n) for n in sizes]
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    # the reduced intra class of inter frames: sf[0] modes (7 at medium, the
+    # non-directional ones; the reference likewise restricts intra injection)
+    intra_consts = {n: (t(_penalty_grid_np(p, 0, 0, ah // n, aw // n, n, (0, 0), mi_end)),
+                        t(intra_mode_cost_const(fc, n, False)),
+                        t(intra_txtype_cost_const(fc, n)), _rate_fns(qctx, n, dev))
+                    for n in sizes}
+    cb = inter_cand_cost_const(fc, ref_ids[:nref])
+    cand_bits = dict(new=[t(np.float32(b)) for b in cb["new"]], glob=t(np.float32(cb["glob"])))
+    inter_txt = {n: t(inter_txtype_cost_const(fc, n)) for n in sizes}
+    joint = t(rate_torch.mv_joint_cost(fc))
+    comp = t(rate_torch.mv_component_cost_lut(fc, MAX_MV_ABS))
+    # ME planes padded to SB multiples
+    sbr, sbc = -(-ah // 64), -(-aw // 64)
+
+    def run(sy8, su8, sv8, refs_y8, refs_u8, refs_v8, dqv, lam, gm8):
+        dq = (int(dqv[0]), int(dqv[1]))
+        lam_t = torch.tensor(lam, dtype=torch.float32, device=dev)
+        sy, su, sv = (x.to(torch.int32) for x in (sy8, su8, sv8))
+        sy_me = _edge_pad(sy[0], sbr * 64, sbc * 64)
+        srcb = {n: _blocks_of(sy, n, R, C) for n, R, C in layout}
+        grid = {n: (torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n,
+                    torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n)
+                for n, R, C in layout}
+
+        # per-ref ME: full-pel per size, then the subpel search, which also
+        # yields each winner's normative prediction for the RD below
+        mv_by_ref = {n: [] for n in sizes}
+        mc_by_ref = {n: [] for n in sizes}
+        sb_pred = []
+        for ri in range(nref):
+            ref_me = _edge_pad(refs_y8[ri].to(torch.int32), sbr * 64, sbc * 64)
+            mvs_fp, mv_sb = me_torch.me_fullpel_frame(sy_me, ref_me, sbr, sbc)
+            sb_pred.append(mv_sb.reshape(sbr, sbc, 2) * 8)
+            for n, R, C in layout:
+                fp = mvs_fp[n][:R, :C].reshape(R * C, 2)
+                mv8, mc8 = me_torch.subpel_pred_lanes(srcb[n], refs_y8[ri], *grid[n], fp, which,
+                                                      bd, fast=bool(sf[2]))
+                mv_by_ref[n].append(mv8.clamp(-MAX_MV_ABS, MAX_MV_ABS))
+                mc_by_ref[n].append(mc8)
+
+        packed = []
+        for n, R, C in layout:
+            pen, mode_cost, txt_cost, rate_fns = intra_consts[n]
+            intra_out = _decide_intra_size(sy, su, sv, pen, mode_cost, txt_cost, n, rate_fns, dq,
+                                           bd, R, C, lam_t, nmodes=sf[0], tx_ntypes=sf[1])
+            # MV-rate predictor proxy: the SB-level MV over each block
+            k = 64 // n
+            preds = [sb_pred[ri].repeat_interleave(k, 0).repeat_interleave(k, 1)[:R, :C]
+                     .reshape(R * C, 2) for ri in range(nref)]
+            outs = _decide_inter_size(
+                sy, su, sv, refs_y8, refs_u8, refs_v8, mv_by_ref[n], preds, intra_out,
+                (joint, comp, cand_bits, inter_txt[n]), n, rate_fns, dq, bd, R, C, lam_t, which,
+                mc_by_ref[n], tx_ntypes=sf[1], gm8=gm8 if use_gm else None)
+            packed += [outs[0]] + [o.to(torch.float32) for o in outs[1:]]
+        return torch.cat(packed)
+
+    return run, layout
+
+
+_DECIDE_KEYS = ("cost", "is_inter", "mode", "tx", "ref", "mvy", "mvx", "ref2", "mv2y", "mv2x")
+
+
+def _unpack_decide(flat: np.ndarray, layout) -> dict:
+    out = {}
+    off = 0
+    for n, R, C in layout:
+        sz = R * C
+        g = {}
+        for kname in _DECIDE_KEYS:
+            arr = flat[off : off + sz].reshape(R, C)
+            g[kname] = arr.astype(np.float64) if kname == "cost" else arr.astype(np.int32)
+            off += sz
+        out[n] = g
+    return out
+
+
+def _decide_program(p: FrameParams, refs_dev, which: int, ref_ids):
+    from ..constants.cdf import get_q_ctx
+
+    if p.reference_select:
+        raise NotImplementedError("compound prediction: ROADMAP queue 1, "
+                                  "'hierarchical-B/compound' — not ported yet")
+    return _decide_inter_program(p.width, p.height, get_q_ctx(p.qindex), p.bd,
+                                 int(refs_dev[0].shape[0]), which,
+                                 tuple(int(r) for r in ref_ids),
+                                 (int(p.sf_nmodes_inter), int(p.sf_tx_ntypes),
+                                  int(p.sf_fast_subpel)),
+                                 bool(p.enable_gm), str(refs_dev[0].device))
+
+
+def _run_decide(src_dev, refs_dev, p: FrameParams, which: int, ref_ids):
+    """Dispatch the decide program; returns (flat device tensor, layout)."""
+    run, layout = _decide_program(p, refs_dev, which, ref_ids)
+    gm8 = torch.as_tensor(np.asarray(p.gm_mvs[int(ref_ids[0])], np.int32),
+                          device=refs_dev[0].device)
+    dqv, lam_op = device_decide.qparams_np(p.qindex, p.bd)
+    return run(src_dev[0], src_dev[1], src_dev[2], *refs_dev, dqv, lam_op, gm8), layout
+
+
+def decide_inter_frame(src_dev, refs_dev, params: FrameParams, which: int, ref_ids=(1, 4)) -> dict:
+    """Run the decide; returns {n: dict(cost, is_inter, mode, tx, ref, mvy,
+    mvx, ref2, mv2y, mv2x)} numpy grids over the full aligned frame.
+    src_dev: put_frames() planes of one frame; refs_dev: (NREF, H, W) uint8
+    device stacks (Y, U, V); ref_ids: the RefFrame id per stack index."""
+    flat, layout = _run_decide(src_dev, refs_dev, params, which, ref_ids)
+    return _unpack_decide(flat.cpu().numpy(), layout)
+
+
+# --------------------------------------------------------------- pipelined
+# Three-phase inter frame for the overlapped host/device pipeline:
+#
+#   start_decide  — h2d source + dispatch the decide program, no host sync.
+#   start_commit  — fetch the decide (the frame's one mandatory sync), host
+#                   partition DP, dispatch commit + in-loop filters. The
+#                   filtered, display-edge-replicated recon planes stay on
+#                   the device (.dpb_planes) so the next frame's ME/MC
+#                   chains on them without a host round trip.
+#   finish        — pull levels, build the op stream, run the native C
+#                   walk, fetch the recon for the packet.
+
+
+class PendingInter:
+    """Mutable carrier of one in-flight frame's device tensors + host aux."""
+
+
+def inter_start_decide(src_planes, params: FrameParams, refs_dev, which: int,
+                       ref_ids) -> PendingInter:
+    p = params
+    pend = PendingInter()
+    with profiler.stage("h2d"):
+        pend.src_dev = device_decide.put_frames([src_planes], p.bd, refs_dev[0].device)
+    with profiler.stage("decide"):
+        pend.flat, pend.layout = _run_decide(pend.src_dev, refs_dev, p, which, ref_ids)
+    pend.p = p
+    pend.refs_dev = refs_dev
+    pend.which = which
+    pend.ref_ids = [int(r) for r in ref_ids]
+    return pend
+
+
+def inter_start_commit(pend: PendingInter, enable_dlf: bool = True, enable_cdef: bool = True,
+                       sharpness: int = 0) -> PendingInter:
+    from ..codec.tile_codec import Plan
+    from ..constants.cdf import FrameContext
+    from ..filters import cdef as cdef_mod
+    from ..filters import dlf_torch
+    from . import device_commit
+    from .intra_md import rd_lambda
+
+    p = pend.p
+    fc = FrameContext(p.qindex)
+    lam = float(rd_lambda(p.qindex, p.bd))
+    aw, ah = p.aligned_width, p.aligned_height
+    region = (0, 0, aw, ah)
+    with profiler.stage("decide"):
+        flat = pend.flat.cpu().numpy()
+    del pend.flat
+    dec = _unpack_decide(flat, pend.layout)
+    with profiler.stage("partition_dp"):
+        partitions, leaves, tree = device_decide.partition_dp(dec, p, fc, lam, region)
+    plan = Plan()
+    plan.partitions.update(partitions)
+    ry, ru, rv, skip8, aux = device_commit.commit_regions(
+        pend.src_dev, p, [leaves], [dec], [plan], region, refs_dev=pend.refs_dev,
+        ref_ids=pend.ref_ids, which=pend.which, array_out=True, fetch_levels=False)
+    # DLF filter-length maps from the leaf size map alone: with
+    # TX_MODE_LARGEST every filtered edge is a prediction-block edge, so the
+    # skip/ref terms of the normative mask never suppress an edge
+    with profiler.stage("filter"):
+        levels = p.lf_levels if (enable_dlf and any(p.lf_levels)) else (0, 0, 0, 0)
+        sm = device_commit._size_maps([leaves], 1, ah // 8, aw // 8)
+        flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr),
+                                 dtype=torch.int32, device=ry.device)
+                 for plane in range(3) for tr in (False, True)]
+        damping = cdef_mod.pick_damping(p.qindex)
+        lf_search = device_commit._lf_candidates(levels[0]) if p.sf_dlf_search else ()
+        packed, stats, planes = device_commit._filter_device(
+            ry, ru, rv, pend.src_dev[0], skip8, flens, tuple(levels), sharpness, p.bd, damping,
+            enable_cdef, disp_dims=(p.width, p.height), cdef_cands=4 if p.sf_cdef_fast else 0,
+            lf_search=lf_search)
+    pend.plan, pend.tree, pend.aux = plan, tree, aux
+    pend.region = region
+    pend.lf_levels = tuple(levels)
+    pend.lf_search = lf_search
+    pend.damping = damping
+    pend.packed, pend.strengths = packed, stats
+    pend.dpb_planes = [pl[0] for pl in planes]  # device uint8 planes, F == 1
+    pend.src_dev = None
+    pend.refs_dev = None
+    return pend
+
+
+def inter_finish(pend: PendingInter, walk_fc) -> tuple:
+    """Complete one pipelined frame: levels d2h + op-stream build + native C
+    walk + recon fetch. Returns (plan, recon_int32_planes, filt, payloads)."""
+    from ..codec import array_plan
+    from ..codec.tile_walk_native import run_tile_ops
+    from . import device_commit
+
+    p = pend.p
+    device_commit.finish_levels(pend.aux)
+    with profiler.stage("entropy_walk"):
+        tiles = p.tiles()[0]
+        ops, _keys = array_plan.build_tile_ops(
+            p, pend.tree, pend.aux["sched"], pend.aux["level_base"], 0, pend.region, tiles,
+            pend.aux["ref_ids"], TX_SEARCH, MODES)
+        payloads = [run_tile_ops(p, walk_fc, ops, pend.aux["levels_i32"], tiles)]
+    with profiler.stage("recon_d2h"):
+        packed = pend.packed.cpu().numpy()
+        stats = pend.strengths.cpu().numpy()
+    aw, ah = p.aligned_width, p.aligned_height
+    ysz, csz = ah * aw, (ah // 2) * (aw // 2)
+    recon = [packed[:ysz].reshape(ah, aw).astype(np.int32),
+             packed[ysz : ysz + csz].reshape(ah // 2, aw // 2).astype(np.int32),
+             packed[ysz + csz :].reshape(ah // 2, aw // 2).astype(np.int32)]
+    lf = pend.lf_levels
+    if pend.lf_search:
+        ylvl = pend.lf_search[int(stats[0, 4])]
+        lf = (ylvl, ylvl, lf[2], lf[3])
+    filt = dict(lf_levels=lf, cdef=(int(stats[0, 0]), int(stats[0, 1]), int(stats[0, 2]),
+                                    int(stats[0, 3]), pend.damping))
+    return pend.plan, recon, filt, payloads

@@ -1,20 +1,27 @@
-"""Where the time of a key-frame encode goes on the card.
+"""Where the time of an encode goes on the card: key frames, or the P
+frames of a low-delay GOP.
 
-Encodes one warm frame, then N frames of the synthetic clip through
-Encoder(device="cuda") at a preset (default medium, with DLF, CDEF and RDOQ
-on) twice: untraced, for the wall time, and under torch.profiler, for the
-device time. Prints one JSON line: wall seconds per frame (untraced and
-traced: their difference is the tracing cost), the device's busy share (the device-side kernel and copy
-time of the traced frames, one stream, over the untraced wall time),
-device milliseconds per frame of the busiest device functions, host seconds
-per pipeline stage (utils.profiler, untraced), per stage (decide, commit,
-filter) the launches of each kernel and the sum of their bounds (the least
-time the card could take for each launch's work, from its arguments), and
-the card's name and power limit.
+Key frames (--keyint 1, the default): encodes one warm frame, then N frames
+of the synthetic clip through Encoder(device="cuda") at a preset (default
+medium, with DLF, CDEF and RDOQ on) twice. GOP (--keyint N > 1): encodes a
+2-frame warm GOP, then, on fresh encoders, the key frame of an N-frame GOP
+untimed and its N-1 P frames (send_frame + flush) measured, twice. The two
+measured runs are untraced, for the wall time, and under torch.profiler, for
+the device time. Prints one JSON line: wall seconds per frame (untraced and
+traced: their difference is the tracing cost), the device's busy share (the
+device-side kernel and copy time of the traced frames, one stream, over the
+untraced wall time), device milliseconds per frame of the busiest device
+functions, host seconds per frame of each pipeline stage (utils.profiler,
+untraced; for P frames gm, decide, partition_dp, commit/device with its
+commit/phase_a and commit/wave parts, filter, entropy_walk, and the
+transfers), per stage (decide, commit, filter) the launches of each kernel
+and the sum of their bounds (the least time the card could take for each
+launch's work, from its arguments), and the card's name and power limit.
 
 Run on a GPU machine from the repository root:
     python -m svtav1_tpu_torch.utils.profile_keyframes --preset medium --frames 2
     python -m svtav1_tpu_torch.utils.profile_keyframes --preset fast --no-cdef
+    python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 6
 """
 from __future__ import annotations
 
@@ -66,6 +73,21 @@ def launch_bound(name: str, args: tuple) -> tuple[float, float]:
         cells = F * (H >> log2m) * (W >> log2m)
         return (F * H * W * 4 * (1 + (src is not None)) + (K * F * H * W * 4 if out else 0)
                 + cells * 9), K * F * H * W * 12 * 12
+    if name == "me_sad":
+        mode, (B, K, H, W, n, r) = args[0], args[7:13]
+        D = 2 * r + 1
+        if mode == 0:
+            return H * W * 4 + H * W, H * W // 4 * 5
+        if mode == 1:
+            return B * (n * n + (n + 2 * r) ** 2) * 4 + B * 16, B * D * D * n * n * 3
+        return 2 * H * W * 4 + K * B * 8 + K * B * 64 * D * D * 4, K * B * 64 * D * D * 64 * 3
+    if name == "subpel_pred":
+        B, n, fast = args[8], args[11], args[13]
+        L = 5 if fast else 7
+        return B * n * n * 9 + 16 * B, B * (L * (n + 8) * n * 16 + L * L * n * n * 19)
+    if name == "mc_lanes":
+        B, nh, nw = args[9], args[13], args[14]
+        return B * 20 + B * nh * nw * 5, B * ((nh + 7) * nw * 16 + nh * nw * 20)
     raise ValueError(name)
 
 
@@ -78,7 +100,7 @@ def count_launches(fn):
     (decide, commit or filter) it belongs to. Returns {stage: {kernel:
     [launches, summed bound ms]}}."""
     from .. import kernels
-    from ..pipeline import device_commit, device_decide
+    from ..pipeline import device_commit, device_decide, inter_device
 
     current = ["other"]
     out: dict = {}
@@ -99,11 +121,11 @@ def count_launches(fn):
                 current[0] = "other"
         return run
 
-    saved = [(device_decide, "decide_intra_frames"), (device_commit, "commit_regions"),
-             (device_commit, "_filter_device")]
+    saved = [(device_decide, "decide_intra_frames"), (inter_device, "_run_decide"),
+             (device_commit, "commit_regions"), (device_commit, "_filter_device")]
     originals = [getattr(m, a) for m, a in saved]
     kernels.launch = launch
-    for (m, a), f, stage in zip(saved, originals, ("decide", "commit", "filter")):
+    for (m, a), f, stage in zip(saved, originals, ("decide", "decide", "commit", "filter")):
         setattr(m, a, staged(stage, f))
     try:
         fn()
@@ -123,6 +145,8 @@ def main() -> int:
     ap.add_argument("--qindex", type=int, default=120)
     ap.add_argument("--preset", choices=("fast", "medium", "slow"), default="medium")
     ap.add_argument("--no-cdef", action="store_true", help="encode with CDEF off")
+    ap.add_argument("--keyint", type=int, default=1,
+                    help="1: key frames; N > 1: the P frames of an N-frame low-delay GOP")
     args = ap.parse_args()
 
     import torch
@@ -137,23 +161,50 @@ def main() -> int:
     from . import profiler
     from .testclip import make_frames
 
-    frames = make_frames(args.width, args.height, args.frames + 1, seed=args.seed)
-    enc = Encoder(EncoderConfig(args.width, args.height, qindex=args.qindex, keyint=1,
-                                preset=args.preset, enable_cdef=not args.no_cdef), device="cuda")
-    enc.encode_frame(*frames[0])
+    gop = args.keyint > 1
+    n = args.keyint - 1 if gop else args.frames
+    frames = make_frames(args.width, args.height, n + 1, seed=args.seed)
+
+    def encoder():
+        return Encoder(EncoderConfig(args.width, args.height, qindex=args.qindex,
+                                     keyint=args.keyint, preset=args.preset,
+                                     enable_cdef=not args.no_cdef), device="cuda")
+
+    enc = encoder()
+    if gop:  # a 2-frame warm GOP
+        for f in frames[:2]:
+            enc.send_frame(*f)
+        enc.flush()
+    else:
+        enc.encode_frame(*frames[0])
     torch.cuda.synchronize()
-    n = args.frames
+
+    def prepare() -> None:
+        """Before each measured run of a GOP: a fresh encoder and its key
+        frame, outside the measurement."""
+        nonlocal enc
+        if gop:
+            enc = encoder()
+            enc.send_frame(*frames[0])
+            torch.cuda.synchronize()
 
     def encode_all() -> float:
+        """Wall seconds of the n measured frames: the P frames of the GOP,
+        or n more key frames."""
         t0 = time.perf_counter()
         for f in frames[1:]:
-            enc.encode_frame(*f)
+            enc.send_frame(*f) if gop else enc.encode_frame(*f)
+        if gop:
+            enc.flush()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    prepare()
     profiler.reset()
     wall = encode_all()
     stages = {k: v / n for k, v in profiler.report().items()}
+    waves = profiler.counts().get("commit/wave", 0) / n
+    prepare()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_wall = encode_all()
     dev_us = {}
@@ -166,6 +217,7 @@ def main() -> int:
         dev_us[ev.key[:80]] = dev_us.get(ev.key[:80], 0.0) + us
     busy_s = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    prepare()
     launches = count_launches(encode_all)
     bounds = {st: dict(kernels={k: dict(launches=v[0] / n, bound_ms=v[1] / n)
                                 for k, v in ks.items()},
@@ -174,7 +226,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps(dict(
-        size=[args.width, args.height], preset=args.preset, cdef=not args.no_cdef, frames=n,
+        size=[args.width, args.height], preset=args.preset, cdef=not args.no_cdef,
+        keyint=args.keyint, frames=n, measured="P frames" if gop else "key frames",
+        waves_per_frame=waves,
         wall_s_per_frame=wall / n,
         traced_wall_s_per_frame=traced_wall / n, device_busy_s_per_frame=busy_s / n,
         device_busy_share=(busy_s / wall) if busy_s else "not measured",

@@ -41,10 +41,10 @@ def test_slice_without_deblocking_decodes():
 
 
 @pytest.mark.parametrize("override, item", [
-    (dict(keyint=8), "the inter path"),
+    (dict(keyint=8, minigop=2), "hierarchical-B/compound"),
     (dict(enable_restoration=True), "restoration"),
     (dict(enable_tf=True), "MCTF"),
-    (dict(scene_cut=True), "the inter path"),
+    (dict(scene_cut=True), "scene cuts"),
     (dict(film_grain=10), "film grain"),
     (dict(tile_cols_log2=1), "tiles"),
     (dict(intra_batch=2), "intra batching"),

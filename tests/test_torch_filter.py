@@ -42,17 +42,19 @@ def test_filter_device_matches_jax(size, enable_cdef, cdef_cands):
     flens = [dlf_jax.flen_maps_from_sizes(sm, plane, tr) for plane in range(3)
              for tr in (False, True)]
     damping = 5
-    want_packed, want_stats, _ = ref._filter_device(
+    want_packed, want_stats, want_planes = ref._filter_device(
         *(jnp.asarray(p) for p in rec), jnp.asarray(src_y), jnp.asarray(skip8),
         jnp.asarray(np.concatenate([f.ravel() for f in flens])), levels, 0, 8, damping,
         enable_cdef, tuple(f.shape for f in flens), disp_dims=(w - 6, h - 2),
         cdef_cands=cdef_cands, lf_search=lf_search)
     pflens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr), dtype=torch.int32)
               for plane in range(3) for tr in (False, True)]
-    packed, stats = port._filter_device(
+    packed, stats, planes = port._filter_device(
         *(torch.from_numpy(p) for p in rec), torch.from_numpy(src_y), torch.from_numpy(skip8),
         pflens, levels, 0, 8, damping, enable_cdef, disp_dims=(w - 6, h - 2),
         cdef_cands=cdef_cands, lf_search=lf_search)
     np.testing.assert_array_equal(stats.numpy(), np.asarray(want_stats))
     np.testing.assert_array_equal(packed.numpy(), np.asarray(want_packed))
+    for got, want in zip(planes, want_planes):  # the planes a device DPB keeps
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (stats.numpy()[:, 4] > 0).all()  # the search left level 0 behind

@@ -63,6 +63,15 @@ def test_encoder_without_device_needs_cuda(monkeypatch):
     assert port_enc.Encoder(cfg, device="cpu").device.type == "cpu"
 
 
+def test_gop_encoder_without_device_needs_cuda(monkeypatch):
+    """The low-delay GOP (keyint > 1) defaults to the card as well."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_enc.EncoderConfig(64, 64, keyint=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_enc.Encoder(cfg)
+    assert port_enc.Encoder(cfg, device="cpu").device.type == "cpu"
+
+
 def test_kernel_argument_check_rejects_cpu_tensors():
     """The wrappers take the plain version only for CPU tensors; the kernel
     argument check rejects a CPU tensor outright."""

@@ -29,3 +29,28 @@ def matches_jax_and_decodes(w: int, h: int, cfg: dict) -> None:
         for i in range(3):
             np.testing.assert_array_equal(drec[i], rec[i], err_msg=f"decode frame {f} plane {i}")
         assert dy.shape == (h, w)
+
+
+def gop_matches_jax_and_decodes(w: int, h: int, cfg: dict, frames: int) -> None:
+    """`frames` frames of the synthetic clip (a key frame, then P frames
+    when cfg["keyint"] > 1) through both encoders with send_frame + flush:
+    identical TUs and recon in coding order, and the port's decoder, fed
+    the TUs in order, reproduces every recon."""
+    clip = make_frames(w, h, frames)
+    ref = ref_enc.Encoder(ref_enc.EncoderConfig(w, h, mode_decision="jax", **cfg))
+    port = port_enc.Encoder(port_enc.EncoderConfig(w, h, **cfg), device="cpu")
+    want, got = [], []
+    for y, u, v in clip:
+        want += ref.send_frame(y, u, v)
+        got += port.send_frame(y, u, v)
+    want += ref.flush()
+    got += port.flush()
+    assert [p.disp_idx for p in got] == [p.disp_idx for p in want] == list(range(frames))
+    dec = Decoder()
+    for f, (a, b) in enumerate(zip(got, want)):
+        for i in range(3):
+            np.testing.assert_array_equal(a.recon[i], b.recon[i], err_msg=f"frame {f} plane {i}")
+        assert a.tu == b.tu, f"frame {f}: {len(a.tu)} vs {len(b.tu)} bytes"
+        _, _, _, drec = dec.decode_tu(a.tu)
+        for i in range(3):
+            np.testing.assert_array_equal(drec[i], a.recon[i], err_msg=f"decode frame {f} plane {i}")
