@@ -4,15 +4,21 @@
 Phases, each fatal on failure:
   1. build the CUDA kernels from svtav1_tpu_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all started together;
-  2. run each kernel and its plain PyTorch version on the card at the main
-     path's shapes and hold them equal (K3: rtol 1e-5, atol 1e-3 bits; all
-     others exact, K5 counting its differing lanes; K9's prediction also
-     against K10 at the MVs it returns), and time both;
+  2. run each kernel and its plain PyTorch version on the card at the
+     shapes its path gives it and hold them equal (K3: rtol 1e-5, atol 1e-3
+     bits; all others exact, K5 counting its differing lanes and K12 its
+     differing samples; K9's prediction also against K10 at the MVs it
+     returns; K9 also at the MCTF shape, n = 16 on the 49-point lattice;
+     K11 at every block size of the commit, 8x8 to 64x64), and time both;
   3. conformance: encode 2 CIF key frames on the card at the fast preset
-     without CDEF and at the default medium preset, and a 6-frame CIF GOP
-     (a key frame and 5 P frames, keyint=6) at medium; decode every TU
-     with the port's decoder (recon bit-identical); encode the same clips
-     with device="cpu" and report the share of bytes that match;
+     without CDEF and at the default medium preset, a 6-frame CIF GOP (a
+     key frame and 5 P frames, keyint=6) at medium, and two 9-frame CIF
+     random-access GOPs (keyint=16, minigop=8 and minigop=4, MCTF on) at
+     medium; decode every TU with the port's decoder (recon bit-identical);
+     encode the same clips with device="cpu" and report the share of bytes
+     that match; then run the CLI in-process on the minigop-4 clip written
+     as a y4m (--keyint 16 --minigop 4 --enable-tf --verify): it must exit
+     0 and its IVF must hold the library run's TUs;
   4. the paths: 1 warm + 1 timed 1920x1080 key frame at the fast preset
      without CDEF (K1-K4 launched), 1 warm + 2 timed key frames at the
      medium preset (K1-K7 launched), then the main path, the bench's clip:
@@ -20,8 +26,14 @@ Phases, each fatal on failure:
      frames) at the medium preset with DLF, RDOQ, CDEF and global motion on,
      through send_frame + flush on a fresh Encoder after a 2-frame warm
      run, with every kernel K1-K10 launched and the first two TUs (the key
-     frame and the first P frame) decoded bit-exactly; launch counts are
-     reset just before each path and read just after;
+     frame and the first P frame) decoded bit-exactly; then the
+     random-access path: 17 frames of the clip with keyint=32, minigop=8 and
+     MCTF (a key frame and two 8-frame hierarchical-B mini-GoPs; frames 0,
+     8 and 16 filtered) through send_frame + flush on a fresh Encoder after
+     a 3-frame warm run, with every kernel K1-K13 launched and the first
+     three TUs (the key frame, the hidden anchor 8, frame 4) decoded
+     bit-exactly; launch counts are reset just before each path and read
+     just after;
   5. the card's name and power limit, the kernel table, and last the
      device line.
 
@@ -44,6 +56,8 @@ INT32_OPS_PER_S = 33.5e12
 FAST = dict(qindex=120, keyint=1, preset="fast", enable_cdef=False)
 MEDIUM = dict(qindex=120, keyint=1, preset="medium")  # DLF, CDEF and RDOQ on
 GOP = dict(qindex=120, keyint=16, preset="medium")  # the bench's 1080p clip (bench.py:92-139)
+# random access: hierarchical-B mini-GoPs of 8 with compound prediction and MCTF
+RA = dict(qindex=120, keyint=32, minigop=8, enable_tf=True, preset="medium")
 KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "intra_pred": ("svtav1_tpu_torch/csrc/intra_pred.cu", "svtav1_tpu/pipeline/intra_device.py:31"),
     "txfm_quant_recon": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu",
@@ -56,7 +70,12 @@ KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "me_sad": ("svtav1_tpu_torch/csrc/me.cu", "svtav1_tpu/ops/me_jax.py:86"),
     "subpel_pred": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:300"),
     "mc_lanes": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:183"),
+    "mc_compound": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:248"),
+    "tf_filter": ("svtav1_tpu_torch/csrc/tf.cu", "svtav1_tpu/ops/tf_jax.py:71"),
+    "tf_noise": ("svtav1_tpu_torch/csrc/tf.cu", "svtav1_tpu/ops/tf_jax.py:30"),
 }
+LD_KERNELS = tuple(KERNEL_SOURCES)[:10]  # K1-K10: the low-delay GOP
+RA_ONLY = ("mc_compound", "tf_filter", "tf_noise")  # K11-K13: the random-access GOP
 KEY_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges", "rdoq", "cdef_dir",
                "cdef_filter")
 FAST_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges")
@@ -330,6 +349,7 @@ def check_kernels(torch, dev):
                nbytes=2 * pl_.numel() * 4 + cells * 9, ops=pl_.numel() * 12 * 12)
 
     check_motion(torch, dev, g, t, record, assert_equal)
+    check_random_access(torch, dev, g, t, record, assert_equal)
     return res
 
 
@@ -437,6 +457,110 @@ def check_motion(torch, dev, g, t, record, assert_equal):
                ops=B * ((n + 7) * n * 16 + n * n * 16 + n * n * 4), main=pl == 0)
 
 
+def check_random_access(torch, dev, g, t, record, assert_equal):
+    """Phase 2 for K11 mc_compound, K12 tf_filter, K13 tf_noise and K9 at
+    the MCTF shape: the commit's 32,400 8x8 luma and 4x4 chroma compound
+    lanes from a 3-reference stack with MVs past every edge, and every
+    16x16, 32x32 and 64x64 lane of the frame with its chroma; one MCTF call
+    at 1080p (1088x1920 luma, 544x960 chroma, K = 5 neighbours; the noise
+    sums of the luma; the 49-point subpel search of the 16x16 blocks). All
+    exact."""
+    import numpy as np
+
+    from svtav1_tpu_torch.ops import me_torch, tf_torch
+    from svtav1_tpu_torch.pipeline.inter_device import _edge_pad
+    from svtav1_tpu_torch.utils.testclip import make_frames
+
+    clip = make_frames(1920, 1080, 6, seed=0)
+    # ---- K11 mc_compound: luma 8x8 and chroma 4x4 lanes, 3 references
+    for pl, (n, plane_h, plane_w) in enumerate(((8, 1080, 1920), (4, 540, 960))):
+        stack = t(np.stack([clip[i][pl] for i in (1, 0, 3)]), torch.uint8)
+        R, C = plane_h // n, plane_w // n
+        B = R * C
+        ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n
+        xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n
+        mv = [t(g.integers(-24 * 16, 24 * 16, B)) for _ in range(4)]
+        r0, r1 = t(g.integers(0, 3, B)), t(g.integers(0, 3, B))
+        args = (stack, ys, xs, *mv, n, n, 0, 8, r0, r1)
+        err = assert_equal("mc_compound", me_torch.mc_lanes_compound(*args),
+                           me_torch.mc_compound_plain(*args))
+        record("mc_compound", [B, n, n, "luma" if pl == 0 else "chroma", "3 refs"], err,
+               timed_ms(lambda: me_torch.mc_lanes_compound(*args), 20),
+               timed_ms(lambda: me_torch.mc_compound_plain(*args), 3),
+               nbytes=B * 32 + 2 * B * n * n + B * n * n * 4,
+               ops=B * (2 * ((n + 7) * n * 16 + n * n * 18) + n * n * 6), main=pl == 0)
+    # the commit's larger blocks: every 16x16, 32x32 and 64x64 lane of the
+    # frame with its chroma lanes (a 64x64 lane takes the launcher's path
+    # above the default 48 KB of shared memory)
+    for n in (16, 32, 64):
+        for pl, (nb, plane_h, plane_w) in enumerate(((n, 1080, 1920), (n // 2, 540, 960))):
+            stack = t(np.stack([clip[i][pl] for i in (1, 0, 3)]), torch.uint8)
+            R, C = plane_h // nb, plane_w // nb
+            B = R * C
+            ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * nb
+            xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * nb
+            mv = [t(g.integers(-24 * 16, 24 * 16, B)) for _ in range(4)]
+            r0, r1 = t(g.integers(0, 3, B)), t(g.integers(0, 3, B))
+            args = (stack, ys, xs, *mv, nb, nb, 0, 8, r0, r1)
+            err = assert_equal("mc_compound", me_torch.mc_lanes_compound(*args),
+                               me_torch.mc_compound_plain(*args))
+            record("mc_compound", [B, nb, nb, "luma" if pl == 0 else "chroma", "3 refs"], err,
+                   timed_ms(lambda: me_torch.mc_lanes_compound(*args), 5),
+                   timed_ms(lambda: me_torch.mc_compound_plain(*args), 2),
+                   nbytes=B * 32 + 2 * B * nb * nb + B * nb * nb * 4,
+                   ops=B * (2 * ((nb + 7) * nb * 16 + nb * nb * 18) + nb * nb * 6))
+
+    # ---- one MCTF call: centre frame 2, neighbours 0, 1, 3, 4, 5
+    H, W = 1088, 1920
+    planes = [[_edge_pad(t(f[pl], torch.uint8), H >> (pl > 0), W >> (pl > 0)) for pl in range(3)]
+              for f in clip]
+    cy = planes[2][0].to(torch.int32).contiguous()
+    # K13 tf_noise
+    a, b = tf_torch.noise_sums(cy), tf_torch.noise_sums_plain(cy)
+    err = max(assert_equal("tf_noise", a[0], b[0]), assert_equal("tf_noise", a[1], b[1]))
+    record("tf_noise", [H, W], err, timed_ms(lambda: tf_torch.noise_sums(cy), 20),
+           timed_ms(lambda: tf_torch.noise_sums_plain(cy), 5), nbytes=H * W * 4 + 16,
+           ops=H * W * 20, main=True, flat_samples=int(a[1].item()))
+    # K9 at the MCTF shape: 16x16 blocks, 49-point lattice, from the
+    # full-pel MVs of the ME against neighbour 3
+    R, C = H // 16, W // 16
+    B = R * C
+    ref_y = planes[3][0]
+    fp = me_torch.me_fullpel_frame(cy, ref_y.to(torch.int32).contiguous(), H // 64, W // 64)[0][16]
+    fp = fp.reshape(B, 2).contiguous()
+    ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * 16
+    xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * 16
+    srcb = cy.reshape(R, 16, C, 16).permute(0, 2, 1, 3).reshape(B, 16, 16).contiguous()
+    args = (srcb, ref_y, ys, xs, fp, 0, 8, False)
+    mk, pk = me_torch.subpel_pred_lanes(*args)
+    mp, pp = me_torch.subpel_pred_plain(*args)
+    err = max(assert_equal("subpel_pred", mk, mp), assert_equal("subpel_pred", pk, pp))
+    record("subpel_pred", [B, 16, 16, "49 points", "MCTF"], err,
+           timed_ms(lambda: me_torch.subpel_pred_lanes(*args), 20),
+           timed_ms(lambda: me_torch.subpel_pred_plain(*args), 3),
+           nbytes=B * 16 * 16 * 9 + 16 * B, ops=B * (7 * 24 * 16 * 16 + 49 * 16 * 16 * 19))
+    # K12 tf_filter on the compensated neighbours of the whole filter
+    # (K8-K10 on the card), luma and chroma, K = 5
+    captured = []
+    real = tf_torch.tf_filter
+    tf_torch.tf_filter = lambda c, p, h, bd=8: captured.append((c, p, h)) or real(c, p, h, bd)
+    try:
+        tf_torch.filter_planes(planes[2], [planes[i] for i in (0, 1, 3, 4, 5)], 120)
+    finally:
+        tf_torch.tf_filter = real
+    for (c, p, h2), label in zip(captured, ("luma", "chroma U", "chroma V")):
+        a, b = tf_torch.tf_filter(c, p, h2, 8), tf_torch.tf_filter_plain(c, p, h2, 8)
+        torch.cuda.synchronize()
+        differing = int((a != b).sum().item())
+        err = assert_equal("tf_filter", a, b)
+        K, h_, w_ = p.shape
+        record("tf_filter", [K, h_, w_, label], err,
+               timed_ms(lambda: tf_torch.tf_filter(c, p, h2, 8), 20),
+               timed_ms(lambda: tf_torch.tf_filter_plain(c, p, h2, 8), 3),
+               nbytes=(K + 2) * h_ * w_ * 4, ops=K * h_ * w_ * 20, main=label == "luma",
+               differing_samples=differing, changed_samples=int((a != c).sum().item()))
+
+
 def encode_clip(cfg, frames, device):
     """[(tu, recon)] of a clip through Encoder.send_frame + flush."""
     from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
@@ -452,7 +576,7 @@ def encode_clip(cfg, frames, device):
 
 def decode_all(label, pairs):
     """Decode the TUs in order with one decoder; each recon must equal the
-    encoder's bit for bit."""
+    encoder's bit for bit (a show-existing TU, recon None, decodes none)."""
     import numpy as np
 
     from svtav1_tpu_torch.decode.decoder import Decoder
@@ -460,6 +584,10 @@ def decode_all(label, pairs):
     dec = Decoder()
     for i, (tu, rec) in enumerate(pairs):
         _, _, _, drec = dec.decode_tu(tu)
+        if rec is None or drec is None:
+            if rec is not None or drec is not None:
+                raise SystemExit(f"{label} TU {i}: a frame TU and a show-existing TU disagree")
+            continue
         for p in range(3):
             if not np.array_equal(drec[p], rec[p]):
                 raise SystemExit(f"{label} frame {i} plane {p}: decoder recon differs from the "
@@ -467,13 +595,17 @@ def decode_all(label, pairs):
 
 
 def conformance(torch):
-    """Phase 3: CIF key frames at both presets and a CIF low-delay GOP at
-    medium on the card, decoded bit-exactly; byte match against the plain
-    versions on the CPU."""
+    """Phase 3: CIF key frames at both presets, a CIF low-delay GOP and
+    CIF random-access GOPs with MCTF (minigop 8 and 4) at medium on the
+    card, decoded bit-exactly; byte match against the plain versions on the
+    CPU; the CLI on the minigop-4 clip."""
     from svtav1_tpu_torch.utils.testclip import make_frames
 
+    ra = dict(RA, keyint=16, minigop=4)
     for label, cfg, n in (("fast", FAST, 2), ("medium", MEDIUM, 2),
-                          ("medium GOP", dict(GOP, keyint=6), 6)):
+                          ("medium GOP", dict(GOP, keyint=6), 6),
+                          ("medium random access minigop 8", dict(RA, keyint=16), 9),
+                          ("medium random access", ra, 9)):
         frames = make_frames(352, 288, n, seed=0)
         tus = {dev: encode_clip(cfg, frames, dev) for dev in ("cuda", "cpu")}
         torch.cuda.synchronize()
@@ -481,10 +613,38 @@ def conformance(torch):
         same = sum(len(a) for (a, _), (b, _) in zip(tus["cuda"], tus["cpu"]) if a == b)
         total = sum(len(a) for a, _ in tus["cuda"])
         log(json.dumps(dict(phase="conformance", preset=label, config=cfg, size=[352, 288],
-                            frames=len(frames), decode_bit_exact=True,
+                            frames=len(frames), tus=len(tus["cuda"]), decode_bit_exact=True,
                             bytes_cuda=[len(a) for a, _ in tus["cuda"]],
                             bytes_cpu=[len(a) for a, _ in tus["cpu"]],
                             identical_tu_byte_share=same / total)))
+    run_cli(frames, [tu for tu, _ in tus["cuda"]])
+
+
+def run_cli(frames, want_tus):
+    """Phase 3: the CLI in-process on the random-access clip (written as a
+    y4m into a temporary directory) with --verify: exit code 0, and the IVF
+    holds the library run's TUs."""
+    import tempfile
+
+    from svtav1_tpu_torch import app
+    from svtav1_tpu_torch.io.ivf import read_ivf
+    from svtav1_tpu_torch.io.y4m import write_y4m
+
+    h, w = frames[0][0].shape
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        src, out = os.path.join(tmp, "clip.y4m"), os.path.join(tmp, "clip.ivf")
+        write_y4m(src, frames, w, h)
+        t0 = time.perf_counter()
+        rc = app.main(["-i", src, "-b", out, "--keyint", "16", "--minigop", "4", "--enable-tf",
+                       "--verify"])
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            raise SystemExit(f"the CLI exited {rc}")
+        tus = read_ivf(out)[0]
+    if tus != want_tus:
+        raise SystemExit("the CLI's IVF differs from the library run's TUs")
+    log(json.dumps(dict(phase="cli", size=[w, h], frames=len(frames), tus=len(tus), exit_code=rc,
+                        seconds=secs, verify=True, tus_equal_library=True)))
 
 
 def run_path(torch, label, cfg, n_timed, required, decode):
@@ -582,7 +742,7 @@ def run_gop(torch):
     launches = dict(kernels.launches)
     stages = profiler.report()
     counts = profiler.counts()
-    missing = [k for k in KERNEL_SOURCES if launches[k] <= 0]
+    missing = [k for k in LD_KERNELS if launches[k] <= 0]
     if missing:
         raise SystemExit(f"main path never launched: {missing}")
     if [p.disp_idx for p in pkts] != list(range(N)):
@@ -607,6 +767,81 @@ def run_gop(torch):
                         launches=launches,
                         launches_per_frame={k: v / N for k, v in launches.items()},
                         stage_seconds=stages, decode_2_tus_s=dec_s, decode_bit_exact=True)))
+    return launches
+
+
+def run_random_access(torch):
+    """Phase 4, the random-access path: 17 frames of the bench's clip with
+    keyint=32, minigop=8 and MCTF at medium (a key frame and two 8-frame
+    hierarchical-B mini-GoPs; MCTF on frames 0, 8 and 16) through
+    send_frame + flush on a fresh Encoder, after a 3-frame warm run on
+    another. Launch counts set to 0 just before the timed run, read just
+    after; the first three TUs (the key frame, the hidden anchor 8 and
+    frame 4, which has compound candidates) are decoded bit-exactly; Y-PSNR
+    over the shown frames in display order (a show-existing TU shows the
+    recon of its frame)."""
+    import numpy as np
+
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
+    from svtav1_tpu_torch.utils import profiler
+    from svtav1_tpu_torch.utils.testclip import make_frames
+
+    W, H, N = 1920, 1080, 17
+    frames = make_frames(W, H, N)
+    t0 = time.perf_counter()
+    warm = Encoder(EncoderConfig(W, H, **RA), device="cuda")
+    for f in frames[:3]:
+        warm.send_frame(*f)
+    warm.flush()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del warm
+    enc = Encoder(EncoderConfig(W, H, **RA), device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    profiler.reset()
+    t0 = time.perf_counter()
+    pkts = []
+    for f in frames:
+        pkts += enc.send_frame(*f)
+    pkts += enc.flush()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    stages = profiler.report()
+    counts = profiler.counts()
+    missing = [k for k in KERNEL_SOURCES if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"random-access path never launched: {missing}")
+    coded = [p.disp_idx for p in pkts if p.disp_idx is not None]
+    shown = [p.shown_disp_idx for p in pkts if p.shown_disp_idx is not None]
+    if sorted(coded) != list(range(N)) or shown != list(range(N)):
+        raise SystemExit(f"coding order {coded} / display order {shown} is not a GOP of {N}")
+    if coded[:3] != [0, 8, 4]:
+        raise SystemExit(f"coding order starts {coded[:3]}, not the key, anchor 8 and frame 4")
+    recon_of = {p.disp_idx: p.recon for p in pkts if p.recon is not None}
+    psnr = []
+    for d in shown:
+        rec = recon_of[d]
+        if rec[0].shape != (H, W) or not all(np.isfinite(pl).all() for pl in rec):
+            raise SystemExit(f"frame {d}: recon of the wrong shape or not finite")
+        diff = rec[0][:H, :W].astype(np.float64) - frames[d][0]
+        psnr.append(10 * np.log10(255.0 ** 2 / max(float((diff * diff).mean()), 1e-12)))
+    t1 = time.perf_counter()
+    decode_all("1080p random access", [(p.tu, p.recon) for p in pkts[:3]])
+    dec_s = time.perf_counter() - t1
+    b_frames = [p for p in pkts if p.disp_idx not in (None, 0)]
+    log(json.dumps(dict(phase="path", preset="medium random access", config=RA, size=[W, H],
+                        frames=N, tus=len(pkts), warm_3_frames_s=warm_s, fps=N / secs,
+                        seconds=secs, bytes_per_frame=sum(len(p.tu) for p in pkts) / N,
+                        bytes_key=len(pkts[0].tu),
+                        bytes_per_b_frame=sum(len(p.tu) for p in b_frames) / len(b_frames),
+                        bytes_show_existing=sum(len(p.tu) for p in pkts if p.disp_idx is None),
+                        y_psnr=float(np.mean(psnr)), tf_calls=counts.get("tf", 0),
+                        waves=counts.get("commit/wave", 0), launches=launches,
+                        launches_per_frame={k: v / N for k, v in launches.items()},
+                        stage_seconds=stages, decode_3_tus_s=dec_s, decode_bit_exact=True)))
     return launches
 
 
@@ -641,6 +876,7 @@ def main() -> int:
     run_path(torch, "fast", FAST, 1, FAST_KERNELS, decode=False)
     run_path(torch, "medium", MEDIUM, 2, KEY_KERNELS, decode=True)
     launches = run_gop(torch)
+    ra_launches = run_random_access(torch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -651,10 +887,12 @@ def main() -> int:
     table = []
     for name, (src, repl) in KERNEL_SOURCES.items():
         c = checks[name]
+        ra = name in RA_ONLY
         table.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                          launches=launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
-                          plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                          library_ms=None))
+                          launches=(ra_launches if ra else launches)[name],
+                          path="1080p random-access GOP" if ra else "1080p low-delay GOP",
+                          max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+                          bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None))
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

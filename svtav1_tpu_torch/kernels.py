@@ -39,6 +39,9 @@ KERNELS = {
     "me_sad": ("me.cu", "me_sad_launch"),
     "subpel_pred": ("subpel.cu", "subpel_pred_launch"),
     "mc_lanes": ("mc.cu", "mc_lanes_launch"),
+    "mc_compound": ("mc.cu", "mc_compound_launch"),
+    "tf_filter": ("tf.cu", "tf_filter_launch"),
+    "tf_noise": ("tf.cu", "tf_noise_launch"),
 }
 
 _P = ctypes.c_void_p
@@ -71,6 +74,13 @@ ARGTYPES = {
     # ref, ys, xs, mvy, mvx, ref_idx|NULL, ftab_x, ftab_y, out, B, nref, H, W, n_h, n_w, bd,
     # stream
     "mc_lanes_launch": [_P] * 9 + [_I] * 7 + [_P],
+    # ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1, ftab_x, ftab_y, out, B, nref, H, W,
+    # n_h, n_w, bd, stream
+    "mc_compound_launch": [_P] * 12 + [_I] * 7 + [_P],
+    # center, preds, out, K, H, W, h2, bd, stream
+    "tf_filter_launch": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
+    # y, out, H, W, thr, stream
+    "tf_noise_launch": [_P, _P, _I, _I, _I, _P],
 }
 
 launches = {name: 0 for name in KERNELS}
@@ -149,6 +159,18 @@ def launch(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     launches[name] += 1
+
+
+def resolve_device(device=None):
+    """The torch device of an entry point: `None` means CUDA. Without CUDA
+    only an explicit CPU device is taken."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("svtav1_tpu_torch runs on a CUDA device and none is available; "
+                           "pass device='cpu' to run the plain PyTorch versions of the kernels")
+    return dev
 
 
 def stream_ptr(t) -> int:

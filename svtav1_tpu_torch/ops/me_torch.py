@@ -13,6 +13,9 @@ version beside each:
   block, with the winner's normative prediction.
 - K10 `mc_lanes` (`csrc/mc.cu`): normative separable subpel MC with a
   per-lane phase, from one plane or a (NREF, H, W) stack by ref index.
+- K11 `mc_compound` (`csrc/mc.cu`): compound-average MC, the two conv-buf
+  (offset-carrying, COMPOUND_ROUND1) predictions of a lane from two
+  references of the stack and the normative average, in one launch.
 
 MVs are (row, col); the searches work in full pels and return 1/8 pel, MC
 takes 1/16 pel of the plane it reads. Each wrapper launches its kernel for
@@ -27,7 +30,8 @@ import functools
 import torch
 
 from .. import kernels
-from .convolve import FILTER_BITS, ROUND0, ROUND1, filter_for_dim, filter_kernels
+from .convolve import (COMPOUND_ROUND1, FILTER_BITS, ROUND0, ROUND1, filter_for_dim,
+                       filter_kernels)
 
 SIZES = (8, 16, 32, 64)
 # K8 modes (csrc/me.cu me_sad_launch)
@@ -132,8 +136,10 @@ def leaf_maps_plain(src, ref, centers, sb_cols: int, r: int):
 
 
 def mc_lanes_plain(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int, bd: int,
-                   ref_idx=None):
-    """Plain PyTorch version of K10; same arguments and result as mc_lanes."""
+                   ref_idx=None, conv_buf: bool = False):
+    """Plain PyTorch version of K10; same arguments and result as mc_lanes.
+    conv_buf=True returns the compound path's offset-carrying intermediate
+    (rounded by COMPOUND_ROUND1), to be blended by compound_average_plain."""
     dev = ys.device
     fy0 = ys.to(torch.int32) * 16 + mv_q16_y.to(torch.int32)
     fx0 = xs.to(torch.int32) * 16 + mv_q16_x.to(torch.int32)
@@ -158,10 +164,32 @@ def mc_lanes_plain(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: i
     acc = torch.full((patch.shape[0], n_h, n_w), 1 << offset_bits, dtype=torch.int32, device=dev)
     for k in range(8):
         acc = acc + fyk[:, k, None, None] * im[:, k : k + n_h, :]
+    if conv_buf:
+        return (acc + (1 << (COMPOUND_ROUND1 - 1))) >> COMPOUND_ROUND1
     res = ((acc + (1 << (ROUND1 - 1))) >> ROUND1) \
         - ((1 << (offset_bits - ROUND1)) + (1 << (offset_bits - ROUND1 - 1)))
     assert 2 * FILTER_BITS - ROUND0 - ROUND1 == 0  # no third rounding for 8/10-bit
     return res.clamp(0, (1 << bd) - 1).to(torch.int32)
+
+
+def compound_average_plain(conv0, conv1, bd: int):
+    """The normative average blend of two conv-buf intermediates
+    (compound_average_j)."""
+    offset_bits = bd + 2 * FILTER_BITS - ROUND0
+    tmp = ((conv0 + conv1) >> 1) - ((1 << (offset_bits - COMPOUND_ROUND1))
+                                     + (1 << (offset_bits - COMPOUND_ROUND1 - 1)))
+    round_bits = 2 * FILTER_BITS - ROUND0 - COMPOUND_ROUND1
+    return ((tmp + (1 << (round_bits - 1))) >> round_bits).clamp(0, (1 << bd) - 1) \
+        .to(torch.int32)
+
+
+def mc_compound_plain(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h: int, n_w: int, which: int,
+                      bd: int, ref0_idx, ref1_idx):
+    """Plain PyTorch version of K11; same arguments and result as
+    mc_lanes_compound."""
+    c0 = mc_lanes_plain(refs, ys, xs, mv0y, mv0x, n_h, n_w, which, bd, ref0_idx, conv_buf=True)
+    c1 = mc_lanes_plain(refs, ys, xs, mv1y, mv1x, n_h, n_w, which, bd, ref1_idx, conv_buf=True)
+    return compound_average_plain(c0, c1, bd)
 
 
 def extract_patches(ref, ys, xs, h: int, w: int):
@@ -415,3 +443,30 @@ def subpel_pred_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int, fast: bool
                    pred.data_ptr(), B, ref.shape[-2], ref.shape[-1], n, bd, int(bool(fast)),
                    kernels.stream_ptr(pred))
     return mv8, pred
+
+
+def mc_lanes_compound(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h: int, n_w: int, which: int,
+                      bd: int, ref0_idx, ref1_idx):
+    """Batched compound-average MC (K11): the conv-buf predictions of every
+    lane from refs[ref0_idx] at mv0 and refs[ref1_idx] at mv1, blended by the
+    normative average. refs: (NREF, H, W) stack (uint8 on the card); ys/xs
+    (B,) block top-left in plane coords; MVs in 1/16 pel of this plane.
+    Returns (B, n_h, n_w) int32; dims <= 4 use the 4-tap filter variant."""
+    if ys.device.type == "cpu":
+        return mc_compound_plain(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h, n_w, which, bd,
+                                 ref0_idx, ref1_idx)
+    kernels.check(refs, "refs", torch.uint8)
+    if refs.dim() != 3:
+        raise ValueError("mc_lanes_compound: a (NREF, H, W) reference stack")
+    B = ys.shape[0]
+    args = [_i32(a) for a in (ys, xs, mv0y, mv0x, mv1y, mv1x, ref0_idx, ref1_idx)]
+    out = torch.empty((B, n_h, n_w), dtype=torch.int32, device=ys.device)
+    if B == 0:
+        return out
+    dev = str(ys.device)
+    kernels.launch("mc_compound", refs.data_ptr(), *[a.data_ptr() for a in args],
+                   _ftab(filter_for_dim(which, n_w), dev).data_ptr(),
+                   _ftab(filter_for_dim(which, n_h), dev).data_ptr(), out.data_ptr(), B,
+                   refs.shape[0], refs.shape[-2], refs.shape[-1], n_h, n_w, bd,
+                   kernels.stream_ptr(out))
+    return out

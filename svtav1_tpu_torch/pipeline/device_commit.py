@@ -1,6 +1,6 @@
 """Device commit pass (PyTorch): conformant reconstruction of the decided
 plan, ported from svtav1_tpu's pipeline/device_commit.py for key frames and
-low-delay P frames.
+inter frames (low-delay P and hierarchical-B).
 
 The decide pass chose modes and partitions open-loop; this pass produces
 the final quantized coefficients and the recon the decoder reproduces bit
@@ -18,9 +18,9 @@ collide.
 
 Inter blocks need no neighbour recon: phase A codes every inter block of a
 size in one batch before the wavefront (K10 predicts Y, U and V from the
-reference stack, then the same transform path as below) and writes its
-frontier cells; phase B, the wavefront, then runs only the waves that hold
-intra blocks.
+reference stack, K11 the compound blocks' from their two references, then
+the same transform path as below) and writes its frontier cells; phase B,
+the wavefront, then runs only the waves that hold intra blocks.
 
 Per wave and size the device work is two kernels per plane group: K1
 predicts the chosen mode of every lane, K2 transforms, quantizes and
@@ -231,7 +231,9 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
                    refs=None, which: int = 0):
     """The reference's _commit_device: phase A codes the inter lanes of every
     size in one batch each (MC from `refs`, the (NREF, H, W) uint8 Y, U, V
-    stacks, by the lanes' ref index; F == 1), phase B runs the intra
+    stacks, by the lanes' ref index; F == 1; lanes with a second reference
+    take the compound average of K11, launched on those lanes only, where
+    the reference computes both predictions and selects), phase B runs the intra
     wavefront over the waves that hold intra lanes, then recon and level
     assembly. src planes (F, H, W) on the device (region crop at the frame
     origin when refs are given); rdoq_qctx: the coefficient-CDF bucket of
@@ -268,6 +270,8 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
             ref=torch.as_tensor(s["ref"], dtype=torch.int32, device=dev),
             mv=torch.as_tensor(s["mv"], dtype=torch.int32, device=dev),
             NI=int(s["NI"]), offsets=s["offsets"],
+            # the compound lanes (second reference >= 0) among the inter lanes
+            cmp=np.nonzero(s["ref2"][: int(s["NI"])] >= 0)[0],
             ly=torch.empty((N, adj, adj), dtype=torch.int32, device=dev),
             lu=torch.empty((N, nc, nc), dtype=torch.int32, device=dev),
             lv=torch.empty((N, nc, nc), dtype=torch.int32, device=dev),
@@ -320,6 +324,20 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
         xc, yc = x // 2, y // 2
         puv = torch.cat([me_torch.mc_lanes(refs[pl], yc, xc, mv[:, 0], mv[:, 1], nc, nc, which,
                                            bd, ref_idx=ri) for pl in (1, 2)])
+        if len(L["cmp"]):
+            # K11 on the compound lanes: luma at the two 1/8-pel MVs, chroma
+            # at the same values in 1/16 of the chroma plane
+            ci = torch.as_tensor(L["cmp"], dtype=torch.long, device=dev)
+            r2 = torch.as_tensor(sched[n]["ref2"][L["cmp"]], dtype=torch.int32, device=dev)
+            m2 = torch.as_tensor(sched[n]["mv2"][L["cmp"]], dtype=torch.int32, device=dev)
+            m1, r1 = mv[ci], ri[ci]
+            pred[ci] = me_torch.mc_lanes_compound(refs[0], y[ci], x[ci], m1[:, 0] * 2, m1[:, 1] * 2,
+                                                  m2[:, 0] * 2, m2[:, 1] * 2, n, n, which, bd, r1,
+                                                  r2)
+            for k, pl in enumerate((1, 2)):
+                puv[k * NI + ci] = me_torch.mc_lanes_compound(
+                    refs[pl], yc[ci], xc[ci], m1[:, 0], m1[:, 1], m2[:, 0], m2[:, 1], nc, nc, which,
+                    bd, r1, r2)
         rq_y, rq_uv = _rdoq_fns(rdoq_qctx, n, dev) if rdoq_qctx is not None else (None, None)
         va, hv = _tx_lanes(L["tx"][:NI], tx_ntypes if n <= 16 else 1)
         lv_y, rec_y = _code(src_blocks(0, fidx, x, y, n), pred, va, hv, dq_dc, dq_ac, bd, rq_y,
@@ -557,11 +575,17 @@ def _filter_device(ry, ru, rv, src_y8, skip8, flens: list, levels: tuple, sharpn
                                 for c in cands])  # (K, F)
             lf_pick = torch.argmin(sses, dim=0).to(torch.int32)
             y_out = torch.stack(cands)[lf_pick.long(), torch.arange(F, device=dev)]
+            luma_on = lf_pick != (lf_search.index(0) if 0 in lf_search else -1)
         else:
             y_out = dlf_plane(planes[0], 0, levels[0], levels[1])
+            luma_on = torch.full((F,), bool(levels[0] or levels[1]), device=dev)
+        # a frame whose luma levels are both 0 codes no chroma level and the
+        # decoder filters none of its planes (spec 5.9.11, 7.14.1); the
+        # reference filters its chroma all the same (ROADMAP queue 3)
+        keep = luma_on[:, None, None]
         planes = [y_out,
-                  dlf_plane(planes[1], 2, levels[2], levels[2]),
-                  dlf_plane(planes[2], 4, levels[3], levels[3])]
+                  torch.where(keep, dlf_plane(planes[1], 2, levels[2], levels[2]), planes[1]),
+                  torch.where(keep, dlf_plane(planes[2], 4, levels[3], levels[3]), planes[2])]
     if enable_cdef:
         planes, strengths = cdef_torch.cdef_frames(
             [pl.contiguous() for pl in planes], src_y8.to(torch.int32), ~skip8, damping, bd=bd,

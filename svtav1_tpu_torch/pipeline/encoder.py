@@ -1,21 +1,27 @@
-"""Top-level encoder of the PyTorch port: key frames and low-delay P frames,
-CQP, on a CUDA device, ported from svtav1_tpu's pipeline/encoder.py.
+"""Top-level encoder of the PyTorch port: key frames, low-delay P frames
+and hierarchical-B mini-GoPs, CQP, on a CUDA device, ported from
+svtav1_tpu's pipeline/encoder.py.
 
 API shape mirrors the reference's library API (EbSvtAv1Enc.h:966-1076
 svt_av1_enc_send_picture / _get_packet): `send_frame` returns the packets
 that become ready (coding order), `flush` drains the tail, `encode_frame` is
-the synchronous helper. Key frames are coded by
+the synchronous helper of low-delay configurations. Key frames are coded by
 `device_commit.encode_intra_frames`; with `keyint > 1` the frames between
-keys are P frames (`minigop=1`) referencing the previous frame (LAST) and
-the last key (GOLDEN), coded through the three phases of
-`inter_device` with the DPB planes kept on `device`: the next frame's decide
-is dispatched before the previous frame's host walk runs.
+keys are inter frames coded through the three phases of `inter_device`
+with the DPB planes kept on `device`: the next frame's decide is dispatched
+before the previous frame's host walk runs. With `minigop=1` they are P
+frames referencing the previous frame (LAST) and the last key (GOLDEN);
+with `minigop` 2, 4 or 8 they form dyadic mini-GoPs (pipeline/gop.py): the
+anchor is coded first and hidden, then the middles, which also reference
+the anchor as ALTREF and add the compound NEW_NEWMV candidate; a hidden
+frame is shown later by a show-existing TU. With `enable_tf`, key frames
+and mini-GoP anchors are temporally filtered first (ops/tf_torch.py) with
+up to TF_PAST past and TF_FUT future source frames.
 
-This slice supports `keyint=1` (all-intra) and `keyint > 1` with
-`minigop=1`, every preset ("fast", "medium", "slow"), 8-bit, CQP, one tile,
-DLF and CDEF each on or off, translation global motion and CDF inheritance.
-Every other setting raises NotImplementedError naming the ROADMAP item that
-brings it.
+This slice supports every preset ("fast", "medium", "slow"), 8-bit, CQP,
+one tile, DLF and CDEF each on or off, translation global motion, CDF
+inheritance and the HDR metadata OBUs of key frames. Every other setting
+raises NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from ..constants.av1 import RefFrame
 from ..constants.cdf import FrameContext
 from ..entropy.bitstream import (FrameConfig, SequenceConfig, frame_obu, sequence_header_obu,
                                  show_existing_frame_obu, temporal_delimiter_obu)
+from ..kernels import resolve_device
 from ..utils import profiler
 from . import gop
 
@@ -50,8 +57,13 @@ class EncoderConfig:
     enable_restoration: bool = False  # loop restoration (Wiener + self-guided)
     scene_cut: bool = False  # adaptive key frames on scene changes
     intra_batch: int = 1  # all-intra frame batching through the device pipeline
-    enable_tf: bool = False  # MCTF of key frames
+    # MCTF: temporal filtering of key frames and mini-GoP anchors with their
+    # neighbours (the ALT-REF filter, temporal_filtering.c:2752); keyint > 1
+    # or minigop > 1
+    enable_tf: bool = False
     preset: str = "medium"  # "fast" | "medium" | "slow"
+    enable_rdoq: bool = True  # RDOQ in the commit (where the preset has it)
+    target_kbps: float = 0.0  # rate-control target (kbit/s)
     film_grain: int = 0  # film grain synthesis strength (0 = off)
     film_grain_table: str | None = None  # explicit aomenc "filmgrn1" table
     # CDF lifecycle: seed each inter frame's symbol CDFs from the primary
@@ -59,14 +71,21 @@ class EncoderConfig:
     # with every refreshed DPB slot
     cdf_inheritance: bool = True
     # max reference frames per inter frame: 3 = LAST + GOLDEN (the last key)
-    # + ALTREF (future; hierarchical-B only)
+    # + ALTREF (the mini-GoP anchor; hierarchical-B middles only)
     n_refs: int = 3
-    # compound prediction for hierarchical-B frames (not in this slice)
+    # compound (average) prediction in hierarchical-B middles: the
+    # reference_select syntax and the NEW_NEWMV candidate on (LAST, ALTREF)
     enable_compound: bool = True
     # translation global motion: host estimation against the LAST ref's
     # source, a GLOBALMV lane at the global MV in the decide, and the spec's
     # global_motion_params in the header (codec/gm.py); inter frames only
     enable_gm: bool = True
+    # HDR metadata OBUs in key-frame TUs: content_light = (max_cll,
+    # max_fall); mastering_display = (((rx, ry), (gx, gy), (bx, by)),
+    # (wx, wy), max_lum, min_lum); itut_t35 = payload bytes
+    content_light: tuple | None = None
+    mastering_display: tuple | None = None
+    itut_t35: bytes | None = None
 
 
 # preset -> speed features of the reference's ladder (svtav1_tpu's
@@ -85,9 +104,7 @@ PRESET_RDOQ = {"fast": False, "medium": True, "slow": True}
 
 # setting -> (is it outside this slice?, the ROADMAP queue 1 item that brings it)
 _UNSUPPORTED = (
-    (lambda c: c.minigop != 1, "minigop != 1", "hierarchical-B/compound"),
     (lambda c: c.enable_restoration, "enable_restoration", "restoration"),
-    (lambda c: c.enable_tf, "enable_tf", "MCTF"),
     (lambda c: c.scene_cut, "scene_cut", "scene cuts"),
     (lambda c: bool(c.film_grain or c.film_grain_table), "film_grain", "film grain"),
     (lambda c: c.tile_cols_log2 > 0 or c.tile_rows_log2 > 0, "tiles", "tiles"),
@@ -139,21 +156,14 @@ def pad_to_aligned(plane: np.ndarray, aw: int, ah: int) -> np.ndarray:
     return out
 
 
-def resolve_device(device=None) -> torch.device:
-    """`None` means CUDA. Without CUDA only an explicit CPU device is taken."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("svtav1_tpu_torch runs on a CUDA device and none is available; "
-                           "pass device='cpu' to run the plain PyTorch versions of the kernels")
-    return dev
-
-
 class Encoder:
     def __init__(self, cfg: EncoderConfig, device=None):
         # 4:2:0 needs even dims; sources are padded to the mi-aligned size
         # (always a multiple of 8) and cropped at display per the spec
         if cfg.width % 2 or cfg.height % 2:
             raise ValueError("4:2:0 requires even dims")
+        if cfg.minigop not in (1, 2, 4, 8):
+            raise ValueError(f"minigop {cfg.minigop}: dyadic mini-GoPs of 1, 2, 4 or 8 frames")
         if cfg.preset not in PRESETS:
             raise ValueError(f"unknown preset {cfg.preset!r}: one of {sorted(PRESETS)}")
         for outside, what, item in _UNSUPPORTED:
@@ -164,7 +174,7 @@ class Encoder:
         self.device = resolve_device(device)
         self.cfg = cfg
         self._sf = PRESETS[cfg.preset]
-        self._rdoq = PRESET_RDOQ[cfg.preset]
+        self._rdoq = PRESET_RDOQ[cfg.preset] and cfg.enable_rdoq
         self.seq = SequenceConfig(width=cfg.width, height=cfg.height, bd=cfg.bd,
                                   enable_cdef=cfg.enable_cdef,
                                   enable_restoration=cfg.enable_restoration,
@@ -188,12 +198,61 @@ class Encoder:
         # executes frame N+1's decide
         self._pipe: list = []
         self._wrote_seq = False
+        # MCTF lookahead: source frames wait in _tf_q until a scheduled key
+        # frame or anchor has its future neighbours; _tf_hist holds the past
+        self._tf = cfg.enable_tf and (cfg.keyint > 1 or cfg.minigop > 1)
+        self._tf_q: list = []
+        self._tf_hist: list = []
+        self._tf_emitted = 0
 
     # ------------------------------------------------------------------- API
 
+    TF_PAST, TF_FUT = 2, 3  # MCTF window (the reference's derive_tf_window_params)
+
     def send_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray) -> list:
         """Feed one display-order frame; returns the ready packets (coding
-        order). A P frame's packet is returned by a later call (or by flush)."""
+        order). An inter frame's packet is returned by a later call (or by
+        flush); with MCTF, frames first wait in a short lookahead queue so
+        that key frames and anchors are filtered with future neighbours."""
+        if not self._tf:
+            return self._send_frame_inner(y, u, v)
+        self._tf_q.append(tuple(np.asarray(p, np.int32) for p in (y, u, v)))
+        return self._tf_drain(final=False)
+
+    def _tf_drain(self, final: bool) -> list:
+        from ..ops import tf_torch
+
+        cfg = self.cfg
+        packets = []
+        while self._tf_q:
+            d = self._tf_emitted
+            # key frames and mini-GoP anchors (base pictures) are filtered,
+            # as the reference filters every base picture
+            scheduled = d % cfg.keyint == 0 or (cfg.minigop > 1 and d % cfg.minigop == 0)
+            head = self._tf_q[0]
+            if scheduled:
+                if not final and len(self._tf_q) < 1 + self.TF_FUT:
+                    break
+                neigh = self._tf_hist + self._tf_q[1 : 1 + self.TF_FUT]
+                if neigh:
+                    h, w = head[0].shape
+                    H64, W64 = -(-h // 64) * 64, -(-w // 64) * 64
+
+                    def pad64(fr):
+                        return [pad_to_aligned(fr[0], W64, H64),
+                                pad_to_aligned(fr[1], W64 // 2, H64 // 2),
+                                pad_to_aligned(fr[2], W64 // 2, H64 // 2)]
+
+                    with profiler.stage("tf"):
+                        f = tf_torch.filter_frame(pad64(head), [pad64(x) for x in neigh],
+                                                  cfg.qindex, cfg.bd, self.device)
+                    head = (f[0][:h, :w], f[1][: h // 2, : w // 2], f[2][: h // 2, : w // 2])
+            self._tf_hist = (self._tf_hist + [self._tf_q.pop(0)])[-self.TF_PAST:]
+            self._tf_emitted += 1
+            packets += self._send_frame_inner(*head)
+        return packets
+
+    def _send_frame_inner(self, y: np.ndarray, u: np.ndarray, v: np.ndarray) -> list:
         cfg = self.cfg
         d = self.next_disp
         self.next_disp += 1
@@ -211,11 +270,15 @@ class Encoder:
         return packets
 
     def flush(self) -> list:
-        return self._drain_pending() + self._pipe_drain()
+        packets = self._tf_drain(final=True) if self._tf else []
+        return packets + self._drain_pending() + self._pipe_drain()
 
     def encode_frame(self, y, u, v):
-        """Synchronous helper (minigop == 1): returns (tu_bytes,
-        recon_planes) of this display frame."""
+        """Synchronous helper of low-delay configurations (minigop == 1, no
+        MCTF): returns (tu_bytes, recon_planes) of this display frame."""
+        if self.cfg.minigop != 1 or self._tf:
+            raise ValueError("encode_frame codes low-delay frames one at a time (minigop=1, "
+                             "no MCTF); use send_frame and flush")
         pkts = self.send_frame(y, u, v) + self._pipe_drain()
         if len(pkts) != 1:
             raise RuntimeError(f"encode_frame expected one packet, got {len(pkts)}")
@@ -290,6 +353,22 @@ class Encoder:
         if self.cfg.minigop > 1 or self.cfg.keyint > 1:
             q += gop.KEY_Q_OFFSET if is_key else gop.LAYER_Q_OFFSET[min(layer, 2)]
         return max(1, min(255, q))
+
+    def _metadata_obus(self) -> bytes:
+        """HDR metadata OBUs of key-frame TUs (CLL, MDCV, ITU-T T.35; the
+        reference's metadata_handle.c svt_aom_copy_metadata_buffer)."""
+        from ..entropy import bitstream as bs
+
+        cfg = self.cfg
+        out = b""
+        if cfg.content_light is not None:
+            out += bs.content_light_obu(*cfg.content_light)
+        if cfg.mastering_display is not None:
+            prim, wp, mx, mn = cfg.mastering_display
+            out += bs.mastering_display_obu(prim, wp, mx, mn)
+        if cfg.itut_t35 is not None:
+            out += bs.itut_t35_obu(0xB5, cfg.itut_t35)
+        return out
 
     def _show_existing(self, disp_idx: int) -> Packet:
         slot = self.dpb[disp_idx]["slot"]
@@ -389,12 +468,12 @@ class Encoder:
         ref_ids = sorted(refs.keys())
         return tuple(torch.stack([refs[r][pl] for r in ref_ids]) for pl in range(3)), ref_ids
 
-    def _write_tu(self, fr: FrameConfig, payload) -> bytes:
+    def _write_tu(self, fr: FrameConfig, payload, metadata: bytes = b"") -> bytes:
         tu = temporal_delimiter_obu()
         if not self._wrote_seq:
             tu += sequence_header_obu(self.seq)
             self._wrote_seq = True
-        return tu + frame_obu(self.seq, fr, payload)
+        return tu + metadata + frame_obu(self.seq, fr, payload)
 
     def _save_contexts(self, walk_fc, p, slot: int, is_key: bool) -> None:
         """Store the frame context (tile 0's adapted end state, its update
@@ -444,7 +523,7 @@ class Encoder:
                          lr_uv_shift=p.lr_uv_shift,
                          reference_select=p.reference_select, skip_mode_allowed=False,
                          gm_mvs=p.gm_mvs, prev_gm_mvs=None, film_grain=None)
-        tu = self._write_tu(fr, payloads[0])
+        tu = self._write_tu(fr, payloads[0], self._metadata_obus())
         # keys park in slot 7 (they refresh all slots) so the GOLDEN
         # reference survives the rotating non-key slots 0..6; nothing coded
         # before a key can be referenced after it

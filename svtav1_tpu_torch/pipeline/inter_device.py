@@ -1,5 +1,6 @@
 """Device inter frame pipeline (PyTorch): batched ME + MC + mode decision,
-ported from svtav1_tpu's pipeline/inter_device.py for low-delay P frames.
+ported from svtav1_tpu's pipeline/inter_device.py for low-delay P frames and
+hierarchical-B frames.
 
 One decide program per frame computes, for every square block of every size
 8..64,
@@ -8,22 +9,25 @@ One decide program per frame computes, for every square block of every size
     the subpel search with the winner's normative prediction (K9) against
     each reference (ops/me_torch),
   - full open-loop RD (K2 transform/quant/recon, K3 exact CDF txb rates)
-    for the NEWMV candidate per reference and the GLOBALMV candidate on the
-    first reference (K10 MC when the frame's global MV is not zero), the
-    luma tx-type search on the winner, chroma at the winning MV (K10),
+    for the NEWMV candidate per reference, the GLOBALMV candidate on the
+    first reference (K10 MC when the frame's global MV is not zero) and,
+    in hierarchical-B middles, the compound NEW_NEWMV candidate on (LAST,
+    ALTREF) at the two NEWMV vectors, the luma tx-type search on the
+    winner, chroma at the winning (first) MV (K10),
   - the intra candidates (device_decide._decide_intra_size, sf_nmodes_inter
     modes), and the per-block winner (intra vs inter).
 
 Mode-rate contexts use the neighbour-free approximation (ctx 0, empty
 neighbour ref counts); coded inter modes are NEWMV (or GLOBALMV at the
-global MV); the normative MVP stack is built by the tile walk at write time.
+global MV) and NEW_NEWMV; the normative MVP stack is built by the tile walk
+at write time.
 
 Partition RD and the commit are shared with the intra pipeline
 (device_decide.partition_dp, device_commit.commit_regions, whose phase A
-codes the inter blocks from K10 predictions). A frame runs in three phases
-so that its host work can overlap the next frame's device work:
-inter_start_decide, inter_start_commit (the DPB planes stay on the device)
-and inter_finish. Compound prediction (hierarchical-B) is not ported.
+codes the inter blocks from K10 predictions, and the compound blocks from
+K11's). A frame runs in three phases so that its host work can overlap the
+next frame's device work: inter_start_decide, inter_start_commit (the DPB
+planes stay on the device) and inter_finish.
 """
 from __future__ import annotations
 
@@ -67,20 +71,31 @@ def single_ref_tree_bits(fc, ref_id: int) -> float:
     return bits
 
 
-def inter_cand_cost_const(fc, ref_ids, ref_select: bool = False) -> dict:
+def inter_cand_cost_const(fc, ref_ids, ref_select: bool = False, comp_pair=None) -> dict:
     """Mode-signaling bit constants for the decide pass (ctx-0 / empty
     neighbor-ref-count approximations; exact contexts are applied by the
     tile walk): is_inter flag + single-ref tree per ref + {new,glob} mode
     flags. ref_ids: the RefFrame id per stacked ref index. With
-    reference_select, single candidates pay the comp_inter=0 bit."""
+    reference_select, single candidates pay the comp_inter=0 bit, and with a
+    comp_pair `comp` carries the compound NEW_NEWMV signaling constant
+    (comp_inter=1 + BIDIR ref pair + inter_compound_mode symbol)."""
     sb = rate_np.symbol_bits
     is_inter_b = sb(fc["intra_inter"][0], 1, 2)
     single_b = sb(fc["comp_inter"][1], 0, 2) if ref_select else 0.0
     b_new = sb(fc["newmv"][0], 0, 2)
     b_glob = sb(fc["newmv"][0], 1, 2) + sb(fc["zeromv"][0], 0, 2)
     ref_bits = [single_ref_tree_bits(fc, int(r)) for r in ref_ids]
+    comp = None
+    if comp_pair is not None:
+        cb = sb(fc["comp_inter"][1], 1, 2)
+        cb += sb(fc["comp_ref_type"][2], 1, 2)  # BIDIR
+        cb += sb(fc["comp_ref"][1][0], 0, 2)  # fwd group {LAST, LAST2}
+        cb += sb(fc["comp_ref"][1][1], 0, 2)  # LAST
+        cb += sb(fc["comp_bwdref"][1][0], 1, 2)  # ALTREF
+        cb += sb(fc["inter_compound_mode"][0], 7, 8)  # NEW_NEWMV
+        comp = is_inter_b + cb
     return dict(new=[is_inter_b + single_b + rb + b_new for rb in ref_bits],
-                glob=is_inter_b + single_b + ref_bits[0] + b_glob)
+                glob=is_inter_b + single_b + ref_bits[0] + b_glob, comp=comp)
 
 
 def inter_txtype_cost_const(fc, n: int) -> np.ndarray:
@@ -118,7 +133,7 @@ def _mv_rate(mv, pred, joint, comp):
 
 def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, pred_by_ref,
                        intra_out, consts, n: int, rate_fns, dq, bd: int, R: int, C: int, lam,
-                       which: int, mc_by_ref, tx_ntypes: int = 4, gm8=None):
+                       which: int, mc_by_ref, comp_pair=None, tx_ntypes: int = 4, gm8=None):
     """Inter candidate evaluation for the (R, C) grid at size n, merged with
     the intra decision `intra_out` = (cost, mode, tx) from device_decide.
 
@@ -126,15 +141,18 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
     mv_by_ref: per reference (B, 2) subpel MVs, pred_by_ref (B, 2) MV-rate
     predictors (the SB MV), mc_by_ref (B, n, n) the subpel search's
     predictions at those MVs. The candidates are the NEWMV lane of every
-    reference and the GLOBALMV lane on reference 0, evaluated lane-major
-    (block, candidate) so that the argmin over candidates keeps the
-    reference's first-candidate tie order. Returns (cost, is_inter, mode,
-    tx, ref, mvy, mvx, ref2, mv2y, mv2x), each (R*C,)."""
+    reference, the GLOBALMV lane on reference 0 and, with comp_pair = (ri0,
+    ri1) stack indices, the NEW_NEWMV lane at those references' NEWMV
+    vectors, whose prediction here is the (a + b + 1) >> 1 average of their
+    two predictions (the commit redoes it with the normative compound
+    average); evaluated lane-major (block, candidate) so that the argmin
+    over candidates keeps the reference's first-candidate tie order.
+    Returns (cost, is_inter, mode, tx, ref, mvy, mvx, ref2, mv2y, mv2x),
+    each (R*C,)."""
     dev = src_y.device
     B = R * C
     nc = n // 2
     nref = len(mv_by_ref)
-    NC = nref + 1
     r_idx = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C)
     c_idx = torch.arange(C, device=dev, dtype=torch.int32).repeat(R)
     ys, xs = r_idx * n, c_idx * n
@@ -145,19 +163,36 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
     # when global motion is off)
     glob_mv = (torch.zeros((B, 2), dtype=torch.int32, device=dev) if gm8 is None
                else gm8[None, :].expand(B, 2).to(torch.int32))
-    cand_mv = torch.stack([*mv_by_ref, glob_mv], dim=1)  # (B, NC, 2)
-    cand_ref = torch.tensor(list(range(nref)) + [0], dtype=torch.int32, device=dev)
+    mvs = [*mv_by_ref, glob_mv]
+    refs_1 = list(range(nref)) + [0]
+    refs_2 = [-1] * (nref + 1)
+    mvs_2 = [torch.zeros((B, 2), dtype=torch.int32, device=dev)] * (nref + 1)
     bits = [cand_bits["new"][ri] + _mv_rate(mv, pred_by_ref[ri], joint, comp)
             for ri, mv in enumerate(mv_by_ref)]
     bits.append(cand_bits["glob"].expand(B))
-    cand_mbits = torch.stack(bits, dim=1)  # (B, NC)
     if gm8 is None:
         glob_pred = _blocks_of(refs_y[0:1].to(torch.int32), n, R, C)
     else:
         glob_pred = me_torch.mc_lanes(refs_y, ys, xs, glob_mv[:, 0] * 2, glob_mv[:, 1] * 2, n, n,
                                       which, bd, ref_idx=torch.zeros(B, dtype=torch.int32,
                                                                      device=dev))
-    pred = torch.stack([*mc_by_ref, glob_pred], dim=1)  # (B, NC, n, n)
+    preds = [*mc_by_ref, glob_pred]
+    if comp_pair is not None:
+        ri0, ri1 = comp_pair
+        mvs.append(mv_by_ref[ri0])
+        refs_1.append(ri0)
+        refs_2.append(ri1)
+        mvs_2.append(mv_by_ref[ri1])
+        bits.append(cand_bits["comp"] + _mv_rate(mv_by_ref[ri0], pred_by_ref[ri0], joint, comp)
+                    + _mv_rate(mv_by_ref[ri1], pred_by_ref[ri1], joint, comp))
+        preds.append((mc_by_ref[ri0] + mc_by_ref[ri1] + 1) >> 1)
+    NC = len(mvs)
+    cand_mv = torch.stack(mvs, dim=1)  # (B, NC, 2)
+    cand_mv2 = torch.stack(mvs_2, dim=1)
+    cand_ref = torch.tensor(refs_1, dtype=torch.int32, device=dev)
+    cand_ref2 = torch.tensor(refs_2, dtype=torch.int32, device=dev)
+    cand_mbits = torch.stack(bits, dim=1)  # (B, NC)
+    pred = torch.stack(preds, dim=1)  # (B, NC, n, n)
     rate, dist = _eval_txfm(srcb, pred.reshape(B * NC, n, n), dq, bd, rate_fns["y"][0], rep=NC)
     cost_nc = dist.reshape(B, NC) + lam * (rate.reshape(B, NC) + cand_mbits)
     pick = torch.argmin(cost_nc, dim=1)
@@ -165,6 +200,8 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
     cost_i = cost_nc[bi, pick]
     mv_i = cand_mv[bi, pick]
     ref_i = cand_ref[pick]
+    ref2_i = cand_ref2[pick]
+    mv2_i = cand_mv2[bi, pick]
     mbits_i = cand_mbits[bi, pick]
     pred_i = pred[bi, pick].contiguous()
 
@@ -198,7 +235,8 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
             torch.where(take_inter, tx_i, tx_a.reshape(B)),
             torch.where(take_inter, ref_i, minus1),
             torch.where(take_inter, mv_i[:, 0], zero), torch.where(take_inter, mv_i[:, 1], zero),
-            minus1, zero, zero)
+            torch.where(take_inter, ref2_i, minus1), torch.where(take_inter, mv2_i[:, 0], zero),
+            torch.where(take_inter, mv2_i[:, 1], zero))
 
 
 def _edge_pad(plane, H: int, W: int):
@@ -212,7 +250,8 @@ def _edge_pad(plane, H: int, W: int):
 
 @functools.lru_cache(maxsize=32)
 def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int, which: int,
-                          ref_ids: tuple, sf: tuple, use_gm: bool, device: str):
+                          ref_ids: tuple, ref_select: bool, sf: tuple, use_gm: bool,
+                          device: str):
     """Whole-frame inter decide: ME + subpel + per-size inter/intra RD, with
     the per-frame constants (CDF rate tables, penalty grids, MV LUTs) built
     once per qctx bucket on the device; qindex enters as runtime operands
@@ -238,8 +277,14 @@ def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int
                         t(intra_mode_cost_const(fc, n, False)),
                         t(intra_txtype_cost_const(fc, n)), _rate_fns(qctx, n, dev))
                     for n in sizes}
-    cb = inter_cand_cost_const(fc, ref_ids[:nref])
-    cand_bits = dict(new=[t(np.float32(b)) for b in cb["new"]], glob=t(np.float32(cb["glob"])))
+    # the compound pair: (LAST, ALTREF) stack indices when both are present
+    ids = list(ref_ids[:nref])
+    comp_pair = None
+    if ref_select and int(RefFrame.LAST_FRAME) in ids and int(RefFrame.ALTREF_FRAME) in ids:
+        comp_pair = (ids.index(int(RefFrame.LAST_FRAME)), ids.index(int(RefFrame.ALTREF_FRAME)))
+    cb = inter_cand_cost_const(fc, ids, ref_select=ref_select, comp_pair=comp_pair)
+    cand_bits = dict(new=[t(np.float32(b)) for b in cb["new"]], glob=t(np.float32(cb["glob"])),
+                     comp=None if cb["comp"] is None else t(np.float32(cb["comp"])))
     inter_txt = {n: t(inter_txtype_cost_const(fc, n)) for n in sizes}
     joint = t(rate_torch.mv_joint_cost(fc))
     comp = t(rate_torch.mv_component_cost_lut(fc, MAX_MV_ABS))
@@ -284,7 +329,7 @@ def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int
             outs = _decide_inter_size(
                 sy, su, sv, refs_y8, refs_u8, refs_v8, mv_by_ref[n], preds, intra_out,
                 (joint, comp, cand_bits, inter_txt[n]), n, rate_fns, dq, bd, R, C, lam_t, which,
-                mc_by_ref[n], tx_ntypes=sf[1], gm8=gm8 if use_gm else None)
+                mc_by_ref[n], comp_pair=comp_pair, tx_ntypes=sf[1], gm8=gm8 if use_gm else None)
             packed += [outs[0]] + [o.to(torch.float32) for o in outs[1:]]
         return torch.cat(packed)
 
@@ -311,12 +356,9 @@ def _unpack_decide(flat: np.ndarray, layout) -> dict:
 def _decide_program(p: FrameParams, refs_dev, which: int, ref_ids):
     from ..constants.cdf import get_q_ctx
 
-    if p.reference_select:
-        raise NotImplementedError("compound prediction: ROADMAP queue 1, "
-                                  "'hierarchical-B/compound' — not ported yet")
     return _decide_inter_program(p.width, p.height, get_q_ctx(p.qindex), p.bd,
                                  int(refs_dev[0].shape[0]), which,
-                                 tuple(int(r) for r in ref_ids),
+                                 tuple(int(r) for r in ref_ids), bool(p.reference_select),
                                  (int(p.sf_nmodes_inter), int(p.sf_tx_ntypes),
                                   int(p.sf_fast_subpel)),
                                  bool(p.enable_gm), str(refs_dev[0].device))

@@ -1,20 +1,23 @@
-"""Where the time of an encode goes on the card: key frames, or the P
-frames of a low-delay GOP.
+"""Where the time of an encode goes on the card: key frames, the P frames
+of a low-delay GOP, or the B frames of a random-access GOP.
 
 Key frames (--keyint 1, the default): encodes one warm frame, then N frames
 of the synthetic clip through Encoder(device="cuda") at a preset (default
 medium, with DLF, CDEF and RDOQ on) twice. GOP (--keyint N > 1): encodes a
 2-frame warm GOP, then, on fresh encoders, the key frame of an N-frame GOP
-untimed and its N-1 P frames (send_frame + flush) measured, twice. The two
+untimed and its N-1 P frames (send_frame + flush) measured, twice; with
+--minigop 2, 4 or 8 those frames are hierarchical-B mini-GoPs, and with
+--enable-tf the key frame's MCTF and encode (which wait for its future
+neighbours) and the anchors' MCTF fall inside the measurement too. The two
 measured runs are untraced, for the wall time, and under torch.profiler, for
 the device time. Prints one JSON line: wall seconds per frame (untraced and
 traced: their difference is the tracing cost), the device's busy share (the
 device-side kernel and copy time of the traced frames, one stream, over the
 untraced wall time), device milliseconds per frame of the busiest device
 functions, host seconds per frame of each pipeline stage (utils.profiler,
-untraced; for P frames gm, decide, partition_dp, commit/device with its
-commit/phase_a and commit/wave parts, filter, entropy_walk, and the
-transfers), per stage (decide, commit, filter) the launches of each kernel
+untraced; for inter frames tf, gm, decide, partition_dp, commit/device
+with its commit/phase_a and commit/wave parts, filter, entropy_walk, and the
+transfers), per stage (tf, decide, commit, filter) the launches of each kernel
 and the sum of their bounds (the least time the card could take for each
 launch's work, from its arguments), and the card's name and power limit.
 
@@ -22,6 +25,7 @@ Run on a GPU machine from the repository root:
     python -m svtav1_tpu_torch.utils.profile_keyframes --preset medium --frames 2
     python -m svtav1_tpu_torch.utils.profile_keyframes --preset fast --no-cdef
     python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 6
+    python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 17 --minigop 8 --enable-tf
 """
 from __future__ import annotations
 
@@ -88,6 +92,15 @@ def launch_bound(name: str, args: tuple) -> tuple[float, float]:
     if name == "mc_lanes":
         B, nh, nw = args[9], args[13], args[14]
         return B * 20 + B * nh * nw * 5, B * ((nh + 7) * nw * 16 + nh * nw * 20)
+    if name == "mc_compound":
+        B, nh, nw = args[12], args[16], args[17]
+        return B * 32 + B * nh * nw * 6, B * (2 * ((nh + 7) * nw * 16 + nh * nw * 18) + nh * nw * 6)
+    if name == "tf_filter":
+        K, H, W = args[3:6]
+        return (K + 2) * H * W * 4, K * H * W * 20
+    if name == "tf_noise":
+        H, W = args[2:4]
+        return H * W * 4 + 16, H * W * 20
     raise ValueError(name)
 
 
@@ -100,6 +113,7 @@ def count_launches(fn):
     (decide, commit or filter) it belongs to. Returns {stage: {kernel:
     [launches, summed bound ms]}}."""
     from .. import kernels
+    from ..ops import tf_torch
     from ..pipeline import device_commit, device_decide, inter_device
 
     current = ["other"]
@@ -122,10 +136,12 @@ def count_launches(fn):
         return run
 
     saved = [(device_decide, "decide_intra_frames"), (inter_device, "_run_decide"),
-             (device_commit, "commit_regions"), (device_commit, "_filter_device")]
+             (device_commit, "commit_regions"), (device_commit, "_filter_device"),
+             (tf_torch, "filter_planes")]
     originals = [getattr(m, a) for m, a in saved]
     kernels.launch = launch
-    for (m, a), f, stage in zip(saved, originals, ("decide", "decide", "commit", "filter")):
+    for (m, a), f, stage in zip(saved, originals,
+                                ("decide", "decide", "commit", "filter", "tf")):
         setattr(m, a, staged(stage, f))
     try:
         fn()
@@ -146,7 +162,11 @@ def main() -> int:
     ap.add_argument("--preset", choices=("fast", "medium", "slow"), default="medium")
     ap.add_argument("--no-cdef", action="store_true", help="encode with CDEF off")
     ap.add_argument("--keyint", type=int, default=1,
-                    help="1: key frames; N > 1: the P frames of an N-frame low-delay GOP")
+                    help="1: key frames; N > 1: the inter frames of an N-frame GOP")
+    ap.add_argument("--minigop", type=int, choices=(1, 2, 4, 8), default=1,
+                    help="1: low-delay P frames; 2, 4, 8: hierarchical-B mini-GoPs")
+    ap.add_argument("--enable-tf", action="store_true",
+                    help="MCTF of the key frame and the mini-GoP anchors")
     args = ap.parse_args()
 
     import torch
@@ -167,12 +187,13 @@ def main() -> int:
 
     def encoder():
         return Encoder(EncoderConfig(args.width, args.height, qindex=args.qindex,
-                                     keyint=args.keyint, preset=args.preset,
+                                     keyint=args.keyint, minigop=args.minigop,
+                                     enable_tf=args.enable_tf, preset=args.preset,
                                      enable_cdef=not args.no_cdef), device="cuda")
 
     enc = encoder()
-    if gop:  # a 2-frame warm GOP
-        for f in frames[:2]:
+    if gop:  # a short warm GOP (with minigop > 1 a key frame and a 2-frame mini-GoP)
+        for f in frames[: 2 if args.minigop == 1 else 3]:
             enc.send_frame(*f)
         enc.flush()
     else:
@@ -227,7 +248,9 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps(dict(
         size=[args.width, args.height], preset=args.preset, cdef=not args.no_cdef,
-        keyint=args.keyint, frames=n, measured="P frames" if gop else "key frames",
+        keyint=args.keyint, minigop=args.minigop, enable_tf=args.enable_tf, frames=n,
+        measured=("key frames" if not gop else "P frames" if args.minigop == 1 else "B frames")
+        + (" (and the key frame's MCTF and encode)" if gop and args.enable_tf else ""),
         waves_per_frame=waves,
         wall_s_per_frame=wall / n,
         traced_wall_s_per_frame=traced_wall / n, device_busy_s_per_frame=busy_s / n,

@@ -41,9 +41,9 @@ def test_slice_without_deblocking_decodes():
 
 
 @pytest.mark.parametrize("override, item", [
-    (dict(keyint=8, minigop=2), "hierarchical-B/compound"),
+    (dict(enable_filter_intra=True), "filter-intra"),
     (dict(enable_restoration=True), "restoration"),
-    (dict(enable_tf=True), "MCTF"),
+    (dict(rc_mode="cbr", target_kbps=500.0), "rate control"),
     (dict(scene_cut=True), "scene cuts"),
     (dict(film_grain=10), "film grain"),
     (dict(tile_cols_log2=1), "tiles"),

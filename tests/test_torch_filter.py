@@ -58,3 +58,27 @@ def test_filter_device_matches_jax(size, enable_cdef, cdef_cands):
     for got, want in zip(planes, want_planes):  # the planes a device DPB keeps
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (stats.numpy()[:, 4] > 0).all()  # the search left level 0 behind
+
+
+def test_luma_level_zero_leaves_chroma_unfiltered():
+    """A frame whose searched luma level is 0 codes no chroma level, and a
+    decoder then filters none of its planes (spec 5.9.11, 7.14.1): the
+    port's filter stage leaves that frame's chroma as it was, and filters
+    the chroma of a frame whose luma level is not 0 at the chroma levels.
+    (The reference filters both; ROADMAP queue 3.)"""
+    w, h = 64, 64
+    src_y, rec, sm, skip8 = _inputs(w, h, seed=5)
+    rec[0][0] = src_y[0]  # frame 0: the unfiltered luma is the source, level 0 wins
+    levels = tuple(dlf.pick_filter_levels(120, 8, True, h))
+    lf_search = port._lf_candidates(levels[0])
+    flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr), dtype=torch.int32)
+             for plane in range(3) for tr in (False, True)]
+    args = [torch.from_numpy(p) for p in rec] + [torch.from_numpy(src_y), torch.from_numpy(skip8),
+                                                 flens]
+    _, stats, planes = port._filter_device(*args, levels, 0, 8, 5, False, lf_search=lf_search)
+    _, _, fixed = port._filter_device(*args, levels, 0, 8, 5, False)
+    assert lf_search[int(stats[0, 4])] == 0 and lf_search[int(stats[1, 4])] > 0
+    for pl in (1, 2):
+        np.testing.assert_array_equal(planes[pl][0].numpy(), rec[pl][0])
+        np.testing.assert_array_equal(planes[pl][1].numpy(), fixed[pl][1].numpy())
+        assert (planes[pl][1].numpy() != rec[pl][1]).any()

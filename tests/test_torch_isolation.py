@@ -1,5 +1,6 @@
 """svtav1_tpu_torch stands alone: no module of it imports jax or svtav1_tpu,
-and its entry point defaults to the card and refuses to fall back quietly."""
+and its entry points (the Encoder and the CLI) default to the card and
+refuse to fall back quietly."""
 import os
 import subprocess
 import sys
@@ -13,6 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
+only = sys.argv[1:]
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -26,8 +28,9 @@ for k in [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "svtav1
 sys.meta_path.insert(0, Block())
 import svtav1_tpu_torch
 # Python modules only (the entropy package's built .so is not a module)
-names = [m.name for m in pkgutil.walk_packages(svtav1_tpu_torch.__path__, "svtav1_tpu_torch.")
-         if not m.name.rsplit(".", 1)[-1].startswith("lib")]
+names = only or [m.name for m in pkgutil.walk_packages(svtav1_tpu_torch.__path__,
+                                                       "svtav1_tpu_torch.")
+                 if not m.name.rsplit(".", 1)[-1].startswith("lib")]
 for name in names:
     importlib.import_module(name)
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "svtav1_tpu") for k in sys.modules)
@@ -41,6 +44,18 @@ def test_every_module_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 30  # the whole package was walked
+
+
+def test_random_access_modules_import_without_jax_or_reference():
+    """The modules of the random-access slice and the CLI, each imported
+    alone with jax and svtav1_tpu blocked."""
+    mods = ["svtav1_tpu_torch.app", "svtav1_tpu_torch.ops.tf_torch", "svtav1_tpu_torch.io.ivf",
+            "svtav1_tpu_torch.io.y4m", "svtav1_tpu_torch.utils.metrics"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, *mods], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) == len(mods)
 
 
 def test_no_source_mentions_the_reference_package():
@@ -70,6 +85,34 @@ def test_gop_encoder_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_enc.Encoder(cfg)
     assert port_enc.Encoder(cfg, device="cpu").device.type == "cpu"
+
+
+def test_cli_without_device_needs_cuda(monkeypatch, tmp_path, capsys):
+    """The CLI defaults to the card too: without --device and without a card
+    it stops with the "needs CUDA" error before reading its input."""
+    from svtav1_tpu_torch import app
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = app.main(["-i", str(tmp_path / "in.y4m"), "-b", str(tmp_path / "out.ivf")])
+    assert rc != 0
+    assert "needs CUDA" in capsys.readouterr().err
+    assert not (tmp_path / "out.ivf").exists()
+
+
+def test_filter_frame_without_device_needs_cuda(monkeypatch):
+    """MCTF's numpy entry point defaults to the card like the Encoder."""
+    import numpy as np
+
+    from svtav1_tpu_torch.ops import tf_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    planes = [np.zeros((64, 64), np.int32)] + [np.zeros((32, 32), np.int32)] * 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf_torch.filter_frame(planes, [planes], 120)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf_torch.filter_frame(planes, [planes], 120, device="cuda")
+    out = tf_torch.filter_frame(planes, [planes], 120, device="cpu")
+    assert [p.shape for p in out] == [p.shape for p in planes]
 
 
 def test_kernel_argument_check_rejects_cpu_tensors():
