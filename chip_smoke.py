@@ -9,16 +9,24 @@ Phases, each fatal on failure:
      bits; all others exact, K5 counting its differing lanes and K12 its
      differing samples; K9's prediction also against K10 at the MVs it
      returns; K9 also at the MCTF shape, n = 16 on the 49-point lattice;
-     K11 at every block size of the commit, 8x8 to 64x64), and time both;
-  3. conformance: encode 2 CIF key frames on the card at the fast preset
-     without CDEF and at the default medium preset, a 6-frame CIF GOP (a
-     key frame and 5 P frames, keyint=6) at medium, and two 9-frame CIF
-     random-access GOPs (keyint=16, minigop=8 and minigop=4, MCTF on) at
-     medium; decode every TU with the port's decoder (recon bit-identical);
-     encode the same clips with device="cpu" and report the share of bytes
-     that match; then run the CLI in-process on the minigop-4 clip written
-     as a y4m (--keyint 16 --minigop 4 --enable-tf --verify): it must exit
-     0 and its IVF must hold the library run's TUs;
+     K11 at every block size of the commit, 8x8 to 64x64; K14 and K15 at
+     the TPL shapes of a 1088x1920 frame, K15 at qindex 120 and 255), and
+     time both;
+  3. conformance: encode a CIF key frame on the card at the fast preset
+     without CDEF and one at the default medium preset, a 3-frame CIF GOP
+     (a key frame and 2 P frames, keyint=6) at medium, and CIF
+     random-access GOPs with MCTF at medium (keyint=16; minigop=8, 9
+     frames; minigop=4, 5 frames); decode every TU with the port's decoder
+     (recon bit-identical); encode the same clips with device="cpu" (in
+     worker processes, while the card encodes) and report the share of
+     bytes that match; then run the CLI in-process on
+     the minigop-4 clip written as a y4m (--keyint 16 --minigop 4
+     --enable-tf --verify): it must exit 0 and its IVF must hold the
+     library run's TUs; the rate-control clips go the same way: a 9-frame
+     CRF random-access GOP (minigop=4, MCTF, lookahead=8), 8-frame
+     low-delay GOPs (keyint=8) with CBR, VBR and two-pass VBR at 300 kbps,
+     and a scene cut spliced at frame 4 with keyint=1000, which must be
+     coded as a key frame;
   4. the paths: 1 warm + 1 timed 1920x1080 key frame at the fast preset
      without CDEF (K1-K4 launched), 1 warm + 2 timed key frames at the
      medium preset (K1-K7 launched), then the main path, the bench's clip:
@@ -32,14 +40,23 @@ Phases, each fatal on failure:
      8 and 16 filtered) through send_frame + flush on a fresh Encoder after
      a 3-frame warm run, with every kernel K1-K13 launched and the first
      three TUs (the key frame, the hidden anchor 8, frame 4) decoded
-     bit-exactly; launch counts are reset just before each path and read
-     just after;
-  5. the card's name and power limit, the kernel table, and last the
-     device line.
+     bit-exactly; then the CRF path: the same 17 frames with CRF (TPL over
+     16-frame lookahead windows: 41 TPL frames), with every kernel K1-K15
+     launched, each frame's qindex and each window's r0 printed, and one
+     16-frame TPL window timed alone with its launches and kernel bounds;
+     then one-pass VBR at 1000 kbps on the 16-frame low-delay GOP (every
+     inter frame finished before the next starts), its achieved bitrate
+     printed; launch counts are reset just before each path and read just
+     after; the 1080p clip is made once; after the paths, the first TUs of
+     each (and one medium key frame) are decoded, one worker process per
+     sequence;
+  5. phase 2's records again in short, each phase's seconds, the card's
+     name and power limit, the kernel table, and last the device line.
 
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
 """
+import functools
 import json
 import os
 import statistics
@@ -73,9 +90,18 @@ KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "mc_compound": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:248"),
     "tf_filter": ("svtav1_tpu_torch/csrc/tf.cu", "svtav1_tpu/ops/tf_jax.py:71"),
     "tf_noise": ("svtav1_tpu_torch/csrc/tf.cu", "svtav1_tpu/ops/tf_jax.py:30"),
+    "subpel_refine": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:373"),
+    "tpl_cost": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu", "svtav1_tpu/pipeline/tpl.py:56"),
 }
 LD_KERNELS = tuple(KERNEL_SOURCES)[:10]  # K1-K10: the low-delay GOP
 RA_ONLY = ("mc_compound", "tf_filter", "tf_noise")  # K11-K13: the random-access GOP
+CRF_ONLY = ("subpel_refine", "tpl_cost")  # K14-K15: the CRF GOP's TPL
+# CRF: TPL over lookahead windows sets each frame's qindex (random access, MCTF)
+CRF = dict(qindex=120, keyint=32, minigop=8, rc_mode="crf", lookahead=16, enable_tf=True,
+           preset="medium")
+# one-pass VBR on the low-delay GOP (CQP at qindex 120 gives about 945 kbps on the clip)
+VBR = dict(qindex=120, keyint=16, rc_mode="vbr", target_kbps=1000.0, fps=30.0, preset="medium")
+CHECKS = []  # phase 2's records, [kernel, shape, max_abs_err, ms, plain_ms, bound_ms]
 KEY_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges", "rdoq", "cdef_dir",
                "cdef_filter")
 FAST_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges")
@@ -83,6 +109,19 @@ FAST_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges")
 
 def log(msg):
     print(msg, flush=True)
+
+
+@functools.lru_cache(maxsize=1)
+def _clip_1080p():
+    from svtav1_tpu_torch.utils.testclip import make_frames
+
+    return make_frames(1920, 1080, 17, seed=0)
+
+
+def clip_1080p(n):
+    """The first n (at most 17) frames of the bench's synthetic 1920x1080
+    clip (utils/testclip.make_frames, seed 0), made once."""
+    return _clip_1080p()[:n]
 
 
 def timed_ms(fn, reps):
@@ -120,7 +159,7 @@ def check_kernels(torch, dev):
     from svtav1_tpu_torch.pipeline import intra_device
     from svtav1_tpu_torch.pipeline.device_decide import BSIZE_BY_N, fc_for_qctx
     from svtav1_tpu_torch.pipeline.intra_md import rd_lambda
-    from svtav1_tpu_torch.utils.testclip import make_frames
+    from svtav1_tpu_torch.utils.profile_keyframes import dct_stages
 
     g = np.random.default_rng(1)
     res = {}
@@ -140,6 +179,7 @@ def check_kernels(torch, dev):
         b_ms, b_by = bound(nbytes, ops)
         log(json.dumps(dict(check=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by, **extra)))
+        CHECKS.append([name, shape, err, round(ms, 4), round(plain_ms, 3), round(b_ms, 4)])
         if main:
             res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         elif name in res:
@@ -175,7 +215,11 @@ def check_kernels(torch, dev):
     q = 120
     dq = (quant_ops.dc_q(q, 8), quant_ops.ac_q(q, 8))
 
-    def k2_ops(n, L):
+    def k2_ops(n, L, flags):
+        """DCT_DCT lanes run the DCT networks; lanes whose flags pick DCT or
+        ADST per direction at random run the mean of both stage counts."""
+        if flags == "dct":
+            return L * (dct_stages(n, True) * n * n * 5 + 40 * n * n)
         tabs = TT.tables_for(n, dev)
         nst = sum(len(v) for v in tabs.stages.values()) / max(len(tabs.stages), 1)
         return L * (4 * nst * n * n * 5 + 40 * n * n)
@@ -203,7 +247,7 @@ def check_kernels(torch, dev):
         record("txfm_quant_recon", [L, n, n, rep, flags], err,
                timed_ms(lambda: TT.txfm_quant_recon(*args, **kw), reps),
                timed_ms(lambda: TT.txfm_quant_recon_plain(*args, **kw), 3), nbytes,
-               k2_ops(n, L), main=main)
+               k2_ops(n, L, flags), main=main)
         return out_k[0]
 
     lv8 = k2_case(8, B * 13, 13, "dct", False, True, main=True)
@@ -216,7 +260,7 @@ def check_kernels(torch, dev):
 
     # K2's halves around RDOQ on real residuals: the clip's 1080p luma in
     # n x n blocks against their rounded means (the forward half feeds K5)
-    (y_clip, u_clip, _v), = make_frames(1920, 1080, 1, seed=0)
+    (y_clip, u_clip, _v), = clip_1080p(1)
     fc = fc_for_qctx(get_q_ctx(q))
     lam = float(np.float32(rd_lambda(q, 8)))
 
@@ -244,14 +288,14 @@ def check_kernels(torch, dev):
         record("txfm_quant_recon", [L, n, n, "forward half", flags], err,
                timed_ms(lambda: TT.txfm_quant(*args), 20),
                timed_ms(lambda: TT.txfm_quant_plain(*args), 3),
-               2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L, k2_ops(n, L) // 2)
+               2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L, k2_ops(n, L, flags) // 2)
         inv = (lk, pred, va, ha, dq[0], dq[1], 8)
         err = assert_equal("txfm_quant_recon", TT.recon_from_levels(*inv),
                            TT.recon_from_levels_plain(*inv))
         record("txfm_quant_recon", [L, n, n, "inverse half", flags], err,
                timed_ms(lambda: TT.recon_from_levels(*inv), 20),
                timed_ms(lambda: TT.recon_from_levels_plain(*inv), 3),
-               L * adj * adj * 4 + 2 * L * n * n * 4 + 2 * L, k2_ops(n, L) // 2)
+               L * adj * adj * 4 + 2 * L * n * n * 4 + 2 * L, k2_ops(n, L, flags) // 2)
         halves[(n, L)] = (lk, ck, main)
 
     # ---- K3 txb_rate on real levels: 8x8 (decide n=8) and 32x32
@@ -350,6 +394,7 @@ def check_kernels(torch, dev):
 
     check_motion(torch, dev, g, t, record, assert_equal)
     check_random_access(torch, dev, g, t, record, assert_equal)
+    check_tpl(torch, dev, g, t, record, assert_equal)
     return res
 
 
@@ -362,9 +407,8 @@ def check_motion(torch, dev, g, t, record, assert_equal):
 
     from svtav1_tpu_torch.ops import me_torch
     from svtav1_tpu_torch.pipeline.inter_device import _edge_pad
-    from svtav1_tpu_torch.utils.testclip import make_frames
 
-    (y0, u0, v0), (y1, _u1, _v1) = make_frames(1920, 1080, 2, seed=0)
+    (y0, u0, v0), (y1, _u1, _v1) = clip_1080p(2)
     H, W, sbr, sbc = 1088, 1920, 17, 30
     B_sb = sbr * sbc
     ref = _edge_pad(t(y0), H, W)
@@ -469,9 +513,8 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
 
     from svtav1_tpu_torch.ops import me_torch, tf_torch
     from svtav1_tpu_torch.pipeline.inter_device import _edge_pad
-    from svtav1_tpu_torch.utils.testclip import make_frames
 
-    clip = make_frames(1920, 1080, 6, seed=0)
+    clip = clip_1080p(6)
     # ---- K11 mc_compound: luma 8x8 and chroma 4x4 lanes, 3 references
     for pl, (n, plane_h, plane_w) in enumerate(((8, 1080, 1920), (4, 540, 960))):
         stack = t(np.stack([clip[i][pl] for i in (1, 0, 3)]), torch.uint8)
@@ -561,6 +604,61 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
                differing_samples=differing, changed_samples=int((a != c).sum().item()))
 
 
+def check_tpl(torch, dev, g, t, record, assert_equal):
+    """Phase 2 for K14 subpel_refine and K15 tpl_cost at the TPL shapes of a
+    1080p frame (1088x1920, 8,160 16x16 blocks): K14 from the full-pel MVs
+    of the frame's 16x16 ME and from MVs spread to +-64 px, so that windows
+    cross every edge; K15 mode 0 on the intra probe's 5 x 8,160 lanes (the
+    five lanes of a block share its source) and mode 1 with the recon on
+    8,160 lanes, at qindex 120 and 255. All exact."""
+    from svtav1_tpu_torch.ops import me_torch
+    from svtav1_tpu_torch.ops import quantize as quant_ops
+    from svtav1_tpu_torch.ops import transforms_torch as TT
+    from svtav1_tpu_torch.pipeline.inter_device import _edge_pad
+    from svtav1_tpu_torch.utils.profile_keyframes import tpl_cost_ops
+
+    (y0, _u0, _v0), (y1, _u1, _v1) = clip_1080p(2)
+    H, W, n = 1088, 1920, 16
+    R, C = H // n, W // n
+    B = R * C
+    ref = _edge_pad(t(y0, torch.uint8), H, W)
+    src = _edge_pad(t(y1), H, W)
+    ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n
+    xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n
+    srcb = src.reshape(R, n, C, n).permute(0, 2, 1, 3).reshape(B, n, n).contiguous()
+    fp_me = me_torch.me_fullpel_frame(src, ref.to(torch.int32).contiguous(), H // 64,
+                                      W // 64)[0][16].reshape(B, 2).contiguous()
+    for fp, label in ((fp_me, "ME MVs"), (t(g.integers(-64, 65, (B, 2))), "MVs +-64 px")):
+        args = (srcb, ref, ys, xs, fp, 0, 8)
+        err = assert_equal("subpel_refine", me_torch.subpel_refine_lanes(*args),
+                           me_torch.subpel_refine_plain(*args))
+        record("subpel_refine", [B, n, n, "2 x 9 points", label], err,
+               timed_ms(lambda: me_torch.subpel_refine_lanes(*args), 20),
+               timed_ms(lambda: me_torch.subpel_refine_plain(*args), 3),
+               nbytes=H * W + B * n * n * 4 + B * 24,
+               ops=B * 2 * (3 * (n + 8) * n * 16 + 9 * n * n * 19), main=label == "ME MVs")
+    pred5 = (srcb.repeat_interleave(5, 0) + t(g.integers(-24, 25, (5 * B, n, n)))).clamp(0, 255) \
+        .to(torch.int32).contiguous()
+    pred1 = (srcb + t(g.integers(-64, 65, (B, n, n)))).clamp(0, 255).to(torch.int32).contiguous()
+    for q in (120, 255):
+        dq = (quant_ops.dc_q(q, 8), quant_ops.ac_q(q, 8))
+        a0 = (srcb, pred5, 0, dq[0], dq[1], 8, 5)
+        err = assert_equal("tpl_cost", TT.tpl_cost(*a0), TT.tpl_cost_plain(*a0))
+        L = 5 * B
+        record("tpl_cost", [L, n, n, "mode 0", "rep 5", f"qindex {q}"], err,
+               timed_ms(lambda: TT.tpl_cost(*a0), 20), timed_ms(lambda: TT.tpl_cost_plain(*a0), 3),
+               nbytes=(B + L) * n * n * 4 + 4 * L, ops=tpl_cost_ops(L, n, False),
+               main=q == 120)
+        a1 = (srcb, pred1, 1, dq[0], dq[1], 8, 1, True)
+        ek, rk = TT.tpl_cost(*a1)
+        ep, rp = TT.tpl_cost_plain(*a1)
+        err = max(assert_equal("tpl_cost", ek, ep), assert_equal("tpl_cost", rk, rp))
+        record("tpl_cost", [B, n, n, "mode 1", "recon", f"qindex {q}"], err,
+               timed_ms(lambda: TT.tpl_cost(*a1), 20), timed_ms(lambda: TT.tpl_cost_plain(*a1), 3),
+               nbytes=3 * B * n * n * 4 + 8 * B, ops=tpl_cost_ops(B, n, True),
+               lanes_err_at_or_above_2_24=int((ek >= 1 << 24).sum().item()))
+
+
 def encode_clip(cfg, frames, device):
     """[(tu, recon)] of a clip through Encoder.send_frame + flush."""
     from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
@@ -572,6 +670,39 @@ def encode_clip(cfg, frames, device):
         pkts += enc.send_frame(*f)
     pkts += enc.flush()
     return [(p.tu, p.recon) for p in pkts]
+
+
+DECODES = []  # [(label, [(tu, recon)])] of the 1080p paths, decoded after them
+
+
+def decode_later(label, pairs):
+    """Queue a 1080p path's first TUs for decode_queued: the paths' timings
+    stay free of the decoder, and the sequences decode side by side."""
+    DECODES.append((label, pairs))
+
+
+def decode_task(label, pairs):
+    """decode_all in a worker process: (error message or None, seconds)."""
+    t0 = time.perf_counter()
+    try:
+        decode_all(label, pairs)
+    except SystemExit as err:  # a pool worker must not exit
+        return str(err), time.perf_counter() - t0
+    return None, time.perf_counter() - t0
+
+
+def decode_queued():
+    """Decode every queued sequence, one worker process each, after the
+    timed paths; fails on the first recon that differs."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(max(1, min(len(DECODES), 6))) as pool:
+        results = pool.starmap(decode_task, DECODES)
+    for (label, pairs), (err, secs) in zip(DECODES, results):
+        if err:
+            raise SystemExit(err)
+        log(json.dumps(dict(phase="decode", path=label, tus=len(pairs), seconds=secs,
+                            decode_bit_exact=True)))
 
 
 def decode_all(label, pairs):
@@ -594,30 +725,94 @@ def decode_all(label, pairs):
                                  "encoder's")
 
 
-def conformance(torch):
-    """Phase 3: CIF key frames at both presets, a CIF low-delay GOP and
-    CIF random-access GOPs with MCTF (minigop 8 and 4) at medium on the
-    card, decoded bit-exactly; byte match against the plain versions on the
-    CPU; the CLI on the minigop-4 clip."""
+def cif_clips():
+    """[(label, config, frames)] of phase 3, 352x288: a key frame at each
+    preset, a 3-frame low-delay GOP, random-access GOPs with MCTF (a
+    mini-GoP of 8, 9 frames; of 4, 5 frames); then rate control: CRF
+    random access with MCTF, CBR, VBR and two-pass VBR low-delay GOPs, and
+    a scene cut spliced at frame 4 of a 1000-frame key interval."""
+    from svtav1_tpu_torch.pipeline.firstpass import FirstPassCollector
     from svtav1_tpu_torch.utils.testclip import make_frames
 
     ra = dict(RA, keyint=16, minigop=4)
-    for label, cfg, n in (("fast", FAST, 2), ("medium", MEDIUM, 2),
-                          ("medium GOP", dict(GOP, keyint=6), 6),
-                          ("medium random access minigop 8", dict(RA, keyint=16), 9),
-                          ("medium random access", ra, 9)):
-        frames = make_frames(352, 288, n, seed=0)
-        tus = {dev: encode_clip(cfg, frames, dev) for dev in ("cuda", "cpu")}
-        torch.cuda.synchronize()
-        decode_all(f"CIF {label}", tus["cuda"])
-        same = sum(len(a) for (a, _), (b, _) in zip(tus["cuda"], tus["cpu"]) if a == b)
-        total = sum(len(a) for a, _ in tus["cuda"])
-        log(json.dumps(dict(phase="conformance", preset=label, config=cfg, size=[352, 288],
-                            frames=len(frames), tus=len(tus["cuda"]), decode_bit_exact=True,
-                            bytes_cuda=[len(a) for a, _ in tus["cuda"]],
-                            bytes_cpu=[len(a) for a, _ in tus["cpu"]],
-                            identical_tu_byte_share=same / total)))
-    run_cli(frames, [tu for tu, _ in tus["cuda"]])
+    ld = dict(GOP, keyint=8, target_kbps=300.0, fps=30.0)
+    frames = make_frames(352, 288, 8, seed=0)
+    col = FirstPassCollector()
+    for y, _u, _v in frames:
+        col.send_frame(y)
+    cut = frames[:4] + [(255 - y, v, u) for y, u, v in make_frames(352, 288, 4, seed=4)]
+    return [("fast", FAST, make_frames(352, 288, 1, seed=0)),
+            ("medium", MEDIUM, make_frames(352, 288, 1, seed=0)),
+            ("medium GOP", dict(GOP, keyint=6), make_frames(352, 288, 3, seed=0)),
+            ("medium random access minigop 8", dict(RA, keyint=16),
+             make_frames(352, 288, 9, seed=0)),
+            ("medium random access", ra, make_frames(352, 288, 5, seed=0)),
+            ("CRF random access", dict(ra, rc_mode="crf", lookahead=8),
+             make_frames(352, 288, 9, seed=0)),
+            ("CBR low delay", dict(ld, rc_mode="cbr"), frames),
+            ("VBR low delay", dict(ld, rc_mode="vbr"), frames),
+            ("2-pass VBR low delay", dict(ld, rc_mode="vbr", stats_in=col.records), frames),
+            ("scene cut", dict(GOP, keyint=1000, scene_cut=True), cut)]
+
+
+CPU_WORKERS = 2  # phase 3's CPU encodes: processes side by side, the cores split among them
+
+
+def cpu_tus(clip, threads):
+    """(TUs, seconds) of one phase-3 clip encoded with the plain versions on
+    the CPU, in a worker process."""
+    import torch
+
+    torch.set_num_threads(threads)
+    _label, cfg, frames = clip
+    t0 = time.perf_counter()
+    return [tu for tu, _ in encode_clip(cfg, frames, "cpu")], time.perf_counter() - t0
+
+
+def conformance(torch):
+    """Phase 3: each CIF clip encoded on the card, every TU decoded
+    bit-exactly, and its bytes compared with the plain versions' on the
+    CPU; the scene cut coded as a key frame at frame 4 only; the CLI on the
+    minigop-4 random-access clip. The CPU encodes run meanwhile in
+    CPU_WORKERS processes, the longest clips first: the plain versions
+    gain little from more than four threads, so two clips side by side on
+    four threads each finish sooner than one after another on eight."""
+    import multiprocessing
+
+    from svtav1_tpu_torch.entropy.bitstream import tu_frame_type
+
+    clips = cif_clips()
+    order = sorted(range(len(clips)), key=lambda i: -len(clips[i][2]))
+    threads = max(1, (os.cpu_count() or 1) // CPU_WORKERS)
+    card = {}
+    with multiprocessing.get_context("spawn").Pool(CPU_WORKERS) as pool:
+        cpu_runs = pool.starmap_async(cpu_tus, [(clips[i], threads) for i in order], chunksize=1)
+        for label, cfg, frames in clips:
+            t0 = time.perf_counter()
+            pairs = encode_clip(cfg, frames, "cuda")
+            torch.cuda.synchronize()
+            card[label] = pairs, time.perf_counter() - t0
+            decode_all(f"CIF {label}", pairs)
+        t0 = time.perf_counter()
+        cpu = dict(zip((clips[i][0] for i in order), cpu_runs.get(timeout=900)))
+        cpu_wait_s = time.perf_counter() - t0
+    for label, cfg, frames in clips:
+        (pairs, card_s), (cpu_tu, cpu_s) = card[label], cpu[label]
+        same = sum(len(a) for (a, _), b in zip(pairs, cpu_tu) if a == b)
+        total = sum(len(a) for a, _ in pairs)
+        log(json.dumps(dict(phase="conformance", preset=label,
+                            config={k: v for k, v in cfg.items() if k != "stats_in"},
+                            size=frames[0][0].shape[::-1], frames=len(frames), tus=len(pairs),
+                            decode_bit_exact=True, bytes_cuda=total,
+                            bytes_cpu=sum(len(b) for b in cpu_tu),
+                            identical_tu_byte_share=same / total,
+                            encode_s=dict(cuda=card_s, cpu=cpu_s))))
+    log(json.dumps(dict(phase="conformance", cpu_workers=CPU_WORKERS, threads_per_worker=threads,
+                        cpu_encode_s=sum(c[1] for c in cpu.values()), wait_for_cpu_s=cpu_wait_s)))
+    types = [tu_frame_type(tu) for tu, _ in card["scene cut"][0]]
+    if types != [0, 1, 1, 1, 0, 1, 1, 1]:
+        raise SystemExit(f"scene cut: frame types {types}, not a key frame at frame 4 only")
+    run_cli(clips[4][2], [tu for tu, _ in card["medium random access"][0]])
 
 
 def run_cli(frames, want_tus):
@@ -653,13 +848,11 @@ def run_path(torch, label, cfg, n_timed, required, decode):
     import numpy as np
 
     from svtav1_tpu_torch import kernels
-    from svtav1_tpu_torch.decode.decoder import Decoder
     from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
     from svtav1_tpu_torch.utils import profiler
-    from svtav1_tpu_torch.utils.testclip import make_frames
 
     W, H, N = 1920, 1080, n_timed
-    frames = make_frames(W, H, N + 1, seed=0)
+    frames = clip_1080p(N + 1)
     enc = Encoder(EncoderConfig(W, H, **cfg), device="cuda")
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -685,20 +878,14 @@ def run_path(torch, label, cfg, n_timed, required, decode):
         d = rec[0][:H, :W].astype(np.float64) - y
         mse = float((d * d).mean())
         psnr.append(10 * np.log10(255.0 ** 2 / max(mse, 1e-10)))
-    dec_s = None
     if decode:
-        t1 = time.perf_counter()
-        _, _, _, drec = Decoder().decode_tu(first_tu)
-        dec_s = time.perf_counter() - t1
-        for p in range(3):
-            if not np.array_equal(drec[p], first_rec[p]):
-                raise SystemExit(f"1080p {label} plane {p}: decoder recon differs from the encoder's")
+        decode_later(f"1080p {label}", [(first_tu, first_rec)])
     log(json.dumps(dict(phase="path", preset=label, config=cfg, size=[W, H], frames_timed=N,
                         warm_frame_s=warm_s, fps=N / secs, seconds=secs,
                         bytes_per_frame=sum(len(tu) for tu, _ in out) / N,
-                        y_psnr=sum(psnr) / N, waves_per_frame=waves, launches=launches,
+                        y_psnr=sum(psnr) / N, waves_per_frame=waves,
                         launches_per_frame={k: v / (N + 1) for k, v in launches.items()},
-                        stage_seconds=stages, decode_1080p_s=dec_s, decode_bit_exact=decode)))
+                        stage_seconds=stages)))
     return launches
 
 
@@ -713,10 +900,9 @@ def run_gop(torch):
     from svtav1_tpu_torch import kernels
     from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
     from svtav1_tpu_torch.utils import profiler
-    from svtav1_tpu_torch.utils.testclip import make_frames
 
     W, H, N = 1920, 1080, 16
-    frames = make_frames(W, H, N)
+    frames = clip_1080p(N)
     t0 = time.perf_counter()
     warm = Encoder(EncoderConfig(W, H, **GOP), device="cuda")
     for f in frames[:2]:
@@ -754,9 +940,7 @@ def run_gop(torch):
         y = frames[p.disp_idx][0].astype(np.float64)
         d = p.recon[0][:H, :W].astype(np.float64) - y
         psnr.append(10 * np.log10(255.0 ** 2 / max(float((d * d).mean()), 1e-12)))
-    t1 = time.perf_counter()
-    decode_all("1080p GOP", [(p.tu, p.recon) for p in pkts[:2]])
-    dec_s = time.perf_counter() - t1
+    decode_later("1080p GOP", [(p.tu, p.recon) for p in pkts[:2]])
     log(json.dumps(dict(phase="path", preset="medium GOP", config=GOP, size=[W, H], frames=N,
                         warm_2_frames_s=warm_s, fps=N / secs, seconds=secs,
                         bytes_per_frame=sum(len(p.tu) for p in pkts) / N,
@@ -764,9 +948,8 @@ def run_gop(torch):
                         bytes_per_p_frame=sum(len(p.tu) for p in pkts[1:]) / (N - 1),
                         y_psnr=float(np.mean(psnr)), key_waves=key_waves,
                         p_waves_per_frame=(counts.get("commit/wave", 0) - key_waves) / (N - 1),
-                        launches=launches,
                         launches_per_frame={k: v / N for k, v in launches.items()},
-                        stage_seconds=stages, decode_2_tus_s=dec_s, decode_bit_exact=True)))
+                        stage_seconds=stages)))
     return launches
 
 
@@ -785,10 +968,9 @@ def run_random_access(torch):
     from svtav1_tpu_torch import kernels
     from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
     from svtav1_tpu_torch.utils import profiler
-    from svtav1_tpu_torch.utils.testclip import make_frames
 
     W, H, N = 1920, 1080, 17
-    frames = make_frames(W, H, N)
+    frames = clip_1080p(N)
     t0 = time.perf_counter()
     warm = Encoder(EncoderConfig(W, H, **RA), device="cuda")
     for f in frames[:3]:
@@ -811,7 +993,7 @@ def run_random_access(torch):
     launches = dict(kernels.launches)
     stages = profiler.report()
     counts = profiler.counts()
-    missing = [k for k in KERNEL_SOURCES if launches[k] <= 0]
+    missing = [k for k in KERNEL_SOURCES if k not in CRF_ONLY and launches[k] <= 0]
     if missing:
         raise SystemExit(f"random-access path never launched: {missing}")
     coded = [p.disp_idx for p in pkts if p.disp_idx is not None]
@@ -828,9 +1010,7 @@ def run_random_access(torch):
             raise SystemExit(f"frame {d}: recon of the wrong shape or not finite")
         diff = rec[0][:H, :W].astype(np.float64) - frames[d][0]
         psnr.append(10 * np.log10(255.0 ** 2 / max(float((diff * diff).mean()), 1e-12)))
-    t1 = time.perf_counter()
-    decode_all("1080p random access", [(p.tu, p.recon) for p in pkts[:3]])
-    dec_s = time.perf_counter() - t1
+    decode_later("1080p random access", [(p.tu, p.recon) for p in pkts[:3]])
     b_frames = [p for p in pkts if p.disp_idx not in (None, 0)]
     log(json.dumps(dict(phase="path", preset="medium random access", config=RA, size=[W, H],
                         frames=N, tus=len(pkts), warm_3_frames_s=warm_s, fps=N / secs,
@@ -839,10 +1019,167 @@ def run_random_access(torch):
                         bytes_per_b_frame=sum(len(p.tu) for p in b_frames) / len(b_frames),
                         bytes_show_existing=sum(len(p.tu) for p in pkts if p.disp_idx is None),
                         y_psnr=float(np.mean(psnr)), tf_calls=counts.get("tf", 0),
-                        waves=counts.get("commit/wave", 0), launches=launches,
+                        waves=counts.get("commit/wave", 0),
                         launches_per_frame={k: v / N for k, v in launches.items()},
-                        stage_seconds=stages, decode_3_tus_s=dec_s, decode_bit_exact=True)))
+                        stage_seconds=stages)))
     return launches
+
+
+def record_qindex(enc) -> dict:
+    """{display idx: qindex} of the frames `enc` codes, read from each
+    frame's setup."""
+    qindex = {}
+    real_setup = enc._frame_setup
+
+    def frame_setup(disp_idx, *a, **k):
+        out = real_setup(disp_idx, *a, **k)
+        qindex[disp_idx] = out["p"].qindex
+        return out
+
+    enc._frame_setup = frame_setup
+    return qindex
+
+
+def run_crf(torch):
+    """Phase 4, the CRF path: 17 frames of the bench's clip with CRF (TPL
+    over 16-frame lookahead windows), keyint=32, minigop=8 and MCTF at
+    medium through send_frame + flush on a fresh Encoder, after a 3-frame
+    warm run on another: TPL runs over windows of 16, 16 and 9 frames (41
+    TPL frames of 1088x1920). Launch counts set to 0 just before the timed
+    run and read just after: every kernel K1-K15 must launch. The first
+    three TUs are decoded bit-exactly; each frame's qindex and each
+    window's r0 are printed. Then one 16-frame TPL window alone, its
+    launches and summed kernel bounds counted per TPL frame."""
+    import numpy as np
+
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.pipeline import tpl
+    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig, pad_to_aligned
+    from svtav1_tpu_torch.utils import profiler
+    from svtav1_tpu_torch.utils.profile_keyframes import count_launches
+
+    W, H, N = 1920, 1080, 17
+    frames = clip_1080p(N)
+    t0 = time.perf_counter()
+    warm = Encoder(EncoderConfig(W, H, **CRF), device="cuda")
+    for f in frames[:3]:
+        warm.send_frame(*f)
+    warm.flush()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del warm
+    enc = Encoder(EncoderConfig(W, H, **CRF), device="cuda")
+    qindex, r0 = record_qindex(enc), []
+    real_r0 = enc._tpl_r0
+
+    def tpl_r0(lumas):
+        out = real_r0(lumas)
+        r0.append([float(x) for x in out])
+        return out
+
+    enc._tpl_r0 = tpl_r0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    profiler.reset()
+    t0 = time.perf_counter()
+    pkts = []
+    for f in frames:
+        pkts += enc.send_frame(*f)
+    pkts += enc.flush()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    stages = profiler.report()
+    counts = profiler.counts()
+    missing = [k for k in KERNEL_SOURCES if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"CRF path never launched: {missing}")
+    coded = [p.disp_idx for p in pkts if p.disp_idx is not None]
+    shown = [p.shown_disp_idx for p in pkts if p.shown_disp_idx is not None]
+    if sorted(coded) != list(range(N)) or shown != list(range(N)):
+        raise SystemExit(f"coding order {coded} / display order {shown} is not a GOP of {N}")
+    if [len(w) for w in r0] != [16, 16, 9] or not all(0 < x <= 1 for w in r0 for x in w):
+        raise SystemExit(f"TPL windows {[len(w) for w in r0]} or r0 out of (0, 1]: {r0}")
+    recon_of = {p.disp_idx: p.recon for p in pkts if p.recon is not None}
+    psnr = []
+    for d in shown:
+        rec = recon_of[d]
+        if rec[0].shape != (H, W) or not all(np.isfinite(pl).all() for pl in rec):
+            raise SystemExit(f"frame {d}: recon of the wrong shape or not finite")
+        diff = rec[0][:H, :W].astype(np.float64) - frames[d][0]
+        psnr.append(10 * np.log10(255.0 ** 2 / max(float((diff * diff).mean()), 1e-12)))
+    decode_later("1080p CRF", [(p.tu, p.recon) for p in pkts[:3]])
+    log(json.dumps(dict(phase="path", preset="medium CRF random access", config=CRF, size=[W, H],
+                        frames=N, tus=len(pkts), warm_3_frames_s=warm_s, fps=N / secs,
+                        seconds=secs, bytes_per_frame=sum(len(p.tu) for p in pkts) / N,
+                        bytes_key=len(pkts[0].tu), y_psnr=float(np.mean(psnr)),
+                        qindex_by_frame=[qindex[d] for d in range(N)], r0_by_window=r0,
+                        tpl_frames=sum(len(w) for w in r0), tpl_s=stages.get("tpl"),
+                        tf_calls=counts.get("tf", 0),
+                        launches_per_frame={k: v / N for k, v in launches.items()},
+                        stage_seconds=stages)))
+    # one 16-frame TPL window alone: wall time, launches and bounds per TPL frame
+    lumas = [pad_to_aligned(f[0].astype(np.int32), W, 1088) for f in frames[:16]]
+    box = {}
+
+    def window():
+        t1 = time.perf_counter()
+        box["r0"] = tpl.synthesize(tpl.tpl_window(lumas, 120, 8, minigop=8, device="cuda"))
+        torch.cuda.synchronize()
+        box["s"] = time.perf_counter() - t1
+
+    by_stage = count_launches(window)["tpl"]
+    log(json.dumps(dict(phase="tpl window", size=[1920, 1088], frames=16, seconds=box["s"],
+                        ms_per_tpl_frame=box["s"] / 16 * 1e3,
+                        launches_per_tpl_frame={k: v[0] / 16 for k, v in by_stage.items()},
+                        bound_ms_per_tpl_frame=sum(v[1] for v in by_stage.values()) / 16,
+                        r0=[float(x) for x in box["r0"]])))
+    return launches
+
+
+def run_vbr(torch):
+    """Phase 4, one-pass VBR on the low-delay GOP: the bench's 16-frame clip
+    with keyint=16 at 1000 kbps and 30 frames/s (CQP at qindex 120 gives
+    about 945 kbps), every inter frame coded synchronously, after a 2-frame
+    warm run. Prints the achieved bitrate against the target, fps and each
+    frame's qindex; the first two TUs are decoded bit-exactly."""
+    import numpy as np
+
+    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
+    from svtav1_tpu_torch.utils import profiler
+
+    W, H, N = 1920, 1080, 16
+    frames = clip_1080p(N)
+    warm = Encoder(EncoderConfig(W, H, **VBR), device="cuda")
+    for f in frames[:2]:
+        warm.send_frame(*f)
+    warm.flush()
+    del warm
+    enc = Encoder(EncoderConfig(W, H, **VBR), device="cuda")
+    qindex = record_qindex(enc)
+    torch.cuda.synchronize()
+    profiler.reset()
+    t0 = time.perf_counter()
+    pkts = []
+    for f in frames:
+        pkts += enc.send_frame(*f)
+    pkts += enc.flush()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if [p.disp_idx for p in pkts] != list(range(N)):
+        raise SystemExit(f"VBR packets out of order: {[p.disp_idx for p in pkts]}")
+    psnr = []
+    for p in pkts:
+        d = p.recon[0][:H, :W].astype(np.float64) - frames[p.disp_idx][0]
+        psnr.append(10 * np.log10(255.0 ** 2 / max(float((d * d).mean()), 1e-12)))
+    decode_later("1080p VBR", [(p.tu, p.recon) for p in pkts[:2]])
+    nbytes = sum(len(p.tu) for p in pkts)
+    log(json.dumps(dict(phase="path", preset="medium VBR low delay", config=VBR, size=[W, H],
+                        frames=N, fps=N / secs, seconds=secs, target_kbps=VBR["target_kbps"],
+                        achieved_kbps=nbytes * 8 / (N / VBR["fps"]) / 1e3,
+                        bytes_per_frame=nbytes / N, y_psnr=float(np.mean(psnr)),
+                        qindex_by_frame=[qindex[d] for d in range(N)],
+                        stage_seconds=profiler.report())))
 
 
 def main() -> int:
@@ -866,31 +1203,46 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    seconds = {}
     t0 = time.perf_counter()
     kernels.lib()
-    log(json.dumps(dict(phase="build", seconds=time.perf_counter() - t0,
+    seconds["build"] = time.perf_counter() - t0
+    log(json.dumps(dict(phase="build", seconds=seconds["build"],
                         nvcc_seconds=kernels.build_seconds, library=kernels.LIB)))
 
-    checks = check_kernels(torch, dev)
-    conformance(torch)
-    run_path(torch, "fast", FAST, 1, FAST_KERNELS, decode=False)
-    run_path(torch, "medium", MEDIUM, 2, KEY_KERNELS, decode=True)
-    launches = run_gop(torch)
-    ra_launches = run_random_access(torch)
+    def phase(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t1
+        return out
+
+    checks = phase("kernels", check_kernels, torch, dev)
+    phase("conformance", conformance, torch)
+    phase("fast", run_path, torch, "fast", FAST, 1, FAST_KERNELS, False)
+    phase("medium", run_path, torch, "medium", MEDIUM, 2, KEY_KERNELS, True)
+    launches = phase("low-delay GOP", run_gop, torch)
+    ra_launches = phase("random-access GOP", run_random_access, torch)
+    crf_launches = phase("CRF GOP", run_crf, torch)
+    phase("VBR GOP", run_vbr, torch)
+    phase("1080p decodes", decode_queued)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     if smi.returncode:
         raise SystemExit(f"nvidia-smi failed: {smi.stderr}")
-    log(json.dumps(dict(phase="done", seconds=time.perf_counter() - t_start)))
+    # phase 2 again in short, so that the end of the output holds every number
+    log(json.dumps({"phase2": CHECKS}))
+    log(json.dumps(dict(phase="done", seconds=time.perf_counter() - t_start,
+                        phase_seconds=seconds)))
     log(smi.stdout.strip().splitlines()[0])
     table = []
     for name, (src, repl) in KERNEL_SOURCES.items():
         c = checks[name]
-        ra = name in RA_ONLY
+        used, path = ((crf_launches, "1080p CRF random-access GOP") if name in CRF_ONLY else
+                      (ra_launches, "1080p random-access GOP") if name in RA_ONLY else
+                      (launches, "1080p low-delay GOP"))
         table.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                          launches=(ra_launches if ra else launches)[name],
-                          path="1080p random-access GOP" if ra else "1080p low-delay GOP",
+                          launches=used[name], path=path,
                           max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
                           bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None))
     log(json.dumps({"kernels": table}))

@@ -3,7 +3,9 @@ app.py (itself the analog of the reference's Source/App SvtAv1EncApp).
 
 Usage: python -m svtav1_tpu_torch.app -i input.y4m -b output.ivf [-q 120]
        [-n N] [--keyint K] [--minigop 1|2|4|8] [--enable-tf] [--preset P]
-       [--recon recon.y4m] [--verify] [--device cuda|cpu] [-c config.cfg]
+       [--rc cqp|cbr|vbr|crf] [--tbr KBPS] [--lookahead N] [--scd]
+       [--pass 1|2 --stats FILE] [--recon recon.y4m] [--verify]
+       [--device cuda|cpu] [-c config.cfg]
 
 The flags are the reference CLI's, with two differences: there is no
 `--md` (the port has one mode-decision path, the device one) and
@@ -11,7 +13,9 @@ The flags are the reference CLI's, with two differences: there is no
 plain PyTorch versions). A flag whose setting is not yet in the port
 raises NotImplementedError naming the ROADMAP item that brings it.
 `--verify` decodes every TU with the port's decoder and requires its recon
-to equal the encoder's.
+to equal the encoder's. `--pass 1 --stats FILE` runs the first-pass
+analysis only and writes its stats; `--pass 2 --stats FILE` (with
+`--rc vbr --tbr KBPS`) encodes with them.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from .io.ivf import write_ivf
 from .io.y4m import read_y4m, write_y4m
 from .kernels import resolve_device
 from .pipeline.encoder import Encoder, EncoderConfig
+from .pipeline.firstpass import FirstPassCollector, read_stats
 from .utils import metrics
 
 
@@ -93,7 +98,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-rdoq", action="store_true", help="disable device RDOQ")
     ap.add_argument("--tile-columns", type=int, default=0, help="log2 tile columns")
     ap.add_argument("--tile-rows", type=int, default=0, help="log2 tile rows")
-    ap.add_argument("--tbr", type=float, default=0.0, help="CBR target bitrate (kbit/s)")
+    ap.add_argument("--tbr", type=float, default=0.0, help="CBR/VBR target bitrate (kbit/s)")
     ap.add_argument("--lookahead", type=int, default=16, help="CRF TPL window (frames)")
     ap.add_argument("--scd", action="store_true", help="scene change detection (adaptive keys)")
     ap.add_argument("--intra-batch", type=int, default=1,
@@ -124,14 +129,8 @@ def main(argv=None) -> int:
         # qindex 0 is CodedLossless: the spec then omits lf/cdef/tx_mode
         # syntax (5.9.11/5.9.14/5.9.19) which this writer emits unconditionally
         ap.error(f"--qindex must be in [1, 255], got {args.qindex}")
-    # the rate-control flags that no EncoderConfig setting of the port
-    # reads; the other flags outside the port map to fields the Encoder
-    # refuses
-    for flag, given in (("--pass", args.enc_pass), ("--stats", args.stats is not None),
-                        ("--tbr", args.tbr), ("--lookahead", args.lookahead != 16)):
-        if given:
-            raise NotImplementedError(f"{flag} is not in svtav1_tpu_torch yet; it comes with "
-                                      "ROADMAP queue 1 'TPL/CRF and rate control'")
+    if args.enc_pass and not args.stats:
+        ap.error(f"--pass {args.enc_pass} needs --stats FILE")
     try:
         device = resolve_device(args.device)
     except RuntimeError:
@@ -146,10 +145,21 @@ def main(argv=None) -> int:
     if not frames:
         print("no frames read", file=sys.stderr)
         return 1
+    if args.enc_pass == 1:
+        # pass 1: the analysis only (the reference short-circuits EncDec)
+        col = FirstPassCollector()
+        for (y, _u, _v) in frames:
+            col.send_frame(y)
+        col.write_stats(args.stats)
+        print(f"pass 1: wrote {len(frames)} frame stats to {args.stats}")
+        return 0
+    stats_in = read_stats(args.stats) if args.enc_pass == 2 else None
     cll = tuple(int(v) for v in args.content_light.split(",")) if args.content_light else None
     mdcv = _parse_mastering(args.mastering_display) if args.mastering_display else None
     enc = Encoder(EncoderConfig(width=w, height=h, qindex=args.qindex, keyint=args.keyint,
                                 minigop=args.minigop, bd=bd, rc_mode=args.rc,
+                                target_kbps=args.tbr, fps=fps[0] / max(fps[1], 1),
+                                lookahead=args.lookahead, stats_in=stats_in,
                                 scene_cut=args.scd, intra_batch=args.intra_batch,
                                 enable_tf=args.enable_tf,
                                 enable_restoration=args.enable_restoration,

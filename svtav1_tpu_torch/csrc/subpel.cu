@@ -163,7 +163,107 @@ __global__ void subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t*
   }
 }
 
+// K14 subpel_refine: the TPL's two-step refinement (half pel, then quarter
+// pel): nine candidates per step around the current MV in (dy, dx) raster
+// order, dy major, from (-1, -1) to (1, 1), the second step centred on the
+// first step's winner; each step takes the FIRST SAD minimum, so a corner
+// that ties the centre wins. Every candidate is normative MC (K10's
+// rounding) from the same (n+8)^2 patch as K9: both steps stay inside
+// +-3/4 pel of the full-pel MV, the {-6..6} step-2 lattice of K9. Returns
+// the 1/8-pel MV only.
+//
+// Replaces svtav1_tpu/ops/me_jax.py::subpel_refine_lanes (the TPL
+// dispenser's subpel step, svtav1_tpu/pipeline/tpl.py:92).
+//
+// Bound: operations (18 predictions of n^2 samples, each 8 vertical
+// multiply-adds, a difference and a sum, and the horizontal pass of 3
+// column phases per step over n+8 rows, against (n+8)^2 uint8 and n^2 int32
+// reads). Design: one block per lane, patch and source in shared memory as
+// K9; per step the horizontal pass runs once per candidate column into
+// shared memory and serves that column's three rows.
+__global__ void subpel_refine_kernel(const int* __restrict__ src_b,
+                                     const uint8_t* __restrict__ ref,
+                                     const int* __restrict__ ys, const int* __restrict__ xs,
+                                     const int* __restrict__ mv_fp, const int* __restrict__ ftab,
+                                     int* __restrict__ mv_out, int H, int W, int n, int bd) {
+  extern __shared__ int smem[];
+  __shared__ int taps[16 * 8];
+  __shared__ int sads[9];
+  __shared__ int s_ctr[2];
+  const int P = n + 8;
+  int* hb = smem;                              // (n+8) x n int32
+  short* patch = (short*)(smem + P * n);       // (n+8)^2
+  short* src = patch + P * P;                  // n x n
+  const int b = blockIdx.x;
+  const int mfy = mv_fp[2 * b], mfx = mv_fp[2 * b + 1];
+  const int py = ys[b] + mfy - 4, px = xs[b] + mfx - 4;
+  for (int i = threadIdx.x; i < 128; i += blockDim.x) taps[i] = ftab[i];
+  for (int i = threadIdx.x; i < P * P; i += blockDim.x) {
+    const int r = i / P, c = i - r * P;
+    patch[i] = ref[(size_t)clampi(py + r, 0, H - 1) * W + clampi(px + c, 0, W - 1)];
+  }
+  const int* S = src_b + (size_t)b * n * n;
+  for (int i = threadIdx.x; i < n * n; i += blockDim.x) src[i] = (short)S[i];
+  const int offset_bits = bd + 2 * FILTER_BITS - ROUND0;
+  const int sub = (1 << (offset_bits - ROUND1)) + (1 << (offset_bits - ROUND1 - 1));
+  const int maxv = (1 << bd) - 1;
+  int cy = 3, cx = 3;  // lattice indices of the current MV (index 3 = offset 0)
+  for (int step = 2; step >= 1; --step) {  // lattice steps: 2 = 4/8 pel, 1 = 2/8 pel
+    for (int i = threadIdx.x; i < 9; i += blockDim.x) sads[i] = 0;
+    for (int c = 0; c < 3; ++c) {
+      __syncthreads();  // staging and zeroing done / previous column's SADs read hb
+      hpass(patch, hb, taps, n, lat_of(cx + (c - 1) * step, MAXL), bd);
+      __syncthreads();
+      int part[3] = {0, 0, 0};
+      for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
+        const int r = i / n, cc = i - r * n;
+        const int s = src[i];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const int fy0 = 2 * lat_of(cy + (a - 1) * step, MAXL);
+          part[a] += abs(vpass(hb, taps + (fy0 & 15) * 8, n, 1 + (fy0 >> 4), r, cc, offset_bits,
+                               sub, maxv) - s);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        int v = part[a];
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+        if ((threadIdx.x & 31) == 0) atomicAdd(&sads[a * 3 + c], v);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int best = 0;  // the first minimum in offs order
+      for (int k = 1; k < 9; ++k)
+        if (sads[k] < sads[best]) best = k;
+      s_ctr[0] = cy + (best / 3 - 1) * step;
+      s_ctr[1] = cx + (best % 3 - 1) * step;
+    }
+    __syncthreads();
+    cy = s_ctr[0];
+    cx = s_ctr[1];
+  }
+  if (threadIdx.x == 0) {
+    mv_out[2 * b] = mfy * 8 + lat_of(cy, MAXL);
+    mv_out[2 * b + 1] = mfx * 8 + lat_of(cx, MAXL);
+  }
+}
+
 }  // namespace
+
+extern "C" int subpel_refine_launch(const int* src_b, const uint8_t* ref, const int* ys,
+                                    const int* xs, const int* mv_fp, const int* ftab,
+                                    int* mv_out, int B, int H, int W, int n, int bd,
+                                    void* stream) {
+  if (B == 0) return 0;
+  const int P = n + 8;
+  const int threads = n * n >= 256 ? 256 : n * n;
+  const size_t shm = (size_t)P * n * sizeof(int) + (size_t)(P * P + n * n) * sizeof(short);
+  subpel_refine_kernel<<<B, threads, shm, (cudaStream_t)stream>>>(src_b, ref, ys, xs, mv_fp, ftab,
+                                                                  mv_out, H, W, n, bd);
+  return launch_status();
+}
 
 extern "C" int subpel_pred_launch(const int* src_b, const uint8_t* ref, const int* ys, const int* xs,
                                   const int* mv_fp, const int* ftab, int* mv_out, int* pred_out,

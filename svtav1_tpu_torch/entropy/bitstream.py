@@ -87,6 +87,20 @@ def read_leb128(data: bytes, pos: int) -> tuple[int, int]:
     raise ValueError("leb128 too long")
 
 
+def tu_frame_type(tu: bytes) -> int | None:
+    """frame_type of the TU's frame OBU (0 key, 1 inter), read from its
+    uncompressed header (show_existing_frame f(1), then frame_type f(2));
+    None when the TU holds no frame OBU."""
+    pos = 0
+    while pos < len(tu):
+        obu_type = (tu[pos] >> 3) & 0xF
+        size, pos = read_leb128(tu, pos + 1)
+        if obu_type == int(ObuType.OBU_FRAME):
+            return (tu[pos] >> 5) & 3
+        pos += size
+    return None
+
+
 def obu(obu_type: int, payload: bytes) -> bytes:
     """Wrap payload: obu_header (has_size_field=1) + leb128 size + payload."""
     header = BitWriter()

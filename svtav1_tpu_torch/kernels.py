@@ -42,6 +42,8 @@ KERNELS = {
     "mc_compound": ("mc.cu", "mc_compound_launch"),
     "tf_filter": ("tf.cu", "tf_filter_launch"),
     "tf_noise": ("tf.cu", "tf_noise_launch"),
+    "subpel_refine": ("subpel.cu", "subpel_refine_launch"),
+    "tpl_cost": ("txfm_quant_recon.cu", "tpl_cost_launch"),
 }
 
 _P = ctypes.c_void_p
@@ -81,6 +83,11 @@ ARGTYPES = {
     "tf_filter_launch": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
     # y, out, H, W, thr, stream
     "tf_noise_launch": [_P, _P, _I, _I, _I, _P],
+    # src_b, ref, ys, xs, mv_fp, ftab, mv_out, B, H, W, n, bd, stream
+    "subpel_refine_launch": [_P] * 7 + [_I] * 5 + [_P],
+    # src, pred, tables, satd|NULL, err|NULL, recon|NULL, mode, L, rep, n, b0, b1, b2, sh_row,
+    # sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
+    "tpl_cost_launch": [_P] * 6 + [_I] * 14 + [_P],
 }
 
 launches = {name: 0 for name in KERNELS}

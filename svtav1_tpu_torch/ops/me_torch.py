@@ -1,5 +1,5 @@
 """Motion estimation and motion compensation (PyTorch), ported from
-svtav1_tpu's ops/me_jax.py, around three CUDA kernels with a plain PyTorch
+svtav1_tpu's ops/me_jax.py, around five CUDA kernels with a plain PyTorch
 version beside each:
 
 - K8 `me_sad` (`csrc/me.cu`): the 2x2 decimation of the ME pyramid, the
@@ -16,6 +16,8 @@ version beside each:
 - K11 `mc_compound` (`csrc/mc.cu`): compound-average MC, the two conv-buf
   (offset-carrying, COMPOUND_ROUND1) predictions of a lane from two
   references of the stack and the normative average, in one launch.
+- K14 `subpel_refine` (`csrc/subpel.cu`): the TPL's two-step 9-point
+  subpel refinement by SAD, from one (n+8)^2 patch per block like K9.
 
 MVs are (row, col); the searches work in full pels and return 1/8 pel, MC
 takes 1/16 pel of the plane it reads. Each wrapper launches its kernel for
@@ -277,6 +279,27 @@ def subpel_pred_plain(src_b, ref, ys, xs, mv_fp, which: int, bd: int, fast: bool
     return (mv_fp * 8 + best_d).to(torch.int32), best_pred.to(torch.int32)
 
 
+_REFINE_OFFS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+
+
+def subpel_refine_plain(src_b, ref, ys, xs, mv_fp, which: int, bd: int):
+    """Plain PyTorch version of K14; same arguments and result as
+    subpel_refine_lanes (written from me_jax.subpel_refine_lanes: the nine
+    candidates of a step are lanes of one MC call)."""
+    B, n = src_b.shape[0], src_b.shape[-1]
+    dev = src_b.device
+    mv = mv_fp.to(torch.int32) * 8
+    ys9, xs9 = ys.repeat(9), xs.repeat(9)
+    offs = torch.tensor(_REFINE_OFFS, dtype=torch.int32, device=dev)
+    bi = torch.arange(B, device=dev)
+    for step in (4, 2):
+        cand = (mv[None] + offs[:, None] * step).reshape(9 * B, 2)
+        pred = mc_lanes_plain(ref, ys9, xs9, cand[:, 0] * 2, cand[:, 1] * 2, n, n, which, bd)
+        sads = (pred.reshape(9, B, n, n) - src_b[None]).abs().sum(dim=(-2, -1))
+        mv = cand.reshape(9, B, 2)[torch.argmin(sads, dim=0), bi]  # the first minimum
+    return mv.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -443,6 +466,34 @@ def subpel_pred_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int, fast: bool
                    pred.data_ptr(), B, ref.shape[-2], ref.shape[-1], n, bd, int(bool(fast)),
                    kernels.stream_ptr(pred))
     return mv8, pred
+
+
+def subpel_refine_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int):
+    """Two-step (half, then quarter pel) 9-point refinement by SAD (K14),
+    the TPL's subpel step.
+
+    src_b (B, n, n) int32 source blocks at (ys, xs) of the (H, W) reference
+    plane `ref` (uint8 on the card), mv_fp (B, 2) full-pel MVs. Each step MCs
+    the nine candidates around the current MV (offsets dy major, dx minor,
+    from (-1, -1) to (1, 1), times 4 then 2 eighth-pels) and takes the first
+    SAD minimum, so a corner that ties the centre wins. Returns (B, 2) int32
+    1/8-pel MVs."""
+    if src_b.device.type == "cpu":
+        return subpel_refine_plain(src_b, ref, ys, xs, mv_fp, which, bd)
+    kernels.check(src_b, "src_b", torch.int32)
+    kernels.check(ref, "ref", torch.uint8)
+    B, n = src_b.shape[0], src_b.shape[-1]
+    if n < 8:
+        raise ValueError("subpel_refine_lanes: blocks of 8x8 and up (8-tap filters)")
+    ys, xs, mv_fp = _i32(ys), _i32(xs), _i32(mv_fp)
+    mv8 = torch.empty((B, 2), dtype=torch.int32, device=src_b.device)
+    if B == 0:
+        return mv8
+    kernels.launch("subpel_refine", src_b.data_ptr(), ref.data_ptr(), ys.data_ptr(),
+                   xs.data_ptr(), mv_fp.data_ptr(),
+                   _ftab(filter_for_dim(which, n), str(src_b.device)).data_ptr(), mv8.data_ptr(),
+                   B, ref.shape[-2], ref.shape[-1], n, bd, kernels.stream_ptr(mv8))
+    return mv8
 
 
 def mc_lanes_compound(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h: int, n_w: int, which: int,

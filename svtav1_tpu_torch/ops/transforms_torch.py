@@ -3,7 +3,10 @@ intra path: forward 2-D transform, dead-zone quant clipped to +-32767,
 dequant, inverse 2-D transform + prediction, and the recon's SSE — fused in
 the CUDA kernel `csrc/txfm_quant_recon.cu` (K2), with a plain PyTorch version
 beside it. K2 also runs as its two halves around RDOQ: `txfm_quant` (levels
-and unquantized coefficients) and `recon_from_levels`.
+and unquantized coefficients) and `recon_from_levels`. K15 `tpl_cost`, a
+second entry point of the same source, fuses the TPL's two transform-domain
+costs (the SATD proxy; the quantization error with the recon) on K2's
+DCT networks and quantizer.
 
 Each wrapper launches K2 for CUDA tensors and takes the plain version only
 for CPU tensors. Both run the same int32 stage networks as the
@@ -130,7 +133,9 @@ def _clamp_bits(x, bits: int):
 
 def _txfm1d_table(x, stages, clamp_range):
     for ia, wa, ib, wb, sh, rnd, clamp2 in stages:
-        y = (x[..., ia] * wa + x[..., ib] * wb + rnd) >> sh
+        # torch.gather: on the CPU many times faster than x[..., ia]
+        y = (torch.gather(x, -1, ia.expand(x.shape)) * wa
+             + torch.gather(x, -1, ib.expand(x.shape)) * wb + rnd) >> sh
         if clamp_range is not None:
             y = torch.where(clamp2, _clamp_bits(y, clamp_range), y)
         x = y
@@ -262,6 +267,26 @@ def recon_from_levels_plain(levels, pred, v_adst, h_adst, dq_dc: int, dq_ac: int
     return _inverse_plain(lv, pred, v_adst, h_adst, dq_dc, dq_ac, bd, tabs)
 
 
+def tpl_cost_plain(src, pred, mode: int, dq_dc: int, dq_ac: int, bd: int, rep: int = 1,
+                   want_recon: bool = False):
+    """Plain PyTorch version of K15; same arguments and results as tpl_cost
+    (written from the expressions of the reference's pipeline/tpl.py)."""
+    L, n = pred.shape[0], pred.shape[-1]
+    tabs = tables_for(n, pred.device)
+    va, ha = tx_flags(int(TxType.DCT_DCT), L, pred.device)
+    co = _forward_plain(src, pred, va, ha, bd, rep, tabs)
+    if mode == 0:
+        return (co.abs().sum(dim=(-2, -1)).to(torch.int32) >> 2).contiguous()
+    lv = _quant_plain(co, dq_dc, dq_ac)
+    dq = _dq_grid(n, dq_dc, dq_ac, lv.device)
+    dqc = torch.sign(lv) * ((lv.abs() * dq) >> quant_ops.tx_scale(n, n)) \
+        .clamp(max=(1 << (bd + 7)) - 1)
+    e = ((co - dqc) >> 2).to(torch.int64)
+    err = (e * e).sum(dim=(-2, -1))
+    recon = _inverse_plain(lv, pred, va, ha, dq_dc, dq_ac, bd, tabs) if want_recon else None
+    return err, recon
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -349,6 +374,45 @@ def recon_from_levels(levels, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: 
     recon = torch.empty((L, n, n), dtype=torch.int32, device=pred.device)
     _launch(2, None, pred, v_adst, h_adst, levels, None, recon, None, dq_dc, dq_ac, bd, 1, tabs)
     return recon
+
+
+def tpl_cost(src, pred, mode: int, dq_dc: int, dq_ac: int, bd: int, rep: int = 1,
+             want_recon: bool = False):
+    """The TPL's transform-domain costs of L square DCT_DCT blocks (K15).
+
+    src (L // rep, n, n) int32 source blocks (lane i uses src[i // rep]),
+    pred (L, n, n) int32 predictions, n <= 32. mode 0 returns the SATD proxy
+    sum |fwd_txfm2d(src - pred)| >> 2, (L,) int32. mode 1 quantizes the
+    coefficients co (levels clipped to +-32767), dequantizes them to dqc and
+    returns (err (L,) int64 = sum ((co - dqc) >> 2)^2, recon (L, n, n) int32
+    = inv_txfm2d_add(dqc, pred) clipped, or None unless want_recon)."""
+    if pred.device.type == "cpu":
+        return tpl_cost_plain(src, pred, mode, dq_dc, dq_ac, bd, rep, want_recon)
+    L, n = pred.shape[0], pred.shape[-1]
+    if n not in SIZES[:-1] or pred.shape[1:] != (n, n) or mode not in (0, 1):
+        raise ValueError(f"tpl_cost: mode 0 or 1 on square blocks of {SIZES[:-1]}, got mode "
+                         f"{mode}, {tuple(pred.shape)}")
+    if L % rep:
+        raise ValueError("tpl_cost: src must hold L // rep blocks")
+    kernels.check(pred, "pred", torch.int32)
+    kernels.check(src, "src", torch.int32, (L // rep, n, n))
+    tabs = tables_for(n, pred.device)
+    dev = pred.device
+    satd = torch.empty((L,), dtype=torch.int32, device=dev) if mode == 0 else None
+    err = torch.empty((L,), dtype=torch.int64, device=dev) if mode == 1 else None
+    recon = torch.empty((L, n, n), dtype=torch.int32, device=dev) if mode == 1 and want_recon \
+        else None
+    s0, s1, s2 = T.FWD_SHIFTS[(n, n)]
+    sh_row, sh_col = T.INV_SHIFTS[(n, n)]
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    kernels.launch("tpl_cost", src.data_ptr(), pred.data_ptr(), tabs.packed.data_ptr(), ptr(satd),
+                   ptr(err), ptr(recon), mode, L, rep, n, -s0, -s1, -s2, sh_row, sh_col,
+                   int(dq_dc), int(dq_ac), quant_ops.tx_scale(n, n), bd, int(math.log2(n)),
+                   kernels.stream_ptr(pred))
+    return satd if mode == 0 else (err, recon)
 
 
 def tx_flags(tx_type: int, L: int, device) -> tuple:

@@ -1,6 +1,6 @@
 """Top-level encoder of the PyTorch port: key frames, low-delay P frames
-and hierarchical-B mini-GoPs, CQP, on a CUDA device, ported from
-svtav1_tpu's pipeline/encoder.py.
+and hierarchical-B mini-GoPs, with CQP, CRF or rate control, on a CUDA
+device, ported from svtav1_tpu's pipeline/encoder.py.
 
 API shape mirrors the reference's library API (EbSvtAv1Enc.h:966-1076
 svt_av1_enc_send_picture / _get_packet): `send_frame` returns the packets
@@ -18,8 +18,18 @@ frame is shown later by a show-existing TU. With `enable_tf`, key frames
 and mini-GoP anchors are temporally filtered first (ops/tf_torch.py) with
 up to TF_PAST past and TF_FUT future source frames.
 
-This slice supports every preset ("fast", "medium", "slow"), 8-bit, CQP,
-one tile, DLF and CDEF each on or off, translation global motion, CDF
+Rate control (`rc_mode`): "cqp" codes every frame at `qindex` plus its
+layer offset. "crf" buffers `lookahead` frames and runs TPL
+(pipeline/tpl.py) over each window in coding order; each frame's qindex
+follows from its propagated r0, and inter frames stay on the pipelined
+path. "cbr" and "vbr" (one pass, or two passes with `stats_in` from
+pipeline/firstpass.py) are host controllers (pipeline/rc.py) that need
+every TU's size before the next frame's qindex, so each inter frame is
+finished (its TU written) before the next one starts. `scene_cut`
+codes a key frame where the source changes abruptly.
+
+This slice supports every preset ("fast", "medium", "slow"), 8-bit, one
+tile, DLF and CDEF each on or off, translation global motion, CDF
 inheritance and the HDR metadata OBUs of key frames. Every other setting
 raises NotImplementedError naming the ROADMAP item that brings it.
 """
@@ -53,7 +63,7 @@ class EncoderConfig:
     enable_dlf: bool = True  # in-loop deblocking (by-q levels)
     enable_cdef: bool = True  # CDEF (frame-wide searched strength set)
     enable_filter_intra: bool = False  # recursive filter-intra
-    rc_mode: str = "cqp"  # "cqp" | "cbr" | "vbr" | "crf"
+    rc_mode: str = "cqp"  # "cqp" | "cbr" | "vbr" | "crf" (TPL r0-based q assignment)
     enable_restoration: bool = False  # loop restoration (Wiener + self-guided)
     scene_cut: bool = False  # adaptive key frames on scene changes
     intra_batch: int = 1  # all-intra frame batching through the device pipeline
@@ -64,6 +74,10 @@ class EncoderConfig:
     preset: str = "medium"  # "fast" | "medium" | "slow"
     enable_rdoq: bool = True  # RDOQ in the commit (where the preset has it)
     target_kbps: float = 0.0  # rate-control target (kbit/s)
+    fps: float = 30.0
+    lookahead: int = 16  # CRF: TPL sliding-window size (frames buffered)
+    # two-pass VBR: the first pass's stats records (pipeline/firstpass.read_stats)
+    stats_in: list | None = None
     film_grain: int = 0  # film grain synthesis strength (0 = off)
     film_grain_table: str | None = None  # explicit aomenc "filmgrn1" table
     # CDF lifecycle: seed each inter frame's symbol CDFs from the primary
@@ -105,11 +119,9 @@ PRESET_RDOQ = {"fast": False, "medium": True, "slow": True}
 # setting -> (is it outside this slice?, the ROADMAP queue 1 item that brings it)
 _UNSUPPORTED = (
     (lambda c: c.enable_restoration, "enable_restoration", "restoration"),
-    (lambda c: c.scene_cut, "scene_cut", "scene cuts"),
     (lambda c: bool(c.film_grain or c.film_grain_table), "film_grain", "film grain"),
     (lambda c: c.tile_cols_log2 > 0 or c.tile_rows_log2 > 0, "tiles", "tiles"),
     (lambda c: c.intra_batch > 1, "intra_batch > 1", "intra batching"),
-    (lambda c: c.rc_mode != "cqp", "rc_mode != 'cqp'", "TPL/CRF and rate control"),
     (lambda c: c.bd != 8, "bd != 8", "10-bit at the encoder level"),
     (lambda c: c.enable_filter_intra, "enable_filter_intra", "filter-intra"),
 )
@@ -166,6 +178,10 @@ class Encoder:
             raise ValueError(f"minigop {cfg.minigop}: dyadic mini-GoPs of 1, 2, 4 or 8 frames")
         if cfg.preset not in PRESETS:
             raise ValueError(f"unknown preset {cfg.preset!r}: one of {sorted(PRESETS)}")
+        if cfg.rc_mode not in ("cqp", "cbr", "vbr", "crf"):
+            raise ValueError(f"unknown rc_mode {cfg.rc_mode!r}: cqp, cbr, vbr or crf")
+        if cfg.rc_mode in ("cbr", "vbr") and cfg.target_kbps <= 0:
+            raise ValueError(f"{cfg.rc_mode} needs target_kbps")
         for outside, what, item in _UNSUPPORTED:
             if outside(cfg):
                 raise NotImplementedError(
@@ -204,6 +220,28 @@ class Encoder:
         self._tf_q: list = []
         self._tf_hist: list = []
         self._tf_emitted = 0
+        from . import rc
+
+        self.rc = None
+        if cfg.rc_mode == "cbr":
+            self.rc = rc.CbrController(cfg.target_kbps * 1000.0, cfg.fps, cfg.qindex)
+        elif cfg.rc_mode == "vbr":
+            if cfg.stats_in:
+                from .firstpass import TwoPassVbrController
+
+                self.rc = TwoPassVbrController(cfg.stats_in, cfg.target_kbps * 1000.0, cfg.fps,
+                                               cfg.qindex, keyint=cfg.keyint,
+                                               minigop=cfg.minigop, bd=cfg.bd)
+            else:
+                self.rc = rc.VbrController(cfg.target_kbps * 1000.0, cfg.fps, cfg.qindex,
+                                           keyint=cfg.keyint, minigop=cfg.minigop, bd=cfg.bd)
+            self.rc.set_frame_geometry(cfg.width, cfg.height)
+        self.scene = rc.SceneDetector() if cfg.scene_cut else None
+        # CRF: TPL lookahead queue of (disp, src, is_key), and the source of
+        # the last anchor, frame 0 of the next window
+        self._crf = cfg.rc_mode == "crf"
+        self._crf_pending: list = []
+        self._anchor_src = None
 
     # ------------------------------------------------------------------- API
 
@@ -257,7 +295,15 @@ class Encoder:
         d = self.next_disp
         self.next_disp += 1
         src = self._pad(y, u, v)
-        if cfg.keyint <= 1 or d % cfg.keyint == 0:
+        is_key = cfg.keyint <= 1 or d % cfg.keyint == 0
+        if self.scene is not None and self.scene.is_cut(src[0]) and d > 0:
+            is_key = True
+        if self._crf:
+            self._crf_pending.append((d, src, is_key))
+            if len(self._crf_pending) >= max(cfg.lookahead, cfg.minigop + 1):
+                return self._drain_crf(final=False)
+            return []
+        if is_key:
             packets = self._drain_pending() + self._pipe_drain()
             packets.append(self._encode_key(d, src))
             self.anchor = d
@@ -271,20 +317,74 @@ class Encoder:
 
     def flush(self) -> list:
         packets = self._tf_drain(final=True) if self._tf else []
+        if self._crf:
+            return packets + self._drain_crf(final=True) + self._pipe_drain()
         return packets + self._drain_pending() + self._pipe_drain()
 
     def encode_frame(self, y, u, v):
         """Synchronous helper of low-delay configurations (minigop == 1, no
-        MCTF): returns (tu_bytes, recon_planes) of this display frame."""
-        if self.cfg.minigop != 1 or self._tf:
+        MCTF, no CRF): returns (tu_bytes, recon_planes) of this display frame."""
+        if self.cfg.minigop != 1 or self._tf or self._crf:
             raise ValueError("encode_frame codes low-delay frames one at a time (minigop=1, "
-                             "no MCTF); use send_frame and flush")
+                             "no MCTF, no CRF lookahead); use send_frame and flush")
         pkts = self.send_frame(y, u, v) + self._pipe_drain()
         if len(pkts) != 1:
             raise RuntimeError(f"encode_frame expected one packet, got {len(pkts)}")
         return pkts[0].tu, pkts[0].recon
 
     # ------------------------------------------------------------- scheduling
+
+    def _tpl_r0(self, window_lumas: list) -> np.ndarray:
+        """TPL dispenser and synthesizer over a window of source lumas in the
+        coded prediction structure (dyadic mini-GoPs when minigop > 1),
+        padded to 64-multiples for the SB-granular ME pyramid."""
+        from . import tpl
+
+        h, w = window_lumas[0].shape
+        H, W = -(-h // 64) * 64, -(-w // 64) * 64
+        with profiler.stage("tpl"):
+            stats = tpl.tpl_window([pad_to_aligned(y, W, H) for y in window_lumas],
+                                   self.cfg.qindex, self.cfg.bd, minigop=self.cfg.minigop,
+                                   device=self.device)
+            return tpl.synthesize(stats)
+
+    def _drain_crf(self, final: bool) -> list:
+        """Code buffered frames with TPL-derived per-frame qindex (the
+        reference's TPL group and crf_qindex_calc flow: src_ops_process.c
+        tpl_mc_flow, rc_process.c:782). A key frame's window starts at the
+        key; a mini-GoP's window starts at its anchor's source."""
+        from . import tpl
+
+        cfg = self.cfg
+        la = max(cfg.lookahead, cfg.minigop + 1)
+        hl = int(np.log2(max(cfg.minigop, 1)))
+        packets = []
+        while self._crf_pending and (final or len(self._crf_pending) >= la):
+            pend = self._crf_pending
+            if pend[0][2]:  # key frame: the window starts at the key itself
+                packets += self._pipe_drain()
+                r0s = self._tpl_r0([s[0] for (_d, s, _k) in pend[:la]])
+                d, src, _ = pend.pop(0)
+                q = tpl.crf_qindex(cfg.qindex, float(r0s[0]), True, 0, hl, cfg.bd)
+                packets.append(self._encode_key(d, src, qindex_override=q))
+                self.anchor = d
+                self._anchor_src = src
+                continue
+            # frames until the next key bound this mini-GoP
+            upto = next((i for i, e in enumerate(pend) if e[2]), len(pend))
+            size = 1
+            while size * 2 <= upto and size * 2 <= cfg.minigop:
+                size *= 2
+            if not final and upto >= len(pend) and upto < cfg.minigop:
+                break  # wait for a full mini-GoP
+            mg = pend[:size]
+            wlen = min(la - 1, upto)
+            r0s = self._tpl_r0([self._anchor_src[0]] + [s[0] for (_d, s, _k) in pend[:wlen]])
+            r0_by_disp = {pend[i][0]: float(r0s[i + 1]) for i in range(wlen)}
+            packets += self._code_minigop([(d, s) for (d, s, _k) in mg], r0_by_disp=r0_by_disp)
+            self._anchor_src = mg[-1][1]
+            del self._crf_pending[:size]
+        return packets
 
     def _drain_pending(self) -> list:
         packets = []
@@ -296,9 +396,12 @@ class Encoder:
             self.pending = self.pending[size:]
         return packets
 
-    def _code_minigop(self, frames: list) -> list:
+    def _code_minigop(self, frames: list, r0_by_disp: dict | None = None) -> list:
+        from . import tpl
+
         srcs = {d: s for d, s in frames}
         sched = gop.schedule_minigop(self.anchor, len(frames))
+        hl = int(np.log2(max(self.cfg.minigop, 1)))
         # liveness-based DPB slot assignment over slots 0..6 (slot 7 is the
         # GOLDEN key): a slot is reusable when its occupant is neither a ref
         # of a not-yet-coded frame, nor awaiting show_existing, nor the
@@ -327,8 +430,13 @@ class Encoder:
                     raise RuntimeError(f"live reference set {sorted(keep)} exceeds the 7 "
                                        "rotating DPB slots")
                 self._slot_occupant[slot] = f.disp_idx
+            q = None
+            if r0_by_disp is not None:
+                q = tpl.crf_qindex(self.cfg.qindex, r0_by_disp.get(f.disp_idx, 1.0), False,
+                                   f.layer, hl, self.cfg.bd)
             packets += self._encode_push(f.disp_idx, srcs[f.disp_idx], f.show, f.layer,
-                                         f.past_idx, f.future_idx, dpb_slot=slot)
+                                         f.past_idx, f.future_idx, qindex_override=q,
+                                         dpb_slot=slot)
             for se in f.show_existing:
                 packets += self._push_done(self._show_existing(se))
         self.anchor = frames[-1][0]
@@ -348,7 +456,9 @@ class Encoder:
                 pad_to_aligned(np.asarray(u, np.int32), aw >> 1, ah >> 1),
                 pad_to_aligned(np.asarray(v, np.int32), aw >> 1, ah >> 1)]
 
-    def _frame_qindex(self, is_key: bool, layer: int) -> int:
+    def _frame_qindex(self, is_key: bool, layer: int, disp: int | None = None) -> int:
+        if self.rc is not None:
+            return self.rc.frame_qindex(is_key, layer, disp)
         q = self.cfg.qindex
         if self.cfg.minigop > 1 or self.cfg.keyint > 1:
             q += gop.KEY_Q_OFFSET if is_key else gop.LAYER_Q_OFFSET[min(layer, 2)]
@@ -400,12 +510,13 @@ class Encoder:
             del self._gm_src[k]
 
     def _frame_setup(self, disp_idx: int, is_key: bool, layer: int, past_idx,
-                     future_idx) -> dict:
+                     future_idx, qindex_override=None) -> dict:
         """Per-frame header/reference setup: qindex, ref map (id -> DPB
         planes), ref slots/hints, loop-filter levels, FrameParams."""
         cfg = self.cfg
         order_hint = disp_idx & 0x7F
-        qindex = self._frame_qindex(is_key, layer)
+        qindex = (qindex_override if qindex_override is not None
+                  else self._frame_qindex(is_key, layer, disp_idx))
         ref_hints = [0] * 8
         refs = None
         ref_slot = [0] * 7
@@ -469,11 +580,15 @@ class Encoder:
         return tuple(torch.stack([refs[r][pl] for r in ref_ids]) for pl in range(3)), ref_ids
 
     def _write_tu(self, fr: FrameConfig, payload, metadata: bytes = b"") -> bytes:
+        """The TU of a coded frame; its size goes to the rate controller."""
         tu = temporal_delimiter_obu()
         if not self._wrote_seq:
             tu += sequence_header_obu(self.seq)
             self._wrote_seq = True
-        return tu + metadata + frame_obu(self.seq, fr, payload)
+        tu += metadata + frame_obu(self.seq, fr, payload)
+        if self.rc is not None:
+            self.rc.update(len(tu) * 8.0)
+        return tu
 
     def _save_contexts(self, walk_fc, p, slot: int, is_key: bool) -> None:
         """Store the frame context (tile 0's adapted end state, its update
@@ -488,11 +603,11 @@ class Encoder:
             self._cdf_slots[slot] = saved_ctx
             self._gm_slots[slot] = tuple(p.gm_mvs)
 
-    def _encode_key(self, disp_idx: int, src: list) -> Packet:
+    def _encode_key(self, disp_idx: int, src: list, qindex_override=None) -> Packet:
         from . import device_commit
 
         cfg = self.cfg
-        setup = self._frame_setup(disp_idx, True, 0, None, None)
+        setup = self._frame_setup(disp_idx, True, 0, None, None, qindex_override)
         p = setup["p"]
         self._gm_estimate(p, disp_idx, True, None, src)
         walk_fc = FrameContext(p.qindex)
@@ -551,14 +666,16 @@ class Encoder:
         return [pkt]
 
     def _encode_push(self, disp_idx: int, src: list, show: bool, layer: int, past_idx,
-                     future_idx, dpb_slot="auto") -> list:
+                     future_idx, qindex_override=None, dpb_slot="auto") -> list:
         """Pipelined inter encode: dispatch this frame's decide, finish older
         frames on the host (overlapping the device), then dispatch commit and
-        filters and queue the host finish."""
+        filters and queue the host finish. Under rate control the next
+        frame's qindex needs this frame's size, so the frame is finished at
+        once."""
         from . import inter_device
 
         cfg = self.cfg
-        setup = self._frame_setup(disp_idx, False, layer, past_idx, future_idx)
+        setup = self._frame_setup(disp_idx, False, layer, past_idx, future_idx, qindex_override)
         p = setup["p"]
         self._gm_estimate(p, disp_idx, False, past_idx, src)
         refs_dev, ref_ids = self._stack_refs(setup["refs"])
@@ -571,6 +688,8 @@ class Encoder:
                               "slot": slot}
         self._pipe.append(("frame", dict(pend=pend, setup=setup, show=show, disp_idx=disp_idx,
                                          slot=slot, refresh=refresh)))
+        if self.rc is not None:
+            out += self._pipe_drain()
         return out
 
     def _pipe_finish(self, st: dict) -> Packet:

@@ -101,7 +101,33 @@ def launch_bound(name: str, args: tuple) -> tuple[float, float]:
     if name == "tf_noise":
         H, W = args[2:4]
         return H * W * 4 + 16, H * W * 20
+    if name == "subpel_refine":
+        B, H, W, n = args[7:11]
+        return H * W + B * n * n * 4 + B * 24, B * 2 * (3 * (n + 8) * n * 16 + 9 * n * n * 19)
+    if name == "tpl_cost":
+        recon, mode, L, rep, n = args[5:10]
+        return ((L // rep + L) * n * n * 4 + (4 if mode == 0 else 8) * L
+                + (L * n * n * 4 if recon else 0)), tpl_cost_ops(L, n, bool(recon))
     raise ValueError(name)
+
+
+def dct_stages(n: int, inverse: bool) -> int:
+    """Stages of one DCT_DCT block's 1-D passes of size n: the forward
+    column and row networks, and the two inverse passes when `inverse`."""
+    from ..ops import transforms as T
+    from ..ops import transforms_torch as TT
+
+    tabs = TT.tables_for(n, "cpu")
+    keys = [(f"fdct{n}", tabs.cb_col), (f"fdct{n}", tabs.cb_row)]
+    keys += [(f"idct{n}", T.INV_COS_BIT)] * (2 if inverse else 0)
+    return sum(len(tabs.stages[k]) for k in keys)
+
+
+def tpl_cost_ops(L: int, n: int, recon: bool) -> int:
+    """int32 operations of K15 on L n x n lanes: its DCT networks (5 per
+    stage output: two products, a sum, the rounding and the shift) and 20
+    per coefficient for the residual, the quantizer and the sums."""
+    return L * (dct_stages(n, recon) * n * n * 5 + 20 * n * n)
 
 
 def bound_ms(nbytes: float, ops: float) -> float:
@@ -110,11 +136,11 @@ def bound_ms(nbytes: float, ops: float) -> float:
 
 def count_launches(fn):
     """Run fn() with every kernel launch recorded against the pipeline stage
-    (decide, commit or filter) it belongs to. Returns {stage: {kernel:
+    (decide, commit, filter, tf or tpl) it belongs to. Returns {stage: {kernel:
     [launches, summed bound ms]}}."""
     from .. import kernels
     from ..ops import tf_torch
-    from ..pipeline import device_commit, device_decide, inter_device
+    from ..pipeline import device_commit, device_decide, inter_device, tpl
 
     current = ["other"]
     out: dict = {}
@@ -137,11 +163,11 @@ def count_launches(fn):
 
     saved = [(device_decide, "decide_intra_frames"), (inter_device, "_run_decide"),
              (device_commit, "commit_regions"), (device_commit, "_filter_device"),
-             (tf_torch, "filter_planes")]
+             (tf_torch, "filter_planes"), (tpl, "tpl_window")]
     originals = [getattr(m, a) for m, a in saved]
     kernels.launch = launch
     for (m, a), f, stage in zip(saved, originals,
-                                ("decide", "decide", "commit", "filter", "tf")):
+                                ("decide", "decide", "commit", "filter", "tf", "tpl")):
         setattr(m, a, staged(stage, f))
     try:
         fn()

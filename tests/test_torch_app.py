@@ -1,13 +1,16 @@
 """The port's CLI (python -m svtav1_tpu_torch.app) on the CPU: a y4m clip
 in, an IVF out whose TUs are the library encoder's, every TU decoded and
-checked with --verify; the HDR metadata OBUs of key-frame TUs are the JAX
-encoder's bytes; and flags whose settings are not in the port yet raise
+checked with --verify (CQP random access, CRF, two-pass VBR); the first
+pass's stats file and the HDR metadata OBUs of key-frame TUs are the JAX
+package's bytes; and flags whose settings are not in the port yet raise
 NotImplementedError naming their ROADMAP item."""
 import numpy as np
 import pytest
 
+from svtav1_tpu import app as ref_app
 from svtav1_tpu.pipeline import encoder as ref_enc
 from svtav1_tpu_torch import app
+from svtav1_tpu_torch.pipeline import firstpass
 from svtav1_tpu_torch.io.ivf import read_ivf
 from svtav1_tpu_torch.io.y4m import write_y4m
 from svtav1_tpu_torch.pipeline import encoder as port_enc
@@ -39,6 +42,46 @@ def test_cli_random_access_verifies_and_writes_the_library_tus(tmp_path, capsys)
                                                              (None, 2)]
 
 
+def _library_tus(frames, w, h, **cfg):
+    enc = port_enc.Encoder(port_enc.EncoderConfig(w, h, **cfg), device="cpu")
+    return [p.tu for f in frames for p in enc.send_frame(*f)] + [p.tu for p in enc.flush()]
+
+
+def test_cli_crf_verifies_and_writes_the_library_tus(tmp_path, capsys):
+    w = h = 64
+    frames = make_frames(w, h, 6, seed=8)
+    src, out = tmp_path / "in.y4m", tmp_path / "out.ivf"
+    write_y4m(str(src), frames, w, h)
+    rc = app.main(["-i", str(src), "-b", str(out), "--device", "cpu", "--rc", "crf",
+                   "--lookahead", "8", "--minigop", "4", "--keyint", "16", "--verify"])
+    assert rc == 0
+    assert "avg Y-PSNR" in capsys.readouterr().out
+    assert read_ivf(str(out))[0] == _library_tus(frames, w, h, rc_mode="crf", lookahead=8,
+                                                 minigop=4, keyint=16)
+
+
+def test_cli_two_pass_stats_match_the_jax_app_and_second_pass_verifies(tmp_path):
+    """--pass 1 writes the same stats file as the JAX package's app; --pass 2
+    --rc vbr encodes with those stats, as the library does with stats_in."""
+    w = h = 64
+    frames = make_frames(w, h, 5, seed=9)
+    src = tmp_path / "in.y4m"
+    write_y4m(str(src), frames, w, h)
+    stats, ref_stats = tmp_path / "pass1.stat", tmp_path / "ref_pass1.stat"
+    assert app.main(["-i", str(src), "-b", str(tmp_path / "p1.ivf"), "--device", "cpu",
+                     "--pass", "1", "--stats", str(stats)]) == 0
+    assert ref_app.main(["-i", str(src), "-b", str(tmp_path / "r1.ivf"), "--pass", "1",
+                         "--stats", str(ref_stats)]) == 0
+    assert stats.read_bytes() == ref_stats.read_bytes()
+    out = tmp_path / "out.ivf"
+    assert app.main(["-i", str(src), "-b", str(out), "--device", "cpu", "--pass", "2",
+                     "--rc", "vbr", "--tbr", "300", "--keyint", "5", "--stats", str(stats),
+                     "--verify"]) == 0
+    assert read_ivf(str(out))[0] == _library_tus(
+        frames, w, h, rc_mode="vbr", target_kbps=300.0, keyint=5,
+        stats_in=firstpass.read_stats(str(stats)))
+
+
 def test_metadata_obus_match_the_jax_encoder():
     """Constructing the JAX package's Encoder compiles nothing."""
     ref = ref_enc.Encoder(ref_enc.EncoderConfig(64, 64, mode_decision="jax", **HDR))
@@ -48,14 +91,8 @@ def test_metadata_obus_match_the_jax_encoder():
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--rc", "crf"], "rate control"),
-    (["--pass", "1"], "rate control"),
-    (["--stats", "pass1.stat"], "rate control"),
-    (["--tbr", "500"], "rate control"),
-    (["--lookahead", "32"], "rate control"),
     (["--enable-restoration"], "restoration"),
     (["--tile-columns", "1"], "tiles"),
-    (["--scd"], "scene cuts"),
     (["--intra-batch", "2"], "intra batching"),
     (["--film-grain", "10"], "film grain"),
     (["--fgs-table", "grain.tbl"], "film grain"),

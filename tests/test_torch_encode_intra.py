@@ -43,12 +43,9 @@ def test_slice_without_deblocking_decodes():
 @pytest.mark.parametrize("override, item", [
     (dict(enable_filter_intra=True), "filter-intra"),
     (dict(enable_restoration=True), "restoration"),
-    (dict(rc_mode="cbr", target_kbps=500.0), "rate control"),
-    (dict(scene_cut=True), "scene cuts"),
     (dict(film_grain=10), "film grain"),
     (dict(tile_cols_log2=1), "tiles"),
     (dict(intra_batch=2), "intra batching"),
-    (dict(rc_mode="crf"), "rate control"),
     (dict(bd=10), "10-bit"),
 ])
 def test_settings_outside_the_slice_raise(override, item):

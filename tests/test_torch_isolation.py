@@ -58,6 +58,18 @@ def test_random_access_modules_import_without_jax_or_reference():
     assert int(res.stdout.split()[-1]) == len(mods)
 
 
+def test_rate_control_modules_import_without_jax_or_reference():
+    """The modules of the TPL/CRF and rate-control slice, each imported
+    alone with jax and svtav1_tpu blocked."""
+    mods = ["svtav1_tpu_torch.pipeline.tpl", "svtav1_tpu_torch.pipeline.rc",
+            "svtav1_tpu_torch.pipeline.firstpass"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, *mods], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) == len(mods)
+
+
 def test_no_source_mentions_the_reference_package():
     pkg = os.path.join(REPO, "svtav1_tpu_torch")
     for dirpath, _dirs, files in os.walk(pkg):
@@ -85,6 +97,25 @@ def test_gop_encoder_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_enc.Encoder(cfg)
     assert port_enc.Encoder(cfg, device="cpu").device.type == "cpu"
+
+
+def test_crf_encoder_and_tpl_without_device_need_cuda(monkeypatch):
+    """CRF's Encoder and the TPL window default to the card as well."""
+    import numpy as np
+
+    from svtav1_tpu_torch.pipeline import tpl
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_enc.EncoderConfig(64, 64, keyint=16, rc_mode="crf")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_enc.Encoder(cfg)
+    assert port_enc.Encoder(cfg, device="cpu").device.type == "cpu"
+    frames = [np.full((64, 64), 90 + 5 * i, np.int32) for i in range(2)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpl.tpl_window(frames, 120)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpl.tpl_window(frames, 120, device="cuda")
+    assert len(tpl.tpl_window(frames, 120, device="cpu")) == 2
 
 
 def test_cli_without_device_needs_cuda(monkeypatch, tmp_path, capsys):

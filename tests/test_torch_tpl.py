@@ -1,0 +1,158 @@
+"""The TPL of the port against svtav1_tpu's on the same numpy inputs: K14's
+plain version (subpel_refine) against me_jax.subpel_refine_lanes, K15's
+plain version (tpl_cost) against the cost expressions of
+svtav1_tpu/pipeline/tpl.py, the whole dispenser window (tpl_window) and
+the synthesizer, and the CRF q rules. All integer results must be equal;
+the float32 cost grids too."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from svtav1_tpu.constants.av1 import TxType
+from svtav1_tpu.ops import me_jax
+from svtav1_tpu.ops import quantize as ref_quant
+from svtav1_tpu.ops import transforms_jax as TJ
+from svtav1_tpu.pipeline import tpl as ref_tpl
+from svtav1_tpu_torch.ops import me_torch
+from svtav1_tpu_torch.ops import transforms_torch as TT
+from svtav1_tpu_torch.pipeline import tpl
+from svtav1_tpu_torch.utils.testclip import make_frames
+
+
+def _textured(h: int, w: int, seed: int):
+    """A smooth random texture (int32), so SADs vary smoothly with the MV."""
+    g = np.random.default_rng(seed)
+    big = np.kron(g.integers(0, 256, (h // 4 + 2, w // 4 + 2)), np.ones((4, 4)))
+    k = np.ones(5) / 5
+    big = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, big)
+    big = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, big)
+    return np.clip(big[:h, :w], 0, 255).astype(np.int32)
+
+
+def _refine_both(src_b, ref, ys, xs, mv_fp):
+    want = me_jax.subpel_refine_lanes(jnp.asarray(src_b), jnp.asarray(ref), jnp.asarray(ys),
+                                      jnp.asarray(xs), jnp.asarray(mv_fp), 0, 8)
+    got = me_torch.subpel_refine_plain(*(torch.from_numpy(np.ascontiguousarray(a))
+                                         for a in (src_b, ref, ys, xs, mv_fp)), 0, 8)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("where", ["interior", "edges"])
+def test_subpel_refine_matches_jax(where):
+    """K14's plain version on 16x16 lanes of a textured plane moved by a
+    subpel amount: interior full-pel MVs, and MVs that put the window across
+    every edge of the plane (clamped reads)."""
+    h, w, n = 96, 128, 16
+    g = np.random.default_rng(5 if where == "interior" else 6)
+    tex = _textured(h + 8, w + 8, seed=3)
+    ref = tex[4 : 4 + h, 4 : 4 + w]
+    R, C = h // n, w // n
+    ys = np.repeat(np.arange(R), C).astype(np.int32) * n
+    xs = np.tile(np.arange(C), R).astype(np.int32) * n
+    # the source: the texture shifted by a fraction of a pel (bilinear) plus noise
+    fy, fx = 0.4, -0.6
+    t = tex.astype(np.float64)
+    sh = ((1 - fy) * (1 - fx) * t[4:4 + h, 4:4 + w] + fy * (1 - fx) * t[5:5 + h, 4:4 + w]
+          + (1 - fy) * fx * t[4:4 + h, 3:3 + w] + fy * fx * t[5:5 + h, 3:3 + w])
+    src = np.clip(np.round(sh) + g.integers(-2, 3, sh.shape), 0, 255).astype(np.int32)
+    src_b = src.reshape(R, n, C, n).transpose(0, 2, 1, 3).reshape(-1, n, n)
+    if where == "interior":
+        mv_fp = g.integers(-2, 3, (R * C, 2)).astype(np.int32)
+    else:
+        mv_fp = g.integers(-40, 41, (R * C, 2)).astype(np.int32)
+    got, want = _refine_both(src_b, ref, ys, xs, mv_fp)
+    np.testing.assert_array_equal(got, want)
+    assert len({tuple(v) for v in (got - mv_fp * 8)}) > 3  # the search moved
+
+
+def test_subpel_refine_first_minimum_on_flat_blocks():
+    """On a flat reference every candidate has the same SAD: the reference's
+    argmin takes the first of the nine, the (-1, -1) corner, in both steps,
+    not the centre."""
+    n = 16
+    ref = np.full((64, 64), 100, np.int32)
+    src_b = np.full((4, n, n), 103, np.int32)
+    ys = np.array([0, 16, 32, 48], np.int32)
+    xs = np.array([48, 0, 16, 32], np.int32)
+    mv_fp = np.array([[0, 0], [1, -2], [-3, 0], [5, 5]], np.int32)
+    got, want = _refine_both(src_b, ref, ys, xs, mv_fp)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, mv_fp * 8 - 6)
+
+
+def _ref_costs(srcb, pred, qindex: int):
+    """The reference's TPL cost expressions (pipeline/tpl.py:82-83, :115-123)."""
+    dct = int(TxType.DCT_DCT)
+    co = TJ.fwd_txfm2d_j(jnp.asarray(srcb - pred), dct, 8)
+    satd = jnp.sum(jnp.abs(co), axis=(-2, -1)) >> 2
+    dq = (ref_quant.dc_q(qindex, 8), ref_quant.ac_q(qindex, 8))
+    ls = ref_quant.tx_scale(16, 16)
+    lv = jnp.clip(TJ.quantize_j(co, dq[0], dq[1], ls), -32767, 32767)
+    dqc = TJ.dequantize_j(lv, dq[0], dq[1], ls, 8)
+    err = jnp.sum(((co - dqc) >> 2).astype(jnp.float32) ** 2, axis=(-2, -1))
+    rec = TJ.inv_txfm2d_add_j(dqc, jnp.asarray(pred), dct, 8)
+    return np.asarray(satd), np.asarray(err), np.asarray(rec), dq
+
+
+@pytest.mark.parametrize("qindex", [60, 120, 200])
+def test_tpl_cost_matches_the_reference_expressions(qindex):
+    """K15's plain version: mode 0 (the SATD proxy, the five probe lanes of
+    a block sharing its source through rep) and mode 1 (the quantization
+    error and the recon) on 16x16 residuals from flat to rough."""
+    g = np.random.default_rng(qindex)
+    L, rep = 40, 5
+    src = g.integers(0, 256, (L // rep, 16, 16)).astype(np.int32)
+    spread = np.repeat(np.array([2, 10, 40, 120, 255]), L // 5)[:, None, None]
+    pred = np.clip(np.repeat(src, rep, axis=0) + g.integers(-255, 256, (L, 16, 16)) * spread // 255,
+                   0, 255).astype(np.int32)
+    satd, err, rec, dq = _ref_costs(np.repeat(src, rep, axis=0), pred, qindex)
+    s_t, p_t = torch.from_numpy(src), torch.from_numpy(pred)
+    got = TT.tpl_cost(s_t, p_t, 0, dq[0], dq[1], 8, rep=rep)
+    np.testing.assert_array_equal(got.numpy(), satd)
+    rep_src = torch.from_numpy(np.repeat(src, rep, axis=0))
+    e, r = TT.tpl_cost(rep_src, p_t, 1, dq[0], dq[1], 8, want_recon=True)
+    assert int(e.max()) < 1 << 24  # below 2^24 the reference's float32 sum is exact
+    np.testing.assert_array_equal(e.numpy().astype(np.float32), err)
+    np.testing.assert_array_equal(r.numpy(), rec)
+    e2, r2 = TT.tpl_cost(rep_src, p_t, 1, dq[0], dq[1], 8)
+    assert r2 is None and torch.equal(e2, e)
+
+
+def _moving_lumas(w: int, h: int, n: int):
+    return [y.astype(np.int32) for y, _u, _v in make_frames(w, h, n, seed=2)]
+
+
+@pytest.mark.parametrize("minigop", [1, 4])
+def test_tpl_window_matches_jax(minigop):
+    """The dispenser over a 5-frame window of the moving clip at 128x64,
+    in the low-delay chain and in a mini-GoP of 4: every grid equal (the
+    seed frame's MVs excepted: no reference, read by nothing), and the
+    synthesizer's r0 within rtol 1e-12."""
+    frames = _moving_lumas(128, 64, 5)
+    want = ref_tpl.tpl_window(frames, 120, 8, minigop=minigop)
+    got = tpl.tpl_window(frames, 120, 8, minigop=minigop, device="cpu")
+    assert [s["_sched"] for s in got] == [s["_sched"] for s in want]
+    for t, (a, b) in enumerate(zip(got, want)):
+        assert (a["ref0"], a["ref1"]) == (b["ref0"], b["ref1"]), t
+        for k in ("intra_cost", "inter_cost", "srcrf", "recrf", "ref_pick", "mv"):
+            if k == "mv" and a["ref0"] < 0 and a["ref1"] < 0:
+                continue
+            assert a[k].dtype == b[k].dtype, (t, k)
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"frame {t} {k}")
+        assert (a["ref_pick"] >= 0).any() or t == 0  # inter blocks exist
+    np.testing.assert_allclose(tpl.synthesize(got), ref_tpl.synthesize(want), rtol=1e-12)
+
+
+def test_crf_q_rules_match_the_reference():
+    for leaf in (20, 60, 120, 200, 255):
+        for ratio in (0.05, 0.3, 0.77, 1.0, 1.3, 4.0):
+            assert tpl.qindex_from_qstep_ratio(leaf, ratio) == \
+                ref_tpl.qindex_from_qstep_ratio(leaf, ratio), (leaf, ratio)
+    for cq in (40, 120, 210):
+        for r0 in (0.0, 0.02, 0.2, 0.5, 0.93, 1.0):
+            for is_key in (True, False):
+                for layer in range(4):
+                    for hl in range(5):
+                        args = (cq, r0, is_key, layer, hl)
+                        assert tpl.crf_qindex(*args) == ref_tpl.crf_qindex(*args), args

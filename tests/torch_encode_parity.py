@@ -39,14 +39,16 @@ def matches_jax_and_decodes(w: int, h: int, cfg: dict) -> None:
         assert dy.shape == (h, w)
 
 
-def gop_matches_jax_and_decodes(w: int, h: int, cfg: dict, frames: int) -> None:
-    """`frames` frames of the synthetic clip (a key frame, then P frames
-    when cfg["keyint"] > 1, or hierarchical-B mini-GoPs when cfg["minigop"]
-    > 1) through both encoders with send_frame + flush: identical TUs and
-    recon in coding order, show-existing TUs included, every frame shown
-    once in display order; and the port's decoder, fed the TUs in order,
-    reproduces every recon and displays each frame's recon."""
-    clip = make_frames(w, h, frames)
+def gop_matches_jax_and_decodes(w: int, h: int, cfg: dict, frames: int, clip=None) -> list:
+    """`frames` frames of the synthetic clip, or of `clip` when given (a key
+    frame, then P frames when cfg["keyint"] > 1, or hierarchical-B
+    mini-GoPs when cfg["minigop"] > 1) through both encoders with
+    send_frame + flush: identical TUs and recon in coding order,
+    show-existing TUs included, every frame shown once in display order;
+    and the port's decoder, fed the TUs in order, reproduces every recon
+    and displays each frame's recon. Returns the port's packets."""
+    if clip is None:
+        clip = make_frames(w, h, frames)
     ref = ref_enc.Encoder(ref_enc.EncoderConfig(w, h, mode_decision="jax", **cfg))
     port = port_enc.Encoder(port_enc.EncoderConfig(w, h, **cfg), device="cpu")
     want, got = [], []
@@ -74,3 +76,4 @@ def gop_matches_jax_and_decodes(w: int, h: int, cfg: dict, frames: int) -> None:
         if a.shown_disp_idx is not None:
             np.testing.assert_array_equal(dy, recon_of[a.shown_disp_idx][0][:h, :w],
                                           err_msg=f"TU {f} shows frame {a.shown_disp_idx}")
+    return got
