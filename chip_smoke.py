@@ -10,8 +10,10 @@ Phases, each fatal on failure:
      differing samples; K9's prediction also against K10 at the MVs it
      returns; K9 also at the MCTF shape, n = 16 on the 49-point lattice;
      K11 at every block size of the commit, 8x8 to 64x64; K14 and K15 at
-     the TPL shapes of a 1088x1920 frame, K15 at qindex 120 and 255), and
-     time both;
+     the TPL shapes of a 1088x1920 frame, K15 at qindex 120 and 255; K8
+     with a reference wider than the source at the 1920x1024 tile GOP's
+     tile shape, 1024x960 against 1024x1216 with ref_off_x=128), and time
+     both;
   3. conformance: encode a CIF key frame on the card at the fast preset
      without CDEF and one at the default medium preset, a 3-frame CIF GOP
      (a key frame and 2 P frames, keyint=6) at medium, and CIF
@@ -50,7 +52,19 @@ Phases, each fatal on failure:
      after; the 1080p clip is made once; after the paths, the first TUs of
      each (and one medium key frame) are decoded, one worker process per
      sequence;
-  5. phase 2's records again in short, each phase's seconds, the card's
+  5. tiles: a 256x64 GOP (a key frame and 2 P frames in two tile columns)
+     through parallel.tiles' encoders on the card and with the plain
+     versions on the CPU, byte for byte, decoded bit-exactly; the 8-tile
+     1080p medium key frame through the Encoder (1 warm + 1 timed frame)
+     beside phase 4's one-tile one (frames/s, bytes, Y-PSNR); the tile
+     encoders in two 960-column tiles, filters off, on a 1920x1080 key
+     frame and on a key frame and 2 P frames at 1920x1024 (the tallest
+     1920-wide size whose tiles are whole superblocks, as the inter tile
+     decide needs): the decide's ms per frame, each frame's seconds,
+     launches and summed bounds per stage; every tile stream is decoded
+     after the paths, and also by libaom where the host has it (the
+     number of TUs it checked is printed, 0 without libaom);
+  6. phase 2's records again in short, each phase's seconds, the card's
      name and power limit, the kernel table, and last the device line.
 
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
@@ -101,7 +115,11 @@ CRF = dict(qindex=120, keyint=32, minigop=8, rc_mode="crf", lookahead=16, enable
            preset="medium")
 # one-pass VBR on the low-delay GOP (CQP at qindex 120 gives about 945 kbps on the clip)
 VBR = dict(qindex=120, keyint=16, rc_mode="vbr", target_kbps=1000.0, fps=30.0, preset="medium")
+# tiles: 8 uniform tiles of a 1080p key frame (columns of 8, 8, 8 and 6 SBs, rows of 9 and 8)
+TILES = dict(MEDIUM, tile_cols_log2=2, tile_rows_log2=1)
+MESH_TILES = 2  # parallel.tiles at full width: two 960-column tiles
 CHECKS = []  # phase 2's records, [kernel, shape, max_abs_err, ms, plain_ms, bound_ms]
+PATHS = {}  # label -> the 1080p key-frame paths' fps, bytes and Y-PSNR
 KEY_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges", "rdoq", "cdef_dir",
                "cdef_filter")
 FAST_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges")
@@ -159,7 +177,7 @@ def check_kernels(torch, dev):
     from svtav1_tpu_torch.pipeline import intra_device
     from svtav1_tpu_torch.pipeline.device_decide import BSIZE_BY_N, fc_for_qctx
     from svtav1_tpu_torch.pipeline.intra_md import rd_lambda
-    from svtav1_tpu_torch.utils.profile_keyframes import dct_stages
+    from svtav1_tpu_torch.utils.profile_keyframes import k2_ops
 
     g = np.random.default_rng(1)
     res = {}
@@ -215,14 +233,10 @@ def check_kernels(torch, dev):
     q = 120
     dq = (quant_ops.dc_q(q, 8), quant_ops.ac_q(q, 8))
 
-    def k2_ops(n, L, flags):
-        """DCT_DCT lanes run the DCT networks; lanes whose flags pick DCT or
-        ADST per direction at random run the mean of both stage counts."""
-        if flags == "dct":
-            return L * (dct_stages(n, True) * n * n * 5 + 40 * n * n)
-        tabs = TT.tables_for(n, dev)
-        nst = sum(len(v) for v in tabs.stages.values()) / max(len(tabs.stages), 1)
-        return L * (4 * nst * n * n * 5 + 40 * n * n)
+    def k2_ops_of(n, L, va, ha, forward=True, inverse=True):
+        """K2's operations on L lanes with these per-lane ADST flags: each
+        lane runs the DCT or ADST networks that its flags pick."""
+        return k2_ops(n, L, int(va.sum().item()), int(ha.sum().item()), forward, inverse)
 
     def k2_case(n, L, rep, flags, want_recon, want_sse, main=False, reps=20):
         """One K2 shape: kernel == plain, both timed; returns the levels."""
@@ -247,7 +261,7 @@ def check_kernels(torch, dev):
         record("txfm_quant_recon", [L, n, n, rep, flags], err,
                timed_ms(lambda: TT.txfm_quant_recon(*args, **kw), reps),
                timed_ms(lambda: TT.txfm_quant_recon_plain(*args, **kw), 3), nbytes,
-               k2_ops(n, L, flags), main=main)
+               k2_ops_of(n, L, va, ha), main=main)
         return out_k[0]
 
     lv8 = k2_case(8, B * 13, 13, "dct", False, True, main=True)
@@ -288,14 +302,16 @@ def check_kernels(torch, dev):
         record("txfm_quant_recon", [L, n, n, "forward half", flags], err,
                timed_ms(lambda: TT.txfm_quant(*args), 20),
                timed_ms(lambda: TT.txfm_quant_plain(*args), 3),
-               2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L, k2_ops(n, L, flags) // 2)
+               2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L,
+               k2_ops_of(n, L, va, ha, inverse=False))
         inv = (lk, pred, va, ha, dq[0], dq[1], 8)
         err = assert_equal("txfm_quant_recon", TT.recon_from_levels(*inv),
                            TT.recon_from_levels_plain(*inv))
         record("txfm_quant_recon", [L, n, n, "inverse half", flags], err,
                timed_ms(lambda: TT.recon_from_levels(*inv), 20),
                timed_ms(lambda: TT.recon_from_levels_plain(*inv), 3),
-               L * adj * adj * 4 + 2 * L * n * n * 4 + 2 * L, k2_ops(n, L, flags) // 2)
+               L * adj * adj * 4 + 2 * L * n * n * 4 + 2 * L,
+               k2_ops_of(n, L, va, ha, forward=False))
         halves[(n, L)] = (lk, ck, main)
 
     # ---- K3 txb_rate on real levels: 8x8 (decide n=8) and 32x32
@@ -395,6 +411,7 @@ def check_kernels(torch, dev):
     check_motion(torch, dev, g, t, record, assert_equal)
     check_random_access(torch, dev, g, t, record, assert_equal)
     check_tpl(torch, dev, g, t, record, assert_equal)
+    check_tiles(torch, dev, g, t, record, assert_equal)
     return res
 
 
@@ -659,6 +676,60 @@ def check_tpl(torch, dev, g, t, record, assert_equal):
                lanes_err_at_or_above_2_24=int((ek >= 1 << 24).sum().item()))
 
 
+def check_tiles(torch, dev, g, t, record, assert_equal):
+    """Phase 2 for K8 with a reference wider than the source: the second
+    tile of the 1920x1024 mesh GOP, a 1024x960 source against its
+    1024x1216 halo-cropped reference (ref_off_x=128): the three centred
+    searches, the leaf maps and the whole full-pel search, exact."""
+    import numpy as np
+
+    from svtav1_tpu_torch.ops import me_torch
+    from svtav1_tpu_torch.parallel.tiles import HALO
+
+    (y0, _u0, _v0), (y1, _u1, _v1) = clip_1080p(2)
+    H, W, x0 = 1024, 960, 960
+    cols = (np.arange(-HALO, W + HALO) + x0).clip(0, 1919)
+    ref = t(y0[:H][:, cols])
+    src = t(y1[:H, x0 : x0 + W])
+    Hr, Wr = ref.shape
+    sbr, sbc = H // 64, W // 64
+    B_sb = sbr * sbc
+    shape = f"ref {Hr}x{Wr}, ref_off_x {HALO}"
+    src1, ref1 = me_torch.decimate2(src), me_torch.decimate2(ref)
+    src2, ref2 = me_torch.decimate2(src1), me_torch.decimate2(ref1)
+    rr = torch.arange(sbr, device=dev, dtype=torch.int32).repeat_interleave(sbc)
+    cc = torch.arange(sbc, device=dev, dtype=torch.int32).repeat(sbr)
+    zero = torch.zeros((B_sb, 2), dtype=torch.int32, device=dev)
+    cen = t(g.integers(-3, 4, (B_sb, 2)))
+    for lvl, (s_, r_, n, r, scale, c_) in enumerate(((src2, ref2, 16, 16, 1, zero),
+                                                     (src1, ref1, 32, 2, 2, cen),
+                                                     (src, ref, 64, 2, 4, cen))):
+        args = (s_, r_, rr * n, cc * n, c_, n, r, scale, HALO >> (2 - lvl))
+        err = assert_equal("me_sad", me_torch.search_centered(*args),
+                           me_torch.search_centered_plain(*args))
+        D = 2 * r + 1
+        record("me_sad", [B_sb, n, n, f"search L{2 - lvl} +-{r}", shape], err,
+               timed_ms(lambda: me_torch.search_centered(*args), 20),
+               timed_ms(lambda: me_torch.search_centered_plain(*args), 3),
+               nbytes=B_sb * (n * n + (n + 2 * r) ** 2) * 4 + B_sb * 16,
+               ops=B_sb * D * D * n * n * 3)
+    mv_sb = me_torch.search_centered(src, ref, rr * 64, cc * 64, cen, 64, 2, 4, HALO)
+    args = (src, ref, torch.stack([mv_sb, zero]), sbc, 4, HALO)
+    err = assert_equal("me_sad", me_torch.leaf_maps(*args), me_torch.leaf_maps_plain(*args))
+    record("me_sad", [2, B_sb * 64, 9, 9, "leaf maps", shape], err,
+           timed_ms(lambda: me_torch.leaf_maps(*args), 20),
+           timed_ms(lambda: me_torch.leaf_maps_plain(*args), 3),
+           nbytes=(H * W + Hr * Wr) * 4 + 2 * B_sb * 8 + 2 * B_sb * 64 * 81 * 4,
+           ops=2 * B_sb * 64 * 81 * 64 * 3)
+    mvs, mv_sb = me_torch.me_fullpel_frame(src, ref, sbr, sbc, ref_off_x=HALO)
+    want, want_sb = me_torch.me_fullpel_frame(src.cpu(), ref.cpu(), sbr, sbc, ref_off_x=HALO)
+    assert_equal("me_sad", mv_sb.cpu(), want_sb)
+    for n in me_torch.SIZES:
+        assert_equal("me_sad", mvs[n].cpu(), want[n])
+    log(json.dumps(dict(check="me_sad", shape=[H, W, "me_fullpel_frame, every size", shape],
+                        max_abs_err=0)))
+
+
 def encode_clip(cfg, frames, device):
     """[(tu, recon)] of a clip through Encoder.send_frame + flush."""
     from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
@@ -675,20 +746,23 @@ def encode_clip(cfg, frames, device):
 DECODES = []  # [(label, [(tu, recon)])] of the 1080p paths, decoded after them
 
 
-def decode_later(label, pairs):
+def decode_later(label, pairs, libaom=False):
     """Queue a 1080p path's first TUs for decode_queued: the paths' timings
-    stay free of the decoder, and the sequences decode side by side."""
-    DECODES.append((label, pairs))
+    stay free of the decoder, and the sequences decode side by side; with
+    libaom the tile streams also go through libaom."""
+    DECODES.append((label, pairs, libaom))
 
 
-def decode_task(label, pairs):
-    """decode_all in a worker process: (error message or None, seconds)."""
+def decode_task(label, pairs, libaom):
+    """decode_all (and aom_check) in a worker process: (error message or
+    None, seconds, TUs libaom checked or None)."""
     t0 = time.perf_counter()
     try:
         decode_all(label, pairs)
-    except SystemExit as err:  # a pool worker must not exit
-        return str(err), time.perf_counter() - t0
-    return None, time.perf_counter() - t0
+        checked = aom_check(label, pairs) if libaom else None
+    except (SystemExit, AssertionError) as err:  # a pool worker must not exit
+        return f"{label}: {err}", time.perf_counter() - t0, None
+    return None, time.perf_counter() - t0, checked
 
 
 def decode_queued():
@@ -696,13 +770,30 @@ def decode_queued():
     timed paths; fails on the first recon that differs."""
     import multiprocessing
 
-    with multiprocessing.get_context("spawn").Pool(max(1, min(len(DECODES), 6))) as pool:
+    procs = max(1, min(len(DECODES), os.cpu_count() or 1))
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
         results = pool.starmap(decode_task, DECODES)
-    for (label, pairs), (err, secs) in zip(DECODES, results):
+    for (label, pairs, libaom), (err, secs, checked) in zip(DECODES, results):
         if err:
             raise SystemExit(err)
-        log(json.dumps(dict(phase="decode", path=label, tus=len(pairs), seconds=secs,
-                            decode_bit_exact=True)))
+        rec = dict(phase="decode", path=label, tus=len(pairs), seconds=secs,
+                   decode_bit_exact=True)
+        if libaom:
+            rec["libaom_checked_tus"] = checked
+        log(json.dumps(rec))
+
+
+def aom_check(label, pairs) -> int:
+    """libaom's decode of a stream against the encoder's recon (display
+    crop); returns the TUs it checked, 0 where the host has no libaom."""
+    from svtav1_tpu_torch.utils import aomdec
+
+    h, w = pairs[0][1][0].shape
+    shown = [[pl[: h >> (i > 0), : w >> (i > 0)] for i, pl in enumerate(rec)] for _, rec in pairs]
+    checked = aomdec.verify_tus([tu for tu, _ in pairs], shown)
+    log(json.dumps(dict(libaom=label, checked_tus=checked, tus=len(pairs),
+                        libaom_on_host=aomdec.available())))
+    return checked
 
 
 def decode_all(label, pairs):
@@ -842,7 +933,7 @@ def run_cli(frames, want_tus):
                         seconds=secs, verify=True, tus_equal_library=True)))
 
 
-def run_path(torch, label, cfg, n_timed, required, decode):
+def run_path(torch, label, cfg, n_timed, required, decode, libaom=False):
     """Phase 4: 1080p key frames through Encoder(device='cuda'): launch
     counts set to 0 just before the path and read just after it."""
     import numpy as np
@@ -879,10 +970,12 @@ def run_path(torch, label, cfg, n_timed, required, decode):
         mse = float((d * d).mean())
         psnr.append(10 * np.log10(255.0 ** 2 / max(mse, 1e-10)))
     if decode:
-        decode_later(f"1080p {label}", [(first_tu, first_rec)])
+        decode_later(f"1080p {label}", [(first_tu, first_rec)], libaom)
+    PATHS[label] = dict(fps=N / secs, bytes_per_frame=sum(len(tu) for tu, _ in out) / N,
+                        y_psnr=sum(psnr) / N)
     log(json.dumps(dict(phase="path", preset=label, config=cfg, size=[W, H], frames_timed=N,
                         warm_frame_s=warm_s, fps=N / secs, seconds=secs,
-                        bytes_per_frame=sum(len(tu) for tu, _ in out) / N,
+                        bytes_per_frame=PATHS[label]["bytes_per_frame"],
                         y_psnr=sum(psnr) / N, waves_per_frame=waves,
                         launches_per_frame={k: v / (N + 1) for k, v in launches.items()},
                         stage_seconds=stages)))
@@ -1182,6 +1275,185 @@ def run_vbr(torch):
                         stage_seconds=profiler.report())))
 
 
+def mesh_frames(w, h, n):
+    """n frames of the synthetic clip at w x h, each after the first with a
+    patch of new content near the right edge, so that the P frames code
+    intra blocks among the inter ones (tests/test_torch_tiles.py's GOP)."""
+    import numpy as np
+
+    from svtav1_tpu_torch.utils.testclip import make_frames
+
+    frames = [[np.asarray(pl, np.int32) for pl in f] for f in make_frames(w, h, n)]
+    yy, xx = np.mgrid[0:40, 0:40]
+    for d in range(1, n):
+        x = w - 106 + 8 * d
+        frames[d][0][12:52, x : x + 40] = 128 + 60 * np.sin((xx + yy * d) / 3.0)
+    return frames
+
+
+def mesh_encode(frames, device, qindex=120):
+    """A key frame and P frames (LAST: the previous frame's recon) through
+    parallel.tiles' two encoders in MESH_TILES tile columns, the in-loop
+    filters off (the caller's choice): ([(tu, recon)], seconds per frame)."""
+    from svtav1_tpu_torch.codec.tile_codec import FrameParams
+    from svtav1_tpu_torch.constants.av1 import RefFrame
+    from svtav1_tpu_torch.entropy.bitstream import (FrameConfig, SequenceConfig, frame_obu,
+                                                    sequence_header_obu, temporal_delimiter_obu)
+    from svtav1_tpu_torch.parallel import tiles
+
+    h, w = frames[0][0].shape
+    log2 = MESH_TILES.bit_length() - 1
+    seq = SequenceConfig(width=w, height=h, bd=8, enable_cdef=False)
+    last = int(RefFrame.LAST_FRAME)
+    out, secs = [], []
+    for d, src in enumerate(frames):
+        t0 = time.perf_counter()
+        if d == 0:
+            p = FrameParams(width=w, height=h, qindex=qindex, frame_is_intra=True,
+                            tile_cols_log2=log2)
+            pay, rec, p = tiles.encode_intra_frame_mesh(src, p, MESH_TILES, device=device)
+            fr = FrameConfig(qindex=qindex, disable_cdf_update=False, show_frame=True,
+                             tile_cols_log2=log2, frame_type=0, order_hint=0)
+            tu = temporal_delimiter_obu() + sequence_header_obu(seq) + frame_obu(seq, fr, pay)
+        else:
+            hints = [0] * 8
+            hints[last] = d - 1
+            p = FrameParams(width=w, height=h, qindex=qindex, bd=8, frame_is_intra=False,
+                            order_hint=d, ref_hints=tuple(hints), tile_cols_log2=log2)
+            pay, rec, p, _mi = tiles.encode_inter_frame_mesh(src, p, {last: out[-1][1]},
+                                                             MESH_TILES, device=device)
+            fr = FrameConfig(qindex=qindex, disable_cdf_update=False, show_frame=True,
+                             tile_cols_log2=log2, frame_type=1, order_hint=d,
+                             refresh_frame_flags=1, ref_frame_idx=(0,) * 7)
+            tu = temporal_delimiter_obu() + frame_obu(seq, fr, pay)
+        secs.append(time.perf_counter() - t0)
+        out.append((tu, rec))
+    return out, secs
+
+
+class DecideTimer:
+    """Times every run of the tile decide (parallel.tiles' _mesh_decide_fn
+    and _mesh_inter_fn programs) on the card, a synchronize on each side."""
+
+    NAMES = ("_mesh_decide_fn", "_mesh_inter_fn")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = []
+
+    def __enter__(self):
+        from svtav1_tpu_torch.parallel import tiles
+
+        self.saved = {n: getattr(tiles, n) for n in self.NAMES}
+        for name, build in self.saved.items():
+            setattr(tiles, name, self._wrap(build))
+        return self
+
+    def __exit__(self, *exc):
+        from svtav1_tpu_torch.parallel import tiles
+
+        for name, build in self.saved.items():
+            setattr(tiles, name, build)
+
+    def _wrap(self, build):
+        def wrapped(*args):
+            run, *rest = build(*args)
+
+            def timed(*a):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run(*a)
+                self.torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            return (timed, *rest)
+
+        return wrapped
+
+
+def y_psnr(pairs, frames):
+    import numpy as np
+
+    out = []
+    for (_tu, rec), f in zip(pairs, frames):
+        h, w = f[0].shape
+        if rec[0].shape != (h, w) or not all(np.isfinite(pl).all() for pl in rec):
+            raise SystemExit("tile recon of the wrong shape or not finite")
+        d = rec[0].astype(np.float64) - f[0]
+        out.append(10 * np.log10(255.0 ** 2 / max(float((d * d).mean()), 1e-12)))
+    return float(np.mean(out))
+
+
+def run_mesh(torch, label, frames, required):
+    """A 1080p-wide mesh clip on the card: a warm run, a timed run (the
+    decide's ms per frame on the card, the frames' wall seconds; launch
+    counts set to 0 just before it and read just after), and a counted run
+    (each launch's bound, summed per stage: the commit's, and every other
+    launch, the decide's). The timed run's first TUs are queued for the
+    decoders."""
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.utils import profiler
+    from svtav1_tpu_torch.utils.profile_keyframes import count_launches
+
+    n = len(frames)
+    mesh_encode(frames, "cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    profiler.reset()
+    with DecideTimer(torch) as timer:
+        pairs, secs = mesh_encode(frames, "cuda")
+    launches = dict(kernels.launches)
+    waves = profiler.counts().get("commit/wave", 0)
+    missing = [k for k in required if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"{label} never launched: {missing}")
+    counted = count_launches(lambda: mesh_encode(frames, "cuda"), default="decide")
+    bounds = {st: dict(launches_per_frame=sum(v[0] for v in ks.values()) / n,
+                       bound_ms_per_frame=sum(v[1] for v in ks.values()) / n,
+                       kernels={k: v[0] / n for k, v in ks.items()})
+              for st, ks in counted.items()}
+    decode_later(f"{label}", pairs, libaom=True)
+    h, w = frames[0][0].shape
+    log(json.dumps(dict(phase="tiles", path=label, size=[w, h], tiles=MESH_TILES, frames=n,
+                        decide_ms=timer.ms, frame_s=secs, waves=waves,
+                        bytes=[len(tu) for tu, _ in pairs],
+                        y_psnr=y_psnr(pairs, frames), stages=bounds,
+                        launches_per_frame={k: v / n for k, v in launches.items() if v})))
+
+
+def run_tiles(torch):
+    """The tiles phase: the 256x64 mesh GOP (a key frame and 2 P frames in
+    two tiles) on the card and with the plain versions on the CPU, byte for
+    byte, decoded by both decoders; the 8-tile 1080p medium key frame
+    through the Encoder beside the one-tile one of phase 4; the two-column
+    mesh at full width, a 1920x1080 key frame and a 1920x1024 key frame
+    with 2 P frames (the tallest 1920-wide size whose tile heights are
+    whole superblocks, as the inter mesh needs)."""
+    small = mesh_frames(256, 64, 3)
+    card, _ = mesh_encode(small, "cuda")
+    cpu, _ = mesh_encode(small, "cpu")
+    if [tu for tu, _ in card] != [tu for tu, _ in cpu]:
+        raise SystemExit("256x64 mesh: the card's TUs differ from the plain versions'")
+    decode_all("256x64 mesh", card)
+    checked = aom_check("256x64 mesh", card)
+    log(json.dumps(dict(phase="tiles", path="256x64 mesh GOP", tiles=MESH_TILES,
+                        bytes=[len(tu) for tu, _ in card], tus_equal_cpu=True,
+                        decode_bit_exact=True, libaom_checked_tus=checked)))
+
+    run_path(torch, "medium, 8 tiles", TILES, 1, KEY_KERNELS, True, libaom=True)
+    one, eight = PATHS["medium"], PATHS["medium, 8 tiles"]
+    log(json.dumps(dict(phase="tiles", path="1080p medium key frame, 8 tiles against 1",
+                        fps=[eight["fps"], one["fps"]],
+                        bytes_per_frame=[eight["bytes_per_frame"], one["bytes_per_frame"]],
+                        y_psnr=[eight["y_psnr"], one["y_psnr"]])))
+
+    intra = ("intra_pred", "txfm_quant_recon", "txb_rate", "rdoq")
+    run_mesh(torch, "1920x1080 mesh key frame", clip_1080p(1), intra)
+    gop = [[pl[: 1024 >> (i > 0)] for i, pl in enumerate(f)] for f in clip_1080p(3)]
+    run_mesh(torch, "1920x1024 mesh GOP", gop, intra + ("me_sad", "subpel_pred", "mc_lanes"))
+
+
 def main() -> int:
     try:
         import torch
@@ -1224,6 +1496,7 @@ def main() -> int:
     ra_launches = phase("random-access GOP", run_random_access, torch)
     crf_launches = phase("CRF GOP", run_crf, torch)
     phase("VBR GOP", run_vbr, torch)
+    phase("tiles", run_tiles, torch)
     phase("1080p decodes", decode_queued)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -68,9 +68,9 @@ ARGTYPES = {
     # plane, dirs, var|NULL, pri, sec, mask, src|NULL, sse|NULL, out|NULL, K, F, H, W,
     # log2m, damping, coeff_shift, stream
     "cdef_filter_launch": [_P] * 9 + [_I] * 7 + [_P],
-    # mode, src, ref, ys|NULL, xs|NULL, centers|NULL, out, B, K, H, W, n, r, scale, sb_cols,
-    # stream
-    "me_sad_launch": [_I] + [_P] * 6 + [_I] * 8 + [_P],
+    # mode, src, ref, ys|NULL, xs|NULL, centers|NULL, out, B, K, H, W, Hr, Wr, ox, n, r, scale,
+    # sb_cols, stream
+    "me_sad_launch": [_I] + [_P] * 6 + [_I] * 11 + [_P],
     # src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W, n, bd, fast, stream
     "subpel_pred_launch": [_P] * 8 + [_I] * 6 + [_P],
     # ref, ys, xs, mvy, mvx, ref_idx|NULL, ftab_x, ftab_y, out, B, nref, H, W, n_h, n_w, bd,

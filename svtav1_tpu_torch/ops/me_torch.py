@@ -5,9 +5,11 @@ version beside each:
 - K8 `me_sad` (`csrc/me.cu`): the 2x2 decimation of the ME pyramid, the
   centred full search of (B, n, n) blocks (L2 16x16 at +-16 on the
   quarter-resolution plane, L1 32x32 and L0 64x64 at +-2), and the 8x8 SAD
-  maps of every SB's 64 leaves around two centres (the SB winner and zero).
-  The quadtree sum of the leaf maps, the per-size biased argmin and the
-  two-centre merge are PyTorch glue in `me_fullpel_frame`.
+  maps of every SB's 64 leaves around two centres (the SB winner and zero),
+  against a reference plane of its own dims that may be wider than the
+  source (a tile's halo-cropped reference, `ref_off_x`). The quadtree sum
+  of the leaf maps, the per-size biased argmin and the two-centre merge are
+  PyTorch glue in `me_fullpel_frame`.
 - K9 `subpel_pred` (`csrc/subpel.cu`): the subpel search on the 25-point
   ({-4..4}) or 49-point ({-6..6}) 1/8-pel lattice from one (n+8)^2 patch per
   block, with the winner's normative prediction.
@@ -97,13 +99,16 @@ def _bias(r: int, scale: int, device):
     return ((d[:, None] + d[None, :]) * scale).to(torch.int32)
 
 
-def search_centered_plain(src, ref, ys, xs, centers, n: int, r: int, scale: int):
+def search_centered_plain(src, ref, ys, xs, centers, n: int, r: int, scale: int,
+                          ref_off_x: int = 0):
     """Full search of the (n, n) blocks of `src` at (ys, xs) against `ref`
-    (same dims) in a clamped (n+2r)^2 window around each full-pel centre,
-    plus the integer distance bias; returns the refined centres (B, 2)
-    (_search_centered)."""
+    in a clamped (n+2r)^2 window around each full-pel centre, plus the
+    integer distance bias; returns the refined centres (B, 2)
+    (_search_centered). Source column x sits at column x + ref_off_x of
+    `ref`, whose own dims clamp the window."""
     src_b = gather_windows(src, ys, xs, n, n)
-    win = gather_windows(ref, ys + centers[:, 0] - r, xs + centers[:, 1] - r, n + 2 * r, n + 2 * r)
+    win = gather_windows(ref, ys + centers[:, 0] - r, xs + ref_off_x + centers[:, 1] - r,
+                         n + 2 * r, n + 2 * r)
     maps = sad_maps(src_b, win, n, r) + _bias(r, scale, src.device)[None]
     return (centers + _argmin2d(maps, r)).to(torch.int32)
 
@@ -115,11 +120,12 @@ def _leaf_src(src, sb_rows: int, sb_cols: int):
         .permute(0, 3, 1, 4, 2, 5).reshape(sb_rows * sb_cols * 64, 8, 8)
 
 
-def leaf_maps_plain(src, ref, centers, sb_cols: int, r: int):
+def leaf_maps_plain(src, ref, centers, sb_cols: int, r: int, ref_off_x: int = 0):
     """8x8 SAD maps of every SB leaf around each SB's full-pel centre:
     centers (K, B_sb, 2) -> (K, B_sb*64, D, D) int32. The window of a leaf
-    is read with clamped coordinates (the reference's edge-padded plane at
-    centre zero, its gathered SB window at the MV centre)."""
+    is read with coordinates clamped to `ref`'s dims (the reference's
+    edge-padded plane at centre zero, its gathered SB window at the MV
+    centre); source column x sits at column x + ref_off_x of `ref`."""
     K, B = centers.shape[:2]
     sb_rows = B // sb_cols
     dev = src.device
@@ -132,7 +138,7 @@ def leaf_maps_plain(src, ref, centers, sb_cols: int, r: int):
     for k in range(K):
         c = centers[k]
         ys = ((sbr * 64 + c[:, 0] - r)[:, None] + 8 * li[None, :]).reshape(-1)
-        xs = ((sbc * 64 + c[:, 1] - r)[:, None] + 8 * lj[None, :]).reshape(-1)
+        xs = ((sbc * 64 + ref_off_x + c[:, 1] - r)[:, None] + 8 * lj[None, :]).reshape(-1)
         out.append(sad_maps(src8, gather_windows(ref, ys, xs, 8 + 2 * r, 8 + 2 * r), 8, r))
     return torch.stack(out)
 
@@ -305,13 +311,16 @@ def subpel_refine_plain(src_b, ref, ys, xs, mv_fp, which: int, bd: int):
 # ---------------------------------------------------------------------------
 
 
-def _me_launch(mode: int, src, ref, ys, xs, centers, out, B: int, K: int, H: int, W: int,
-               n: int, r: int, scale: int, sb_cols: int) -> None:
+def _me_launch(mode: int, src, ref, ys, xs, centers, out, B: int, K: int, n: int, r: int,
+               scale: int, sb_cols: int, ref_off_x: int = 0) -> None:
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    H, W = src.shape
+    Hr, Wr = ref.shape if ref is not None else (0, 0)
     kernels.launch("me_sad", mode, ptr(src), ptr(ref), ptr(ys), ptr(xs), ptr(centers),
-                   out.data_ptr(), B, K, H, W, n, r, scale, sb_cols, kernels.stream_ptr(out))
+                   out.data_ptr(), B, K, H, W, Hr, Wr, ref_off_x, n, r, scale, sb_cols,
+                   kernels.stream_ptr(out))
 
 
 def decimate2(p):
@@ -323,48 +332,58 @@ def decimate2(p):
         raise ValueError("decimate2: one (H, W) plane")
     H, W = p.shape
     out = torch.empty((H // 2, W // 2), dtype=torch.int32, device=p.device)
-    _me_launch(_ME_DECIMATE, p, None, None, None, None, out, 0, 0, H, W, 0, 0, 0, 0)
+    _me_launch(_ME_DECIMATE, p, None, None, None, None, out, 0, 0, 0, 0, 0, 0)
     return out
 
 
-def search_centered(src, ref, ys, xs, centers, n: int, r: int, scale: int):
-    """Centred full search (K8, mode 1): src and ref (H, W) int32 planes of
-    the same dims, ys/xs (B,) block top-lefts, centers (B, 2) full-pel.
-    Returns centers + the first-minimum displacement of SAD + bias (B, 2)."""
-    if src.device.type == "cpu":
-        return search_centered_plain(src, ref, ys, xs, centers, n, r, scale)
+def _check_ref(src, ref):
     kernels.check(src, "src", torch.int32)
-    kernels.check(ref, "ref", torch.int32, src.shape)
+    kernels.check(ref, "ref", torch.int32)
+    if src.dim() != 2 or ref.dim() != 2:
+        raise ValueError("me_sad: (H, W) source and reference planes")
+
+
+def search_centered(src, ref, ys, xs, centers, n: int, r: int, scale: int, ref_off_x: int = 0):
+    """Centred full search (K8, mode 1): src (H, W) and ref (Hr, Wr) int32
+    planes, source column x at reference column x + ref_off_x; ys/xs (B,)
+    block top-lefts in the source, centers (B, 2) full-pel. Returns centers
+    + the first-minimum displacement of SAD + bias (B, 2)."""
+    if src.device.type == "cpu":
+        return search_centered_plain(src, ref, ys, xs, centers, n, r, scale, ref_off_x)
+    _check_ref(src, ref)
     B = ys.shape[0]
     ys, xs, centers = _i32(ys), _i32(xs), _i32(centers)
     kernels.check(centers, "centers", torch.int32, (B, 2))
     out = torch.empty((B, 2), dtype=torch.int32, device=src.device)
-    H, W = src.shape
-    _me_launch(_ME_SEARCH, src, ref, ys, xs, centers, out, B, 0, H, W, n, r, scale, 0)
+    _me_launch(_ME_SEARCH, src, ref, ys, xs, centers, out, B, 0, n, r, scale, 0, ref_off_x)
     return out
 
 
-def leaf_maps(src, ref, centers, sb_cols: int, r: int):
+def leaf_maps(src, ref, centers, sb_cols: int, r: int, ref_off_x: int = 0):
     """8x8 SAD maps of every SB leaf around K full-pel centres per SB (K8,
-    mode 2): centers (K, B_sb, 2) -> (K, B_sb*64, D, D) int32."""
+    mode 2): centers (K, B_sb, 2) -> (K, B_sb*64, D, D) int32; source
+    column x at reference column x + ref_off_x."""
     if src.device.type == "cpu":
-        return leaf_maps_plain(src, ref, centers, sb_cols, r)
-    kernels.check(src, "src", torch.int32)
-    kernels.check(ref, "ref", torch.int32, src.shape)
+        return leaf_maps_plain(src, ref, centers, sb_cols, r, ref_off_x)
+    _check_ref(src, ref)
     centers = _i32(centers)
     K, B = centers.shape[:2]
     D = 2 * r + 1
     out = torch.empty((K, B * 64, D, D), dtype=torch.int32, device=src.device)
-    H, W = src.shape
-    _me_launch(_ME_LEAF, src, ref, None, None, centers, out, B, K, H, W, 8, r, 0, sb_cols)
+    _me_launch(_ME_LEAF, src, ref, None, None, centers, out, B, K, 8, r, 0, sb_cols, ref_off_x)
     return out
 
 
 def me_fullpel_frame(src_y, ref_y, sb_rows: int, sb_cols: int, l2_radius: int = 16,
-                     leaf_radius: int = 4):
-    """Full-pel per-size ME of one frame against one reference: src_y and
-    ref_y are (H, W) int32 planes, H and W multiples of 64. Returns
-    ({n: (R_n, C_n, 2) int32 full-pel MVs} for n in SIZES, SB MVs (B_sb, 2))."""
+                     leaf_radius: int = 4, ref_off_x: int = 0):
+    """Full-pel per-size ME of one frame against one reference: src_y (H, W)
+    and ref_y (Hr, Wr) int32 planes, H and W multiples of 64. ref_off_x, a
+    multiple of 4, is the column of ref_y that source column 0 sits at (a
+    tile's reference cropped with a halo is wider than the tile); every
+    reference read clamps to ref_y's own dims. Returns ({n: (R_n, C_n, 2)
+    int32 full-pel MVs} for n in SIZES, SB MVs (B_sb, 2))."""
+    if ref_off_x % 4:
+        raise ValueError(f"me_fullpel_frame: ref_off_x {ref_off_x} is not a multiple of 4")
     dev = src_y.device
     B = sb_rows * sb_cols
     src1, ref1 = decimate2(src_y), decimate2(ref_y)
@@ -372,17 +391,17 @@ def me_fullpel_frame(src_y, ref_y, sb_rows: int, sb_cols: int, l2_radius: int = 
     rr = torch.arange(sb_rows, device=dev, dtype=torch.int32).repeat_interleave(sb_cols)
     cc = torch.arange(sb_cols, device=dev, dtype=torch.int32).repeat(sb_rows)
     # L2 (1/4 res): 16x16 blocks, exhaustive +-l2_radius; L1, L0: +-2 refines
-    mv = search_centered(src2, ref2, rr * 16, cc * 16, torch.zeros((B, 2), dtype=torch.int32,
-                                                                   device=dev), 16, l2_radius, 1)
-    mv = search_centered(src1, ref1, rr * 32, cc * 32, mv * 2, 32, 2, 2)
-    mv_sb = search_centered(src_y, ref_y, rr * 64, cc * 64, mv * 2, 64, 2, 4)
+    zero = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+    mv = search_centered(src2, ref2, rr * 16, cc * 16, zero, 16, l2_radius, 1, ref_off_x // 4)
+    mv = search_centered(src1, ref1, rr * 32, cc * 32, mv * 2, 32, 2, 2, ref_off_x // 2)
+    mv_sb = search_centered(src_y, ref_y, rr * 64, cc * 64, mv * 2, 64, 2, 4, ref_off_x)
 
     # 8x8 SAD maps around two centres per SB (the pyramid winner and zero
     # MV), summed up the quadtree: each size argmins its own map
     r = leaf_radius
     D = 2 * r + 1
-    centers = (mv_sb, torch.zeros((B, 2), dtype=torch.int32, device=dev))
-    maps = leaf_maps(src_y, ref_y, torch.stack(centers), sb_cols, r) \
+    centers = (mv_sb, zero)
+    maps = leaf_maps(src_y, ref_y, torch.stack(centers), sb_cols, r, ref_off_x) \
         .reshape(2, sb_rows, sb_cols, 8, 8, D, D)
     maps = [maps[0], maps[1]]
     out = {}

@@ -228,15 +228,16 @@ def _code(src, pred, va, ha, dq_dc: int, dq_ac: int, bd: int, rdoq_fn, lam):
 
 def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
                    bd: int, dq, tx_ntypes: int, lam: float, rdoq_qctx: int | None = None,
-                   refs=None, which: int = 0):
+                   refs=None, which: int = 0, ref_origin=(0, 0)):
     """The reference's _commit_device: phase A codes the inter lanes of every
     size in one batch each (MC from `refs`, the (NREF, H, W) uint8 Y, U, V
     stacks, by the lanes' ref index; F == 1; lanes with a second reference
     take the compound average of K11, launched on those lanes only, where
     the reference computes both predictions and selects), phase B runs the intra
     wavefront over the waves that hold intra lanes, then recon and level
-    assembly. src planes (F, H, W) on the device (region crop at the frame
-    origin when refs are given); rdoq_qctx: the coefficient-CDF bucket of
+    assembly. src planes (F, H, W) on the device (the region's crop);
+    ref_origin: the (y, x) luma coordinates of the region's origin in
+    `refs`; rdoq_qctx: the coefficient-CDF bucket of
     the RDOQ tables, None for no RDOQ. Returns (levels int16 packed in sched
     order, recon y, u, v (F, AH, AW) int32, skip8 (F, R8, C8) bool: every
     plane's levels zero in the block covering the 8x8 cell)."""
@@ -318,11 +319,13 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
         x, y = c8 * 8, r8 * 8
         ri, mv = L["ref"][:NI], L["mv"][:NI]
         # K10: luma at the 1/8-pel MV (1/16 of luma), chroma at the same MV
-        # (1/16 of chroma)
-        pred = me_torch.mc_lanes(refs[0], y, x, mv[:, 0] * 2, mv[:, 1] * 2, n, n, which, bd,
+        # (1/16 of chroma), at the lanes' coordinates in the references
+        ry_, rx_ = y + ref_origin[0], x + ref_origin[1]
+        ryc, rxc = ry_ // 2, rx_ // 2
+        pred = me_torch.mc_lanes(refs[0], ry_, rx_, mv[:, 0] * 2, mv[:, 1] * 2, n, n, which, bd,
                                  ref_idx=ri)
         xc, yc = x // 2, y // 2
-        puv = torch.cat([me_torch.mc_lanes(refs[pl], yc, xc, mv[:, 0], mv[:, 1], nc, nc, which,
+        puv = torch.cat([me_torch.mc_lanes(refs[pl], ryc, rxc, mv[:, 0], mv[:, 1], nc, nc, which,
                                            bd, ref_idx=ri) for pl in (1, 2)])
         if len(L["cmp"]):
             # K11 on the compound lanes: luma at the two 1/8-pel MVs, chroma
@@ -331,13 +334,13 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
             r2 = torch.as_tensor(sched[n]["ref2"][L["cmp"]], dtype=torch.int32, device=dev)
             m2 = torch.as_tensor(sched[n]["mv2"][L["cmp"]], dtype=torch.int32, device=dev)
             m1, r1 = mv[ci], ri[ci]
-            pred[ci] = me_torch.mc_lanes_compound(refs[0], y[ci], x[ci], m1[:, 0] * 2, m1[:, 1] * 2,
-                                                  m2[:, 0] * 2, m2[:, 1] * 2, n, n, which, bd, r1,
-                                                  r2)
+            pred[ci] = me_torch.mc_lanes_compound(refs[0], ry_[ci], rx_[ci], m1[:, 0] * 2,
+                                                  m1[:, 1] * 2, m2[:, 0] * 2, m2[:, 1] * 2, n, n,
+                                                  which, bd, r1, r2)
             for k, pl in enumerate((1, 2)):
                 puv[k * NI + ci] = me_torch.mc_lanes_compound(
-                    refs[pl], yc[ci], xc[ci], m1[:, 0], m1[:, 1], m2[:, 0], m2[:, 1], nc, nc, which,
-                    bd, r1, r2)
+                    refs[pl], ryc[ci], rxc[ci], m1[:, 0], m1[:, 1], m2[:, 0], m2[:, 1], nc, nc,
+                    which, bd, r1, r2)
         rq_y, rq_uv = _rdoq_fns(rdoq_qctx, n, dev) if rdoq_qctx is not None else (None, None)
         va, hv = _tx_lanes(L["tx"][:NI], tx_ntypes if n <= 16 else 1)
         lv_y, rec_y = _code(src_blocks(0, fidx, x, y, n), pred, va, hv, dq_dc, dq_ac, bd, rq_y,
@@ -448,7 +451,7 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
 
 def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, region,
                    refs_dev=None, ref_ids=None, which: int = 0, array_out: bool = False,
-                   fetch_levels: bool = True):
+                   fetch_levels: bool = True, ref_origin=None):
     """Commit the decided leaves of one region: fills plans in place (or,
     with array_out, returns the op-stream arrays) and returns the region's
     DEVICE recon planes and skip map (ry, ru, rv, skip8).
@@ -456,7 +459,10 @@ def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, regio
     `src_dev` are put_frames() (F, H, W) device planes; `leaves`/`dec`/
     `plans` are per-frame lists. For inter frames pass `refs_dev` =
     (refs_y, refs_u, refs_v) stacked (NREF, ...) uint8 device planes and
-    `ref_ids` mapping stack index -> RefFrame id. One d2h transfer (levels
+    `ref_ids` mapping stack index -> RefFrame id; `ref_origin` = (y, x) are
+    the luma plane coordinates of the region's origin inside `refs_dev`
+    (default the region's own origin, for whole-frame references; a tile's
+    halo-cropped references pass (0, halo)). One d2h transfer (levels
     int16) for the whole batch; with array_out and fetch_levels=False it is
     left to finish_levels (aux["levels_dev"]), so the caller can do other
     work first. The recon stays on the device for the filter stage."""
@@ -472,14 +478,12 @@ def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, regio
     sy = src_dev[0][:, y0 : y0 + rh, x0 : x0 + rw]
     su = src_dev[1][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
     sv = src_dev[2][:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2]
-    if refs_dev is not None and (x0, y0) != (0, 0):
-        raise NotImplementedError("inter regions other than the whole frame: ROADMAP queue 1, "
-                                  "'tiles' — not ported yet")
     dqv, lam = qparams_np(p.qindex, p.bd)
     with profiler.stage("commit/device"):
         levels_dev, ry, ru, rv, skip8 = _commit_device(
             sy, su, sv, sched_np, R8, C8, p.bd, dqv, int(p.sf_tx_ntypes), float(lam),
-            get_q_ctx(p.qindex) if p.enable_rdoq else None, refs=refs_dev, which=which)
+            get_q_ctx(p.qindex) if p.enable_rdoq else None, refs=refs_dev, which=which,
+            ref_origin=(y0, x0) if ref_origin is None else tuple(ref_origin))
         levels_packed = levels_dev.cpu().numpy() if fetch_levels or not array_out else None
 
     if array_out:
@@ -633,13 +637,17 @@ def encode_intra_frames(src_frames: list, params: FrameParams, device,
                         enable_cdef: bool = True, use_arrays: bool | None = None,
                         walk_fcs: list | None = None):
     """Device intra encoder over a BATCH of independent frames on `device`:
-    batched open-loop decide at all sizes, host partition DP per frame,
-    wavefront commit, then (apply_filters) DLF with the by-q levels (the
-    luma level searched when p.sf_dlf_search) and p.lf_sharpness, CDEF with
-    its strength search (the 4-entry ladder when p.sf_cdef_fast), and
-    display-edge replication; the entropy payloads are built by the
-    vectorized array-plan path with the native walker (None when it is
-    unavailable — the caller then walks the Plan).
+    per tile (tiles are prediction boundaries, so each region runs alone),
+    batched open-loop decide at all sizes, host partition DP per frame and
+    wavefront commit; then, over the whole frame, (apply_filters) DLF with
+    the by-q levels (the luma level searched when p.sf_dlf_search) and
+    p.lf_sharpness, CDEF with its strength search (the 4-entry ladder when
+    p.sf_cdef_fast), and display-edge replication; the entropy payloads,
+    one per tile, are built by the vectorized array-plan path with the
+    native walker (None when it is unavailable — the caller then walks the
+    Plan). Tile 0 of frame f adapts walk_fcs[f] in place (its end state is
+    the frame's stored context); later tiles restart from the
+    frame-initial state, as the spec decodes them.
 
     Returns [(plan, recon, filt, payloads), ...] per frame: filt =
     dict(lf_levels, cdef=(y_pri, y_sec, uv_pri, uv_sec, damping)) when
@@ -656,46 +664,65 @@ def encode_intra_frames(src_frames: list, params: FrameParams, device,
     from .intra_md import rd_lambda
 
     p = params
-    if len(p.tiles()) > 1:
-        raise NotImplementedError("tiles: ROADMAP queue 1, 'tiles' — not ported yet")
     F = len(src_frames)
     fc = FrameContext(p.qindex)
     lam = float(rd_lambda(p.qindex, p.bd))
     aw, ah = p.aligned_width, p.aligned_height
-    region = (0, 0, aw, ah)
     src_dev = device_decide.put_frames(src_frames, p.bd, device)
     if use_arrays is None:
         use_arrays = native.available() and not p.enable_filter_intra
     plans = [Plan() for _ in range(F)]
     if walk_fcs is None:
         walk_fcs = [FrameContext(p.qindex) for _ in range(F)]
-    with profiler.stage("decide"):
-        decs = device_decide.decide_intra_frames(src_dev, p, region)
-    leaves, trees = [], []
-    with profiler.stage("partition_dp"):
-        for f in range(F):
-            partitions, lv, tree = device_decide.partition_dp(decs[f], p, fc, lam, region)
-            plans[f].partitions.update(partitions)
-            leaves.append(lv)
-            trees.append(tree)
-    out = commit_regions(src_dev, p, leaves, decs, plans, region, array_out=use_arrays)
-    payloads = [None] * F
-    if use_arrays:
-        ry, ru, rv, skip8, aux = out
-        with profiler.stage("entropy_walk"):
-            tiles = p.tiles()[0]
-            payloads = [[run_tile_ops(p, walk_fcs[f], array_plan.build_tile_ops(
-                p, trees[f], aux["sched"], aux["level_base"], f, region, tiles, None,
-                TX_SEARCH, MODES)[0], aux["levels_i32"], tiles)] for f in range(F)]
-    else:
-        ry, ru, rv, skip8 = out
+    tiles = p.tiles()
+    fc_inits = [w.clone() for w in walk_fcs] if len(tiles) > 1 else None
+    payloads = [[] for _ in range(F)] if use_arrays else [None] * F
+    leaves_all = [[] for _ in range(F)]
+    regions = []
+    for ti, tile in enumerate(tiles):
+        r0, r1, c0, c1 = tile
+        x0, y0 = c0 * 64, r0 * 64
+        region = (x0, y0, min(c1 * 64, aw) - x0, min(r1 * 64, ah) - y0)
+        with profiler.stage("decide"):
+            decs = device_decide.decide_intra_frames(src_dev, p, region)
+        leaves, trees = [], []
+        with profiler.stage("partition_dp"):
+            for f in range(F):
+                partitions, lv, tree = device_decide.partition_dp(decs[f], p, fc, lam, region)
+                plans[f].partitions.update(partitions)
+                leaves.append(lv)
+                trees.append(tree)
+                leaves_all[f].extend(lv)
+        out = commit_regions(src_dev, p, leaves, decs, plans, region, array_out=use_arrays)
+        if use_arrays:
+            ry, ru, rv, skip8, aux = out
+            with profiler.stage("entropy_walk"):
+                for f in range(F):
+                    ops = array_plan.build_tile_ops(p, trees[f], aux["sched"], aux["level_base"],
+                                                    f, region, tile, None, TX_SEARCH, MODES)[0]
+                    fc_t = walk_fcs[f] if ti == 0 else fc_inits[f].clone()
+                    payloads[f].append(run_tile_ops(p, fc_t, ops, aux["levels_i32"], tile))
+        else:
+            ry, ru, rv, skip8 = out
+        regions.append((region, ry, ru, rv, skip8))
+    if len(regions) > 1:  # the frame's recon and skip map from its tiles
+        dev = regions[0][1].device
+        ry = torch.zeros((F, ah, aw), dtype=torch.int32, device=dev)
+        ru = torch.zeros((F, ah // 2, aw // 2), dtype=torch.int32, device=dev)
+        rv = torch.zeros((F, ah // 2, aw // 2), dtype=torch.int32, device=dev)
+        skip8 = torch.zeros((F, ah // 8, aw // 8), dtype=torch.bool, device=dev)
+        for (x0, y0, rw, rh), a, b, c, s8 in regions:
+            ry[:, y0 : y0 + rh, x0 : x0 + rw] = a
+            ru[:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2] = b
+            rv[:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2] = c
+            skip8[:, y0 // 8 : (y0 + rh) // 8, x0 // 8 : (x0 + rw) // 8] = s8
 
     filt = [None] * F
     with profiler.stage("filter"):
         if apply_filters:
             levels = (dlf_mod.pick_filter_levels(p.qindex, p.bd, True, p.height)
                       if enable_dlf else (0, 0, 0, 0))
-            sm = _size_maps(leaves, F, ah // 8, aw // 8)
+            sm = _size_maps(leaves_all, F, ah // 8, aw // 8)
             flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr),
                                      dtype=torch.int32, device=ry.device)
                      for plane in range(3) for tr in (False, True)]

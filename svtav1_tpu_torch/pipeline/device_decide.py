@@ -189,7 +189,10 @@ def _decide_intra_size(src_y, src_u, src_v, pen, mode_cost, txt_cost,
                        n: int, rate_fns, dq, bd: int, R: int, C: int, lam, nmodes: int = 13,
                        tx_ntypes: int = 4):
     """Batched open-loop intra decision for all (R, C) blocks of size n of
-    all F frames (src planes are (F, H, W) int32 on the device).
+    all F slabs (src planes are (F, H, W) int32 on the device: frames, or
+    the tiles of one frame). `pen` is one (R, C, 13) penalty grid for every
+    slab, or (F, R, C, 13), one per slab (a tile's edge availability
+    depends on where it sits in the frame).
 
     Returns (cost, mode_idx, tx_idx): cost (F, R, C) float32 total RD cost
     (luma incl. tx search + chroma + mode bits + skip flag), mode_idx (F, R,
@@ -220,7 +223,7 @@ def _decide_intra_size(src_y, src_u, src_v, pen, mode_cost, txt_cost,
     rate, dist = _eval_txfm(srcb, preds.reshape(B * nmodes, n, n), dq, bd,
                             rate_fns["y"][0], rep=nmodes)
     rate, dist = rate.reshape(B, nmodes), dist.reshape(B, nmodes)
-    penB = pen[..., :nmodes].reshape(1, R * C, nmodes).expand(F, R * C, nmodes).reshape(B, nmodes)
+    penB = pen[..., :nmodes].expand(F, R, C, nmodes).reshape(B, nmodes)
     costs = dist + lam * (rate + mode_cost[None, :nmodes] + txt_cost[None, :nmodes, 0]) + penB
     best_mode = torch.argmin(costs, dim=1)
     bi = torch.arange(B, device=dev)

@@ -28,10 +28,13 @@ every TU's size before the next frame's qindex, so each inter frame is
 finished (its TU written) before the next one starts. `scene_cut`
 codes a key frame where the source changes abruptly.
 
-This slice supports every preset ("fast", "medium", "slow"), 8-bit, one
-tile, DLF and CDEF each on or off, translation global motion, CDF
-inheritance and the HDR metadata OBUs of key frames. Every other setting
-raises NotImplementedError naming the ROADMAP item that brings it.
+This slice supports every preset ("fast", "medium", "slow"), 8-bit, DLF
+and CDEF each on or off, translation global motion, CDF inheritance, the
+HDR metadata OBUs of key frames, and uniform tiles (`tile_cols_log2`,
+`tile_rows_log2`) in all-intra streams (`keyint=1`): each tile is decided,
+committed and walked on its own, the filters run over the whole frame.
+Inter frames are single-tile, as in the reference (ValueError). Every other
+setting raises NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -120,7 +123,6 @@ PRESET_RDOQ = {"fast": False, "medium": True, "slow": True}
 _UNSUPPORTED = (
     (lambda c: c.enable_restoration, "enable_restoration", "restoration"),
     (lambda c: bool(c.film_grain or c.film_grain_table), "film_grain", "film grain"),
-    (lambda c: c.tile_cols_log2 > 0 or c.tile_rows_log2 > 0, "tiles", "tiles"),
     (lambda c: c.intra_batch > 1, "intra_batch > 1", "intra batching"),
     (lambda c: c.bd != 8, "bd != 8", "10-bit at the encoder level"),
     (lambda c: c.enable_filter_intra, "enable_filter_intra", "filter-intra"),
@@ -182,6 +184,8 @@ class Encoder:
             raise ValueError(f"unknown rc_mode {cfg.rc_mode!r}: cqp, cbr, vbr or crf")
         if cfg.rc_mode in ("cbr", "vbr") and cfg.target_kbps <= 0:
             raise ValueError(f"{cfg.rc_mode} needs target_kbps")
+        if (cfg.tile_cols_log2 or cfg.tile_rows_log2) and cfg.keyint != 1:
+            raise ValueError("round-1 profile: inter frames are single-tile")
         for outside, what, item in _UNSUPPORTED:
             if outside(cfg):
                 raise NotImplementedError(
@@ -206,7 +210,8 @@ class Encoder:
         # the source lumas a later frame can still name as its LAST ref
         self._gm_slots: list = [((0, 0),) * 8] * 8
         self._gm_src: dict = {}
-        self._use_gm = bool(cfg.enable_gm and cfg.keyint != 1)
+        self._use_gm = bool(cfg.enable_gm and not (cfg.tile_cols_log2 or cfg.tile_rows_log2)
+                            and cfg.keyint != 1)
         self._golden_disp = None  # last key's display idx (GOLDEN ref)
         self._slot_occupant: dict = {}  # DPB slot -> display idx
         # frame pipeline: FIFO of in-flight work, at most one frame's device
@@ -616,7 +621,11 @@ class Encoder:
             enable_dlf=cfg.enable_dlf, enable_cdef=cfg.enable_cdef, walk_fcs=[walk_fc])[0]
         if payloads is None:
             with profiler.stage("entropy_walk"):
-                payloads = [TileCodec(p, walk_fc, tile=p.tiles()[0]).encode(plan)]
+                # tile 0 adapts walk_fc in place; later tiles restart from the
+                # frame-initial state
+                fc_init = walk_fc.clone()
+                payloads = [TileCodec(p, walk_fc if i == 0 else fc_init.clone(), tile=t)
+                            .encode(plan) for i, t in enumerate(p.tiles())]
 
         cdef_y, cdef_uv, cdef_damping = ((0, 0),), ((0, 0),), 3
         hdr_lf = p.lf_levels
@@ -638,7 +647,7 @@ class Encoder:
                          lr_uv_shift=p.lr_uv_shift,
                          reference_select=p.reference_select, skip_mode_allowed=False,
                          gm_mvs=p.gm_mvs, prev_gm_mvs=None, film_grain=None)
-        tu = self._write_tu(fr, payloads[0], self._metadata_obus())
+        tu = self._write_tu(fr, payloads, self._metadata_obus())
         # keys park in slot 7 (they refresh all slots) so the GOLDEN
         # reference survives the rotating non-key slots 0..6; nothing coded
         # before a key can be referenced after it

@@ -133,11 +133,14 @@ def _mv_rate(mv, pred, joint, comp):
 
 def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, pred_by_ref,
                        intra_out, consts, n: int, rate_fns, dq, bd: int, R: int, C: int, lam,
-                       which: int, mc_by_ref, comp_pair=None, tx_ntypes: int = 4, gm8=None):
+                       which: int, mc_by_ref, comp_pair=None, tx_ntypes: int = 4, gm8=None,
+                       ref_off_x: int = 0):
     """Inter candidate evaluation for the (R, C) grid at size n, merged with
     the intra decision `intra_out` = (cost, mode, tx) from device_decide.
 
-    src planes (1, H, W) int32; refs_* (NREF, H, W) uint8 stacks;
+    src planes (1, H, W) int32; refs_* (NREF, H, W') uint8 stacks whose
+    luma column ref_off_x (chroma ref_off_x // 2) is the source's column 0
+    (a tile's halo-cropped references; 0 and W' = W for a whole frame);
     mv_by_ref: per reference (B, 2) subpel MVs, pred_by_ref (B, 2) MV-rate
     predictors (the SB MV), mc_by_ref (B, n, n) the subpel search's
     predictions at those MVs. The candidates are the NEWMV lane of every
@@ -171,11 +174,11 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
             for ri, mv in enumerate(mv_by_ref)]
     bits.append(cand_bits["glob"].expand(B))
     if gm8 is None:
-        glob_pred = _blocks_of(refs_y[0:1].to(torch.int32), n, R, C)
+        glob_pred = _blocks_of(refs_y[0:1, :, ref_off_x:].to(torch.int32), n, R, C)
     else:
-        glob_pred = me_torch.mc_lanes(refs_y, ys, xs, glob_mv[:, 0] * 2, glob_mv[:, 1] * 2, n, n,
-                                      which, bd, ref_idx=torch.zeros(B, dtype=torch.int32,
-                                                                     device=dev))
+        glob_pred = me_torch.mc_lanes(refs_y, ys, xs + ref_off_x, glob_mv[:, 0] * 2,
+                                      glob_mv[:, 1] * 2, n, n, which, bd,
+                                      ref_idx=torch.zeros(B, dtype=torch.int32, device=dev))
     preds = [*mc_by_ref, glob_pred]
     if comp_pair is not None:
         ri0, ri1 = comp_pair
@@ -218,8 +221,8 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
     # chroma at the winner's MV (DCT approximation, as the intra decide does)
     ysc, xsc = r_idx * nc, c_idx * nc
     for srcc, refc in ((src_u, refs_u), (src_v, refs_v)):
-        pc = me_torch.mc_lanes(refc, ysc, xsc, mv_i[:, 0], mv_i[:, 1], nc, nc, which, bd,
-                               ref_idx=ref_i)
+        pc = me_torch.mc_lanes(refc, ysc, xsc + ref_off_x // 2, mv_i[:, 0], mv_i[:, 1], nc, nc,
+                               which, bd, ref_idx=ref_i)
         ratec, distc = _eval_txfm(_blocks_of(srcc, nc, R, C), pc, dq, bd, rate_fns["uv"])
         cost_i = cost_i + distc + lam * ratec
     cost_i = cost_i + lam * 1.0  # skip flag

@@ -39,26 +39,51 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12  # half the 67 TFLOP/s float32 rate (64 INT32 lanes/SM/clock)
 
 
-def launch_bound(name: str, args: tuple) -> tuple[float, float]:
+def k2_ops(n: int, L: int, n_vadst: int, n_hadst: int, forward: bool = True,
+           inverse: bool = True) -> int:
+    """int32 operations of K2 on L n x n lanes of which n_vadst take the
+    vertical and n_hadst the horizontal ADST (the others the DCT): 5 per
+    stage output of each 1-D network that runs (two products, a sum, the
+    rounding and the shift; a size without an ADST table, ADST4 or n > 16,
+    counts as its DCT), and 20 per coefficient for the residual and the
+    quantizer, and 20 more for the dequantizer, the add and the SSE."""
+    from ..ops import transforms as T
+    from ..ops import transforms_torch as TT
+
+    tabs = TT.tables_for(n, "cpu")
+
+    def stages(kind: str, cos_bit: int) -> int:
+        key = (f"{kind}{n}", cos_bit)
+        return len(tabs.stages[key if key in tabs.stages else (f"{kind[0]}dct{n}", cos_bit)])
+
+    per = 0  # stage passes summed over the lanes: columns, then rows
+    for nadst, cb in ((n_vadst, tabs.cb_col), (n_hadst, tabs.cb_row)):
+        if forward:
+            per += (L - nadst) * stages("fdct", cb) + nadst * stages("fadst", cb)
+        if inverse:
+            per += ((L - nadst) * stages("idct", T.INV_COS_BIT)
+                    + nadst * stages("iadst", T.INV_COS_BIT))
+    return 5 * n * n * per + 20 * n * n * L * (int(forward) + int(inverse))
+
+
+def launch_bound(name: str, args: tuple, adst: tuple | None = None) -> tuple[float, float]:
     """(bytes, int32 operations) of one kernel launch from its C arguments
     (kernels.ARGTYPES order): each input read once, each output written
-    once, and the arithmetic per element that chip_smoke.py also counts."""
+    once, and the arithmetic per element that chip_smoke.py also counts.
+    For K2, `adst` = (lanes with the vertical ADST, lanes with the
+    horizontal ADST) of the launch: its flags live on the card."""
     if name == "intra_pred":
         B, n, nmodes, one = args[9], args[10], args[12], args[5] is not None
         out = B * (1 if one else nmodes) * n * n
         return B * (2 * n + 1) * 4 + 2 * B + 4 * B * one + out * 4, out * 10
     if name == "txfm_quant_recon":
-        from ..ops import transforms_torch as TT
-
         coeff, recon, sse, stage, L, rep, n = args[6:13]
         adj = min(n, 32)
-        tabs = TT.tables_for(n, "cpu")
-        nst = sum(len(v) for v in tabs.stages.values()) / max(len(tabs.stages), 1)
-        ops = L * (4 * nst * n * n * 5 + 40 * n * n)
+        ops = k2_ops(n, L, *adst, forward=stage != 2, inverse=stage != 1)
         if stage == 1:
-            return 2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L, ops / 2
+            return 2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L, ops
         if stage == 2:
-            return L * adj * adj * 4 + 2 * L * n * n * 4 + 2 * L, ops / 2
+            return L * adj * adj * 4 + 2 * L * n * n * 4 + 2 * L, ops
         return ((L // rep + L) * n * n * 4 + L * adj * adj * 4 + (L * n * n * 4 if recon else 0)
                 + (8 * L if sse else 0) + 2 * L), ops
     if name in ("txb_rate", "rdoq"):
@@ -78,13 +103,14 @@ def launch_bound(name: str, args: tuple) -> tuple[float, float]:
         return (F * H * W * 4 * (1 + (src is not None)) + (K * F * H * W * 4 if out else 0)
                 + cells * 9), K * F * H * W * 12 * 12
     if name == "me_sad":
-        mode, (B, K, H, W, n, r) = args[0], args[7:13]
+        mode, (B, K, H, W, Hr, Wr, _ox, n, r) = args[0], args[7:16]
         D = 2 * r + 1
         if mode == 0:
             return H * W * 4 + H * W, H * W // 4 * 5
         if mode == 1:
             return B * (n * n + (n + 2 * r) ** 2) * 4 + B * 16, B * D * D * n * n * 3
-        return 2 * H * W * 4 + K * B * 8 + K * B * 64 * D * D * 4, K * B * 64 * D * D * 64 * 3
+        return ((H * W + Hr * Wr) * 4 + K * B * 8 + K * B * 64 * D * D * 4,
+                K * B * 64 * D * D * 64 * 3)
     if name == "subpel_pred":
         B, n, fast = args[8], args[11], args[13]
         L = 5 if fast else 7
@@ -134,23 +160,32 @@ def bound_ms(nbytes: float, ops: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
 
 
-def count_launches(fn):
+def count_launches(fn, default: str = "other"):
     """Run fn() with every kernel launch recorded against the pipeline stage
-    (decide, commit, filter, tf or tpl) it belongs to. Returns {stage: {kernel:
-    [launches, summed bound ms]}}."""
+    (decide, commit, filter, tf or tpl) it belongs to, and a launch outside
+    them against `default`. Returns {stage: {kernel: [launches, summed bound
+    ms]}}."""
     from .. import kernels
     from ..ops import tf_torch
+    from ..ops import transforms_torch as TT
     from ..pipeline import device_commit, device_decide, inter_device, tpl
 
-    current = ["other"]
+    current = [default]
     out: dict = {}
     real_launch = kernels.launch
+    real_k2 = TT._launch
+    k2_adst = [None]
+
+    def k2_launch(stage, src, pred, v_adst, h_adst, *rest):
+        # the launch's DCT/ADST split, for its bound (a sync: untimed run)
+        k2_adst[0] = (int(v_adst.sum()), int(h_adst.sum()))
+        real_k2(stage, src, pred, v_adst, h_adst, *rest)
 
     def launch(name, *args):
         real_launch(name, *args)
         rec = out.setdefault(current[0], {}).setdefault(name, [0, 0.0])
         rec[0] += 1
-        rec[1] += bound_ms(*launch_bound(name, args))
+        rec[1] += bound_ms(*launch_bound(name, args, k2_adst[0]))
 
     def staged(stage, f):
         def run(*a, **k):
@@ -158,7 +193,7 @@ def count_launches(fn):
             try:
                 return f(*a, **k)
             finally:
-                current[0] = "other"
+                current[0] = default
         return run
 
     saved = [(device_decide, "decide_intra_frames"), (inter_device, "_run_decide"),
@@ -166,6 +201,7 @@ def count_launches(fn):
              (tf_torch, "filter_planes"), (tpl, "tpl_window")]
     originals = [getattr(m, a) for m, a in saved]
     kernels.launch = launch
+    TT._launch = k2_launch
     for (m, a), f, stage in zip(saved, originals,
                                 ("decide", "decide", "commit", "filter", "tf", "tpl")):
         setattr(m, a, staged(stage, f))
@@ -173,6 +209,7 @@ def count_launches(fn):
         fn()
     finally:
         kernels.launch = real_launch
+        TT._launch = real_k2
         for (m, a), f in zip(saved, originals):
             setattr(m, a, f)
     return out

@@ -44,13 +44,18 @@ def test_slice_without_deblocking_decodes():
     (dict(enable_filter_intra=True), "filter-intra"),
     (dict(enable_restoration=True), "restoration"),
     (dict(film_grain=10), "film grain"),
-    (dict(tile_cols_log2=1), "tiles"),
+    (dict(tile_cols_log2=1, keyint=16), "tiles"),
     (dict(intra_batch=2), "intra batching"),
     (dict(bd=10), "10-bit"),
 ])
 def test_settings_outside_the_slice_raise(override, item):
+    """Settings outside the port raise NotImplementedError naming their
+    ROADMAP item; tiles with inter frames, which the reference refuses
+    too, raise its ValueError."""
     cfg = port_enc.EncoderConfig(64, 64, **{**SLICE, **override})
-    with pytest.raises(NotImplementedError, match=item):
+    exc, match = ((ValueError, "inter frames are single-tile") if item == "tiles"
+                  else (NotImplementedError, item))
+    with pytest.raises(exc, match=match):
         port_enc.Encoder(cfg, device="cpu")
 
 

@@ -9,7 +9,7 @@ anchor are temporally filtered first (at qindex 100 one sample of the
 filtered anchor lies exactly on a rounding half, test_torch_tf.py). All
 random-access encodes sit in this file, so that their JAX programs compile
 once in one worker; 122x90 has the aligned size 128x96 and reuses the
-commit programs."""
+commit programs. Last, the random-access settings the Encoder refuses."""
 import numpy as np
 import pytest
 
@@ -64,3 +64,20 @@ def test_deblocking_level_zero_frame_decodes(monkeypatch):
             for i in range(3):
                 np.testing.assert_array_equal(drec[i], p.recon[i],
                                               err_msg=f"frame {p.disp_idx} plane {i}")
+
+
+@pytest.mark.parametrize("minigop", [3, 16])
+def test_minigop_must_be_dyadic(minigop):
+    with pytest.raises(ValueError, match="dyadic mini-GoPs of 1, 2, 4 or 8"):
+        port_enc.Encoder(port_enc.EncoderConfig(64, 64, keyint=16, minigop=minigop),
+                         device="cpu")
+
+
+def test_encode_frame_refuses_random_access():
+    """encode_frame codes one low-delay frame at a time; a mini-GoP's
+    packets come out of send_frame and flush."""
+    enc = port_enc.Encoder(port_enc.EncoderConfig(64, 64, **RA), device="cpu")
+    plane = np.full((64, 64), 100, np.uint8)
+    chroma = np.full((32, 32), 128, np.uint8)
+    with pytest.raises(ValueError, match="low-delay"):
+        enc.encode_frame(plane, chroma, chroma)

@@ -3,7 +3,8 @@
 VBR with first-pass stats, and scene cuts, on low-delay GOPs at 128x96.
 The streams must be identical TU for TU, the recon too, and the port's
 decoder must reproduce every recon. Under these controllers each inter
-frame is finished before the next one starts."""
+frame is finished before the next one starts. Last, the targets that CBR
+and VBR need."""
 import numpy as np
 import pytest
 from torch_encode_parity import gop_matches_jax_and_decodes
@@ -83,3 +84,11 @@ def test_scene_cut_codes_a_key_frame_at_the_cut():
     got = gop_matches_jax_and_decodes(W, H, dict(qindex=120, keyint=1000, scene_cut=True), 6,
                                       clip)
     assert [tu_frame_type(p.tu) for p in got] == [0, 1, 1, 0, 1, 1]
+
+
+@pytest.mark.parametrize("rc_mode", ["cbr", "vbr"])
+def test_rate_control_needs_a_target(rc_mode):
+    with pytest.raises(ValueError, match=f"{rc_mode} needs target_kbps"):
+        port_enc.Encoder(port_enc.EncoderConfig(W, H, rc_mode=rc_mode, **LD), device="cpu")
+    with pytest.raises(ValueError, match="unknown rc_mode"):
+        port_enc.Encoder(port_enc.EncoderConfig(W, H, rc_mode="abr", **LD), device="cpu")

@@ -1,6 +1,6 @@
 """svtav1_tpu_torch stands alone: no module of it imports jax or svtav1_tpu,
-and its entry points (the Encoder and the CLI) default to the card and
-refuse to fall back quietly."""
+and its entry points (the Encoder, the CLI, the tile encoders) default to
+the card and refuse to fall back quietly."""
 import os
 import subprocess
 import sys
@@ -153,3 +153,58 @@ def test_kernel_argument_check_rejects_cpu_tensors():
 
     with pytest.raises(ValueError, match="CUDA"):
         kernels.check(torch.zeros(4, dtype=torch.int32), "x", torch.int32)
+
+
+def test_tile_modules_import_without_jax_or_reference():
+    """The modules of the tile slice and the libaom oracle, each imported
+    alone with jax and svtav1_tpu blocked."""
+    mods = ["svtav1_tpu_torch.parallel", "svtav1_tpu_torch.parallel.tiles",
+            "svtav1_tpu_torch.utils.aomdec"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, *mods], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) == len(mods)
+
+
+def _mesh_frame(w: int, h: int):
+    import numpy as np
+
+    planes = [np.full((h, w), 100, np.int32)] + [np.full((h // 2, w // 2), 128, np.int32)] * 2
+    return planes, {1: planes}
+
+
+def test_tile_encoders_without_device_need_cuda(monkeypatch):
+    """The tile encoders default to the card like the Encoder."""
+    from svtav1_tpu_torch.codec.tile_codec import FrameParams
+    from svtav1_tpu_torch.parallel import tiles
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    planes, refs = _mesh_frame(256, 64)
+    key = FrameParams(width=256, height=64, qindex=110, frame_is_intra=True, tile_cols_log2=1)
+    inter = FrameParams(width=256, height=64, qindex=110, frame_is_intra=False,
+                        tile_cols_log2=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tiles.encode_intra_frame_mesh(planes, key, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tiles.encode_inter_frame_mesh(planes, inter, refs, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tiles.encode_inter_frame_mesh(planes, inter, refs, 2, device="cuda")
+
+
+def test_inter_tiles_need_heights_of_whole_superblocks():
+    """The inter tile decide runs its ME on the unpadded tile, as the
+    reference's does: a tile height that is not a multiple of 64 (here 72)
+    raises ValueError naming the limit, before any work. Tiles of unequal
+    width (320 = 192 + 128 columns) are refused too."""
+    from svtav1_tpu_torch.codec.tile_codec import FrameParams
+    from svtav1_tpu_torch.parallel import tiles
+
+    planes, refs = _mesh_frame(256, 72)
+    p = FrameParams(width=256, height=72, qindex=110, frame_is_intra=False, tile_cols_log2=1)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tiles.encode_inter_frame_mesh(planes, p, refs, 2, device="cpu")
+    planes, refs = _mesh_frame(320, 64)
+    p = FrameParams(width=320, height=64, qindex=110, frame_is_intra=False, tile_cols_log2=1)
+    with pytest.raises(ValueError, match="equal dims"):
+        tiles.encode_inter_frame_mesh(planes, p, refs, 2, device="cpu")

@@ -6,6 +6,7 @@ import torch
 from svtav1_tpu.pipeline import encoder as ref_enc
 from svtav1_tpu_torch.decode.decoder import Decoder
 from svtav1_tpu_torch.pipeline import encoder as port_enc
+from svtav1_tpu_torch.utils import aomdec
 from svtav1_tpu_torch.utils.testclip import make_frames
 from tools.make_test_video import make_frames as ref_make_frames
 
@@ -77,3 +78,34 @@ def gop_matches_jax_and_decodes(w: int, h: int, cfg: dict, frames: int, clip=Non
             np.testing.assert_array_equal(dy, recon_of[a.shown_disp_idx][0][:h, :w],
                                           err_msg=f"TU {f} shows frame {a.shown_disp_idx}")
     return got
+
+
+def check_libaom(tus, shown) -> None:
+    """libaom decodes the TUs to the shown planes bit for bit, where the
+    host has it (it checks nothing otherwise): the count is printed."""
+    checked = aomdec.verify_tus(tus, shown)
+    print(f"libaom checked {checked} of {len(tus)} TUs"
+          + ("" if aomdec.available() else " (libaom is not on this host)"))
+    assert checked in (0, len(tus))
+
+
+def encode_all(enc, frames) -> list:
+    """The packets of `frames` through enc.send_frame + flush."""
+    pkts = []
+    for y, u, v in frames:
+        pkts += enc.send_frame(y, u, v)
+    return pkts + enc.flush()
+
+
+def packets_decode(pkts, frames) -> None:
+    """The port's decoder, and libaom where the host has it, reproduce
+    every packet's recon; the shown planes have the frames' dims."""
+    dec = Decoder()
+    shown = []
+    for f, pkt in enumerate(pkts):
+        dy, du, dv, drec = dec.decode_tu(pkt.tu)
+        for i in range(3):
+            np.testing.assert_array_equal(drec[i], pkt.recon[i], err_msg=f"frame {f} plane {i}")
+        assert dy.shape == frames[f][0].shape
+        shown.append((dy, du, dv))
+    check_libaom([p.tu for p in pkts], shown)
