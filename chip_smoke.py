@@ -43,7 +43,7 @@ Phases, each fatal on failure:
      a 3-frame warm run, with every kernel K1-K13 launched and the first
      three TUs (the key frame, the hidden anchor 8, frame 4) decoded
      bit-exactly; then the CRF path: the same 17 frames with CRF (TPL over
-     16-frame lookahead windows: 41 TPL frames), with every kernel K1-K15
+     16-frame lookahead windows: 41 TPL frames), with every kernel K1-K16
      launched, each frame's qindex and each window's r0 printed, and one
      16-frame TPL window timed alone with its launches and kernel bounds;
      then one-pass VBR at 1000 kbps on the 16-frame low-delay GOP (every
@@ -51,7 +51,15 @@ Phases, each fatal on failure:
      printed; launch counts are reset just before each path and read just
      after; the 1080p clip is made once; after the paths, the first TUs of
      each (and one medium key frame) are decoded, one worker process per
-     sequence;
+     sequence; K16 commit_wave runs on every path (each commit's phase B
+     in one launch), and its inputs are copied from four launches of the
+     paths: the fast key frame's (no RDOQ), the medium key frame's, a P
+     frame's of the low-delay GOP and a B frame's of the random-access GOP
+     (one with compound lanes); on each schedule K16 and the wave loop of
+     K1, K2 and K5 run from the same state and must give the same levels,
+     recon, frontier maps and skip map; both phase-B times of this call,
+     the waves, K16's grid, and the grid barriers alone at that grid and
+     barrier count (`commit_wave` lines);
   5. tiles: a 256x64 GOP (a key frame and 2 P frames in two tile columns)
      through parallel.tiles' encoders on the card and with the plain
      versions on the CPU, byte for byte, decoded bit-exactly; the 8-tile
@@ -106,8 +114,9 @@ KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "tf_noise": ("svtav1_tpu_torch/csrc/tf.cu", "svtav1_tpu/ops/tf_jax.py:30"),
     "subpel_refine": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:373"),
     "tpl_cost": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu", "svtav1_tpu/pipeline/tpl.py:56"),
+    "commit_wave": ("svtav1_tpu_torch/csrc/commit.cu", "svtav1_tpu/pipeline/device_commit.py:542"),
 }
-LD_KERNELS = tuple(KERNEL_SOURCES)[:10]  # K1-K10: the low-delay GOP
+LD_KERNELS = tuple(KERNEL_SOURCES)[:10] + ("commit_wave",)  # K1-K10, K16: low-delay GOP
 RA_ONLY = ("mc_compound", "tf_filter", "tf_noise")  # K11-K13: the random-access GOP
 CRF_ONLY = ("subpel_refine", "tpl_cost")  # K14-K15: the CRF GOP's TPL
 # CRF: TPL over lookahead windows sets each frame's qindex (random access, MCTF)
@@ -120,9 +129,11 @@ TILES = dict(MEDIUM, tile_cols_log2=2, tile_rows_log2=1)
 MESH_TILES = 2  # parallel.tiles at full width: two 960-column tiles
 CHECKS = []  # phase 2's records, [kernel, shape, max_abs_err, ms, plain_ms, bound_ms]
 PATHS = {}  # label -> the 1080p key-frame paths' fps, bytes and Y-PSNR
-KEY_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges", "rdoq", "cdef_dir",
-               "cdef_filter")
-FAST_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges")
+# key frames code no inter lane: K5 runs inside K16 there
+KEY_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges", "cdef_dir",
+               "cdef_filter", "commit_wave")
+FAST_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges", "commit_wave")
+K16_CAPTURED = {}  # schedule -> the inputs of one K16 launch of a path (wavefront.commit_wave)
 
 
 def log(msg):
@@ -338,7 +349,7 @@ def check_kernels(torch, dev):
     pl = t(np.clip(plane, 0, 255))
     lim, blim, thr = dlf_torch._limits(18, 0)
     for tr in (False, True):
-        flen = t(dlf_torch.flen_maps_from_sizes(sm, 0, tr))
+        flen = t(dlf_torch.flen_maps_from_sizes(sm, 0, tr, (C8 * 8, R8 * 8)))
         x = pl.transpose(1, 2) if tr else pl
         a = dlf_torch.filter_vertical_edges(x, flen, lim, blim, thr, 8)
         b = dlf_torch.filter_vertical_edges_plain(x, flen, lim, blim, thr, 8)
@@ -958,7 +969,7 @@ def run_path(torch, label, cfg, n_timed, required, decode, libaom=False):
     secs = time.perf_counter() - t0
     launches = dict(kernels.launches)
     stages = profiler.report()
-    waves = profiler.counts().get("commit/wave", 0) / N
+    waves = profiler.counts().get("commit/waves", 0) / N
     missing = [k for k in required if launches[k] <= 0]
     if missing:
         raise SystemExit(f"{label} path never launched: {missing}")
@@ -1014,7 +1025,7 @@ def run_gop(torch):
     for i, f in enumerate(frames):
         pkts += enc.send_frame(*f)
         if i == 0:
-            key_waves = profiler.counts().get("commit/wave", 0)
+            key_waves = profiler.counts().get("commit/waves", 0)
     pkts += enc.flush()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1040,7 +1051,7 @@ def run_gop(torch):
                         bytes_key=len(pkts[0].tu),
                         bytes_per_p_frame=sum(len(p.tu) for p in pkts[1:]) / (N - 1),
                         y_psnr=float(np.mean(psnr)), key_waves=key_waves,
-                        p_waves_per_frame=(counts.get("commit/wave", 0) - key_waves) / (N - 1),
+                        p_waves_per_frame=(counts.get("commit/waves", 0) - key_waves) / (N - 1),
                         launches_per_frame={k: v / N for k, v in launches.items()},
                         stage_seconds=stages)))
     return launches
@@ -1112,7 +1123,7 @@ def run_random_access(torch):
                         bytes_per_b_frame=sum(len(p.tu) for p in b_frames) / len(b_frames),
                         bytes_show_existing=sum(len(p.tu) for p in pkts if p.disp_idx is None),
                         y_psnr=float(np.mean(psnr)), tf_calls=counts.get("tf", 0),
-                        waves=counts.get("commit/wave", 0),
+                        waves=counts.get("commit/waves", 0),
                         launches_per_frame={k: v / N for k, v in launches.items()},
                         stage_seconds=stages)))
     return launches
@@ -1139,7 +1150,7 @@ def run_crf(torch):
     medium through send_frame + flush on a fresh Encoder, after a 3-frame
     warm run on another: TPL runs over windows of 16, 16 and 9 frames (41
     TPL frames of 1088x1920). Launch counts set to 0 just before the timed
-    run and read just after: every kernel K1-K15 must launch. The first
+    run and read just after: every kernel K1-K16 must launch. The first
     three TUs are decoded bit-exactly; each frame's qindex and each
     window's r0 are printed. Then one 16-frame TPL window alone, its
     launches and summed kernel bounds counted per TPL frame."""
@@ -1404,7 +1415,7 @@ def run_mesh(torch, label, frames, required):
     with DecideTimer(torch) as timer:
         pairs, secs = mesh_encode(frames, "cuda")
     launches = dict(kernels.launches)
-    waves = profiler.counts().get("commit/wave", 0)
+    waves = profiler.counts().get("commit/waves", 0)
     missing = [k for k in required if launches[k] <= 0]
     if missing:
         raise SystemExit(f"{label} never launched: {missing}")
@@ -1448,10 +1459,109 @@ def run_tiles(torch):
                         bytes_per_frame=[eight["bytes_per_frame"], one["bytes_per_frame"]],
                         y_psnr=[eight["y_psnr"], one["y_psnr"]])))
 
-    intra = ("intra_pred", "txfm_quant_recon", "txb_rate", "rdoq")
+    intra = ("intra_pred", "txfm_quant_recon", "txb_rate", "commit_wave")
     run_mesh(torch, "1920x1080 mesh key frame", clip_1080p(1), intra)
     gop = [[pl[: 1024 >> (i > 0)] for i, pl in enumerate(f)] for f in clip_1080p(3)]
-    run_mesh(torch, "1920x1024 mesh GOP", gop, intra + ("me_sad", "subpel_pred", "mc_lanes"))
+    run_mesh(torch, "1920x1024 mesh GOP", gop,
+             intra + ("rdoq", "me_sad", "subpel_pred", "mc_lanes"))
+
+
+class K16Capture:
+    """Stands in for pipeline.wavefront.commit_wave during phase 4: while
+    `expect` names a schedule, the inputs of the first K16 launch that fits
+    it (a commit without inter lanes for "fast" and "key", with inter lanes
+    for "P"; for "B" the first with compound lanes, or else the phase's last
+    with inter lanes) are copied before it runs: the frontier maps and the
+    lanes' level and recon slots (the rest is only read)."""
+
+    def __init__(self):
+        from svtav1_tpu_torch.pipeline import wavefront
+
+        self.slots = wavefront.KEYS_LV + wavefront.KEYS_REC
+        self.real = wavefront.commit_wave
+        self.want = None
+        wavefront.commit_wave = self
+
+    def expect(self, label):
+        self.want = label
+
+    def state(self, cap):
+        """A fresh copy of a captured launch's maps and lanes."""
+        return ([[m.clone() for m in ms] for ms in cap["maps"]],
+                {n: {k: (v.clone() if k in self.slots else v) for k, v in L.items()}
+                 for n, L in cap["lanes"].items()})
+
+    def __call__(self, src, maps, lanes, table, *args, **kw):
+        if self.want is not None and src[0].is_cuda:
+            inter = any(L["NI"] for L in lanes.values())
+            if inter == (self.want in ("P", "B")):
+                cap = dict(src=src, maps=maps, lanes=lanes, table=table, args=args)
+                cap["maps"], cap["lanes"] = self.state(cap)
+                K16_CAPTURED[self.want] = cap
+                if self.want != "B" or any(len(L["cmp"]) for L in lanes.values()):
+                    self.want = None
+        return self.real(src, maps, lanes, table, *args, **kw)
+
+
+def check_commit_wave(torch, capture):
+    """K16 against its plain version, the wave loop that launches K1, K2 and
+    K5 per wave and size, on the 1080p schedules captured in phase 4: a
+    fast key frame (no RDOQ: K2 fused), a medium key frame, a P frame of
+    the low-delay GOP and a B frame of the random-access GOP. Levels,
+    recon, frontier maps and skip map must be exact. Both phase-B times of
+    this call, the grid barriers alone at K16's grid and barrier count, and
+    the bound. Launch counts are restored after."""
+    import numpy as np
+
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.pipeline import wavefront
+    from svtav1_tpu_torch.utils.profile_keyframes import commit_wave_work
+
+    saved = dict(kernels.launches)
+    dev = torch.device("cuda", 0)
+    out = {}
+    for label in ("fast", "key", "P", "B"):
+        cap = K16_CAPTURED.get(label)
+        if cap is None:
+            raise SystemExit(f"commit_wave: no {label} schedule reached K16 in phase 4")
+        src, table, args = cap["src"], cap["table"], cap["args"]
+        km, kl = capture.state(cap)
+        capture.real(src, km, kl, table, *args)
+        pm, pl = capture.state(cap)
+        wavefront.commit_wave_plain(src, pm, pl, table, *args)
+        torch.cuda.synchronize()
+        err = 0
+        pairs = [(a, b) for ka, kb in zip(km, pm) for a, b in zip(ka, kb)]
+        for n in kl:
+            pairs += [(kl[n][k], pl[n][k]) for k in capture.slots]
+            skip_k, skip_p = ((L["ly"].abs().sum((1, 2)) + L["lu"].abs().sum((1, 2))
+                               + L["lv"].abs().sum((1, 2))) == 0 for L in (kl[n], pl[n]))
+            pairs.append((skip_k, skip_p))
+        for a, b in pairs:
+            if a.numel():
+                err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+            if not torch.equal(a, b):
+                raise SystemExit(f"commit_wave disagrees with the wave loop on the {label} "
+                                 f"schedule (max err {err})")
+        ms = timed_ms(lambda: capture.real(src, km, kl, table, *args), 5)
+        plain_ms = timed_ms(lambda: wavefront.commit_wave_plain(src, pm, pl, table, *args), 2)
+        grid = wavefront.grid_of(table.max_n, table.max_tasks, 0)
+        barrier = statistics.median(wavefront.barrier_ms(grid, len(table.waves) - 1, dev)
+                                    for _ in range(3))
+        work = commit_wave_work(table, args[3], args[5] is not None)
+        b_ms, b_by = bound(work["bytes"], work["ops"])
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          barrier_ms=barrier, latency_bound_ms=max(b_ms, barrier))
+        log(json.dumps(dict(phase="commit_wave", schedule=label, waves=len(table.waves),
+                            tasks=len(table.tasks), max_tasks=table.max_tasks,
+                            max_n=table.max_n, grid=grid, rdoq=args[5] is not None,
+                            bytes=work["bytes"], ops=work["ops"],
+                            tasks_by_size={str(n): int(np.sum(table.decode()[0] == i))
+                                           for i, n in enumerate((8, 16, 32, 64))},
+                            **out[label])))
+    kernels.launches.clear()
+    kernels.launches.update(saved)
+    return out
 
 
 def main() -> int:
@@ -1479,8 +1589,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.lib()
     seconds["build"] = time.perf_counter() - t0
+    # per kernel entry: registers, spill store and load bytes, static shared bytes
     log(json.dumps(dict(phase="build", seconds=seconds["build"],
-                        nvcc_seconds=kernels.build_seconds, library=kernels.LIB)))
+                        nvcc_seconds=kernels.build_seconds, library=kernels.LIB,
+                        ptxas=kernels.ptxas_report())))
 
     def phase(name, fn, *args):
         t1 = time.perf_counter()
@@ -1488,12 +1600,20 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t1
         return out
 
+    capture = K16Capture()
     checks = phase("kernels", check_kernels, torch, dev)
     phase("conformance", conformance, torch)
+    capture.expect("fast")
     phase("fast", run_path, torch, "fast", FAST, 1, FAST_KERNELS, False)
+    capture.expect("key")
     phase("medium", run_path, torch, "medium", MEDIUM, 2, KEY_KERNELS, True)
+    capture.expect("P")
     launches = phase("low-delay GOP", run_gop, torch)
+    capture.expect("B")
     ra_launches = phase("random-access GOP", run_random_access, torch)
+    capture.expect(None)
+    k16 = phase("commit_wave", check_commit_wave, torch, capture)
+    checks["commit_wave"] = k16["P"]
     crf_launches = phase("CRF GOP", run_crf, torch)
     phase("VBR GOP", run_vbr, torch)
     phase("tiles", run_tiles, torch)
@@ -1514,10 +1634,14 @@ def main() -> int:
         used, path = ((crf_launches, "1080p CRF random-access GOP") if name in CRF_ONLY else
                       (ra_launches, "1080p random-access GOP") if name in RA_ONLY else
                       (launches, "1080p low-delay GOP"))
-        table.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                          launches=used[name], path=path,
-                          max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
-                          bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None))
+        row = dict(name=name, route="cuda", source=src, replaces=repl,
+                   launches=used[name], path=path,
+                   max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+                   bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None)
+        if name == "commit_wave":  # timed on a P frame's schedule of the main path
+            row.update(schedule="1080p P frame", barrier_ms=c["barrier_ms"],
+                       latency_bound_ms=c["latency_bound_ms"])
+        table.append(row)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1229,7 +1229,7 @@ class TileCodec:
             d.ref_frame, d.ref_frame1 = ref0, ref1
 
     # Compound_Mode_Ctx_Map (spec read_inter_compound_mode)
-    _COMP_MODE_CTX_MAP = ((0, 1, 1, 1, 1), (3, 4, 4, 4, 4), (6, 7, 7, 7, 7))
+    _COMP_MODE_CTX_MAP = ((0, 1, 1, 1, 1), (1, 2, 3, 4, 4), (4, 4, 5, 6, 7))
 
     def _code_comp_mode_mv(self, enc, dec, d, stack):
         """Compound inter mode + DRL + MV pair. The encoder emits NEW_NEWMV

@@ -1,0 +1,88 @@
+// K1's block body as device code: the thirteen key-frame AV1 intra
+// predictors of one n x n block from filled edges. K1 (intra_pred.cu) runs
+// it once per CTA; K16 (commit.cu) runs it for each task of a wave, so the
+// two predict bit-identically. See intra_pred.cu for what it replaces.
+#pragma once
+#include "common.cuh"
+
+// Extended edge sample k in [-1, 2n-1]: -1 is the top-left sample, indices
+// past the edge repeat its last sample (intra_device.py:80-81).
+static __device__ __forceinline__ int intra_ext(const int* E, int tl, int k, int n) {
+  return k < 0 ? tl : E[min(k, n - 1)];
+}
+
+// One directional sample at (i, j); dr = (dx, dy, zone) of the mode
+// (ops/intra.py dr_tables: zone 1 above only, zone 3 left only, zone 2 both).
+static __device__ __forceinline__ int intra_dr_sample(const int* A, const int* L, int tl, int n,
+                                                      const int* dr, int i, int j) {
+  const int dx = dr[0], dy = dr[1], zone = dr[2];
+  int v;
+  if (zone == 1) {
+    const int x = (i + 1) * dx, base = (x >> 6) + j, sh = (x & 0x3F) >> 1;
+    v = intra_ext(A, tl, base, n) * (32 - sh) + intra_ext(A, tl, base + 1, n) * sh;
+  } else if (zone == 3) {
+    const int y = (j + 1) * dy, base = (y >> 6) + i, sh = (y & 0x3F) >> 1;
+    v = intra_ext(L, tl, base, n) * (32 - sh) + intra_ext(L, tl, base + 1, n) * sh;
+  } else {
+    const int x = -(i + 1) * dx, base = (x >> 6) + j;
+    if (base >= -1) {
+      const int sh = (x & 0x3F) >> 1;
+      v = intra_ext(A, tl, base, n) * (32 - sh) + intra_ext(A, tl, base + 1, n) * sh;
+    } else {
+      const int y = (i << 6) - (j + 1) * dy, b2 = y >> 6, sh = (y & 0x3F) >> 1;
+      v = intra_ext(L, tl, b2, n) * (32 - sh) + intra_ext(L, tl, b2 + 1, n) * sh;
+    }
+  }
+  return (v + 16) >> 5;
+}
+
+// Predict one block with the whole CTA: mode >= 0 writes that mode's n*n
+// samples to o, mode < 0 all nmodes modes (nmodes*n*n, in MODES order).
+// A / L are the n above and left samples, t_l the top-left one. Ends
+// without a barrier: the caller syncs before reading o.
+static __device__ void intra_pred_block(const int* A, const int* L, int t_l, bool ha, bool hl,
+                                        int mode, const int* __restrict__ weights,
+                                        const int* __restrict__ dr, int* o, int n, int log2n,
+                                        int nmodes) {
+  __shared__ int s_dc;
+  if (threadIdx.x == 0) {
+    int sa = 0, sl = 0;
+    for (int i = 0; i < n; ++i) {
+      sa += A[i];
+      sl += L[i];
+    }
+    int dc = 128;
+    if (ha && hl) dc = (sa + sl + n) >> (log2n + 1);
+    else if (ha) dc = (sa + (n >> 1)) >> log2n;
+    else if (hl) dc = (sl + (n >> 1)) >> log2n;
+    s_dc = dc;
+  }
+  __syncthreads();
+  const int nn = n * n;
+  const int total = (mode >= 0 ? 1 : nmodes) * nn;
+  const int below = L[n - 1], right = A[n - 1];
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int m = mode >= 0 ? mode : idx / nn;
+    const int pix = idx - (mode >= 0 ? 0 : m * nn);
+    const int i = pix >> log2n, j = pix & (n - 1);
+    const int t = A[j], l = L[i];
+    const int wh = weights[i], ww = weights[j];
+    int v;
+    switch (m) {
+      case 0: v = s_dc; break;
+      case 1: v = t; break;
+      case 2: v = l; break;
+      case 3: v = (wh * t + (256 - wh) * below + ww * l + (256 - ww) * right + 256) >> 9; break;
+      case 4: v = (wh * t + (256 - wh) * below + 128) >> 8; break;
+      case 5: v = (ww * l + (256 - ww) * right + 128) >> 8; break;
+      case 6: {
+        const int base = t + l - t_l;
+        const int pt = abs(base - t), pl = abs(base - l), ptl = abs(base - t_l);
+        v = (pl <= pt && pl <= ptl) ? l : (pt <= ptl ? t : t_l);
+        break;
+      }
+      default: v = intra_dr_sample(A, L, t_l, n, dr + 3 * (m - 7), i, j);
+    }
+    o[idx] = v;
+  }
+}

@@ -412,7 +412,8 @@ class Decoder:
             from ..filters import dlf
 
             dlf.loop_filter_frame(recon, mi, fi.qindex, seq.bd, is_intra,
-                                  levels=fi.lf_levels, sharpness=fi.lf_sharpness)
+                                  levels=fi.lf_levels, sharpness=fi.lf_sharpness,
+                                  disp_dims=(seq.width, seq.height))
         # LR boundary rows come from the deblocked (pre-CDEF) frame
         deblock = [pl.copy() for pl in recon] if params.lr_active else None
         if self.seq.enable_cdef and (any(fi.cdef_y[0]) or any(fi.cdef_uv[0])):

@@ -1273,8 +1273,9 @@ int64_t ec_encode_tile_ops(Ec *e, TileParams *tp, const int32_t *ops, int64_t n_
                         ref_mv_idx = 0;
                         y_mode = mode;
                     }
+                    /* Compound_Mode_Ctx_Map (spec read_inter_compound_mode) */
                     static const int cmap[3][5] = {
-                        {0, 1, 1, 1, 1}, {3, 4, 4, 4, 4}, {6, 7, 7, 7, 7}};
+                        {0, 1, 1, 1, 1}, {1, 2, 3, 4, 4}, {4, 4, 5, 6, 7}};
                     int refmv_ctx = (stk.mode_context >> 4) & 15;
                     int newmv_ctx = stk.mode_context & 7;
                     int cctx = cmap[refmv_ctx >> 1][newmv_ctx < 4 ? newmv_ctx : 4];

@@ -237,6 +237,19 @@ def _filter_vertical_edges(plane: np.ndarray, flen: np.ndarray, lim: int, blim: 
             plane[:, target_cols] = np.where(m, vals, cur)
 
 
+def offscreen(n_rows: int, n_edges: int, cw: int, ch: int) -> np.ndarray:
+    """(n_rows, n_edges) bool: the 4-sample edge segments of a vertical-edge
+    map (edge k at plane column 4(k+1), segment j at plane rows 4j..4j+3)
+    that lie outside the displayed cw x ch plane samples. The spec filters
+    none of them (7.14.2 onScreen: x >= FrameWidth or y >= FrameHeight in
+    luma samples; libaom's set_lpf_parameters compares with the crop
+    width and height), though CDEF later reads their samples inside the
+    mi-aligned frame. The horizontal pass passes its transposed dims."""
+    x = 4 * np.arange(1, n_edges + 1)
+    y = 4 * np.arange(n_rows)
+    return (x[None, :] >= cw) | (y[:, None] >= ch)
+
+
 def _edge_maps_vertical(mi: MiState, plane: int, pw: int, ph: int, lvl: int) -> np.ndarray:
     """Filter-length map for vertical edges of one plane.
 
@@ -314,8 +327,10 @@ def _transposed_mi(mi: MiState) -> MiState:
 
 def loop_filter_frame(planes: list, mi: MiState, qindex: int, bd: int,
                       frame_is_intra: bool, levels: tuple | None = None,
-                      sharpness: int = 0) -> tuple:
-    """Apply the deblocking filter in place to [y, u, v]. Returns levels."""
+                      sharpness: int = 0, *, disp_dims: tuple) -> tuple:
+    """Apply the deblocking filter in place to [y, u, v]. Returns levels.
+    disp_dims = (width, height) of the displayed frame: edges outside it
+    stay unfiltered (`offscreen`)."""
     if levels is None:
         levels = pick_filter_levels(qindex, bd, frame_is_intra, planes[0].shape[0])
     if levels[0] == 0 and levels[1] == 0:
@@ -326,14 +341,18 @@ def loop_filter_frame(planes: list, mi: MiState, qindex: int, bd: int,
         lvl_h = levels[1] if plane == 0 else levels[plane + 1]
         pl = planes[plane]
         ph, pw = pl.shape
+        ss = 1 if plane else 0
+        cw, ch = (disp_dims[0] + ss) >> ss, (disp_dims[1] + ss) >> ss
         if lvl_v:
             lim, blim, thr = _limits(lvl_v, sharpness)
             flen = _edge_maps_vertical(mi, plane, pw, ph, lvl_v)
+            flen[offscreen(*flen.shape, cw, ch)] = 0
             _filter_vertical_edges(pl, flen, lim, blim, thr, bd)
         if lvl_h:
             lim, blim, thr = _limits(lvl_h, sharpness)
             plT = np.ascontiguousarray(pl.T)
             flen = _edge_maps_vertical(miT, plane, ph, pw, lvl_h)
+            flen[offscreen(*flen.shape, ch, cw)] = 0
             _filter_vertical_edges(plT, flen, lim, blim, thr, bd)
             pl[:] = plT.T
     return levels

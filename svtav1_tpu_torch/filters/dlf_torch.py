@@ -12,6 +12,7 @@ import torch
 
 from .. import kernels
 from .dlf import _limits  # noqa: F401 (re-exported: the filter limits of a level)
+from .dlf import offscreen
 
 
 def size_map_tx_w(size_map: np.ndarray, plane: int) -> np.ndarray:
@@ -23,12 +24,16 @@ def size_map_tx_w(size_map: np.ndarray, plane: int) -> np.ndarray:
     return np.clip(size_map.astype(np.int32) >> 1, 4, 32)
 
 
-def flen_maps_from_sizes(size_map: np.ndarray, plane: int, transpose: bool) -> np.ndarray:
+def flen_maps_from_sizes(size_map: np.ndarray, plane: int, transpose: bool,
+                         disp_dims: tuple) -> np.ndarray:
     """(F, mi4_rows, K) filter-length map for vertical edges (columns at
     x = 4(k+1) plane samples) of one plane, for ALL-INTRA frames.
 
     size_map: (F, R8, C8) luma block size per 8px cell. transpose=True
-    builds the map for the horizontal pass (rows/cols swapped)."""
+    builds the map for the horizontal pass (rows/cols swapped).
+    disp_dims = (width, height) of the displayed luma frame: the edge
+    segments outside it get length 0, as the spec leaves them unfiltered
+    (dlf.offscreen)."""
     sm = np.swapaxes(size_map, 1, 2) if transpose else size_map
     F, R8, C8 = sm.shape
     ss = 0 if plane == 0 else 1
@@ -51,7 +56,10 @@ def flen_maps_from_sizes(size_map: np.ndarray, plane: int, transpose: bool) -> n
         f = np.where(min_tw == 4, 4, 6)
     flen_band = np.where(is_tx_edge, f, 0).astype(np.int8)
     reps = (8 >> ss) // 4
-    return np.repeat(flen_band, reps, axis=1)[:, :n_rows]
+    flen = np.repeat(flen_band, reps, axis=1)[:, :n_rows]
+    cw, ch = ((d + ss) >> ss for d in disp_dims)
+    flen[:, offscreen(n_rows, K, *((ch, cw) if transpose else (cw, ch)))] = 0
+    return flen
 
 
 def filter_vertical_edges_plain(planes, flen4, lim: int, blim: int, thr: int, bd: int = 8):

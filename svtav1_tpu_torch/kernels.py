@@ -24,6 +24,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build")
 LIB = os.path.join(BUILD, "libsvtav1_torch_kernels.so")
+PTXAS_LOG = os.path.join(BUILD, "ptxas.txt")  # ptxas -v of the last build
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
@@ -44,6 +45,7 @@ KERNELS = {
     "tf_noise": ("tf.cu", "tf_noise_launch"),
     "subpel_refine": ("subpel.cu", "subpel_refine_launch"),
     "tpl_cost": ("txfm_quant_recon.cu", "tpl_cost_launch"),
+    "commit_wave": ("commit.cu", "commit_wave_launch"),
 }
 
 _P = ctypes.c_void_p
@@ -88,6 +90,13 @@ ARGTYPES = {
     # src, pred, tables, satd|NULL, err|NULL, recon|NULL, mode, L, rep, n, b0, b1, b2, sh_row,
     # sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
     "tpl_cost_launch": [_P] * 6 + [_I] * 14 + [_P],
+    # frame_desc, tasks, wave_start, nwaves, F, R8, C8, dq_dc, dq_ac, bd, rdoq, lam, max_n,
+    # grid, stream
+    "commit_wave_launch": [_P] * 3 + [_I] * 8 + [_F] + [_I] * 2 + [_P],
+    # max_n, max_tasks -> K16's grid (negative: a CUDA error)
+    "commit_wave_grid": [_I, _I],
+    # grid, nbarriers, stream: K16's grid barriers alone (chip_smoke.py's barrier cost)
+    "grid_sync_launch": [_I, _I, _P],
 }
 
 launches = {name: 0 for name in KERNELS}
@@ -115,7 +124,8 @@ def build() -> str:
     global build_seconds
     srcs = sorted({src for src, _ in KERNELS.values()})
     paths = [os.path.join(CSRC, s) for s in srcs]
-    newest = max(os.path.getmtime(p) for p in paths + [os.path.join(CSRC, "common.cuh")])
+    headers = [os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
+    newest = max(os.path.getmtime(p) for p in paths + headers)
     if os.path.exists(LIB) and os.path.getmtime(LIB) >= newest:
         return LIB
     t0 = time.perf_counter()
@@ -123,12 +133,13 @@ def build() -> str:
     os.makedirs(BUILD, exist_ok=True)
     tag = f"{os.getpid()}"
     objs = [os.path.join(BUILD, f"{os.path.splitext(s)[0]}.{tag}.o") for s in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", p, "-o", o],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", p, "-o", o],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for p, o in zip(paths, objs)]
-    errors = []
+    errors, logs = [], []
     for p, proc in zip(paths, procs):
         out, _ = proc.communicate()
+        logs.append(out)
         if proc.returncode:
             errors.append(f"{os.path.basename(p)}:\n{out}")
     if errors:
@@ -139,10 +150,43 @@ def build() -> str:
     if res.returncode:
         raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
     os.replace(tmp, LIB)
+    with open(PTXAS_LOG, "w") as f:
+        f.write("\n".join(logs))
     for o in objs:
         os.remove(o)
     build_seconds = time.perf_counter() - t0
     return LIB
+
+
+def ptxas_report() -> dict:
+    """{kernel entry: (registers, spill stores, spill loads, static shared
+    bytes)} from the last build's `ptxas -v` output ({} when the library
+    was not built by this checkout)."""
+    import re
+
+    if not os.path.exists(PTXAS_LOG):
+        return {}
+    out, entry = {}, None
+    for line in open(PTXAS_LOG):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kern = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E)?", name)
+            entry = name if not kern else kern.group(1) + (
+                "" if not kern.group(2) else "<true>" if kern.group(3) == "1" else "<false>")
+            out[entry] = [0, 0, 0, 0]
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[entry][1:3] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry][0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[entry][3] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def lib():

@@ -19,14 +19,17 @@ collide.
 Inter blocks need no neighbour recon: phase A codes every inter block of a
 size in one batch before the wavefront (K10 predicts Y, U and V from the
 reference stack, K11 the compound blocks' from their two references, then
-the same transform path as below) and writes its frontier cells; phase B,
-the wavefront, then runs only the waves that hold intra blocks.
+K2, with K5 between its halves when RDOQ is on) and writes its frontier
+cells; phase B, the wavefront, then runs only the waves that hold intra
+blocks.
 
-Per wave and size the device work is two kernels per plane group: K1
-predicts the chosen mode of every lane, K2 transforms, quantizes and
-reconstructs; with RDOQ on, K2 runs as its forward half, K5 optimizes the
-levels and K2's inverse half reconstructs. The gathers and frontier writes
-are plain PyTorch. Lanes are sized by exact counts (the host knows each
+Phase B runs in pipeline/wavefront.py: on the card one launch of K16
+commit_wave walks a wave-major task table with a grid barrier between
+waves; each task predicts its chosen mode (K1's device code), transforms,
+quantizes and reconstructs (K2's), with RDOQ (K5's) when on, and writes its
+frontier cells. Its plain version, the CPU path, is the wave loop of K1, K2
+and K5 batched by wave and size. Phase A's gathers and frontier writes are
+plain PyTorch. Lanes are sized by exact counts (the host knows each
 wave's lanes), so there are no pad lanes. The commit also leaves an 8x8
 skip map on the device for CDEF. The filters then run on the device: K4
 deblocking (with the frame-level luma level search), CDEF (K6 and K7, with
@@ -35,7 +38,6 @@ uint8 and fetched in one transfer.
 """
 from __future__ import annotations
 
-import functools
 import time
 
 import numpy as np
@@ -43,11 +45,10 @@ import torch
 
 from ..codec.tile_codec import (BlockDecision, FrameParams, Plan, chroma_tx_type,
                                 chroma_tx_type_inter, max_uv_txsize)
-from ..constants.av1 import MAX_TXSIZE_RECT
-from ..ops import transforms_torch as TT
 from ..utils import profiler
+from . import wavefront
 from .device_decide import MODES, SIZES, TX_SEARCH
-from .intra_device import BSIZE_BY_N, predict
+from .intra_device import BSIZE_BY_N
 
 
 def _build_schedule(leaves_per_frame, dec_per_frame, region):
@@ -188,44 +189,6 @@ def finish_levels(aux: dict) -> None:
     profiler.add("commit/unpack_plan", time.perf_counter() - _t_unpack)
 
 
-def _tx_lanes(tx_idx, ntypes: int):
-    """(v_adst, h_adst) of TX_SEARCH indices (DCT_DCT, ADST_ADST, ADST_DCT,
-    DCT_ADST); all DCT where the size has one type."""
-    if ntypes == 1:
-        z = torch.zeros(tx_idx.shape, dtype=torch.bool, device=tx_idx.device)
-        return z, z
-    return (tx_idx == 1) | (tx_idx == 2), (tx_idx == 1) | (tx_idx == 3)
-
-
-@functools.lru_cache(maxsize=None)
-def _rdoq_fns_cached(qctx: int, n: int, device: str):
-    from ..codec import rate_torch
-    from .device_decide import fc_for_qctx
-
-    fc = fc_for_qctx(qctx)
-    bsize = BSIZE_BY_N[n]
-    return (rate_torch.make_rdoq_fn(fc, int(MAX_TXSIZE_RECT[bsize]), 0, device=device),
-            rate_torch.make_rdoq_fn(fc, int(max_uv_txsize(bsize)), 1, txb_skip_ctx=7,
-                                    device=device))
-
-
-def _rdoq_fns(qctx: int, n: int, device):
-    """(luma, chroma) RDOQ tables of block size n, keyed on the
-    coefficient-CDF qindex bucket (reference device_commit._rdoq_fns)."""
-    return _rdoq_fns_cached(qctx, n, str(torch.device(device)))
-
-
-def _code(src, pred, va, ha, dq_dc: int, dq_ac: int, bd: int, rdoq_fn, lam):
-    """select_txfm + _quant_rdoq of the reference: (levels (L, adj, adj),
-    recon (L, n, n)); with rdoq_fn, K2's halves around K5, else fused K2."""
-    if rdoq_fn is None:
-        lv, rec, _ = TT.txfm_quant_recon(src, pred, va, ha, dq_dc, dq_ac, bd)
-        return lv, rec
-    lv, coeff = TT.txfm_quant(src, pred, va, ha, dq_dc, dq_ac, bd)
-    lv = rdoq_fn(lv, coeff, dq_dc, dq_ac, lam)
-    return lv, TT.recon_from_levels(lv, pred, va, ha, dq_dc, dq_ac, bd)
-
-
 def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
                    bd: int, dq, tx_ntypes: int, lam: float, rdoq_qctx: int | None = None,
                    refs=None, which: int = 0, ref_origin=(0, 0)):
@@ -234,7 +197,8 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
     stacks, by the lanes' ref index; F == 1; lanes with a second reference
     take the compound average of K11, launched on those lanes only, where
     the reference computes both predictions and selects), phase B runs the intra
-    wavefront over the waves that hold intra lanes, then recon and level
+    wavefront over the waves that hold intra lanes (wavefront.commit_wave:
+    K16 on the card), then recon and level
     assembly. src planes (F, H, W) on the device (the region's crop);
     ref_origin: the (y, x) luma coordinates of the region's origin in
     `refs`; rdoq_qctx: the coefficient-CDF bucket of
@@ -246,17 +210,16 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
     dev = src_y8.device
     F = src_y8.shape[0]
     AW, AH = C8 * 8, R8 * 8
-    base = 1 << (bd - 1)
     dq_dc, dq_ac = int(dq[0]), int(dq[1])
-    src = [src_y8.to(torch.int32), src_u8.to(torch.int32), src_v8.to(torch.int32)]
+    src = [p.to(torch.int32).contiguous() for p in (src_y8, src_u8, src_v8)]
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=dev)
 
     # frontier maps: bottom rows, right columns, per-cell corners per plane
-    bmap = [zeros(F, R8, AW), zeros(F, R8, AW // 2), zeros(F, R8, AW // 2)]
-    rmap = [zeros(F, C8, AH), zeros(F, C8, AH // 2), zeros(F, C8, AH // 2)]
-    cmap = [zeros(F, R8, C8), zeros(F, R8, C8), zeros(F, R8, C8)]
+    maps = ([zeros(F, R8, AW), zeros(F, R8, AW // 2), zeros(F, R8, AW // 2)],
+            [zeros(F, C8, AH), zeros(F, C8, AH // 2), zeros(F, C8, AH // 2)],
+            [zeros(F, R8, C8), zeros(F, R8, C8), zeros(F, R8, C8)])
     ar_cache = {m: torch.arange(m, device=dev) for m in (1, 2, 4, 8, 16, 32, 64)}
 
     lanes = {}
@@ -270,7 +233,7 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
             uv_tx=torch.as_tensor(s["uv_tx"], dtype=torch.int32, device=dev),
             ref=torch.as_tensor(s["ref"], dtype=torch.int32, device=dev),
             mv=torch.as_tensor(s["mv"], dtype=torch.int32, device=dev),
-            NI=int(s["NI"]), offsets=s["offsets"],
+            NI=int(s["NI"]),
             # the compound lanes (second reference >= 0) among the inter lanes
             cmp=np.nonzero(s["ref2"][: int(s["NI"])] >= 0)[0],
             ly=torch.empty((N, adj, adj), dtype=torch.int32, device=dev),
@@ -279,36 +242,6 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
             ry=torch.empty((N, n, n), dtype=torch.int32, device=dev),
             ru=torch.empty((N, nc, nc), dtype=torch.int32, device=dev),
             rv=torch.empty((N, nc, nc), dtype=torch.int32, device=dev))
-
-    def edges_from(pl, fidx, r8, c8, ha, hl, xx, yy, m):
-        ar_m = ar_cache[m]
-        rr = (r8 - 1).clamp(min=0)
-        cc = (c8 - 1).clamp(min=0)
-        ar = bmap[pl][fidx[:, None], rr[:, None], xx[:, None] + ar_m[None, :]]
-        lc = rmap[pl][fidx[:, None], cc[:, None], yy[:, None] + ar_m[None, :]]
-        tl = cmap[pl][fidx, rr, cc]
-        left_fill = torch.where(ha, ar[:, 0], base + 1)
-        above_fill = torch.where(hl, lc[:, 0], base - 1)
-        ar = torch.where(ha[:, None], ar, above_fill[:, None])
-        lc = torch.where(hl[:, None], lc, left_fill[:, None])
-        tl = torch.where(ha & hl, tl,
-                         torch.where(ha, ar[:, 0], torch.where(hl, lc[:, 0], base)))
-        return ar, lc, tl
-
-    def src_blocks(pl, fidx, xx, yy, m):
-        ar_m = ar_cache[m]
-        return src[pl][fidx[:, None, None], yy[:, None, None] + ar_m[None, :, None],
-                       xx[:, None, None] + ar_m[None, None, :]]
-
-    def frontier_write(pl, fidx, r8, c8, xx, yy, n8, rec, step):
-        m = rec.shape[-1]
-        ar_m = ar_cache[m]
-        bmap[pl][fidx[:, None], (r8 + n8 - 1)[:, None], xx[:, None] + ar_m[None, :]] = rec[:, -1, :]
-        rmap[pl][fidx[:, None], (c8 + n8 - 1)[:, None], yy[:, None] + ar_m[None, :]] = rec[:, :, -1]
-        ar8 = ar_cache[n8]
-        rr8 = r8[:, None, None] + ar8[None, :, None]
-        cc8 = c8[:, None, None] + ar8[None, None, :]
-        cmap[pl][fidx[:, None, None], rr8, cc8] = rec[:, step - 1::step, step - 1::step]
 
     def inter_step(n: int, NI: int):
         """Phase A: code this size's NI inter lanes in one batch."""
@@ -341,17 +274,19 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
                 puv[k * NI + ci] = me_torch.mc_lanes_compound(
                     refs[pl], ryc[ci], rxc[ci], m1[:, 0], m1[:, 1], m2[:, 0], m2[:, 1], nc, nc,
                     which, bd, r1, r2)
-        rq_y, rq_uv = _rdoq_fns(rdoq_qctx, n, dev) if rdoq_qctx is not None else (None, None)
-        va, hv = _tx_lanes(L["tx"][:NI], tx_ntypes if n <= 16 else 1)
-        lv_y, rec_y = _code(src_blocks(0, fidx, x, y, n), pred, va, hv, dq_dc, dq_ac, bd, rq_y,
-                            lam)
+        rq_y, rq_uv = (wavefront.rdoq_fns(rdoq_qctx, n, dev) if rdoq_qctx is not None
+                       else (None, None))
+        va, hv = wavefront.tx_lanes(L["tx"][:NI], tx_ntypes if n <= 16 else 1)
+        lv_y, rec_y = wavefront.code_blocks(wavefront.src_blocks(src[0], fidx, x, y, n), pred, va,
+                                            hv, dq_dc, dq_ac, bd, rq_y, lam)
         # inter chroma tx follows the effective luma type: DCT when the
         # quantized luma is all zero (tile_codec._chroma_tx_type)
         luma_zero = lv_y.abs().sum(dim=(1, 2)) == 0
         uv_tx = torch.where(luma_zero, 0, L["uv_tx"][:NI])
-        va, hv = _tx_lanes(torch.cat([uv_tx, uv_tx]), 4 if nc <= 16 else 1)
-        suv = torch.cat([src_blocks(1, fidx, xc, yc, nc), src_blocks(2, fidx, xc, yc, nc)])
-        lv_uv, rec_uv = _code(suv, puv, va, hv, dq_dc, dq_ac, bd, rq_uv, lam)
+        va, hv = wavefront.tx_lanes(torch.cat([uv_tx, uv_tx]), 4 if nc <= 16 else 1)
+        suv = torch.cat([wavefront.src_blocks(src[1], fidx, xc, yc, nc),
+                         wavefront.src_blocks(src[2], fidx, xc, yc, nc)])
+        lv_uv, rec_uv = wavefront.code_blocks(suv, puv, va, hv, dq_dc, dq_ac, bd, rq_uv, lam)
         rec_u, rec_v = rec_uv[:NI], rec_uv[NI:]
         L["ly"][:NI] = lv_y
         L["lu"][:NI] = lv_uv[:NI]
@@ -359,48 +294,9 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
         L["ry"][:NI] = rec_y
         L["ru"][:NI] = rec_u
         L["rv"][:NI] = rec_v
-        frontier_write(0, fidx, r8, c8, x, y, n8, rec_y, 8)
-        frontier_write(1, fidx, r8, c8, xc, yc, n8, rec_u, 4)
-        frontier_write(2, fidx, r8, c8, xc, yc, n8, rec_v, 4)
-
-    def wave_step(n: int, a: int, b: int):
-        L = lanes[n]
-        n8, nc = n // 8, n // 2
-        cnt = b - a
-        rc = L["coords"][a:b]
-        fidx, r8, c8 = rc[:, 0], rc[:, 1], rc[:, 2]
-        mode = L["mode"][a:b]
-        x, y = c8 * 8, r8 * 8
-        ha, hl = r8 > 0, c8 > 0
-        # luma: K1 predicts the chosen mode of every lane, K2 codes it
-        ar, lc, tl = edges_from(0, fidx, r8, c8, ha, hl, x, y, n)
-        pred = predict(ar, lc, tl, ha, hl, n, mode=mode)
-        rq_y, rq_uv = _rdoq_fns(rdoq_qctx, n, dev) if rdoq_qctx is not None else (None, None)
-        va, hv = _tx_lanes(L["tx"][a:b], tx_ntypes if n <= 16 else 1)
-        lv_y, rec_y = _code(src_blocks(0, fidx, x, y, n), pred, va, hv, dq_dc, dq_ac, bd, rq_y,
-                            lam)
-        # chroma (uv_mode = y mode; tx type derived per mode): u and v are
-        # stacked into one 2*cnt-lane batch
-        xc, yc = x // 2, y // 2
-        eu = edges_from(1, fidx, r8, c8, ha, hl, xc, yc, nc)
-        ev = edges_from(2, fidx, r8, c8, ha, hl, xc, yc, nc)
-        puv = predict(torch.cat([eu[0], ev[0]]), torch.cat([eu[1], ev[1]]),
-                      torch.cat([eu[2], ev[2]]), torch.cat([ha, ha]), torch.cat([hl, hl]), nc,
-                      mode=torch.cat([mode, mode]))
-        suv = torch.cat([src_blocks(1, fidx, xc, yc, nc), src_blocks(2, fidx, xc, yc, nc)])
-        uv_tx = L["uv_tx"][a:b]
-        va, hv = _tx_lanes(torch.cat([uv_tx, uv_tx]), 4 if nc <= 16 else 1)
-        lv_uv, rec_uv = _code(suv, puv, va, hv, dq_dc, dq_ac, bd, rq_uv, lam)
-        rec_u, rec_v = rec_uv[:cnt], rec_uv[cnt:]
-        L["ly"][a:b] = lv_y
-        L["lu"][a:b] = lv_uv[:cnt]
-        L["lv"][a:b] = lv_uv[cnt:]
-        L["ry"][a:b] = rec_y
-        L["ru"][a:b] = rec_u
-        L["rv"][a:b] = rec_v
-        frontier_write(0, fidx, r8, c8, x, y, n8, rec_y, 8)
-        frontier_write(1, fidx, r8, c8, xc, yc, n8, rec_u, 4)
-        frontier_write(2, fidx, r8, c8, xc, yc, n8, rec_v, 4)
+        wavefront.frontier_write(maps, 0, fidx, r8, c8, x, y, n8, rec_y, 8)
+        wavefront.frontier_write(maps, 1, fidx, r8, c8, xc, yc, n8, rec_u, 4)
+        wavefront.frontier_write(maps, 2, fidx, r8, c8, xc, yc, n8, rec_v, 4)
 
     t0 = time.perf_counter()
     for n, L in lanes.items():
@@ -410,20 +306,17 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
             inter_step(n, L["NI"])
     if refs is not None:
         profiler.add("commit/phase_a", time.perf_counter() - t0)
-    # phase B: the intra lanes sit after the NI inter lanes, by wave
-    waves = sorted(set().union(*[np.nonzero(np.diff(L["offsets"]))[0].tolist()
-                                 for L in lanes.values()]))
-    for w in waves:
-        t0 = time.perf_counter()
-        busy = False
-        for n, L in lanes.items():
-            offs, NI = L["offsets"], L["NI"]
-            a, b = NI + int(offs[w]), NI + int(offs[w + 1])
-            if b > a:
-                wave_step(n, a, b)
-                busy = True
-        if busy:  # counts of "commit/wave" are the waves with work
-            profiler.add("commit/wave", time.perf_counter() - t0)
+    # phase B: the intra lanes, after the NI inter lanes of each size, by
+    # wave: K16 in one launch on the card (the host time of building the
+    # task table and launching; the card's time lands in the fetch that
+    # waits on it)
+    t0 = time.perf_counter()
+    table = wavefront.wave_tasks(sched)
+    if len(table.waves):
+        wavefront.commit_wave(src, maps, lanes, table, dq_dc, dq_ac, bd, tx_ntypes, lam,
+                              rdoq_qctx)
+        profiler.add("commit/phase_b", time.perf_counter() - t0)
+        profiler.count("commit/waves", len(table.waves))
 
     # assemble recon planes (one index write per size/plane), the skip map,
     # and pack levels
@@ -723,8 +616,9 @@ def encode_intra_frames(src_frames: list, params: FrameParams, device,
             levels = (dlf_mod.pick_filter_levels(p.qindex, p.bd, True, p.height)
                       if enable_dlf else (0, 0, 0, 0))
             sm = _size_maps(leaves_all, F, ah // 8, aw // 8)
-            flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr),
-                                     dtype=torch.int32, device=ry.device)
+            flens = [torch.as_tensor(
+                dlf_torch.flen_maps_from_sizes(sm, plane, tr, (p.width, p.height)),
+                dtype=torch.int32, device=ry.device)
                      for plane in range(3) for tr in (False, True)]
             damping = cdef_mod.pick_damping(p.qindex)
             lf_search = _lf_candidates(levels[0]) if p.sf_dlf_search else ()

@@ -448,7 +448,7 @@ def inter_start_commit(pend: PendingInter, enable_dlf: bool = True, enable_cdef:
     with profiler.stage("filter"):
         levels = p.lf_levels if (enable_dlf and any(p.lf_levels)) else (0, 0, 0, 0)
         sm = device_commit._size_maps([leaves], 1, ah // 8, aw // 8)
-        flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr),
+        flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr, (p.width, p.height)),
                                  dtype=torch.int32, device=ry.device)
                  for plane in range(3) for tr in (False, True)]
         damping = cdef_mod.pick_damping(p.qindex)

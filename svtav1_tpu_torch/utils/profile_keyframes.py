@@ -16,7 +16,7 @@ device-side kernel and copy time of the traced frames, one stream, over the
 untraced wall time), device milliseconds per frame of the busiest device
 functions, host seconds per frame of each pipeline stage (utils.profiler,
 untraced; for inter frames tf, gm, decide, partition_dp, commit/device
-with its commit/phase_a and commit/wave parts, filter, entropy_walk, and the
+with its commit/phase_a and commit/phase_b parts, filter, entropy_walk, and the
 transfers), per stage (tf, decide, commit, filter) the launches of each kernel
 and the sum of their bounds (the least time the card could take for each
 launch's work, from its arguments), and the card's name and power limit.
@@ -160,6 +160,41 @@ def bound_ms(nbytes: float, ops: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
 
 
+def commit_wave_work(table, tx_ntypes: int, rdoq: bool) -> dict:
+    """The work of K16 on a phase-B task table (pipeline.wavefront): `bytes`,
+    what K16 itself moves per task (its code, mode and tx read, the source
+    block and the edges read, the levels and the recon written, and the
+    frontier cells written: the bottom row, the right column and one corner
+    per 8x8 luma cell; the prediction, coefficients and levels between
+    steps stay in shared memory), `ops`, the int32 operations of the K1,
+    K2 and K5 work of its lanes (launch_bound's counts), and `bound_ms`."""
+    import numpy as np
+
+    from ..pipeline.device_decide import SIZES
+
+    si, pl, _lane = table.decode()
+    nbytes = ops = 0
+    for s, n in enumerate(SIZES):
+        for chroma in (False, True):
+            sel = (si == s) & ((pl > 0) == chroma)
+            L = int(sel.sum())
+            if not L:
+                continue
+            m = n // 2 if chroma else n
+            adj = min(m, 32)
+            n8 = n // 8
+            ntypes = (4 if m <= 16 else 1) if chroma else (tx_ntypes if n <= 16 else 1)
+            tx = table.tx[sel]
+            nva = int(np.isin(tx, (1, 2)).sum()) if ntypes > 1 else 0
+            nha = int(np.isin(tx, (1, 3)).sum()) if ntypes > 1 else 0
+            nbytes += L * (3 * 4 + m * m * 4 + (2 * m + 1) * 4 + adj * adj * 4 + m * m * 4
+                           + (2 * m + n8 * n8) * 4)
+            ops += L * m * m * 10 + k2_ops(m, L, nva, nha)
+            if rdoq:
+                ops += L * adj * adj * 80
+    return dict(bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops))
+
+
 def count_launches(fn, default: str = "other"):
     """Run fn() with every kernel launch recorded against the pipeline stage
     (decide, commit, filter, tf or tpl) it belongs to, and a launch outside
@@ -168,24 +203,33 @@ def count_launches(fn, default: str = "other"):
     from .. import kernels
     from ..ops import tf_torch
     from ..ops import transforms_torch as TT
-    from ..pipeline import device_commit, device_decide, inter_device, tpl
+    from ..pipeline import device_commit, device_decide, inter_device, tpl, wavefront
 
     current = [default]
     out: dict = {}
     real_launch = kernels.launch
     real_k2 = TT._launch
+    real_k16 = wavefront.commit_wave
     k2_adst = [None]
+    k16_bound = [0.0]
 
     def k2_launch(stage, src, pred, v_adst, h_adst, *rest):
         # the launch's DCT/ADST split, for its bound (a sync: untimed run)
         k2_adst[0] = (int(v_adst.sum()), int(h_adst.sum()))
         real_k2(stage, src, pred, v_adst, h_adst, *rest)
 
+    def k16(src, maps, lanes, table, dq_dc, dq_ac, bd, tx_ntypes, lam, rdoq_qctx, **kw):
+        # K16's bound, from the task table
+        k16_bound[0] = commit_wave_work(table, tx_ntypes, rdoq_qctx is not None)["bound_ms"]
+        return real_k16(src, maps, lanes, table, dq_dc, dq_ac, bd, tx_ntypes, lam, rdoq_qctx,
+                        **kw)
+
     def launch(name, *args):
         real_launch(name, *args)
         rec = out.setdefault(current[0], {}).setdefault(name, [0, 0.0])
         rec[0] += 1
-        rec[1] += bound_ms(*launch_bound(name, args, k2_adst[0]))
+        rec[1] += (k16_bound[0] if name == "commit_wave"
+                   else bound_ms(*launch_bound(name, args, k2_adst[0])))
 
     def staged(stage, f):
         def run(*a, **k):
@@ -202,6 +246,7 @@ def count_launches(fn, default: str = "other"):
     originals = [getattr(m, a) for m, a in saved]
     kernels.launch = launch
     TT._launch = k2_launch
+    wavefront.commit_wave = k16
     for (m, a), f, stage in zip(saved, originals,
                                 ("decide", "decide", "commit", "filter", "tf", "tpl")):
         setattr(m, a, staged(stage, f))
@@ -210,6 +255,7 @@ def count_launches(fn, default: str = "other"):
     finally:
         kernels.launch = real_launch
         TT._launch = real_k2
+        wavefront.commit_wave = real_k16
         for (m, a), f in zip(saved, originals):
             setattr(m, a, f)
     return out
@@ -287,7 +333,7 @@ def main() -> int:
     profiler.reset()
     wall = encode_all()
     stages = {k: v / n for k, v in profiler.report().items()}
-    waves = profiler.counts().get("commit/wave", 0) / n
+    waves = profiler.counts().get("commit/waves", 0) / n
     prepare()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_wall = encode_all()

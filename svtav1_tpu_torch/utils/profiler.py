@@ -32,6 +32,12 @@ def add(name: str, seconds: float) -> None:
     _cnt[name] += 1
 
 
+def count(name: str, k: int) -> None:
+    """Add k to the count of `name` (events without a time of their own,
+    such as the waves of a commit)."""
+    _cnt[name] += k
+
+
 def report() -> dict:
     return {k: round(v, 4) for k, v in sorted(_acc.items(), key=lambda kv: -kv[1])}
 

@@ -32,7 +32,7 @@ def test_plain_matches_jax(plane, level, bd):
     lim, blim, thr = port._limits(level, 0)
     for transpose in (False, True):
         flen_ref = ref.flen_maps_from_sizes(sm, plane, transpose)
-        flen = port.flen_maps_from_sizes(sm, plane, transpose)
+        flen = port.flen_maps_from_sizes(sm, plane, transpose, (C8 * 8, R8 * 8))
         np.testing.assert_array_equal(flen, flen_ref)
         # luma edges take 8 and 14 taps, chroma edges 4 and 6
         assert set(np.unique(flen)) >= ({0, 8, 14} if plane == 0 else {0, 4, 6})

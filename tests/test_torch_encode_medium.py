@@ -2,13 +2,16 @@
 (plain versions of the kernels) against the JAX package's device path: 13
 intra modes, the luma tx-type search, RDOQ, the DLF level search and the
 7-candidate CDEF search. Identical TUs and recon, and the port's decoder
-reproduces the recon; slow codes key frames like medium."""
+and libaom reproduce the recon (the reference with the spec's deblocking
+rule at the display edge, torch_encode_parity); a 202x122 clip whose
+display edge once decoded otherwise in libaom; slow codes key frames like
+medium."""
 import numpy as np
 import pytest
 
 from svtav1_tpu_torch.pipeline import encoder as port_enc
 from svtav1_tpu_torch.utils.testclip import make_frames
-from torch_encode_parity import matches_jax_and_decodes
+from torch_encode_parity import encode_all, matches_jax_and_decodes, packets_decode
 
 MEDIUM = dict(qindex=120, keyint=1, preset="medium")
 
@@ -16,6 +19,17 @@ MEDIUM = dict(qindex=120, keyint=1, preset="medium")
 @pytest.mark.parametrize("size", [(128, 96), (202, 122)])
 def test_medium_matches_jax_and_decodes(size):
     matches_jax_and_decodes(*size, MEDIUM)
+
+
+def test_display_edge_deblocking_decodes_in_libaom():
+    """202x122 key frames of the clip with seed 3, port only: deblocking
+    leaves the edge segments outside the displayed frame unfiltered (spec
+    7.14.2), so CDEF in the last 8x8 column and row reads the samples that
+    libaom reads (the luma at (112, 200) of frame 0 once differed), and
+    both decoders reproduce the recon."""
+    frames = make_frames(202, 122, 2, seed=3)
+    enc = port_enc.Encoder(port_enc.EncoderConfig(202, 122, **MEDIUM), device="cpu")
+    packets_decode(encode_all(enc, frames), frames)
 
 
 def test_slow_codes_key_frames_like_medium():

@@ -3,8 +3,10 @@ the kernels) against the JAX package's device path: a key frame and a
 4-frame hierarchical-B mini-GoP (keyint=8, minigop=4: the hidden anchor 4,
 then 2, 1 and 3 with LAST, GOLDEN and ALTREF references, compound
 NEW_NEWMV candidates, show-existing TUs) at the default medium preset give
-identical TUs and recon in coding order, and the port's decoder reproduces
-every recon and displays every frame. With MCTF the key frame and the
+identical recon in coding order, identical TUs where a TU codes no
+compound block (the compound-mode context map differs, ROADMAP queue 3),
+the port's decoder reproduces every recon and displays every frame, and
+libaom decodes the port's TUs to the shown frames. With MCTF the key frame and the
 anchor are temporally filtered first (at qindex 100 one sample of the
 filtered anchor lies exactly on a rounding half, test_torch_tf.py). All
 random-access encodes sit in this file, so that their JAX programs compile
@@ -17,7 +19,7 @@ from svtav1_tpu_torch.decode.decoder import Decoder
 from svtav1_tpu_torch.pipeline import device_commit
 from svtav1_tpu_torch.pipeline import encoder as port_enc
 from svtav1_tpu_torch.utils.testclip import make_frames
-from torch_encode_parity import gop_matches_jax_and_decodes
+from torch_encode_parity import check_libaom, displayed, gop_matches_jax_and_decodes
 
 RA = dict(qindex=100, keyint=8, minigop=4, preset="medium")
 
@@ -41,8 +43,10 @@ def test_deblocking_level_zero_frame_decodes(monkeypatch):
     """The same mini-GoP at qindex 100, port only: the DLF search of frame
     5 picks luma level 0, so its header codes no chroma level and a decoder
     filters no plane. The port then leaves the chroma unfiltered too, and
-    every TU decodes to the encoder's recon; the reference filters that
-    chroma and its stream does not (ROADMAP queue 3)."""
+    every TU decodes to the encoder's recon, in the port's decoder and in
+    libaom; the reference filters that chroma and its stream does not
+    (ROADMAP queue 3). The mini-GoP's B frames code compound blocks, whose
+    mode symbols need the spec's context map to decode in libaom."""
     picks = []
     real = device_commit._filter_device
 
@@ -58,12 +62,17 @@ def test_deblocking_level_zero_frame_decodes(monkeypatch):
     pkts = [p for f in make_frames(w, h, 9) for p in enc.send_frame(*f)] + enc.flush()
     assert 0 in picks[1:], picks
     dec = Decoder()
+    recon_of, shown = {}, []
     for p in pkts:
         _, _, _, drec = dec.decode_tu(p.tu)
         if p.recon is not None:
             for i in range(3):
                 np.testing.assert_array_equal(drec[i], p.recon[i],
                                               err_msg=f"frame {p.disp_idx} plane {i}")
+            recon_of[p.disp_idx] = p.recon
+        if p.shown_disp_idx is not None:
+            shown.append(displayed(recon_of[p.shown_disp_idx], w, h))
+    check_libaom([p.tu for p in pkts], shown)
 
 
 @pytest.mark.parametrize("minigop", [3, 16])

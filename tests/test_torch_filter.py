@@ -47,8 +47,8 @@ def test_filter_device_matches_jax(size, enable_cdef, cdef_cands):
         jnp.asarray(np.concatenate([f.ravel() for f in flens])), levels, 0, 8, damping,
         enable_cdef, tuple(f.shape for f in flens), disp_dims=(w - 6, h - 2),
         cdef_cands=cdef_cands, lf_search=lf_search)
-    pflens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr), dtype=torch.int32)
-              for plane in range(3) for tr in (False, True)]
+    pflens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr, (w, h)),
+                              dtype=torch.int32) for plane in range(3) for tr in (False, True)]
     packed, stats, planes = port._filter_device(
         *(torch.from_numpy(p) for p in rec), torch.from_numpy(src_y), torch.from_numpy(skip8),
         pflens, levels, 0, 8, damping, enable_cdef, disp_dims=(w - 6, h - 2),
@@ -71,8 +71,8 @@ def test_luma_level_zero_leaves_chroma_unfiltered():
     rec[0][0] = src_y[0]  # frame 0: the unfiltered luma is the source, level 0 wins
     levels = tuple(dlf.pick_filter_levels(120, 8, True, h))
     lf_search = port._lf_candidates(levels[0])
-    flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr), dtype=torch.int32)
-             for plane in range(3) for tr in (False, True)]
+    flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr, (w, h)),
+                             dtype=torch.int32) for plane in range(3) for tr in (False, True)]
     args = [torch.from_numpy(p) for p in rec] + [torch.from_numpy(src_y), torch.from_numpy(skip8),
                                                  flens]
     _, stats, planes = port._filter_device(*args, levels, 0, 8, 5, False, lf_search=lf_search)
