@@ -12,8 +12,9 @@ Phases, each fatal on failure:
      K11 at every block size of the commit, 8x8 to 64x64; K14 and K15 at
      the TPL shapes of a 1088x1920 frame, K15 at qindex 120 and 255; K8
      with a reference wider than the source at the 1920x1024 tile GOP's
-     tile shape, 1024x960 against 1024x1216 with ref_off_x=128), and time
-     both;
+     tile shape, 1024x960 against 1024x1216 with ref_off_x=128; K2 also at
+     the decide's 16x16 shape, K3 also on 16x16 luma and the decide's
+     chroma sizes), and time both;
   3. conformance: encode a CIF key frame on the card at the fast preset
      without CDEF and one at the default medium preset, a 3-frame CIF GOP
      (a key frame and 2 P frames, keyint=6) at medium, and CIF
@@ -59,7 +60,14 @@ Phases, each fatal on failure:
      K1, K2 and K5 run from the same state and must give the same levels,
      recon, frontier maps and skip map; both phase-B times of this call,
      the waves, K16's grid, and the grid barriers alone at that grid and
-     barrier count (`commit_wave` lines);
+     barrier count (`commit_wave` lines); then the decide capture: every K2
+     and K3 launch of the decide and commit phase A of a 1080p medium key
+     frame and the first P frame of the main path (a fresh encoder, 2
+     frames), each replayed on a copy of its inputs through the kernel and
+     its plain version (K2 exact, K3 within the tolerance above) and timed,
+     its bound from its arguments: per frame the launches, summed ms and
+     bounds of each kernel, and per distinct launch shape
+     (`decide_capture` lines);
   5. tiles: a 256x64 GOP (a key frame and 2 P frames in two tile columns)
      through parallel.tiles' encoders on the card and with the plain
      versions on the CPU, byte for byte, decoded bit-exactly; the 8-tile
@@ -77,7 +85,13 @@ Phases, each fatal on failure:
 
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
+     python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
+also times phase 2's K2 and K3 cases and every captured launch through a
+kernel library built from another checkout with the same C entry points
+(the parent commit's, after its own chip_smoke.py run built it), on the
+same inputs, and holds its results equal too (`baseline_ms`).
 """
+import contextlib
 import functools
 import json
 import os
@@ -170,16 +184,104 @@ def timed_ms(fn, reps):
     return statistics.median(out)
 
 
+def device_ms(fn, reps=20):
+    """Device ms per call: `reps` calls captured in one CUDA graph and the
+    graph replayed between CUDA events (median of 3), so that no host time
+    sits between the launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
 def bound(nbytes, ops):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k3_close(name, a, b):
+    """K3's bits against the plain version's: rtol 1e-5, atol 1e-3 bits (the
+    float32 sums run in another order). Returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    diff = (a - b).abs()
+    err = float(diff.max().item()) if diff.numel() else 0.0
+    if not bool((diff <= 1e-3 + 1e-5 * b.abs()).all()):
+        raise SystemExit(f"{name}: kernel disagrees with its plain version (max err {err})")
+    return err
+
+
+BASELINE = []  # [the ctypes handle of --baseline-lib] when the option is given
+
+
+def load_baseline(path):
+    """A kernel library built from another checkout (the parent commit's
+    build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
+    kernels.lib() binds its own: K2 and K3 are also timed through it, on the
+    same inputs, and must give the same results."""
+    import ctypes
+
+    from svtav1_tpu_torch import kernels
+
+    handle = ctypes.CDLL(os.path.abspath(path))
+    for fn, argtypes in kernels.ARGTYPES.items():
+        f = getattr(handle, fn, None)
+        if f is not None:
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+    BASELINE.append(handle)
+
+
+@contextlib.contextmanager
+def baseline_kernels():
+    """Route kernels.launch to the baseline library inside the block."""
+    from svtav1_tpu_torch import kernels
+
+    kernels.lib()
+    saved = kernels._lib
+    kernels._lib = BASELINE[0]
+    try:
+        yield
+    finally:
+        kernels._lib = saved
+
+
+def kernel_times(fn, same, reps):
+    """K2's and K3's extra times: `device_ms` (device_ms()), and with
+    --baseline-lib, after `same` holds the baseline library's result against
+    this checkout's, `baseline_ms` (timed_ms(), as `ms`) and
+    `baseline_device_ms` through it."""
+    out = dict(device_ms=device_ms(fn, reps))
+    if BASELINE:
+        with baseline_kernels():
+            same(fn())
+            out.update(baseline_ms=timed_ms(fn, reps), baseline_device_ms=device_ms(fn, reps))
+    return out
 
 
 def check_kernels(torch, dev):
     """Phase 2. Returns {kernel: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
     import numpy as np
 
+    from svtav1_tpu_torch import kernels
     from svtav1_tpu_torch.codec import rate_torch
+    from svtav1_tpu_torch.codec.tile_codec import max_uv_txsize
     from svtav1_tpu_torch.constants.av1 import MAX_TXSIZE_RECT, TxSize, TxType
     from svtav1_tpu_torch.constants.cdf import get_q_ctx
     from svtav1_tpu_torch.filters import cdef_torch, dlf_torch
@@ -249,15 +351,15 @@ def check_kernels(torch, dev):
         lane runs the DCT or ADST networks that its flags pick."""
         return k2_ops(n, L, int(va.sum().item()), int(ha.sum().item()), forward, inverse)
 
-    def k2_case(n, L, rep, flags, want_recon, want_sse, main=False, reps=20):
+    def k2_case(n, L, rep, flags, want_recon, want_sse, main=False, reps=20, rng=g):
         """One K2 shape: kernel == plain, both timed; returns the levels."""
-        src = t(g.integers(0, 256, (L // rep, n, n)))
-        pred = (src.repeat_interleave(rep, 0) + t(g.integers(-30, 31, (L, n, n)))).clamp(0, 255) \
-            .to(torch.int32).contiguous()
+        src = t(rng.integers(0, 256, (L // rep, n, n)))
+        pred = (src.repeat_interleave(rep, 0) + t(rng.integers(-30, 31, (L, n, n)))) \
+            .clamp(0, 255).to(torch.int32).contiguous()
         if flags == "dct":
             va, ha = TT.tx_flags(int(TxType.DCT_DCT), L, dev)
         else:
-            va, ha = t(g.random(L) < 0.5, torch.bool), t(g.random(L) < 0.5, torch.bool)
+            va, ha = t(rng.random(L) < 0.5, torch.bool), t(rng.random(L) < 0.5, torch.bool)
         args = (src, pred, va, ha, dq[0], dq[1], 8)
         kw = dict(rep=rep, want_recon=want_recon, want_sse=want_sse)
         out_k = TT.txfm_quant_recon(*args, **kw)
@@ -269,15 +371,24 @@ def check_kernels(torch, dev):
         adj = min(n, 32)
         nbytes = (L // rep + L) * n * n * 4 + L * adj * adj * 4 + \
             (L * n * n * 4 if want_recon else 0) + (8 * L if want_sse else 0) + 2 * L
+
+        def same(out_b):
+            for a, b in zip(out_b, out_p):
+                if a is not None:
+                    assert_equal("txfm_quant_recon (baseline)", a, b)
+
         record("txfm_quant_recon", [L, n, n, rep, flags], err,
                timed_ms(lambda: TT.txfm_quant_recon(*args, **kw), reps),
                timed_ms(lambda: TT.txfm_quant_recon_plain(*args, **kw), 3), nbytes,
-               k2_ops_of(n, L, va, ha), main=main)
+               k2_ops_of(n, L, va, ha), main=main,
+               **kernel_times(lambda: TT.txfm_quant_recon(*args, **kw), same, reps))
         return out_k[0]
 
     lv8 = k2_case(8, B * 13, 13, "dct", False, True, main=True)
     k2_case(64, 16 * 30 * 13, 13, "dct", False, True)
     lv32 = k2_case(32, 33 * 60 * 13, 13, "dct", False, True)
+    # decide n=16 (its own generator: the cases after it keep their inputs)
+    lv16 = k2_case(16, 67 * 120 * 13, 13, "dct", False, True, rng=np.random.default_rng(16))
     k2_case(8, B, 1, "sel", False, True)           # decide tx search, one type
     k2_case(8, R8, 1, "sel", True, False)          # commit luma wave, RDOQ off
     k2_case(4, 2 * R8, 1, "sel", True, False)      # commit chroma wave (ADST4)
@@ -314,33 +425,79 @@ def check_kernels(torch, dev):
                timed_ms(lambda: TT.txfm_quant(*args), 20),
                timed_ms(lambda: TT.txfm_quant_plain(*args), 3),
                2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L,
-               k2_ops_of(n, L, va, ha, inverse=False))
+               k2_ops_of(n, L, va, ha, inverse=False),
+               **kernel_times(lambda: TT.txfm_quant(*args),
+                              lambda o: [assert_equal("txfm_quant_recon (baseline)", a, b)
+                                         for a, b in zip(o, (lp, cp))], 20))
         inv = (lk, pred, va, ha, dq[0], dq[1], 8)
-        err = assert_equal("txfm_quant_recon", TT.recon_from_levels(*inv),
-                           TT.recon_from_levels_plain(*inv))
+        rp = TT.recon_from_levels_plain(*inv)
+        err = assert_equal("txfm_quant_recon", TT.recon_from_levels(*inv), rp)
         record("txfm_quant_recon", [L, n, n, "inverse half", flags], err,
                timed_ms(lambda: TT.recon_from_levels(*inv), 20),
                timed_ms(lambda: TT.recon_from_levels_plain(*inv), 3),
                L * adj * adj * 4 + 2 * L * n * n * 4 + 2 * L,
-               k2_ops_of(n, L, va, ha, forward=False))
+               k2_ops_of(n, L, va, ha, forward=False),
+               **kernel_times(lambda: TT.recon_from_levels(*inv),
+                              lambda o: assert_equal("txfm_quant_recon (baseline)", o, rp), 20))
         halves[(n, L)] = (lk, ck, main)
 
-    # ---- K3 txb_rate on real levels: 8x8 (decide n=8) and 32x32
-    for n, lv, main in ((8, lv8, True), (32, lv32, False)):
-        tx = int(MAX_TXSIZE_RECT[BSIZE_BY_N[n]])
-        tabs = rate_torch.make_txb_bits_fn(fc, tx, int(TxType.DCT_DCT), 0, device=dev)
+    # ---- K3 txb_rate on real levels: 8x8 (decide n=8), 32x32 and 16x16
+    # luma; the decide's chroma sizes (u and v lanes of n/2) on K2's levels
+    def k3_case(lv, tabs, label, main=False):
         a = rate_torch.txb_bits(lv, tabs)
         b = rate_torch.txb_bits_plain(lv, tabs)
-        torch.cuda.synchronize()
-        diff = (a - b).abs()
-        err = float(diff.max().item())
-        if not bool((diff <= 1e-3 + 1e-5 * b.abs()).all()):
-            raise SystemExit(f"txb_rate: kernel disagrees with its plain version (max err {err})")
+        err = k3_close("txb_rate", a, b)
         L, nn = lv.shape[0], lv.shape[1] * lv.shape[2]
-        record("txb_rate", [L, lv.shape[1], lv.shape[2]], err,
+        record("txb_rate", [L, lv.shape[1], lv.shape[2]] + label, err,
                timed_ms(lambda: rate_torch.txb_bits(lv, tabs), 20),
                timed_ms(lambda: rate_torch.txb_bits_plain(lv, tabs), 3),
-               nbytes=L * nn * 4 + L * 4, ops=L * nn * 30, main=main)
+               nbytes=L * nn * 4 + L * 4, ops=L * nn * 30, main=main,
+               **kernel_times(lambda: rate_torch.txb_bits(lv, tabs),
+                              lambda o: k3_close("txb_rate (baseline)", o, b), 20))
+
+    for n, lv, main in ((8, lv8, True), (32, lv32, False), (16, lv16, False)):
+        tx = int(MAX_TXSIZE_RECT[BSIZE_BY_N[n]])
+        k3_case(lv, rate_torch.make_txb_bits_fn(fc, tx, int(TxType.DCT_DCT), 0, device=dev), [],
+                main)
+    # K3's threads per transform block against each other (txb_rate_launch
+    # takes 16 up to 8x8, 32 above, and at 32x32 256 below 1.5 blocks per
+    # resident warp) on the decide's 8x8 and 32x32 levels, at the launch
+    # sizes of the main path's launches
+    sweep = {}
+    for n, lv_all, sizes, groups in ((8, lv8, (32400, lv8.shape[0]), (16, 32)),
+                                     (32, lv32, (480, 960, 1440, 3360, 6240, 13860,
+                                                 lv32.shape[0]), (32, 256))):
+        tabs_n = rate_torch.make_txb_bits_fn(fc, int(MAX_TXSIZE_RECT[BSIZE_BY_N[n]]),
+                                             int(TxType.DCT_DCT), 0, device=dev)
+        for nb in sizes:
+            lk = lv_all[:nb]
+            ref = rate_torch.txb_bits_plain(lk, tabs_n)
+            for gt in groups:
+                o = torch.empty(nb, dtype=torch.float32, device=dev)
+
+                def k3_group(lk=lk, o=o, gt=gt, n=n, tabs_n=tabs_n):
+                    err = kernels.lib().txb_rate_launch_group(
+                        lk.data_ptr(), tabs_n.flut.data_ptr(), tabs_n.ilut.data_ptr(),
+                        o.data_ptr(), lk.shape[0], n, n, n.bit_length() - 1, tabs_n.tx_class, gt,
+                        kernels.stream_ptr(lk))
+                    if err:
+                        raise SystemExit(f"txb_rate_launch_group failed: cudaError {err}")
+                    return o
+
+                k3_close("txb_rate (group sweep)", k3_group(), ref)
+                sweep.setdefault(f"{n}x{n}", {}).setdefault(nb, {})[gt] = device_ms(k3_group)
+    log(json.dumps(dict(check="txb_rate", threads_per_block_sweep_device_ms=sweep)))
+
+    g_uv = np.random.default_rng(8)
+    for n, blocks in ((8, B), (16, 67 * 120), (32, 33 * 60), (64, 16 * 30)):
+        m = n // 2
+        src = t(g_uv.integers(0, 256, (2 * blocks, m, m)))
+        pred = (src + t(g_uv.integers(-20, 21, src.shape))).clamp(0, 255).to(torch.int32)
+        lv = TT.txfm_quant_recon(src, pred, *TT.tx_flags(0, 2 * blocks, dev), dq[0], dq[1], 8,
+                                 want_recon=False)[0]
+        tx_uv = int(max_uv_txsize(BSIZE_BY_N[n]))
+        k3_case(lv, rate_torch.make_txb_bits_fn(fc, tx_uv, int(TxType.DCT_DCT), 1, 7, 0,
+                                                device=dev), ["chroma"])
 
     # ---- K4 dlf_edges: a full 1080p luma plane, both passes
     sm = g.choice([8, 16, 32, 64], (1, R8, C8), p=[0.5, 0.3, 0.15, 0.05]).astype(np.int32)
@@ -1564,6 +1721,199 @@ def check_commit_wave(torch, capture):
     return out
 
 
+class TxqCapture:
+    """Copies the inputs of every K2 launch (transforms_torch._launch) and K3
+    launch (rate_torch.txb_bits) made inside a frame's decide
+    (device_decide.decide_intra_frames, inter_device._run_decide) or commit
+    (device_commit.commit_regions: phase A; phase B is K16), keyed "key" or
+    "P" by the frame. Used as a context manager around an encode."""
+
+    def __init__(self):
+        from svtav1_tpu_torch.codec import rate_torch
+        from svtav1_tpu_torch.ops import transforms_torch as TT
+        from svtav1_tpu_torch.pipeline import device_commit, device_decide, inter_device
+
+        self.calls = {"key": [], "P": []}
+        self.label = None
+        self.patches = [(TT, "_launch", self._k2), (rate_torch, "txb_bits", self._k3)]
+        for mod, name, stage, at in ((device_decide, "decide_intra_frames", "decide", 1),
+                                     (inter_device, "_run_decide", "decide", 2),
+                                     (device_commit, "commit_regions", "commit", 1)):
+            self.patches.append((mod, name, self._staged(mod, name, stage, at)))
+        self.real = {(m, a): getattr(m, a) for m, a, _ in self.patches}
+
+    def __enter__(self):
+        for m, a, f in self.patches:
+            setattr(m, a, f)
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, _ in self.patches:
+            setattr(m, a, self.real[(m, a)])
+
+    def _staged(self, mod, name, stage, params_at):
+        """mod.name with the frame's label set while it runs (its FrameParams
+        is positional argument `params_at`)."""
+        def run(*a, **k):
+            self.label = ("key" if a[params_at].frame_is_intra else "P", stage)
+            try:
+                return self.real[(mod, name)](*a, **k)
+            finally:
+                self.label = None
+        return run
+
+    def _k2(self, stage, src, pred, va, ha, levels, coeff, recon, sse, *rest):
+        from svtav1_tpu_torch.ops import transforms_torch as TT
+
+        if self.label is not None:
+            self.calls[self.label[0]].append(dict(
+                kernel="txfm_quant_recon", stage=self.label[1], k2_stage=stage,
+                src=None if src is None else src.clone(), pred=pred.clone(), va=va.clone(),
+                ha=ha.clone(), lv_in=levels.clone() if stage == 2 else None,
+                coeff=coeff is not None, recon=recon is not None, sse=sse is not None,
+                rest=rest))
+        self.real[(TT, "_launch")](stage, src, pred, va, ha, levels, coeff, recon, sse, *rest)
+
+    def _k3(self, levels, tabs):
+        from svtav1_tpu_torch.codec import rate_torch
+
+        if self.label is not None:
+            self.calls[self.label[0]].append(dict(kernel="txb_rate", stage=self.label[1],
+                                                  levels=levels.clone(), tabs=tabs))
+        return self.real[(rate_torch, "txb_bits")](levels, tabs)
+
+
+def replay_k2(torch, c):
+    """One captured K2 launch: (run(): the kernel's outputs, plain(): the
+    plain version's, the same slots)."""
+    from svtav1_tpu_torch.ops import transforms_torch as TT
+
+    pred, src, va, ha = c["pred"], c["src"], c["va"], c["ha"]
+    dq_dc, dq_ac, bd, rep, tabs = c["rest"]
+    L, n = pred.shape[0], pred.shape[-1]
+    adj, dev, i32 = min(n, 32), pred.device, torch.int32
+    stage = c["k2_stage"]
+
+    def run():
+        lv = c["lv_in"] if stage == 2 else torch.empty((L, adj, adj), dtype=i32, device=dev)
+        co = torch.empty((L, adj, adj), dtype=i32, device=dev) if c["coeff"] else None
+        rec = torch.empty((L, n, n), dtype=i32, device=dev) if c["recon"] else None
+        sse = torch.empty((L,), dtype=torch.int64, device=dev) if c["sse"] else None
+        TT._launch(stage, src, pred, va, ha, lv, co, rec, sse, dq_dc, dq_ac, bd, rep, tabs)
+        return [None if stage == 2 else lv, co, rec, sse]
+
+    def plain():
+        args = (va, ha, dq_dc, dq_ac, bd)
+        if stage == 0:
+            lv, rec, sse = TT.txfm_quant_recon_plain(src, pred, *args, rep=rep, want_sse=c["sse"],
+                                                     tables=tabs)
+            return [lv, None, rec if c["recon"] else None, sse]
+        if stage == 1:
+            lv, co = TT.txfm_quant_plain(src, pred, *args, tables=tabs)
+            return [lv, co if c["coeff"] else None, None, None]
+        return [None, None, TT.recon_from_levels_plain(c["lv_in"], pred, *args, tables=tabs),
+                None]
+
+    return run, plain
+
+
+def check_captured(torch):
+    """K2 and K3 at every launch of the decide and commit phase A of a 1080p
+    medium key frame and the first P frame of the main path (a fresh
+    keyint=16 encoder, 2 frames): each launch replayed on its own inputs
+    through the kernel (K2 equal to the plain version, K3 within rtol 1e-5,
+    atol 1e-3 bits) and timed on the device (device_ms: no host time), its
+    bound from its arguments; with --baseline-lib also through the baseline
+    library (`baseline_ms`, device time). One line per frame: launches,
+    summed ms, bounds and ms - bound per kernel, and per distinct launch
+    shape [shape, launches, ms, bound_ms, baseline_ms]. Launch counts are
+    restored after."""
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.codec import rate_torch
+    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
+    from svtav1_tpu_torch.utils.profile_keyframes import bound_ms, launch_bound
+
+    saved = dict(kernels.launches)
+    enc = Encoder(EncoderConfig(1920, 1080, **GOP), device="cuda")
+    with TxqCapture() as cap:
+        for f in clip_1080p(2):
+            enc.send_frame(*f)
+        enc.flush()
+    torch.cuda.synchronize()
+    del enc
+    real_launch = kernels.launch
+    last = []
+
+    def launch(name, *args):  # the C arguments of the replayed launch, for its bound
+        last[:] = [name, args]
+        real_launch(name, *args)
+
+    out = {}
+    for label, calls in cap.calls.items():
+        if not calls:
+            raise SystemExit(f"decide capture: no K2 or K3 launch on the {label} frame")
+        sums, shapes = {}, {}
+        for c in calls:
+            name = c["kernel"]
+            if name == "txfm_quant_recon":
+                run, plain = replay_k2(torch, c)
+                L, n = c["pred"].shape[0], c["pred"].shape[-1]
+                adst = (int(c["va"].sum()), int(c["ha"].sum()))
+                shape = [c["stage"], "K2", c["k2_stage"], L, n, c["rest"][3],
+                         "recon" if c["recon"] else "", "sse" if c["sse"] else "", *adst]
+
+                def same(a, ref):
+                    for x, y in zip(a, ref):
+                        if x is not None:
+                            assert_equal_cuda(torch, "txfm_quant_recon (captured)", x, y)
+            else:
+                lv, tabs = c["levels"], c["tabs"]
+
+                def run(lv=lv, tabs=tabs):
+                    return rate_torch.txb_bits(lv, tabs)
+
+                def plain(lv=lv, tabs=tabs):
+                    return rate_torch.txb_bits_plain(lv, tabs)
+
+                adst = None
+                shape = [c["stage"], "K3", *lv.shape, tabs.tx_class]
+
+                def same(a, ref):
+                    k3_close("txb_rate (captured)", a, ref)
+            ref = plain()
+            kernels.launch = launch
+            try:
+                same(run(), ref)
+            finally:
+                kernels.launch = real_launch
+            b_ms = bound_ms(*launch_bound(last[0], last[1], adst))
+            t = kernel_times(run, lambda a: same(a, ref), 10)
+            ms, base = t["device_ms"], t.get("baseline_device_ms", 0.0)
+            rec = sums.setdefault(name, dict(launches=0, ms=0.0, bound_ms=0.0, baseline_ms=0.0))
+            row = shapes.setdefault(json.dumps(shape), [0, 0.0, 0.0, 0.0])
+            for k, v in (("launches", 1), ("ms", ms), ("bound_ms", b_ms), ("baseline_ms", base)):
+                rec[k] += v
+            for i, v in enumerate((1, ms, b_ms, base)):
+                row[i] += v
+        for rec in sums.values():
+            rec["ms_minus_bound"] = rec["ms"] - rec["bound_ms"]
+            if not BASELINE:
+                del rec["baseline_ms"]
+        out[label] = sums
+        log(json.dumps(dict(phase="decide_capture", frame=label, kernels=sums,
+                            shapes=[[json.loads(k)] + v for k, v in shapes.items()])))
+    kernels.launches.clear()
+    kernels.launches.update(saved)
+    return out
+
+
+def assert_equal_cuda(torch, name, a, b):
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+        raise SystemExit(f"{name}: kernel disagrees with its plain version (max err {err})")
+
+
 def main() -> int:
     try:
         import torch
@@ -1578,6 +1928,10 @@ def main() -> int:
     except ImportError as err:
         print(f"svtav1_tpu_torch not found next to chip_smoke.py: {err}", file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--baseline-lib"):
+        print("usage: chip_smoke.py [--baseline-lib PATH]", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1589,6 +1943,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.lib()
     seconds["build"] = time.perf_counter() - t0
+    if args:
+        load_baseline(args[1])
     # per kernel entry: registers, spill store and load bytes, static shared bytes
     log(json.dumps(dict(phase="build", seconds=seconds["build"],
                         nvcc_seconds=kernels.build_seconds, library=kernels.LIB,
@@ -1614,6 +1970,7 @@ def main() -> int:
     capture.expect(None)
     k16 = phase("commit_wave", check_commit_wave, torch, capture)
     checks["commit_wave"] = k16["P"]
+    phase("decide capture", check_captured, torch)
     crf_launches = phase("CRF GOP", run_crf, torch)
     phase("VBR GOP", run_vbr, torch)
     phase("tiles", run_tiles, torch)

@@ -7,13 +7,15 @@
 //   1. gather the above row, left column and top-left sample from the
 //      frontier maps, with the commit's fills for missing neighbours;
 //   2. predict the chosen mode (K1's intra_pred_block);
-//   3. transform and quantize (K2's txq_block, forward half);
+//   3. transform and quantize (txfm.cuh's txq_block, forward half);
 //   4. RDOQ with the size's tables (K5's rdoq_block), when on;
-//   5. inverse transform and reconstruct (K2's inverse half);
+//   5. inverse transform and reconstruct (txq_block's inverse half);
 //   6. write the levels to the lane's slot, the recon to the lane's slot and
 //      the frontier cells (each cell has one writer).
-// K1, K2 and K5 call the same device functions, so K16 is bit-exact with
-// the wave loop of those kernels (commit_wave_plain) by construction.
+// K1 and K5 call the same device functions, and txq_block computes what K2's
+// generated networks compute (both are held against the plain version), so
+// K16 is bit-exact with the wave loop of those kernels (commit_wave_plain);
+// chip_smoke.py holds the two equal on four 1080p schedules.
 //
 // Replaces the wave loop of svtav1_tpu/pipeline/device_commit.py
 // (_commit_device's phase B, `lax.fori_loop` over the waves at :542-552,

@@ -1,9 +1,9 @@
-// K2's device code: the square DCT/ADST stage networks, the dead-zone
-// quantizer and the block body of K2 (txq_block). K2 (txfm_quant_recon.cu)
-// runs txq_block once per CTA, K15 builds on pass1d, and K16 (commit.cu)
-// runs txq_block for each task of a wave, so the three transform, quantize
-// and reconstruct bit-identically. See txfm_quant_recon.cu for what it
-// replaces and how it is bound.
+// The table-driven square DCT/ADST stage networks (pass1d), the dead-zone
+// quantizer and the block body txq_block, with the block in shared memory
+// and the whole CTA on it. K15 (txfm_quant_recon.cu) builds on pass1d and
+// K16 (commit.cu) runs txq_block for each task of a wave. K2 itself runs
+// the compiled networks of txfm_nets.cuh, which compute the same function
+// (see txfm_quant_recon.cu for what K2 replaces and how it is bound).
 #pragma once
 #include "common.cuh"
 

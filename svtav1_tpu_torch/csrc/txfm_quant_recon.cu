@@ -14,40 +14,239 @@
 // select_txfm (device_commit.py:308-336) chain them.
 //
 // Bound: integer operations. Each 1-D stage is two multiply-adds and a shift
-// per sample; a 2-D block runs four 1-D networks of up to 12 stages, against
-// 3 int32 reads and 2-3 writes per sample. Design: one block per transform
-// block; the block lives in shared memory (two n*n int32 buffers, at most
-// 32 KB) for all four passes, so nothing but the inputs and the final levels,
-// recon and SSE touch device memory. The stage tables (one packed int32
-// buffer per size, uploaded once) are read through the read-only cache.
-// Arithmetic is int32 that wraps, like the reference. b0/b1/b2 are the
-// forward shifts as round_shift_array bits (> 0 rounds right, < 0 shifts left).
-// The stage networks and the block body (txq_block) are in txfm.cuh, which
-// K16 (commit.cu) runs for the commit's intra blocks.
+// per sample; a 2-D block runs four 1-D networks of up to 11 stages, against
+// 3 int32 reads and 2-3 writes per sample. Design: the stage networks are
+// compiled (txfm_nets.cuh, generated with every index and weight a literal),
+// so a line of n samples lives in one thread's registers. A block's n lines
+// go to n consecutive threads, several blocks per CTA: the forward column
+// pass, a transpose through shared memory (row stride n + 1), then the
+// forward row pass, quantizer, levels, dequantizer and inverse row pass in
+// the same thread, a second transpose, the inverse column pass, the add, the
+// clip and the SSE (a warp shuffle over the block's threads). Below 64
+// points a block lies in one warp and the transposes need only __syncwarp;
+// at 64 points the CTA syncs, the forward passes produce only the 32x32
+// coded corner and the inverse row pass skips the zero rows (both exact).
+// The sources of the CTA's lanes (`rep` lanes per source) are staged once in
+// shared memory with 16-byte loads; levels and coefficients move as 16-byte
+// rows. Arithmetic is int32 that wraps, like the reference. b0/b1/b2 are the
+// forward shifts as round_shift_array bits (> 0 rounds right, < 0 shifts
+// left). K15 below and K16 (commit.cu) keep the table-driven networks and
+// block body of txfm.cuh.
 #include "txfm.cuh"
+#include "txfm_nets.cuh"
+
+#include <algorithm>
 
 namespace {
 
-__global__ void txfm_quant_recon_kernel(const int* __restrict__ src, const int* __restrict__ pred,
-                                        const uint8_t* __restrict__ v_adst,
-                                        const uint8_t* __restrict__ h_adst,
-                                        const int* __restrict__ tb, int* __restrict__ levels,
-                                        int* __restrict__ coeff, int* __restrict__ recon,
-                                        unsigned long long* __restrict__ sse, int stage, int rep,
-                                        int n, int log2n, int b0, int b1, int b2, int sh_row,
-                                        int sh_col, int dq_dc, int dq_ac, int ls, int bd) {
-  extern __shared__ int smem[];
-  const int nn = n * n;
-  const int lane = blockIdx.x;
-  const size_t at = (size_t)lane * (n < 32 ? n : 32) * (n < 32 ? n : 32);
-  txq_block(src ? src + (size_t)(lane / rep) * nn : nullptr, n, pred + (size_t)lane * nn,
-            v_adst[lane] != 0, h_adst[lane] != 0, tb, levels + at, coeff ? coeff + at : nullptr,
-            recon ? recon + (size_t)lane * nn : nullptr, sse ? sse + lane : nullptr, stage, n,
-            log2n, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd, smem, smem + nn);
+__host__ __device__ constexpr int txq_threads(int n) { return n == 64 ? 128 : 256; }
+
+template <int N>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (N <= 32) __syncwarp(); else __syncthreads();
+}
+
+__device__ __forceinline__ int quant(int x, int dq, int ls) {
+  const int absc = (int)((unsigned)abs(x) << ls);
+  const int lv = floordiv((int)((unsigned)absc + (unsigned)(dq >> 1)), dq);
+  return clampi(x > 0 ? lv : (x < 0 ? -lv : 0), -32767, 32767);
+}
+
+// dequantized level; |d| <= dqmax = 2^(bd+7) - 1, within the bd + 8 clamp
+__device__ __forceinline__ int dequant(int lv, int dq, int ls, int dqmax) {
+  const int d = min((abs(lv) * dq) >> ls, dqmax);
+  return lv > 0 ? d : (lv < 0 ? -d : 0);
+}
+
+__device__ __forceinline__ void store4(int* p, const int (&v)[4], bool vec) {
+  if (vec) {
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) p[u] = v[u];
+  }
+}
+
+__device__ __forceinline__ void load4(const int* p, int (&v)[4], bool vec) {
+  if (vec) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = __ldg(p + u);
+  }
+}
+
+// Lanes [blockIdx.x * lpc, + lpc) with N threads each (lpc = blockDim.x / N,
+// at most txq_threads(N) / N); thread t of a lane holds column t in the
+// column passes and row t in the row passes. `vec`:
+// src, levels and coeff are 16-byte aligned. nsrc: the source slots in
+// shared memory (0 without src).
+template <int N>
+__global__ void __launch_bounds__(N == 64 ? 128 : 256)
+    txq_lines_kernel(const int* __restrict__ src, const int* __restrict__ pred,
+                     const uint8_t* __restrict__ v_adst, const uint8_t* __restrict__ h_adst,
+                     int* __restrict__ levels, int* __restrict__ coeff, int* __restrict__ recon,
+                     unsigned long long* __restrict__ sse, int stage, int L, int rep, int nsrc,
+                     bool vec, int b0, int b1, int b2, int sh_row, int sh_col, int dq_dc,
+                     int dq_ac, int ls, int bd) {
+  constexpr int TPB = txq_threads(N), NN = N * N;
+  constexpr int ADJ = N < 32 ? N : 32;  // coded rows and columns
+  constexpr int TS = N + 1;             // transpose row stride
+  constexpr bool KEEP_PRED = N <= 16;   // the prediction column stays in registers
+  using Nets = txnets::TxNets<N>;
+  extern __shared__ __align__(16) int txq_smem[];
+  __shared__ unsigned long long s_part[TPB / 32];
+  const int t = threadIdx.x % N;
+  const int lpc = blockDim.x / N;
+  const int l0 = blockIdx.x * lpc;
+  const int lane_raw = l0 + threadIdx.x / N;
+  const bool valid = lane_raw < L;
+  const int lane = valid ? lane_raw : L - 1;  // the tail's idle lines redo the last lane
+  const int s0 = l0 / rep;
+  int* tile = txq_smem + nsrc * NN + (threadIdx.x / N) * ADJ * TS;
+  const int* P = pred + (size_t)lane * NN;
+  const int* S = txq_smem + (lane / rep - s0) * NN;
+  const bool va = v_adst[lane] != 0, ha = h_adst[lane] != 0;
+  const int dqmax = (1 << (bd + 7)) - 1;
+
+  if (nsrc) {  // the CTA's sources, once
+    const int cnt = ((min(l0 + lpc, L) - 1) / rep - s0 + 1) * NN;
+    const int* g = src + (size_t)s0 * NN;
+    if (vec) {
+      for (int i = threadIdx.x; i < cnt / 4; i += blockDim.x)
+        reinterpret_cast<int4*>(txq_smem)[i] = __ldg(reinterpret_cast<const int4*>(g) + i);
+    } else {
+      for (int i = threadIdx.x; i < cnt; i += blockDim.x) txq_smem[i] = __ldg(g + i);
+    }
+    __syncthreads();
+  }
+
+  int p[KEEP_PRED ? N : 1];
+  int y[N];  // this thread's row
+  int* lrow = levels + (size_t)lane * ADJ * ADJ + t * ADJ;
+  if (stage != 2) {
+    int x[N];  // this thread's column
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const int pv = __ldg(P + r * N + t);
+      if constexpr (KEEP_PRED) p[r] = pv;
+      x[r] = apply_shift(S[r * N + t] - pv, b0);
+    }
+    Nets::fwd_col(x, va);
+#pragma unroll
+    for (int k = 0; k < ADJ; ++k) tile[k * TS + t] = apply_shift(x[k], b1);
+    group_sync<N>();
+    if (N < 64 || t < 32) {
+#pragma unroll
+      for (int c = 0; c < N; ++c) y[c] = tile[t * TS + c];
+      Nets::fwd_row(y, ha);
+      int* crow = coeff ? coeff + (size_t)lane * ADJ * ADJ + t * ADJ : nullptr;
+#pragma unroll
+      for (int j0 = 0; j0 < ADJ; j0 += 4) {
+        int lq[4], cq[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + u;
+          const int dq = (t == 0 && j == 0) ? dq_dc : dq_ac;
+          cq[u] = apply_shift(y[j], b2);
+          lq[u] = quant(cq[u], dq, ls);
+          y[j] = dequant(lq[u], dq, ls, dqmax);
+        }
+        if (valid) {
+          store4(lrow + j0, lq, vec);
+          if (crow) store4(crow + j0, cq, vec);
+        }
+      }
+    }
+    if (stage == 1 || (!recon && !sse)) return;
+  } else if (N < 64 || t < 32) {
+    if constexpr (KEEP_PRED) {
+#pragma unroll
+      for (int r = 0; r < N; ++r) p[r] = __ldg(P + r * N + t);
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < ADJ; j0 += 4) {
+      int lq[4];
+      load4(lrow + j0, lq, vec);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        y[j0 + u] = dequant(lq[u], (t == 0 && j0 + u == 0) ? dq_dc : dq_ac, ls, dqmax);
+    }
+  }
+  // inverse rows (64 points: rows >= 32 and columns >= 32 are zero)
+  if (N < 64 || t < 32) {
+#pragma unroll
+    for (int j = ADJ; j < N; ++j) y[j] = 0;
+    const int rb = bd == 8 ? 16 : 18;
+    Nets::inv(y, ha, -(1 << (rb - 1)), (1 << (rb - 1)) - 1);
+    const int cb = bd + 6 > 16 ? bd + 6 : 16;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      tile[t * TS + j] = clampi(round_shift(y[j], sh_row), -(1 << (cb - 1)), (1 << (cb - 1)) - 1);
+  }
+  group_sync<N>();
+  // inverse columns, the add, the clip, the SSE
+  int z[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) z[k] = k < ADJ ? tile[k * TS + t] : 0;
+  Nets::inv(z, va, -32768, 32767);
+  const int pmax = (1 << bd) - 1;
+  unsigned acc = 0;  // at most 64 * 1023^2
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    int pv;
+    if constexpr (KEEP_PRED) pv = p[r]; else pv = __ldg(P + r * N + t);
+    const int rec = clampi(pv + round_shift(z[r], sh_col), 0, pmax);
+    if (recon && valid) recon[(size_t)lane * NN + r * N + t] = rec;
+    if (sse) {
+      const int d = rec - S[r * N + t];
+      acc += (unsigned)(d * d);
+    }
+  }
+  if (!sse) return;
+  unsigned long long tot = acc;
+#pragma unroll
+  for (int o = (N < 32 ? N : 32) / 2; o > 0; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
+  if constexpr (N == 64) {
+    if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = tot;
+    __syncthreads();
+    tot = s_part[(threadIdx.x >> 5) & ~1] + s_part[(threadIdx.x >> 5) | 1];
+  }
+  if (t == 0 && valid) sse[lane] = tot;
+}
+
+template <int N>
+int launch_txq(const int* src, const int* pred, const uint8_t* v_adst, const uint8_t* h_adst,
+               int* levels, int* coeff, int* recon, unsigned long long* sse, int stage, int L,
+               int rep, int b0, int b1, int b2, int sh_row, int sh_col, int dq_dc, int dq_ac,
+               int ls, int bd, cudaStream_t stream) {
+  constexpr int ADJ = N < 32 ? N : 32;
+  static int sms = 0;  // the SM count, and the dynamic shared-memory limit raised, once
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(txq_lines_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         100 * 1024);
+  }
+  // lanes per CTA: fewer for a small launch (two CTAs per SM where L allows),
+  // whole warps always
+  int lpc = txq_threads(N) / N;
+  while (lpc > std::max(1, 32 / N) && (L + lpc - 1) / lpc < 2 * sms) lpc /= 2;
+  const bool with_src = src != nullptr && stage != 2;
+  const int nsrc = with_src ? std::min(lpc, (lpc - 1) / rep + 2) : 0;
+  const auto al = [](const void* q) { return q == nullptr || ((uintptr_t)q & 15) == 0; };
+  const bool vec = al(src) && al(levels) && al(coeff);
+  const size_t shm = ((size_t)nsrc * N * N + (size_t)lpc * ADJ * (N + 1)) * sizeof(int);
+  txq_lines_kernel<N><<<(L + lpc - 1) / lpc, lpc * N, shm, stream>>>(
+      with_src ? src : nullptr, pred, v_adst, h_adst, levels, coeff, recon, sse, stage, L, rep,
+      nsrc, vec, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd);
+  return launch_status();
 }
 
 // K15 tpl_cost: the TPL dispenser's two transform-domain costs of square
-// DCT_DCT blocks, on K2's forward and inverse networks and quantizer:
+// DCT_DCT blocks, on txfm.cuh's table-driven networks and K2's quantizer:
 //   mode 0: satd = sum |fwd_txfm2d(src - pred)| >> 2 (int32);
 //   mode 1: the quantization error err = sum ((co - dqc) >> 2)^2 (exact,
 //           int64) of the coefficients co and their dequantized levels dqc
@@ -57,8 +256,8 @@ __global__ void txfm_quant_recon_kernel(const int* __restrict__ src, const int* 
 // (mode 0) and :115-123 (mode 1, `recon_err`) inside _tpl_frame_jit.run.
 //
 // Bound: integer operations (the two or four 1-D passes of K2 per block
-// against 2 int32 reads and one output per sample). Design: K2's, one block
-// per lane with the block in shared memory; the reductions are a warp
+// against 2 int32 reads and one output per sample). Design: one block per
+// lane with the block in shared memory (txfm.cuh); the reductions are a warp
 // shuffle and one shared atomic per warp, so the coefficients never reach
 // device memory.
 __global__ void tpl_cost_kernel(const int* __restrict__ src, const int* __restrict__ pred,
@@ -137,18 +336,28 @@ extern "C" int tpl_cost_launch(const int* src, const int* pred, const int* table
   return launch_status();
 }
 
+// `tables` (the packed stage tables) is K15's and K16's; K2's networks are
+// compiled in (txfm_nets.cuh).
 extern "C" int txfm_quant_recon_launch(const int* src, const int* pred, const uint8_t* v_adst,
                                        const uint8_t* h_adst, const int* tables, int* levels,
                                        int* coeff, int* recon, unsigned long long* sse,
                                        int stage, int L, int rep, int n, int b0, int b1,
                                        int b2, int sh_row, int sh_col, int dq_dc, int dq_ac,
                                        int ls, int bd, int log2n, void* stream) {
+  (void)tables;
+  (void)log2n;
   if (L == 0) return 0;
-  const int nn = n * n;
-  const int threads = nn >= 256 ? 256 : (nn < 32 ? 32 : nn);
-  const size_t shm = 2 * (size_t)nn * sizeof(int);
-  txfm_quant_recon_kernel<<<L, threads, shm, (cudaStream_t)stream>>>(
-      src, pred, v_adst, h_adst, tables, levels, coeff, recon, sse, stage, rep, n, log2n, b0,
-      b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd);
-  return launch_status();
+  const auto s = (cudaStream_t)stream;
+#define TXQ(N)                                                                                \
+  launch_txq<N>(src, pred, v_adst, h_adst, levels, coeff, recon, sse, stage, L, rep, b0, b1, \
+                b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd, s)
+  switch (n) {
+    case 4: return TXQ(4);
+    case 8: return TXQ(8);
+    case 16: return TXQ(16);
+    case 32: return TXQ(32);
+    case 64: return TXQ(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TXQ
 }

@@ -60,6 +60,9 @@ ARGTYPES = {
     "txfm_quant_recon_launch": [_P] * 9 + [_I] * 14 + [_P],
     # levels, flut, ilut, out, B, h, w, log2w, tx_class, stream
     "txb_rate_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the same with group_threads, the threads per transform block (16, 32 or 256;
+    # chip_smoke.py times them against each other)
+    "txb_rate_launch_group": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # in, out, flen, F, H, W, K, sF, sR, sC, lim, blim, thr, bd, stream
     "dlf_edges_launch": [_P, _P, _P] + [_I] * 11 + [_P],
     # levels, coeff, flut, ilut, scan, out, B, h, w, log2w, ls, dq_dc, dq_ac,
@@ -171,9 +174,10 @@ def ptxas_report() -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            kern = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E)?", name)
+            kern = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E|ILi(\d+)E)?", name)
             entry = name if not kern else kern.group(1) + (
-                "" if not kern.group(2) else "<true>" if kern.group(3) == "1" else "<false>")
+                "" if not kern.group(2) else f"<{kern.group(4)}>" if kern.group(4)
+                else "<true>" if kern.group(3) == "1" else "<false>")
             out[entry] = [0, 0, 0, 0]
         if entry is None:
             continue

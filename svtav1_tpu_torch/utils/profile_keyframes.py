@@ -14,7 +14,8 @@ the device time. Prints one JSON line: wall seconds per frame (untraced and
 traced: their difference is the tracing cost), the device's busy share (the
 device-side kernel and copy time of the traced frames, one stream, over the
 untraced wall time), device milliseconds per frame of the busiest device
-functions, host seconds per frame of each pipeline stage (utils.profiler,
+functions and of every kernel of the port (its template instances
+summed), host seconds per frame of each pipeline stage (utils.profiler,
 untraced; for inter frames tf, gm, decide, partition_dp, commit/device
 with its commit/phase_a and commit/phase_b parts, filter, entropy_walk, and the
 transfers), per stage (tf, decide, commit, filter) the launches of each kernel
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -347,6 +349,11 @@ def main() -> int:
         dev_us[ev.key[:80]] = dev_us.get(ev.key[:80], 0.0) + us
     busy_s = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    family_us = {}  # a kernel's template instances summed: txq_lines_kernel<8>, <16>, ...
+    for k, us in dev_us.items():
+        m = re.search(r"(\w+_kernel)\b", k)
+        if m:
+            family_us[m.group(1)] = family_us.get(m.group(1), 0.0) + us
     prepare()
     launches = count_launches(encode_all)
     bounds = {st: dict(kernels={k: dict(launches=v[0] / n, bound_ms=v[1] / n)
@@ -365,6 +372,8 @@ def main() -> int:
         traced_wall_s_per_frame=traced_wall / n, device_busy_s_per_frame=busy_s / n,
         device_busy_share=(busy_s / wall) if busy_s else "not measured",
         device_ms_per_frame_by_kernel={k: v / 1e3 / n for k, v in top},
+        device_ms_per_frame_by_port_kernel={k: v / 1e3 / n for k, v in
+                                            sorted(family_us.items(), key=lambda kv: -kv[1])},
         host_stage_s_per_frame=stages, stage_kernel_bounds_per_frame=bounds,
         card=smi)))
     return 0

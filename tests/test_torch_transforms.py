@@ -138,3 +138,94 @@ def test_plain_halves_match_jax(n):
     rec = TT.recon_from_levels(torch.from_numpy(np.ascontiguousarray(edit[:, :adj, :adj])),
                                torch.from_numpy(pred), *args)
     np.testing.assert_array_equal(rec.numpy(), np.asarray(rec_ref))
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+def test_generated_networks_match_committed_header(n):
+    """csrc/txfm_nets.cuh is gen_txfm_nets' output: every (name, cos_bit)
+    network of numpy_stage_tables(n) and the size's TxNets<n> dispatch are
+    in the committed header, and the whole text equals the generator's."""
+    from svtav1_tpu_torch.csrc import gen_txfm_nets as gen
+
+    with open(gen.HEADER) as f:
+        committed = f.read()
+    assert gen.size_text(n) in committed
+    for name, cb in TT.numpy_stage_tables(n):
+        assert f"void {name}_c{cb}(int (&x)[{n}]" in committed
+    assert f"struct TxNets<{n}>" in committed
+    assert committed == gen.header_text()
+
+
+_HARNESS_COMMON = """#pragma once
+#define __device__
+#define __forceinline__ inline
+static inline int round_shift(int x, int bit) {
+  return bit == 0 ? x : (int)((unsigned)x + (1u << (bit - 1))) >> bit;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def nets_binary(tmp_path_factory):
+    """The committed header's networks compiled for the host with g++ (the
+    CUDA qualifiers defined away): reads `name n lo hi x0 .. x(n-1)` lines,
+    prints the network's output line."""
+    import re
+    import shutil
+    import subprocess
+
+    from svtav1_tpu_torch.csrc import gen_txfm_nets as gen
+
+    d = tmp_path_factory.mktemp("txfm_nets")
+    shutil.copy(gen.HEADER, d / "txfm_nets.cuh")
+    (d / "common.cuh").write_text(_HARNESS_COMMON)
+    with open(gen.HEADER) as f:
+        fns = re.findall(r"void (\w+_c\d+)\(int \(&x\)\[(\d+)\](, int lo, int hi)?\)", f.read())
+    calls = "\n".join(
+        f'    if (!std::strcmp(name, "{fn}")) {fn}(*(int(*)[{n}])x{", lo, hi" if inv else ""});'
+        for fn, n, inv in fns)
+    (d / "h.cpp").write_text(
+        '#include <cstdio>\n#include <cstring>\n#include "txfm_nets.cuh"\nusing namespace txnets;\n'
+        "int main() {\n  char name[64]; int n, lo, hi, x[64];\n"
+        '  while (std::scanf("%63s %d %d %d", name, &n, &lo, &hi) == 4) {\n'
+        '    for (int i = 0; i < n; ++i) std::scanf("%d", &x[i]);\n'
+        f"{calls}\n"
+        '    for (int i = 0; i < n; ++i) std::printf("%d ", x[i]);\n    std::printf("\\n");\n  }\n}\n')
+    subprocess.run(["g++", "-O1", "-std=c++17", str(d / "h.cpp"), "-o", str(d / "h")], check=True,
+                   capture_output=True, timeout=300)
+    return str(d / "h")
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+def test_generated_networks_compute_the_stage_tables(nets_binary, n):
+    """Each network of the committed header, compiled for the host, gives
+    the plain version's 1-D stage-table result (_txfm1d_table; ADST4 by
+    _adst4) bit for bit on random lines, with inputs across the int32 range
+    so that the products wrap, and with both inverse clamp ranges."""
+    import subprocess
+
+    rng = np.random.default_rng(400 + n)
+    tabs = TT.tables_for(n, "cpu")
+    cases = []
+    for (name, cb), stages in tabs.stages.items():
+        for trial in range(12):
+            big = trial % 3 == 0
+            x = rng.integers(-(2 ** 31) if big else -6000, 2 ** 31 - 1 if big else 6000, n)
+            bits = 16 if trial % 2 else 18
+            inv = name.startswith("i")
+            want = TT._txfm1d_table(torch.as_tensor(x.astype(np.int32))[None], stages,
+                                    bits if inv else None)[0]
+            cases.append((f"{name}_c{cb}", bits, x, want))
+    if n == 4:
+        for cb, inv in ((13, False), (12, True)):
+            for _ in range(12):
+                x = rng.integers(-6000, 6000, 4)
+                want = TT._adst4(torch.as_tensor(x.astype(np.int32))[None], cb, inv)[0]
+                cases.append((f"{'i' if inv else 'f'}adst4_c{cb}", 16, x, want))
+    lines = [f"{fn} {n} {-(1 << (b - 1))} {(1 << (b - 1)) - 1} " + " ".join(map(str, x))
+             for fn, b, x, _ in cases]
+    out = subprocess.run([nets_binary], input="\n".join(lines) + "\n", capture_output=True,
+                         text=True, check=True, timeout=60).stdout.split("\n")
+    for (fn, _b, _x, want), got in zip(cases, out):
+        np.testing.assert_array_equal(np.array(got.split(), np.int64), want.numpy(), err_msg=fn)
+    assert len([o for o in out if o]) == len(cases)
