@@ -10,11 +10,16 @@ Phases, each fatal on failure:
      differing samples; K9's prediction also against K10 at the MVs it
      returns; K9 also at the MCTF shape, n = 16 on the 49-point lattice;
      K11 at every block size of the commit, 8x8 to 64x64; K14 and K15 at
-     the TPL shapes of a 1088x1920 frame, K15 at qindex 120 and 255; K8
-     with a reference wider than the source at the 1920x1024 tile GOP's
-     tile shape, 1024x960 against 1024x1216 with ref_off_x=128; K2 also at
-     the decide's 16x16 shape, K3 also on 16x16 luma and the decide's
-     chroma sizes), and time both;
+     the TPL shapes of a 1088x1920 frame, K15 at qindex 120 and 255; K8 as
+     its pyramid launch, its frame-search launch and the whole
+     me_fullpel_frame, every size and the SB MVs, on the decide's uint8
+     1080x1920 planes (510 SBs) and with a reference wider than the
+     source at the 1920x1024 tile GOP's tile shape, 1024x960 against
+     1024x1216 with ref_off_x=128, with the device work items of one call
+     (torch.profiler); K2 also at the decide's 16x16 shape, K3 also on
+     16x16 luma and the decide's chroma sizes), and time both; K8's and
+     K9's bounds count their operations at the rates of VABSDIFF4, IDP.2A
+     and IDP.4A measured first (`packed_rates` line);
   3. conformance: encode a CIF key frame on the card at the fast preset
      without CDEF and one at the default medium preset, a 3-frame CIF GOP
      (a key frame and 2 P frames, keyint=6) at medium, and CIF
@@ -63,11 +68,12 @@ Phases, each fatal on failure:
      barrier count (`commit_wave` lines); then the decide capture: every K2
      and K3 launch of the decide and commit phase A of a 1080p medium key
      frame and the first P frame of the main path (a fresh encoder, 2
-     frames), each replayed on a copy of its inputs through the kernel and
-     its plain version (K2 exact, K3 within the tolerance above) and timed,
-     its bound from its arguments: per frame the launches, summed ms and
-     bounds of each kernel, and per distinct launch shape
-     (`decide_capture` lines);
+     frames), and the P frame's K9 launches and K8 calls (each
+     me_fullpel_frame, two launches), each replayed on a copy of its
+     inputs through the kernel and its plain version (K3 within the
+     tolerance above, the others exact) and timed, its bound from its
+     arguments: per frame the launches, summed ms and bounds of each
+     kernel, and per distinct launch shape (`decide_capture` lines);
   5. tiles: a 256x64 GOP (a key frame and 2 P frames in two tile columns)
      through parallel.tiles' encoders on the card and with the plain
      versions on the CPU, byte for byte, decoded bit-exactly; the 8-tile
@@ -86,10 +92,10 @@ Phases, each fatal on failure:
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
      python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
-also times phase 2's K2 and K3 cases and every captured launch through a
-kernel library built from another checkout with the same C entry points
-(the parent commit's, after its own chip_smoke.py run built it), on the
-same inputs, and holds its results equal too (`baseline_ms`).
+also times phase 2's K2, K3 and K9 cases and every captured K2, K3 and K9
+launch through a kernel library built from another checkout with the same
+C entry points (the parent commit's, after its own chip_smoke.py run built
+it), on the same inputs, and holds its results equal too (`baseline_ms`).
 """
 import contextlib
 import functools
@@ -214,6 +220,148 @@ def bound(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+RATES = {}  # lane instructions per second of the packed instructions (packed_rates)
+
+
+def packed_rates(torch):
+    """Lane instructions per second of VABSDIFF4.U8.ACC (K8's SAD step),
+    IDP.2A and IDP.4A (K9's two passes) and IMAD on this card:
+    packed_rate_launch, 8 independent chains per thread, 132 x 16 CTAs of
+    256 threads, 4,096 steps (median of 3 CUDA-event timings)."""
+    from svtav1_tpu_torch import kernels
+
+    lib = kernels.lib()
+    blocks, iters = 132 * 16, 4096
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    res = {}
+    for which, name in enumerate(("vabsdiff4", "idp2a", "idp4a", "imad")):
+        def run(which=which):
+            err = lib.packed_rate_launch(which, blocks, iters, out.data_ptr(),
+                                         kernels.stream_ptr(out))
+            if err:
+                raise SystemExit(f"packed_rate_launch {name}: cudaError {err}")
+        res[name] = blocks * 256 * iters * 8 / (timed_ms(run, 3) * 1e-3)
+    return res
+
+
+def k9_packed_ops_ms(B, n, L):
+    """K9's operations' least time at the measured packed rates: per block,
+    two IDP.4A per horizontal intermediate sample of the L column phases over
+    n + 8 rows, and four IDP.2A and one absolute difference with its sum
+    (VABSDIFF, at the VABSDIFF4 rate) per predicted sample of the L x L
+    lattice."""
+    return B * (2 * L * (n + 8) * n / RATES["idp4a"] + 4 * L * L * n * n / RATES["idp2a"]
+                + L * L * n * n / RATES["vabsdiff4"]) * 1e3
+
+
+def packed_bound_ms(name, args):
+    """A K8 or K9 launch's bound (its C arguments) with the operations at the
+    measured packed rates: K9's as k9_packed_ops_ms, the frame search's
+    absolute differences at four per VABSDIFF4, K8's pyramid as counted."""
+    from svtav1_tpu_torch.utils.profile_keyframes import bound_ms, launch_bound, me_frame_diffs
+
+    nbytes, ops = launch_bound(name, args)
+    if name == "subpel_pred":
+        B, n, fast = args[8], args[11], args[13]
+        return max(nbytes / HBM_BYTES_PER_S * 1e3, k9_packed_ops_ms(B, n, 5 if fast else 7))
+    if args[0] == 1:  # the frame search
+        diffs = me_frame_diffs(args[17], args[18])
+        return max(nbytes / HBM_BYTES_PER_S, diffs / 4 / RATES["vabsdiff4"]) * 1e3
+    return bound_ms(nbytes, ops)
+
+
+def k9_same(assert_equal, mv, pred):
+    """K9's check of another library's (MV, prediction) against this one's."""
+    def same(out):
+        assert_equal("subpel_pred (baseline)", out[0], mv)
+        assert_equal("subpel_pred (baseline)", out[1], pred)
+    return same
+
+
+def device_launches(torch, fn):
+    """Device work items of any kind (kernels, copies, sets) of one call of
+    fn, counted by torch.profiler; None when three traces in a row saw no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return None
+
+
+def check_me_frame(torch, record, assert_equal, src8, ref8, sbr, sbc, ox, main=False):
+    """K8 on one uint8 frame against one reference: the source pyramid (one
+    launch), the frame search alone (one launch, from the pyramids) and the
+    whole me_fullpel_frame with a shared source pyramid (two launches), each
+    held exactly against its plain version (every size and the SB MVs) and
+    timed; the frame search's bound also at the measured VABSDIFF4 rate
+    (`bound_ms`; the int32 count's as `int32_bound_ms`); the device work items of one call of the kernel path
+    and of the plain version (torch.profiler). Returns the MVs by size."""
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.ops import me_torch
+    from svtav1_tpu_torch.utils.profile_keyframes import me_frame_diffs, me_frame_work, me_levels
+
+    shape = [*src8.shape, f"{sbr}x{sbc} SBs"]
+    if ox:
+        shape.append(f"ref {ref8.shape[0]}x{ref8.shape[1]}, ref_off_x {ox}")
+    Hs, Ws = me_torch._grid_dims(src8, sbr, sbc)
+    Hr, Wr = me_torch._grid_dims(ref8, sbr, sbc)
+
+    def pyramid():
+        return me_torch.me_pyramid(src8, sbr, sbc)
+
+    def pyramid_plain():
+        l1 = me_torch.decimate2_plain(me_torch.edge_pad(src8, Hs, Ws).to(torch.int32))
+        return l1, me_torch.decimate2_plain(l1)
+
+    pyr = pyramid()
+    err = max(assert_equal("me_sad", a.to(torch.int32), b) for a, b in zip(pyr, pyramid_plain()))
+    record("me_sad", shape + ["pyramid, source"], err, timed_ms(pyramid, 20),
+           timed_ms(pyramid_plain, 5), nbytes=src8.numel() + me_levels(Hs, Ws),
+           ops=me_levels(Hs, Ws) * 5, device_ms=device_ms(pyramid))
+
+    def call():
+        return me_torch.me_fullpel_frame(src8, ref8, sbr, sbc, ref_off_x=ox, src_pyr=pyr)
+
+    def plain():
+        return me_torch.me_fullpel_frame_plain(src8, ref8, sbr, sbc, ref_off_x=ox)
+
+    before = kernels.launches["me_sad"]
+    got, got_sb = call()
+    launches = kernels.launches["me_sad"] - before
+    want, want_sb = plain()
+    err = assert_equal("me_sad", got_sb, want_sb)
+    for n in me_torch.SIZES:
+        err = max(err, assert_equal("me_sad", got[n], want[n]))
+    dims, _src_pyr, ref_pyr = me_torch._pyramids(src8, ref8, sbr, sbc, pyr)
+
+    def frame():
+        return me_torch._frame_search(src8, ref8, pyr, ref_pyr, dims, sbr, sbc, ox)
+
+    f_mvs, f_sb = frame()
+    assert_equal("me_sad", f_sb, want_sb)
+    nbytes, ops = me_frame_work(*dims, sbr, sbc)
+    diffs = me_frame_diffs(sbr, sbc)
+    plain_ms = timed_ms(plain, 3)
+    record("me_sad", shape + ["frame search"], err, timed_ms(frame, 20), plain_ms, nbytes, ops,
+           main=main, device_ms=device_ms(frame), abs_differences=diffs,
+           packed_ops_ms=diffs / 4 / RATES["vabsdiff4"] * 1e3)
+    ref_bytes = ref8.numel() + me_levels(Hr, Wr)
+    record("me_sad", shape + ["me_fullpel_frame"], err, timed_ms(call, 20), plain_ms,
+           nbytes + ref_bytes, ops + me_levels(Hr, Wr) * 5, device_ms=device_ms(call),
+           me_sad_launches=launches, device_launches=device_launches(torch, call),
+           plain_device_launches=device_launches(torch, plain))
+    return got
+
+
 def k3_close(name, a, b):
     """K3's bits against the plain version's: rtol 1e-5, atol 1e-3 bits (the
     float32 sums run in another order). Returns the max abs error."""
@@ -233,8 +381,9 @@ BASELINE = []  # [the ctypes handle of --baseline-lib] when the option is given
 def load_baseline(path):
     """A kernel library built from another checkout (the parent commit's
     build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
-    kernels.lib() binds its own: K2 and K3 are also timed through it, on the
-    same inputs, and must give the same results."""
+    kernels.lib() binds its own: K2, K3 and K9 are also timed through it, on
+    the same inputs, and must give the same results (K8's entry point has
+    another interface there: it is never routed to the baseline)."""
     import ctypes
 
     from svtav1_tpu_torch import kernels
@@ -263,7 +412,7 @@ def baseline_kernels():
 
 
 def kernel_times(fn, same, reps):
-    """K2's and K3's extra times: `device_ms` (device_ms()), and with
+    """K2's, K3's and K9's extra times: `device_ms` (device_ms()), and with
     --baseline-lib, after `same` holds the baseline library's result against
     this checkout's, `baseline_ms` (timed_ms(), as `ms`) and
     `baseline_device_ms` through it."""
@@ -306,8 +455,16 @@ def check_kernels(torch, dev):
         hl = t(g.random(B) < 0.9, torch.bool)
         return above, left, tl, ha, hl
 
-    def record(name, shape, err, ms, plain_ms, nbytes, ops, main=False, **extra):
+    def record(name, shape, err, ms, plain_ms, nbytes, ops, main=False, packed_ops_ms=None,
+               **extra):
+        """packed_ops_ms: the operations' least time at the measured rates of
+        the packed instructions the kernel uses (K8, K9); it replaces the
+        int32 count's, which stays as int32_bound_ms."""
         b_ms, b_by = bound(nbytes, ops)
+        if packed_ops_ms is not None:
+            extra["int32_bound_ms"] = b_ms
+            b_ms, b_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (packed_ops_ms, "operations at the packed rate"))
         log(json.dumps(dict(check=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by, **extra)))
         CHECKS.append([name, shape, err, round(ms, 4), round(plain_ms, 3), round(b_ms, 4)])
@@ -585,64 +742,25 @@ def check_kernels(torch, dev):
 
 def check_motion(torch, dev, g, t, record, assert_equal):
     """Phase 2 for K8 me_sad, K9 subpel_pred and K10 mc_lanes at the shapes
-    of a 1080p P frame: the ME plane 1088x1920 (510 SBs), the subpel grids
-    of 8/16/32/64 blocks, the commit's 32,400 8x8 luma and 4x4 chroma lanes
+    of a 1080p P frame: the decide's uint8 1080x1920 planes on its 17 x 30
+    SB grid (510 SBs, read as if padded to 1088 rows), the subpel grids of
+    8/16/32/64 blocks, the commit's 32,400 8x8 luma and 4x4 chroma lanes
     from a 2-reference stack. All exact."""
     import numpy as np
 
     from svtav1_tpu_torch.ops import me_torch
-    from svtav1_tpu_torch.pipeline.inter_device import _edge_pad
 
     (y0, u0, v0), (y1, _u1, _v1) = clip_1080p(2)
-    H, W, sbr, sbc = 1088, 1920, 17, 30
-    B_sb = sbr * sbc
-    ref = _edge_pad(t(y0), H, W)
-    src = _edge_pad(t(y1), H, W)
-
-    # ---- K8 me_sad: decimation, the three centred searches, the leaf maps
-    a = me_torch.decimate2(src)
-    err = assert_equal("me_sad", a, me_torch.decimate2_plain(src))
-    record("me_sad", [H, W, "decimate"], err, timed_ms(lambda: me_torch.decimate2(src), 20),
-           timed_ms(lambda: me_torch.decimate2_plain(src), 5), H * W * 4 + H * W, H * W // 4 * 5)
-    src1, ref1 = me_torch.decimate2(src), me_torch.decimate2(ref)
-    src2, ref2 = me_torch.decimate2(src1), me_torch.decimate2(ref1)
-    rr = torch.arange(sbr, device=dev, dtype=torch.int32).repeat_interleave(sbc)
-    cc = torch.arange(sbc, device=dev, dtype=torch.int32).repeat(sbr)
-    zero = torch.zeros((B_sb, 2), dtype=torch.int32, device=dev)
-    cen = t(g.integers(-3, 4, (B_sb, 2)))
-    for lvl, (s_, r_, n, r, scale, c_) in enumerate(((src2, ref2, 16, 16, 1, zero),
-                                                     (src1, ref1, 32, 2, 2, cen),
-                                                     (src, ref, 64, 2, 4, cen))):
-        args = (s_, r_, rr * n, cc * n, c_, n, r, scale)
-        err = assert_equal("me_sad", me_torch.search_centered(*args),
-                           me_torch.search_centered_plain(*args))
-        D = 2 * r + 1
-        record("me_sad", [B_sb, n, n, f"search L{2 - lvl} +-{r}"], err,
-               timed_ms(lambda: me_torch.search_centered(*args), 20),
-               timed_ms(lambda: me_torch.search_centered_plain(*args), 3),
-               nbytes=B_sb * (n * n + (n + 2 * r) ** 2) * 4 + B_sb * 16,
-               ops=B_sb * D * D * n * n * 3)
-    mv_sb = me_torch.search_centered(src, ref, rr * 64, cc * 64, cen, 64, 2, 4)
-    centers = torch.stack([mv_sb, zero])
-    args = (src, ref, centers, sbc, 4)
-    err = assert_equal("me_sad", me_torch.leaf_maps(*args), me_torch.leaf_maps_plain(*args))
-    record("me_sad", [2, B_sb * 64, 9, 9, "leaf maps"], err,
-           timed_ms(lambda: me_torch.leaf_maps(*args), 20),
-           timed_ms(lambda: me_torch.leaf_maps_plain(*args), 3),
-           nbytes=2 * H * W * 4 + 2 * B_sb * 8 + 2 * B_sb * 64 * 81 * 4,
-           ops=2 * B_sb * 64 * 81 * 64 * 3, main=True)
-    # the whole full-pel frame search (kernels and glue) against the plain
-    # versions on a CPU copy of the planes
-    mvs = me_torch.me_fullpel_frame(src, ref, sbr, sbc)[0]
-    want = me_torch.me_fullpel_frame(src.cpu(), ref.cpu(), sbr, sbc)
-    for n in me_torch.SIZES:
-        assert_equal("me_sad", mvs[n].cpu(), want[0][n])
-    log(json.dumps(dict(check="me_sad", shape=[H, W, "me_fullpel_frame, every size"],
-                        max_abs_err=0)))
+    sbr, sbc = 17, 30
+    RATES.update(packed_rates(torch))
+    log(json.dumps(dict(phase="packed_rates", lane_instructions_per_s=RATES)))
+    ref8, src8 = t(y0, torch.uint8), t(y1, torch.uint8)
+    mvs = check_me_frame(torch, record, assert_equal, src8, ref8, sbr, sbc, 0, main=True)
+    g.integers(-3, 4, (sbr * sbc, 2))  # the draw of earlier runs: later cases keep their inputs
 
     # ---- K9 subpel_pred: every size of the 1080p grid (25-point lattice),
     # and the 49-point lattice at n = 8; the prediction equals K10's MC
-    ref_y = t(y0, torch.uint8)
+    ref_y = ref8
     src_y = t(y1)
     for n, fast, main in ((8, True, True), (16, True, False), (32, True, False),
                           (64, True, False), (8, False, False)):
@@ -664,7 +782,10 @@ def check_motion(torch, dev, g, t, record, assert_equal):
                timed_ms(lambda: me_torch.subpel_pred_lanes(*args), 20),
                timed_ms(lambda: me_torch.subpel_pred_plain(*args), 3),
                nbytes=B * n * n * (4 + 1 + 4) + 16 * B,
-               ops=B * (L * (n + 8) * n * 16 + L * L * n * n * 19), main=main)
+               ops=B * (L * (n + 8) * n * 16 + L * L * n * n * 19), main=main,
+               packed_ops_ms=k9_packed_ops_ms(B, n, L),
+               **kernel_times(lambda: me_torch.subpel_pred_lanes(*args),
+                              k9_same(assert_equal, mk, pk), 20))
 
     # ---- K10 mc_lanes: the commit's 32,400 luma 8x8 and chroma 4x4 lanes
     # from a 2-reference stack, MVs reaching past every edge
@@ -697,7 +818,6 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
     import numpy as np
 
     from svtav1_tpu_torch.ops import me_torch, tf_torch
-    from svtav1_tpu_torch.pipeline.inter_device import _edge_pad
 
     clip = clip_1080p(6)
     # ---- K11 mc_compound: luma 8x8 and chroma 4x4 lanes, 3 references
@@ -740,8 +860,8 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
 
     # ---- one MCTF call: centre frame 2, neighbours 0, 1, 3, 4, 5
     H, W = 1088, 1920
-    planes = [[_edge_pad(t(f[pl], torch.uint8), H >> (pl > 0), W >> (pl > 0)) for pl in range(3)]
-              for f in clip]
+    planes = [[me_torch.edge_pad(t(f[pl], torch.uint8), H >> (pl > 0), W >> (pl > 0))
+               for pl in range(3)] for f in clip]
     cy = planes[2][0].to(torch.int32).contiguous()
     # K13 tf_noise
     a, b = tf_torch.noise_sums(cy), tf_torch.noise_sums_plain(cy)
@@ -754,7 +874,7 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
     R, C = H // 16, W // 16
     B = R * C
     ref_y = planes[3][0]
-    fp = me_torch.me_fullpel_frame(cy, ref_y.to(torch.int32).contiguous(), H // 64, W // 64)[0][16]
+    fp = me_torch.me_fullpel_frame(planes[2][0], ref_y, H // 64, W // 64)[0][16]
     fp = fp.reshape(B, 2).contiguous()
     ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * 16
     xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * 16
@@ -766,7 +886,10 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
     record("subpel_pred", [B, 16, 16, "49 points", "MCTF"], err,
            timed_ms(lambda: me_torch.subpel_pred_lanes(*args), 20),
            timed_ms(lambda: me_torch.subpel_pred_plain(*args), 3),
-           nbytes=B * 16 * 16 * 9 + 16 * B, ops=B * (7 * 24 * 16 * 16 + 49 * 16 * 16 * 19))
+           nbytes=B * 16 * 16 * 9 + 16 * B, ops=B * (7 * 24 * 16 * 16 + 49 * 16 * 16 * 19),
+           packed_ops_ms=k9_packed_ops_ms(B, 16, 7),
+           **kernel_times(lambda: me_torch.subpel_pred_lanes(*args),
+                          k9_same(assert_equal, mk, pk), 20))
     # K12 tf_filter on the compensated neighbours of the whole filter
     # (K8-K10 on the card), luma and chroma, K = 5
     captured = []
@@ -799,20 +922,20 @@ def check_tpl(torch, dev, g, t, record, assert_equal):
     from svtav1_tpu_torch.ops import me_torch
     from svtav1_tpu_torch.ops import quantize as quant_ops
     from svtav1_tpu_torch.ops import transforms_torch as TT
-    from svtav1_tpu_torch.pipeline.inter_device import _edge_pad
     from svtav1_tpu_torch.utils.profile_keyframes import tpl_cost_ops
 
     (y0, _u0, _v0), (y1, _u1, _v1) = clip_1080p(2)
     H, W, n = 1088, 1920, 16
     R, C = H // n, W // n
     B = R * C
-    ref = _edge_pad(t(y0, torch.uint8), H, W)
-    src = _edge_pad(t(y1), H, W)
+    ref = me_torch.edge_pad(t(y0, torch.uint8), H, W)
+    src8 = me_torch.edge_pad(t(y1, torch.uint8), H, W)
+    src = src8.to(torch.int32)
     ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n
     xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n
     srcb = src.reshape(R, n, C, n).permute(0, 2, 1, 3).reshape(B, n, n).contiguous()
-    fp_me = me_torch.me_fullpel_frame(src, ref.to(torch.int32).contiguous(), H // 64,
-                                      W // 64)[0][16].reshape(B, 2).contiguous()
+    fp_me = me_torch.me_fullpel_frame(src8, ref, H // 64, W // 64)[0][16].reshape(B, 2) \
+        .contiguous()
     for fp, label in ((fp_me, "ME MVs"), (t(g.integers(-64, 65, (B, 2))), "MVs +-64 px")):
         args = (srcb, ref, ys, xs, fp, 0, 8)
         err = assert_equal("subpel_refine", me_torch.subpel_refine_lanes(*args),
@@ -847,55 +970,18 @@ def check_tpl(torch, dev, g, t, record, assert_equal):
 def check_tiles(torch, dev, g, t, record, assert_equal):
     """Phase 2 for K8 with a reference wider than the source: the second
     tile of the 1920x1024 mesh GOP, a 1024x960 source against its
-    1024x1216 halo-cropped reference (ref_off_x=128): the three centred
-    searches, the leaf maps and the whole full-pel search, exact."""
+    1024x1216 halo-cropped reference (ref_off_x=128): the pyramid, the frame
+    search and the whole full-pel search, exact."""
     import numpy as np
 
-    from svtav1_tpu_torch.ops import me_torch
     from svtav1_tpu_torch.parallel.tiles import HALO
 
     (y0, _u0, _v0), (y1, _u1, _v1) = clip_1080p(2)
     H, W, x0 = 1024, 960, 960
     cols = (np.arange(-HALO, W + HALO) + x0).clip(0, 1919)
-    ref = t(y0[:H][:, cols])
-    src = t(y1[:H, x0 : x0 + W])
-    Hr, Wr = ref.shape
-    sbr, sbc = H // 64, W // 64
-    B_sb = sbr * sbc
-    shape = f"ref {Hr}x{Wr}, ref_off_x {HALO}"
-    src1, ref1 = me_torch.decimate2(src), me_torch.decimate2(ref)
-    src2, ref2 = me_torch.decimate2(src1), me_torch.decimate2(ref1)
-    rr = torch.arange(sbr, device=dev, dtype=torch.int32).repeat_interleave(sbc)
-    cc = torch.arange(sbc, device=dev, dtype=torch.int32).repeat(sbr)
-    zero = torch.zeros((B_sb, 2), dtype=torch.int32, device=dev)
-    cen = t(g.integers(-3, 4, (B_sb, 2)))
-    for lvl, (s_, r_, n, r, scale, c_) in enumerate(((src2, ref2, 16, 16, 1, zero),
-                                                     (src1, ref1, 32, 2, 2, cen),
-                                                     (src, ref, 64, 2, 4, cen))):
-        args = (s_, r_, rr * n, cc * n, c_, n, r, scale, HALO >> (2 - lvl))
-        err = assert_equal("me_sad", me_torch.search_centered(*args),
-                           me_torch.search_centered_plain(*args))
-        D = 2 * r + 1
-        record("me_sad", [B_sb, n, n, f"search L{2 - lvl} +-{r}", shape], err,
-               timed_ms(lambda: me_torch.search_centered(*args), 20),
-               timed_ms(lambda: me_torch.search_centered_plain(*args), 3),
-               nbytes=B_sb * (n * n + (n + 2 * r) ** 2) * 4 + B_sb * 16,
-               ops=B_sb * D * D * n * n * 3)
-    mv_sb = me_torch.search_centered(src, ref, rr * 64, cc * 64, cen, 64, 2, 4, HALO)
-    args = (src, ref, torch.stack([mv_sb, zero]), sbc, 4, HALO)
-    err = assert_equal("me_sad", me_torch.leaf_maps(*args), me_torch.leaf_maps_plain(*args))
-    record("me_sad", [2, B_sb * 64, 9, 9, "leaf maps", shape], err,
-           timed_ms(lambda: me_torch.leaf_maps(*args), 20),
-           timed_ms(lambda: me_torch.leaf_maps_plain(*args), 3),
-           nbytes=(H * W + Hr * Wr) * 4 + 2 * B_sb * 8 + 2 * B_sb * 64 * 81 * 4,
-           ops=2 * B_sb * 64 * 81 * 64 * 3)
-    mvs, mv_sb = me_torch.me_fullpel_frame(src, ref, sbr, sbc, ref_off_x=HALO)
-    want, want_sb = me_torch.me_fullpel_frame(src.cpu(), ref.cpu(), sbr, sbc, ref_off_x=HALO)
-    assert_equal("me_sad", mv_sb.cpu(), want_sb)
-    for n in me_torch.SIZES:
-        assert_equal("me_sad", mvs[n].cpu(), want[n])
-    log(json.dumps(dict(check="me_sad", shape=[H, W, "me_fullpel_frame, every size", shape],
-                        max_abs_err=0)))
+    ref = t(y0[:H][:, cols], torch.uint8)
+    src = t(y1[:H, x0 : x0 + W], torch.uint8)
+    check_me_frame(torch, record, assert_equal, src, ref, H // 64, W // 64, HALO)
 
 
 def encode_clip(cfg, frames, device):
@@ -1722,20 +1808,26 @@ def check_commit_wave(torch, capture):
 
 
 class TxqCapture:
-    """Copies the inputs of every K2 launch (transforms_torch._launch) and K3
-    launch (rate_torch.txb_bits) made inside a frame's decide
-    (device_decide.decide_intra_frames, inter_device._run_decide) or commit
-    (device_commit.commit_regions: phase A; phase B is K16), keyed "key" or
-    "P" by the frame. Used as a context manager around an encode."""
+    """Copies the inputs of every K2 launch (transforms_torch._launch), K3
+    launch (rate_torch.txb_bits), K9 launch (me_torch.subpel_pred_lanes) and
+    K8 call (me_torch.me_pyramid, one launch; me_torch.me_fullpel_frame, two
+    launches) made inside a frame's
+    decide (device_decide.decide_intra_frames, inter_device._run_decide) or
+    commit (device_commit.commit_regions: phase A; phase B is K16), keyed
+    "key" or "P" by the frame. Used as a context manager around an encode."""
 
     def __init__(self):
         from svtav1_tpu_torch.codec import rate_torch
+        from svtav1_tpu_torch.ops import me_torch
         from svtav1_tpu_torch.ops import transforms_torch as TT
         from svtav1_tpu_torch.pipeline import device_commit, device_decide, inter_device
 
         self.calls = {"key": [], "P": []}
         self.label = None
-        self.patches = [(TT, "_launch", self._k2), (rate_torch, "txb_bits", self._k3)]
+        self.patches = [(TT, "_launch", self._k2), (rate_torch, "txb_bits", self._k3),
+                        (me_torch, "subpel_pred_lanes", self._k9),
+                        (me_torch, "me_fullpel_frame", self._k8),
+                        (me_torch, "me_pyramid", self._k8_pyramid)]
         for mod, name, stage, at in ((device_decide, "decide_intra_frames", "decide", 1),
                                      (inter_device, "_run_decide", "decide", 2),
                                      (device_commit, "commit_regions", "commit", 1)):
@@ -1773,6 +1865,36 @@ class TxqCapture:
                 coeff=coeff is not None, recon=recon is not None, sse=sse is not None,
                 rest=rest))
         self.real[(TT, "_launch")](stage, src, pred, va, ha, levels, coeff, recon, sse, *rest)
+
+    def _k9(self, src_b, ref, ys, xs, mv_fp, which, bd, fast=False):
+        from svtav1_tpu_torch.ops import me_torch
+
+        if self.label is not None:
+            self.calls[self.label[0]].append(dict(
+                kernel="subpel_pred", stage=self.label[1],
+                args=tuple(a.clone() for a in (src_b, ref, ys, xs, mv_fp)) + (which, bd, fast)))
+        return self.real[(me_torch, "subpel_pred_lanes")](src_b, ref, ys, xs, mv_fp, which, bd,
+                                                          fast=fast)
+
+    def _k8(self, src_y, ref_y, sb_rows, sb_cols, **kw):
+        from svtav1_tpu_torch.ops import me_torch
+
+        if self.label is not None:
+            pyr = kw.get("src_pyr")
+            self.calls[self.label[0]].append(dict(
+                kernel="me_sad", stage=self.label[1], args=(src_y.clone(), ref_y.clone(), sb_rows,
+                                                           sb_cols),
+                kw=dict(kw, src_pyr=None if pyr is None else tuple(p.clone() for p in pyr))))
+        return self.real[(me_torch, "me_fullpel_frame")](src_y, ref_y, sb_rows, sb_cols, **kw)
+
+    def _k8_pyramid(self, src_y, sb_rows, sb_cols):
+        from svtav1_tpu_torch.ops import me_torch
+
+        if self.label is not None:
+            self.calls[self.label[0]].append(dict(kernel="me_sad", stage=self.label[1],
+                                                  pyramid=True,
+                                                  args=(src_y.clone(), sb_rows, sb_cols)))
+        return self.real[(me_torch, "me_pyramid")](src_y, sb_rows, sb_cols)
 
     def _k3(self, levels, tabs):
         from svtav1_tpu_torch.codec import rate_torch
@@ -1818,18 +1940,23 @@ def replay_k2(torch, c):
 
 
 def check_captured(torch):
-    """K2 and K3 at every launch of the decide and commit phase A of a 1080p
-    medium key frame and the first P frame of the main path (a fresh
-    keyint=16 encoder, 2 frames): each launch replayed on its own inputs
-    through the kernel (K2 equal to the plain version, K3 within rtol 1e-5,
-    atol 1e-3 bits) and timed on the device (device_ms: no host time), its
-    bound from its arguments; with --baseline-lib also through the baseline
-    library (`baseline_ms`, device time). One line per frame: launches,
-    summed ms, bounds and ms - bound per kernel, and per distinct launch
-    shape [shape, launches, ms, bound_ms, baseline_ms]. Launch counts are
-    restored after."""
+    """K2, K3, K9 and K8 at every launch of the decide and commit phase A of
+    a 1080p medium key frame and the first P frame of the main path (a fresh
+    keyint=16 encoder, 2 frames): each launch (K8: the source's pyramid and
+    each me_fullpel_frame call, its two launches) replayed on its own inputs
+    through the kernel
+    and its plain version (K3 within rtol 1e-5, atol 1e-3 bits; the others
+    exact; K9's prediction also equal to K10 at its MV) and timed on the
+    device (device_ms: no host time), its bound from its arguments; with
+    --baseline-lib K2, K3 and K9 also through the baseline library
+    (`baseline_ms`, device time); K8's bounds and K9's also at the packed
+    rates (`packed_bound_ms`). One line per frame: launches, summed ms,
+    bounds and ms - bound per kernel,
+    and per distinct launch shape [shape, launches, ms, bound_ms,
+    baseline_ms]. Launch counts are restored after."""
     from svtav1_tpu_torch import kernels
     from svtav1_tpu_torch.codec import rate_torch
+    from svtav1_tpu_torch.ops import me_torch
     from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
     from svtav1_tpu_torch.utils.profile_keyframes import bound_ms, launch_bound
 
@@ -1842,10 +1969,10 @@ def check_captured(torch):
     torch.cuda.synchronize()
     del enc
     real_launch = kernels.launch
-    last = []
+    recorded = []
 
-    def launch(name, *args):  # the C arguments of the replayed launch, for its bound
-        last[:] = [name, args]
+    def launch(name, *args):  # the C arguments of the replayed launches, for their bounds
+        recorded.append((name, args))
         real_launch(name, *args)
 
     out = {}
@@ -1854,7 +1981,7 @@ def check_captured(torch):
             raise SystemExit(f"decide capture: no K2 or K3 launch on the {label} frame")
         sums, shapes = {}, {}
         for c in calls:
-            name = c["kernel"]
+            name, adst, extra = c["kernel"], None, {}
             if name == "txfm_quant_recon":
                 run, plain = replay_k2(torch, c)
                 L, n = c["pred"].shape[0], c["pred"].shape[-1]
@@ -1866,7 +1993,7 @@ def check_captured(torch):
                     for x, y in zip(a, ref):
                         if x is not None:
                             assert_equal_cuda(torch, "txfm_quant_recon (captured)", x, y)
-            else:
+            elif name == "txb_rate":
                 lv, tabs = c["levels"], c["tabs"]
 
                 def run(lv=lv, tabs=tabs):
@@ -1875,29 +2002,91 @@ def check_captured(torch):
                 def plain(lv=lv, tabs=tabs):
                     return rate_torch.txb_bits_plain(lv, tabs)
 
-                adst = None
                 shape = [c["stage"], "K3", *lv.shape, tabs.tx_class]
 
                 def same(a, ref):
                     k3_close("txb_rate (captured)", a, ref)
+            elif name == "subpel_pred":
+                args = c["args"]
+
+                def run(args=args):
+                    return me_torch.subpel_pred_lanes(*args[:7], fast=args[7])
+
+                def plain(args=args):
+                    return me_torch.subpel_pred_plain(*args[:7], fast=args[7])
+
+                src_b = args[0]
+                shape = [c["stage"], "K9", src_b.shape[0], src_b.shape[-1],
+                         (5 if args[7] else 7) ** 2]
+
+                def same(a, ref):
+                    for x, y in zip(a, ref):
+                        assert_equal_cuda(torch, "subpel_pred (captured)", x, y)
+            elif c.get("pyramid"):  # me_sad: the source's pyramid, one launch
+                args = c["args"]
+
+                def run(args=args):
+                    return me_torch.me_pyramid(*args)
+
+                def plain(args=args):
+                    src_y, sbr, sbc = args
+                    H, W = me_torch._grid_dims(src_y, sbr, sbc)
+                    l1 = me_torch.decimate2_plain(me_torch.edge_pad(src_y, H, W).to(torch.int32))
+                    return l1, me_torch.decimate2_plain(l1)
+
+                shape = [c["stage"], "K8", *args[0].shape, "pyramid, source"]
+
+                def same(a, ref):
+                    for x, y in zip(a, ref):
+                        assert_equal_cuda(torch, "me_sad (captured)", x.to(torch.int32), y)
+            else:  # me_sad: a whole me_fullpel_frame call
+                args, kw = c["args"], c["kw"]
+
+                def run(args=args, kw=kw):
+                    return me_torch.me_fullpel_frame(*args, **kw)
+
+                def plain(args=args, kw=kw):
+                    return me_torch.me_fullpel_frame_plain(*args, **kw)
+
+                shape = [c["stage"], "K8", *args[0].shape, f"{args[2]}x{args[3]} SBs"]
+
+                def same(a, ref):
+                    assert_equal_cuda(torch, "me_sad (captured)", a[1], ref[1])
+                    for n in me_torch.SIZES:
+                        assert_equal_cuda(torch, "me_sad (captured)", a[0][n], ref[0][n])
             ref = plain()
+            recorded.clear()
             kernels.launch = launch
             try:
-                same(run(), ref)
+                got = run()
             finally:
                 kernels.launch = real_launch
-            b_ms = bound_ms(*launch_bound(last[0], last[1], adst))
-            t = kernel_times(run, lambda a: same(a, ref), 10)
+            same(got, ref)
+            if name == "subpel_pred":  # the prediction is K10's MC at the MV
+                mv, ys, xs, n = got[0], args[2], args[3], args[0].shape[-1]
+                assert_equal_cuda(torch, "subpel_pred (captured) against mc_lanes", got[1],
+                                  me_torch.mc_lanes(args[1], ys, xs, mv[:, 0] * 2, mv[:, 1] * 2,
+                                                    n, n, args[5], args[6]))
+            b_ms = sum(bound_ms(*launch_bound(nm, a, adst)) for nm, a in recorded)
+            if name in ("subpel_pred", "me_sad"):  # at the measured packed rates, as phase 2
+                extra["packed_bound_ms"] = sum(packed_bound_ms(nm, a) for nm, a in recorded)
+            if name == "me_sad":  # no baseline: the parent's K8 has another interface
+                t = dict(device_ms=device_ms(run, 10))
+                if not c.get("pyramid"):
+                    extra["calls"] = 1
+            else:
+                t = kernel_times(run, lambda a: same(a, ref), 10)
             ms, base = t["device_ms"], t.get("baseline_device_ms", 0.0)
             rec = sums.setdefault(name, dict(launches=0, ms=0.0, bound_ms=0.0, baseline_ms=0.0))
             row = shapes.setdefault(json.dumps(shape), [0, 0.0, 0.0, 0.0])
-            for k, v in (("launches", 1), ("ms", ms), ("bound_ms", b_ms), ("baseline_ms", base)):
-                rec[k] += v
-            for i, v in enumerate((1, ms, b_ms, base)):
+            for k, v in (("launches", len(recorded)), ("ms", ms), ("bound_ms", b_ms),
+                         ("baseline_ms", base), *extra.items()):
+                rec[k] = rec.get(k, 0) + v
+            for i, v in enumerate((len(recorded), ms, b_ms, base)):
                 row[i] += v
-        for rec in sums.values():
+        for name, rec in sums.items():
             rec["ms_minus_bound"] = rec["ms"] - rec["bound_ms"]
-            if not BASELINE:
+            if not BASELINE or name == "me_sad":
                 del rec["baseline_ms"]
         out[label] = sums
         log(json.dumps(dict(phase="decide_capture", frame=label, kernels=sums,

@@ -17,13 +17,14 @@
 // Bound: operations. A block reads (n+8)^2 uint8 and n^2 int32 source samples
 // and writes n^2 + 2 int32, but computes 25 or 49 predictions of n^2 samples
 // (8 vertical multiply-adds, an absolute difference and a sum each) and the
-// horizontal pass of 5 or 7 column phases over n+8 rows. Design: one block per
-// source block; patch and source staged in shared memory as int16; the
-// horizontal pass depends only on the column offset and phase (dx), so it runs
-// once per dx value into shared memory and serves every dy of that column;
-// each thread keeps its partial SADs for all dy in registers and they are
-// reduced per warp with one shared atomic each. One thread then picks the
-// winner, and the block recomputes that one prediction and writes it.
+// horizontal pass of 5 or 7 column phases over n+8 rows. Design (K9 below):
+// a lane per column of a block, several blocks per CTA, the column's
+// intermediate and its partial SADs in registers, packed int8 x int8 and
+// int16 x int8 dot products (IDP.4A, IDP.2A) for the two passes. It rests on
+// three facts of the filter tables (tests/test_torch_me.py holds them): every
+// tap but phase 0's 128 fits int8, every phase sums to 128, and at 8 bits the
+// horizontal intermediate lies in [263, 7913], an int16. K14 keeps the
+// shared-memory passes (hpass, vpass) of the first port.
 #include "common.cuh"
 
 namespace {
@@ -58,109 +59,218 @@ __device__ __forceinline__ int vpass(const int* hb, const int* f, int n, int r0,
   return clampi(((acc + (1 << (ROUND1 - 1))) >> ROUND1) - sub, 0, maxv);
 }
 
-__global__ void subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t* __restrict__ ref,
-                                   const int* __restrict__ ys, const int* __restrict__ xs,
-                                   const int* __restrict__ mv_fp, const int* __restrict__ ftab,
-                                   int* __restrict__ mv_out, int* __restrict__ pred_out, int H,
-                                   int W, int n, int bd, int L) {
-  extern __shared__ int smem[];
-  __shared__ int taps[16 * 8];
-  __shared__ int sads[MAXL * MAXL];
-  __shared__ int s_best[2];
-  const int P = n + 8;
-  int* hb = smem;                              // (n+8) x n int32
-  short* patch = (short*)(smem + P * n);       // (n+8)^2
-  short* src = patch + P * P;                  // n x n
-  const int b = blockIdx.x;
+// ---- K9: a lane per column, the block's columns in registers ----
+
+// every phase but 0 has int8 taps; phase 0 (a single tap of 128) is a copy
+constexpr int HINIT = (1 << 14) + 128 * 128 + 4;  // 2^(bd+6), 128 x the taps' sum 128, rounding
+constexpr int VINIT = (1 << 19) + 1024 - (384 << 11);  // 2^offset_bits, rounding, - the offset
+
+// the horizontal intermediate (ROUND0) of the 8 patch samples at byte offset
+// o of a row of signed bytes (sample - 128): two IDP.4A on the int8 taps
+// (t0: taps 0-3, t1: taps 4-7), or the copy of phase 0
+__device__ __forceinline__ int hsample(const uint8_t* row, int o, int t0, int t1, bool copy) {
+  const unsigned* w = (const unsigned*)(row + (o & ~3));
+  const unsigned sel = 0x3210u + 0x1111u * (o & 3);
+  const unsigned w0 = w[0], w1 = w[1], w2 = w[2];
+  const int lo = (int)__byte_perm(w0, w1, sel), hi = (int)__byte_perm(w1, w2, sel);
+  return copy ? 4096 + 16 * (lo >> 24) : __dp4a(hi, t1, __dp4a(lo, t0, HINIT)) >> 3;
+}
+
+__device__ __forceinline__ int clip8(int acc) { return clampi(acc >> 11, 0, 255); }
+
+// The lattice point j's offset in 1/8 pel: -(L-1) + 2j (-4..4 or -6..6).
+// One CTA of 256 threads holds 256 / N blocks; a block's N threads own one
+// column each (a group of N lanes inside one warp up to N = 32, two warps at
+// N = 64). Per column phase, a lane computes its column's horizontal
+// intermediate over a strip of SH + 8 rows (IDP.4A from the patch, staged
+// once as signed bytes), packs it as int16 pairs aligned at even and at odd
+// rows, and runs every vertical phase from those registers (IDP.2A; the
+// centre phase is a copy), adding |pred - src| with one VABSDIFF into a
+// partial SAD per lattice row. The partials are summed across the group with
+// shuffles; the totals go to shared memory, and every lane picks the same
+// winner from them; each lane then recomputes and writes its column at the
+// winner. No CTA barrier after the staging, except the sum of N = 64's two
+// warps.
+// Two CTAs per SM: ptxas may then take up to 128 registers (77-89); held to
+// one CTA's bound it settles on 64 and spilled at N = 16, L = 7.
+template <int N, int L>
+__global__ void __launch_bounds__(256, 2)
+subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t* __restrict__ ref,
+                   const int* __restrict__ ys, const int* __restrict__ xs,
+                   const int* __restrict__ mv_fp, const int* __restrict__ ftab,
+                   int* __restrict__ mv_out, int* __restrict__ pred_out, int B, int H, int W) {
+  constexpr int P = N + 8, PS = N + 12;  // patch side; row stride (the last word read overhangs)
+  constexpr int BPC = 256 / N;           // blocks per CTA
+  constexpr int G = N < 32 ? N : 32;     // a block's lanes inside one warp
+  constexpr int WPB = N / G;             // warps per block
+  constexpr int SH = N < 16 ? N : 16;    // output rows per strip
+  constexpr int NH = SH + 8;             // intermediate rows per strip
+  constexpr int LL = L * L;
+  // words per patch; the groups of one warp start on banks G apart
+  constexpr int PBW = G < 32 ? ((P * PS + 3) / 4 + 31) / 32 * 32 + G : (P * PS + 3) / 4;
+  __shared__ __align__(16) unsigned patches[BPC * PBW + 4];
+  __shared__ int taps[16][8];
+  __shared__ int tpk[16][2];
+  __shared__ int tot[BPC][WPB][LL];
+  const int tid = threadIdx.x, slot = tid / N, c = tid - slot * N;
+  const int bb = blockIdx.x * BPC + slot, b = min(bb, B - 1);
+  const bool real = bb < B;
+  if (tid < 128) taps[tid >> 3][tid & 7] = ftab[tid];
+  if (tid < 32) {
+    const int* f = ftab + 4 * tid;  // phase tid / 2, taps 4 (tid & 1) ..
+    tpk[tid >> 1][tid & 1] = (int)((f[0] & 255) | ((f[1] & 255) << 8) | ((f[2] & 255) << 16) |
+                                   ((unsigned)f[3] << 24));
+  }
+  uint8_t* patch = (uint8_t*)(patches + slot * PBW);
   const int mfy = mv_fp[2 * b], mfx = mv_fp[2 * b + 1];
   const int py = ys[b] + mfy - 4, px = xs[b] + mfx - 4;
-  for (int i = threadIdx.x; i < 128; i += blockDim.x) taps[i] = ftab[i];
-  for (int i = threadIdx.x; i < L * L; i += blockDim.x) sads[i] = 0;
-  for (int i = threadIdx.x; i < P * P; i += blockDim.x) {
-    const int r = i / P, c = i - r * P;
-    patch[i] = ref[(size_t)clampi(py + r, 0, H - 1) * W + clampi(px + c, 0, W - 1)];
+  for (int i = c; i < P * P; i += N) {
+    const int r = i / P, cc = i - r * P;
+    patch[r * PS + cc] =
+        ref[(size_t)clampi(py + r, 0, H - 1) * W + clampi(px + cc, 0, W - 1)] ^ 0x80;
   }
-  const int* S = src_b + (size_t)b * n * n;
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x) src[i] = (short)S[i];
-  const int offset_bits = bd + 2 * FILTER_BITS - ROUND0;
-  const int sub = (1 << (offset_bits - ROUND1)) + (1 << (offset_bits - ROUND1 - 1));
-  const int maxv = (1 << bd) - 1;
+  __syncthreads();
+
+  const int* S = src_b + (size_t)b * N * N + c;
   for (int jx = 0; jx < L; ++jx) {
-    __syncthreads();  // staging done / previous column's SADs read hb
-    hpass(patch, hb, taps, n, lat_of(jx, L), bd);
-    __syncthreads();
-    int part[MAXL];
+    const int fx0 = 2 * (2 * jx - (L - 1));  // 1/16 pel
+    const int o = c + 1 + (fx0 >> 4), sx = fx0 & 15;
+    const int t0 = tpk[sx][0], t1 = tpk[sx][1];
+    unsigned part[L];
 #pragma unroll
-    for (int j = 0; j < MAXL; ++j) part[j] = 0;
-    for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-      const int r = i / n, c = i - r * n;
-      const int s = src[i];
+    for (int jy = 0; jy < L; ++jy) part[jy] = 0;
+    for (int s = 0; s < N; s += SH) {
+      int sv[SH];
 #pragma unroll
-      for (int jy = 0; jy < MAXL; ++jy) {
-        if (jy < L) {
-          const int fy0 = 2 * lat_of(jy, L);
-          part[jy] += abs(vpass(hb, taps + (fy0 & 15) * 8, n, 1 + (fy0 >> 4), r, c, offset_bits,
-                                sub, maxv) - s);
+      for (int r = 0; r < SH; ++r) sv[r] = S[(s + r) * N];
+      unsigned E[NH / 2], Od[NH / 2 - 1];  // (h[2i], h[2i+1]) and (h[2i+1], h[2i+2])
+      {  // row by row, so that only the last intermediate stays live
+        int prev = hsample(patch + s * PS, o, t0, t1, sx == 0);
+#pragma unroll
+        for (int i = 0; i < NH / 2; ++i) {
+          const int odd = hsample(patch + (s + 2 * i + 1) * PS, o, t0, t1, sx == 0);
+          E[i] = __byte_perm(prev, odd, 0x5410);
+          if (i < NH / 2 - 1) {
+            prev = hsample(patch + (s + 2 * i + 2) * PS, o, t0, t1, sx == 0);
+            Od[i] = __byte_perm(odd, prev, 0x5410);
+          }
+        }
+      }
+#pragma unroll
+      for (int jy = 0; jy < L; ++jy) {
+        const int fy0 = 2 * (2 * jy - (L - 1));
+        const int r0 = 1 + (fy0 >> 4), sy = fy0 & 15;
+        if (sy == 0) {  // the centre row: a copy of h[r + r0 + 3]
+#pragma unroll
+          for (int r = 0; r < SH; ++r) {
+            const int i = r + r0 + 3;
+            const int hv = (i & 1) ? (int)(E[i >> 1] >> 16) : (int)(E[i >> 1] & 0xffff);
+            part[jy] = __sad(clip8(VINIT + (hv << 7)), sv[r], part[jy]);
+          }
+        } else {
+          const int u0 = tpk[sy][0], u1 = tpk[sy][1];
+#pragma unroll
+          for (int r = 0; r < SH; ++r) {
+            const int q = r + r0, e = q >> 1, od = min(e, NH / 2 - 5);  // od: in range
+            unsigned pr[4];  // the int16 pairs (h[q + 2m], h[q + 2m + 1])
+#pragma unroll
+            for (int m = 0; m < 4; ++m) pr[m] = (q & 1) ? Od[od + m] : E[e + m];
+            int acc = __dp2a_lo((int)pr[0], u0, VINIT);
+            acc = __dp2a_hi((int)pr[1], u0, acc);
+            acc = __dp2a_lo((int)pr[2], u1, acc);
+            acc = __dp2a_hi((int)pr[3], u1, acc);
+            part[jy] = __sad(clip8(acc), sv[r], part[jy]);
+          }
         }
       }
     }
 #pragma unroll
-    for (int jy = 0; jy < MAXL; ++jy) {
-      if (jy < L) {
-        int v = part[jy];
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-        if ((threadIdx.x & 31) == 0) atomicAdd(&sads[jy * L + jx], v);
+    for (int jy = 0; jy < L; ++jy) {
+      unsigned v = part[jy];
+      for (int m = G / 2; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+      if ((c & (G - 1)) == 0) tot[slot][c / G][jy * L + jx] = (int)v;
+    }
+  }
+  if (WPB > 1) __syncthreads();
+  else __syncwarp();
+
+  // the winner, the same in every lane of the block
+  auto total = [&](int k) {
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < WPB; ++w) t += tot[slot][w][k];
+    return t;
+  };
+  int by, bx;
+  if (L == 5) {  // the first minimum in (dy, dx) raster order
+    unsigned best = ~0u;
+#pragma unroll
+    for (int k = 0; k < LL; ++k) best = min(best, ((unsigned)total(k) << 6) | (unsigned)k);
+    by = (best & 63) / L;
+    bx = (best & 63) % L;
+  } else {  // the half-pel 9 points {1,3,5}^2, then their strictly better neighbours
+    int bs = total(1 * L + 1), y1 = 1, x1 = 1;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc) {
+        const int v = total((1 + 2 * a) * L + 1 + 2 * cc);
+        if (v < bs) {
+          bs = v;
+          y1 = 1 + 2 * a;
+          x1 = 1 + 2 * cc;
+        }
+      }
+    by = y1;
+    bx = x1;
+#pragma unroll
+    for (int k = 0; k < LL; ++k) {
+      const int jy = k / L, jx = k % L;
+      if (abs(jy - y1) <= 1 && abs(jx - x1) <= 1 && (jy != y1 || jx != x1)) {
+        const int v = total(k);
+        if (v < bs) {
+          bs = v;
+          by = jy;
+          bx = jx;
+        }
       }
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int by, bx;  // lattice indices of the winner
-    if (L == 5) {
-      int best = 0;
-      for (int k = 1; k < 25; ++k)
-        if (sads[k] < sads[best]) best = k;
-      by = best / 5;
-      bx = best % 5;
-    } else {
-      // half-pel stage over {-4,0,4}^2 = lattice indices {1,3,5}^2
-      int y1 = 1, x1 = 1, bs = sads[1 * 7 + 1];
-      for (int a = 0; a < 3; ++a)
-        for (int c = 0; c < 3; ++c) {
-          const int v = sads[(1 + 2 * a) * 7 + 1 + 2 * c];
-          if (v < bs) {
-            bs = v;
-            y1 = 1 + 2 * a;
-            x1 = 1 + 2 * c;
-          }
-        }
-      by = y1;
-      bx = x1;
-      for (int a = -1; a <= 1; ++a)
-        for (int c = -1; c <= 1; ++c) {
-          if (a == 0 && c == 0) continue;
-          const int v = sads[(y1 + a) * 7 + x1 + c];
-          if (v < bs) {
-            bs = v;
-            by = y1 + a;
-            bx = x1 + c;
-          }
-        }
+  const int lx = 2 * bx - (L - 1), ly = 2 * by - (L - 1);
+  if (real && c == 0) {
+    mv_out[2 * b] = mfy * 8 + ly;
+    mv_out[2 * b + 1] = mfx * 8 + lx;
+  }
+  // the winner's prediction of this lane's column
+  const int fx0 = 2 * lx, fy0 = 2 * ly;
+  const int o = c + 1 + (fx0 >> 4), sx = fx0 & 15, r0 = 1 + (fy0 >> 4), sy = fy0 & 15;
+  const int t0 = tpk[sx][0], t1 = tpk[sx][1];
+  int f[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) f[k] = taps[sy][k];
+  int* out = pred_out + (size_t)b * N * N + c;
+  for (int s = 0; s < N; s += SH) {
+    int h[SH + 7];
+#pragma unroll
+    for (int i = 0; i < SH + 7; ++i) h[i] = hsample(patch + (s + r0 + i) * PS, o, t0, t1, sx == 0);
+#pragma unroll
+    for (int r = 0; r < SH; ++r) {
+      int acc = VINIT;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc += f[k] * h[r + k];
+      if (real) out[(s + r) * N] = clip8(acc);
     }
-    s_best[0] = by;
-    s_best[1] = bx;
-    mv_out[2 * b] = mfy * 8 + lat_of(by, L);
-    mv_out[2 * b + 1] = mfx * 8 + lat_of(bx, L);
   }
-  __syncthreads();
-  hpass(patch, hb, taps, n, lat_of(s_best[1], L), bd);
-  __syncthreads();
-  const int fy0 = 2 * lat_of(s_best[0], L);
-  int* O = pred_out + (size_t)b * n * n;
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-    const int r = i / n, c = i - r * n;
-    O[i] = vpass(hb, taps + (fy0 & 15) * 8, n, 1 + (fy0 >> 4), r, c, offset_bits, sub, maxv);
-  }
+}
+
+template <int N, int L>
+int launch_pred(const int* src_b, const uint8_t* ref, const int* ys, const int* xs,
+                const int* mv_fp, const int* ftab, int* mv_out, int* pred_out, int B, int H, int W,
+                cudaStream_t st) {
+  constexpr int BPC = 256 / N;
+  subpel_pred_kernel<N, L><<<(B + BPC - 1) / BPC, 256, 0, st>>>(src_b, ref, ys, xs, mv_fp, ftab,
+                                                                mv_out, pred_out, B, H, W);
+  return launch_status();
 }
 
 // K14 subpel_refine: the TPL's two-step refinement (half pel, then quarter
@@ -269,10 +379,20 @@ extern "C" int subpel_pred_launch(const int* src_b, const uint8_t* ref, const in
                                   const int* mv_fp, const int* ftab, int* mv_out, int* pred_out,
                                   int B, int H, int W, int n, int bd, int fast, void* stream) {
   if (B == 0) return 0;
-  const int P = n + 8;
-  const int threads = n * n >= 256 ? 256 : n * n;
-  const size_t shm = (size_t)P * n * sizeof(int) + (size_t)(P * P + n * n) * sizeof(short);
-  subpel_pred_kernel<<<B, threads, shm, (cudaStream_t)stream>>>(src_b, ref, ys, xs, mv_fp, ftab, mv_out,
-                                                               pred_out, H, W, n, bd, fast ? 5 : 7);
-  return launch_status();
+  if (bd != 8) return (int)cudaErrorInvalidValue;  // uint8 references: 8-bit only
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto args = [&](auto launch) {
+    return launch(src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W, st);
+  };
+  switch (n * 2 + (fast ? 1 : 0)) {
+    case 17: return args(launch_pred<8, 5>);
+    case 16: return args(launch_pred<8, 7>);
+    case 33: return args(launch_pred<16, 5>);
+    case 32: return args(launch_pred<16, 7>);
+    case 65: return args(launch_pred<32, 5>);
+    case 64: return args(launch_pred<32, 7>);
+    case 129: return args(launch_pred<64, 5>);
+    case 128: return args(launch_pred<64, 7>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -73,9 +73,9 @@ ARGTYPES = {
     # plane, dirs, var|NULL, pri, sec, mask, src|NULL, sse|NULL, out|NULL, K, F, H, W,
     # log2m, damping, coeff_shift, stream
     "cdef_filter_launch": [_P] * 9 + [_I] * 7 + [_P],
-    # mode, src, ref, ys|NULL, xs|NULL, centers|NULL, out, B, K, H, W, Hr, Wr, ox, n, r, scale,
-    # sb_cols, stream
-    "me_sad_launch": [_I] + [_P] * 6 + [_I] * 11 + [_P],
+    # mode (0 pyramid, 1 frame search), src0|NULL, src1, src2, ref0, ref1, ref2, out|NULL, hs,
+    # ws, Hs, Ws, hr, wr, Hr, Wr, ox, sb_rows, sb_cols, l2_radius, leaf_radius, stream
+    "me_sad_launch": [_I] + [_P] * 7 + [_I] * 13 + [_P],
     # src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W, n, bd, fast, stream
     "subpel_pred_launch": [_P] * 8 + [_I] * 6 + [_P],
     # ref, ys, xs, mvy, mvx, ref_idx|NULL, ftab_x, ftab_y, out, B, nref, H, W, n_h, n_w, bd,
@@ -100,6 +100,9 @@ ARGTYPES = {
     "commit_wave_grid": [_I, _I],
     # grid, nbarriers, stream: K16's grid barriers alone (chip_smoke.py's barrier cost)
     "grid_sync_launch": [_I, _I, _P],
+    # which (0 VABSDIFF4.ACC, 1 IDP.2A, 2 IDP.4A, 3 IMAD), blocks, iters, out, stream: the
+    # instruction rates of K8's and K9's bounds (chip_smoke.py)
+    "packed_rate_launch": [_I, _I, _I, _P, _P],
 }
 
 launches = {name: 0 for name in KERNELS}
@@ -174,10 +177,10 @@ def ptxas_report() -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            kern = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E|ILi(\d+)E)?", name)
-            entry = name if not kern else kern.group(1) + (
-                "" if not kern.group(2) else f"<{kern.group(4)}>" if kern.group(4)
-                else "<true>" if kern.group(3) == "1" else "<false>")
+            kern = re.search(r"\d+([a-z_]+_kernel)((?:IL[bi]\d+E|L[bi]\d+E)*)", name)
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([bi])(\d+)E", kern.group(2))] if kern else []
+            entry = name if not kern else kern.group(1) + (f"<{', '.join(args)}>" if args else "")
             out[entry] = [0, 0, 0, 0]
         if entry is None:
             continue

@@ -2,14 +2,19 @@
 svtav1_tpu's ops/me_jax.py, around five CUDA kernels with a plain PyTorch
 version beside each:
 
-- K8 `me_sad` (`csrc/me.cu`): the 2x2 decimation of the ME pyramid, the
-  centred full search of (B, n, n) blocks (L2 16x16 at +-16 on the
-  quarter-resolution plane, L1 32x32 and L0 64x64 at +-2), and the 8x8 SAD
-  maps of every SB's 64 leaves around two centres (the SB winner and zero),
-  against a reference plane of its own dims that may be wider than the
-  source (a tile's halo-cropped reference, `ref_off_x`). The quadtree sum
-  of the leaf maps, the per-size biased argmin and the two-centre merge are
-  PyTorch glue in `me_fullpel_frame`.
+- K8 `me_sad` (`csrc/me.cu`): the full-pel search of a frame against one
+  reference, `me_fullpel_frame`, in two launches: the ME pyramid (the 2x2
+  decimations to 1/2 and 1/4 resolution, of the source and the reference
+  together or of the reference alone when the caller built the source's
+  once with `me_pyramid`), then one CTA per 64x64 superblock for the L2
+  search (16x16 at +-16 on the quarter-resolution plane), the L1 (32x32)
+  and L0 (64x64) refinements at +-2, the 8x8 SAD maps of the SB's 64 leaves
+  around two centres (the SB winner and zero), their quadtree sums, each
+  size's biased argmin and the two-centre merge. The reference may be wider
+  than the source (a tile's halo-cropped reference, `ref_off_x`). The plain
+  version, `me_fullpel_frame_plain`, is the composition of
+  `decimate2_plain`, `search_centered_plain`, `leaf_maps_plain` and the
+  argmin glue.
 - K9 `subpel_pred` (`csrc/subpel.cu`): the subpel search on the 25-point
   ({-4..4}) or 49-point ({-6..6}) 1/8-pel lattice from one (n+8)^2 patch per
   block, with the winner's normative prediction.
@@ -39,7 +44,7 @@ from .convolve import (COMPOUND_ROUND1, FILTER_BITS, ROUND0, ROUND1, filter_for_
 
 SIZES = (8, 16, 32, 64)
 # K8 modes (csrc/me.cu me_sad_launch)
-_ME_DECIMATE, _ME_SEARCH, _ME_LEAF = 0, 1, 2
+_ME_PYRAMID, _ME_FRAME = 0, 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -311,97 +316,53 @@ def subpel_refine_plain(src_b, ref, ys, xs, mv_fp, which: int, bd: int):
 # ---------------------------------------------------------------------------
 
 
-def _me_launch(mode: int, src, ref, ys, xs, centers, out, B: int, K: int, n: int, r: int,
-               scale: int, sb_cols: int, ref_off_x: int = 0) -> None:
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
-    H, W = src.shape
-    Hr, Wr = ref.shape if ref is not None else (0, 0)
-    kernels.launch("me_sad", mode, ptr(src), ptr(ref), ptr(ys), ptr(xs), ptr(centers),
-                   out.data_ptr(), B, K, H, W, Hr, Wr, ref_off_x, n, r, scale, sb_cols,
-                   kernels.stream_ptr(out))
+def _grid_dims(plane, sb_rows: int, sb_cols: int) -> tuple:
+    """The dims a plane is read at: edge-padded up to the SB grid."""
+    return max(plane.shape[0], 64 * sb_rows), max(plane.shape[1], 64 * sb_cols)
 
 
-def decimate2(p):
-    """2x2-average decimation of a (H, W) int32 plane (K8, mode 0)."""
-    if p.device.type == "cpu":
-        return decimate2_plain(p)
-    kernels.check(p, "plane", torch.int32)
-    if p.dim() != 2:
-        raise ValueError("decimate2: one (H, W) plane")
-    H, W = p.shape
-    out = torch.empty((H // 2, W // 2), dtype=torch.int32, device=p.device)
-    _me_launch(_ME_DECIMATE, p, None, None, None, None, out, 0, 0, 0, 0, 0, 0)
-    return out
+def edge_pad(plane, H: int, W: int):
+    """(h, w) -> (H, W), H >= h and W >= w, with the last row and column
+    replicated."""
+    h, w = plane.shape
+    if (h, w) == (H, W):
+        return plane
+    dev = plane.device
+    iy = torch.arange(H, device=dev).clamp(max=h - 1)
+    ix = torch.arange(W, device=dev).clamp(max=w - 1)
+    return plane[iy[:, None], ix[None, :]].contiguous()
 
 
-def _check_ref(src, ref):
-    kernels.check(src, "src", torch.int32)
-    kernels.check(ref, "ref", torch.int32)
-    if src.dim() != 2 or ref.dim() != 2:
-        raise ValueError("me_sad: (H, W) source and reference planes")
-
-
-def search_centered(src, ref, ys, xs, centers, n: int, r: int, scale: int, ref_off_x: int = 0):
-    """Centred full search (K8, mode 1): src (H, W) and ref (Hr, Wr) int32
-    planes, source column x at reference column x + ref_off_x; ys/xs (B,)
-    block top-lefts in the source, centers (B, 2) full-pel. Returns centers
-    + the first-minimum displacement of SAD + bias (B, 2)."""
-    if src.device.type == "cpu":
-        return search_centered_plain(src, ref, ys, xs, centers, n, r, scale, ref_off_x)
-    _check_ref(src, ref)
-    B = ys.shape[0]
-    ys, xs, centers = _i32(ys), _i32(xs), _i32(centers)
-    kernels.check(centers, "centers", torch.int32, (B, 2))
-    out = torch.empty((B, 2), dtype=torch.int32, device=src.device)
-    _me_launch(_ME_SEARCH, src, ref, ys, xs, centers, out, B, 0, n, r, scale, 0, ref_off_x)
-    return out
-
-
-def leaf_maps(src, ref, centers, sb_cols: int, r: int, ref_off_x: int = 0):
-    """8x8 SAD maps of every SB leaf around K full-pel centres per SB (K8,
-    mode 2): centers (K, B_sb, 2) -> (K, B_sb*64, D, D) int32; source
-    column x at reference column x + ref_off_x."""
-    if src.device.type == "cpu":
-        return leaf_maps_plain(src, ref, centers, sb_cols, r, ref_off_x)
-    _check_ref(src, ref)
-    centers = _i32(centers)
-    K, B = centers.shape[:2]
-    D = 2 * r + 1
-    out = torch.empty((K, B * 64, D, D), dtype=torch.int32, device=src.device)
-    _me_launch(_ME_LEAF, src, ref, None, None, centers, out, B, K, 8, r, 0, sb_cols, ref_off_x)
-    return out
-
-
-def me_fullpel_frame(src_y, ref_y, sb_rows: int, sb_cols: int, l2_radius: int = 16,
-                     leaf_radius: int = 4, ref_off_x: int = 0):
-    """Full-pel per-size ME of one frame against one reference: src_y (H, W)
-    and ref_y (Hr, Wr) int32 planes, H and W multiples of 64. ref_off_x, a
-    multiple of 4, is the column of ref_y that source column 0 sits at (a
-    tile's reference cropped with a halo is wider than the tile); every
-    reference read clamps to ref_y's own dims. Returns ({n: (R_n, C_n, 2)
-    int32 full-pel MVs} for n in SIZES, SB MVs (B_sb, 2))."""
-    if ref_off_x % 4:
-        raise ValueError(f"me_fullpel_frame: ref_off_x {ref_off_x} is not a multiple of 4")
+def me_fullpel_frame_plain(src_y, ref_y, sb_rows: int, sb_cols: int, l2_radius: int = 16,
+                           leaf_radius: int = 4, ref_off_x: int = 0, src_pyr=None):
+    """Plain PyTorch version of K8; same arguments and results as
+    me_fullpel_frame (any device; planes of any integer type)."""
     dev = src_y.device
     B = sb_rows * sb_cols
-    src1, ref1 = decimate2(src_y), decimate2(ref_y)
-    src2, ref2 = decimate2(src1), decimate2(ref1)
+    src_y = edge_pad(src_y, *_grid_dims(src_y, sb_rows, sb_cols)).to(torch.int32)
+    ref_y = edge_pad(ref_y, *_grid_dims(ref_y, sb_rows, sb_cols)).to(torch.int32)
+    if src_pyr is None:
+        src1 = decimate2_plain(src_y)
+        src2 = decimate2_plain(src1)
+    else:
+        src1, src2 = (p.to(torch.int32) for p in src_pyr)
+    ref1 = decimate2_plain(ref_y)
+    ref2 = decimate2_plain(ref1)
     rr = torch.arange(sb_rows, device=dev, dtype=torch.int32).repeat_interleave(sb_cols)
     cc = torch.arange(sb_cols, device=dev, dtype=torch.int32).repeat(sb_rows)
     # L2 (1/4 res): 16x16 blocks, exhaustive +-l2_radius; L1, L0: +-2 refines
     zero = torch.zeros((B, 2), dtype=torch.int32, device=dev)
-    mv = search_centered(src2, ref2, rr * 16, cc * 16, zero, 16, l2_radius, 1, ref_off_x // 4)
-    mv = search_centered(src1, ref1, rr * 32, cc * 32, mv * 2, 32, 2, 2, ref_off_x // 2)
-    mv_sb = search_centered(src_y, ref_y, rr * 64, cc * 64, mv * 2, 64, 2, 4, ref_off_x)
+    mv = search_centered_plain(src2, ref2, rr * 16, cc * 16, zero, 16, l2_radius, 1,
+                               ref_off_x // 4)
+    mv = search_centered_plain(src1, ref1, rr * 32, cc * 32, mv * 2, 32, 2, 2, ref_off_x // 2)
+    mv_sb = search_centered_plain(src_y, ref_y, rr * 64, cc * 64, mv * 2, 64, 2, 4, ref_off_x)
 
     # 8x8 SAD maps around two centres per SB (the pyramid winner and zero
     # MV), summed up the quadtree: each size argmins its own map
     r = leaf_radius
     D = 2 * r + 1
     centers = (mv_sb, zero)
-    maps = leaf_maps(src_y, ref_y, torch.stack(centers), sb_cols, r, ref_off_x) \
+    maps = leaf_maps_plain(src_y, ref_y, torch.stack(centers), sb_cols, r, ref_off_x) \
         .reshape(2, sb_rows, sb_cols, 8, 8, D, D)
     maps = [maps[0], maps[1]]
     out = {}
@@ -426,6 +387,102 @@ def me_fullpel_frame(src_y, ref_y, sb_rows: int, sb_cols: int, l2_radius: int = 
             maps = [m[:, :, 0::2, 0::2] + m[:, :, 0::2, 1::2] + m[:, :, 1::2, 0::2]
                     + m[:, :, 1::2, 1::2] for m in maps]
     return out, mv_sb
+
+
+def _me_launch(mode: int, planes, out, dims, ref_off_x: int = 0, sb: tuple = (0, 0),
+               radii: tuple = (0, 0)) -> None:
+    """planes: src0, src1, src2, ref0, ref1, ref2 (uint8 or None); dims:
+    (hs, ws, Hs, Ws, hr, wr, Hr, Wr), the planes' own and padded dims."""
+    ptrs = [p.data_ptr() if p is not None else None for p in planes]
+    kernels.launch("me_sad", mode, *ptrs, out.data_ptr() if out is not None else None, *dims,
+                   ref_off_x, *sb, *radii, kernels.stream_ptr(planes[3]))
+
+
+def _check_plane(p, name: str) -> None:
+    kernels.check(p, name, torch.uint8)
+    if p.dim() != 2:
+        raise ValueError(f"me_fullpel_frame: {name} must be one (H, W) plane")
+
+
+def _levels(H: int, W: int, device):
+    """Empty uint8 levels 1 and 2 of a plane read at (H, W)."""
+    H1, W1 = H >> 1, W >> 1
+    return (torch.empty((H1, W1), dtype=torch.uint8, device=device),
+            torch.empty((H1 >> 1, W1 >> 1), dtype=torch.uint8, device=device))
+
+
+def me_pyramid(src_y, sb_rows: int, sb_cols: int):
+    """The source's ME pyramid (levels 1 and 2 of the plane edge-padded to
+    the SB grid), for the `src_pyr` of me_fullpel_frame calls that share the
+    source: one K8 launch (mode 0) on the card, uint8 there, int32 on the
+    CPU."""
+    Hs, Ws = _grid_dims(src_y, sb_rows, sb_cols)
+    if src_y.device.type == "cpu":
+        l1 = decimate2_plain(edge_pad(src_y, Hs, Ws).to(torch.int32))
+        return l1, decimate2_plain(l1)
+    _check_plane(src_y, "src_y")
+    l1, l2 = _levels(Hs, Ws, src_y.device)
+    h, w = src_y.shape
+    _me_launch(_ME_PYRAMID, (None, None, None, src_y, l1, l2), None, (0, 0, 0, 0, h, w, Hs, Ws))
+    return l1, l2
+
+
+def me_fullpel_frame(src_y, ref_y, sb_rows: int, sb_cols: int, l2_radius: int = 16,
+                     leaf_radius: int = 4, ref_off_x: int = 0, src_pyr=None):
+    """Full-pel per-size ME of one frame against one reference (K8): src_y
+    (H, W) and ref_y (Hr, Wr) planes (uint8 on the card), each read as if
+    edge-padded to at least the (64 sb_rows, 64 sb_cols) SB grid. ref_off_x,
+    a multiple of 4, is the column of ref_y that source column 0 sits at (a
+    tile's reference cropped with a halo is wider than the tile); every
+    reference read clamps to ref_y's own dims. src_pyr: the source's
+    me_pyramid, when several references share the source. Returns ({n: (R_n,
+    C_n, 2) int32 full-pel MVs} for n in SIZES, SB MVs (B_sb, 2)). On the
+    card: two K8 launches (the pyramid, the frame search), and the radii
+    must be the defaults."""
+    if ref_off_x % 4:
+        raise ValueError(f"me_fullpel_frame: ref_off_x {ref_off_x} is not a multiple of 4")
+    if src_y.device.type == "cpu":
+        return me_fullpel_frame_plain(src_y, ref_y, sb_rows, sb_cols, l2_radius, leaf_radius,
+                                      ref_off_x, src_pyr)
+    if (l2_radius, leaf_radius) != (16, 4):
+        raise ValueError("me_fullpel_frame: the kernel searches l2_radius=16, leaf_radius=4")
+    dims, src_pyr, ref_pyr = _pyramids(src_y, ref_y, sb_rows, sb_cols, src_pyr)
+    return _frame_search(src_y, ref_y, src_pyr, ref_pyr, dims, sb_rows, sb_cols, ref_off_x)
+
+
+def _pyramids(src_y, ref_y, sb_rows: int, sb_cols: int, src_pyr=None):
+    """K8's first launch: the reference's pyramid, and the source's unless
+    given. Returns (dims, src_pyr, ref_pyr)."""
+    _check_plane(src_y, "src_y")
+    _check_plane(ref_y, "ref_y")
+    Hs, Ws = _grid_dims(src_y, sb_rows, sb_cols)
+    Hr, Wr = _grid_dims(ref_y, sb_rows, sb_cols)
+    dims = (*src_y.shape, Hs, Ws, *ref_y.shape, Hr, Wr)
+    ref_pyr = _levels(Hr, Wr, ref_y.device)
+    if src_pyr is None:
+        src_pyr = _levels(Hs, Ws, src_y.device)
+        _me_launch(_ME_PYRAMID, (src_y, *src_pyr, ref_y, *ref_pyr), None, dims)
+    else:
+        for p, want in zip(src_pyr, ((Hs >> 1, Ws >> 1), (Hs >> 2, Ws >> 2))):
+            kernels.check(p, "src_pyr", torch.uint8, want)
+        _me_launch(_ME_PYRAMID, (None, None, None, ref_y, *ref_pyr), None, dims)
+    return dims, src_pyr, ref_pyr
+
+
+def _frame_search(src_y, ref_y, src_pyr, ref_pyr, dims, sb_rows: int, sb_cols: int,
+                  ref_off_x: int = 0):
+    """K8's second launch, the search of every SB; the results of
+    me_fullpel_frame as views of one buffer."""
+    B = sb_rows * sb_cols
+    buf = torch.empty(2 * 86 * B, dtype=torch.int32, device=src_y.device)
+    _me_launch(_ME_FRAME, (src_y, *src_pyr, ref_y, *ref_pyr), buf, dims, ref_off_x,
+               (sb_rows, sb_cols), (16, 4))
+    out, o = {}, 0
+    for n in SIZES:  # size-major regions, raster over each size's block grid
+        k = 64 // n
+        out[n] = buf[o : o + 2 * B * k * k].view(sb_rows * k, sb_cols * k, 2)
+        o += 2 * B * k * k
+    return out, buf[o:].view(B, 2)
 
 
 def mc_lanes(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int, bd: int,
@@ -473,8 +530,10 @@ def subpel_pred_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int, fast: bool
     kernels.check(src_b, "src_b", torch.int32)
     kernels.check(ref, "ref", torch.uint8)
     B, n = src_b.shape[0], src_b.shape[-1]
-    if n < 8:
-        raise ValueError("subpel_pred_lanes: blocks of 8x8 and up (8-tap filters)")
+    if n not in SIZES:
+        raise ValueError("subpel_pred_lanes: 8x8, 16x16, 32x32 or 64x64 blocks")
+    if bd != 8:
+        raise ValueError("subpel_pred_lanes: the kernel takes 8-bit (uint8) references")
     ys, xs, mv_fp = _i32(ys), _i32(xs), _i32(mv_fp)
     mv8 = torch.empty((B, 2), dtype=torch.int32, device=src_b.device)
     pred = torch.empty((B, n, n), dtype=torch.int32, device=src_b.device)

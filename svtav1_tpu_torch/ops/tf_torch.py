@@ -157,9 +157,9 @@ def filter_planes(center, neighbors, qindex: int, bd: int = 8):
     srcb = cy.reshape(R, TF_BLOCK, C, TF_BLOCK).permute(0, 2, 1, 3) \
         .reshape(B, TF_BLOCK, TF_BLOCK).contiguous()
     preds = [[], [], []]
+    src_pyr = me_torch.me_pyramid(center[0], H // 64, W // 64)  # shared by the neighbours
     for ny, nu, nv in neighbors:
-        ref_y = ny.to(torch.int32).contiguous()
-        mvs_fp, _sb = me_torch.me_fullpel_frame(cy, ref_y, H // 64, W // 64)
+        mvs_fp, _sb = me_torch.me_fullpel_frame(center[0], ny, H // 64, W // 64, src_pyr=src_pyr)
         fp = mvs_fp[TF_BLOCK][:R, :C].reshape(B, 2)
         mv8, pred = me_torch.subpel_pred_lanes(srcb, ny, r_idx * TF_BLOCK, c_idx * TF_BLOCK, fp,
                                                0, bd)

@@ -285,10 +285,11 @@ def _mesh_inter_fn(width: int, height: int, qctx: int, bd: int, ntiles: int, nre
             mv_by_ref = {n: [] for n in sizes}
             mc_by_ref = {n: [] for n in sizes}
             sb_pred = []
+            src_pyr = me_torch.me_pyramid(sy8[ti], sbr, sbc) if nref > 1 else None
             for ri in range(nref):
                 ref8 = ry8[ti, ri]
-                mvs_fp, mv_sb = me_torch.me_fullpel_frame(sy[ti], ref8.to(torch.int32), sbr, sbc,
-                                                          ref_off_x=HALO)
+                mvs_fp, mv_sb = me_torch.me_fullpel_frame(sy8[ti], ref8, sbr, sbc, ref_off_x=HALO,
+                                                          src_pyr=src_pyr)
                 sb_pred.append(mv_sb.reshape(sbr, sbc, 2) * 8)
                 for n, R, C in layout:
                     fp = mvs_fp[n][:R, :C].reshape(R * C, 2)

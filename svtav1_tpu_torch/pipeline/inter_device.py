@@ -242,15 +242,6 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
             torch.where(take_inter, mv2_i[:, 1], zero))
 
 
-def _edge_pad(plane, H: int, W: int):
-    """(h, w) -> (H, W) with the last row and column replicated."""
-    h, w = plane.shape
-    dev = plane.device
-    iy = torch.arange(H, device=dev).clamp(max=h - 1)
-    ix = torch.arange(W, device=dev).clamp(max=w - 1)
-    return plane[iy[:, None], ix[None, :]].contiguous()
-
-
 @functools.lru_cache(maxsize=32)
 def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int, which: int,
                           ref_ids: tuple, ref_select: bool, sf: tuple, use_gm: bool,
@@ -291,14 +282,16 @@ def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int
     inter_txt = {n: t(inter_txtype_cost_const(fc, n)) for n in sizes}
     joint = t(rate_torch.mv_joint_cost(fc))
     comp = t(rate_torch.mv_component_cost_lut(fc, MAX_MV_ABS))
-    # ME planes padded to SB multiples
+    # the SB grid of the ME
     sbr, sbc = -(-ah // 64), -(-aw // 64)
 
     def run(sy8, su8, sv8, refs_y8, refs_u8, refs_v8, dqv, lam, gm8):
         dq = (int(dqv[0]), int(dqv[1]))
         lam_t = torch.tensor(lam, dtype=torch.float32, device=dev)
         sy, su, sv = (x.to(torch.int32) for x in (sy8, su8, sv8))
-        sy_me = _edge_pad(sy[0], sbr * 64, sbc * 64)
+        # the source's ME pyramid, once for every reference (K8 reads the
+        # uint8 planes edge-padded to the SB grid)
+        src_pyr = me_torch.me_pyramid(sy8[0], sbr, sbc)
         srcb = {n: _blocks_of(sy, n, R, C) for n, R, C in layout}
         grid = {n: (torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n,
                     torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n)
@@ -310,8 +303,8 @@ def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int
         mc_by_ref = {n: [] for n in sizes}
         sb_pred = []
         for ri in range(nref):
-            ref_me = _edge_pad(refs_y8[ri].to(torch.int32), sbr * 64, sbc * 64)
-            mvs_fp, mv_sb = me_torch.me_fullpel_frame(sy_me, ref_me, sbr, sbc)
+            mvs_fp, mv_sb = me_torch.me_fullpel_frame(sy8[0], refs_y8[ri], sbr, sbc,
+                                                      src_pyr=src_pyr)
             sb_pred.append(mv_sb.reshape(sbr, sbc, 2) * 8)
             for n, R, C in layout:
                 fp = mvs_fp[n][:R, :C].reshape(R * C, 2)

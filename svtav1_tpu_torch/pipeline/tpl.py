@@ -65,9 +65,9 @@ def _tpl_frame(H: int, W: int, bd: int, device: str):
         return plane.reshape(R, TPL_B, C, TPL_B).permute(0, 2, 1, 3).reshape(B, TPL_B, TPL_B) \
             .contiguous()
 
-    def ref_cost(src, srcb, ref_src8, ref_rec8):
-        ref_src = ref_src8.to(torch.int32)
-        fp = me_torch.me_fullpel_frame(src, ref_src, sbr, sbc)[0][16][:R, :C].reshape(B, 2)
+    def ref_cost(src8, src_pyr, srcb, ref_src8, ref_rec8):
+        fp = me_torch.me_fullpel_frame(src8, ref_src8, sbr, sbc, src_pyr=src_pyr)[0][16][:R, :C] \
+            .reshape(B, 2)
         mv8 = me_torch.subpel_refine_lanes(srcb, ref_src8, ys, xs, fp, 0, bd)
         mvy, mvx = mv8[:, 0] * 2, mv8[:, 1] * 2
         pred_rec = me_torch.mc_lanes(ref_rec8, ys, xs, mvy, mvx, TPL_B, TPL_B, 0, bd)
@@ -97,8 +97,12 @@ def _tpl_frame(H: int, W: int, bd: int, device: str):
         # inter per reference: ME on the sources, MC from the TPL recon
         zeros = torch.zeros((B, TPL_B, TPL_B), dtype=torch.int32, device=dev)
         zmv = torch.zeros((B, 2), dtype=torch.int32, device=dev)
-        per_ref = [ref_cost(src, srcb, s8, r8) if s8 is not None else (absent, zmv, zeros, zeros)
-                   for s8, r8 in ((r0src8, r0rec8), (r1src8, r1rec8))]
+        refs = ((r0src8, r0rec8), (r1src8, r1rec8))
+        # the source's ME pyramid, once for both references
+        src_pyr = (me_torch.me_pyramid(src8, sbr, sbc)
+                   if r0src8 is not None and r1src8 is not None else None)
+        per_ref = [ref_cost(src8, src_pyr, srcb, s8, r8) if s8 is not None
+                   else (absent, zmv, zeros, zeros) for s8, r8 in refs]
         (c0, mv0, prec0, psrc0), (c1, mv1, prec1, psrc1) = per_ref
         pick1 = c1 < c0
         inter_cost = torch.minimum(c0, c1)

@@ -105,14 +105,12 @@ def launch_bound(name: str, args: tuple, adst: tuple | None = None) -> tuple[flo
         return (F * H * W * 4 * (1 + (src is not None)) + (K * F * H * W * 4 if out else 0)
                 + cells * 9), K * F * H * W * 12 * 12
     if name == "me_sad":
-        mode, (B, K, H, W, Hr, Wr, _ox, n, r) = args[0], args[7:16]
-        D = 2 * r + 1
-        if mode == 0:
-            return H * W * 4 + H * W, H * W // 4 * 5
-        if mode == 1:
-            return B * (n * n + (n + 2 * r) ** 2) * 4 + B * 16, B * D * D * n * n * 3
-        return ((H * W + Hr * Wr) * 4 + K * B * 8 + K * B * 64 * D * D * 4,
-                K * B * 64 * D * D * 64 * 3)
+        mode, src0, (hs, ws, Hs, Ws, hr, wr, Hr, Wr, _ox, sbr, sbc) = args[0], args[1], args[8:19]
+        if mode == 0:  # the pyramid of the reference, and of the source unless given
+            planes = [(hr, wr, Hr, Wr)] + ([(hs, ws, Hs, Ws)] if src0 is not None else [])
+            return (sum(h * w + me_levels(H, W) for h, w, H, W in planes),
+                    sum(me_levels(H, W) for _h, _w, H, W in planes) * 5)
+        return me_frame_work(hs, ws, Hs, Ws, hr, wr, Hr, Wr, sbr, sbc)
     if name == "subpel_pred":
         B, n, fast = args[8], args[11], args[13]
         L = 5 if fast else 7
@@ -137,6 +135,29 @@ def launch_bound(name: str, args: tuple, adst: tuple | None = None) -> tuple[flo
         return ((L // rep + L) * n * n * 4 + (4 if mode == 0 else 8) * L
                 + (L * n * n * 4 if recon else 0)), tpl_cost_ops(L, n, bool(recon))
     raise ValueError(name)
+
+
+def me_levels(H: int, W: int) -> int:
+    """Samples of the ME pyramid's levels 1 and 2 of an (H, W) plane."""
+    return (H >> 1) * (W >> 1) + (H >> 2) * (W >> 2)
+
+
+def me_frame_diffs(sb_rows: int, sb_cols: int) -> int:
+    """Absolute differences of K8's frame search: per SB the L2 search
+    (33 x 33 displacements of 16x16), the L1 and L0 refinements (25 of 32x32
+    and of 64x64) and the two centres' leaf maps (64 leaves x 81 x 64)."""
+    return sb_rows * sb_cols * (33 * 33 * 256 + 25 * 1024 + 25 * 4096 + 2 * 64 * 81 * 64)
+
+
+def me_frame_work(hs, ws, Hs, Ws, hr, wr, Hr, Wr, sb_rows: int, sb_cols: int) -> tuple:
+    """(bytes, int32 operations) of K8's frame search: the uint8 planes and
+    pyramid levels read once, the MVs written (85 blocks and the SB MV per
+    SB), and 3 operations per absolute difference (a subtraction, the
+    absolute value, the sum), the sum of the three searches' and the leaf
+    maps' counts of the launches it replaces."""
+    B = sb_rows * sb_cols
+    nbytes = hs * ws + hr * wr + me_levels(Hs, Ws) + me_levels(Hr, Wr) + 86 * B * 8
+    return nbytes, 3 * me_frame_diffs(sb_rows, sb_cols)
 
 
 def dct_stages(n: int, inverse: bool) -> int:

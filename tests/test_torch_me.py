@@ -1,7 +1,9 @@
 """The plain versions of K8 (me_sad), K9 (subpel_pred) and K10 (mc_lanes)
 in svtav1_tpu_torch.ops.me_torch against svtav1_tpu.ops.me_jax on the same
 numpy inputs: full-pel MVs, subpel MVs and predictions, and MC samples must
-be equal, integer for integer."""
+be equal, integer for integer. Also the premises of the kernels' packed
+arithmetic and of me_fullpel_frame's implicit padding and shared source
+pyramid (torch and numpy only)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,6 +11,7 @@ import torch
 
 from svtav1_tpu.ops import me_jax
 from svtav1_tpu_torch.ops import me_torch
+from svtav1_tpu_torch.ops.convolve import filter_kernels
 
 
 def _shifted_pair(h: int, w: int, seed: int, dy: int, dx: int, noise: int):
@@ -121,3 +124,51 @@ def test_mc_lanes_matches_jax(n, bd, stack):
                                 ref_idx=torch.from_numpy(ridx) if stack else None)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=f"which={which}")
 
+
+
+@pytest.mark.parametrize("which", range(6))
+def test_filter_facts_of_k9_packed_arithmetic(which):
+    """K9 runs the horizontal 8 taps as two int8 x int8 dot products on
+    samples shifted by -128 (adding back 128 x the taps' sum) and the
+    vertical 8 taps as four int16 x int8 dot products: every tap but phase
+    0's single 128 (a copy in the kernel) fits int8, every phase sums to 128,
+    and the 8-bit horizontal intermediate fits a positive int16."""
+    taps = np.asarray(filter_kernels(which), dtype=np.int64)
+    assert taps.shape == (16, 8)
+    assert taps[0].tolist() == [0, 0, 0, 128, 0, 0, 0, 0]
+    assert (taps[1:] >= -128).all() and (taps[1:] <= 127).all()
+    assert (taps.sum(axis=1) == 128).all()
+    # (2^(bd+6) + sum f p + 4) >> 3 over p in [0, 255]: the extremes put 255
+    # under the negative (or the positive) taps and 0 under the others
+    lo = (16384 + 255 * np.where(taps < 0, taps, 0).sum(axis=1) + 4) >> 3
+    hi = (16384 + 255 * np.where(taps > 0, taps, 0).sum(axis=1) + 4) >> 3
+    assert lo.min() >= 263 and hi.max() <= 7913
+
+
+@pytest.mark.parametrize("ref_off_x", [0, 64])
+def test_me_fullpel_frame_source_pyramid_and_padding(ref_off_x):
+    """me_fullpel_frame on a 136x192 uint8 frame (rows not a multiple of 64)
+    and the SB grid the decide gives it (3 x 3): the planes read as if
+    edge-padded to the grid equal the planes padded by the caller, and a
+    precomputed source pyramid (me_pyramid) gives the same MVs as none; with
+    ref_off_x the reference is wider by 2 x ref_off_x columns."""
+    h, w = 136, 192
+    src, ref = _shifted_pair(h, w + 2 * ref_off_x, seed=17 + ref_off_x, dy=3, dx=-6, noise=4)
+    src = src[:, ref_off_x : ref_off_x + w].astype(np.uint8)
+    ref = ref.astype(np.uint8)
+    sbr, sbc = 3, 3
+    t = torch.from_numpy
+    got, got_sb = me_torch.me_fullpel_frame(t(src), t(ref), sbr, sbc, ref_off_x=ref_off_x)
+    pyr = me_torch.me_pyramid(t(src), sbr, sbc)
+    assert [tuple(p.shape) for p in pyr] == [(96, 96), (48, 48)]
+    with_pyr, with_pyr_sb = me_torch.me_fullpel_frame(t(src), t(ref), sbr, sbc,
+                                                      ref_off_x=ref_off_x, src_pyr=pyr)
+    padded = [np.pad(p, ((0, 192 - h), (0, 0)), mode="edge").astype(np.int32) for p in (src, ref)]
+    want, want_sb = me_torch.me_fullpel_frame(t(padded[0]), t(padded[1]), sbr, sbc,
+                                              ref_off_x=ref_off_x)
+    for mvs, sb in ((got, got_sb), (with_pyr, with_pyr_sb)):
+        np.testing.assert_array_equal(sb.numpy(), want_sb.numpy())
+        for n in me_torch.SIZES:
+            assert mvs[n].shape == (sbr * 64 // n, sbc * 64 // n, 2)
+            np.testing.assert_array_equal(mvs[n].numpy(), want[n].numpy(), err_msg=f"n={n}")
+    assert (got[8].numpy() == (3, -6)).all(axis=-1).mean() > 0.5  # the motion was found
