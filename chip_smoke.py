@@ -17,9 +17,11 @@ Phases, each fatal on failure:
      source at the 1920x1024 tile GOP's tile shape, 1024x960 against
      1024x1216 with ref_off_x=128, with the device work items of one call
      (torch.profiler); K2 also at the decide's 16x16 shape, K3 also on
-     16x16 luma and the decide's chroma sizes), and time both; K8's and
-     K9's bounds count their operations at the rates of VABSDIFF4, IDP.2A
-     and IDP.4A measured first (`packed_rates` line);
+     16x16 luma and the decide's chroma sizes; K7's search and apply on
+     the clip's noisy 1080p planes with 80% and 20% of the cells unmasked),
+     and time both; K8's and K9's bounds count their operations at the
+     rates of VABSDIFF4, IDP.2A and IDP.4A measured first (`packed_rates`
+     line);
   3. conformance: encode a CIF key frame on the card at the fast preset
      without CDEF and one at the default medium preset, a 3-frame CIF GOP
      (a key frame and 2 P frames, keyint=6) at medium, and CIF
@@ -63,9 +65,10 @@ Phases, each fatal on failure:
      frame's of the low-delay GOP and a B frame's of the random-access GOP
      (one with compound lanes); on each schedule K16 and the wave loop of
      K1, K2 and K5 run from the same state and must give the same levels,
-     recon, frontier maps and skip map; both phase-B times of this call,
-     the waves, K16's grid, and the grid barriers alone at that grid and
-     barrier count (`commit_wave` lines); then the decide capture: every K2
+     recon, frontier maps and skip map; both phase-B times of this call
+     (the wrapper, and the launch alone), the waves, the dependency depth,
+     K16's grid, one flag handoff between two CTAs and the chain bound
+     (`commit_wave` lines); then the decide capture: every K2
      and K3 launch of the decide and commit phase A of a 1080p medium key
      frame and the first P frame of the main path (a fresh encoder, 2
      frames), and the P frame's K9 launches and K8 calls (each
@@ -92,10 +95,12 @@ Phases, each fatal on failure:
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
      python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
-also times phase 2's K2, K3 and K9 cases and every captured K2, K3 and K9
+also times phase 2's K2, K3, K5 and K9 cases and every captured K2, K3 and K9
 launch through a kernel library built from another checkout with the same
 C entry points (the parent commit's, after its own chip_smoke.py run built
-it), on the same inputs, and holds its results equal too (`baseline_ms`).
+it), on the same inputs, and holds its results equal too (`baseline_ms`);
+K7 and K16 through the parent's own entry points (cdef_filter_launch, one
+plane per launch; commit_wave_launch with its FrameDesc and wave bounds).
 """
 import contextlib
 import functools
@@ -125,7 +130,8 @@ KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "dlf_edges": ("svtav1_tpu_torch/csrc/dlf_edges.cu", "svtav1_tpu/filters/dlf_jax.py:64"),
     "rdoq": ("svtav1_tpu_torch/csrc/rdoq.cu", "svtav1_tpu/codec/rate_jax.py:220"),
     "cdef_dir": ("svtav1_tpu_torch/csrc/cdef.cu", "svtav1_tpu/filters/cdef_jax.py:26"),
-    "cdef_filter": ("svtav1_tpu_torch/csrc/cdef.cu", "svtav1_tpu/filters/cdef_jax.py:166"),
+    "cdef_search": ("svtav1_tpu_torch/csrc/cdef.cu", "svtav1_tpu/filters/cdef_jax.py:166"),
+    "cdef_apply": ("svtav1_tpu_torch/csrc/cdef.cu", "svtav1_tpu/filters/cdef_jax.py:203"),
     "me_sad": ("svtav1_tpu_torch/csrc/me.cu", "svtav1_tpu/ops/me_jax.py:86"),
     "subpel_pred": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:300"),
     "mc_lanes": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:183"),
@@ -136,7 +142,7 @@ KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "tpl_cost": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu", "svtav1_tpu/pipeline/tpl.py:56"),
     "commit_wave": ("svtav1_tpu_torch/csrc/commit.cu", "svtav1_tpu/pipeline/device_commit.py:542"),
 }
-LD_KERNELS = tuple(KERNEL_SOURCES)[:10] + ("commit_wave",)  # K1-K10, K16: low-delay GOP
+LD_KERNELS = tuple(KERNEL_SOURCES)[:11] + ("commit_wave",)  # K1-K10, K16: low-delay GOP
 RA_ONLY = ("mc_compound", "tf_filter", "tf_noise")  # K11-K13: the random-access GOP
 CRF_ONLY = ("subpel_refine", "tpl_cost")  # K14-K15: the CRF GOP's TPL
 # CRF: TPL over lookahead windows sets each frame's qindex (random access, MCTF)
@@ -151,7 +157,7 @@ CHECKS = []  # phase 2's records, [kernel, shape, max_abs_err, ms, plain_ms, bou
 PATHS = {}  # label -> the 1080p key-frame paths' fps, bytes and Y-PSNR
 # key frames code no inter lane: K5 runs inside K16 there
 KEY_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges", "cdef_dir",
-               "cdef_filter", "commit_wave")
+               "cdef_search", "cdef_apply", "commit_wave")
 FAST_KERNELS = ("intra_pred", "txfm_quant_recon", "txb_rate", "dlf_edges", "commit_wave")
 K16_CAPTURED = {}  # schedule -> the inputs of one K16 launch of a path (wavefront.commit_wave)
 
@@ -382,8 +388,9 @@ def load_baseline(path):
     """A kernel library built from another checkout (the parent commit's
     build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
     kernels.lib() binds its own: K2, K3 and K9 are also timed through it, on
-    the same inputs, and must give the same results (K8's entry point has
-    another interface there: it is never routed to the baseline)."""
+    the same inputs, and must give the same results (K5's too; K8's entry point has
+    another interface there: it is never routed to the baseline; K7's and
+    K16's are called with their own arguments, baseline_fn)."""
     import ctypes
 
     from svtav1_tpu_torch import kernels
@@ -412,7 +419,7 @@ def baseline_kernels():
 
 
 def kernel_times(fn, same, reps):
-    """K2's, K3's and K9's extra times: `device_ms` (device_ms()), and with
+    """K2's, K3's, K5's and K9's extra times: `device_ms` (device_ms()), and with
     --baseline-lib, after `same` holds the baseline library's result against
     this checkout's, `baseline_ms` (timed_ms(), as `ms`) and
     `baseline_device_ms` through it."""
@@ -553,7 +560,7 @@ def check_kernels(torch, dev):
 
     # K2's halves around RDOQ on real residuals: the clip's 1080p luma in
     # n x n blocks against their rounded means (the forward half feeds K5)
-    (y_clip, u_clip, _v), = clip_1080p(1)
+    (y_clip, u_clip, v_clip), = clip_1080p(1)
     fc = fc_for_qctx(get_q_ctx(q))
     lam = float(np.float32(rd_lambda(q, 8)))
 
@@ -693,7 +700,9 @@ def check_kernels(torch, dev):
                timed_ms(lambda: rate_torch.rdoq(*args), 20),
                timed_ms(lambda: rate_torch.rdoq_plain(*args), 3),
                nbytes=3 * L * nn * 4, ops=L * nn * 80, main=main, differing_lanes=differing,
-               changed_levels=int((a != lk).sum().item()))
+               changed_levels=int((a != lk).sum().item()),
+               **kernel_times(lambda: rate_torch.rdoq(*args),
+                              lambda got: assert_equal("rdoq (baseline)", got, a), 20))
 
     # ---- K6 cdef_dir on the clip's 1080p luma (32,400 cells); K7
     # cdef_filter: the 7-candidate luma search and the luma and chroma applies
@@ -707,37 +716,126 @@ def check_kernels(torch, dev):
            timed_ms(lambda: cdef_torch.find_dir_plain(yp), 3),
            nbytes=yp.numel() * 4 + 2 * cells * 4, ops=cells * (64 * 8 + 15 * 8 * 3), main=True)
     dirs, var = a
-    rec_y = (yp + t(g.integers(-3, 4, yp.shape))).clamp(0, 255).to(torch.int32).contiguous()
-    mask = t(g.random((1, R8, C8)) < 0.8, torch.bool)
-    from svtav1_tpu_torch.filters.cdef import SEARCH_CANDIDATES
-
-    cand = t(np.array(SEARCH_CANDIDATES, np.int32))
-    pri, sec = cand[:, 0:1].contiguous(), cand[:, 1:2].contiguous()
-    K = pri.shape[0]
-    search = (rec_y, dirs, var, pri, sec, mask, 6)
-    a = cdef_torch.cdef_filter(*search, src=yp, want_out=False)[1]
-    b = cdef_torch.cdef_filter_plain(*search, src=yp, want_out=False)[1]
-    err = assert_equal("cdef_filter", a, b)
-    record("cdef_filter", [K] + list(yp.shape) + ["luma search (SSE)"], err,
-           timed_ms(lambda: cdef_torch.cdef_filter(*search, src=yp, want_out=False), 20),
-           timed_ms(lambda: cdef_torch.cdef_filter_plain(*search, src=yp, want_out=False), 3),
-           nbytes=2 * yp.numel() * 4 + cells * 9 + K * 8, ops=K * yp.numel() * 12 * 12, main=True)
-    up = t(u_clip.astype(np.int32)[None])
-    for name, pl_, v_, p_, s_, damp in (("luma apply", rec_y, var, pri[4:5], sec[4:5], 6),
-                                        ("chroma apply", up, None, pri[4:5] >> 1, sec[4:5] >> 1, 5)):
-        args = (pl_, dirs, v_, p_.contiguous(), s_.contiguous(), mask, damp)
-        err = assert_equal("cdef_filter", cdef_torch.cdef_filter(*args)[0],
-                           cdef_torch.cdef_filter_plain(*args)[0])
-        record("cdef_filter", [1] + list(pl_.shape) + [name], err,
-               timed_ms(lambda: cdef_torch.cdef_filter(*args), 20),
-               timed_ms(lambda: cdef_torch.cdef_filter_plain(*args), 3),
-               nbytes=2 * pl_.numel() * 4 + cells * 9, ops=pl_.numel() * 12 * 12)
+    check_cdef(torch, g, t, record, assert_equal, yp, t(u_clip.astype(np.int32)[None]),
+               t(v_clip.astype(np.int32)[None]), dirs, var)
 
     check_motion(torch, dev, g, t, record, assert_equal)
     check_random_access(torch, dev, g, t, record, assert_equal)
     check_tpl(torch, dev, g, t, record, assert_equal)
     check_tiles(torch, dev, g, t, record, assert_equal)
     return res
+
+
+# the parent's K7 entry point (one plane, K candidates, out or SSE), for
+# --baseline-lib: plane, dirs, var|NULL, pri, sec, mask, src|NULL, sse|NULL,
+# out|NULL, K, F, H, W, log2m, damping, coeff_shift, stream
+BASELINE_K7_ARGTYPES = ["P"] * 9 + ["I"] * 7 + ["P"]
+
+
+def baseline_fn(name, argtypes):
+    """An entry point of the --baseline-lib library bound with these
+    argtypes ("P" pointer, "I" int, "F" float), for the entry points whose
+    interface this checkout changed (K7, K16)."""
+    import ctypes
+
+    f = getattr(BASELINE[0], name)
+    f.argtypes = [{"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}[a]
+                  for a in argtypes]
+    f.restype = ctypes.c_int
+    return f
+
+
+def check_cdef(torch, g, t, record, assert_equal, yp, up, vp, dirs, var):
+    """Phase 2 for K7 on the clip's 1080p planes with noise (the filter's
+    input) and two non-skip maps: 80% of the cells (a key frame) and 20%
+    (a P frame of the main path): the 7-candidate search (per-candidate
+    SSE) and the three-plane apply against their plain versions, both
+    timed (ms, device_ms) and bound by what these inputs need (the unmasked
+    cells only). With --baseline-lib, the parent's K7 on the same inputs:
+    its search (one launch of K candidates' SSE) and its three applies
+    (one launch per plane, from the strengths that the argmin picked) must
+    give the same sums and planes (`baseline_ms`, `baseline_device_ms`)."""
+    from svtav1_tpu_torch.filters import cdef_torch
+    from svtav1_tpu_torch.filters.cdef import SEARCH_CANDIDATES
+    from svtav1_tpu_torch.utils.profile_keyframes import cdef_apply_work, cdef_search_work
+
+    ladder = SEARCH_CANDIDATES
+    K, (F, H, W) = len(ladder), yp.shape
+    planes = [(p + t(g.integers(-3, 4, p.shape))).clamp(0, 255).to(torch.int32).contiguous()
+              for p in (yp, up, vp)]
+    for frac, label, main in ((0.8, "80% of the cells", True), (0.2, "20% of the cells", False)):
+        mask = t(g.random((F, H // 8, W // 8)) < frac, torch.bool)
+        on = int(mask.sum().item())
+        search = (planes[0], dirs, var, mask, yp, ladder, 6)
+        sse = cdef_torch.cdef_search(*search)
+        err = assert_equal("cdef_search", sse, cdef_torch.cdef_search_plain(*search))
+        extra = dict(device_ms=device_ms(lambda: cdef_torch.cdef_search(*search)))
+        apply = (planes, dirs, var, mask, sse, ladder, 6)
+        out, st = cdef_torch.cdef_apply(*apply)
+        want, want_st = cdef_torch.cdef_apply_plain(*apply)
+        err_a = max([assert_equal("cdef_apply", st, want_st)]
+                    + [assert_equal("cdef_apply", a, b) for a, b in zip(out, want)])
+        extra_a = dict(device_ms=device_ms(lambda: cdef_torch.cdef_apply(*apply)))
+        if BASELINE:
+            base = baseline_parent_k7(torch, planes, dirs, var, mask, yp, ladder, sse, out)
+            extra.update(base["search"])
+            extra_a.update(base["apply"])
+        record("cdef_search", [K, F, H, W, "luma search (SSE), " + label], err,
+               timed_ms(lambda: cdef_torch.cdef_search(*search), 20),
+               timed_ms(lambda: cdef_torch.cdef_search_plain(*search), 3),
+               *cdef_search_work(F, H, W, K, on), main=main, cells_on=on, **extra)
+        record("cdef_apply", [F, H, W, "Y, U and V, " + label], err_a,
+               timed_ms(lambda: cdef_torch.cdef_apply(*apply), 20),
+               timed_ms(lambda: cdef_torch.cdef_apply_plain(*apply), 3),
+               *cdef_apply_work(F, H, W, K, on), main=main, cells_on=on, **extra_a)
+
+
+def baseline_parent_k7(torch, planes, dirs, var, mask, src, ladder, sse, out):
+    """The parent's K7 (--baseline-lib: cdef_filter_launch, one plane per
+    launch) on the inputs of check_cdef: the search's SSE and the three
+    applies at the strengths this checkout's argmin picked, held equal to
+    this checkout's, and timed."""
+    import numpy as np
+
+    from svtav1_tpu_torch import kernels
+
+    fn = baseline_fn("cdef_filter_launch", BASELINE_K7_ARGTYPES)
+    F, H, W = planes[0].shape
+    K = len(ladder)
+    cand = torch.as_tensor(np.array(ladder, np.int32), device=planes[0].device)
+    pri, sec = cand[:, 0:1].contiguous(), cand[:, 1:2].contiguous()
+    best = torch.argmin(sse, dim=0)
+    y_pri, y_sec = cand[best, 0:1].T.contiguous(), cand[best, 1:2].T.contiguous()
+    uv_pri, uv_sec = (y_pri >> 1).contiguous(), (y_sec >> 1).contiguous()
+    sse_b = torch.zeros((K, F), dtype=torch.int64, device=planes[0].device)
+    outs = [torch.empty_like(p) for p in planes]
+
+    def run(f, *args):  # the stream read at each call: device_ms captures a graph
+        err = f(*args, kernels.stream_ptr(planes[0]))
+        if err:
+            raise SystemExit(f"baseline cdef_filter_launch: cudaError {err}")
+
+    def search():
+        sse_b.zero_()
+        run(fn, planes[0].data_ptr(), dirs.data_ptr(), var.data_ptr(), pri.data_ptr(),
+            sec.data_ptr(), mask.data_ptr(), src.data_ptr(), sse_b.data_ptr(), None, K, F, H, W,
+            3, 6, 0)
+
+    def apply():
+        for i, (p_, s_, v_, damp) in enumerate(((y_pri, y_sec, var, 6), (uv_pri, uv_sec, None, 5),
+                                                 (uv_pri, uv_sec, None, 5))):
+            run(fn, planes[i].data_ptr(), dirs.data_ptr(),
+                v_.data_ptr() if v_ is not None else None, p_.data_ptr(), s_.data_ptr(),
+                mask.data_ptr(), None, None, outs[i].data_ptr(), 1, F, planes[i].shape[1],
+                planes[i].shape[2], 3 if i == 0 else 2, damp, 0)
+
+    search()
+    apply()
+    torch.cuda.synchronize()
+    if not torch.equal(sse_b, sse) or not all(torch.equal(a, b) for a, b in zip(outs, out)):
+        raise SystemExit("cdef: the parent's K7 disagrees with this checkout's")
+    return dict(search=dict(baseline_ms=timed_ms(search, 20), baseline_device_ms=device_ms(search)),
+                apply=dict(baseline_ms=timed_ms(apply, 20), baseline_device_ms=device_ms(apply)))
 
 
 def check_motion(torch, dev, g, t, record, assert_equal):
@@ -1746,14 +1844,109 @@ class K16Capture:
         return self.real(src, maps, lanes, table, *args, **kw)
 
 
+# the parent's K16 entry point, for --baseline-lib: frame_desc, tasks,
+# wave_start, nwaves, F, R8, C8, dq_dc, dq_ac, bd, rdoq, lam, max_n, grid,
+# stream; and its grid query (max_n, the widest wave)
+BASELINE_K16_ARGTYPES = ["P"] * 3 + ["I"] * 8 + ["F"] + ["I"] * 2 + ["P"]
+
+
+def queued_ms(fn, reps):
+    """Device ms per call of `reps` calls queued back to back between two
+    CUDA events (median of 3), for launches long enough that the host
+    enqueues the next before the card ends the last."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def k16_launches(torch, src, maps, lanes, table, args):
+    """(this checkout's K16, the parent's K16 or None): functions that
+    launch the kernel alone on descriptors uploaded once (the parent's
+    FrameDesc has the table-driven stage tables in each plane's fields;
+    its launch takes the wave bounds and runs a grid barrier between
+    waves)."""
+    import numpy as np
+
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.ops import transforms_torch as TT
+    from svtav1_tpu_torch.pipeline import wavefront
+    from svtav1_tpu_torch.pipeline.device_decide import SIZES
+
+    dq_dc, dq_ac, bd, tx_ntypes, lam, rdoq_qctx = args
+    dev = src[0].device
+    F, H, W = src[0].shape
+    R8, C8 = H // 8, W // 8
+    T = len(table.tasks)
+    stream = kernels.stream_ptr(src[0])
+    fd = wavefront._frame_desc(src, maps, lanes, tx_ntypes, rdoq_qctx, str(dev))
+    parts = [fd, table.tasks, table.owner.ravel(), np.zeros(T + 1, np.int32)]
+    blob = torch.as_tensor(np.concatenate([a.view(np.uint8) for a in parts]), device=dev)
+    offs = [int(o) for o in np.cumsum([0] + [a.nbytes for a in parts[:-1]])]
+    grid = wavefront.grid_of(table.max_n, T, 0)
+    lib = kernels.lib()
+    rdoq = int(rdoq_qctx is not None)
+
+    def new():
+        err = lib.commit_wave_launch(*(blob.data_ptr() + o for o in offs), T, F, R8, C8, dq_dc,
+                                     dq_ac, bd, rdoq, float(lam), table.max_n, grid, stream)
+        if err:
+            raise SystemExit(f"commit_wave: cudaError {err}")
+
+    if not BASELINE:
+        return new, None
+    # the parent's FrameDesc: a tables pointer before each plane's fields
+    FF, SF, PF = wavefront.FRAME_FIELDS, wavefront.SIZE_FIELDS, wavefront.PLANE_FIELDS
+    old, o = [fd[:FF]], FF
+    for n in SIZES:
+        old.append(fd[o : o + SF])
+        o += SF
+        for chroma in (False, True):
+            m = n // 2 if chroma else n
+            old.append(np.array([TT.tables_for(m, str(dev)).packed.data_ptr() if n in lanes
+                                 else 0], np.int64))
+            old.append(fd[o : o + PF])
+            o += PF
+    old = np.concatenate(old)
+    oblob = torch.as_tensor(np.concatenate([old.view(np.uint8), table.tasks.view(np.uint8),
+                                            table.wave_start.view(np.uint8)]), device=dev)
+    ogrid = baseline_fn("commit_wave_grid", ["I", "I"])(table.max_n, table.max_tasks)
+    if ogrid <= 0:
+        raise SystemExit(f"the parent's commit_wave_grid: cudaError {-ogrid}")
+    ofn = baseline_fn("commit_wave_launch", BASELINE_K16_ARGTYPES)
+
+    def parent():
+        base = oblob.data_ptr()
+        err = ofn(base, base + old.nbytes, base + old.nbytes + table.tasks.nbytes,
+                  len(table.waves), F, R8, C8, dq_dc, dq_ac, bd, rdoq, float(lam), table.max_n,
+                  ogrid, stream)
+        if err:
+            raise SystemExit(f"the parent's commit_wave: cudaError {err}")
+
+    return new, parent
+
+
 def check_commit_wave(torch, capture):
     """K16 against its plain version, the wave loop that launches K1, K2 and
     K5 per wave and size, on the 1080p schedules captured in phase 4: a
     fast key frame (no RDOQ: K2 fused), a medium key frame, a P frame of
     the low-delay GOP and a B frame of the random-access GOP. Levels,
     recon, frontier maps and skip map must be exact. Both phase-B times of
-    this call, the grid barriers alone at K16's grid and barrier count, and
-    the bound. Launch counts are restored after."""
+    this call (`ms`, the wrapper with its upload; `device_ms`, the launch
+    alone), with --baseline-lib the parent's K16 on the same inputs (equal
+    results, `baseline_device_ms`), the waves and the dependency depth,
+    one flag handoff between two CTAs (`handoff_ms`, median of 3) and the
+    chain bound. Launch counts are restored after."""
     import numpy as np
 
     from svtav1_tpu_torch import kernels
@@ -1762,43 +1955,60 @@ def check_commit_wave(torch, capture):
 
     saved = dict(kernels.launches)
     dev = torch.device("cuda", 0)
+    handoff = statistics.median(wavefront.handoff_ms(dev) for _ in range(3))
     out = {}
     for label in ("fast", "key", "P", "B"):
         cap = K16_CAPTURED.get(label)
         if cap is None:
             raise SystemExit(f"commit_wave: no {label} schedule reached K16 in phase 4")
         src, table, args = cap["src"], cap["table"], cap["args"]
-        km, kl = capture.state(cap)
-        capture.real(src, km, kl, table, *args)
         pm, pl = capture.state(cap)
         wavefront.commit_wave_plain(src, pm, pl, table, *args)
-        torch.cuda.synchronize()
-        err = 0
-        pairs = [(a, b) for ka, kb in zip(km, pm) for a, b in zip(ka, kb)]
-        for n in kl:
-            pairs += [(kl[n][k], pl[n][k]) for k in capture.slots]
-            skip_k, skip_p = ((L["ly"].abs().sum((1, 2)) + L["lu"].abs().sum((1, 2))
-                               + L["lv"].abs().sum((1, 2))) == 0 for L in (kl[n], pl[n]))
-            pairs.append((skip_k, skip_p))
-        for a, b in pairs:
-            if a.numel():
-                err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
-            if not torch.equal(a, b):
-                raise SystemExit(f"commit_wave disagrees with the wave loop on the {label} "
-                                 f"schedule (max err {err})")
+
+        def same(km, kl, name):
+            """Max error against the wave loop's state; exits where unequal."""
+            torch.cuda.synchronize()
+            err = 0
+            pairs = [(a, b) for ka, kb in zip(km, pm) for a, b in zip(ka, kb)]
+            for n in kl:
+                pairs += [(kl[n][k], pl[n][k]) for k in capture.slots]
+                skip_k, skip_p = ((L["ly"].abs().sum((1, 2)) + L["lu"].abs().sum((1, 2))
+                                   + L["lv"].abs().sum((1, 2))) == 0 for L in (kl[n], pl[n]))
+                pairs.append((skip_k, skip_p))
+            for a, b in pairs:
+                if a.numel():
+                    err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+                if not torch.equal(a, b):
+                    raise SystemExit(f"{name} disagrees with the wave loop on the {label} "
+                                     f"schedule (max err {err})")
+            return err
+
+        km, kl = capture.state(cap)
+        capture.real(src, km, kl, table, *args)
+        err = same(km, kl, "commit_wave")
+        lm, ll = capture.state(cap)  # the launches alone, on a state of their own
+        new, parent = k16_launches(torch, src, lm, ll, table, args)
+        if parent is not None:
+            parent()
+            err = max(err, same(lm, ll, "the parent's commit_wave"))
+        km, kl = capture.state(cap)
         ms = timed_ms(lambda: capture.real(src, km, kl, table, *args), 5)
         plain_ms = timed_ms(lambda: wavefront.commit_wave_plain(src, pm, pl, table, *args), 2)
-        grid = wavefront.grid_of(table.max_n, table.max_tasks, 0)
-        barrier = statistics.median(wavefront.barrier_ms(grid, len(table.waves) - 1, dev)
-                                    for _ in range(3))
-        work = commit_wave_work(table, args[3], args[5] is not None)
+        extra = dict(device_ms=queued_ms(new, 10))
+        if parent is not None:
+            extra["baseline_device_ms"] = queued_ms(parent, 10)
+        work = commit_wave_work(table, args[3], args[5] is not None, handoff)
         b_ms, b_by = bound(work["bytes"], work["ops"])
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          barrier_ms=barrier, latency_bound_ms=max(b_ms, barrier))
+                          handoff_ms=handoff, chain_ms=work["chain_ms"],
+                          latency_bound_ms=max(b_ms, work["chain_ms"]), **extra)
         log(json.dumps(dict(phase="commit_wave", schedule=label, waves=len(table.waves),
-                            tasks=len(table.tasks), max_tasks=table.max_tasks,
-                            max_n=table.max_n, grid=grid, rdoq=args[5] is not None,
-                            bytes=work["bytes"], ops=work["ops"],
+                            depth=work["depth"], tasks=len(table.tasks),
+                            edges=len(wavefront.predecessors(table)[1]),
+                            max_tasks=table.max_tasks,
+                            max_n=table.max_n, grid=wavefront.grid_of(table.max_n,
+                                                                      len(table.tasks), 0),
+                            rdoq=args[5] is not None, bytes=work["bytes"], ops=work["ops"],
                             tasks_by_size={str(n): int(np.sum(table.decode()[0] == i))
                                            for i, n in enumerate((8, 16, 32, 64))},
                             **out[label])))
@@ -2185,8 +2395,8 @@ def main() -> int:
                    max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
                    bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None)
         if name == "commit_wave":  # timed on a P frame's schedule of the main path
-            row.update(schedule="1080p P frame", barrier_ms=c["barrier_ms"],
-                       latency_bound_ms=c["latency_bound_ms"])
+            row.update(schedule="1080p P frame", chain_ms=c["chain_ms"],
+                       latency_bound_ms=c["latency_bound_ms"], device_ms=c["device_ms"])
         table.append(row)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

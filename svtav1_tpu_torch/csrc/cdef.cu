@@ -1,4 +1,5 @@
-// K6 cdef_dir and K7 cdef_filter: CDEF (AV1 spec 7.15) on whole frames.
+// K6 cdef_dir and K7 cdef_search / cdef_apply: CDEF (AV1 spec 7.15) on whole
+// frames.
 //
 // K6 gives, per 8x8 luma cell, the normative direction (the first of the
 // eight with the largest cost) and the variance (best cost minus the cost of
@@ -9,24 +10,35 @@
 // 8 x 15 partial sums are some 1,000 integer operations per cell). Design:
 // one thread per cell, the cell's samples in registers.
 //
-// K7 filters one plane with a direction per cell (8x8 luma, 4x4 chroma,
-// co-located with the luma cells), a primary strength per frame that is
-// adjusted per cell by the luma variance when `var` is given, a secondary
-// strength and a damping; cells outside the non-skip mask keep their input.
-// Several strength candidates run in one launch (grid.y = candidate x
-// frame), and instead of (or beside) the filtered plane the kernel can give
-// the int64 SSE of the masked filtered samples against a source plane, per
-// candidate and frame: the frame-level strength search. Replaces
-// cdef_jax.py::_tap_stack_j (:129-163), _filter_from_taps_j (:166-191) and
-// _adjust_strength_j (:68-72) as cdef_frames_j (:203-284) chains them. The
-// reference shifts the whole padded plane for all eight directions and
-// selects per pixel (a TPU workaround for dynamic gathers); here each sample
-// reads its twelve taps directly. Samples outside the plane are
-// CDEF_VERY_LARGE, which never wins the max. Bound: bytes (each candidate
-// reads the plane, writes it or reduces it; 12 taps per sample come from the
-// L1 cache). Design: one thread per sample, consecutive threads on
-// consecutive samples of a row; the SSE is reduced per block in shared
-// memory and added with one 64-bit atomic per block.
+// K7 is two entry points. cdef_search gives, per strength candidate of a
+// ladder (K <= 8) and frame, the int64 SSE of the luma plane's masked
+// filtered samples against the source: the frame-level strength search.
+// cdef_apply takes each frame's candidate of least SSE (the first on ties,
+// as torch.argmin), derives the chroma strengths (uv = y >> 1), writes the
+// (F, 4) strengths and filters Y, U and V with them in one launch. The
+// primary strength is adjusted per luma cell by its variance; cells outside
+// the non-skip mask keep their input. Replaces cdef_jax.py::_tap_stack_j
+// (:129-163), _filter_from_taps_j (:166-191) and _adjust_strength_j
+// (:68-72) as cdef_frames_j (:203-284) chains them, with its argmin and
+// strength glue. The reference shifts the whole padded plane for all eight
+// directions and selects per pixel (a TPU workaround for dynamic gathers);
+// here each sample reads its twelve taps directly. Samples outside the
+// plane are CDEF_VERY_LARGE, which never wins the max.
+//
+// Bound: the search's operations (per unmasked sample, the tap work once
+// and a constrained sum per candidate; utils/profile_keyframes
+// cdef_search_work), the apply's bytes (three planes read and written).
+// Design of the search: a CTA stages a tile of 4 x 8 luma cells and its
+// 2-sample halo once in shared memory as int16 (16-byte loads); a warp per
+// cell reads the cell's mask, direction and variance once, and a masked-out
+// cell (or a tile without one unmasked cell) costs nothing more. Per sample
+// the twelve tap differences and the max and min over the taps are
+// computed once; per candidate only the strengths, the constrained sum, the
+// clamp and the squared error. The K sums stay in registers, are reduced per
+// warp and per CTA and added with one 64-bit atomic per candidate and CTA.
+// The apply: one thread per sample, the three planes' blocks in one grid;
+// each CTA takes its frame's argmin from the search's sums itself, so no
+// host or PyTorch step sits between the two launches.
 #include "common.cuh"
 
 namespace {
@@ -104,79 +116,260 @@ __global__ void cdef_dir_kernel(const int* __restrict__ plane, int* __restrict__
   var[cell] = (int)((cost[best] - cost[(best + 4) & 7]) >> 10);
 }
 
-__device__ __forceinline__ int constrain(int diff, int s, int damping) {
-  if (s <= 0) return 0;
-  const int shift = max(0, damping - msb(s));
+// CDEF's constrain(diff, s, damping), given the strength's shift
+// max(0, damping - msb(s))
+__device__ __forceinline__ int constrain_sh(int diff, int s, int shift) {
   const int ad = abs(diff);
   const int mag = min(ad, max(0, s - (ad >> shift)));
-  return diff < 0 ? -mag : mag;
+  return s <= 0 ? 0 : (diff < 0 ? -mag : mag);
 }
 
-__global__ void cdef_filter_kernel(const int* __restrict__ plane, const int* __restrict__ dirs,
-                                   const int* __restrict__ var, const int* __restrict__ pri,
-                                   const int* __restrict__ sec, const uint8_t* __restrict__ mask,
-                                   const int* __restrict__ src, unsigned long long* __restrict__ sse,
-                                   int* __restrict__ out, int F, int H, int W, int log2m,
-                                   int damping, int coeff_shift) {
-  __shared__ unsigned long long s_part[32];
-  const int kf = blockIdx.y;  // candidate * F + frame
-  const int f = kf % F;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long e = 0;
-  if (p < H * W) {
-    const int y = p / W, x = p - y * W;
-    const int C = W >> log2m;
-    const int ci = (size_t)f * (H >> log2m) * C + (y >> log2m) * C + (x >> log2m);
-    const int* P = plane + (size_t)f * H * W;
-    const int x0 = P[p];
-    int v = x0;
-    if (mask[ci]) {
-      const int d = dirs[ci];
-      int ps = pri[kf];
-      if (var) {  // luma: adjust_strength by the cell's variance
-        const int vv = var[ci];
-        const int i = (vv >> 6) > 0 ? min(msb(vv >> 6), 12) : 0;
-        ps = vv != 0 ? (ps * (4 + i) + 8) >> 4 : 0;
+// adjust_strength: the luma primary strength by the cell's variance
+__device__ __forceinline__ int adjust_strength(int ps, int vv) {
+  const int i = (vv >> 6) > 0 ? min(msb(vv >> 6), 12) : 0;
+  return vv != 0 ? (ps * (4 + i) + 8) >> 4 : 0;
+}
+
+constexpr int kMaxCand = 8;
+
+// A ladder of strength candidates, passed by value (unshifted values).
+struct Ladder {
+  int pri[kMaxCand], sec[kMaxCand];
+};
+
+constexpr int kTileR = 4, kTileC = 8;  // the search's tile of luma cells
+constexpr int kSH = kTileR * 8 + 4, kSW = kTileC * 8 + 4;  // with the 2-sample halo
+constexpr int kSearchWarps = 8;
+
+__global__ void __launch_bounds__(kSearchWarps * 32)
+    cdef_search_kernel(const int* __restrict__ plane, const int* __restrict__ dirs,
+                       const int* __restrict__ var, const uint8_t* __restrict__ mask,
+                       const int* __restrict__ src, unsigned long long* __restrict__ sse,
+                       Ladder lad, int K, int F, int H, int W, int damping, int coeff_shift,
+                       bool vec) {
+  __shared__ short tile[kSH][kSW];
+  __shared__ unsigned long long part[kSearchWarps][kMaxCand];
+  const int R = H >> 3, C = W >> 3;
+  const int f = blockIdx.z;
+  const int cr0 = blockIdx.y * kTileR, cc0 = blockIdx.x * kTileC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // a tile without an unmasked cell ends here
+  bool on = false;
+  if (threadIdx.x < kTileR * kTileC) {
+    const int r = cr0 + threadIdx.x / kTileC, c = cc0 + threadIdx.x % kTileC;
+    on = r < R && c < C && mask[((size_t)f * R + r) * C + c];
+  }
+  if (!__syncthreads_or(on)) return;
+
+  // stage rows y0 - 2 .. and columns x0 - 2 .. of the tile as int16
+  const int* P = plane + (size_t)f * H * W;
+  const int y0 = cr0 * 8 - 2, x0 = cc0 * 8 - 2;
+  if (vec) {  // 16-byte chunks from x0 - 2, a multiple of 4
+    constexpr int kChunks = (kSW + 4) / 4;
+    for (int q = threadIdx.x; q < kSH * kChunks; q += blockDim.x) {
+      const int ty = q / kChunks, xc = x0 - 2 + 4 * (q % kChunks), y = y0 + ty;
+      int4 v = make_int4(CDEF_VERY_LARGE, CDEF_VERY_LARGE, CDEF_VERY_LARGE, CDEF_VERY_LARGE);
+      if (y >= 0 && y < H && xc >= 0 && xc < W)
+        v = __ldg(reinterpret_cast<const int4*>(P + (size_t)y * W + xc));
+      const int vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int tx = xc + u - x0;
+        if (tx >= 0 && tx < kSW) tile[ty][tx] = (short)vals[u];
       }
-      const int ss = sec[kf];
-      const int ts = (ps >> coeff_shift) & 1;
-      int sum = 0, mx = x0, mn = x0;
+    }
+  } else {
+    for (int q = threadIdx.x; q < kSH * kSW; q += blockDim.x) {
+      const int ty = q / kSW, tx = q % kSW, y = y0 + ty, x = x0 + tx;
+      tile[ty][tx] = (short)((y >= 0 && y < H && x >= 0 && x < W) ? P[(size_t)y * W + x]
+                                                                    : CDEF_VERY_LARGE);
+    }
+  }
+  __syncthreads();
+
+  unsigned acc[kMaxCand];
+#pragma unroll
+  for (int k = 0; k < kMaxCand; ++k) acc[k] = 0;
+  for (int ci = warp; ci < kTileR * kTileC; ci += kSearchWarps) {
+    const int lr = ci / kTileC, lc = ci % kTileC;
+    const int r = cr0 + lr, c = cc0 + lc;
+    if (r >= R || c >= C) continue;
+    const size_t cell = ((size_t)f * R + r) * C + c;
+    if (!mask[cell]) continue;
+    const int d = dirs[cell], vv = var[cell];
+    const int d2 = (d + 2) & 7, d6 = (d - 2) & 7;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // two samples of the cell per lane
+      const int s = lane + 32 * h, i = s >> 3, j = s & 7;
+      const int ty = lr * 8 + i + 2, tx = lc * 8 + j + 2;
+      const int x = tile[ty][tx];
+      // the twelve tap differences (primary, then the two secondary
+      // directions; taps k = 0, 1; signs +, -) and the max and min
+      int dp[4], ds[8];
+      int mx = x, mn = x;
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
 #pragma unroll
-        for (int t = 0; t < 3; ++t) {  // primary, then the two secondary directions
-          const int dd = t == 0 ? d : (t == 1 ? (d + 2) & 7 : (d - 2) & 7);
+        for (int tt = 0; tt < 3; ++tt) {
+          const int dd = tt == 0 ? d : (tt == 1 ? d2 : d6);
           const int dy = c_dirs[dd][k][0], dx = c_dirs[dd][k][1];
 #pragma unroll
-          for (int sg = 1; sg >= -1; sg -= 2) {
-            const int yy = y + sg * dy, xx = x + sg * dx;
-            const int tv = (yy >= 0 && yy < H && xx >= 0 && xx < W) ? P[yy * W + xx]
-                                                                     : CDEF_VERY_LARGE;
-            if (t == 0) sum += c_pri_taps[ts][k] * constrain(tv - x0, ps, damping);
-            else sum += c_sec_taps[k] * constrain(tv - x0, ss, damping);
+          for (int sg = 0; sg < 2; ++sg) {
+            const int tv = sg == 0 ? tile[ty + dy][tx + dx] : tile[ty - dy][tx - dx];
+            if (tt == 0) dp[2 * k + sg] = tv - x;
+            else ds[4 * (tt - 1) + 2 * k + sg] = tv - x;
             if (tv != CDEF_VERY_LARGE) mx = max(mx, tv);
             mn = min(mn, tv);
           }
         }
       }
-      v = clampi(x0 + ((8 + sum - (sum < 0)) >> 4), mn, mx);
-      if (src) {
-        const long long df = v - src[(size_t)f * H * W + p];
-        e = (unsigned long long)(df * df);
+      const int sv = src[((size_t)f * H + r * 8 + i) * W + c * 8 + j];
+#pragma unroll
+      for (int k = 0; k < kMaxCand; ++k) {
+        if (k >= K) break;
+        const int ps = adjust_strength(lad.pri[k] << coeff_shift, vv);
+        const int ss = lad.sec[k] << coeff_shift;
+        const int psh = max(0, damping - msb(ps)), ssh = max(0, damping - msb(ss));
+        const int ts = (ps >> coeff_shift) & 1;
+        int sum = 0;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const int w = c_pri_taps[ts][kk];
+          sum += w * constrain_sh(dp[2 * kk], ps, psh);
+          sum += w * constrain_sh(dp[2 * kk + 1], ps, psh);
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) sum += c_sec_taps[(q >> 1) & 1] * constrain_sh(ds[q], ss, ssh);
+        const int v = clampi(x + ((8 + sum - (sum < 0)) >> 4), mn, mx);
+        acc[k] += (unsigned)((v - sv) * (v - sv));
       }
     }
-    if (out) out[(size_t)kf * H * W + p] = v;
   }
-  if (sse) {
-    for (int o = 16; o > 0; o >>= 1) e += __shfl_down_sync(0xffffffffu, e, o);
-    if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = e;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned long long tot = 0;
-      for (int i = 0; i < (int)(blockDim.x >> 5); ++i) tot += s_part[i];
-      if (tot) atomicAdd(sse + kf, tot);
+  // per warp, then per CTA, one 64-bit atomic per candidate
+#pragma unroll
+  for (int k = 0; k < kMaxCand; ++k) {
+    unsigned long long tot = acc[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
+    if (lane == 0) part[warp][k] = tot;
+  }
+  __syncthreads();
+  if (threadIdx.x < K) {
+    unsigned long long tot = 0;
+#pragma unroll
+    for (int w = 0; w < kSearchWarps; ++w) tot += part[w][threadIdx.x];
+    if (tot) atomicAdd(sse + (size_t)threadIdx.x * F + f, tot);
+  }
+}
+
+// One sample of a CDEF-filtered plane: direction d, primary strength ps
+// (already adjusted), secondary ss.
+__device__ __forceinline__ int cdef_sample(const int* __restrict__ P, int H, int W, int y, int x,
+                                           int d, int ps, int ss, int damping,
+                                           int coeff_shift) {
+  const int x0 = P[(size_t)y * W + x];
+  const int ts = (ps >> coeff_shift) & 1;
+  const int psh = max(0, damping - msb(ps)), ssh = max(0, damping - msb(ss));
+  int sum = 0, mx = x0, mn = x0;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {  // primary, then the two secondary directions
+      const int dd = t == 0 ? d : (t == 1 ? (d + 2) & 7 : (d - 2) & 7);
+      const int dy = c_dirs[dd][k][0], dx = c_dirs[dd][k][1];
+#pragma unroll
+      for (int sg = 1; sg >= -1; sg -= 2) {
+        const int yy = y + sg * dy, xx = x + sg * dx;
+        const int tv = (yy >= 0 && yy < H && xx >= 0 && xx < W) ? P[(size_t)yy * W + xx]
+                                                                 : CDEF_VERY_LARGE;
+        if (t == 0) sum += c_pri_taps[ts][k] * constrain_sh(tv - x0, ps, psh);
+        else sum += c_sec_taps[k] * constrain_sh(tv - x0, ss, ssh);
+        if (tv != CDEF_VERY_LARGE) mx = max(mx, tv);
+        mn = min(mn, tv);
+      }
     }
   }
+  return clampi(x0 + ((8 + sum - (sum < 0)) >> 4), mn, mx);
+}
+
+struct Planes3 {
+  const int* in[3];
+  int* out[3];
+};
+
+__global__ void __launch_bounds__(256)
+    cdef_apply_kernel(Planes3 pls, const int* __restrict__ dirs, const int* __restrict__ var,
+                      const uint8_t* __restrict__ mask, const unsigned long long* __restrict__ sse,
+                      int* __restrict__ strengths, Ladder lad, int K, int F, int H, int W,
+                      int damping, int coeff_shift) {
+  // blockIdx.x: the luma plane's blocks, then each chroma plane's
+  const int f = blockIdx.y;
+  const int nby = (H * W + 255) / 256, nbc = ((H >> 1) * (W >> 1) + 255) / 256;
+  const int bx = blockIdx.x;
+  const int pl = bx < nby ? 0 : (bx < nby + nbc ? 1 : 2);
+  const int Hp = pl ? H >> 1 : H, Wp = pl ? W >> 1 : W, log2m = pl ? 2 : 3;
+  const int p = (pl == 0 ? bx : bx - nby - (pl - 1) * nbc) * blockDim.x + threadIdx.x;
+  // the frame's candidate: least SSE, the first on ties, by the first warp
+  // (a lane per candidate); the ladder read at static indices only (a
+  // dynamic index would copy it to local memory)
+  __shared__ int s_pri, s_sec;
+  if (threadIdx.x < 32) {
+    const int k = threadIdx.x;
+    unsigned long long v = k < K ? sse[(size_t)k * F + f] : ~0ull;
+    int bk = k;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long ov = __shfl_xor_sync(0xffffffffu, v, o);
+      const int ok = __shfl_xor_sync(0xffffffffu, bk, o);
+      if (ov < v || (ov == v && ok < bk)) {
+        v = ov;
+        bk = ok;
+      }
+    }
+    if (k == 0) {
+      int y_pri = lad.pri[0], y_sec = lad.sec[0];
+#pragma unroll
+      for (int c = 1; c < kMaxCand; ++c) {
+        if (c == bk) {
+          y_pri = lad.pri[c];
+          y_sec = lad.sec[c];
+        }
+      }
+      s_pri = y_pri;
+      s_sec = y_sec;
+      if (bx == 0) {
+        int* st = strengths + 4 * (size_t)f;
+        st[0] = y_pri;
+        st[1] = y_sec;
+        st[2] = y_pri >> 1;  // ladder sec 0/1/2 -> 0/1, never 3
+        st[3] = y_sec >> 1;
+      }
+    }
+  }
+  __syncthreads();
+  const int y_pri = s_pri, y_sec = s_sec;
+  if (p >= Hp * Wp) return;
+  const int y = p / Wp, x = p - y * Wp;
+  const int C = W >> 3;
+  const size_t ci = ((size_t)f * (H >> 3) + (y >> log2m)) * C + (x >> log2m);
+  const size_t off = (size_t)f * Hp * Wp;
+  const int* P = (pl == 0 ? pls.in[0] : pl == 1 ? pls.in[1] : pls.in[2]) + off;
+  int* out = (pl == 0 ? pls.out[0] : pl == 1 ? pls.out[1] : pls.out[2]) + off;
+  int v = P[p];
+  if (mask[ci]) {
+    int ps, ss, damp;
+    if (pl == 0) {
+      ps = adjust_strength(y_pri << coeff_shift, var[ci]);
+      ss = y_sec << coeff_shift;
+      damp = damping + coeff_shift;
+    } else {
+      ps = (y_pri >> 1) << coeff_shift;
+      ss = (y_sec >> 1) << coeff_shift;
+      damp = damping + coeff_shift - 1;
+    }
+    v = cdef_sample(P, Hp, Wp, y, x, dirs[ci], ps, ss, damp, coeff_shift);
+  }
+  out[p] = v;
 }
 
 }  // namespace
@@ -190,14 +383,47 @@ extern "C" int cdef_dir_launch(const int* plane, int* dirs, int* var, int F, int
   return launch_status();
 }
 
-extern "C" int cdef_filter_launch(const int* plane, const int* dirs, const int* var,
-                                  const int* pri, const int* sec, const uint8_t* mask,
-                                  const int* src, unsigned long long* sse, int* out, int K, int F,
-                                  int H, int W, int log2m, int damping, int coeff_shift,
-                                  void* stream) {
-  if (K * F * H * W == 0) return 0;
-  const dim3 grid((H * W + 255) / 256, K * F);
-  cdef_filter_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      plane, dirs, var, pri, sec, mask, src, sse, out, F, H, W, log2m, damping, coeff_shift);
+static bool ladder_of(const int* pri, const int* sec, int K, Ladder& lad) {
+  if (K < 1 || K > kMaxCand) return false;
+  for (int k = 0; k < kMaxCand; ++k) {
+    lad.pri[k] = k < K ? pri[k] : 0;
+    lad.sec[k] = k < K ? sec[k] : 0;
+  }
+  return true;
+}
+
+// plane, src (F, H, W) int32 luma; dirs, var (F, H/8, W/8) int32; mask
+// (F, H/8, W/8) bool; sse (K, F) int64, zeroed by the caller; pri, sec: the
+// K <= 8 candidates' strengths in host memory; damping: the frame's luma
+// damping before the coefficient shift.
+extern "C" int cdef_search_launch(const int* plane, const int* dirs, const int* var,
+                                  const uint8_t* mask, const int* src, unsigned long long* sse,
+                                  const int* pri, const int* sec, int K, int F, int H, int W,
+                                  int damping, int coeff_shift, void* stream) {
+  Ladder lad;
+  if (!ladder_of(pri, sec, K, lad)) return (int)cudaErrorInvalidValue;
+  if (F * H * W == 0) return 0;
+  const bool vec = ((uintptr_t)plane & 15) == 0 && (W & 3) == 0;
+  const dim3 grid(((W >> 3) + kTileC - 1) / kTileC, ((H >> 3) + kTileR - 1) / kTileR, F);
+  cdef_search_kernel<<<grid, kSearchWarps * 32, 0, (cudaStream_t)stream>>>(
+      plane, dirs, var, mask, src, sse, lad, K, F, H, W, damping + coeff_shift, coeff_shift, vec);
+  return launch_status();
+}
+
+// y, u, v -> oy, ou, ov: (F, H, W) luma and (F, H/2, W/2) chroma int32;
+// strengths (F, 4) int32 out; the rest as cdef_search_launch.
+extern "C" int cdef_apply_launch(const int* y, const int* u, const int* v, int* oy, int* ou,
+                                 int* ov, const int* dirs, const int* var, const uint8_t* mask,
+                                 const unsigned long long* sse, int* strengths, const int* pri,
+                                 const int* sec, int K, int F, int H, int W, int damping,
+                                 int coeff_shift, void* stream) {
+  Ladder lad;
+  if (!ladder_of(pri, sec, K, lad)) return (int)cudaErrorInvalidValue;
+  if (F * H * W == 0) return 0;
+  const Planes3 pls = {{y, u, v}, {oy, ou, ov}};
+  const dim3 grid((H * W + 255) / 256 + 2 * (((H >> 1) * (W >> 1) + 255) / 256), F);
+  cdef_apply_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(pls, dirs, var, mask, sse, strengths,
+                                                            lad, K, F, H, W, damping,
+                                                            coeff_shift);
   return launch_status();
 }

@@ -20,3 +20,29 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 __device__ __forceinline__ int round_shift(int x, int bit) {
   return bit == 0 ? x : (int)((unsigned)x + (1u << (bit - 1))) >> bit;
 }
+
+__device__ __forceinline__ int floordiv(int a, int b) {
+  int q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+  return q;
+}
+
+// round_shift_array's shift: > 0 rounds right, < 0 shifts left
+__device__ __forceinline__ int apply_shift(int x, int bit) {
+  if (bit > 0) return round_shift(x, bit);
+  if (bit < 0) return (int)((unsigned)x << (-bit));
+  return x;
+}
+
+// K2's dead-zone quantizer, levels clipped to +-32767 (K2 and K16)
+__device__ __forceinline__ int quant_level(int x, int dq, int ls) {
+  const int absc = (int)((unsigned)abs(x) << ls);
+  const int lv = floordiv((int)((unsigned)absc + (unsigned)(dq >> 1)), dq);
+  return clampi(x > 0 ? lv : (x < 0 ? -lv : 0), -32767, 32767);
+}
+
+// dequantized level; |d| <= dqmax = 2^(bd+7) - 1, within the bd + 8 clamp
+__device__ __forceinline__ int dequant_level(int lv, int dq, int ls, int dqmax) {
+  const int d = min((abs(lv) * dq) >> ls, dqmax);
+  return lv > 0 ? d : (lv < 0 ? -d : 0);
+}

@@ -1,7 +1,8 @@
 // K1's block body as device code: the thirteen key-frame AV1 intra
 // predictors of one n x n block from filled edges. K1 (intra_pred.cu) runs
-// it once per CTA; K16 (commit.cu) runs it for each task of a wave, so the
-// two predict bit-identically. See intra_pred.cu for what it replaces.
+// intra_pred_block once per CTA; K16 (commit.cu) calls intra_pred_sample for
+// each sample of a task, so the two predict bit-identically. See
+// intra_pred.cu for what it replaces.
 #pragma once
 #include "common.cuh"
 
@@ -36,6 +37,48 @@ static __device__ __forceinline__ int intra_dr_sample(const int* A, const int* L
   return (v + 16) >> 5;
 }
 
+// DC of a block from its edge sums sa (above) and sl (left).
+static __device__ __forceinline__ int intra_dc(int sa, int sl, bool ha, bool hl, int n,
+                                               int log2n) {
+  if (ha && hl) return (sa + sl + n) >> (log2n + 1);
+  if (ha) return (sa + (n >> 1)) >> log2n;
+  if (hl) return (sl + (n >> 1)) >> log2n;
+  return 128;
+}
+
+// Sample (i, j) of mode m from the edges (A, L, t_l), the block's DC and
+// the size's smooth weights.
+static __device__ __forceinline__ int intra_pred_sample(const int* A, const int* L, int t_l,
+                                                        int dc, int m,
+                                                        const int* __restrict__ weights,
+                                                        const int* __restrict__ dr, int n, int i,
+                                                        int j) {
+  const int t = A[j], l = L[i];
+  switch (m) {
+    case 0: return dc;
+    case 1: return t;
+    case 2: return l;
+    case 3: {
+      const int wh = weights[i], ww = weights[j];
+      return (wh * t + (256 - wh) * L[n - 1] + ww * l + (256 - ww) * A[n - 1] + 256) >> 9;
+    }
+    case 4: {
+      const int wh = weights[i];
+      return (wh * t + (256 - wh) * L[n - 1] + 128) >> 8;
+    }
+    case 5: {
+      const int ww = weights[j];
+      return (ww * l + (256 - ww) * A[n - 1] + 128) >> 8;
+    }
+    case 6: {
+      const int base = t + l - t_l;
+      const int pt = abs(base - t), pl = abs(base - l), ptl = abs(base - t_l);
+      return (pl <= pt && pl <= ptl) ? l : (pt <= ptl ? t : t_l);
+    }
+    default: return intra_dr_sample(A, L, t_l, n, dr + 3 * (m - 7), i, j);
+  }
+}
+
 // Predict one block with the whole CTA: mode >= 0 writes that mode's n*n
 // samples to o, mode < 0 all nmodes modes (nmodes*n*n, in MODES order).
 // A / L are the n above and left samples, t_l the top-left one. Ends
@@ -51,38 +94,15 @@ static __device__ void intra_pred_block(const int* A, const int* L, int t_l, boo
       sa += A[i];
       sl += L[i];
     }
-    int dc = 128;
-    if (ha && hl) dc = (sa + sl + n) >> (log2n + 1);
-    else if (ha) dc = (sa + (n >> 1)) >> log2n;
-    else if (hl) dc = (sl + (n >> 1)) >> log2n;
-    s_dc = dc;
+    s_dc = intra_dc(sa, sl, ha, hl, n, log2n);
   }
   __syncthreads();
   const int nn = n * n;
   const int total = (mode >= 0 ? 1 : nmodes) * nn;
-  const int below = L[n - 1], right = A[n - 1];
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int m = mode >= 0 ? mode : idx / nn;
     const int pix = idx - (mode >= 0 ? 0 : m * nn);
-    const int i = pix >> log2n, j = pix & (n - 1);
-    const int t = A[j], l = L[i];
-    const int wh = weights[i], ww = weights[j];
-    int v;
-    switch (m) {
-      case 0: v = s_dc; break;
-      case 1: v = t; break;
-      case 2: v = l; break;
-      case 3: v = (wh * t + (256 - wh) * below + ww * l + (256 - ww) * right + 256) >> 9; break;
-      case 4: v = (wh * t + (256 - wh) * below + 128) >> 8; break;
-      case 5: v = (ww * l + (256 - ww) * right + 128) >> 8; break;
-      case 6: {
-        const int base = t + l - t_l;
-        const int pt = abs(base - t), pl = abs(base - l), ptl = abs(base - t_l);
-        v = (pl <= pt && pl <= ptl) ? l : (pt <= ptl ? t : t_l);
-        break;
-      }
-      default: v = intra_dr_sample(A, L, t_l, n, dr + 3 * (m - 7), i, j);
-    }
-    o[idx] = v;
+    o[idx] = intra_pred_sample(A, L, t_l, s_dc, m, weights, dr, n, pix >> log2n,
+                               pix & (n - 1));
   }
 }

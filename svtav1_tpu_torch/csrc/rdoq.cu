@@ -17,29 +17,32 @@
 //
 // Bound: bytes. Per block it reads 2*h*w int32 (levels, coefficients) and
 // writes h*w; per coefficient the work is two context sums over five
-// neighbours and a few table lookups. Design: one CTA per txb; the magnitudes
-// and the per-scan-position gains live in shared memory; the float32
-// arithmetic follows the reference's order of operations with explicitly
-// rounded intrinsics (no contraction into fused multiply-adds), so the
-// result is bit-identical to the plain PyTorch version. The suffix sums run
-// in float64 in one thread, in the plain version's order, over the positions
-// before the original eob only; the argmin is a first-index-wins reduction.
-// The block body is rdoq_block (rdoq.cuh), which K16 (commit.cu) runs for
-// the commit's intra blocks.
+// neighbours and a few table lookups. Design: one CTA per txb, one warp
+// below 16x16 and eight from 16x16 up, running the block body rdoq_tile
+// (rdoq.cuh), which K16 (commit.cu) runs with one warp for the commit's
+// intra blocks; the magnitudes and the per-scan-position gains live in
+// shared memory; the float32 arithmetic follows the reference's order of
+// operations with explicitly rounded intrinsics (no contraction into fused
+// multiply-adds), so the result is bit-identical to the plain PyTorch
+// version. The suffix sums run in float64 in the plain version's order,
+// over the positions before the original eob only, in warp 0, one lane's
+// segment of gains at a time from registers; eob0 and the argmin (first
+// index wins) are warp reductions, then across the warps.
 #include "rdoq.cuh"
 
 namespace {
 
-__global__ void rdoq_kernel(const int* __restrict__ levels, const int* __restrict__ coeff,
-                            const float* __restrict__ flut, const int* __restrict__ ilut,
-                            const int* __restrict__ scan, int* __restrict__ out, int h, int w,
-                            int log2w, int ls, int dq_dc, int dq_ac, float lam, float dscale,
-                            float skip_delta) {
-  extern __shared__ int smem[];
+template <int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+    rdoq_kernel(const int* __restrict__ levels, const int* __restrict__ coeff,
+                const float* __restrict__ flut, const int* __restrict__ ilut,
+                const int* __restrict__ scan, int* __restrict__ out, int h, int w, int log2w,
+                int ls, int dq_dc, int dq_ac, float lam, float dscale, float skip_delta) {
+  extern __shared__ __align__(16) int smem[];
   const int n = h * w;
   const size_t at = (size_t)blockIdx.x * n;
-  rdoq_block(levels + at, coeff + at, flut, ilut, scan, out + at, h, w, log2w, ls, dq_dc, dq_ac,
-             lam, dscale, skip_delta, smem, (float*)(smem + n));
+  rdoq_tile<WARPS>(levels + at, coeff + at, flut, ilut, scan, out + at, h, w, log2w, ls, dq_dc,
+                   dq_ac, lam, dscale, skip_delta, smem, (float*)(smem + n));
 }
 
 }  // namespace
@@ -50,10 +53,15 @@ extern "C" int rdoq_launch(const int* levels, const int* coeff, const float* flu
                            void* stream) {
   if (B == 0) return 0;
   const int n = h * w;
-  const int threads = n >= 256 ? 256 : 32;
-  const size_t shm = (size_t)n * sizeof(int) + (size_t)(n + 1) * sizeof(float);
-  rdoq_kernel<<<B, threads, shm, (cudaStream_t)stream>>>(levels, coeff, flut, ilut, scan, out, h,
-                                                         w, log2w, ls, dq_dc, dq_ac, lam, dscale,
-                                                         skip_delta);
+  // the magnitudes (n ints), then the gains (max(n + 1, 32) floats; n is a
+  // multiple of 16, so they start 16-byte aligned)
+  const size_t shm = (size_t)n * sizeof(int) + (size_t)(n + 32) * sizeof(float);
+  const auto s = (cudaStream_t)stream;
+  if (n >= 256)
+    rdoq_kernel<8><<<B, 256, shm, s>>>(levels, coeff, flut, ilut, scan, out, h, w, log2w, ls,
+                                       dq_dc, dq_ac, lam, dscale, skip_delta);
+  else
+    rdoq_kernel<1><<<B, 32, shm, s>>>(levels, coeff, flut, ilut, scan, out, h, w, log2w, ls,
+                                      dq_dc, dq_ac, lam, dscale, skip_delta);
   return launch_status();
 }

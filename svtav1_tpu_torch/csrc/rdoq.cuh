@@ -1,7 +1,7 @@
-// K5's device code: the two-pass RDOQ of one transform block (rdoq_block)
-// and its context and cost helpers. K5 (rdoq.cu) runs rdoq_block once per
-// CTA; K16 (commit.cu) runs it for each task of a wave, so the two optimize
-// bit-identically. See rdoq.cu for what it replaces and how it rounds.
+// K5's device code: the two-pass RDOQ of one transform block with one or
+// more warps (rdoq_tile), and its context and cost helpers. K5 (rdoq.cu)
+// runs it once per CTA; K16 (commit.cu) runs it with one warp for each task.
+// See rdoq.cu for what it replaces and how it rounds.
 #pragma once
 #include "common.cuh"
 
@@ -39,36 +39,98 @@ static __device__ __forceinline__ float rdoq_err(int a, int dq, int ls, float ca
   return __fsub_rn((float)((a * dq) >> ls), cabs);
 }
 
-// RDOQ of one h x w block with the whole CTA: levels L and unquantized
-// coefficients C in, new levels O out (O must not alias L). a (n ints) and
-// gs (n + 1 floats) are shared-memory scratch. Ends without a barrier.
-static __device__ void rdoq_block(const int* __restrict__ L, const int* __restrict__ C,
-                                  const float* __restrict__ flut, const int* __restrict__ ilut,
-                                  const int* __restrict__ scan, int* __restrict__ O, int h, int w,
-                                  int log2w, int ls, int dq_dc, int dq_ac, float lam, float dscale,
-                                  float skip_delta, int* a, float* gs) {
+// The suffix sums of the gains gs[0, eob0) in float64 with one warp,
+// gs[k] = (float)(gs[eob0 - 1] + ... + gs[k]), added one at a time in that
+// order, as the plain version adds them. Lane l holds gs[32 l, 32 l +
+// 32) in registers (gs 16-byte aligned); the lanes take their segments in
+// turn, from the top, handing the running sum on with a shuffle. So the
+// dependent chain is one of float64 adds on registers, and not also one of
+// shared-memory loads and stores.
+static __device__ __forceinline__ void rdoq_suffix_sums_warp(float* gs, int eob0) {
+  const int lane = threadIdx.x & 31;
+  const int nseg = (eob0 + 31) >> 5;
+  float4* seg = reinterpret_cast<float4*>(gs + 32 * lane);
+  float g[32];
+  if (lane < nseg) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 v = seg[q];
+      g[4 * q] = v.x;
+      g[4 * q + 1] = v.y;
+      g[4 * q + 2] = v.z;
+      g[4 * q + 3] = v.w;
+    }
+  }
+  double acc = 0.0;
+  for (int s = nseg - 1; s >= 0; --s) {
+    if (lane == s) {
+      const int hi = eob0 - 32 * s;  // this segment's gains below eob0
+#pragma unroll
+      for (int i = 31; i >= 0; --i) {
+        if (i < hi) {
+          acc += (double)g[i];
+          g[i] = (float)acc;
+        }
+      }
+    }
+    acc = __shfl_sync(0xffffffffu, acc, s);
+  }
+  if (lane < nseg) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      seg[q] = make_float4(g[4 * q], g[4 * q + 1], g[4 * q + 2], g[4 * q + 3]);
+  }
+}
+
+// The barrier of a body run by WARPS warps: __syncwarp for one (K16's
+// tasks), __syncthreads for a CTA.
+template <int WARPS>
+static __device__ __forceinline__ void rdoq_sync() {
+  if constexpr (WARPS == 1)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// RDOQ of one h x w block with the CTA's first WARPS warps (one: K16's
+// tasks and K5's small blocks; several: K5's larger blocks): levels L and
+// unquantized coefficients C in, new levels O out (O must not alias L).
+// eob0 by a warp max, the eob argmin by warp shuffles (the first index on
+// ties), each across the warps through shared memory; the suffix sums in
+// warp 0. a holds n ints and gs max(n + 1, 32) floats, 16-byte aligned and
+// apart from the other arrays. Ends with the warps synchronized.
+template <int WARPS>
+static __device__ void rdoq_tile(const int* __restrict__ L, const int* __restrict__ C,
+                                 const float* __restrict__ flut, const int* __restrict__ ilut,
+                                 const int* __restrict__ scan, int* __restrict__ O, int h, int w,
+                                 int log2w, int ls, int dq_dc, int dq_ac, float lam, float dscale,
+                                 float skip_delta, int* __restrict__ a, float* __restrict__ gs) {
+  constexpr int STRIDE = 32 * WARPS;
   const int n = h * w;
-  __shared__ int s_eob0, s_kbest;
-  __shared__ float s_val[32];
-  __shared__ int s_idx[32];
+  const int tid = threadIdx.x, lane = tid & 31;
   const int* ectx = ilut;
   const int* iscan = ilut + n;
   const int* nz_off = ilut + 2 * n;
   const int* br_grp = ilut + 3 * n;
-  if (threadIdx.x == 0) s_eob0 = 0;
   int my_eob = 0;
-  for (int pos = threadIdx.x; pos < n; pos += blockDim.x) {
-    a[pos] = abs(L[pos]);
-    if (a[pos]) my_eob = max(my_eob, iscan[pos] + 1);
+  for (int pos = tid; pos < n; pos += STRIDE) {
+    const int v = abs(L[pos]);
+    a[pos] = v;
+    if (v) my_eob = max(my_eob, iscan[pos] + 1);
   }
-  __syncthreads();
-  if (my_eob) atomicMax(&s_eob0, my_eob);
+  int eob0 = __reduce_max_sync(0xffffffffu, my_eob);
+  if constexpr (WARPS > 1) {
+    __shared__ int s_eob[WARPS];
+    if (lane == 0) s_eob[tid >> 5] = eob0;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) eob0 = max(eob0, s_eob[i]);
+  }
   const float dc_cost = flut[F_DCS + (L[0] < 0 ? 1 : 0)];
-  __syncthreads();
-  const int eob0 = s_eob0;
+  rdoq_sync<WARPS>();
 
   // ---- pass 1: zeroing gains by scan position
-  for (int pos = threadIdx.x; pos < n; pos += blockDim.x) {
+  for (int pos = tid; pos < n; pos += STRIDE) {
     const int isc = iscan[pos];
     float g = 0.f;
     if (isc < eob0) {
@@ -84,25 +146,19 @@ static __device__ void rdoq_block(const int* __restrict__ L, const int* __restri
     }
     gs[isc] = g;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    gs[n] = 0.f;
-    double acc = 0.0;
-    for (int k = eob0 - 1; k >= 0; --k) {
-      acc += (double)gs[k];
-      gs[k] = (float)acc;
-    }
-  }
-  __syncthreads();
+  if (tid == 0) gs[n] = 0.f;
+  rdoq_sync<WARPS>();
+  if (tid < 32) rdoq_suffix_sums_warp(gs, eob0);
+  rdoq_sync<WARPS>();
 
   // ---- eob search: argmin over k = 0 (skip) .. n, first index wins
   float best = __int_as_float(0x7f800000);  // +inf
   int bidx = 0x7fffffff;
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     best = __fadd_rn(gs[0], __fmul_rn(lam, skip_delta));
     bidx = 0;
   }
-  for (int k = threadIdx.x + 1; k <= eob0; k += blockDim.x) {
+  for (int k = tid + 1; k <= eob0; k += STRIDE) {
     const int pos = scan[k - 1];
     const int ai = a[pos];
     if (ai == 0) continue;
@@ -118,38 +174,38 @@ static __device__ void rdoq_block(const int* __restrict__ L, const int* __restri
       bidx = k;
     }
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, best, o);
-    const int oi = __shfl_down_sync(0xffffffffu, bidx, o);
+  for (int o = 16; o > 0; o >>= 1) {  // every lane ends with its warp's (min, first index)
+    const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bidx, o);
     if (ov < best || (ov == best && oi < bidx)) {
       best = ov;
       bidx = oi;
     }
   }
-  const int warp = threadIdx.x >> 5, nwarps = (blockDim.x + 31) >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    s_val[warp] = best;
-    s_idx[warp] = bidx;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int i = 1; i < nwarps; ++i) {
+  if constexpr (WARPS > 1) {
+    __shared__ float s_val[WARPS];
+    __shared__ int s_idx[WARPS];
+    if (lane == 0) {
+      s_val[tid >> 5] = best;
+      s_idx[tid >> 5] = bidx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) {
       if (s_val[i] < best || (s_val[i] == best && s_idx[i] < bidx)) {
         best = s_val[i];
         bidx = s_idx[i];
       }
     }
-    s_kbest = bidx;
   }
-  __syncthreads();
-  const int kbest = s_kbest;
-  for (int pos = threadIdx.x; pos < n; pos += blockDim.x)
+  const int kbest = bidx;
+  for (int pos = tid; pos < n; pos += STRIDE)
     if (iscan[pos] >= kbest) a[pos] = 0;
-  __syncthreads();
+  rdoq_sync<WARPS>();
 
   // ---- pass 2: level-down with refreshed contexts
   const int ectx_k = ectx[max(kbest - 1, 0)];
-  for (int pos = threadIdx.x; pos < n; pos += blockDim.x) {
+  for (int pos = tid; pos < n; pos += STRIDE) {
     const int isc = iscan[pos];
     const int ai = a[pos];
     int res = ai;
@@ -175,4 +231,5 @@ static __device__ void rdoq_block(const int* __restrict__ L, const int* __restri
     }
     O[pos] = L[pos] < 0 ? -res : res;
   }
+  rdoq_sync<WARPS>();
 }

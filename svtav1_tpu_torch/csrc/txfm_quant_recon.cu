@@ -30,8 +30,8 @@
 // shared memory with 16-byte loads; levels and coefficients move as 16-byte
 // rows. Arithmetic is int32 that wraps, like the reference. b0/b1/b2 are the
 // forward shifts as round_shift_array bits (> 0 rounds right, < 0 shifts
-// left). K15 below and K16 (commit.cu) keep the table-driven networks and
-// block body of txfm.cuh.
+// left). K16 (commit.cu) runs the same networks, one block per warp; K15
+// below keeps txfm.cuh's table-driven networks.
 #include "txfm.cuh"
 #include "txfm_nets.cuh"
 
@@ -44,18 +44,6 @@ __host__ __device__ constexpr int txq_threads(int n) { return n == 64 ? 128 : 25
 template <int N>
 __device__ __forceinline__ void group_sync() {
   if constexpr (N <= 32) __syncwarp(); else __syncthreads();
-}
-
-__device__ __forceinline__ int quant(int x, int dq, int ls) {
-  const int absc = (int)((unsigned)abs(x) << ls);
-  const int lv = floordiv((int)((unsigned)absc + (unsigned)(dq >> 1)), dq);
-  return clampi(x > 0 ? lv : (x < 0 ? -lv : 0), -32767, 32767);
-}
-
-// dequantized level; |d| <= dqmax = 2^(bd+7) - 1, within the bd + 8 clamp
-__device__ __forceinline__ int dequant(int lv, int dq, int ls, int dqmax) {
-  const int d = min((abs(lv) * dq) >> ls, dqmax);
-  return lv > 0 ? d : (lv < 0 ? -d : 0);
 }
 
 __device__ __forceinline__ void store4(int* p, const int (&v)[4], bool vec) {
@@ -150,8 +138,8 @@ __global__ void __launch_bounds__(N == 64 ? 128 : 256)
           const int j = j0 + u;
           const int dq = (t == 0 && j == 0) ? dq_dc : dq_ac;
           cq[u] = apply_shift(y[j], b2);
-          lq[u] = quant(cq[u], dq, ls);
-          y[j] = dequant(lq[u], dq, ls, dqmax);
+          lq[u] = quant_level(cq[u], dq, ls);
+          y[j] = dequant_level(lq[u], dq, ls, dqmax);
         }
         if (valid) {
           store4(lrow + j0, lq, vec);
@@ -171,7 +159,7 @@ __global__ void __launch_bounds__(N == 64 ? 128 : 256)
       load4(lrow + j0, lq, vec);
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        y[j0 + u] = dequant(lq[u], (t == 0 && j0 + u == 0) ? dq_dc : dq_ac, ls, dqmax);
+        y[j0 + u] = dequant_level(lq[u], (t == 0 && j0 + u == 0) ? dq_dc : dq_ac, ls, dqmax);
     }
   }
   // inverse rows (64 points: rows >= 32 and columns >= 32 are zero)

@@ -1,11 +1,13 @@
 """PyTorch port of filters/cdef_jax.py: CDEF direction search, frame-level
 strength search and apply over a batch of frames, around the CUDA kernels of
 `csrc/cdef.cu` — K6 `cdef_dir` (direction and variance per 8x8 luma cell)
-and K7 `cdef_filter` (filter a plane for one or several strength candidates,
-or take the masked SSE of each against the source) — with a plain PyTorch
-version beside each. Bit-exact with the JAX package's integer arithmetic;
-the search's SSE is an exact int64 sum here, where the reference sums
-float32 squares (cdef_jax.py:246-247).
+and K7, two launches per batch: `cdef_search` (the masked luma SSE of every
+strength candidate of a ladder) and `cdef_apply` (each frame's best
+candidate, the derived chroma strengths, and Y, U and V filtered) — with a
+plain PyTorch version beside each (`cdef_filter_plain` filters a plane for
+one or several candidates, or takes their SSE). Bit-exact with the JAX
+package's integer arithmetic; the search's SSE is an exact int64 sum here,
+where the reference sums float32 squares (cdef_jax.py:246-247).
 """
 from __future__ import annotations
 
@@ -92,8 +94,16 @@ def _up(cellvals, m: int):
 
 def cdef_filter_plain(plane, dirs, var, pri, sec, mask, damping: int, coeff_shift: int = 0,
                       src=None, want_out: bool = True):
-    """Plain PyTorch version of K7; same arguments and results as
-    cdef_filter."""
+    """CDEF-filter (F, H, W) int32 `plane` whose m x m cells (m = H // R)
+    carry directions `dirs` (F, R, C) int32, for K candidates at once, in
+    plain PyTorch (K7's arithmetic).
+
+    pri/sec (K, F) int32: per candidate and frame the primary strength
+    (adjusted per cell by `var` (F, R, C) int32 when given, as for luma) and
+    the secondary strength; `mask` (F, R, C) bool: the non-skip cells, the
+    only ones filtered. Returns (out (K, F, H, W) int32 or None, sse (K, F)
+    int64 or None): sse is the masked SSE against `src` (F, H, W) when
+    given."""
     F, H, W = plane.shape
     m = H // dirs.shape[1]
     dev = plane.device
@@ -145,47 +155,104 @@ def cdef_filter_plain(plane, dirs, var, pri, sec, mask, damping: int, coeff_shif
             torch.stack(sses) if src is not None else None)
 
 
-def cdef_filter(plane, dirs, var, pri, sec, mask, damping: int, coeff_shift: int = 0,
-                src=None, want_out: bool = True):
-    """CDEF-filter (F, H, W) int32 `plane` whose m x m cells (m = H // R)
-    carry directions `dirs` (F, R, C) int32, for K candidates at once.
+def _ladder_args(ladder):
+    """(pri, sec, K) of a ladder of (pri, sec) candidates for a K7 launch:
+    two int32 arrays in host memory, passed by value to the kernel."""
+    import ctypes
 
-    pri/sec (K, F) int32: per candidate and frame the primary strength
-    (adjusted per cell by `var` (F, R, C) int32 when given, as for luma) and
-    the secondary strength; `mask` (F, R, C) bool: the non-skip cells, the
-    only ones filtered. Returns (out (K, F, H, W) int32 or None, sse (K, F)
-    int64 or None): sse is the masked SSE against `src` (F, H, W) when
-    given. K7 for CUDA tensors, the plain version for CPU tensors."""
-    if plane.device.type == "cpu":
-        return cdef_filter_plain(plane, dirs, var, pri, sec, mask, damping, coeff_shift, src,
-                                 want_out)
+    K = len(ladder)
+    if not 1 <= K <= 8:
+        raise ValueError(f"cdef: 1 to 8 strength candidates, got {K}")
+    return ((ctypes.c_int * K)(*(int(p) for p, _ in ladder)),
+            (ctypes.c_int * K)(*(int(q) for _, q in ladder)), K)
+
+
+def _check_cells(plane, dirs, mask, var=None):
     F, H, W = plane.shape
-    R, C = dirs.shape[1:]
-    m = H // R
-    if m not in (4, 8) or (R * m, C * m) != (H, W):
-        raise ValueError(f"cdef_filter: {(H, W)} plane with a {(R, C)} cell grid")
-    K = pri.shape[0]
+    if H % 8 or W % 8:
+        raise ValueError(f"cdef: luma dims must be multiples of 8, got {(H, W)}")
     kernels.check(plane, "plane", torch.int32)
-    kernels.check(dirs, "dirs", torch.int32, (F, R, C))
+    kernels.check(dirs, "dirs", torch.int32, (F, H // 8, W // 8))
+    kernels.check(mask, "mask", torch.bool, (F, H // 8, W // 8))
     if var is not None:
-        kernels.check(var, "var", torch.int32, (F, R, C))
-    kernels.check(pri, "pri", torch.int32, (K, F))
-    kernels.check(sec, "sec", torch.int32, (K, F))
-    kernels.check(mask, "mask", torch.bool, (F, R, C))
-    dev = plane.device
-    out = torch.empty((K, F, H, W), dtype=torch.int32, device=dev) if want_out else None
-    sse = None
-    if src is not None:
-        kernels.check(src, "src", torch.int32, (F, H, W))
-        sse = torch.zeros((K, F), dtype=torch.int64, device=dev)
+        kernels.check(var, "var", torch.int32, (F, H // 8, W // 8))
 
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
 
-    kernels.launch("cdef_filter", plane.data_ptr(), dirs.data_ptr(), ptr(var), pri.data_ptr(),
-                   sec.data_ptr(), mask.data_ptr(), ptr(src), ptr(sse), ptr(out), K, F, H, W,
-                   int(m).bit_length() - 1, damping, coeff_shift, kernels.stream_ptr(plane))
-    return out, sse
+def cdef_search_plain(plane, dirs, var, mask, src, ladder, damping: int, coeff_shift: int = 0):
+    """Plain PyTorch version of K7's search; same arguments and result as
+    cdef_search."""
+    F = plane.shape[0]
+    cand = torch.as_tensor(np.array(ladder, np.int32).reshape(-1, 2), device=plane.device)
+    pri = (cand[:, 0:1] << coeff_shift).expand(-1, F)
+    sec = (cand[:, 1:2] << coeff_shift).expand(-1, F)
+    return cdef_filter_plain(plane, dirs, var, pri, sec, mask, damping + coeff_shift,
+                             coeff_shift, src=src, want_out=False)[1]
+
+
+def cdef_search(plane, dirs, var, mask, src, ladder, damping: int, coeff_shift: int = 0):
+    """The frame-level strength search: the int64 SSE (K, F) of the masked
+    CDEF-filtered luma `plane` (F, H, W) int32 against `src` (F, H, W) int32
+    for each of the K <= 8 (pri, sec) candidates of `ladder` (shifted left
+    by coeff_shift; pri adjusted per cell by `var`), with the cells'
+    directions `dirs` and variances `var` (F, H // 8, W // 8) int32, the
+    non-skip cells `mask` (F, H // 8, W // 8) bool and the frame's luma
+    damping (coeff_shift added). K7 `cdef_search` for CUDA tensors, the
+    plain version for CPU tensors."""
+    if plane.device.type == "cpu":
+        return cdef_search_plain(plane, dirs, var, mask, src, ladder, damping, coeff_shift)
+    _check_cells(plane, dirs, mask, var)
+    F, H, W = plane.shape
+    kernels.check(src, "src", torch.int32, (F, H, W))
+    pri, sec, K = _ladder_args(ladder)
+    sse = torch.zeros((K, F), dtype=torch.int64, device=plane.device)
+    kernels.launch("cdef_search", plane.data_ptr(), dirs.data_ptr(), var.data_ptr(),
+                   mask.data_ptr(), src.data_ptr(), sse.data_ptr(), pri, sec, K, F, H, W,
+                   damping, coeff_shift, kernels.stream_ptr(plane))
+    return sse
+
+
+def cdef_apply_plain(planes, dirs, var, mask, sse, ladder, damping: int, coeff_shift: int = 0):
+    """Plain PyTorch version of K7's apply; same arguments and results as
+    cdef_apply."""
+    cand = torch.as_tensor(np.array(ladder, np.int32).reshape(-1, 2), device=planes[0].device)
+    best = torch.argmin(sse, dim=0)  # (F,), the first index on ties
+    y_pri, y_sec = cand[best, 0], cand[best, 1]
+    uv_pri, uv_sec = y_pri >> 1, y_sec >> 1  # ladder sec 0/1/2 -> 0/1, never 3
+    new_y = cdef_filter_plain(planes[0], dirs, var, (y_pri << coeff_shift)[None],
+                              (y_sec << coeff_shift)[None], mask, damping + coeff_shift,
+                              coeff_shift)[0][0]
+    uv = [cdef_filter_plain(pl, dirs, None, (uv_pri << coeff_shift)[None],
+                            (uv_sec << coeff_shift)[None], mask, damping + coeff_shift - 1,
+                            coeff_shift)[0][0]
+          for pl in planes[1:]]
+    return [new_y, uv[0], uv[1]], torch.stack([y_pri, y_sec, uv_pri, uv_sec], dim=-1)
+
+
+def cdef_apply(planes, dirs, var, mask, sse, ladder, damping: int, coeff_shift: int = 0):
+    """CDEF with each frame's best candidate: the candidate of `ladder` with
+    the least `sse` (K, F) int64 (the first on ties), its strengths for
+    luma (pri adjusted per cell by `var`) and (pri >> 1, sec >> 1) for
+    chroma, shifted left by coeff_shift; luma damping + coeff_shift,
+    chroma one less. planes [y, u, v] (F, H, W) / (F, H // 2, W // 2) int32.
+    Returns (the filtered planes, strengths (F, 4) int32 [y_pri, y_sec,
+    uv_pri, uv_sec]). K7 `cdef_apply` (one launch for the three planes) for
+    CUDA tensors, the plain version for CPU tensors."""
+    if planes[0].device.type == "cpu":
+        return cdef_apply_plain(planes, dirs, var, mask, sse, ladder, damping, coeff_shift)
+    y = planes[0]
+    _check_cells(y, dirs, mask, var)
+    F, H, W = y.shape
+    for i, pl in enumerate(planes[1:]):
+        kernels.check(pl, "uv"[i], torch.int32, (F, H // 2, W // 2))
+    pri, sec, K = _ladder_args(ladder)
+    kernels.check(sse, "sse", torch.int64, (K, F))
+    out = [torch.empty_like(pl) for pl in planes]
+    strengths = torch.empty((F, 4), dtype=torch.int32, device=y.device)
+    kernels.launch("cdef_apply", *(pl.data_ptr() for pl in planes),
+                   *(o.data_ptr() for o in out), dirs.data_ptr(), var.data_ptr(),
+                   mask.data_ptr(), sse.data_ptr(), strengths.data_ptr(), pri, sec, K, F, H, W,
+                   damping, coeff_shift, kernels.stream_ptr(y))
+    return out, strengths
 
 
 def cdef_frames(planes, src_y, nonskip8, damping: int, bd: int = 8, n_cand: int = 0):
@@ -194,31 +261,16 @@ def cdef_frames(planes, src_y, nonskip8, damping: int, bd: int = 8, n_cand: int 
     src_y (F, H, W) int32; nonskip8 (F, H // 8, W // 8) bool. The ladder is
     SEARCH_CANDIDATES, or its first n_cand entries; each frame takes the
     candidate of least masked luma SSE (ties to the first). Returns
-    (new planes, strengths (F, 4) int32 [y_pri, y_sec, uv_pri, uv_sec])."""
+    (new planes, strengths (F, 4) int32 [y_pri, y_sec, uv_pri, uv_sec]).
+    On the card: K6, then K7's two launches."""
     coeff_shift = max(bd - 8, 0)
-    F = planes[0].shape[0]
-    dev = planes[0].device
     ladder = SEARCH_CANDIDATES[:n_cand] if n_cand else SEARCH_CANDIDATES
-    # The apply below omits the decoder's "dir = 0 when pri_strength == 0"
+    # The apply omits the decoder's "dir = 0 when pri_strength == 0"
     # forcing (filters/cdef.py:198,206): it is unreachable only while the
     # ladder never yields pri == 0 with sec > 0 — at luma directly, and at
     # chroma after the uv = y >> 1 derivation. Keep that invariant.
     assert all(p > 0 or s == 0 for p, s in ladder), ladder
     assert all((p >> 1) > 0 or (s >> 1) == 0 for p, s in ladder)
     dirs, var = find_dir(planes[0], coeff_shift)
-    cand = torch.as_tensor(np.array(ladder, np.int32), device=dev)  # (K, 2)
-    pri = (cand[:, 0:1] << coeff_shift).expand(-1, F).contiguous()
-    sec = (cand[:, 1:2] << coeff_shift).expand(-1, F).contiguous()
-    _, sse = cdef_filter(planes[0], dirs, var, pri, sec, nonskip8, damping + coeff_shift,
-                         coeff_shift, src=src_y, want_out=False)
-    best = torch.argmin(sse, dim=0)  # (F,)
-    y_pri, y_sec = cand[best, 0], cand[best, 1]
-    uv_pri, uv_sec = y_pri >> 1, y_sec >> 1  # ladder sec 0/1/2 -> 0/1, never 3
-    new_y = cdef_filter(planes[0], dirs, var, (y_pri << coeff_shift)[None].contiguous(),
-                        (y_sec << coeff_shift)[None].contiguous(), nonskip8,
-                        damping + coeff_shift, coeff_shift)[0][0]
-    uv = [cdef_filter(pl, dirs, None, (uv_pri << coeff_shift)[None].contiguous(),
-                      (uv_sec << coeff_shift)[None].contiguous(), nonskip8,
-                      damping + coeff_shift - 1, coeff_shift)[0][0]
-          for pl in planes[1:]]
-    return [new_y, uv[0], uv[1]], torch.stack([y_pri, y_sec, uv_pri, uv_sec], dim=-1)
+    sse = cdef_search(planes[0], dirs, var, nonskip8, src_y, ladder, damping, coeff_shift)
+    return cdef_apply(planes, dirs, var, nonskip8, sse, ladder, damping, coeff_shift)

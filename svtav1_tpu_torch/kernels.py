@@ -36,7 +36,8 @@ KERNELS = {
     "dlf_edges": ("dlf_edges.cu", "dlf_edges_launch"),
     "rdoq": ("rdoq.cu", "rdoq_launch"),
     "cdef_dir": ("cdef.cu", "cdef_dir_launch"),
-    "cdef_filter": ("cdef.cu", "cdef_filter_launch"),
+    "cdef_search": ("cdef.cu", "cdef_search_launch"),
+    "cdef_apply": ("cdef.cu", "cdef_apply_launch"),
     "me_sad": ("me.cu", "me_sad_launch"),
     "subpel_pred": ("subpel.cu", "subpel_pred_launch"),
     "mc_lanes": ("mc.cu", "mc_lanes_launch"),
@@ -70,9 +71,12 @@ ARGTYPES = {
     "rdoq_launch": [_P] * 6 + [_I] * 7 + [_F] * 3 + [_P],
     # plane, dirs, var, F, H, W, coeff_shift, stream
     "cdef_dir_launch": [_P] * 3 + [_I] * 4 + [_P],
-    # plane, dirs, var|NULL, pri, sec, mask, src|NULL, sse|NULL, out|NULL, K, F, H, W,
-    # log2m, damping, coeff_shift, stream
-    "cdef_filter_launch": [_P] * 9 + [_I] * 7 + [_P],
+    # plane, dirs, var, mask, src, sse, pri (host), sec (host), K, F, H, W, damping,
+    # coeff_shift, stream
+    "cdef_search_launch": [_P] * 8 + [_I] * 6 + [_P],
+    # y, u, v, out_y, out_u, out_v, dirs, var, mask, sse, strengths, pri (host), sec (host),
+    # K, F, H, W, damping, coeff_shift, stream
+    "cdef_apply_launch": [_P] * 13 + [_I] * 6 + [_P],
     # mode (0 pyramid, 1 frame search), src0|NULL, src1, src2, ref0, ref1, ref2, out|NULL, hs,
     # ws, Hs, Ws, hr, wr, Hr, Wr, ox, sb_rows, sb_cols, l2_radius, leaf_radius, stream
     "me_sad_launch": [_I] + [_P] * 7 + [_I] * 13 + [_P],
@@ -93,13 +97,13 @@ ARGTYPES = {
     # src, pred, tables, satd|NULL, err|NULL, recon|NULL, mode, L, rep, n, b0, b1, b2, sh_row,
     # sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
     "tpl_cost_launch": [_P] * 6 + [_I] * 14 + [_P],
-    # frame_desc, tasks, wave_start, nwaves, F, R8, C8, dq_dc, dq_ac, bd, rdoq, lam, max_n,
-    # grid, stream
-    "commit_wave_launch": [_P] * 3 + [_I] * 8 + [_F] + [_I] * 2 + [_P],
-    # max_n, max_tasks -> K16's grid (negative: a CUDA error)
+    # frame_desc, tasks, owner, sync, T, F, R8, C8, dq_dc, dq_ac, bd, rdoq, lam, max_n, grid,
+    # stream
+    "commit_wave_launch": [_P] * 4 + [_I] * 8 + [_F] + [_I] * 2 + [_P],
+    # max_n, T -> K16's grid (negative: a CUDA error)
     "commit_wave_grid": [_I, _I],
-    # grid, nbarriers, stream: K16's grid barriers alone (chip_smoke.py's barrier cost)
-    "grid_sync_launch": [_I, _I, _P],
+    # flag, rounds, stream: one flag handed between two CTAs (K16's cost per dependency edge)
+    "flag_pingpong_launch": [_P, _I, _P],
     # which (0 VABSDIFF4.ACC, 1 IDP.2A, 2 IDP.4A, 3 IMAD), blocks, iters, out, stream: the
     # instruction rates of K8's and K9's bounds (chip_smoke.py)
     "packed_rate_launch": [_I, _I, _I, _P, _P],

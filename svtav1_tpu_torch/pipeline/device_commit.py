@@ -311,7 +311,7 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
     # task table and launching; the card's time lands in the fetch that
     # waits on it)
     t0 = time.perf_counter()
-    table = wavefront.wave_tasks(sched)
+    table = wavefront.wave_tasks(sched, (F, R8, C8))
     if len(table.waves):
         wavefront.commit_wave(src, maps, lanes, table, dq_dc, dq_ac, bd, tx_ntypes, lam,
                               rdoq_qctx)

@@ -7,14 +7,17 @@ recon of blocks in earlier waves through the frontier maps. `wave_tasks`
 turns the commit's schedule into one wave-major task table: a task is one
 block of one plane (a size, a lane of that size's schedule and a plane),
 and `wave_start` bounds each wave's tasks. Only the waves that hold intra
-lanes are in the table.
+lanes are in the table. Beside it, the owner map: per plane and 8x8 luma
+cell, the task that writes the cell's frontier samples. A task's
+predecessors are the owners of the cells it reads.
 
-`commit_wave` runs the whole table: on a CUDA tensor K16, one cooperative
-launch with a grid barrier between waves; on a CPU tensor the plain version
-`commit_wave_plain`, which walks the same table wave by wave with the lanes
-of a wave batched by size and plane group, through K1 (predict), K2
-(txfm_quant_recon, or its halves around K5 rdoq). On the card the plain
-version launches those kernels per wave; chip_smoke.py holds K16 against it.
+`commit_wave` runs the whole table: on a CUDA tensor K16, one launch of warp
+workers in which a task waits only for its predecessors; on a CPU tensor the
+plain version `commit_wave_plain`, which walks the same table wave by wave
+with the lanes of a wave batched by size and plane group, through K1
+(predict), K2 (txfm_quant_recon, or its halves around K5 rdoq). On the card
+the plain version launches those kernels per wave; chip_smoke.py holds K16
+against it.
 
 Both update, in place, the frontier maps and each size's level and recon
 slots of the intra lanes. Frontier maps: `bmap[pl][f, r8, x]` = recon row
@@ -43,7 +46,7 @@ LANE_SHIFT, PLANE_SHIFT = 5, 3  # task code = lane << 5 | plane << 3 | size inde
 # FrameDesc of csrc/commit.cu, one int64 per field
 FRAME_FIELDS = 13  # src[3], bmap[3], rmap[3], cmap[3], dr
 SIZE_FIELDS = 10   # coords, mode, tx, uv_tx, lv[3], rec[3]
-PLANE_FIELDS = 18  # see PlaneDesc
+PLANE_FIELDS = 17  # see PlaneDesc
 KEYS_LV, KEYS_REC = ("ly", "lu", "lv"), ("ry", "ru", "rv")
 
 
@@ -54,13 +57,18 @@ class WaveTable:
     tasks (T,) int32 codes, wave_start (nw + 1,) int32, waves (nw,) the
     schedule's wave numbers, tx (T,) the tasks' TX_SEARCH indices (luma tx
     or chroma uv_tx), max_n the largest luma block size among the tasks,
-    max_tasks the widest wave."""
+    max_tasks the widest wave; owner (3, F, R8p, C8p) int32: per plane and
+    8x8 luma cell, the task that writes the cell's frontier samples, -1
+    under an inter lane (phase A) or no lane, over the grid padded to whole
+    superblocks (R8p, C8p = owner_grid(R8, C8)). Task t's predecessors are
+    the owners of the cells it reads (`predecessors`)."""
     tasks: np.ndarray
     wave_start: np.ndarray
     waves: np.ndarray
     tx: np.ndarray
     max_n: int
     max_tasks: int
+    owner: np.ndarray
 
     def decode(self):
         """(size index, plane, lane) arrays of the tasks."""
@@ -68,11 +76,18 @@ class WaveTable:
         return c & 7, (c >> PLANE_SHIFT) & 3, c >> LANE_SHIFT
 
 
-def wave_tasks(sched: dict) -> WaveTable:
-    """The task table of a commit schedule (device_commit._build_schedule):
-    every intra lane of every size once per plane, ordered by wave, then
-    larger blocks first, then plane, then lane. Vectorized numpy."""
-    wave, n_of, pl_of, lane_of, code, tx = [], [], [], [], [], []
+def owner_grid(R8: int, C8: int) -> tuple:
+    """The owner map's rows and columns: the cell grid padded to whole
+    64x64 superblocks (K16 pads R8 and C8 alike)."""
+    return -(-R8 // 8) * 8, -(-C8 // 8) * 8
+
+
+def wave_tasks(sched: dict, grid: tuple) -> WaveTable:
+    """The task table of a commit schedule (device_commit._build_schedule)
+    over a grid of (F, R8, C8) 8x8 luma cells: every intra lane of every
+    size once per plane, ordered by wave, then larger blocks first, then
+    plane, then lane, and the owner map of its cells. Vectorized numpy."""
+    wave, n_of, pl_of, lane_of, code, tx, geo = [], [], [], [], [], [], []
     for si, n in enumerate(SIZES):
         s = sched.get(n)
         if s is None or not s["NW"]:
@@ -83,6 +98,7 @@ def wave_tasks(sched: dict) -> WaveTable:
         lane = NI + np.arange(NW, dtype=np.int32)
         if NI + NW >= 1 << (31 - LANE_SHIFT):
             raise ValueError(f"commit schedule too large for the task codes: {NI + NW} lanes")
+        geo.append((np.asarray(s["coords"], np.int64)[NI:], n // 8))
         for pl in range(3):
             wave.append(w)
             n_of.append(np.full(NW, n, np.int32))
@@ -90,18 +106,96 @@ def wave_tasks(sched: dict) -> WaveTable:
             lane_of.append(lane)
             code.append((lane << LANE_SHIFT) | (pl << PLANE_SHIFT) | si)
             tx.append(np.asarray(s["uv_tx" if pl else "tx"], np.int32)[NI:])
+    F, R8, C8 = grid
+    owner = np.full((3, F, *owner_grid(R8, C8)), -1, np.int32)
     if not code:
         z = np.zeros(0, np.int32)
-        return WaveTable(z, np.zeros(1, np.int32), z, z, 8, 0)
+        return WaveTable(z, np.zeros(1, np.int32), z, z, 8, 0, owner)
     wave, n_of, pl_of, lane_of = (np.concatenate(a) for a in (wave, n_of, pl_of, lane_of))
     code, tx = np.concatenate(code), np.concatenate(tx)
     order = np.lexsort((lane_of, pl_of, -n_of, wave))
-    wave = wave[order]
+    wave, code = wave[order], code[order]
     waves, counts = np.unique(wave, return_counts=True)
     start = np.zeros(len(waves) + 1, np.int32)
     np.cumsum(counts, out=start[1:])
-    return WaveTable(code[order].astype(np.int32), start, waves.astype(np.int32),
-                     tx[order], int(n_of.max()), int(counts.max()))
+    # each task's table index, in the unsorted order: per size, its lanes'
+    # Y, then U, then V tasks; per size one assignment of every plane's
+    # owners to whole n8 x n8 blocks of the map (lanes are aligned to their
+    # size; the advanced indices' axis comes first, then plane and block)
+    where = np.empty(len(order), np.int32)
+    where[order] = np.arange(len(order), dtype=np.int32)
+    at = 0
+    for coords, n8 in geo:
+        NW = len(coords)
+        f, r8, c8 = coords.T
+        blocks = owner.reshape(3, F, owner.shape[2] // n8, n8, owner.shape[3] // n8, n8)
+        blocks[:, f, r8 // n8, :, c8 // n8, :] = where[at : at + 3 * NW].reshape(3, NW).T[
+            :, :, None, None]
+        at += 3 * NW
+    return WaveTable(code.astype(np.int32), start, waves.astype(np.int32), tx[order],
+                     int(n_of.max()), int(counts.max()), owner)
+
+
+def read_cells(table: WaveTable):
+    """(task, plane, f, r8, c8) of every 8x8 luma cell each task reads, as
+    K16 reads them: the row above over [c8 - 1, c8 + n8) (the top-left cell
+    only where there is a left column), the column to the left over [r8,
+    r8 + n8). A task's own cells, and so its geometry, come from the owner
+    map."""
+    own = table.owner
+    _, F, R8, C8 = own.shape
+    T = len(table.tasks)
+    idx = np.flatnonzero(own.ravel() >= 0)
+    task = own.ravel()[idx]
+    first = np.full(T, own.size, np.int64)
+    np.minimum.at(first, task, idx)  # row-major: each task's top-left cell
+    n8 = np.rint(np.sqrt(np.bincount(task, minlength=T))).astype(np.int64)
+    pf, rest = np.divmod(first, R8 * C8)
+    r8, c8 = np.divmod(rest, C8)
+    k = np.arange(17)[None, :]  # a lane per cell: the corner, n8 above, n8 left
+    above = k <= n8[:, None]
+    rr = np.where(above, r8[:, None] - 1, r8[:, None] + k - n8[:, None] - 1)
+    cc = np.where(above, c8[:, None] - 1 + k, c8[:, None] - 1)
+    ok = (k <= 2 * n8[:, None]) & (rr >= 0) & (cc >= 0)
+    t = np.broadcast_to(np.arange(T)[:, None], ok.shape)[ok]
+    pf = np.broadcast_to(pf[:, None], ok.shape)[ok]
+    return t, pf // F, pf % F, rr[ok], cc[ok]
+
+
+def predecessors(table: WaveTable):
+    """CSR lists (pred_start (T + 1,), preds) of the tasks' predecessors:
+    the owners of the cells each reads (read_cells), each once, in
+    ascending order. For the chain bound and the tests; K16 reads the
+    owner map itself."""
+    t, pl, f, r8, c8 = read_cells(table)
+    o = table.owner[pl, f, r8, c8].astype(np.int64)
+    T = len(table.tasks)
+    key = np.unique(t[o >= 0] * T + o[o >= 0])
+    pred_start = np.zeros(T + 1, np.int32)
+    np.cumsum(np.bincount(key // T, minlength=T), out=pred_start[1:])
+    return pred_start, (key % T).astype(np.int32)
+
+
+def chain_length(table: WaveTable, weight=None, edge: float = 0.0) -> float:
+    """The longest path through the predecessor DAG: each task on it counts
+    weight[t] (1 when None), each edge `edge`. With neither, the dependency
+    depth in tasks. A wave at a time: predecessors lie in earlier waves."""
+    T = len(table.tasks)
+    if not T:
+        return 0.0
+    w = np.ones(T) if weight is None else np.asarray(weight, np.float64)
+    dist = np.zeros(T)
+    ps, pr = predecessors(table)
+    ws = table.wave_start
+    for k in range(len(table.waves)):
+        a, b = int(ws[k]), int(ws[k + 1])
+        best = np.zeros(b - a)
+        e0, e1 = int(ps[a]), int(ps[b])
+        if e1 > e0:
+            owner = np.repeat(np.arange(b - a), np.diff(ps[a : b + 1]))
+            np.maximum.at(best, owner, dist[pr[e0:e1]] + edge)
+        dist[a:b] = best + w[a:b]
+    return float(dist.max())
 
 
 # ---------------------------------------------------------------------------
@@ -283,15 +377,14 @@ def _plane_fields(n: int, chroma: bool, tx_ntypes: int, rdoq_qctx: int | None,
     s0, s1, s2 = T.FWD_SHIFTS[(m, m)]
     sh_row, sh_col = T.INV_SHIFTS[(m, m)]
     f = np.zeros(PLANE_FIELDS, np.int64)
-    f[0] = TT.tables_for(m, device).packed.data_ptr()
-    f[1] = _weights(m, device).data_ptr()
+    f[0] = _weights(m, device).data_ptr()
     if rdoq_qctx is not None:
         rt = rdoq_fns(rdoq_qctx, n, device)[int(chroma)]
-        f[2:5] = (rt.rate.flut.data_ptr(), rt.rate.ilut.data_ptr(), rt.scan.data_ptr())
-        f[9], f[10] = rt.ls, int(math.log2(rt.w))
-        f[16], f[17] = _f32_bits(rt.dscale), _f32_bits(rt.skip_delta)
-    f[5:9] = (m, int(math.log2(m)), ntypes, quant_ops.tx_scale(m, m))
-    f[11:16] = (-s0, -s1, -s2, sh_row, sh_col)
+        f[1:4] = (rt.rate.flut.data_ptr(), rt.rate.ilut.data_ptr(), rt.scan.data_ptr())
+        f[8], f[9] = rt.ls, int(math.log2(rt.w))
+        f[15], f[16] = _f32_bits(rt.dscale), _f32_bits(rt.skip_delta)
+    f[4:8] = (m, int(math.log2(m)), ntypes, quant_ops.tx_scale(m, m))
+    f[10:15] = (-s0, -s1, -s2, sh_row, sh_col)
     return f
 
 
@@ -315,18 +408,23 @@ def _frame_desc(src, maps, lanes: dict, tx_ntypes: int, rdoq_qctx, device: str) 
 
 
 @functools.lru_cache(maxsize=None)
-def grid_of(max_n: int, max_tasks: int, device_index: int) -> int:
-    """K16's grid: the co-resident CTAs of the card, at most max_tasks."""
+def _co_resident(max_n: int, device_index: int) -> int:
     del device_index  # the card the answer holds for (the cache key)
-    g = kernels.lib().commit_wave_grid(max_n, max_tasks)
+    g = kernels.lib().commit_wave_grid(max_n, 1 << 30)
     if g <= 0:
         raise RuntimeError(f"commit_wave: no co-resident CTA fits (cudaError {-g})")
     return g
 
 
+def grid_of(max_n: int, T: int, device_index: int) -> int:
+    """K16's grid: the co-resident CTAs (one warp worker each) of the card,
+    at most T."""
+    return min(_co_resident(max_n, device_index), max(T, 1))
+
+
 def commit_wave(src, maps, lanes: dict, table: WaveTable, dq_dc: int, dq_ac: int, bd: int,
                 tx_ntypes: int, lam: float, rdoq_qctx: int | None) -> None:
-    """Commit phase B: every task of `table`, wave by wave.
+    """Commit phase B: every task of `table`, each after its predecessors.
 
     src: the [y, u, v] (F, H, W) int32 source planes of the region; maps:
     (bmap, rmap, cmap), each a list of the three planes' int32 frontier
@@ -358,34 +456,38 @@ def commit_wave(src, maps, lanes: dict, table: WaveTable, dq_dc: int, dq_ac: int
         for k, shape in zip(KEYS_LV + KEYS_REC, ((adj, adj), (nc, nc), (nc, nc), (n, n),
                                                   (nc, nc), (nc, nc))):
             kernels.check(L[k], k, torch.int32, (N, *shape))
+    if table.owner.shape != (3, F, *owner_grid(R8, C8)):
+        raise ValueError(f"commit_wave: owner map {table.owner.shape} for planes of {(F, H, W)}")
     fd = _frame_desc(src, maps, lanes, tx_ntypes, rdoq_qctx, str(dev))
-    blob = np.concatenate([fd.view(np.uint8), table.tasks.view(np.uint8),
-                           table.wave_start.view(np.uint8)])
-    blob_d = torch.as_tensor(blob, device=dev)  # one upload per commit
-    base = blob_d.data_ptr()
-    tasks_p = base + fd.nbytes
-    starts_p = tasks_p + table.tasks.nbytes
-    grid = grid_of(table.max_n, table.max_tasks, dev.index or 0)
-    kernels.launch("commit_wave", base, tasks_p, starts_p, len(table.waves), F, R8, C8,
-                   int(dq_dc), int(dq_ac), bd, int(rdoq_qctx is not None), float(lam),
-                   table.max_n, grid, kernels.stream_ptr(src[0]))
+    T = len(table.tasks)
+    # one upload per commit: the descriptors, the table, its owner map and
+    # room for the queue's counter and the ready flags (the launch zeroes
+    # those)
+    parts = [fd, table.tasks, table.owner.ravel(), np.zeros(T + 1, np.int32)]
+    blob_d = torch.as_tensor(np.concatenate([a.view(np.uint8) for a in parts]), device=dev)
+    ptrs = blob_d.data_ptr() + np.cumsum([0] + [a.nbytes for a in parts[:-1]])
+    grid = grid_of(table.max_n, T, dev.index or 0)
+    kernels.launch("commit_wave", *(int(p) for p in ptrs), T, F, R8, C8, int(dq_dc), int(dq_ac),
+                   bd, int(rdoq_qctx is not None), float(lam), table.max_n, grid,
+                   kernels.stream_ptr(src[0]))
     return None
 
 
-def barrier_ms(grid: int, nbarriers: int, device) -> float:
-    """Milliseconds of one cooperative launch of `grid` CTAs that only runs
-    `nbarriers` grid barriers (K16's barrier cost), CUDA events around it
-    after a warm launch."""
+def handoff_ms(device, rounds: int = 2000) -> float:
+    """Milliseconds of one handoff of a ready flag between two CTAs (K16's
+    cost per dependency edge): `rounds` round trips of one flag in device
+    memory, CUDA events around them after a warm launch, over 2 x rounds."""
     dev = torch.device(device)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = kernels.lib().grid_sync_launch
-    if fn(grid, nbarriers, stream):
-        raise RuntimeError("grid_sync failed to launch")
+    fn = kernels.lib().flag_pingpong_launch
+    if fn(flag.data_ptr(), 10, stream):
+        raise RuntimeError("flag_pingpong failed to launch")
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    err = fn(grid, nbarriers, stream)
+    err = fn(flag.data_ptr(), rounds, stream)
     b.record()
     torch.cuda.synchronize(dev)
     if err:
-        raise RuntimeError(f"grid_sync failed to launch: cudaError {err}")
-    return a.elapsed_time(b)
+        raise RuntimeError(f"flag_pingpong failed to launch: cudaError {err}")
+    return a.elapsed_time(b) / (2 * rounds)

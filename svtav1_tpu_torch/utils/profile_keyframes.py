@@ -68,12 +68,13 @@ def k2_ops(n: int, L: int, n_vadst: int, n_hadst: int, forward: bool = True,
     return 5 * n * n * per + 20 * n * n * L * (int(forward) + int(inverse))
 
 
-def launch_bound(name: str, args: tuple, adst: tuple | None = None) -> tuple[float, float]:
+def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
     """(bytes, int32 operations) of one kernel launch from its C arguments
     (kernels.ARGTYPES order): each input read once, each output written
     once, and the arithmetic per element that chip_smoke.py also counts.
-    For K2, `adst` = (lanes with the vertical ADST, lanes with the
-    horizontal ADST) of the launch: its flags live on the card."""
+    `extra`, what lives on the card: for K2 (lanes with the vertical ADST,
+    lanes with the horizontal ADST) of the launch, for K7 the unmasked
+    cells."""
     if name == "intra_pred":
         B, n, nmodes, one = args[9], args[10], args[12], args[5] is not None
         out = B * (1 if one else nmodes) * n * n
@@ -81,7 +82,7 @@ def launch_bound(name: str, args: tuple, adst: tuple | None = None) -> tuple[flo
     if name == "txfm_quant_recon":
         coeff, recon, sse, stage, L, rep, n = args[6:13]
         adj = min(n, 32)
-        ops = k2_ops(n, L, *adst, forward=stage != 2, inverse=stage != 1)
+        ops = k2_ops(n, L, *extra, forward=stage != 2, inverse=stage != 1)
         if stage == 1:
             return 2 * L * n * n * 4 + 2 * L * adj * adj * 4 + 2 * L, ops
         if stage == 2:
@@ -99,11 +100,12 @@ def launch_bound(name: str, args: tuple, adst: tuple | None = None) -> tuple[flo
         F, H, W = args[3:6]
         cells = F * (H // 8) * (W // 8)
         return F * H * W * 4 + 2 * cells * 4, cells * (64 * 8 + 15 * 8 * 3)
-    if name == "cdef_filter":
-        src, out, (K, F, H, W, log2m) = args[6], args[8], args[9:14]
-        cells = F * (H >> log2m) * (W >> log2m)
-        return (F * H * W * 4 * (1 + (src is not None)) + (K * F * H * W * 4 if out else 0)
-                + cells * 9), K * F * H * W * 12 * 12
+    if name == "cdef_search":
+        K, F, H, W = args[8:12]
+        return cdef_search_work(F, H, W, K, extra)
+    if name == "cdef_apply":
+        K, F, H, W = args[13:17]
+        return cdef_apply_work(F, H, W, K, extra)
     if name == "me_sad":
         mode, src0, (hs, ws, Hs, Ws, hr, wr, Hr, Wr, _ox, sbr, sbc) = args[0], args[1], args[8:19]
         if mode == 0:  # the pyramid of the reference, and of the source unless given
@@ -135,6 +137,32 @@ def launch_bound(name: str, args: tuple, adst: tuple | None = None) -> tuple[flo
         return ((L // rep + L) * n * n * 4 + (4 if mode == 0 else 8) * L
                 + (L * n * n * 4 if recon else 0)), tpl_cost_ops(L, n, bool(recon))
     raise ValueError(name)
+
+
+CDEF_TAP_OPS = 36    # per filtered sample: 12 tap differences and the max and min over them
+CDEF_CAND_OPS = 108  # per sample and candidate: 12 constrained taps (9 each), sum, clamp, error
+
+
+def cdef_search_work(F: int, H: int, W: int, K: int, cells_on: int) -> tuple:
+    """(bytes, int32 operations) of K7's search on F (H, W) luma planes
+    with `cells_on` unmasked 8x8 cells: the cells' mask, direction and
+    variance read (9 bytes a cell), the plane and the source read on the
+    unmasked cells only, the (K, F) int64 sums written; per unmasked sample
+    the tap work once and the per-candidate work K times."""
+    cells = F * (H // 8) * (W // 8)
+    samples = 64 * cells_on
+    return (cells * 9 + 2 * samples * 4 + K * F * 8,
+            samples * (CDEF_TAP_OPS + K * CDEF_CAND_OPS))
+
+
+def cdef_apply_work(F: int, H: int, W: int, K: int, cells_on: int) -> tuple:
+    """(bytes, int32 operations) of K7's apply: the three planes read and
+    written (a masked-out cell is copied), the cells' mask, direction and
+    variance and the (K, F) sums read, the (F, 4) strengths written; per
+    unmasked luma and chroma sample the tap work and one candidate's."""
+    cells = F * (H // 8) * (W // 8)
+    return (2 * F * H * W * 3 // 2 * 4 + cells * 9 + K * F * 8 + F * 16,
+            (64 + 2 * 16) * cells_on * (CDEF_TAP_OPS + CDEF_CAND_OPS))
 
 
 def me_levels(H: int, W: int) -> int:
@@ -183,20 +211,29 @@ def bound_ms(nbytes: float, ops: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
 
 
-def commit_wave_work(table, tx_ntypes: int, rdoq: bool) -> dict:
+SMS = 132  # H100 SXM streaming multiprocessors
+
+
+def commit_wave_work(table, tx_ntypes: int, rdoq: bool, handoff_ms: float | None = None) -> dict:
     """The work of K16 on a phase-B task table (pipeline.wavefront): `bytes`,
     what K16 itself moves per task (its code, mode and tx read, the source
     block and the edges read, the levels and the recon written, and the
     frontier cells written: the bottom row, the right column and one corner
     per 8x8 luma cell; the prediction, coefficients and levels between
     steps stay in shared memory), `ops`, the int32 operations of the K1,
-    K2 and K5 work of its lanes (launch_bound's counts), and `bound_ms`."""
+    K2 and K5 work of its lanes (launch_bound's counts), `bound_ms`, and
+    `depth`, the tasks on the longest path of the predecessor graph. With
+    `handoff_ms` (one ready flag handed between two CTAs, measured),
+    `chain_ms`: the longest path with each task on it at one SM's share of
+    the int32 rate and each edge one handoff."""
     import numpy as np
 
+    from ..pipeline import wavefront
     from ..pipeline.device_decide import SIZES
 
     si, pl, _lane = table.decode()
-    nbytes = ops = 0
+    task_ops = np.zeros(len(table.tasks))
+    nbytes = 0
     for s, n in enumerate(SIZES):
         for chroma in (False, True):
             sel = (si == s) & ((pl > 0) == chroma)
@@ -208,14 +245,21 @@ def commit_wave_work(table, tx_ntypes: int, rdoq: bool) -> dict:
             n8 = n // 8
             ntypes = (4 if m <= 16 else 1) if chroma else (tx_ntypes if n <= 16 else 1)
             tx = table.tx[sel]
-            nva = int(np.isin(tx, (1, 2)).sum()) if ntypes > 1 else 0
-            nha = int(np.isin(tx, (1, 3)).sum()) if ntypes > 1 else 0
+            va = np.isin(tx, (1, 2)) & (ntypes > 1)
+            ha = np.isin(tx, (1, 3)) & (ntypes > 1)
             nbytes += L * (3 * 4 + m * m * 4 + (2 * m + 1) * 4 + adj * adj * 4 + m * m * 4
                            + (2 * m + n8 * n8) * 4)
-            ops += L * m * m * 10 + k2_ops(m, L, nva, nha)
-            if rdoq:
-                ops += L * adj * adj * 80
-    return dict(bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops))
+            # each task's operations: K2's count for its own DCT/ADST pair
+            per = {(a, b): m * m * 10 + k2_ops(m, 1, a, b) + (adj * adj * 80 if rdoq else 0)
+                   for a in (0, 1) for b in (0, 1)}
+            task_ops[sel] = [per[(int(a), int(b))] for a, b in zip(va, ha)]
+    ops = int(task_ops.sum())
+    out = dict(bytes=nbytes, ops=ops, bound_ms=bound_ms(nbytes, ops),
+               depth=int(wavefront.chain_length(table)))
+    if handoff_ms is not None:
+        out["chain_ms"] = wavefront.chain_length(table, task_ops / (INT32_OPS_PER_S / SMS) * 1e3,
+                                                 handoff_ms)
+    return out
 
 
 def count_launches(fn, default: str = "other"):
@@ -226,6 +270,7 @@ def count_launches(fn, default: str = "other"):
     from .. import kernels
     from ..ops import tf_torch
     from ..ops import transforms_torch as TT
+    from ..filters import cdef_torch
     from ..pipeline import device_commit, device_decide, inter_device, tpl, wavefront
 
     current = [default]
@@ -233,13 +278,22 @@ def count_launches(fn, default: str = "other"):
     real_launch = kernels.launch
     real_k2 = TT._launch
     real_k16 = wavefront.commit_wave
-    k2_adst = [None]
+    real_search, real_apply = cdef_torch.cdef_search, cdef_torch.cdef_apply
+    extra = [None]  # what a launch's bound needs from the card (a sync: untimed run)
     k16_bound = [0.0]
 
     def k2_launch(stage, src, pred, v_adst, h_adst, *rest):
-        # the launch's DCT/ADST split, for its bound (a sync: untimed run)
-        k2_adst[0] = (int(v_adst.sum()), int(h_adst.sum()))
+        # the launch's DCT/ADST split
+        extra[0] = (int(v_adst.sum()), int(h_adst.sum()))
         real_k2(stage, src, pred, v_adst, h_adst, *rest)
+
+    def search(plane, dirs, var, mask, *rest):  # K7: the unmasked cells
+        extra[0] = int(mask.sum())
+        return real_search(plane, dirs, var, mask, *rest)
+
+    def apply(planes, dirs, var, mask, *rest):
+        extra[0] = int(mask.sum())
+        return real_apply(planes, dirs, var, mask, *rest)
 
     def k16(src, maps, lanes, table, dq_dc, dq_ac, bd, tx_ntypes, lam, rdoq_qctx, **kw):
         # K16's bound, from the task table
@@ -252,7 +306,7 @@ def count_launches(fn, default: str = "other"):
         rec = out.setdefault(current[0], {}).setdefault(name, [0, 0.0])
         rec[0] += 1
         rec[1] += (k16_bound[0] if name == "commit_wave"
-                   else bound_ms(*launch_bound(name, args, k2_adst[0])))
+                   else bound_ms(*launch_bound(name, args, extra[0])))
 
     def staged(stage, f):
         def run(*a, **k):
@@ -269,6 +323,7 @@ def count_launches(fn, default: str = "other"):
     originals = [getattr(m, a) for m, a in saved]
     kernels.launch = launch
     TT._launch = k2_launch
+    cdef_torch.cdef_search, cdef_torch.cdef_apply = search, apply
     wavefront.commit_wave = k16
     for (m, a), f, stage in zip(saved, originals,
                                 ("decide", "decide", "commit", "filter", "tf", "tpl")):
@@ -278,6 +333,7 @@ def count_launches(fn, default: str = "other"):
     finally:
         kernels.launch = real_launch
         TT._launch = real_k2
+        cdef_torch.cdef_search, cdef_torch.cdef_apply = real_search, real_apply
         wavefront.commit_wave = real_k16
         for (m, a), f in zip(saved, originals):
             setattr(m, a, f)

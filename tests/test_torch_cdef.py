@@ -1,7 +1,9 @@
-"""K6 (cdef_dir) and K7 (cdef_filter) plain versions against
+"""K6 (cdef_dir) and K7 (cdef_search, cdef_apply) plain versions against
 filters/cdef_jax.py: find_dir_j, and cdef_frames_j's strength search and
 apply on luma and chroma, on noisy copies of synthetic-clip frames with a
-random skip map. Directions, variances, strengths and planes are exact."""
+random skip map. Directions, variances, strengths and planes are exact.
+K7's two entry points against the plain filter (cdef_filter_plain) and the
+sequence of filter calls that cdef_frames made before them; K7's bound."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,12 +62,101 @@ def test_filter_candidates_share_one_call():
     dirs, var = cdef_torch.find_dir(plane)
     pri = torch.tensor([[0, 0], [2, 2], [6, 6]], dtype=torch.int32)
     sec = torch.tensor([[0, 0], [1, 1], [2, 2]], dtype=torch.int32)
-    out, sse = cdef_torch.cdef_filter(plane, dirs, var, pri, sec, mask, 5, src=s)
+    out, sse = cdef_torch.cdef_filter_plain(plane, dirs, var, pri, sec, mask, 5, src=s)
     for k in range(3):
-        one, one_sse = cdef_torch.cdef_filter(plane, dirs, var, pri[k:k + 1], sec[k:k + 1], mask, 5,
-                                              src=s)
+        one, one_sse = cdef_torch.cdef_filter_plain(plane, dirs, var, pri[k:k + 1], sec[k:k + 1],
+                                                    mask, 5, src=s)
         assert torch.equal(one[0], out[k]) and torch.equal(one_sse[0], sse[k])
     assert torch.equal(out[0], plane)  # strength 0 is the identity
     m = np.repeat(np.repeat(nonskip, 8, 1), 8, 2)
     d = (rec[0] - src).astype(np.int64) * m
     np.testing.assert_array_equal(sse[0].numpy(), (d * d).sum(axis=(1, 2)))
+
+
+def _old_cdef_frames(planes, src_y, nonskip8, damping, coeff_shift, ladder):
+    """cdef_frames as four filter calls with PyTorch glue between them (the
+    search, argmin, and the luma and two chroma applies)."""
+    F = planes[0].shape[0]
+    dirs, var = cdef_torch.find_dir(planes[0], coeff_shift)
+    cand = torch.tensor(ladder, dtype=torch.int32)
+    pri = (cand[:, 0:1] << coeff_shift).expand(-1, F).contiguous()
+    sec = (cand[:, 1:2] << coeff_shift).expand(-1, F).contiguous()
+    _, sse = cdef_torch.cdef_filter_plain(planes[0], dirs, var, pri, sec, nonskip8,
+                                          damping + coeff_shift, coeff_shift, src=src_y,
+                                          want_out=False)
+    best = torch.argmin(sse, dim=0)
+    y_pri, y_sec = cand[best, 0], cand[best, 1]
+    uv_pri, uv_sec = y_pri >> 1, y_sec >> 1
+    new_y = cdef_torch.cdef_filter_plain(planes[0], dirs, var, (y_pri << coeff_shift)[None],
+                                         (y_sec << coeff_shift)[None], nonskip8,
+                                         damping + coeff_shift, coeff_shift)[0][0]
+    uv = [cdef_torch.cdef_filter_plain(pl, dirs, None, (uv_pri << coeff_shift)[None],
+                                       (uv_sec << coeff_shift)[None], nonskip8,
+                                       damping + coeff_shift - 1, coeff_shift)[0][0]
+          for pl in planes[1:]]
+    return sse, [new_y, *uv], torch.stack([y_pri, y_sec, uv_pri, uv_sec], dim=-1)
+
+
+@pytest.mark.parametrize("bd, n_cand", [(8, 0), (8, 4), (10, 0)])
+def test_search_and_apply_equal_the_filter_sequence(bd, n_cand):
+    """K7's two entry points (plain versions) give the SSE of the filter's
+    candidates, and the planes and strengths of the four-call sequence."""
+    from svtav1_tpu_torch.filters.cdef import SEARCH_CANDIDATES
+
+    src, rec, nonskip = _inputs(64, 48, 4, seed=bd + n_cand)
+    cs = bd - 8
+    planes = [torch.from_numpy(p << cs) for p in rec]
+    src_y, mask = torch.from_numpy(src << cs), torch.from_numpy(nonskip)
+    ladder = SEARCH_CANDIDATES[:n_cand] if n_cand else SEARCH_CANDIDATES
+    want_sse, want, want_st = _old_cdef_frames(planes, src_y, mask, 5, cs, ladder)
+    dirs, var = cdef_torch.find_dir(planes[0], cs)
+    sse = cdef_torch.cdef_search(planes[0], dirs, var, mask, src_y, ladder, 5, cs)
+    assert sse.dtype == torch.int64 and torch.equal(sse, want_sse)
+    got, st = cdef_torch.cdef_apply(planes, dirs, var, mask, sse, ladder, 5, cs)
+    assert torch.equal(st, want_st)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    got2, st2 = cdef_torch.cdef_frames(planes, src_y, mask, 5, bd=bd, n_cand=n_cand)
+    assert torch.equal(st2, want_st) and all(torch.equal(a, b) for a, b in zip(got2, want))
+
+
+def test_apply_takes_the_first_candidate_on_ties():
+    """Equal SSEs pick the first candidate (torch.argmin's rule, which the
+    kernel's own argmin follows); chroma strengths are luma's >> 1."""
+    _, rec, nonskip = _inputs(32, 32, 4, seed=3)
+    planes = [torch.from_numpy(p) for p in rec]
+    mask = torch.from_numpy(nonskip)
+    dirs, var = cdef_torch.find_dir(planes[0])
+    ladder = [(2, 1), (4, 2), (4, 2), (8, 2)]
+    sse = torch.tensor([[9, 5], [3, 5], [3, 1], [3, 5]], dtype=torch.int64)
+    _, st = cdef_torch.cdef_apply(planes, dirs, var, mask, sse, ladder, 5)
+    assert st.tolist() == [[4, 2, 2, 1], [4, 2, 2, 1]]
+    sse = torch.tensor([[1, 7], [1, 2], [0, 2], [5, 2]], dtype=torch.int64)
+    _, st = cdef_torch.cdef_apply(planes, dirs, var, mask, sse, ladder, 5)
+    assert st.tolist() == [[4, 2, 2, 1], [4, 2, 2, 1]]
+    sse = torch.tensor([[1, 1], [1, 1], [1, 1], [1, 1]], dtype=torch.int64)
+    _, st = cdef_torch.cdef_apply(planes, dirs, var, mask, sse, ladder, 5)
+    assert st.tolist() == [[2, 1, 1, 0], [2, 1, 1, 0]]
+
+
+def test_cdef_bounds_count_unmasked_cells_and_shared_taps():
+    """K7's bound counts what these inputs need: the search reads the plane
+    and the source on the unmasked cells only and does the tap work once
+    per sample and the candidate work once per candidate; the apply reads
+    and writes the three planes."""
+    from svtav1_tpu_torch.utils import profile_keyframes as pk
+
+    F, H, W, K = 2, 64, 128, 7
+    cells = F * (H // 8) * (W // 8)
+    nb, ops = pk.cdef_search_work(F, H, W, K, cells // 4)
+    assert nb == cells * 9 + 2 * 64 * (cells // 4) * 4 + K * F * 8
+    assert ops == 64 * (cells // 4) * (pk.CDEF_TAP_OPS + K * pk.CDEF_CAND_OPS)
+    assert pk.cdef_search_work(F, H, W, K, 0)[1] == 0
+    assert pk.CDEF_TAP_OPS + pk.CDEF_CAND_OPS == 144  # the per-candidate count it replaces
+    args = (None,) * 8 + (K, F, H, W, 5, 0, None)
+    assert pk.launch_bound("cdef_search", args, cells // 4) == (nb, ops)
+    nb_a, ops_a = pk.cdef_apply_work(F, H, W, K, cells)
+    assert nb_a == 2 * F * H * W * 3 // 2 * 4 + cells * 9 + K * F * 8 + F * 16
+    assert ops_a == 96 * cells * 144
+    args = (None,) * 13 + (K, F, H, W, 5, 0, None)
+    assert pk.launch_bound("cdef_apply", args, cells) == (nb_a, ops_a)
