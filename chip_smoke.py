@@ -21,7 +21,13 @@ Phases, each fatal on failure:
      the clip's noisy 1080p planes with 80% and 20% of the cells unmasked),
      and time both; K8's and K9's bounds count their operations at the
      rates of VABSDIFF4, IDP.2A and IDP.4A measured first (`packed_rates`
-     line);
+     line); then at 10 bits, on the 10-bit clip (the clip << 2 plus seeded
+     low bits) as int16 planes at the same shapes: the 16-bit forms of K8
+     (`me_sad16`, its operations at the better of the int32 count and the
+     measured rate of the scalar VABSDIFF, one per absolute difference), K9
+     (`subpel_pred16`, also at the MCTF shape), K10 (`mc_lanes16`) and K11
+     (`mc_compound16`, 8x8 to 64x64), and K1-K7, K12 and K13 once each at
+     bd=10 (K1 with lanes that have neither neighbour: DC 512), all exact;
   3. conformance: encode a CIF key frame on the card at the fast preset
      without CDEF and one at the default medium preset, a 3-frame CIF GOP
      (a key frame and 2 P frames, keyint=6) at medium, and CIF
@@ -36,7 +42,9 @@ Phases, each fatal on failure:
      CRF random-access GOP (minigop=4, MCTF, lookahead=8), 8-frame
      low-delay GOPs (keyint=8) with CBR, VBR and two-pass VBR at 300 kbps,
      and a scene cut spliced at frame 4 with keyint=1000, which must be
-     coded as a key frame;
+     coded as a key frame; at 10 bits, the 3-frame CIF low-delay GOP and
+     the 5-frame CIF random-access GOP with MCTF, their bytes against the
+     CPU's too;
   4. the paths: 1 warm + 1 timed 1920x1080 key frame at the fast preset
      without CDEF (K1-K4 launched), 1 warm + 2 timed key frames at the
      medium preset (K1-K7 launched), then the main path, the bench's clip:
@@ -56,14 +64,20 @@ Phases, each fatal on failure:
      16-frame TPL window timed alone with its launches and kernel bounds;
      then one-pass VBR at 1000 kbps on the 16-frame low-delay GOP (every
      inter frame finished before the next starts), its achieved bitrate
-     printed; launch counts are reset just before each path and read just
-     after; the 1080p clip is made once; after the paths, the first TUs of
+     printed; then the 10-bit low-delay GOP (16 frames) and the 10-bit
+     random-access GOP with MCTF (17 frames) on the 10-bit clip, their
+     Y-PSNR at peak 1023, every 16-bit form launched and no 8-bit form of
+     K8-K11 (and the 8-bit paths no 16-bit form), their first TUs decoded
+     with the others; launch counts are reset just before each path and
+     read just after; the 1080p clip is made once; after the paths, the first TUs of
      each (and one medium key frame) are decoded, one worker process per
      sequence; K16 commit_wave runs on every path (each commit's phase B
-     in one launch), and its inputs are copied from four launches of the
+     in one launch), and its inputs are copied from six launches of the
      paths: the fast key frame's (no RDOQ), the medium key frame's, a P
-     frame's of the low-delay GOP and a B frame's of the random-access GOP
-     (one with compound lanes); on each schedule K16 and the wave loop of
+     frame's of the low-delay GOP, a B frame's of the random-access GOP
+     (one with compound lanes), and the key frame's and a P frame's of the
+     10-bit GOP; on each
+     schedule K16 and the wave loop of
      K1, K2 and K5 run from the same state and must give the same levels,
      recon, frontier maps and skip map; both phase-B times of this call
      (the wrapper, and the launch alone), the waves, the dependency depth,
@@ -76,7 +90,9 @@ Phases, each fatal on failure:
      inputs through the kernel and its plain version (K3 within the
      tolerance above, the others exact) and timed, its bound from its
      arguments: per frame the launches, summed ms and bounds of each
-     kernel, and per distinct launch shape (`decide_capture` lines);
+     kernel, and per distinct launch shape (`decide_capture` lines); the
+     same again on the 10-bit GOP's first two frames (the 16-bit forms of
+     K8 and K9, K2 and K3 at bd=10);
   5. tiles: a 256x64 GOP (a key frame and 2 P frames in two tile columns)
      through parallel.tiles' encoders on the card and with the plain
      versions on the CPU, byte for byte, decoded bit-exactly; the 8-tile
@@ -95,12 +111,11 @@ Phases, each fatal on failure:
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
      python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
-also times phase 2's K2, K3, K5 and K9 cases and every captured K2, K3 and K9
-launch through a kernel library built from another checkout with the same
-C entry points (the parent commit's, after its own chip_smoke.py run built
-it), on the same inputs, and holds its results equal too (`baseline_ms`);
-K7 and K16 through the parent's own entry points (cdef_filter_launch, one
-plane per launch; commit_wave_launch with its FrameDesc and wave bounds).
+also times phase 2's K2, K3, K5, K7, K8 and K9 cases (8-bit), K16 on the
+captured 8-bit schedules and every captured 8-bit K2, K3, K8 and K9 launch through a kernel
+library built from another checkout with the same C entry points (the parent
+commit's, after its own chip_smoke.py run built it), on the same inputs, and
+holds its results equal too (`baseline_ms`, `baseline_device_ms`).
 """
 import contextlib
 import functools
@@ -141,10 +156,19 @@ KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "subpel_refine": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:373"),
     "tpl_cost": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu", "svtav1_tpu/pipeline/tpl.py:56"),
     "commit_wave": ("svtav1_tpu_torch/csrc/commit.cu", "svtav1_tpu/pipeline/device_commit.py:542"),
+    # the 16-bit forms of K8-K11, on the int16 planes of 10-bit encodes
+    "me_sad16": ("svtav1_tpu_torch/csrc/me.cu", "svtav1_tpu/ops/me_jax.py:86"),
+    "subpel_pred16": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:300"),
+    "mc_lanes16": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:183"),
+    "mc_compound16": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:248"),
 }
 LD_KERNELS = tuple(KERNEL_SOURCES)[:11] + ("commit_wave",)  # K1-K10, K16: low-delay GOP
 RA_ONLY = ("mc_compound", "tf_filter", "tf_noise")  # K11-K13: the random-access GOP
 CRF_ONLY = ("subpel_refine", "tpl_cost")  # K14-K15: the CRF GOP's TPL
+TEN_BIT = ("me_sad16", "subpel_pred16", "mc_lanes16", "mc_compound16")
+_FORM16 = dict(zip(("me_sad", "subpel_pred", "mc_lanes", "mc_compound"), TEN_BIT))
+LD10_KERNELS = tuple(_FORM16.get(k, k) for k in LD_KERNELS)  # the low-delay GOP at 10 bits
+RA10_KERNELS = LD10_KERNELS + ("mc_compound16", "tf_filter", "tf_noise")
 # CRF: TPL over lookahead windows sets each frame's qindex (random access, MCTF)
 CRF = dict(qindex=120, keyint=32, minigop=8, rc_mode="crf", lookahead=16, enable_tf=True,
            preset="medium")
@@ -166,17 +190,27 @@ def log(msg):
     print(msg, flush=True)
 
 
-@functools.lru_cache(maxsize=1)
-def _clip_1080p():
+@functools.lru_cache(maxsize=2)
+def _clip_1080p(bd):
     from svtav1_tpu_torch.utils.testclip import make_frames
 
-    return make_frames(1920, 1080, 17, seed=0)
+    return make_frames(1920, 1080, 17, seed=0, bd=bd)
 
 
-def clip_1080p(n):
+def clip_1080p(n, bd=8):
     """The first n (at most 17) frames of the bench's synthetic 1920x1080
-    clip (utils/testclip.make_frames, seed 0), made once."""
-    return _clip_1080p()[:n]
+    clip (utils/testclip.make_frames, seed 0), made once; at 10 bits the
+    8-bit clip << 2 plus seeded low bits."""
+    return _clip_1080p(bd)[:n]
+
+
+def y_psnr_db(rec_y, src_y, bd=8):
+    """Y-PSNR of a recon against its source, peak 2^bd - 1."""
+    import numpy as np
+
+    H, W = src_y.shape
+    d = rec_y[:H, :W].astype(np.float64) - src_y
+    return 10 * np.log10(float((1 << bd) - 1) ** 2 / max(float((d * d).mean()), 1e-12))
 
 
 def timed_ms(fn, reps):
@@ -231,7 +265,9 @@ RATES = {}  # lane instructions per second of the packed instructions (packed_ra
 
 def packed_rates(torch):
     """Lane instructions per second of VABSDIFF4.U8.ACC (K8's SAD step),
-    IDP.2A and IDP.4A (K9's two passes) and IMAD on this card:
+    IDP.2A and IDP.4A (K9's two passes), IMAD, VABSDIFF2 with its sum
+    (K8's 10-bit SAD step, compiled as the card implements it) and the
+    scalar VABSDIFF with its sum (one absolute difference) on this card:
     packed_rate_launch, 8 independent chains per thread, 132 x 16 CTAs of
     256 threads, 4,096 steps (median of 3 CUDA-event timings)."""
     from svtav1_tpu_torch import kernels
@@ -240,7 +276,8 @@ def packed_rates(torch):
     blocks, iters = 132 * 16, 4096
     out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
     res = {}
-    for which, name in enumerate(("vabsdiff4", "idp2a", "idp4a", "imad")):
+    for which, name in enumerate(("vabsdiff4", "idp2a", "idp4a", "imad", "vabsdiff2",
+                                  "vabsdiff")):
         def run(which=which):
             err = lib.packed_rate_launch(which, blocks, iters, out.data_ptr(),
                                          kernels.stream_ptr(out))
@@ -250,29 +287,45 @@ def packed_rates(torch):
     return res
 
 
-def k9_packed_ops_ms(B, n, L):
+def k9_packed_ops_ms(B, n, L, bd=8):
     """K9's operations' least time at the measured packed rates: per block,
-    two IDP.4A per horizontal intermediate sample of the L column phases over
-    n + 8 rows, and four IDP.2A and one absolute difference with its sum
-    (VABSDIFF, at the VABSDIFF4 rate) per predicted sample of the L x L
-    lattice."""
-    return B * (2 * L * (n + 8) * n / RATES["idp4a"] + 4 * L * L * n * n / RATES["idp2a"]
+    two IDP.4A (10 bits: four IDP.2A) per horizontal intermediate sample of
+    the L column phases over n + 8 rows, and four IDP.2A and one absolute
+    difference with its sum (VABSDIFF, at the VABSDIFF4 rate) per predicted
+    sample of the L x L lattice."""
+    horizontal = (2 / RATES["idp4a"]) if bd == 8 else (4 / RATES["idp2a"])
+    return B * (L * (n + 8) * n * horizontal + 4 * L * L * n * n / RATES["idp2a"]
                 + L * L * n * n / RATES["vabsdiff4"]) * 1e3
+
+
+def me_frame_ops_ms(diffs, bd):
+    """(least ms, VABSDIFF2-rate ms) of the frame search's `diffs` absolute
+    differences: at 8 bits four per VABSDIFF4 at its measured rate; at 10
+    bits the better of the int32 count (3 operations each) and one scalar
+    VABSDIFF each at its measured rate. The second number, the same
+    differences two per VABSDIFF2 as the 16-bit form runs them, is a
+    diagnostic (None at 8 bits)."""
+    if bd == 8:
+        return diffs / 4 / RATES["vabsdiff4"] * 1e3, None
+    return (min(3 * diffs / INT32_OPS_PER_S, diffs / RATES["vabsdiff"]) * 1e3,
+            diffs / 2 / RATES["vabsdiff2"] * 1e3)
 
 
 def packed_bound_ms(name, args):
     """A K8 or K9 launch's bound (its C arguments) with the operations at the
     measured packed rates: K9's as k9_packed_ops_ms, the frame search's
-    absolute differences at four per VABSDIFF4, K8's pyramid as counted."""
+    absolute differences as me_frame_ops_ms, K8's pyramid as counted."""
     from svtav1_tpu_torch.utils.profile_keyframes import bound_ms, launch_bound, me_frame_diffs
 
     nbytes, ops = launch_bound(name, args)
-    if name == "subpel_pred":
+    if name in ("subpel_pred", "subpel_pred16"):
         B, n, fast = args[8], args[11], args[13]
-        return max(nbytes / HBM_BYTES_PER_S * 1e3, k9_packed_ops_ms(B, n, 5 if fast else 7))
+        return max(nbytes / HBM_BYTES_PER_S * 1e3,
+                   k9_packed_ops_ms(B, n, 5 if fast else 7, 10 if name.endswith("16") else 8))
     if args[0] == 1:  # the frame search
-        diffs = me_frame_diffs(args[17], args[18])
-        return max(nbytes / HBM_BYTES_PER_S, diffs / 4 / RATES["vabsdiff4"]) * 1e3
+        ops_ms, _ = me_frame_ops_ms(me_frame_diffs(args[17], args[18]),
+                                    10 if name == "me_sad16" else 8)
+        return max(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
     return bound_ms(nbytes, ops)
 
 
@@ -303,65 +356,88 @@ def device_launches(torch, fn):
     return None
 
 
-def check_me_frame(torch, record, assert_equal, src8, ref8, sbr, sbc, ox, main=False):
-    """K8 on one uint8 frame against one reference: the source pyramid (one
+def check_me_frame(torch, record, assert_equal, src8, ref8, sbr, sbc, ox, main=False, bd=8):
+    """K8 on one frame against one reference (uint8 planes, or at bd=10 the
+    int16 planes of its 16-bit form, `me_sad16`): the source pyramid (one
     launch), the frame search alone (one launch, from the pyramids) and the
     whole me_fullpel_frame with a shared source pyramid (two launches), each
     held exactly against its plain version (every size and the SB MVs) and
-    timed; the frame search's bound also at the measured VABSDIFF4 rate
-    (`bound_ms`; the int32 count's as `int32_bound_ms`); the device work items of one call of the kernel path
-    and of the plain version (torch.profiler). Returns the MVs by size."""
+    timed; the frame search's bound with its operations as me_frame_ops_ms
+    (`bound_ms`; the int32 count's as `int32_bound_ms`, at 10 bits the
+    VABSDIFF2 rate's as `vabsdiff2_ops_ms`); the device work items of one call of the kernel path
+    and of the plain version (torch.profiler); at 8 bits with
+    --baseline-lib, the parent's K8 on the same inputs (its entry point is
+    this one's). Returns the MVs by size."""
     from svtav1_tpu_torch import kernels
     from svtav1_tpu_torch.ops import me_torch
     from svtav1_tpu_torch.utils.profile_keyframes import me_frame_diffs, me_frame_work, me_levels
 
-    shape = [*src8.shape, f"{sbr}x{sbc} SBs"]
+    name = "me_sad" if bd == 8 else "me_sad16"
+    sz = 1 if bd == 8 else 2
+    shape = [*src8.shape, f"{sbr}x{sbc} SBs"] + ([] if bd == 8 else ["10-bit"])
     if ox:
         shape.append(f"ref {ref8.shape[0]}x{ref8.shape[1]}, ref_off_x {ox}")
     Hs, Ws = me_torch._grid_dims(src8, sbr, sbc)
     Hr, Wr = me_torch._grid_dims(ref8, sbr, sbc)
 
+    def times(fn, same, reps=20):
+        """device_ms, and the parent's kernel at 8 bits (kernel_times)."""
+        return kernel_times(fn, same, reps) if bd == 8 else dict(device_ms=device_ms(fn, reps))
+
     def pyramid():
-        return me_torch.me_pyramid(src8, sbr, sbc)
+        return me_torch.me_pyramid(src8, sbr, sbc, bd)
 
     def pyramid_plain():
         l1 = me_torch.decimate2_plain(me_torch.edge_pad(src8, Hs, Ws).to(torch.int32))
         return l1, me_torch.decimate2_plain(l1)
 
     pyr = pyramid()
-    err = max(assert_equal("me_sad", a.to(torch.int32), b) for a, b in zip(pyr, pyramid_plain()))
-    record("me_sad", shape + ["pyramid, source"], err, timed_ms(pyramid, 20),
-           timed_ms(pyramid_plain, 5), nbytes=src8.numel() + me_levels(Hs, Ws),
-           ops=me_levels(Hs, Ws) * 5, device_ms=device_ms(pyramid))
+    want_pyr = pyramid_plain()
+    err = max(assert_equal(name, a.to(torch.int32), b) for a, b in zip(pyr, want_pyr))
+
+    def same_pyr(out):
+        for a, b in zip(out, want_pyr):
+            assert_equal(name + " (baseline)", a.to(torch.int32), b)
+
+    record(name, shape + ["pyramid, source"], err, timed_ms(pyramid, 20),
+           timed_ms(pyramid_plain, 5), nbytes=(src8.numel() + me_levels(Hs, Ws)) * sz,
+           ops=me_levels(Hs, Ws) * 5, **times(pyramid, same_pyr))
 
     def call():
-        return me_torch.me_fullpel_frame(src8, ref8, sbr, sbc, ref_off_x=ox, src_pyr=pyr)
+        return me_torch.me_fullpel_frame(src8, ref8, sbr, sbc, ref_off_x=ox, src_pyr=pyr, bd=bd)
 
     def plain():
         return me_torch.me_fullpel_frame_plain(src8, ref8, sbr, sbc, ref_off_x=ox)
 
-    before = kernels.launches["me_sad"]
+    before = kernels.launches[name]
     got, got_sb = call()
-    launches = kernels.launches["me_sad"] - before
+    launches = kernels.launches[name] - before
     want, want_sb = plain()
-    err = assert_equal("me_sad", got_sb, want_sb)
+    err = assert_equal(name, got_sb, want_sb)
     for n in me_torch.SIZES:
-        err = max(err, assert_equal("me_sad", got[n], want[n]))
-    dims, _src_pyr, ref_pyr = me_torch._pyramids(src8, ref8, sbr, sbc, pyr)
+        err = max(err, assert_equal(name, got[n], want[n]))
+    dims, _src_pyr, ref_pyr = me_torch._pyramids(src8, ref8, sbr, sbc, bd, pyr)
+
+    def same_mvs(out):
+        assert_equal(name + " (baseline)", out[1], want_sb)
+        for n in me_torch.SIZES:
+            assert_equal(name + " (baseline)", out[0][n], want[n])
 
     def frame():
-        return me_torch._frame_search(src8, ref8, pyr, ref_pyr, dims, sbr, sbc, ox)
+        return me_torch._frame_search(src8, ref8, pyr, ref_pyr, dims, sbr, sbc, bd, ox)
 
     f_mvs, f_sb = frame()
-    assert_equal("me_sad", f_sb, want_sb)
-    nbytes, ops = me_frame_work(*dims, sbr, sbc)
+    assert_equal(name, f_sb, want_sb)
+    nbytes, ops = me_frame_work(*dims, sbr, sbc, sz)
     diffs = me_frame_diffs(sbr, sbc)
+    packed, vabsdiff2_ms = me_frame_ops_ms(diffs, bd)
+    diag = {} if vabsdiff2_ms is None else dict(vabsdiff2_ops_ms=vabsdiff2_ms)
     plain_ms = timed_ms(plain, 3)
-    record("me_sad", shape + ["frame search"], err, timed_ms(frame, 20), plain_ms, nbytes, ops,
-           main=main, device_ms=device_ms(frame), abs_differences=diffs,
-           packed_ops_ms=diffs / 4 / RATES["vabsdiff4"] * 1e3)
-    ref_bytes = ref8.numel() + me_levels(Hr, Wr)
-    record("me_sad", shape + ["me_fullpel_frame"], err, timed_ms(call, 20), plain_ms,
+    record(name, shape + ["frame search"], err, timed_ms(frame, 20), plain_ms, nbytes, ops,
+           main=main, abs_differences=diffs, packed_ops_ms=packed, **diag,
+           **times(frame, same_mvs))
+    ref_bytes = (ref8.numel() + me_levels(Hr, Wr)) * sz
+    record(name, shape + ["me_fullpel_frame"], err, timed_ms(call, 20), plain_ms,
            nbytes + ref_bytes, ops + me_levels(Hr, Wr) * 5, device_ms=device_ms(call),
            me_sad_launches=launches, device_launches=device_launches(torch, call),
            plain_device_launches=device_launches(torch, plain))
@@ -387,10 +463,8 @@ BASELINE = []  # [the ctypes handle of --baseline-lib] when the option is given
 def load_baseline(path):
     """A kernel library built from another checkout (the parent commit's
     build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
-    kernels.lib() binds its own: K2, K3 and K9 are also timed through it, on
-    the same inputs, and must give the same results (K5's too; K8's entry point has
-    another interface there: it is never routed to the baseline; K7's and
-    K16's are called with their own arguments, baseline_fn)."""
+    kernels.lib() binds its own: K2, K3, K5, K7, K8, K9 and K16 are also
+    timed through it, on the same inputs, and must give the same results."""
     import ctypes
 
     from svtav1_tpu_torch import kernels
@@ -418,13 +492,13 @@ def baseline_kernels():
         kernels._lib = saved
 
 
-def kernel_times(fn, same, reps):
-    """K2's, K3's, K5's and K9's extra times: `device_ms` (device_ms()), and with
-    --baseline-lib, after `same` holds the baseline library's result against
-    this checkout's, `baseline_ms` (timed_ms(), as `ms`) and
-    `baseline_device_ms` through it."""
+def kernel_times(fn, same, reps, baseline=True):
+    """K2's, K3's, K5's, K8's and K9's extra times: `device_ms` (device_ms()), and with
+    --baseline-lib (unless `baseline` is false), after `same` holds the
+    baseline library's result against this checkout's, `baseline_ms`
+    (timed_ms(), as `ms`) and `baseline_device_ms` through it."""
     out = dict(device_ms=device_ms(fn, reps))
-    if BASELINE:
+    if BASELINE and baseline:
         with baseline_kernels():
             same(fn())
             out.update(baseline_ms=timed_ms(fn, reps), baseline_device_ms=device_ms(fn, reps))
@@ -465,13 +539,14 @@ def check_kernels(torch, dev):
     def record(name, shape, err, ms, plain_ms, nbytes, ops, main=False, packed_ops_ms=None,
                **extra):
         """packed_ops_ms: the operations' least time at the measured rates of
-        the packed instructions the kernel uses (K8, K9); it replaces the
-        int32 count's, which stays as int32_bound_ms."""
+        the instructions the card has for them (K8, K9; `ops_rate`
+        "measured"); it replaces the int32 count's, which stays as
+        int32_bound_ms."""
         b_ms, b_by = bound(nbytes, ops)
         if packed_ops_ms is not None:
-            extra["int32_bound_ms"] = b_ms
+            extra.update(int32_bound_ms=b_ms, ops_rate="measured")
             b_ms, b_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                             (packed_ops_ms, "operations at the packed rate"))
+                             (packed_ops_ms, "operations"))
         log(json.dumps(dict(check=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by, **extra)))
         CHECKS.append([name, shape, err, round(ms, 4), round(plain_ms, 3), round(b_ms, 4)])
@@ -723,26 +798,8 @@ def check_kernels(torch, dev):
     check_random_access(torch, dev, g, t, record, assert_equal)
     check_tpl(torch, dev, g, t, record, assert_equal)
     check_tiles(torch, dev, g, t, record, assert_equal)
+    check_10bit(torch, dev, g, t, record, assert_equal)
     return res
-
-
-# the parent's K7 entry point (one plane, K candidates, out or SSE), for
-# --baseline-lib: plane, dirs, var|NULL, pri, sec, mask, src|NULL, sse|NULL,
-# out|NULL, K, F, H, W, log2m, damping, coeff_shift, stream
-BASELINE_K7_ARGTYPES = ["P"] * 9 + ["I"] * 7 + ["P"]
-
-
-def baseline_fn(name, argtypes):
-    """An entry point of the --baseline-lib library bound with these
-    argtypes ("P" pointer, "I" int, "F" float), for the entry points whose
-    interface this checkout changed (K7, K16)."""
-    import ctypes
-
-    f = getattr(BASELINE[0], name)
-    f.argtypes = [{"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}[a]
-                  for a in argtypes]
-    f.restype = ctypes.c_int
-    return f
 
 
 def check_cdef(torch, g, t, record, assert_equal, yp, up, vp, dirs, var):
@@ -751,10 +808,9 @@ def check_cdef(torch, g, t, record, assert_equal, yp, up, vp, dirs, var):
     (a P frame of the main path): the 7-candidate search (per-candidate
     SSE) and the three-plane apply against their plain versions, both
     timed (ms, device_ms) and bound by what these inputs need (the unmasked
-    cells only). With --baseline-lib, the parent's K7 on the same inputs:
-    its search (one launch of K candidates' SSE) and its three applies
-    (one launch per plane, from the strengths that the argmin picked) must
-    give the same sums and planes (`baseline_ms`, `baseline_device_ms`)."""
+    cells only). With --baseline-lib, the parent's K7 (the same entry
+    points) on the same inputs must give the same sums and planes
+    (`baseline_ms`, `baseline_device_ms`)."""
     from svtav1_tpu_torch.filters import cdef_torch
     from svtav1_tpu_torch.filters.cdef import SEARCH_CANDIDATES
     from svtav1_tpu_torch.utils.profile_keyframes import cdef_apply_work, cdef_search_work
@@ -769,17 +825,20 @@ def check_cdef(torch, g, t, record, assert_equal, yp, up, vp, dirs, var):
         search = (planes[0], dirs, var, mask, yp, ladder, 6)
         sse = cdef_torch.cdef_search(*search)
         err = assert_equal("cdef_search", sse, cdef_torch.cdef_search_plain(*search))
-        extra = dict(device_ms=device_ms(lambda: cdef_torch.cdef_search(*search)))
+        extra = kernel_times(lambda: cdef_torch.cdef_search(*search),
+                             lambda o: assert_equal("cdef_search (baseline)", o, sse), 20)
         apply = (planes, dirs, var, mask, sse, ladder, 6)
         out, st = cdef_torch.cdef_apply(*apply)
         want, want_st = cdef_torch.cdef_apply_plain(*apply)
         err_a = max([assert_equal("cdef_apply", st, want_st)]
                     + [assert_equal("cdef_apply", a, b) for a, b in zip(out, want)])
-        extra_a = dict(device_ms=device_ms(lambda: cdef_torch.cdef_apply(*apply)))
-        if BASELINE:
-            base = baseline_parent_k7(torch, planes, dirs, var, mask, yp, ladder, sse, out)
-            extra.update(base["search"])
-            extra_a.update(base["apply"])
+
+        def same_apply(o):
+            assert_equal("cdef_apply (baseline)", o[1], st)
+            for a, b in zip(o[0], out):
+                assert_equal("cdef_apply (baseline)", a, b)
+
+        extra_a = kernel_times(lambda: cdef_torch.cdef_apply(*apply), same_apply, 20)
         record("cdef_search", [K, F, H, W, "luma search (SSE), " + label], err,
                timed_ms(lambda: cdef_torch.cdef_search(*search), 20),
                timed_ms(lambda: cdef_torch.cdef_search_plain(*search), 3),
@@ -788,54 +847,6 @@ def check_cdef(torch, g, t, record, assert_equal, yp, up, vp, dirs, var):
                timed_ms(lambda: cdef_torch.cdef_apply(*apply), 20),
                timed_ms(lambda: cdef_torch.cdef_apply_plain(*apply), 3),
                *cdef_apply_work(F, H, W, K, on), main=main, cells_on=on, **extra_a)
-
-
-def baseline_parent_k7(torch, planes, dirs, var, mask, src, ladder, sse, out):
-    """The parent's K7 (--baseline-lib: cdef_filter_launch, one plane per
-    launch) on the inputs of check_cdef: the search's SSE and the three
-    applies at the strengths this checkout's argmin picked, held equal to
-    this checkout's, and timed."""
-    import numpy as np
-
-    from svtav1_tpu_torch import kernels
-
-    fn = baseline_fn("cdef_filter_launch", BASELINE_K7_ARGTYPES)
-    F, H, W = planes[0].shape
-    K = len(ladder)
-    cand = torch.as_tensor(np.array(ladder, np.int32), device=planes[0].device)
-    pri, sec = cand[:, 0:1].contiguous(), cand[:, 1:2].contiguous()
-    best = torch.argmin(sse, dim=0)
-    y_pri, y_sec = cand[best, 0:1].T.contiguous(), cand[best, 1:2].T.contiguous()
-    uv_pri, uv_sec = (y_pri >> 1).contiguous(), (y_sec >> 1).contiguous()
-    sse_b = torch.zeros((K, F), dtype=torch.int64, device=planes[0].device)
-    outs = [torch.empty_like(p) for p in planes]
-
-    def run(f, *args):  # the stream read at each call: device_ms captures a graph
-        err = f(*args, kernels.stream_ptr(planes[0]))
-        if err:
-            raise SystemExit(f"baseline cdef_filter_launch: cudaError {err}")
-
-    def search():
-        sse_b.zero_()
-        run(fn, planes[0].data_ptr(), dirs.data_ptr(), var.data_ptr(), pri.data_ptr(),
-            sec.data_ptr(), mask.data_ptr(), src.data_ptr(), sse_b.data_ptr(), None, K, F, H, W,
-            3, 6, 0)
-
-    def apply():
-        for i, (p_, s_, v_, damp) in enumerate(((y_pri, y_sec, var, 6), (uv_pri, uv_sec, None, 5),
-                                                 (uv_pri, uv_sec, None, 5))):
-            run(fn, planes[i].data_ptr(), dirs.data_ptr(),
-                v_.data_ptr() if v_ is not None else None, p_.data_ptr(), s_.data_ptr(),
-                mask.data_ptr(), None, None, outs[i].data_ptr(), 1, F, planes[i].shape[1],
-                planes[i].shape[2], 3 if i == 0 else 2, damp, 0)
-
-    search()
-    apply()
-    torch.cuda.synchronize()
-    if not torch.equal(sse_b, sse) or not all(torch.equal(a, b) for a, b in zip(outs, out)):
-        raise SystemExit("cdef: the parent's K7 disagrees with this checkout's")
-    return dict(search=dict(baseline_ms=timed_ms(search, 20), baseline_device_ms=device_ms(search)),
-                apply=dict(baseline_ms=timed_ms(apply, 20), baseline_device_ms=device_ms(apply)))
 
 
 def check_motion(torch, dev, g, t, record, assert_equal):
@@ -902,7 +913,8 @@ def check_motion(torch, dev, g, t, record, assert_equal):
                timed_ms(lambda: me_torch.mc_lanes(*args), 20),
                timed_ms(lambda: me_torch.mc_lanes_plain(*args), 3),
                nbytes=B * 20 + B * n * n + B * n * n * 4,
-               ops=B * ((n + 7) * n * 16 + n * n * 16 + n * n * 4), main=pl == 0)
+               ops=B * ((n + 7) * n * 16 + n * n * 16 + n * n * 4), main=pl == 0,
+               device_ms=device_ms(lambda: me_torch.mc_lanes(*args)))
 
 
 def check_random_access(torch, dev, g, t, record, assert_equal):
@@ -934,7 +946,8 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
                timed_ms(lambda: me_torch.mc_lanes_compound(*args), 20),
                timed_ms(lambda: me_torch.mc_compound_plain(*args), 3),
                nbytes=B * 32 + 2 * B * n * n + B * n * n * 4,
-               ops=B * (2 * ((n + 7) * n * 16 + n * n * 18) + n * n * 6), main=pl == 0)
+               ops=B * (2 * ((n + 7) * n * 16 + n * n * 18) + n * n * 6), main=pl == 0,
+               device_ms=device_ms(lambda: me_torch.mc_lanes_compound(*args)))
     # the commit's larger blocks: every 16x16, 32x32 and 64x64 lane of the
     # frame with its chroma lanes (a 64x64 lane takes the launcher's path
     # above the default 48 KB of shared memory)
@@ -1082,6 +1095,288 @@ def check_tiles(torch, dev, g, t, record, assert_equal):
     check_me_frame(torch, record, assert_equal, src, ref, H // 64, W // 64, HALO)
 
 
+def check_10bit(torch, dev, g, t, record, assert_equal):
+    """Phase 2 at 10 bits, on the 10-bit clip (the 8-bit clip << 2 plus
+    seeded low bits, int16 planes as the encoder keeps them) at the shapes
+    of the 8-bit rows: the 16-bit forms of K8 (the decide's 1080x1920 planes,
+    510 SBs), K9 (every size, both lattices, and the MCTF shape), K10 (the
+    commit's 8x8 luma and 4x4 chroma lanes, 2 references) and K11 (8x8 to
+    64x64 lanes, 3 references); K1-K7, K12 and K13 once at bd=10 (K1 with
+    lanes that have neither neighbour: DC is 512), each against its plain
+    version, exactly. K16 runs at 10 bits in commit_wave ("P10")."""
+    import numpy as np
+
+    from svtav1_tpu_torch.codec import rate_torch
+    from svtav1_tpu_torch.constants.av1 import TxSize, TxType
+    from svtav1_tpu_torch.constants.cdf import get_q_ctx
+    from svtav1_tpu_torch.filters import cdef_torch, dlf_torch
+    from svtav1_tpu_torch.filters.cdef import SEARCH_CANDIDATES
+    from svtav1_tpu_torch.ops import me_torch, tf_torch
+    from svtav1_tpu_torch.ops import quantize as quant_ops
+    from svtav1_tpu_torch.ops import transforms_torch as TT
+    from svtav1_tpu_torch.pipeline import intra_device
+    from svtav1_tpu_torch.pipeline.device_decide import fc_for_qctx
+    from svtav1_tpu_torch.pipeline.intra_md import rd_lambda
+    from svtav1_tpu_torch.utils.profile_keyframes import (cdef_apply_work, cdef_search_work,
+                                                          k2_ops, launch_bound)
+
+    clip = clip_1080p(6, bd=10)
+    (y0, u0, v0), (y1, u1, _v1) = clip[:2]
+    i16 = torch.int16
+
+    def t16(a):  # the clip's uint16 samples as an int16 card plane
+        return t(np.asarray(a, np.int32), i16)
+
+    sbr, sbc = 17, 30
+    ref_y, src16 = t16(y0), t16(y1)
+    mvs = check_me_frame(torch, record, assert_equal, src16, ref_y, sbr, sbc, 0, main=True,
+                         bd=10)
+
+    def grid(R, C, n):
+        return (torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n,
+                torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n)
+
+    def bound_of(name, fn):
+        """The bound of the launches fn makes (profile_keyframes.launch_bound
+        of their C arguments)."""
+        from svtav1_tpu_torch import kernels
+
+        seen, real = [], kernels.launch
+        kernels.launch = lambda nm, *a: seen.append((nm, a)) or real(nm, *a)
+        try:
+            fn()
+        finally:
+            kernels.launch = real
+        nbytes = sum(launch_bound(nm, a)[0] for nm, a in seen if nm == name)
+        ops = sum(launch_bound(nm, a)[1] for nm, a in seen if nm == name)
+        return nbytes, ops
+
+    # ---- K9 subpel_pred16: every size (25 points), 8x8 on 49 points
+    src_y = t(y1.astype(np.int32))
+    for n, fast, main in ((8, True, True), (16, True, False), (32, True, False),
+                          (64, True, False), (8, False, False)):
+        R, C = 1080 // n, 1920 // n
+        B = R * C
+        ys, xs = grid(R, C, n)
+        fp = mvs[n][:R, :C].reshape(B, 2).contiguous()
+        srcb = src_y[: R * n, : C * n].reshape(R, n, C, n).permute(0, 2, 1, 3) \
+            .reshape(B, n, n).contiguous()
+        args = (srcb, ref_y, ys, xs, fp, 0, 10, fast)
+        mk, pk = me_torch.subpel_pred_lanes(*args)
+        mp, pp = me_torch.subpel_pred_plain(*args)
+        err = max(assert_equal("subpel_pred16", mk, mp), assert_equal("subpel_pred16", pk, pp))
+        assert_equal("subpel_pred16", pk, me_torch.mc_lanes(ref_y, ys, xs, mk[:, 0] * 2,
+                                                            mk[:, 1] * 2, n, n, 0, 10))
+        L = 5 if fast else 7
+        record("subpel_pred16", [B, n, n, f"{L * L} points", "10-bit"], err,
+               timed_ms(lambda: me_torch.subpel_pred_lanes(*args), 20),
+               timed_ms(lambda: me_torch.subpel_pred_plain(*args), 3),
+               *bound_of("subpel_pred16", lambda: me_torch.subpel_pred_lanes(*args)), main=main,
+               packed_ops_ms=k9_packed_ops_ms(B, n, L, 10),
+               device_ms=device_ms(lambda: me_torch.subpel_pred_lanes(*args)))
+
+    # ---- K10 mc_lanes16 and K11 mc_compound16 from int16 stacks, MVs past
+    # every edge
+    def lanes(n, plane_h, plane_w, nmv):
+        R, C = plane_h // n, plane_w // n
+        B = R * C
+        ys, xs = grid(R, C, n)
+        return B, ys, xs, [t(g.integers(-24 * 16, 24 * 16, B)) for _ in range(nmv)]
+
+    for pl, (n, plane_h, plane_w) in enumerate(((8, 1080, 1920), (4, 540, 960))):
+        stack = t16(np.stack([clip[0][pl], clip[1][pl]]))
+        B, ys, xs, (mvy, mvx) = lanes(n, plane_h, plane_w, 2)
+        args = (stack, ys, xs, mvy, mvx, n, n, 0, 10, t(g.integers(0, 2, B)))
+        err = assert_equal("mc_lanes16", me_torch.mc_lanes(*args), me_torch.mc_lanes_plain(*args))
+        record("mc_lanes16", [B, n, n, "luma" if pl == 0 else "chroma", "2 refs", "10-bit"], err,
+               timed_ms(lambda: me_torch.mc_lanes(*args), 20),
+               timed_ms(lambda: me_torch.mc_lanes_plain(*args), 3),
+               *bound_of("mc_lanes16", lambda: me_torch.mc_lanes(*args)), main=pl == 0,
+               device_ms=device_ms(lambda: me_torch.mc_lanes(*args)))
+    for n in (8, 16, 32, 64):
+        for pl, (nb, plane_h, plane_w) in enumerate(((n, 1080, 1920), (n // 2, 540, 960))):
+            stack = t16(np.stack([clip[i][pl] for i in (1, 0, 3)]))
+            B, ys, xs, mv = lanes(nb, plane_h, plane_w, 4)
+            args = (stack, ys, xs, *mv, nb, nb, 0, 10, t(g.integers(0, 3, B)),
+                    t(g.integers(0, 3, B)))
+            err = assert_equal("mc_compound16", me_torch.mc_lanes_compound(*args),
+                               me_torch.mc_compound_plain(*args))
+            reps = 20 if n == 8 else 5
+            record("mc_compound16", [B, nb, nb, "luma" if pl == 0 else "chroma", "3 refs",
+                                     "10-bit"], err,
+                   timed_ms(lambda: me_torch.mc_lanes_compound(*args), reps),
+                   timed_ms(lambda: me_torch.mc_compound_plain(*args), 2),
+                   *bound_of("mc_compound16", lambda: me_torch.mc_lanes_compound(*args)),
+                   main=n == 8 and pl == 0,
+                   device_ms=device_ms(lambda: me_torch.mc_lanes_compound(*args), reps))
+
+    # ---- one MCTF call at 10 bits: K13, K9 at the MCTF shape, K12 on the
+    # filter's own compensated neighbours
+    H, W = 1088, 1920
+    planes = [[me_torch.edge_pad(t16(f[pl]), H >> (pl > 0), W >> (pl > 0)) for pl in range(3)]
+              for f in clip]
+    cy = planes[2][0].to(torch.int32).contiguous()
+    a, b = tf_torch.noise_sums(cy, 10), tf_torch.noise_sums_plain(cy, 10)
+    err = max(assert_equal("tf_noise", a[0], b[0]), assert_equal("tf_noise", a[1], b[1]))
+    record("tf_noise", [H, W, "10-bit"], err, timed_ms(lambda: tf_torch.noise_sums(cy, 10), 20),
+           timed_ms(lambda: tf_torch.noise_sums_plain(cy, 10), 5), nbytes=H * W * 4 + 16,
+           ops=H * W * 20, flat_samples=int(a[1].item()))
+    R, C = H // 16, W // 16
+    B = R * C
+    fp = me_torch.me_fullpel_frame(planes[2][0], planes[3][0], H // 64, W // 64, bd=10)[0][16]
+    ys, xs = grid(R, C, 16)
+    srcb = cy.reshape(R, 16, C, 16).permute(0, 2, 1, 3).reshape(B, 16, 16).contiguous()
+    args = (srcb, planes[3][0], ys, xs, fp.reshape(B, 2).contiguous(), 0, 10, False)
+    mk, pk = me_torch.subpel_pred_lanes(*args)
+    mp, pp = me_torch.subpel_pred_plain(*args)
+    err = max(assert_equal("subpel_pred16", mk, mp), assert_equal("subpel_pred16", pk, pp))
+    record("subpel_pred16", [B, 16, 16, "49 points", "MCTF", "10-bit"], err,
+           timed_ms(lambda: me_torch.subpel_pred_lanes(*args), 20),
+           timed_ms(lambda: me_torch.subpel_pred_plain(*args), 3),
+           *bound_of("subpel_pred16", lambda: me_torch.subpel_pred_lanes(*args)),
+           packed_ops_ms=k9_packed_ops_ms(B, 16, 7, 10),
+           device_ms=device_ms(lambda: me_torch.subpel_pred_lanes(*args)))
+    captured = []
+    real = tf_torch.tf_filter
+    tf_torch.tf_filter = lambda c, p, h, bd=8: captured.append((c, p, h)) or real(c, p, h, bd)
+    try:
+        tf_torch.filter_planes(planes[2], [planes[i] for i in (0, 1, 3, 4, 5)], 120, 10)
+    finally:
+        tf_torch.tf_filter = real
+    for (c, p, h2), label in zip(captured, ("luma", "chroma U", "chroma V")):
+        a, b = tf_torch.tf_filter(c, p, h2, 10), tf_torch.tf_filter_plain(c, p, h2, 10)
+        err = assert_equal("tf_filter", a, b)
+        K, h_, w_ = p.shape
+        record("tf_filter", [K, h_, w_, label, "10-bit"], err,
+               timed_ms(lambda: tf_torch.tf_filter(c, p, h2, 10), 20),
+               timed_ms(lambda: tf_torch.tf_filter_plain(c, p, h2, 10), 3),
+               nbytes=(K + 2) * h_ * w_ * 4, ops=K * h_ * w_ * 20,
+               changed_samples=int((a != c).sum().item()))
+
+    # ---- K1 at 10 bits: the decide's 8x8 grid, all 13 modes; a tenth of
+    # the lanes without a neighbour
+    R8, C8 = 135, 240
+    B = R8 * C8
+    e = (t(g.integers(0, 1024, (B, 8))), t(g.integers(0, 1024, (B, 8))),
+         t(g.integers(0, 1024, B)), t(g.random(B) < 0.7, torch.bool),
+         t(g.random(B) < 0.7, torch.bool))
+    k1 = intra_device.predict(*e, 8, bd=10)
+    err = assert_equal("intra_pred", k1, intra_device.predict_plain(*e, 8, bd=10))
+    none = ~(e[3] | e[4])
+    assert_equal("intra_pred (DC, no neighbour)", k1[none, 0],
+                 torch.full_like(k1[none, 0], 512))
+    record("intra_pred", [B, 13, 8, 8, "10-bit"], err,
+           timed_ms(lambda: intra_device.predict(*e, 8, bd=10), 20),
+           timed_ms(lambda: intra_device.predict_plain(*e, 8, bd=10), 5),
+           nbytes=B * (2 * 8 + 1) * 4 + 2 * B + B * 13 * 64 * 4, ops=B * 13 * 64 * 10,
+           lanes_without_neighbour=int(none.sum().item()))
+
+    # ---- K2, K3 and K5 at 10 bits: the clip's luma in 8x8 blocks against
+    # their rounded means, both halves and the fused form, the levels' bits
+    # and RDOQ
+    q = 120
+    dq = (quant_ops.dc_q(q, 10), quant_ops.ac_q(q, 10))
+    b8 = y1.astype(np.int32).reshape(R8, 8, C8, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+    src = t(b8)
+    pred = t(np.broadcast_to(b8.mean(axis=(1, 2), keepdims=True).round().astype(np.int32),
+                             b8.shape))
+    va, ha = t(g.random(B) < 0.5, torch.bool), t(g.random(B) < 0.5, torch.bool)
+    args = (src, pred, va, ha, dq[0], dq[1], 10)
+    kw = dict(want_recon=True, want_sse=True)
+    out_k, out_p = TT.txfm_quant_recon(*args, **kw), TT.txfm_quant_recon_plain(*args, **kw)
+    err = max(assert_equal("txfm_quant_recon", a, b) for a, b in zip(out_k, out_p)
+              if a is not None)
+    nva, nha = int(va.sum().item()), int(ha.sum().item())
+    record("txfm_quant_recon", [B, 8, 8, 1, "sel", "recon", "sse", "10-bit"], err,
+           timed_ms(lambda: TT.txfm_quant_recon(*args, **kw), 20),
+           timed_ms(lambda: TT.txfm_quant_recon_plain(*args, **kw), 3),
+           nbytes=3 * B * 64 * 4 + B * 64 * 4 + 8 * B + 2 * B, ops=k2_ops(8, B, nva, nha))
+    lk, ck = TT.txfm_quant(*args)
+    lp, cp = TT.txfm_quant_plain(*args)
+    err = max(assert_equal("txfm_quant_recon", lk, lp), assert_equal("txfm_quant_recon", ck, cp))
+    rp = TT.recon_from_levels_plain(lk, pred, va, ha, dq[0], dq[1], 10)
+    err = max(err, assert_equal("txfm_quant_recon",
+                                TT.recon_from_levels(lk, pred, va, ha, dq[0], dq[1], 10), rp))
+    record("txfm_quant_recon", [B, 8, 8, "forward and inverse halves", "sel", "10-bit"], err,
+           timed_ms(lambda: TT.txfm_quant(*args), 20),
+           timed_ms(lambda: TT.txfm_quant_plain(*args), 3),
+           nbytes=2 * B * 64 * 4 + 2 * B * 64 * 4 + 2 * B,
+           ops=k2_ops(8, B, nva, nha, inverse=False))
+    fc = fc_for_qctx(get_q_ctx(q))
+    tabs = rate_torch.make_txb_bits_fn(fc, int(TxSize.TX_8X8), int(TxType.DCT_DCT), 0,
+                                       device=dev)
+    a, b = rate_torch.txb_bits(out_k[0], tabs), rate_torch.txb_bits_plain(out_k[0], tabs)
+    err = k3_close("txb_rate", a, b)
+    record("txb_rate", [B, 8, 8, "10-bit"], err,
+           timed_ms(lambda: rate_torch.txb_bits(out_k[0], tabs), 20),
+           timed_ms(lambda: rate_torch.txb_bits_plain(out_k[0], tabs), 3),
+           nbytes=B * 64 * 4 + B * 4, ops=B * 64 * 30)
+    lam = float(np.float32(rd_lambda(q, 10)))
+    rt = rate_torch.make_rdoq_fn(fc, int(TxSize.TX_8X8), 0, txb_skip_ctx=0, device=dev)
+    rargs = (lk, ck, dq[0], dq[1], lam, rt)
+    a, b = rate_torch.rdoq(*rargs), rate_torch.rdoq_plain(*rargs)
+    torch.cuda.synchronize()
+    differing = int((a != b).reshape(B, -1).any(dim=1).sum().item())
+    if differing:
+        raise SystemExit(f"rdoq at 10 bits: {differing} of {B} lanes differ from the plain "
+                         "version")
+    record("rdoq", [B, 8, 8, "luma", "10-bit"], int((a - b).abs().max().item()),
+           timed_ms(lambda: rate_torch.rdoq(*rargs), 20),
+           timed_ms(lambda: rate_torch.rdoq_plain(*rargs), 3), nbytes=3 * B * 64 * 4,
+           ops=B * 64 * 80, changed_levels=int((a != lk).sum().item()))
+
+    # ---- K4 at 10 bits: a 10-bit 1080p luma plane of flat blocks, both passes
+    sm = g.choice([8, 16, 32, 64], (1, R8, C8), p=[0.5, 0.3, 0.15, 0.05]).astype(np.int32)
+    base = g.integers(240, 760, (1, R8 + 1, C8 + 1))
+    plane = np.repeat(np.repeat(base, 8, 1), 8, 2)[:, :1080, :1920] \
+        + g.integers(-8, 9, (1, 1080, 1920))
+    pl = t(np.clip(plane, 0, 1023))
+    lim, blim, thr = dlf_torch._limits(18, 0)
+    for tr in (False, True):
+        flen = t(dlf_torch.flen_maps_from_sizes(sm, 0, tr, (C8 * 8, R8 * 8)))
+        x = pl.transpose(1, 2) if tr else pl
+        a = dlf_torch.filter_vertical_edges(x, flen, lim, blim, thr, 10)
+        err = assert_equal("dlf_edges", a,
+                           dlf_torch.filter_vertical_edges_plain(x, flen, lim, blim, thr, 10))
+        record("dlf_edges", [1, 1080, 1920, "horizontal" if tr else "vertical", "10-bit"], err,
+               timed_ms(lambda: dlf_torch.filter_vertical_edges(x, flen, lim, blim, thr, 10), 20),
+               timed_ms(lambda: dlf_torch.filter_vertical_edges_plain(x, flen, lim, blim, thr,
+                                                                      10), 3),
+               nbytes=2 * pl.numel() * 4 + flen.numel() * 4,
+               ops=int((flen > 0).sum().item()) * 4 * 150, changed_samples=int((a != x).sum()))
+
+    # ---- K6 and K7 at 10 bits (coeff_shift 2) on the clip's noisy planes
+    yp = t(y0.astype(np.int32)[None])
+    dirs, var = cdef_torch.find_dir(yp, 2)
+    wd, wv = cdef_torch.find_dir_plain(yp, 2)
+    err = max(assert_equal("cdef_dir", dirs, wd), assert_equal("cdef_dir", var, wv))
+    record("cdef_dir", [1, R8, C8, "10-bit"], err,
+           timed_ms(lambda: cdef_torch.find_dir(yp, 2), 20),
+           timed_ms(lambda: cdef_torch.find_dir_plain(yp, 2), 3),
+           nbytes=yp.numel() * 4 + 2 * B * 4, ops=B * (64 * 8 + 15 * 8 * 3))
+    noisy = [(t(p.astype(np.int32)[None]) + t(g.integers(-12, 13, (1, *p.shape))))
+             .clamp(0, 1023).to(torch.int32).contiguous() for p in (y0, u0, v0)]
+    mask = t(g.random((1, R8, C8)) < 0.8, torch.bool)
+    on = int(mask.sum().item())
+    ladder = SEARCH_CANDIDATES
+    search = (noisy[0], dirs, var, mask, yp, ladder, 6, 2)
+    sse = cdef_torch.cdef_search(*search)
+    err = assert_equal("cdef_search", sse, cdef_torch.cdef_search_plain(*search))
+    record("cdef_search", [len(ladder), 1, 1080, 1920, "luma search (SSE)", "10-bit"], err,
+           timed_ms(lambda: cdef_torch.cdef_search(*search), 20),
+           timed_ms(lambda: cdef_torch.cdef_search_plain(*search), 3),
+           *cdef_search_work(1, 1080, 1920, len(ladder), on), cells_on=on)
+    apply = (noisy, dirs, var, mask, sse, ladder, 6, 2)
+    out, st = cdef_torch.cdef_apply(*apply)
+    want, want_st = cdef_torch.cdef_apply_plain(*apply)
+    err = max([assert_equal("cdef_apply", st, want_st)]
+              + [assert_equal("cdef_apply", a, b) for a, b in zip(out, want)])
+    record("cdef_apply", [1, 1080, 1920, "Y, U and V", "10-bit"], err,
+           timed_ms(lambda: cdef_torch.cdef_apply(*apply), 20),
+           timed_ms(lambda: cdef_torch.cdef_apply_plain(*apply), 3),
+           *cdef_apply_work(1, 1080, 1920, len(ladder), on), cells_on=on)
+
+
 def encode_clip(cfg, frames, device):
     """[(tu, recon)] of a clip through Encoder.send_frame + flush."""
     from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
@@ -1173,7 +1468,9 @@ def cif_clips():
     preset, a 3-frame low-delay GOP, random-access GOPs with MCTF (a
     mini-GoP of 8, 9 frames; of 4, 5 frames); then rate control: CRF
     random access with MCTF, CBR, VBR and two-pass VBR low-delay GOPs, and
-    a scene cut spliced at frame 4 of a 1000-frame key interval."""
+    a scene cut spliced at frame 4 of a 1000-frame key interval; then at 10
+    bits (the clip << 2 plus seeded low bits) the 3-frame low-delay GOP and
+    the 5-frame random-access GOP with MCTF."""
     from svtav1_tpu_torch.pipeline.firstpass import FirstPassCollector
     from svtav1_tpu_torch.utils.testclip import make_frames
 
@@ -1195,7 +1492,11 @@ def cif_clips():
             ("CBR low delay", dict(ld, rc_mode="cbr"), frames),
             ("VBR low delay", dict(ld, rc_mode="vbr"), frames),
             ("2-pass VBR low delay", dict(ld, rc_mode="vbr", stats_in=col.records), frames),
-            ("scene cut", dict(GOP, keyint=1000, scene_cut=True), cut)]
+            ("scene cut", dict(GOP, keyint=1000, scene_cut=True), cut),
+            ("10-bit medium GOP", dict(GOP, keyint=6, bd=10),
+             make_frames(352, 288, 3, seed=0, bd=10)),
+            ("10-bit medium random access", dict(ra, bd=10),
+             make_frames(352, 288, 5, seed=0, bd=10))]
 
 
 CPU_WORKERS = 2  # phase 3's CPU encodes: processes side by side, the cores split among them
@@ -1250,6 +1551,8 @@ def conformance(torch):
                             bytes_cpu=sum(len(b) for b in cpu_tu),
                             identical_tu_byte_share=same / total,
                             encode_s=dict(cuda=card_s, cpu=cpu_s))))
+        if cfg.get("bd", 8) != 8 and same != total:
+            raise SystemExit(f"CIF {label}: the card's bytes differ from the CPU's")
     log(json.dumps(dict(phase="conformance", cpu_workers=CPU_WORKERS, threads_per_worker=threads,
                         cpu_encode_s=sum(c[1] for c in cpu.values()), wait_for_cpu_s=cpu_wait_s)))
     types = [tu_frame_type(tu) for tu, _ in card["scene cut"][0]]
@@ -1334,12 +1637,20 @@ def run_path(torch, label, cfg, n_timed, required, decode, libaom=False):
     return launches
 
 
-def run_gop(torch):
+def forms_check(label, launches, bd):
+    """A path launches only the forms of K8-K11 of its bit depth."""
+    wrong = [k for k in (TEN_BIT if bd == 8 else tuple(_FORM16)) if launches[k]]
+    if wrong:
+        raise SystemExit(f"{label} launched {wrong}, kernels of the other bit depth")
+
+
+def run_gop(torch, bd=8):
     """Phase 4, the main path: the bench's 16-frame 1080p clip with
     keyint=16 (a key frame, then 15 low-delay P frames) at medium through
     send_frame + flush on a fresh Encoder, after a 2-frame warm run on
     another. Launch counts set to 0 just before the timed run, read just
-    after; the first two TUs are decoded bit-exactly."""
+    after; the first two TUs are decoded bit-exactly. bd=10: the same GOP
+    on the 10-bit clip (the 16-bit forms of K8-K10; Y-PSNR peak 1023)."""
     import numpy as np
 
     from svtav1_tpu_torch import kernels
@@ -1347,16 +1658,18 @@ def run_gop(torch):
     from svtav1_tpu_torch.utils import profiler
 
     W, H, N = 1920, 1080, 16
-    frames = clip_1080p(N)
+    cfg = GOP if bd == 8 else dict(GOP, bd=bd)
+    label = "1080p GOP" if bd == 8 else "1080p 10-bit GOP"
+    frames = clip_1080p(N, bd)
     t0 = time.perf_counter()
-    warm = Encoder(EncoderConfig(W, H, **GOP), device="cuda")
+    warm = Encoder(EncoderConfig(W, H, **cfg), device="cuda")
     for f in frames[:2]:
         warm.send_frame(*f)
     warm.flush()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     del warm
-    enc = Encoder(EncoderConfig(W, H, **GOP), device="cuda")
+    enc = Encoder(EncoderConfig(W, H, **cfg), device="cuda")
     torch.cuda.synchronize()
     kernels.reset_launches()
     profiler.reset()
@@ -1373,20 +1686,19 @@ def run_gop(torch):
     launches = dict(kernels.launches)
     stages = profiler.report()
     counts = profiler.counts()
-    missing = [k for k in LD_KERNELS if launches[k] <= 0]
+    missing = [k for k in (LD_KERNELS if bd == 8 else LD10_KERNELS) if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"main path never launched: {missing}")
+        raise SystemExit(f"{label} never launched: {missing}")
+    forms_check(label, launches, bd)
     if [p.disp_idx for p in pkts] != list(range(N)):
         raise SystemExit(f"packets out of order: {[p.disp_idx for p in pkts]}")
     psnr = []
     for p in pkts:
         if p.recon[0].shape != (H, W) or not all(np.isfinite(pl).all() for pl in p.recon):
             raise SystemExit(f"frame {p.disp_idx}: recon of the wrong shape or not finite")
-        y = frames[p.disp_idx][0].astype(np.float64)
-        d = p.recon[0][:H, :W].astype(np.float64) - y
-        psnr.append(10 * np.log10(255.0 ** 2 / max(float((d * d).mean()), 1e-12)))
-    decode_later("1080p GOP", [(p.tu, p.recon) for p in pkts[:2]])
-    log(json.dumps(dict(phase="path", preset="medium GOP", config=GOP, size=[W, H], frames=N,
+        psnr.append(y_psnr_db(p.recon[0], frames[p.disp_idx][0], bd))
+    decode_later(label, [(p.tu, p.recon) for p in pkts[:2]])
+    log(json.dumps(dict(phase="path", preset="medium GOP", config=cfg, size=[W, H], frames=N,
                         warm_2_frames_s=warm_s, fps=N / secs, seconds=secs,
                         bytes_per_frame=sum(len(p.tu) for p in pkts) / N,
                         bytes_key=len(pkts[0].tu),
@@ -1398,7 +1710,7 @@ def run_gop(torch):
     return launches
 
 
-def run_random_access(torch):
+def run_random_access(torch, bd=8):
     """Phase 4, the random-access path: 17 frames of the bench's clip with
     keyint=32, minigop=8 and MCTF at medium (a key frame and two 8-frame
     hierarchical-B mini-GoPs; MCTF on frames 0, 8 and 16) through
@@ -1407,7 +1719,8 @@ def run_random_access(torch):
     after; the first three TUs (the key frame, the hidden anchor 8 and
     frame 4, which has compound candidates) are decoded bit-exactly; Y-PSNR
     over the shown frames in display order (a show-existing TU shows the
-    recon of its frame)."""
+    recon of its frame). bd=10: the same GOP on the 10-bit clip (the
+    16-bit forms of K8-K11, K12 and K13 at bd=10; Y-PSNR peak 1023)."""
     import numpy as np
 
     from svtav1_tpu_torch import kernels
@@ -1415,16 +1728,18 @@ def run_random_access(torch):
     from svtav1_tpu_torch.utils import profiler
 
     W, H, N = 1920, 1080, 17
-    frames = clip_1080p(N)
+    cfg = RA if bd == 8 else dict(RA, bd=bd)
+    label = "1080p random access" if bd == 8 else "1080p 10-bit random access"
+    frames = clip_1080p(N, bd)
     t0 = time.perf_counter()
-    warm = Encoder(EncoderConfig(W, H, **RA), device="cuda")
+    warm = Encoder(EncoderConfig(W, H, **cfg), device="cuda")
     for f in frames[:3]:
         warm.send_frame(*f)
     warm.flush()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     del warm
-    enc = Encoder(EncoderConfig(W, H, **RA), device="cuda")
+    enc = Encoder(EncoderConfig(W, H, **cfg), device="cuda")
     torch.cuda.synchronize()
     kernels.reset_launches()
     profiler.reset()
@@ -1438,9 +1753,12 @@ def run_random_access(torch):
     launches = dict(kernels.launches)
     stages = profiler.report()
     counts = profiler.counts()
-    missing = [k for k in KERNEL_SOURCES if k not in CRF_ONLY and launches[k] <= 0]
+    required = ([k for k in KERNEL_SOURCES if k not in CRF_ONLY + TEN_BIT] if bd == 8
+                else RA10_KERNELS)
+    missing = [k for k in required if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"random-access path never launched: {missing}")
+        raise SystemExit(f"{label} never launched: {missing}")
+    forms_check(label, launches, bd)
     coded = [p.disp_idx for p in pkts if p.disp_idx is not None]
     shown = [p.shown_disp_idx for p in pkts if p.shown_disp_idx is not None]
     if sorted(coded) != list(range(N)) or shown != list(range(N)):
@@ -1453,11 +1771,10 @@ def run_random_access(torch):
         rec = recon_of[d]
         if rec[0].shape != (H, W) or not all(np.isfinite(pl).all() for pl in rec):
             raise SystemExit(f"frame {d}: recon of the wrong shape or not finite")
-        diff = rec[0][:H, :W].astype(np.float64) - frames[d][0]
-        psnr.append(10 * np.log10(255.0 ** 2 / max(float((diff * diff).mean()), 1e-12)))
-    decode_later("1080p random access", [(p.tu, p.recon) for p in pkts[:3]])
+        psnr.append(y_psnr_db(rec[0], frames[d][0], bd))
+    decode_later(label, [(p.tu, p.recon) for p in pkts[:3]])
     b_frames = [p for p in pkts if p.disp_idx not in (None, 0)]
-    log(json.dumps(dict(phase="path", preset="medium random access", config=RA, size=[W, H],
+    log(json.dumps(dict(phase="path", preset="medium random access", config=cfg, size=[W, H],
                         frames=N, tus=len(pkts), warm_3_frames_s=warm_s, fps=N / secs,
                         seconds=secs, bytes_per_frame=sum(len(p.tu) for p in pkts) / N,
                         bytes_key=len(pkts[0].tu),
@@ -1536,7 +1853,7 @@ def run_crf(torch):
     launches = dict(kernels.launches)
     stages = profiler.report()
     counts = profiler.counts()
-    missing = [k for k in KERNEL_SOURCES if launches[k] <= 0]
+    missing = [k for k in KERNEL_SOURCES if k not in TEN_BIT and launches[k] <= 0]
     if missing:
         raise SystemExit(f"CRF path never launched: {missing}")
     coded = [p.disp_idx for p in pkts if p.disp_idx is not None]
@@ -1808,23 +2125,24 @@ def run_tiles(torch):
 
 
 class K16Capture:
-    """Stands in for pipeline.wavefront.commit_wave during phase 4: while
-    `expect` names a schedule, the inputs of the first K16 launch that fits
-    it (a commit without inter lanes for "fast" and "key", with inter lanes
-    for "P"; for "B" the first with compound lanes, or else the phase's last
-    with inter lanes) are copied before it runs: the frontier maps and the
-    lanes' level and recon slots (the rest is only read)."""
+    """Stands in for pipeline.wavefront.commit_wave during phase 4: for each
+    schedule that `expect` names, the inputs of the first K16 launch that
+    fits it (a commit without inter lanes for "fast", "key" and "key10",
+    with inter lanes for "P" and "P10"; for "B" the first with compound
+    lanes, or else the phase's last with inter lanes) are copied before it
+    runs: the frontier maps and the lanes' level and recon slots (the rest
+    is only read)."""
 
     def __init__(self):
         from svtav1_tpu_torch.pipeline import wavefront
 
         self.slots = wavefront.KEYS_LV + wavefront.KEYS_REC
         self.real = wavefront.commit_wave
-        self.want = None
+        self.want = []
         wavefront.commit_wave = self
 
-    def expect(self, label):
-        self.want = label
+    def expect(self, *labels):
+        self.want = list(labels)
 
     def state(self, cap):
         """A fresh copy of a captured launch's maps and lanes."""
@@ -1833,21 +2151,16 @@ class K16Capture:
                  for n, L in cap["lanes"].items()})
 
     def __call__(self, src, maps, lanes, table, *args, **kw):
-        if self.want is not None and src[0].is_cuda:
-            inter = any(L["NI"] for L in lanes.values())
-            if inter == (self.want in ("P", "B")):
+        inter = src[0].is_cuda and any(L["NI"] for L in lanes.values())
+        for label in self.want if src[0].is_cuda else ():
+            if inter == (label in ("P", "B", "P10")):
                 cap = dict(src=src, maps=maps, lanes=lanes, table=table, args=args)
                 cap["maps"], cap["lanes"] = self.state(cap)
-                K16_CAPTURED[self.want] = cap
-                if self.want != "B" or any(len(L["cmp"]) for L in lanes.values()):
-                    self.want = None
+                K16_CAPTURED[label] = cap
+                if label != "B" or any(len(L["cmp"]) for L in lanes.values()):
+                    self.want.remove(label)
+                break
         return self.real(src, maps, lanes, table, *args, **kw)
-
-
-# the parent's K16 entry point, for --baseline-lib: frame_desc, tasks,
-# wave_start, nwaves, F, R8, C8, dq_dc, dq_ac, bd, rdoq, lam, max_n, grid,
-# stream; and its grid query (max_n, the widest wave)
-BASELINE_K16_ARGTYPES = ["P"] * 3 + ["I"] * 8 + ["F"] + ["I"] * 2 + ["P"]
 
 
 def queued_ms(fn, reps):
@@ -1873,15 +2186,11 @@ def queued_ms(fn, reps):
 def k16_launches(torch, src, maps, lanes, table, args):
     """(this checkout's K16, the parent's K16 or None): functions that
     launch the kernel alone on descriptors uploaded once (the parent's
-    FrameDesc has the table-driven stage tables in each plane's fields;
-    its launch takes the wave bounds and runs a grid barrier between
-    waves)."""
+    entry point is this one's, from the --baseline-lib library)."""
     import numpy as np
 
     from svtav1_tpu_torch import kernels
-    from svtav1_tpu_torch.ops import transforms_torch as TT
     from svtav1_tpu_torch.pipeline import wavefront
-    from svtav1_tpu_torch.pipeline.device_decide import SIZES
 
     dq_dc, dq_ac, bd, tx_ntypes, lam, rdoq_qctx = args
     dev = src[0].device
@@ -1894,57 +2203,33 @@ def k16_launches(torch, src, maps, lanes, table, args):
     blob = torch.as_tensor(np.concatenate([a.view(np.uint8) for a in parts]), device=dev)
     offs = [int(o) for o in np.cumsum([0] + [a.nbytes for a in parts[:-1]])]
     grid = wavefront.grid_of(table.max_n, T, 0)
-    lib = kernels.lib()
     rdoq = int(rdoq_qctx is not None)
 
-    def new():
-        err = lib.commit_wave_launch(*(blob.data_ptr() + o for o in offs), T, F, R8, C8, dq_dc,
-                                     dq_ac, bd, rdoq, float(lam), table.max_n, grid, stream)
-        if err:
-            raise SystemExit(f"commit_wave: cudaError {err}")
+    def through(lib, label):
+        def run():
+            err = lib.commit_wave_launch(*(blob.data_ptr() + o for o in offs), T, F, R8, C8,
+                                         dq_dc, dq_ac, bd, rdoq, float(lam), table.max_n, grid,
+                                         stream)
+            if err:
+                raise SystemExit(f"{label}: cudaError {err}")
+        return run
 
-    if not BASELINE:
-        return new, None
-    # the parent's FrameDesc: a tables pointer before each plane's fields
-    FF, SF, PF = wavefront.FRAME_FIELDS, wavefront.SIZE_FIELDS, wavefront.PLANE_FIELDS
-    old, o = [fd[:FF]], FF
-    for n in SIZES:
-        old.append(fd[o : o + SF])
-        o += SF
-        for chroma in (False, True):
-            m = n // 2 if chroma else n
-            old.append(np.array([TT.tables_for(m, str(dev)).packed.data_ptr() if n in lanes
-                                 else 0], np.int64))
-            old.append(fd[o : o + PF])
-            o += PF
-    old = np.concatenate(old)
-    oblob = torch.as_tensor(np.concatenate([old.view(np.uint8), table.tasks.view(np.uint8),
-                                            table.wave_start.view(np.uint8)]), device=dev)
-    ogrid = baseline_fn("commit_wave_grid", ["I", "I"])(table.max_n, table.max_tasks)
-    if ogrid <= 0:
-        raise SystemExit(f"the parent's commit_wave_grid: cudaError {-ogrid}")
-    ofn = baseline_fn("commit_wave_launch", BASELINE_K16_ARGTYPES)
-
-    def parent():
-        base = oblob.data_ptr()
-        err = ofn(base, base + old.nbytes, base + old.nbytes + table.tasks.nbytes,
-                  len(table.waves), F, R8, C8, dq_dc, dq_ac, bd, rdoq, float(lam), table.max_n,
-                  ogrid, stream)
-        if err:
-            raise SystemExit(f"the parent's commit_wave: cudaError {err}")
-
-    return new, parent
+    return (through(kernels.lib(), "commit_wave"),
+            through(BASELINE[0], "the parent's commit_wave") if BASELINE else None)
 
 
 def check_commit_wave(torch, capture):
     """K16 against its plain version, the wave loop that launches K1, K2 and
     K5 per wave and size, on the 1080p schedules captured in phase 4: a
     fast key frame (no RDOQ: K2 fused), a medium key frame, a P frame of
-    the low-delay GOP and a B frame of the random-access GOP. Levels,
+    the low-delay GOP, a B frame of the random-access GOP and a P frame of
+    the 10-bit low-delay GOP's key frame and first P frame ("key10",
+    "P10", bd=10: the key frame's top-left task has neither neighbour, the
+    DC of 1 << (bd - 1)). Levels,
     recon, frontier maps and skip map must be exact. Both phase-B times of
     this call (`ms`, the wrapper with its upload; `device_ms`, the launch
-    alone), with --baseline-lib the parent's K16 on the same inputs (equal
-    results, `baseline_device_ms`), the waves and the dependency depth,
+    alone), with --baseline-lib the parent's K16 on the same inputs of the
+    8-bit schedules (equal results, `baseline_device_ms`), the waves and the dependency depth,
     one flag handoff between two CTAs (`handoff_ms`, median of 3) and the
     chain bound. Launch counts are restored after."""
     import numpy as np
@@ -1957,7 +2242,7 @@ def check_commit_wave(torch, capture):
     dev = torch.device("cuda", 0)
     handoff = statistics.median(wavefront.handoff_ms(dev) for _ in range(3))
     out = {}
-    for label in ("fast", "key", "P", "B"):
+    for label in ("fast", "key", "P", "B", "key10", "P10"):
         cap = K16_CAPTURED.get(label)
         if cap is None:
             raise SystemExit(f"commit_wave: no {label} schedule reached K16 in phase 4")
@@ -1988,6 +2273,8 @@ def check_commit_wave(torch, capture):
         err = same(km, kl, "commit_wave")
         lm, ll = capture.state(cap)  # the launches alone, on a state of their own
         new, parent = k16_launches(torch, src, lm, ll, table, args)
+        if args[2] != 8:  # the parent's K16 predates the DC of 1 << (bd - 1)
+            parent = None
         if parent is not None:
             parent()
             err = max(err, same(lm, ll, "the parent's commit_wave"))
@@ -2097,14 +2384,14 @@ class TxqCapture:
                 kw=dict(kw, src_pyr=None if pyr is None else tuple(p.clone() for p in pyr))))
         return self.real[(me_torch, "me_fullpel_frame")](src_y, ref_y, sb_rows, sb_cols, **kw)
 
-    def _k8_pyramid(self, src_y, sb_rows, sb_cols):
+    def _k8_pyramid(self, src_y, sb_rows, sb_cols, bd=8):
         from svtav1_tpu_torch.ops import me_torch
 
         if self.label is not None:
             self.calls[self.label[0]].append(dict(kernel="me_sad", stage=self.label[1],
                                                   pyramid=True,
-                                                  args=(src_y.clone(), sb_rows, sb_cols)))
-        return self.real[(me_torch, "me_pyramid")](src_y, sb_rows, sb_cols)
+                                                  args=(src_y.clone(), sb_rows, sb_cols, bd)))
+        return self.real[(me_torch, "me_pyramid")](src_y, sb_rows, sb_cols, bd)
 
     def _k3(self, levels, tabs):
         from svtav1_tpu_torch.codec import rate_torch
@@ -2149,18 +2436,20 @@ def replay_k2(torch, c):
     return run, plain
 
 
-def check_captured(torch):
+def check_captured(torch, bd=8):
     """K2, K3, K9 and K8 at every launch of the decide and commit phase A of
     a 1080p medium key frame and the first P frame of the main path (a fresh
-    keyint=16 encoder, 2 frames): each launch (K8: the source's pyramid and
+    keyint=16 encoder, 2 frames; at bd=10 of the 10-bit GOP, on the 16-bit
+    forms of K8 and K9): each launch (K8: the source's pyramid and
     each me_fullpel_frame call, its two launches) replayed on its own inputs
     through the kernel
     and its plain version (K3 within rtol 1e-5, atol 1e-3 bits; the others
     exact; K9's prediction also equal to K10 at its MV) and timed on the
     device (device_ms: no host time), its bound from its arguments; with
-    --baseline-lib K2, K3 and K9 also through the baseline library
+    --baseline-lib K2, K3, K8 and K9 also through the baseline library
     (`baseline_ms`, device time); K8's bounds and K9's also at the packed
-    rates (`packed_bound_ms`). One line per frame: launches, summed ms,
+    rates (`packed_bound_ms`; the baseline at 8 bits only, the parent
+    having no 16-bit forms). One line per frame: launches, summed ms,
     bounds and ms - bound per kernel,
     and per distinct launch shape [shape, launches, ms, bound_ms,
     baseline_ms]. Launch counts are restored after."""
@@ -2171,9 +2460,9 @@ def check_captured(torch):
     from svtav1_tpu_torch.utils.profile_keyframes import bound_ms, launch_bound
 
     saved = dict(kernels.launches)
-    enc = Encoder(EncoderConfig(1920, 1080, **GOP), device="cuda")
+    enc = Encoder(EncoderConfig(1920, 1080, bd=bd, **GOP), device="cuda")
     with TxqCapture() as cap:
-        for f in clip_1080p(2):
+        for f in clip_1080p(2, bd):
             enc.send_frame(*f)
         enc.flush()
     torch.cuda.synchronize()
@@ -2239,7 +2528,7 @@ def check_captured(torch):
                     return me_torch.me_pyramid(*args)
 
                 def plain(args=args):
-                    src_y, sbr, sbc = args
+                    src_y, sbr, sbc, _bd = args
                     H, W = me_torch._grid_dims(src_y, sbr, sbc)
                     l1 = me_torch.decimate2_plain(me_torch.edge_pad(src_y, H, W).to(torch.int32))
                     return l1, me_torch.decimate2_plain(l1)
@@ -2256,7 +2545,8 @@ def check_captured(torch):
                     return me_torch.me_fullpel_frame(*args, **kw)
 
                 def plain(args=args, kw=kw):
-                    return me_torch.me_fullpel_frame_plain(*args, **kw)
+                    return me_torch.me_fullpel_frame_plain(
+                        *args, **{k: v for k, v in kw.items() if k != "bd"})
 
                 shape = [c["stage"], "K8", *args[0].shape, f"{args[2]}x{args[3]} SBs"]
 
@@ -2280,12 +2570,9 @@ def check_captured(torch):
             b_ms = sum(bound_ms(*launch_bound(nm, a, adst)) for nm, a in recorded)
             if name in ("subpel_pred", "me_sad"):  # at the measured packed rates, as phase 2
                 extra["packed_bound_ms"] = sum(packed_bound_ms(nm, a) for nm, a in recorded)
-            if name == "me_sad":  # no baseline: the parent's K8 has another interface
-                t = dict(device_ms=device_ms(run, 10))
-                if not c.get("pyramid"):
-                    extra["calls"] = 1
-            else:
-                t = kernel_times(run, lambda a: same(a, ref), 10)
+            if name == "me_sad" and not c.get("pyramid"):
+                extra["calls"] = 1
+            t = kernel_times(run, lambda a: same(a, ref), 10, baseline=bd == 8)
             ms, base = t["device_ms"], t.get("baseline_device_ms", 0.0)
             rec = sums.setdefault(name, dict(launches=0, ms=0.0, bound_ms=0.0, baseline_ms=0.0))
             row = shapes.setdefault(json.dumps(shape), [0, 0.0, 0.0, 0.0])
@@ -2296,10 +2583,10 @@ def check_captured(torch):
                 row[i] += v
         for name, rec in sums.items():
             rec["ms_minus_bound"] = rec["ms"] - rec["bound_ms"]
-            if not BASELINE or name == "me_sad":
+            if not BASELINE or bd != 8:
                 del rec["baseline_ms"]
         out[label] = sums
-        log(json.dumps(dict(phase="decide_capture", frame=label, kernels=sums,
+        log(json.dumps(dict(phase="decide_capture", frame=label, bd=bd, kernels=sums,
                             shapes=[[json.loads(k)] + v for k, v in shapes.items()])))
     kernels.launches.clear()
     kernels.launches.update(saved)
@@ -2366,10 +2653,14 @@ def main() -> int:
     launches = phase("low-delay GOP", run_gop, torch)
     capture.expect("B")
     ra_launches = phase("random-access GOP", run_random_access, torch)
-    capture.expect(None)
+    capture.expect("key10", "P10")
+    ld10_launches = phase("10-bit low-delay GOP", run_gop, torch, 10)
+    capture.expect()
+    ra10_launches = phase("10-bit random-access GOP", run_random_access, torch, 10)
     k16 = phase("commit_wave", check_commit_wave, torch, capture)
     checks["commit_wave"] = k16["P"]
     phase("decide capture", check_captured, torch)
+    phase("10-bit decide capture", check_captured, torch, 10)
     crf_launches = phase("CRF GOP", run_crf, torch)
     phase("VBR GOP", run_vbr, torch)
     phase("tiles", run_tiles, torch)
@@ -2389,6 +2680,9 @@ def main() -> int:
         c = checks[name]
         used, path = ((crf_launches, "1080p CRF random-access GOP") if name in CRF_ONLY else
                       (ra_launches, "1080p random-access GOP") if name in RA_ONLY else
+                      (ra10_launches, "1080p 10-bit random-access GOP")
+                      if name == "mc_compound16" else
+                      (ld10_launches, "1080p 10-bit low-delay GOP") if name in TEN_BIT else
                       (launches, "1080p low-delay GOP"))
         row = dict(name=name, route="cuda", source=src, replaces=repl,
                    launches=used[name], path=path,

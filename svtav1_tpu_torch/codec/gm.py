@@ -172,8 +172,12 @@ def read_global_motion_params(r, prev_gm_mvs, allow_hp: bool) -> list:
     for ref in range(1, 8):
         if not r.f(1):  # is_global
             continue
-        assert r.f(1) == 0, "rot-zoom global motion unsupported"
-        assert r.f(1) == 1, "affine global motion unsupported"
+        # read first, then check: under python -O an assert (and a read
+        # inside it) would vanish and the reader lose its place
+        is_rot_zoom = r.f(1)
+        is_translation = r.f(1)
+        if is_rot_zoom or not is_translation:
+            raise ValueError("global motion other than translation is not supported")
         prev = tuple(prev_gm_mvs[ref]) if prev_gm_mvs is not None else (0, 0)
         row8 = read_global_param(r, allow_hp, prev[0])
         col8 = read_global_param(r, allow_hp, prev[1])

@@ -290,7 +290,7 @@ __device__ __forceinline__ void commit_task(const FrameDesc* __restrict__ fd, in
   const int tl = ha && hl ? __ldcg(cm + ((size_t)f * R8 + rr) * C8 + cc)
                           : (ha ? a0 : (hl ? l0 : base));
   const int dc = intra_dc(__reduce_add_sync(kFull, sa), __reduce_add_sync(kFull, sl), ha, hl, N,
-                          LOG2N);
+                          LOG2N, bd);
   __syncwarp();
 
   const int dqmax = (1 << (bd + 7)) - 1;

@@ -7,6 +7,15 @@
 // launch (a refused launch never runs, so the wrapper must see this).
 static inline int launch_status() { return (int)cudaGetLastError(); }
 
+// Before a launch with `bytes` of dynamic shared memory: the kernel's limit
+// raised where that is above the 48 KB default. 0, or the cudaError_t.
+template <typename Kernel>
+static inline int allow_smem(Kernel* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
 // int32 arithmetic that wraps like the JAX reference's int32 ops (XLA wraps;
 // signed overflow is undefined in C++, so multiply-add through uint32).
 __device__ __forceinline__ int wrap_mad2(int a, int wa, int b, int wb, int rnd) {

@@ -17,8 +17,9 @@
 // them and gathering. The reference's device branch of dr_pred multiplies the
 // edges by a constant float32 matrix (a TPU workaround, exact only because
 // its sums stay below 2^24); here each sample gathers its two taps directly
-// and weights them (32 - shift, shift). DC with no neighbour is 128 whatever
-// the bit depth, exactly like the reference (intra_device.py:46).
+// and weights them (32 - shift, shift). DC with no neighbour is
+// 1 << (bd - 1), as the spec predicts it; the reference keeps 128 at every
+// bit depth (intra_device.py:46), a fault at 10 bits (ROADMAP queue 3).
 // The block body is intra_pred_block (intra_pred.cuh), which K16
 // (commit.cu) runs for the commit's intra blocks.
 #include "intra_pred.cuh"
@@ -29,12 +30,12 @@ __global__ void intra_pred_kernel(const int* __restrict__ above, const int* __re
                                   const int* __restrict__ tl, const uint8_t* __restrict__ have_above,
                                   const uint8_t* __restrict__ have_left, const int* __restrict__ mode,
                                   const int* __restrict__ weights, const int* __restrict__ dr,
-                                  int* __restrict__ out, int n, int log2n, int nmodes) {
+                                  int* __restrict__ out, int n, int log2n, int nmodes, int bd) {
   const int b = blockIdx.x;
   const int nm = mode ? 1 : nmodes;
   intra_pred_block(above + (size_t)b * n, left + (size_t)b * n, tl[b], have_above[b] != 0,
                    have_left[b] != 0, mode ? mode[b] : -1, weights, dr,
-                   out + (size_t)b * nm * n * n, n, log2n, nmodes);
+                   out + (size_t)b * nm * n * n, n, log2n, nmodes, bd);
 }
 
 }  // namespace
@@ -42,11 +43,11 @@ __global__ void intra_pred_kernel(const int* __restrict__ above, const int* __re
 extern "C" int intra_pred_launch(const int* above, const int* left, const int* tl,
                                  const uint8_t* have_above, const uint8_t* have_left,
                                  const int* mode, const int* weights, const int* dr, int* out,
-                                 int B, int n, int log2n, int nmodes, void* stream) {
+                                 int B, int n, int log2n, int nmodes, int bd, void* stream) {
   if (B == 0) return 0;
   const int threads = n * n >= 256 ? 256 : (n * n < 32 ? 32 : n * n);
   intra_pred_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(above, left, tl, have_above,
                                                              have_left, mode, weights, dr, out, n,
-                                                             log2n, nmodes);
+                                                             log2n, nmodes, bd);
   return launch_status();
 }

@@ -37,13 +37,14 @@ static __device__ __forceinline__ int intra_dr_sample(const int* A, const int* L
   return (v + 16) >> 5;
 }
 
-// DC of a block from its edge sums sa (above) and sl (left).
+// DC of a block from its edge sums sa (above) and sl (left); with neither
+// neighbour 1 << (bd - 1), as the spec and every decoder predict it.
 static __device__ __forceinline__ int intra_dc(int sa, int sl, bool ha, bool hl, int n,
-                                               int log2n) {
+                                               int log2n, int bd) {
   if (ha && hl) return (sa + sl + n) >> (log2n + 1);
   if (ha) return (sa + (n >> 1)) >> log2n;
   if (hl) return (sl + (n >> 1)) >> log2n;
-  return 128;
+  return 1 << (bd - 1);
 }
 
 // Sample (i, j) of mode m from the edges (A, L, t_l), the block's DC and
@@ -86,7 +87,7 @@ static __device__ __forceinline__ int intra_pred_sample(const int* A, const int*
 static __device__ void intra_pred_block(const int* A, const int* L, int t_l, bool ha, bool hl,
                                         int mode, const int* __restrict__ weights,
                                         const int* __restrict__ dr, int* o, int n, int log2n,
-                                        int nmodes) {
+                                        int nmodes, int bd) {
   __shared__ int s_dc;
   if (threadIdx.x == 0) {
     int sa = 0, sl = 0;
@@ -94,7 +95,7 @@ static __device__ void intra_pred_block(const int* A, const int* L, int t_l, boo
       sa += A[i];
       sl += L[i];
     }
-    s_dc = intra_dc(sa, sl, ha, hl, n, log2n);
+    s_dc = intra_dc(sa, sl, ha, hl, n, log2n, bd);
   }
   __syncthreads();
   const int nn = n * n;

@@ -10,6 +10,10 @@
 // inter decide calls for the chroma of every block at its winning MV and for
 // the GLOBALMV lane, and the commit for the Y, U and V of every inter block.
 //
+// Both kernels are templates on the sample type: uint8_t planes at 8 bits,
+// int16_t planes at 10 bits (mc_lanes16_launch, mc_compound16_launch); only
+// the global loads differ, the patch and the passes are int32 either way.
+//
 // Bound: bytes. A lane reads its (n_h+7)(n_w+7) uint8 patch (mostly from L2:
 // neighbouring lanes overlap) and writes n_h*n_w int32 samples; the work is
 // 16 multiply-adds per output sample. Design: one block per lane; the clamped
@@ -38,7 +42,8 @@ namespace {
 constexpr int FILTER_BITS = 7, ROUND0 = 3, ROUND1 = 11, COMPOUND_ROUND1 = 7;
 static_assert(2 * FILTER_BITS - ROUND0 - ROUND1 == 0, "no third rounding stage");
 
-__global__ void mc_lanes_kernel(const uint8_t* __restrict__ ref, const int* __restrict__ ys,
+template <typename T>
+__global__ void mc_lanes_kernel(const T* __restrict__ ref, const int* __restrict__ ys,
                                 const int* __restrict__ xs, const int* __restrict__ mvy,
                                 const int* __restrict__ mvx, const int* __restrict__ ref_idx,
                                 const int* __restrict__ ftab_x, const int* __restrict__ ftab_y,
@@ -56,7 +61,7 @@ __global__ void mc_lanes_kernel(const uint8_t* __restrict__ ref, const int* __re
   const int iy = fy0 >> 4, sy = fy0 & 15;
   const int ix = fx0 >> 4, sx = fx0 & 15;
   const int ri = ref_idx ? clampi(ref_idx[b], 0, nref - 1) : 0;
-  const uint8_t* R = ref + (size_t)ri * H * W;
+  const T* R = ref + (size_t)ri * H * W;
   if (threadIdx.x < 8) {
     fx[threadIdx.x] = ftab_x[sx * 8 + threadIdx.x];
     fy[threadIdx.x] = ftab_y[sy * 8 + threadIdx.x];
@@ -92,7 +97,8 @@ __global__ void mc_lanes_kernel(const uint8_t* __restrict__ ref, const int* __re
 
 // Stage the clamped (nh+7) x (nw+7) patch of plane R around (iy, ix) and run
 // the horizontal pass into im; ends with the block synchronised.
-__device__ __forceinline__ void mc_horizontal(const uint8_t* __restrict__ R, int H, int W, int iy,
+template <typename T>
+__device__ __forceinline__ void mc_horizontal(const T* __restrict__ R, int H, int W, int iy,
                                               int ix, const int* fx, int* patch, int* im, int nh,
                                               int nw, int bd) {
   const int ph = nh + 7, pw = nw + 7;
@@ -114,7 +120,8 @@ __device__ __forceinline__ void mc_horizontal(const uint8_t* __restrict__ R, int
   __syncthreads();
 }
 
-__global__ void mc_compound_kernel(const uint8_t* __restrict__ ref, const int* __restrict__ ys,
+template <typename T>
+__global__ void mc_compound_kernel(const T* __restrict__ ref, const int* __restrict__ ys,
                                    const int* __restrict__ xs, const int* __restrict__ mv0y,
                                    const int* __restrict__ mv0x, const int* __restrict__ mv1y,
                                    const int* __restrict__ mv1x, const int* __restrict__ ref0,
@@ -163,19 +170,52 @@ __global__ void mc_compound_kernel(const uint8_t* __restrict__ ref, const int* _
   }
 }
 
+template <typename T>
+int launch_mc_lanes(const T* ref, const int* ys, const int* xs, const int* mvy, const int* mvx,
+                    const int* ref_idx, const int* ftab_x, const int* ftab_y, int* out, int B,
+                    int nref, int H, int W, int nh, int nw, int bd, void* stream) {
+  if (B == 0) return 0;
+  const int outs = nh * nw;
+  const int threads = outs >= 256 ? 256 : (outs + 31) / 32 * 32;
+  const size_t shm = (size_t)((nh + 7) * (nw + 7) + (nh + 7) * nw) * sizeof(int);
+  mc_lanes_kernel<T><<<B, threads, shm, (cudaStream_t)stream>>>(
+      ref, ys, xs, mvy, mvx, ref_idx, ftab_x, ftab_y, out, nref, H, W, nh, nw, bd);
+  return launch_status();
+}
+
+template <typename T>
+int launch_mc_compound(const T* ref, const int* ys, const int* xs, const int* mv0y,
+                       const int* mv0x, const int* mv1y, const int* mv1x, const int* ref0,
+                       const int* ref1, const int* ftab_x, const int* ftab_y, int* out, int B,
+                       int nref, int H, int W, int nh, int nw, int bd, void* stream) {
+  if (B == 0) return 0;
+  const int outs = nh * nw;
+  const int threads = outs >= 256 ? 256 : (outs + 31) / 32 * 32;
+  const size_t shm = (size_t)((nh + 7) * (nw + 7) + (nh + 7) * nw + nh * nw) * sizeof(int);
+  // 64x64 lanes: 54.7 KB, above the default limit
+  if (const int err = allow_smem(mc_compound_kernel<T>, shm)) return err;
+  mc_compound_kernel<T><<<B, threads, shm, (cudaStream_t)stream>>>(
+      ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1, ftab_x, ftab_y, out, nref, H, W, nh, nw, bd);
+  return launch_status();
+}
+
 }  // namespace
 
 extern "C" int mc_lanes_launch(const uint8_t* ref, const int* ys, const int* xs, const int* mvy,
                                const int* mvx, const int* ref_idx, const int* ftab_x,
                                const int* ftab_y, int* out, int B, int nref, int H, int W, int nh,
                                int nw, int bd, void* stream) {
-  if (B == 0) return 0;
-  const int outs = nh * nw;
-  const int threads = outs >= 256 ? 256 : (outs + 31) / 32 * 32;
-  const size_t shm = (size_t)((nh + 7) * (nw + 7) + (nh + 7) * nw) * sizeof(int);
-  mc_lanes_kernel<<<B, threads, shm, (cudaStream_t)stream>>>(ref, ys, xs, mvy, mvx, ref_idx, ftab_x,
-                                                            ftab_y, out, nref, H, W, nh, nw, bd);
-  return launch_status();
+  if (bd != 8) return (int)cudaErrorInvalidValue;  // uint8 planes: 8-bit only
+  return launch_mc_lanes(ref, ys, xs, mvy, mvx, ref_idx, ftab_x, ftab_y, out, B, nref, H, W, nh,
+                         nw, bd, stream);
+}
+
+extern "C" int mc_lanes16_launch(const int16_t* ref, const int* ys, const int* xs, const int* mvy,
+                                 const int* mvx, const int* ref_idx, const int* ftab_x,
+                                 const int* ftab_y, int* out, int B, int nref, int H, int W,
+                                 int nh, int nw, int bd, void* stream) {
+  return launch_mc_lanes(ref, ys, xs, mvy, mvx, ref_idx, ftab_x, ftab_y, out, B, nref, H, W, nh,
+                         nw, bd, stream);
 }
 
 extern "C" int mc_compound_launch(const uint8_t* ref, const int* ys, const int* xs, const int* mv0y,
@@ -183,16 +223,16 @@ extern "C" int mc_compound_launch(const uint8_t* ref, const int* ys, const int* 
                                   const int* ref0, const int* ref1, const int* ftab_x,
                                   const int* ftab_y, int* out, int B, int nref, int H, int W,
                                   int nh, int nw, int bd, void* stream) {
-  if (B == 0) return 0;
-  const int outs = nh * nw;
-  const int threads = outs >= 256 ? 256 : (outs + 31) / 32 * 32;
-  const size_t shm = (size_t)((nh + 7) * (nw + 7) + (nh + 7) * nw + nh * nw) * sizeof(int);
-  if (shm > 48 * 1024) {  // 64x64 lanes: 54.7 KB, above the default limit
-    const cudaError_t err = cudaFuncSetAttribute(
-        mc_compound_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    if (err != cudaSuccess) return (int)err;
-  }
-  mc_compound_kernel<<<B, threads, shm, (cudaStream_t)stream>>>(
-      ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1, ftab_x, ftab_y, out, nref, H, W, nh, nw, bd);
-  return launch_status();
+  if (bd != 8) return (int)cudaErrorInvalidValue;  // uint8 planes: 8-bit only
+  return launch_mc_compound(ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1, ftab_x, ftab_y, out,
+                            B, nref, H, W, nh, nw, bd, stream);
+}
+
+extern "C" int mc_compound16_launch(const int16_t* ref, const int* ys, const int* xs,
+                                    const int* mv0y, const int* mv0x, const int* mv1y,
+                                    const int* mv1x, const int* ref0, const int* ref1,
+                                    const int* ftab_x, const int* ftab_y, int* out, int B,
+                                    int nref, int H, int W, int nh, int nw, int bd, void* stream) {
+  return launch_mc_compound(ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1, ftab_x, ftab_y, out,
+                            B, nref, H, W, nh, nw, bd, stream);
 }

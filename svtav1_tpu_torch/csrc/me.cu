@@ -40,6 +40,17 @@
 // slides over the 9 dx from 4 window words per row, both centres in one
 // pass. Keys pack (value, index) so that one integer min is the first
 // minimum.
+//
+// 10 bits (me_sad16_launch): the same kernels on int16 planes, templates on
+// the sample type. A 32-bit word then packs two samples and each SAD step is
+// one VABSDIFF2 (two absolute differences of 16-bit halves and the sum), so
+// every search takes twice the steps. The samples in shared memory double
+// (49.7 KB with the leaf maps, above the 48 KB default limit, which the
+// launcher raises). Every width holds at 10 bits: a leaf's 8x8 SAD
+// is at most 64 x 1023 = 65,472 (its uint16 map entry), a quadtree sum 64
+// times that, below the 2^25 of its key (value << 7); the L2 key (value <<
+// 11) holds 256 x 1023 + 32, the refinement key (value << 5) 4,096 x 1023
+// + 16.
 #include "common.cuh"
 
 namespace {
@@ -56,9 +67,43 @@ __device__ __forceinline__ unsigned sad4(unsigned a, unsigned b, unsigned c) {
   return d;
 }
 
+// |a - b| + c of two 32-bit words (chip_smoke.py's scalar rate only)
+__device__ __forceinline__ unsigned sad1(unsigned a, unsigned b, unsigned c) {
+  unsigned d;
+  asm("vabsdiff.u32.u32.u32.add %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// sum of the two absolute differences of the unsigned 16-bit halves, plus c
+__device__ __forceinline__ unsigned sad2(unsigned a, unsigned b, unsigned c) {
+  unsigned d;
+  asm("vabsdiff2.u32.u32.u32.add %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 // the four bytes at byte offset j (0..3) of the little-endian pair (lo, hi)
 __device__ __forceinline__ unsigned bytes_at(unsigned lo, unsigned hi, int j) {
   return __byte_perm(lo, hi, 0x3210u + 0x1111u * j);
+}
+
+// Samples of type T (uint8_t; uint16_t for the 10-bit int16 planes, whose
+// samples are never negative) packed S to a 32-bit word, and the SAD step
+// of one pair of words.
+template <typename T>
+struct Pk {
+  static constexpr int S = 4 / (int)sizeof(T);
+  static __device__ __forceinline__ unsigned sad(unsigned a, unsigned b, unsigned c) {
+    return sizeof(T) == 1 ? sad4(a, b, c) : sad2(a, b, c);
+  }
+};
+
+// the word of S samples that starts at sample e of the N words w (e, and so
+// the words read, known once the loops are unrolled)
+template <typename T, int N>
+__device__ __forceinline__ unsigned word_at(const unsigned* w, int e) {
+  constexpr int S = Pk<T>::S;
+  const int q = e / S, j = e % S;
+  return j ? bytes_at(w[q], w[min(q + 1, N - 1)], j * (int)sizeof(T)) : w[q];
 }
 
 __device__ __forceinline__ unsigned warp_min(unsigned v) {
@@ -71,14 +116,15 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
   return v;
 }
 
-__global__ void pyramid_kernel(const uint8_t* __restrict__ a0, uint8_t* __restrict__ a1,
-                               uint8_t* __restrict__ a2, int ha, int wa, int Ha, int Wa,
-                               const uint8_t* __restrict__ b0, uint8_t* __restrict__ b1,
-                               uint8_t* __restrict__ b2, int hb, int wb, int Hb, int Wb) {
+template <typename T>
+__global__ void pyramid_kernel(const T* __restrict__ a0, T* __restrict__ a1, T* __restrict__ a2,
+                               int ha, int wa, int Ha, int Wa, const T* __restrict__ b0,
+                               T* __restrict__ b1, T* __restrict__ b2, int hb, int wb, int Hb,
+                               int Wb) {
   const bool second = blockIdx.y == 1;
-  const uint8_t* p = second ? b0 : a0;
-  uint8_t* l1 = second ? b1 : a1;
-  uint8_t* l2 = second ? b2 : a2;
+  const T* p = second ? b0 : a0;
+  T* l1 = second ? b1 : a1;
+  T* l2 = second ? b2 : a2;
   const int h = second ? hb : ha, w = second ? wb : wa;
   const int H1 = (second ? Hb : Ha) >> 1, W1 = (second ? Wb : Wa) >> 1;
   const int H2 = H1 >> 1, W2 = W1 >> 1, QW = (W1 + 1) >> 1;
@@ -90,51 +136,78 @@ __global__ void pyramid_kernel(const uint8_t* __restrict__ a0, uint8_t* __restri
     for (int v = 0; v < 2; ++v) {
       const int y = 2 * qy + u, x = 2 * qx + v;
       if (y >= H1 || x >= W1) continue;
-      const uint8_t* r0 = p + (size_t)min(2 * y, h - 1) * w;
-      const uint8_t* r1 = p + (size_t)min(2 * y + 1, h - 1) * w;
+      const T* r0 = p + (size_t)min(2 * y, h - 1) * w;
+      const T* r1 = p + (size_t)min(2 * y + 1, h - 1) * w;
       const int c0 = min(2 * x, w - 1), c1 = min(2 * x + 1, w - 1);
       const int m = (r0[c0] + r0[c1] + r1[c0] + r1[c1] + 2) >> 2;
-      l1[(size_t)y * W1 + x] = (uint8_t)m;
+      l1[(size_t)y * W1 + x] = (T)m;
       s += m;
     }
-  if (qy < H2 && qx < W2) l2[(size_t)qy * W2 + qx] = (uint8_t)((s + 2) >> 2);
+  if (qy < H2 && qx < W2) l2[(size_t)qy * W2 + qx] = (T)((s + 2) >> 2);
 }
 
 // ROWS x COLS samples of a plane (H, W) from (y0, x0), each coordinate
-// clamped, into shared memory with a row stride of `stride` bytes: a thread
-// stores four samples of a row as one word (COLS and stride multiples of 4)
-template <int ROWS, int COLS>
-__device__ __forceinline__ void stage(uint8_t* dst, int stride, const uint8_t* __restrict__ plane,
-                                      int H, int W, int y0, int x0) {
-  static_assert(COLS % 4 == 0, "whole words");
-  constexpr int G = COLS / 4;
+// clamped, into shared memory with a row stride of `stride` samples: a
+// thread stores the S samples of a word at once (COLS and stride multiples
+// of S)
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void stage(uint8_t* dst, int stride, const T* __restrict__ plane, int H,
+                                      int W, int y0, int x0) {
+  constexpr int S = Pk<T>::S, BITS = 8 * (int)sizeof(T);
+  static_assert(COLS % S == 0, "whole words");
+  constexpr int G = COLS / S;
 #pragma unroll 2
   for (int i = threadIdx.x; i < ROWS * G; i += NT) {
-    const int r = i / G, x = x0 + 4 * (i - r * G);
-    const uint8_t* row = plane + (size_t)clampi(y0 + r, 0, H - 1) * W;
-    unsigned v;
-    if (x >= 0 && x + 3 < W) {
-      v = row[x] | (row[x + 1] << 8) | (row[x + 2] << 16) | ((unsigned)row[x + 3] << 24);
+    const int r = i / G, x = x0 + S * (i - r * G);
+    const T* row = plane + (size_t)clampi(y0 + r, 0, H - 1) * W;
+    unsigned v = 0;
+    if (x >= 0 && x + S - 1 < W) {
+#pragma unroll
+      for (int m = 0; m < S; ++m) v |= (unsigned)row[x + m] << (BITS * m);
     } else {
-      v = row[clampi(x, 0, W - 1)] | (row[clampi(x + 1, 0, W - 1)] << 8) |
-          (row[clampi(x + 2, 0, W - 1)] << 16) | ((unsigned)row[clampi(x + 3, 0, W - 1)] << 24);
+#pragma unroll
+      for (int m = 0; m < S; ++m) v |= (unsigned)row[clampi(x + m, 0, W - 1)] << (BITS * m);
     }
-    *(unsigned*)(dst + r * stride + 4 * (i - r * G)) = v;
+    *(unsigned*)(dst + (r * stride + S * (i - r * G)) * (int)sizeof(T)) = v;
+  }
+}
+
+// the SV words of one row of a block in shared memory, by 16-byte loads
+template <int SV>
+__device__ __forceinline__ void load_row(unsigned (&s)[SV], const uint8_t* p) {
+  static_assert(SV % 2 == 0, "8-byte multiples");
+  if constexpr (SV % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < SV / 4; ++k) {
+      const uint4 v = ((const uint4*)p)[k];
+      s[4 * k] = v.x;
+      s[4 * k + 1] = v.y;
+      s[4 * k + 2] = v.z;
+      s[4 * k + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < SV / 2; ++k) {
+      const uint2 v = ((const uint2*)p)[k];
+      s[2 * k] = v.x;
+      s[2 * k + 1] = v.y;
+    }
   }
 }
 
 // one SB's centred +-R1 refinement of an n x n block (n = 32 or 64) in
 // shared memory against its (n + 4)^2 window: a warp per displacement row,
 // a lane per source row (two for n = 64); atomicMin of the biased keys
-template <int n>
+template <typename T, int n>
 __device__ void refine(const uint8_t* s, const uint8_t* win, int scale, unsigned* best) {
-  constexpr int SW = n / 4, WW = SW + 1, WS = n + 2 * R1;  // words per row; window stride
+  constexpr int S = Pk<T>::S, WS = n + 2 * R1;  // samples per word; window stride
+  constexpr int SW = n / S, WW = WS / S;         // words per source and window row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp >= D1) return;
   unsigned acc[D1] = {};
   for (int a = lane; a < n; a += 32) {
-    const unsigned* sr = (const unsigned*)(s + a * n);
-    const unsigned* wr = (const unsigned*)(win + (warp + a) * WS);
+    const unsigned* sr = (const unsigned*)(s + a * n * (int)sizeof(T));
+    const unsigned* wr = (const unsigned*)(win + (warp + a) * WS * (int)sizeof(T));
     unsigned sw[SW], ww[WW];
 #pragma unroll
     for (int k = 0; k < SW; ++k) sw[k] = sr[k];
@@ -142,11 +215,9 @@ __device__ void refine(const uint8_t* s, const uint8_t* win, int scale, unsigned
     for (int k = 0; k < WW; ++k) ww[k] = wr[k];
 #pragma unroll
     for (int dx = 0; dx < D1; ++dx) {
-      const int q = dx >> 2, j = dx & 3;
 #pragma unroll
       for (int k = 0; k < SW; ++k)
-        acc[dx] = sad4(sw[k], j ? bytes_at(ww[k + q], ww[min(k + q + 1, WW - 1)], j) : ww[k + q],
-                       acc[dx]);
+        acc[dx] = Pk<T>::sad(sw[k], word_at<T, WW>(ww, dx + S * k), acc[dx]);
     }
   }
   unsigned key = ~0u;
@@ -158,64 +229,80 @@ __device__ void refine(const uint8_t* s, const uint8_t* win, int scale, unsigned
   if (lane == 0) atomicMin(best, key);
 }
 
-// The frame search of one SB per CTA (see the header).
-template <int R2, int RL>
+// The frame search's shared layout, in bytes, for samples of type T: the
+// SB's source and the zero-centre leaf window, then either the searches'
+// blocks and windows or the SB-MV leaf window and the leaf maps of both
+// centres (the two sets are never live together).
+template <typename T, int R2, int RL>
+struct FrameLayout {
+  static constexpr int Z = (int)sizeof(T);
+  static constexpr int D2 = 2 * R2 + 1, S2 = 16 + 2 * R2, G2 = (D2 + 3) / 4;
+  static constexpr int S2S = S2 + 4;  // L2 window stride: the last group reads past a row
+  static constexpr int DL = 2 * RL + 1, SL = 64 + 2 * RL, DD = DL * DL;
+  static constexpr int LWB = SL * SL * Z;
+  static constexpr int O_LWZ = 4096 * Z, O_A = O_LWZ + LWB;
+  static constexpr int O_S2 = O_A, O_W2 = O_S2 + 256 * Z, O_S1 = O_W2 + S2 * S2S * Z;
+  static constexpr int O_W1 = O_S1 + 1024 * Z, O_W0 = O_W1 + 36 * 36 * Z;
+  static constexpr int END_A = O_W0 + 68 * 68 * Z;
+  static constexpr int O_LW0 = O_A, O_MAPS = O_LW0 + LWB, END_B = O_MAPS + 2 * 64 * DD * 2;
+  static constexpr int SMEM = END_A > END_B ? END_A : END_B;
+};
+
+// The frame search of one SB per CTA (see the header), its windows and maps
+// in dynamic shared memory of FrameLayout::SMEM bytes (35.2 KB at 8 bits,
+// 49.7 KB at 10).
+template <typename T, int R2, int RL>
 __global__ void __launch_bounds__(NT)
-frame_kernel(const uint8_t* __restrict__ src0, const uint8_t* __restrict__ src1,
-             const uint8_t* __restrict__ src2, const uint8_t* __restrict__ ref0,
-             const uint8_t* __restrict__ ref1, const uint8_t* __restrict__ ref2,
+frame_kernel(const T* __restrict__ src0, const T* __restrict__ src1, const T* __restrict__ src2,
+             const T* __restrict__ ref0, const T* __restrict__ ref1, const T* __restrict__ ref2,
              int* __restrict__ out, int hs, int ws, int Hs, int Ws, int hr, int wr, int Hr, int Wr,
              int ox, int sb_rows, int sb_cols) {
-  constexpr int D2 = 2 * R2 + 1, S2 = 16 + 2 * R2, G2 = (D2 + 3) / 4;
-  constexpr int S2S = S2 + 4;  // L2 window stride: the last group reads one word past a row
-  constexpr int DL = 2 * RL + 1, SL = 64 + 2 * RL, DD = DL * DL;
+  using Ly = FrameLayout<T, R2, RL>;
+  constexpr int S = Pk<T>::S, Z = Ly::Z;
+  constexpr int D2 = Ly::D2, S2 = Ly::S2, G2 = Ly::G2, S2S = Ly::S2S;
+  constexpr int DL = Ly::DL, SL = Ly::SL, DD = Ly::DD;
+  constexpr int O_LWZ = Ly::O_LWZ, O_S2 = Ly::O_S2, O_W2 = Ly::O_W2, O_S1 = Ly::O_S1;
+  constexpr int O_W1 = Ly::O_W1, O_W0 = Ly::O_W0, O_LW0 = Ly::O_LW0, O_MAPS = Ly::O_MAPS;
   static_assert(S2 % 4 == 0 && SL % 4 == 0 && DL <= 9, "word-aligned windows, dx within 4 words");
   static_assert(D2 * D2 <= 2048 && DD <= 128, "key index bits");
-  // shared layout: the SB's source and the zero-centre leaf window, then
-  // the searches' blocks and windows or the SB-MV leaf window and the leaf
-  // maps of both centres (the two sets are never live together)
-  constexpr int LWB = SL * SL;
-  constexpr int O_LWZ = 4096, O_A = O_LWZ + LWB;
-  constexpr int O_S2 = O_A, O_W2 = O_S2 + 256, O_S1 = O_W2 + S2 * S2S, O_W1 = O_S1 + 1024;
-  constexpr int O_W0 = O_W1 + 36 * 36, END_A = O_W0 + 68 * 68;
-  constexpr int O_LW0 = O_A, O_MAPS = O_LW0 + LWB, END_B = O_MAPS + 2 * 64 * DD * 2;
-  constexpr int SMEM = END_A > END_B ? END_A : END_B;
-  static_assert(O_A % 16 == 0 && O_MAPS % 4 == 0, "aligned regions");
-  __shared__ __align__(16) uint8_t sm[SMEM];
+  static_assert(Ly::O_A % 16 == 0 && O_MAPS % 4 == 0, "aligned regions");
+  extern __shared__ __align__(16) uint8_t sm[];
   __shared__ unsigned keys[2][NBLK];
   __shared__ unsigned best[3];
   uint8_t* s0 = sm;
-  uint16_t* maps = (uint16_t*)(sm + O_MAPS);  // [centre][leaf][dy][dx]; a leaf SAD < 2^14
+  uint16_t* maps = (uint16_t*)(sm + O_MAPS);  // [centre][leaf][dy][dx]; a leaf SAD < 2^16
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x, sr = b / sb_cols, sc = b - sr * sb_cols;
   const int H1s = Hs >> 1, W1s = Ws >> 1, H1r = Hr >> 1, W1r = Wr >> 1;
 
   if (tid < 3) best[tid] = ~0u;
-  stage<64, 64>(s0, 64, src0, hs, ws, 64 * sr, 64 * sc);
-  stage<SL, SL>(sm + O_LWZ, SL, ref0, hr, wr, 64 * sr - RL, 64 * sc + ox - RL);
-  stage<16, 16>(sm + O_S2, 16, src2, H1s >> 1, W1s >> 1, 16 * sr, 16 * sc);
-  stage<32, 32>(sm + O_S1, 32, src1, H1s, W1s, 32 * sr, 32 * sc);
-  stage<S2, S2>(sm + O_W2, S2S, ref2, H1r >> 1, W1r >> 1, 16 * sr - R2, 16 * sc + (ox >> 2) - R2);
+  stage<T, 64, 64>(s0, 64, src0, hs, ws, 64 * sr, 64 * sc);
+  stage<T, SL, SL>(sm + O_LWZ, SL, ref0, hr, wr, 64 * sr - RL, 64 * sc + ox - RL);
+  stage<T, 16, 16>(sm + O_S2, 16, src2, H1s >> 1, W1s >> 1, 16 * sr, 16 * sc);
+  stage<T, 32, 32>(sm + O_S1, 32, src1, H1s, W1s, 32 * sr, 32 * sc);
+  stage<T, S2, S2>(sm + O_W2, S2S, ref2, H1r >> 1, W1r >> 1, 16 * sr - R2,
+                   16 * sc + (ox >> 2) - R2);
   __syncthreads();
 
   // ---- L2: a thread owns (dy, four dx); the source rows are broadcasts
   {
+    constexpr int SV = 16 / S, NW = 19 / S + 1;  // words per source row; window words read
     unsigned key = ~0u;
     for (int it = tid; it < D2 * G2; it += NT) {
       const int dy = it / G2, g = it - dy * G2;
       unsigned acc[4] = {0, 0, 0, 0};
 #pragma unroll 4
       for (int a = 0; a < 16; ++a) {
-        const uint4 sv = *(const uint4*)(sm + O_S2 + a * 16);
-        const unsigned* wr = (const unsigned*)(sm + O_W2 + (dy + a) * S2S) + g;
-        const unsigned w[5] = {wr[0], wr[1], wr[2], wr[3], wr[4]};
-        const unsigned s[4] = {sv.x, sv.y, sv.z, sv.w};
+        unsigned s[SV], w[NW];
+        load_row(s, sm + O_S2 + a * 16 * Z);
+        const unsigned* wr = (const unsigned*)(sm + O_W2 + (dy + a) * S2S * Z) + g * (4 / S);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          acc[0] = sad4(s[k], w[k], acc[0]);
-          acc[1] = sad4(s[k], bytes_at(w[k], w[k + 1], 1), acc[1]);
-          acc[2] = sad4(s[k], bytes_at(w[k], w[k + 1], 2), acc[2]);
-          acc[3] = sad4(s[k], bytes_at(w[k], w[k + 1], 3), acc[3]);
+        for (int k = 0; k < NW; ++k) w[k] = wr[k];
+#pragma unroll
+        for (int k = 0; k < SV; ++k) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[j] = Pk<T>::sad(s[k], word_at<T, NW>(w, S * k + j), acc[j]);
         }
       }
 #pragma unroll
@@ -233,39 +320,42 @@ frame_kernel(const uint8_t* __restrict__ src0, const uint8_t* __restrict__ src1,
   __syncthreads();
   const int d2 = best[0] & 2047;
   const int c1y = 2 * (d2 / D2 - R2), c1x = 2 * (d2 % D2 - R2);
-  stage<36, 36>(sm + O_W1, 36, ref1, H1r, W1r, 32 * sr + c1y - R1, 32 * sc + (ox >> 1) + c1x - R1);
+  stage<T, 36, 36>(sm + O_W1, 36, ref1, H1r, W1r, 32 * sr + c1y - R1,
+                   32 * sc + (ox >> 1) + c1x - R1);
   __syncthreads();
-  refine<32>(sm + O_S1, sm + O_W1, 2, &best[1]);
+  refine<T, 32>(sm + O_S1, sm + O_W1, 2, &best[1]);
   __syncthreads();
   const int d1 = best[1] & 31;
   const int c0y = 2 * (c1y + d1 / D1 - R1), c0x = 2 * (c1x + d1 % D1 - R1);
-  stage<68, 68>(sm + O_W0, 68, ref0, hr, wr, 64 * sr + c0y - R1, 64 * sc + ox + c0x - R1);
+  stage<T, 68, 68>(sm + O_W0, 68, ref0, hr, wr, 64 * sr + c0y - R1, 64 * sc + ox + c0x - R1);
   __syncthreads();
-  refine<64>(s0, sm + O_W0, 4, &best[2]);
+  refine<T, 64>(s0, sm + O_W0, 4, &best[2]);
   __syncthreads();
   const int d0 = best[2] & 31;
   const int my = c0y + d0 / D1 - R1, mx = c0x + d0 % D1 - R1;  // the SB MV
 
   // ---- the leaf maps around the SB MV (k = 0) and zero (k = 1), both in
   // one pass: a thread owns (k, leaf, dy) and slides over the dx
-  stage<SL, SL>(sm + O_LW0, SL, ref0, hr, wr, 64 * sr + my - RL, 64 * sc + ox + mx - RL);
+  stage<T, SL, SL>(sm + O_LW0, SL, ref0, hr, wr, 64 * sr + my - RL, 64 * sc + ox + mx - RL);
   __syncthreads();
   for (int it = tid; it < 2 * 64 * DL; it += NT) {
+    constexpr int SV = 8 / S, NW = 16 / S;  // words per leaf row; window words read
     const int k = it >= 64 * DL, leaf = (it - k * 64 * DL) / DL, dy = it - k * 64 * DL - leaf * DL;
     const int li = leaf >> 3, lj = leaf & 7;
     const uint8_t* lw = sm + (k ? O_LWZ : O_LW0);
     unsigned acc[DL] = {};
 #pragma unroll 2
     for (int a = 0; a < 8; ++a) {
-      const uint2 sv = *(const uint2*)(s0 + (8 * li + a) * 64 + 8 * lj);
-      const unsigned* wr = (const unsigned*)(lw + (8 * li + dy + a) * SL + 8 * lj);
-      const unsigned w[4] = {wr[0], wr[1], wr[2], wr[3]};
+      unsigned sv[SV], w[NW];
+      load_row(sv, s0 + ((8 * li + a) * 64 + 8 * lj) * Z);
+      const unsigned* wr = (const unsigned*)(lw + ((8 * li + dy + a) * SL + 8 * lj) * Z);
+#pragma unroll
+      for (int q = 0; q < NW; ++q) w[q] = wr[q];
 #pragma unroll
       for (int dx = 0; dx < DL; ++dx) {
-        const int q = dx >> 2, j = dx & 3;
-        const unsigned lo = j ? bytes_at(w[q], w[q + 1], j) : w[q];
-        const unsigned hi = j ? bytes_at(w[q + 1], w[min(q + 2, 3)], j) : w[q + 1];
-        acc[dx] = sad4(sv.y, hi, sad4(sv.x, lo, acc[dx]));
+#pragma unroll
+        for (int q = 0; q < SV; ++q)
+          acc[dx] = Pk<T>::sad(sv[q], word_at<T, NW>(w, dx + S * q), acc[dx]);
       }
     }
     uint16_t* m = maps + (k * 64 + leaf) * DD + dy * DL;
@@ -331,7 +421,8 @@ frame_kernel(const uint8_t* __restrict__ src0, const uint8_t* __restrict__ src1,
 
 // chip_smoke.py's rate of the packed instructions the kernels rest on: each
 // thread runs `iters` steps of 8 independent chains of one instruction
-// (0 VABSDIFF4.U8.ACC, 1 IDP.2A, 2 IDP.4A, 3 IMAD)
+// (0 VABSDIFF4.U8.ACC, 1 IDP.2A, 2 IDP.4A, 3 IMAD, 4 VABSDIFF2 with the sum,
+// 5 the scalar VABSDIFF with the sum)
 template <int which>
 __global__ void packed_rate_kernel(int iters, unsigned* out) {
   unsigned a[8], acc[8], b = threadIdx.x * 0x01010101u;
@@ -346,7 +437,9 @@ __global__ void packed_rate_kernel(int iters, unsigned* out) {
       if (which == 0) acc[i] = sad4(a[i], b, acc[i]);
       else if (which == 1) acc[i] = (unsigned)__dp2a_lo((int)a[i], (int)b, (int)acc[i]);
       else if (which == 2) acc[i] = (unsigned)__dp4a((int)a[i], (int)b, (int)acc[i]);
-      else acc[i] = a[i] * b + acc[i];
+      else if (which == 3) acc[i] = a[i] * b + acc[i];
+      else if (which == 4) acc[i] = sad2(a[i], b, acc[i]);
+      else acc[i] = sad1(a[i], b, acc[i]);
     }
     b += 0x01010101u;
   }
@@ -356,6 +449,37 @@ __global__ void packed_rate_kernel(int iters, unsigned* out) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
+template <typename T>
+int me_sad(int mode, const T* src0, const T* src1, const T* src2, const T* ref0, const T* ref1,
+           const T* ref2, int* out, int hs, int ws, int Hs, int Ws, int hr, int wr, int Hr, int Wr,
+           int ox, int sb_rows, int sb_cols, int l2r, int leafr, cudaStream_t st) {
+  if (mode == 0) {  // pyramid of the source (unless src0 is NULL) and the reference
+    const bool two = src0 != nullptr;
+    const int qa = two ? (((Hs >> 1) + 1) >> 1) * (((Ws >> 1) + 1) >> 1) : 0;
+    const int qb = (((Hr >> 1) + 1) >> 1) * (((Wr >> 1) + 1) >> 1);
+    const int quads = qa > qb ? qa : qb;
+    if (quads == 0) return 0;
+    T *a1 = (T*)src1, *a2 = (T*)src2, *b1 = (T*)ref1, *b2 = (T*)ref2;
+    if (two)
+      pyramid_kernel<T><<<dim3((quads + 255) / 256, 2), 256, 0, st>>>(
+          src0, a1, a2, hs, ws, Hs, Ws, ref0, b1, b2, hr, wr, Hr, Wr);
+    else
+      pyramid_kernel<T><<<dim3((quads + 255) / 256, 1), 256, 0, st>>>(
+          ref0, b1, b2, hr, wr, Hr, Wr, nullptr, nullptr, nullptr, 0, 0, 0, 0);
+  } else if (mode == 1) {
+    if (l2r != 16 || leafr != 4) return (int)cudaErrorInvalidValue;
+    const int B = sb_rows * sb_cols;
+    if (B == 0) return 0;
+    constexpr int smem = FrameLayout<T, 16, 4>::SMEM;
+    if (const int err = allow_smem(frame_kernel<T, 16, 4>, smem)) return err;
+    frame_kernel<T, 16, 4><<<B, NT, smem, st>>>(src0, src1, src2, ref0, ref1, ref2, out, hs, ws,
+                                               Hs, Ws, hr, wr, Hr, Wr, ox, sb_rows, sb_cols);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_status();
+}
+
 }  // namespace
 
 extern "C" int me_sad_launch(int mode, const uint8_t* src0, const uint8_t* src1,
@@ -363,30 +487,20 @@ extern "C" int me_sad_launch(int mode, const uint8_t* src0, const uint8_t* src1,
                              const uint8_t* ref2, int* out, int hs, int ws, int Hs, int Ws, int hr,
                              int wr, int Hr, int Wr, int ox, int sb_rows, int sb_cols, int l2r,
                              int leafr, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (mode == 0) {  // pyramid of the source (unless src0 is NULL) and the reference
-    const bool two = src0 != nullptr;
-    const int qa = two ? (((Hs >> 1) + 1) >> 1) * (((Ws >> 1) + 1) >> 1) : 0;
-    const int qb = (((Hr >> 1) + 1) >> 1) * (((Wr >> 1) + 1) >> 1);
-    const int quads = qa > qb ? qa : qb;
-    if (quads == 0) return 0;
-    uint8_t *a1 = (uint8_t*)src1, *a2 = (uint8_t*)src2, *b1 = (uint8_t*)ref1, *b2 = (uint8_t*)ref2;
-    if (two)
-      pyramid_kernel<<<dim3((quads + 255) / 256, 2), 256, 0, st>>>(
-          src0, a1, a2, hs, ws, Hs, Ws, ref0, b1, b2, hr, wr, Hr, Wr);
-    else
-      pyramid_kernel<<<dim3((quads + 255) / 256, 1), 256, 0, st>>>(
-          ref0, b1, b2, hr, wr, Hr, Wr, nullptr, nullptr, nullptr, 0, 0, 0, 0);
-  } else if (mode == 1) {
-    if (l2r != 16 || leafr != 4) return (int)cudaErrorInvalidValue;
-    const int B = sb_rows * sb_cols;
-    if (B == 0) return 0;
-    frame_kernel<16, 4><<<B, NT, 0, st>>>(src0, src1, src2, ref0, ref1, ref2, out, hs, ws, Hs,
-                                          Ws, hr, wr, Hr, Wr, ox, sb_rows, sb_cols);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return launch_status();
+  return me_sad<uint8_t>(mode, src0, src1, src2, ref0, ref1, ref2, out, hs, ws, Hs, Ws, hr, wr, Hr,
+                         Wr, ox, sb_rows, sb_cols, l2r, leafr, (cudaStream_t)stream);
+}
+
+// the 10-bit form: int16 planes of samples in 0..1023, read as uint16
+extern "C" int me_sad16_launch(int mode, const int16_t* src0, const int16_t* src1,
+                               const int16_t* src2, const int16_t* ref0, const int16_t* ref1,
+                               const int16_t* ref2, int* out, int hs, int ws, int Hs, int Ws,
+                               int hr, int wr, int Hr, int Wr, int ox, int sb_rows, int sb_cols,
+                               int l2r, int leafr, void* stream) {
+  using U = const uint16_t*;
+  return me_sad<uint16_t>(mode, (U)src0, (U)src1, (U)src2, (U)ref0, (U)ref1, (U)ref2, out, hs, ws,
+                          Hs, Ws, hr, wr, Hr, Wr, ox, sb_rows, sb_cols, l2r, leafr,
+                          (cudaStream_t)stream);
 }
 
 extern "C" int packed_rate_launch(int which, int blocks, int iters, unsigned* out, void* stream) {
@@ -395,6 +509,8 @@ extern "C" int packed_rate_launch(int which, int blocks, int iters, unsigned* ou
   else if (which == 1) packed_rate_kernel<1><<<blocks, 256, 0, st>>>(iters, out);
   else if (which == 2) packed_rate_kernel<2><<<blocks, 256, 0, st>>>(iters, out);
   else if (which == 3) packed_rate_kernel<3><<<blocks, 256, 0, st>>>(iters, out);
+  else if (which == 4) packed_rate_kernel<4><<<blocks, 256, 0, st>>>(iters, out);
+  else if (which == 5) packed_rate_kernel<5><<<blocks, 256, 0, st>>>(iters, out);
   else return (int)cudaErrorInvalidValue;
   return launch_status();
 }

@@ -25,6 +25,13 @@
 // tap but phase 0's 128 fits int8, every phase sums to 128, and at 8 bits the
 // horizontal intermediate lies in [263, 7913], an int16. K14 keeps the
 // shared-memory passes (hpass, vpass) of the first port.
+//
+// 10 bits (subpel_pred16_launch): the same kernel on int16 planes, a template
+// on the sample type. The patch holds the samples as int16 (0..1023 need no
+// bias), and the horizontal pass takes four IDP.2A (int16 sample pairs by
+// int8 taps) instead of two IDP.4A; its intermediate, in [1031, 31721] at 10
+// bits, is still a positive int16, so the vertical pass and the winner rule
+// are the 8-bit kernel's, with 10-bit offsets and clip.
 #include "common.cuh"
 
 namespace {
@@ -64,6 +71,9 @@ __device__ __forceinline__ int vpass(const int* hb, const int* f, int n, int r0,
 // every phase but 0 has int8 taps; phase 0 (a single tap of 128) is a copy
 constexpr int HINIT = (1 << 14) + 128 * 128 + 4;  // 2^(bd+6), 128 x the taps' sum 128, rounding
 constexpr int VINIT = (1 << 19) + 1024 - (384 << 11);  // 2^offset_bits, rounding, - the offset
+// the same at 10 bits: the samples carry no bias
+constexpr int HINIT10 = (1 << 16) + 4;
+constexpr int VINIT10 = (1 << 21) + 1024 - (1536 << 11);
 
 // the horizontal intermediate (ROUND0) of the 8 patch samples at byte offset
 // o of a row of signed bytes (sample - 128): two IDP.4A on the int8 taps
@@ -76,7 +86,37 @@ __device__ __forceinline__ int hsample(const uint8_t* row, int o, int t0, int t1
   return copy ? 4096 + 16 * (lo >> 24) : __dp4a(hi, t1, __dp4a(lo, t0, HINIT)) >> 3;
 }
 
+// hsample at 10 bits: the 8 int16 samples at offset o of a patch row,
+// realigned to sample pairs by PRMT when o is odd, by four IDP.2A on the int8
+// taps (t0: taps 0-3, t1: taps 4-7), or the copy of phase 0
+__device__ __forceinline__ int hsample16(const int16_t* row, int o, int t0, int t1, bool copy) {
+  const unsigned* w = (const unsigned*)(row + (o & ~1));
+  unsigned p[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = (o & 1) ? __byte_perm(w[i], w[i + 1], 0x5432u) : w[i];
+  if (copy) return 8192 + 16 * (int)(p[1] >> 16);
+  int acc = __dp2a_lo((int)p[0], t0, HINIT10);
+  acc = __dp2a_hi((int)p[1], t0, acc);
+  acc = __dp2a_lo((int)p[2], t1, acc);
+  return __dp2a_hi((int)p[3], t1, acc) >> 3;
+}
+
 __device__ __forceinline__ int clip8(int acc) { return clampi(acc >> 11, 0, 255); }
+
+// The sample type's constants and passes: uint8_t (8 bits, the patch as
+// signed bytes) or int16_t (10 bits).
+template <typename T>
+struct Bd {
+  static constexpr bool B8 = sizeof(T) == 1;
+  static constexpr int V = B8 ? VINIT : VINIT10;  // the vertical pass's start
+  static __device__ __forceinline__ int h(const T* row, int o, int t0, int t1, bool copy) {
+    if constexpr (B8) return hsample(row, o, t0, t1, copy);
+    else return hsample16(row, o, t0, t1, copy);
+  }
+  static __device__ __forceinline__ int clip(int acc) {
+    return B8 ? clip8(acc) : clampi(acc >> 11, 0, 1023);
+  }
+};
 
 // The lattice point j's offset in 1/8 pel: -(L-1) + 2j (-4..4 or -6..6).
 // One CTA of 256 threads holds 256 / N blocks; a block's N threads own one
@@ -93,9 +133,9 @@ __device__ __forceinline__ int clip8(int acc) { return clampi(acc >> 11, 0, 255)
 // warps.
 // Two CTAs per SM: ptxas may then take up to 128 registers (77-89); held to
 // one CTA's bound it settles on 64 and spilled at N = 16, L = 7.
-template <int N, int L>
+template <typename T, int N, int L>
 __global__ void __launch_bounds__(256, 2)
-subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t* __restrict__ ref,
+subpel_pred_kernel(const int* __restrict__ src_b, const T* __restrict__ ref,
                    const int* __restrict__ ys, const int* __restrict__ xs,
                    const int* __restrict__ mv_fp, const int* __restrict__ ftab,
                    int* __restrict__ mv_out, int* __restrict__ pred_out, int B, int H, int W) {
@@ -107,7 +147,9 @@ subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t* __restrict__ re
   constexpr int NH = SH + 8;             // intermediate rows per strip
   constexpr int LL = L * L;
   // words per patch; the groups of one warp start on banks G apart
-  constexpr int PBW = G < 32 ? ((P * PS + 3) / 4 + 31) / 32 * 32 + G : (P * PS + 3) / 4;
+  constexpr int PW = (P * PS * (int)sizeof(T) + 3) / 4;
+  constexpr int PBW = G < 32 ? (PW + 31) / 32 * 32 + G : PW;
+  using K = Bd<T>;
   __shared__ __align__(16) unsigned patches[BPC * PBW + 4];
   __shared__ int taps[16][8];
   __shared__ int tpk[16][2];
@@ -121,13 +163,13 @@ subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t* __restrict__ re
     tpk[tid >> 1][tid & 1] = (int)((f[0] & 255) | ((f[1] & 255) << 8) | ((f[2] & 255) << 16) |
                                    ((unsigned)f[3] << 24));
   }
-  uint8_t* patch = (uint8_t*)(patches + slot * PBW);
+  T* patch = (T*)(patches + slot * PBW);
   const int mfy = mv_fp[2 * b], mfx = mv_fp[2 * b + 1];
   const int py = ys[b] + mfy - 4, px = xs[b] + mfx - 4;
   for (int i = c; i < P * P; i += N) {
     const int r = i / P, cc = i - r * P;
-    patch[r * PS + cc] =
-        ref[(size_t)clampi(py + r, 0, H - 1) * W + clampi(px + cc, 0, W - 1)] ^ 0x80;
+    const T v = ref[(size_t)clampi(py + r, 0, H - 1) * W + clampi(px + cc, 0, W - 1)];
+    patch[r * PS + cc] = K::B8 ? (T)(v ^ 0x80) : v;
   }
   __syncthreads();
 
@@ -145,13 +187,13 @@ subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t* __restrict__ re
       for (int r = 0; r < SH; ++r) sv[r] = S[(s + r) * N];
       unsigned E[NH / 2], Od[NH / 2 - 1];  // (h[2i], h[2i+1]) and (h[2i+1], h[2i+2])
       {  // row by row, so that only the last intermediate stays live
-        int prev = hsample(patch + s * PS, o, t0, t1, sx == 0);
+        int prev = K::h(patch + s * PS, o, t0, t1, sx == 0);
 #pragma unroll
         for (int i = 0; i < NH / 2; ++i) {
-          const int odd = hsample(patch + (s + 2 * i + 1) * PS, o, t0, t1, sx == 0);
+          const int odd = K::h(patch + (s + 2 * i + 1) * PS, o, t0, t1, sx == 0);
           E[i] = __byte_perm(prev, odd, 0x5410);
           if (i < NH / 2 - 1) {
-            prev = hsample(patch + (s + 2 * i + 2) * PS, o, t0, t1, sx == 0);
+            prev = K::h(patch + (s + 2 * i + 2) * PS, o, t0, t1, sx == 0);
             Od[i] = __byte_perm(odd, prev, 0x5410);
           }
         }
@@ -165,7 +207,7 @@ subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t* __restrict__ re
           for (int r = 0; r < SH; ++r) {
             const int i = r + r0 + 3;
             const int hv = (i & 1) ? (int)(E[i >> 1] >> 16) : (int)(E[i >> 1] & 0xffff);
-            part[jy] = __sad(clip8(VINIT + (hv << 7)), sv[r], part[jy]);
+            part[jy] = __sad(K::clip(K::V + (hv << 7)), sv[r], part[jy]);
           }
         } else {
           const int u0 = tpk[sy][0], u1 = tpk[sy][1];
@@ -175,11 +217,11 @@ subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t* __restrict__ re
             unsigned pr[4];  // the int16 pairs (h[q + 2m], h[q + 2m + 1])
 #pragma unroll
             for (int m = 0; m < 4; ++m) pr[m] = (q & 1) ? Od[od + m] : E[e + m];
-            int acc = __dp2a_lo((int)pr[0], u0, VINIT);
+            int acc = __dp2a_lo((int)pr[0], u0, K::V);
             acc = __dp2a_hi((int)pr[1], u0, acc);
             acc = __dp2a_lo((int)pr[2], u1, acc);
             acc = __dp2a_hi((int)pr[3], u1, acc);
-            part[jy] = __sad(clip8(acc), sv[r], part[jy]);
+            part[jy] = __sad(K::clip(acc), sv[r], part[jy]);
           }
         }
       }
@@ -252,25 +294,46 @@ subpel_pred_kernel(const int* __restrict__ src_b, const uint8_t* __restrict__ re
   for (int s = 0; s < N; s += SH) {
     int h[SH + 7];
 #pragma unroll
-    for (int i = 0; i < SH + 7; ++i) h[i] = hsample(patch + (s + r0 + i) * PS, o, t0, t1, sx == 0);
+    for (int i = 0; i < SH + 7; ++i) h[i] = K::h(patch + (s + r0 + i) * PS, o, t0, t1, sx == 0);
 #pragma unroll
     for (int r = 0; r < SH; ++r) {
-      int acc = VINIT;
+      int acc = K::V;
 #pragma unroll
       for (int k = 0; k < 8; ++k) acc += f[k] * h[r + k];
-      if (real) out[(s + r) * N] = clip8(acc);
+      if (real) out[(s + r) * N] = K::clip(acc);
     }
   }
 }
 
-template <int N, int L>
-int launch_pred(const int* src_b, const uint8_t* ref, const int* ys, const int* xs,
-                const int* mv_fp, const int* ftab, int* mv_out, int* pred_out, int B, int H, int W,
+template <typename T, int N, int L>
+int launch_pred(const int* src_b, const T* ref, const int* ys, const int* xs, const int* mv_fp,
+                const int* ftab, int* mv_out, int* pred_out, int B, int H, int W,
                 cudaStream_t st) {
   constexpr int BPC = 256 / N;
-  subpel_pred_kernel<N, L><<<(B + BPC - 1) / BPC, 256, 0, st>>>(src_b, ref, ys, xs, mv_fp, ftab,
-                                                                mv_out, pred_out, B, H, W);
+  subpel_pred_kernel<T, N, L><<<(B + BPC - 1) / BPC, 256, 0, st>>>(
+      src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W);
   return launch_status();
+}
+
+template <typename T>
+int subpel_pred(const int* src_b, const T* ref, const int* ys, const int* xs, const int* mv_fp,
+                const int* ftab, int* mv_out, int* pred_out, int B, int H, int W, int n, int fast,
+                cudaStream_t st) {
+  if (B == 0) return 0;
+  const auto args = [&](auto launch) {
+    return launch(src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W, st);
+  };
+  switch (n * 2 + (fast ? 1 : 0)) {
+    case 17: return args(launch_pred<T, 8, 5>);
+    case 16: return args(launch_pred<T, 8, 7>);
+    case 33: return args(launch_pred<T, 16, 5>);
+    case 32: return args(launch_pred<T, 16, 7>);
+    case 65: return args(launch_pred<T, 32, 5>);
+    case 64: return args(launch_pred<T, 32, 7>);
+    case 129: return args(launch_pred<T, 64, 5>);
+    case 128: return args(launch_pred<T, 64, 7>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K14 subpel_refine: the TPL's two-step refinement (half pel, then quarter
@@ -378,21 +441,16 @@ extern "C" int subpel_refine_launch(const int* src_b, const uint8_t* ref, const 
 extern "C" int subpel_pred_launch(const int* src_b, const uint8_t* ref, const int* ys, const int* xs,
                                   const int* mv_fp, const int* ftab, int* mv_out, int* pred_out,
                                   int B, int H, int W, int n, int bd, int fast, void* stream) {
-  if (B == 0) return 0;
   if (bd != 8) return (int)cudaErrorInvalidValue;  // uint8 references: 8-bit only
-  cudaStream_t st = (cudaStream_t)stream;
-  const auto args = [&](auto launch) {
-    return launch(src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W, st);
-  };
-  switch (n * 2 + (fast ? 1 : 0)) {
-    case 17: return args(launch_pred<8, 5>);
-    case 16: return args(launch_pred<8, 7>);
-    case 33: return args(launch_pred<16, 5>);
-    case 32: return args(launch_pred<16, 7>);
-    case 65: return args(launch_pred<32, 5>);
-    case 64: return args(launch_pred<32, 7>);
-    case 129: return args(launch_pred<64, 5>);
-    case 128: return args(launch_pred<64, 7>);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return subpel_pred<uint8_t>(src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W, n, fast,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int subpel_pred16_launch(const int* src_b, const int16_t* ref, const int* ys,
+                                    const int* xs, const int* mv_fp, const int* ftab, int* mv_out,
+                                    int* pred_out, int B, int H, int W, int n, int bd, int fast,
+                                    void* stream) {
+  if (bd != 10) return (int)cudaErrorInvalidValue;  // the 10-bit offsets and clip
+  return subpel_pred<int16_t>(src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W, n, fast,
+                              (cudaStream_t)stream);
 }

@@ -36,14 +36,22 @@ class SeqInfo:
     film_grain_params_present: bool = False
 
 
+def _expect(r, nbits: int, want: int, what: str) -> None:
+    """Read a field the port's streams always code as `want` and check it
+    with an explicit raise: under python -O an assert, and a read inside
+    it, would vanish and the reader would lose its place."""
+    got = r.f(nbits)
+    if got != want:
+        raise ValueError(f"unsupported stream: {what} = {got}")
+
 def parse_sequence_header(payload: bytes) -> SeqInfo:
     r = BitReader(payload)
-    assert r.f(3) == 0, "profile 0 only"
+    _expect(r, 3, 0, "profile 0 only")
     r.f(1)  # still_picture
-    assert r.f(1) == 0, "reduced_still_picture_header unsupported"
-    assert r.f(1) == 0  # timing_info
+    _expect(r, 1, 0, "reduced_still_picture_header unsupported")
+    _expect(r, 1, 0, "timing_info")
     r.f(1)  # initial_display_delay
-    assert r.f(5) == 0  # operating points cnt
+    _expect(r, 5, 0, "operating points cnt")
     r.f(12)
     lvl = r.f(5)
     if lvl > 7:
@@ -52,8 +60,8 @@ def parse_sequence_header(payload: bytes) -> SeqInfo:
     hbits = r.f(4) + 1
     w = r.f(wbits) + 1
     h = r.f(hbits) + 1
-    assert r.f(1) == 0  # frame_id_numbers
-    assert r.f(1) == 0  # use_128x128_superblock
+    _expect(r, 1, 0, "frame_id_numbers")
+    _expect(r, 1, 0, "use_128x128_superblock")
     enable_filter_intra = bool(r.f(1))
     enable_intra_edge_filter = bool(r.f(1))
     r.f(4)  # interintra, masked, warped, dual_filter
@@ -77,11 +85,11 @@ def parse_sequence_header(payload: bytes) -> SeqInfo:
     enable_cdef = bool(r.f(1))
     enable_restoration = bool(r.f(1))
     high_bd = r.f(1)
-    assert r.f(1) == 0  # mono_chrome
-    assert r.f(1) == 0  # color_description_present
+    _expect(r, 1, 0, "mono_chrome")
+    _expect(r, 1, 0, "color_description_present")
     r.f(1)  # color_range
     r.f(2)  # chroma_sample_position
-    assert r.f(1) == 0  # separate_uv_delta_q
+    _expect(r, 1, 0, "separate_uv_delta_q")
     film_grain_present = bool(r.f(1))
     return SeqInfo(width=w, height=h, bd=10 if high_bd else 8,
                    film_grain_params_present=film_grain_present,
@@ -132,21 +140,21 @@ def parse_frame_header(payload: bytes, seq: SeqInfo, slot_hints=None,
     slot_gms: per-DPB-slot saved global motion lists (PrevGmParams source
     when primary_ref_frame != PRIMARY_REF_NONE; spec load_previous)."""
     r = BitReader(payload)
-    assert r.f(1) == 0  # show_existing_frame
+    _expect(r, 1, 0, "show_existing_frame")
     frame_type = r.f(2)
     assert frame_type in (0, 1), "KEY/INTER only"
     is_intra = frame_type == 0
     show_frame = r.f(1)
     if not show_frame:
-        assert r.f(1) == 1  # showable_frame
+        _expect(r, 1, 1, "showable_frame")
     if not (frame_type == 3 or (frame_type == 0 and show_frame)):
-        assert r.f(1) == 0  # error_resilient_mode
+        _expect(r, 1, 0, "error_resilient_mode")
     disable_cdf_update = r.f(1)
     allow_sct = (r.f(1) if seq.seq_force_screen_content_tools == 2
                  else seq.seq_force_screen_content_tools)
     if allow_sct and seq.seq_force_integer_mv == 2:
         r.f(1)  # force_integer_mv (intra frames force it to 1 anyway)
-    assert r.f(1) == 0  # frame_size_override
+    _expect(r, 1, 0, "frame_size_override")
     order_hint = r.f(seq.order_hint_bits) if seq.enable_order_hint else 0
     primary_ref = 7
     if not is_intra:
@@ -158,25 +166,25 @@ def parse_frame_header(payload: bytes, seq: SeqInfo, slot_hints=None,
     interp_filter = 0
     if is_intra:
         if seq.enable_superres:
-            assert r.f(1) == 0, "superres scaling unsupported"  # use_superres
-        assert r.f(1) == 0  # render_and_frame_size_different
+            _expect(r, 1, 0, "use_superres: superres scaling unsupported")
+        _expect(r, 1, 0, "render_and_frame_size_different")
         if allow_sct:
-            assert r.f(1) == 0, "intrabc unsupported"  # allow_intrabc
+            _expect(r, 1, 0, "allow_intrabc: intrabc unsupported")
     else:
         if seq.enable_order_hint:
-            assert r.f(1) == 0  # frame_refs_short_signaling
+            _expect(r, 1, 0, "frame_refs_short_signaling")
         ref_frame_idx = tuple(r.f(3) for _ in range(7))
-        assert r.f(1) == 0  # render_and_frame_size_different
-        assert r.f(1) == 0  # allow_high_precision_mv
-        assert r.f(1) == 0  # is_filter_switchable
+        _expect(r, 1, 0, "render_and_frame_size_different")
+        _expect(r, 1, 0, "allow_high_precision_mv")
+        _expect(r, 1, 0, "is_filter_switchable")
         interp_filter = r.f(2)
-        assert r.f(1) == 0  # is_motion_mode_switchable
+        _expect(r, 1, 0, "is_motion_mode_switchable")
         if seq.enable_ref_frame_mvs:
-            assert r.f(1) == 0, "MFMV unsupported"  # use_ref_frame_mvs
+            _expect(r, 1, 0, "use_ref_frame_mvs: MFMV unsupported")
     frame_end_update_cdf = False
     if not disable_cdf_update:
         frame_end_update_cdf = r.f(1) == 0  # disable_frame_end_update_cdf
-    assert r.f(1) == 1  # uniform_tile_spacing
+    _expect(r, 1, 1, "uniform_tile_spacing")
     sb_cols = (seq.width + 63) // 64
     sb_rows = (seq.height + 63) // 64
     max_tcl = max(int(np.ceil(np.log2(sb_cols))), 0) if sb_cols > 1 else 0
@@ -192,19 +200,19 @@ def parse_frame_header(payload: bytes, seq: SeqInfo, slot_hints=None,
         tsb = r.f(2) + 1
         assert tsb == 4, tsb
     qindex = r.f(8)
-    assert r.f(1) == 0  # delta_q_y_dc
-    assert r.f(1) == 0  # delta_q_u_dc
-    assert r.f(1) == 0  # delta_q_u_ac
-    assert r.f(1) == 0  # using_qmatrix
-    assert r.f(1) == 0  # segmentation_enabled
+    _expect(r, 1, 0, "delta_q_y_dc")
+    _expect(r, 1, 0, "delta_q_u_dc")
+    _expect(r, 1, 0, "delta_q_u_ac")
+    _expect(r, 1, 0, "using_qmatrix")
+    _expect(r, 1, 0, "segmentation_enabled")
     if qindex > 0:
-        assert r.f(1) == 0  # delta_q_present
+        _expect(r, 1, 0, "delta_q_present")
     lf0, lf1 = r.f(6), r.f(6)
     lfu = lfv = 0
     if lf0 or lf1:
         lfu, lfv = r.f(6), r.f(6)
     lf_sharpness = r.f(3)
-    assert r.f(1) == 0  # lf delta enabled
+    _expect(r, 1, 0, "lf delta enabled")
     cdef_damping, cdef_y, cdef_uv = 3, ((0, 0),), ((0, 0),)
     if seq.enable_cdef:
         cdef_damping = r.f(2) + 3
@@ -240,7 +248,7 @@ def parse_frame_header(payload: bytes, seq: SeqInfo, slot_hints=None,
             if slot_hints is not None:
                 hints = [slot_hints[ref_frame_idx[i]] for i in range(7)]
             if skip_mode_allowed(order_hint, seq.order_hint_bits, hints):
-                assert r.f(1) == 0, "skip_mode unsupported"  # skip_mode_present
+                _expect(r, 1, 0, "skip_mode_present: skip_mode unsupported")
     reduced_tx_set = r.f(1)
     gm_mvs = [(0, 0)] * 8
     if not is_intra:
@@ -262,7 +270,7 @@ def parse_frame_header(payload: bytes, seq: SeqInfo, slot_hints=None,
     # tile group's tile_start_and_end_present_flag then re-aligns (5.11.1)
     r.byte_alignment()
     if tcl or trl:
-        assert r.f(1) == 0  # tile_start_and_end_present_flag
+        _expect(r, 1, 0, "tile_start_and_end_present_flag")
         r.byte_alignment()
     return FrameInfo(qindex=qindex, disable_cdf_update=bool(disable_cdf_update),
                      header_bytes=r.pos // 8, tile_cols_log2=tcl, tile_rows_log2=trl,

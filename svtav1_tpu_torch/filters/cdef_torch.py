@@ -255,6 +255,17 @@ def cdef_apply(planes, dirs, var, mask, sse, ladder, damping: int, coeff_shift: 
     return out, strengths
 
 
+def check_ladder(ladder) -> None:
+    """The apply omits the decoder's "dir = 0 when pri_strength == 0"
+    forcing (filters/cdef.py:198,206): it is unreachable only while the
+    ladder never yields pri == 0 with sec > 0, at luma directly and at
+    chroma after the uv = y >> 1 derivation. Raise ValueError otherwise."""
+    for p, s in ladder:
+        if (p == 0 and s > 0) or ((p >> 1) == 0 and (s >> 1) > 0):
+            raise ValueError(f"CDEF ladder entry {(p, s)}: a zero primary strength with a "
+                             "secondary one needs the decoder's direction forcing")
+
+
 def cdef_frames(planes, src_y, nonskip8, damping: int, bd: int = 8, n_cand: int = 0):
     """Search and apply CDEF for a batch of frames on their device
     (cdef_jax.cdef_frames_j). planes [y, u, v] (F, H, W) int32 post-DLF;
@@ -265,12 +276,7 @@ def cdef_frames(planes, src_y, nonskip8, damping: int, bd: int = 8, n_cand: int 
     On the card: K6, then K7's two launches."""
     coeff_shift = max(bd - 8, 0)
     ladder = SEARCH_CANDIDATES[:n_cand] if n_cand else SEARCH_CANDIDATES
-    # The apply omits the decoder's "dir = 0 when pri_strength == 0"
-    # forcing (filters/cdef.py:198,206): it is unreachable only while the
-    # ladder never yields pri == 0 with sec > 0 — at luma directly, and at
-    # chroma after the uv = y >> 1 derivation. Keep that invariant.
-    assert all(p > 0 or s == 0 for p, s in ladder), ladder
-    assert all((p >> 1) > 0 or (s >> 1) == 0 for p, s in ladder)
+    check_ladder(ladder)
     dirs, var = find_dir(planes[0], coeff_shift)
     sse = cdef_search(planes[0], dirs, var, nonskip8, src_y, ladder, damping, coeff_shift)
     return cdef_apply(planes, dirs, var, nonskip8, sse, ladder, damping, coeff_shift)

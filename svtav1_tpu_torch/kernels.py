@@ -42,6 +42,11 @@ KERNELS = {
     "subpel_pred": ("subpel.cu", "subpel_pred_launch"),
     "mc_lanes": ("mc.cu", "mc_lanes_launch"),
     "mc_compound": ("mc.cu", "mc_compound_launch"),
+    # the 16-bit forms of K8-K11: the same kernels on int16 planes (10-bit)
+    "me_sad16": ("me.cu", "me_sad16_launch"),
+    "subpel_pred16": ("subpel.cu", "subpel_pred16_launch"),
+    "mc_lanes16": ("mc.cu", "mc_lanes16_launch"),
+    "mc_compound16": ("mc.cu", "mc_compound16_launch"),
     "tf_filter": ("tf.cu", "tf_filter_launch"),
     "tf_noise": ("tf.cu", "tf_noise_launch"),
     "subpel_refine": ("subpel.cu", "subpel_refine_launch"),
@@ -54,8 +59,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 ARGTYPES = {
     # above, left, tl, have_above, have_left, mode|NULL, weights, dr, out, B, n, log2n,
-    # nmodes, stream
-    "intra_pred_launch": [_P] * 9 + [_I] * 4 + [_P],
+    # nmodes, bd, stream
+    "intra_pred_launch": [_P] * 9 + [_I] * 5 + [_P],
     # src|NULL, pred, v_adst, h_adst, tables, levels, coeff|NULL, recon|NULL, sse|NULL,
     # stage, L, rep, n, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
     "txfm_quant_recon_launch": [_P] * 9 + [_I] * 14 + [_P],
@@ -80,14 +85,18 @@ ARGTYPES = {
     # mode (0 pyramid, 1 frame search), src0|NULL, src1, src2, ref0, ref1, ref2, out|NULL, hs,
     # ws, Hs, Ws, hr, wr, Hr, Wr, ox, sb_rows, sb_cols, l2_radius, leaf_radius, stream
     "me_sad_launch": [_I] + [_P] * 7 + [_I] * 13 + [_P],
+    "me_sad16_launch": [_I] + [_P] * 7 + [_I] * 13 + [_P],
     # src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W, n, bd, fast, stream
     "subpel_pred_launch": [_P] * 8 + [_I] * 6 + [_P],
+    "subpel_pred16_launch": [_P] * 8 + [_I] * 6 + [_P],
     # ref, ys, xs, mvy, mvx, ref_idx|NULL, ftab_x, ftab_y, out, B, nref, H, W, n_h, n_w, bd,
     # stream
     "mc_lanes_launch": [_P] * 9 + [_I] * 7 + [_P],
+    "mc_lanes16_launch": [_P] * 9 + [_I] * 7 + [_P],
     # ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1, ftab_x, ftab_y, out, B, nref, H, W,
     # n_h, n_w, bd, stream
     "mc_compound_launch": [_P] * 12 + [_I] * 7 + [_P],
+    "mc_compound16_launch": [_P] * 12 + [_I] * 7 + [_P],
     # center, preds, out, K, H, W, h2, bd, stream
     "tf_filter_launch": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
     # y, out, H, W, thr, stream
@@ -104,8 +113,9 @@ ARGTYPES = {
     "commit_wave_grid": [_I, _I],
     # flag, rounds, stream: one flag handed between two CTAs (K16's cost per dependency edge)
     "flag_pingpong_launch": [_P, _I, _P],
-    # which (0 VABSDIFF4.ACC, 1 IDP.2A, 2 IDP.4A, 3 IMAD), blocks, iters, out, stream: the
-    # instruction rates of K8's and K9's bounds (chip_smoke.py)
+    # which (0 VABSDIFF4.ACC, 1 IDP.2A, 2 IDP.4A, 3 IMAD, 4 VABSDIFF2.ACC, 5 VABSDIFF.ACC),
+    # blocks, iters,
+    # out, stream: the instruction rates of K8's and K9's bounds (chip_smoke.py)
     "packed_rate_launch": [_I, _I, _I, _P, _P],
 }
 

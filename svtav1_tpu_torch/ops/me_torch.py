@@ -31,11 +31,20 @@ takes 1/16 pel of the plane it reads. Each wrapper launches its kernel for
 CUDA tensors (or raises) and takes the plain version only for CPU tensors.
 The plain versions use int32 arithmetic like the reference, and floor
 negative positions with `>>` and phases with `& 15` as it does.
+
+Planes on the card are uint8 at 8 bits and int16 at 10 bits
+(`plane_dtype`), as the reference stacks them. K8, K9, K10 and K11 each
+have a 16-bit form, built from the same source and counted under its own
+name (`me_sad16`, `subpel_pred16`, `mc_lanes16`, `mc_compound16`); the
+wrapper picks it by `bd`. A plane of another dtype raises, and a uint8
+plane above 8 bits raises on the CPU too: no wrapper casts. K14 is 8-bit
+only (TPL runs at 8 bits).
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -55,6 +64,40 @@ def _ftab(which: int, device: str) -> torch.Tensor:
 
 def _i32(x) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
+
+
+_PLANE_DTYPES = {8: (torch.uint8, np.uint8), 10: (torch.int16, np.int16)}
+
+
+def plane_dtype(bd: int) -> torch.dtype:
+    """The dtype of a sample plane on the card: uint8 at 8 bits, int16 at 10."""
+    if bd not in _PLANE_DTYPES:
+        raise ValueError(f"bit depth {bd}: the kernels take 8- or 10-bit planes")
+    return _PLANE_DTYPES[bd][0]
+
+
+def plane_np_dtype(bd: int):
+    """The numpy dtype of plane_dtype(bd), for planes made on the host."""
+    plane_dtype(bd)
+    return _PLANE_DTYPES[bd][1]
+
+
+def _kname(name: str, bd: int) -> str:
+    """The kernel of `name` for planes of depth bd: the 16-bit form above 8."""
+    plane_dtype(bd)
+    return name if bd == 8 else name + "16"
+
+
+def check_plane(p, name: str, bd: int) -> None:
+    """A sample plane for a kernel at depth bd: on the card exactly
+    plane_dtype(bd), contiguous; on the CPU any integer dtype, except uint8
+    above 8 bits, which cannot hold the samples."""
+    if p.device.type == "cpu":
+        plane_dtype(bd)
+        if bd != 8 and p.dtype == torch.uint8:
+            raise ValueError(f"{name}: a uint8 plane cannot hold {bd}-bit samples")
+        return
+    kernels.check(p, name, plane_dtype(bd))
 
 
 # ---------------------------------------------------------------------------
@@ -389,93 +432,96 @@ def me_fullpel_frame_plain(src_y, ref_y, sb_rows: int, sb_cols: int, l2_radius: 
     return out, mv_sb
 
 
-def _me_launch(mode: int, planes, out, dims, ref_off_x: int = 0, sb: tuple = (0, 0),
+def _me_launch(mode: int, planes, out, dims, bd: int, ref_off_x: int = 0, sb: tuple = (0, 0),
                radii: tuple = (0, 0)) -> None:
-    """planes: src0, src1, src2, ref0, ref1, ref2 (uint8 or None); dims:
-    (hs, ws, Hs, Ws, hr, wr, Hr, Wr), the planes' own and padded dims."""
+    """planes: src0, src1, src2, ref0, ref1, ref2 (plane_dtype(bd) or None);
+    dims: (hs, ws, Hs, Ws, hr, wr, Hr, Wr), the planes' own and padded dims."""
     ptrs = [p.data_ptr() if p is not None else None for p in planes]
-    kernels.launch("me_sad", mode, *ptrs, out.data_ptr() if out is not None else None, *dims,
-                   ref_off_x, *sb, *radii, kernels.stream_ptr(planes[3]))
+    kernels.launch(_kname("me_sad", bd), mode, *ptrs, out.data_ptr() if out is not None else None,
+                   *dims, ref_off_x, *sb, *radii, kernels.stream_ptr(planes[3]))
 
 
-def _check_plane(p, name: str) -> None:
-    kernels.check(p, name, torch.uint8)
+def _check_me_plane(p, name: str, bd: int) -> None:
+    check_plane(p, name, bd)
     if p.dim() != 2:
         raise ValueError(f"me_fullpel_frame: {name} must be one (H, W) plane")
 
 
-def _levels(H: int, W: int, device):
-    """Empty uint8 levels 1 and 2 of a plane read at (H, W)."""
+def _levels(H: int, W: int, device, bd: int):
+    """Empty levels 1 and 2 of a plane read at (H, W), in plane_dtype(bd)."""
     H1, W1 = H >> 1, W >> 1
-    return (torch.empty((H1, W1), dtype=torch.uint8, device=device),
-            torch.empty((H1 >> 1, W1 >> 1), dtype=torch.uint8, device=device))
+    dt = plane_dtype(bd)
+    return (torch.empty((H1, W1), dtype=dt, device=device),
+            torch.empty((H1 >> 1, W1 >> 1), dtype=dt, device=device))
 
 
-def me_pyramid(src_y, sb_rows: int, sb_cols: int):
+def me_pyramid(src_y, sb_rows: int, sb_cols: int, bd: int = 8):
     """The source's ME pyramid (levels 1 and 2 of the plane edge-padded to
     the SB grid), for the `src_pyr` of me_fullpel_frame calls that share the
-    source: one K8 launch (mode 0) on the card, uint8 there, int32 on the
-    CPU."""
+    source: one K8 launch (mode 0) on the card, plane_dtype(bd) there, int32
+    on the CPU."""
+    _check_me_plane(src_y, "src_y", bd)
     Hs, Ws = _grid_dims(src_y, sb_rows, sb_cols)
     if src_y.device.type == "cpu":
         l1 = decimate2_plain(edge_pad(src_y, Hs, Ws).to(torch.int32))
         return l1, decimate2_plain(l1)
-    _check_plane(src_y, "src_y")
-    l1, l2 = _levels(Hs, Ws, src_y.device)
+    l1, l2 = _levels(Hs, Ws, src_y.device, bd)
     h, w = src_y.shape
-    _me_launch(_ME_PYRAMID, (None, None, None, src_y, l1, l2), None, (0, 0, 0, 0, h, w, Hs, Ws))
+    _me_launch(_ME_PYRAMID, (None, None, None, src_y, l1, l2), None, (0, 0, 0, 0, h, w, Hs, Ws),
+               bd)
     return l1, l2
 
 
 def me_fullpel_frame(src_y, ref_y, sb_rows: int, sb_cols: int, l2_radius: int = 16,
-                     leaf_radius: int = 4, ref_off_x: int = 0, src_pyr=None):
+                     leaf_radius: int = 4, ref_off_x: int = 0, src_pyr=None, bd: int = 8):
     """Full-pel per-size ME of one frame against one reference (K8): src_y
-    (H, W) and ref_y (Hr, Wr) planes (uint8 on the card), each read as if
-    edge-padded to at least the (64 sb_rows, 64 sb_cols) SB grid. ref_off_x,
-    a multiple of 4, is the column of ref_y that source column 0 sits at (a
-    tile's reference cropped with a halo is wider than the tile); every
-    reference read clamps to ref_y's own dims. src_pyr: the source's
-    me_pyramid, when several references share the source. Returns ({n: (R_n,
-    C_n, 2) int32 full-pel MVs} for n in SIZES, SB MVs (B_sb, 2)). On the
-    card: two K8 launches (the pyramid, the frame search), and the radii
-    must be the defaults."""
+    (H, W) and ref_y (Hr, Wr) planes of depth bd (plane_dtype(bd) on the
+    card), each read as if edge-padded to at least the (64 sb_rows, 64
+    sb_cols) SB grid. ref_off_x, a multiple of 4, is the column of ref_y
+    that source column 0 sits at (a tile's reference cropped with a halo is
+    wider than the tile); every reference read clamps to ref_y's own dims.
+    src_pyr: the source's me_pyramid, when several references share the
+    source. Returns ({n: (R_n, C_n, 2) int32 full-pel MVs} for n in SIZES,
+    SB MVs (B_sb, 2)). On the card: two K8 launches (the pyramid, the frame
+    search; `me_sad16` at 10 bits), and the radii must be the defaults."""
     if ref_off_x % 4:
         raise ValueError(f"me_fullpel_frame: ref_off_x {ref_off_x} is not a multiple of 4")
+    _check_me_plane(src_y, "src_y", bd)
+    _check_me_plane(ref_y, "ref_y", bd)
     if src_y.device.type == "cpu":
         return me_fullpel_frame_plain(src_y, ref_y, sb_rows, sb_cols, l2_radius, leaf_radius,
                                       ref_off_x, src_pyr)
     if (l2_radius, leaf_radius) != (16, 4):
         raise ValueError("me_fullpel_frame: the kernel searches l2_radius=16, leaf_radius=4")
-    dims, src_pyr, ref_pyr = _pyramids(src_y, ref_y, sb_rows, sb_cols, src_pyr)
-    return _frame_search(src_y, ref_y, src_pyr, ref_pyr, dims, sb_rows, sb_cols, ref_off_x)
+    dims, src_pyr, ref_pyr = _pyramids(src_y, ref_y, sb_rows, sb_cols, bd, src_pyr)
+    return _frame_search(src_y, ref_y, src_pyr, ref_pyr, dims, sb_rows, sb_cols, bd, ref_off_x)
 
 
-def _pyramids(src_y, ref_y, sb_rows: int, sb_cols: int, src_pyr=None):
+def _pyramids(src_y, ref_y, sb_rows: int, sb_cols: int, bd: int, src_pyr=None):
     """K8's first launch: the reference's pyramid, and the source's unless
-    given. Returns (dims, src_pyr, ref_pyr)."""
-    _check_plane(src_y, "src_y")
-    _check_plane(ref_y, "ref_y")
+    given (the planes checked by the caller). Returns (dims, src_pyr,
+    ref_pyr)."""
     Hs, Ws = _grid_dims(src_y, sb_rows, sb_cols)
     Hr, Wr = _grid_dims(ref_y, sb_rows, sb_cols)
     dims = (*src_y.shape, Hs, Ws, *ref_y.shape, Hr, Wr)
-    ref_pyr = _levels(Hr, Wr, ref_y.device)
+    ref_pyr = _levels(Hr, Wr, ref_y.device, bd)
     if src_pyr is None:
-        src_pyr = _levels(Hs, Ws, src_y.device)
-        _me_launch(_ME_PYRAMID, (src_y, *src_pyr, ref_y, *ref_pyr), None, dims)
+        src_pyr = _levels(Hs, Ws, src_y.device, bd)
+        _me_launch(_ME_PYRAMID, (src_y, *src_pyr, ref_y, *ref_pyr), None, dims, bd)
     else:
         for p, want in zip(src_pyr, ((Hs >> 1, Ws >> 1), (Hs >> 2, Ws >> 2))):
-            kernels.check(p, "src_pyr", torch.uint8, want)
-        _me_launch(_ME_PYRAMID, (None, None, None, ref_y, *ref_pyr), None, dims)
+            kernels.check(p, "src_pyr", plane_dtype(bd), want)
+        _me_launch(_ME_PYRAMID, (None, None, None, ref_y, *ref_pyr), None, dims, bd)
     return dims, src_pyr, ref_pyr
 
 
-def _frame_search(src_y, ref_y, src_pyr, ref_pyr, dims, sb_rows: int, sb_cols: int,
+def _frame_search(src_y, ref_y, src_pyr, ref_pyr, dims, sb_rows: int, sb_cols: int, bd: int,
                   ref_off_x: int = 0):
     """K8's second launch, the search of every SB; the results of
     me_fullpel_frame as views of one buffer."""
     B = sb_rows * sb_cols
     buf = torch.empty(2 * 86 * B, dtype=torch.int32, device=src_y.device)
-    _me_launch(_ME_FRAME, (src_y, *src_pyr, ref_y, *ref_pyr), buf, dims, ref_off_x,
+    _me_launch(_ME_FRAME, (src_y, *src_pyr, ref_y, *ref_pyr), buf, dims, bd, ref_off_x,
                (sb_rows, sb_cols), (16, 4))
     out, o = {}, 0
     for n in SIZES:  # size-major regions, raster over each size's block grid
@@ -489,13 +535,13 @@ def mc_lanes(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int, bd
              ref_idx=None):
     """Batched normative subpel MC with per-lane phases (K10).
 
-    ref: (H, W) plane or (NREF, H, W) stack with ref_idx (B,) given; uint8
-    on the card. ys/xs (B,) block top-left in plane coords; MVs in 1/16 pel
-    of this plane. Returns (B, n_h, n_w) int32 predictions; dims <= 4 use the
-    4-tap filter variant (spec 7.11.3.4)."""
+    ref: (H, W) plane or (NREF, H, W) stack with ref_idx (B,) given;
+    plane_dtype(bd) on the card. ys/xs (B,) block top-left in plane coords;
+    MVs in 1/16 pel of this plane. Returns (B, n_h, n_w) int32 predictions;
+    dims <= 4 use the 4-tap filter variant (spec 7.11.3.4)."""
+    check_plane(ref, "ref", bd)
     if ys.device.type == "cpu":
         return mc_lanes_plain(ref, ys, xs, mv_q16_y, mv_q16_x, n_h, n_w, which, bd, ref_idx)
-    kernels.check(ref, "ref", torch.uint8)
     B = ys.shape[0]
     nref = 1 if ref.dim() == 2 else ref.shape[0]
     if ref.dim() == 3 and ref_idx is None:
@@ -506,7 +552,7 @@ def mc_lanes(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int, bd
     if B == 0:
         return out
     dev = str(ys.device)
-    kernels.launch("mc_lanes", ref.data_ptr(), *[a.data_ptr() for a in args],
+    kernels.launch(_kname("mc_lanes", bd), ref.data_ptr(), *[a.data_ptr() for a in args],
                    ri.data_ptr() if ri is not None else None,
                    _ftab(filter_for_dim(which, n_w), dev).data_ptr(),
                    _ftab(filter_for_dim(which, n_h), dev).data_ptr(), out.data_ptr(), B, nref,
@@ -518,28 +564,27 @@ def subpel_pred_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int, fast: bool
     """Subpel search with the winner's prediction (K9).
 
     src_b (B, n, n) int32 source blocks at (ys, xs) of the (H, W) reference
-    plane `ref` (uint8 on the card), mv_fp (B, 2) full-pel MVs. Every point
-    of the 1/8-pel lattice around mv_fp ({-4..4}^2 step 2 when fast, else
-    {-6..6}^2) is MC'd from one (n+8)^2 patch per block; fast takes the
-    first SAD minimum in (dy, dx) raster order, otherwise the half-pel step
-    (9 points) and then the quarter-pel step around its winner (strictly
-    better only). Returns (mv8 (B, 2) int32 = mv_fp*8 + d, pred (B, n, n)
-    int32), pred equal to mc_lanes at mv8."""
+    plane `ref` (plane_dtype(bd) on the card), mv_fp (B, 2) full-pel MVs.
+    Every point of the 1/8-pel lattice around mv_fp ({-4..4}^2 step 2 when
+    fast, else {-6..6}^2) is MC'd from one (n+8)^2 patch per block; fast
+    takes the first SAD minimum in (dy, dx) raster order, otherwise the
+    half-pel step (9 points) and then the quarter-pel step around its
+    winner (strictly better only). Returns (mv8 (B, 2) int32 = mv_fp*8 + d,
+    pred (B, n, n) int32), pred equal to mc_lanes at mv8."""
+    check_plane(ref, "ref", bd)
     if src_b.device.type == "cpu":
         return subpel_pred_plain(src_b, ref, ys, xs, mv_fp, which, bd, fast)
     kernels.check(src_b, "src_b", torch.int32)
-    kernels.check(ref, "ref", torch.uint8)
     B, n = src_b.shape[0], src_b.shape[-1]
     if n not in SIZES:
         raise ValueError("subpel_pred_lanes: 8x8, 16x16, 32x32 or 64x64 blocks")
-    if bd != 8:
-        raise ValueError("subpel_pred_lanes: the kernel takes 8-bit (uint8) references")
     ys, xs, mv_fp = _i32(ys), _i32(xs), _i32(mv_fp)
     mv8 = torch.empty((B, 2), dtype=torch.int32, device=src_b.device)
     pred = torch.empty((B, n, n), dtype=torch.int32, device=src_b.device)
     if B == 0:
         return mv8, pred
-    kernels.launch("subpel_pred", src_b.data_ptr(), ref.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+    kernels.launch(_kname("subpel_pred", bd), src_b.data_ptr(), ref.data_ptr(), ys.data_ptr(),
+                   xs.data_ptr(),
                    mv_fp.data_ptr(), _ftab(which, str(src_b.device)).data_ptr(), mv8.data_ptr(),
                    pred.data_ptr(), B, ref.shape[-2], ref.shape[-1], n, bd, int(bool(fast)),
                    kernels.stream_ptr(pred))
@@ -551,15 +596,18 @@ def subpel_refine_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int):
     the TPL's subpel step.
 
     src_b (B, n, n) int32 source blocks at (ys, xs) of the (H, W) reference
-    plane `ref` (uint8 on the card), mv_fp (B, 2) full-pel MVs. Each step MCs
-    the nine candidates around the current MV (offsets dy major, dx minor,
-    from (-1, -1) to (1, 1), times 4 then 2 eighth-pels) and takes the first
-    SAD minimum, so a corner that ties the centre wins. Returns (B, 2) int32
-    1/8-pel MVs."""
+    plane `ref` (uint8 on the card: the kernel is 8-bit only), mv_fp (B, 2)
+    full-pel MVs. Each step MCs the nine candidates around the current MV
+    (offsets dy major, dx minor, from (-1, -1) to (1, 1), times 4 then 2
+    eighth-pels) and takes the first SAD minimum, so a corner that ties the
+    centre wins. Returns (B, 2) int32 1/8-pel MVs."""
+    check_plane(ref, "ref", bd)
     if src_b.device.type == "cpu":
         return subpel_refine_plain(src_b, ref, ys, xs, mv_fp, which, bd)
+    if bd != 8:
+        raise ValueError("subpel_refine_lanes: the kernel (K14) takes 8-bit references; 10-bit "
+                         "TPL is ROADMAP queue 1 '10-bit TPL'")
     kernels.check(src_b, "src_b", torch.int32)
-    kernels.check(ref, "ref", torch.uint8)
     B, n = src_b.shape[0], src_b.shape[-1]
     if n < 8:
         raise ValueError("subpel_refine_lanes: blocks of 8x8 and up (8-tap filters)")
@@ -578,13 +626,14 @@ def mc_lanes_compound(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h: int, n_w: int, 
                       bd: int, ref0_idx, ref1_idx):
     """Batched compound-average MC (K11): the conv-buf predictions of every
     lane from refs[ref0_idx] at mv0 and refs[ref1_idx] at mv1, blended by the
-    normative average. refs: (NREF, H, W) stack (uint8 on the card); ys/xs
-    (B,) block top-left in plane coords; MVs in 1/16 pel of this plane.
-    Returns (B, n_h, n_w) int32; dims <= 4 use the 4-tap filter variant."""
+    normative average. refs: (NREF, H, W) stack (plane_dtype(bd) on the
+    card); ys/xs (B,) block top-left in plane coords; MVs in 1/16 pel of
+    this plane. Returns (B, n_h, n_w) int32; dims <= 4 use the 4-tap filter
+    variant."""
+    check_plane(refs, "refs", bd)
     if ys.device.type == "cpu":
         return mc_compound_plain(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h, n_w, which, bd,
                                  ref0_idx, ref1_idx)
-    kernels.check(refs, "refs", torch.uint8)
     if refs.dim() != 3:
         raise ValueError("mc_lanes_compound: a (NREF, H, W) reference stack")
     B = ys.shape[0]
@@ -593,7 +642,7 @@ def mc_lanes_compound(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h: int, n_w: int, 
     if B == 0:
         return out
     dev = str(ys.device)
-    kernels.launch("mc_compound", refs.data_ptr(), *[a.data_ptr() for a in args],
+    kernels.launch(_kname("mc_compound", bd), refs.data_ptr(), *[a.data_ptr() for a in args],
                    _ftab(filter_for_dim(which, n_w), dev).data_ptr(),
                    _ftab(filter_for_dim(which, n_h), dev).data_ptr(), out.data_ptr(), B,
                    refs.shape[0], refs.shape[-2], refs.shape[-1], n_h, n_w, bd,

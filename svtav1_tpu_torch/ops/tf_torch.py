@@ -141,9 +141,10 @@ def _blocks_to_plane(b, R: int, C: int, n: int):
 
 
 def filter_planes(center, neighbors, qindex: int, bd: int = 8):
-    """center: [y, u, v] (H, W) and (H/2, W/2) uint8 planes on one device,
-    H and W multiples of 64; neighbors: list of such triples. Returns the
-    filtered [y, u, v] int32 planes on that device."""
+    """center: [y, u, v] (H, W) and (H/2, W/2) planes on one device (uint8
+    at 8 bits, int16 at 10), H and W multiples of 64; neighbors: list of
+    such triples. Returns the filtered [y, u, v] int32 planes on that
+    device."""
     H, W = center[0].shape
     dev = center[0].device
     R, C = H // TF_BLOCK, W // TF_BLOCK
@@ -157,9 +158,10 @@ def filter_planes(center, neighbors, qindex: int, bd: int = 8):
     srcb = cy.reshape(R, TF_BLOCK, C, TF_BLOCK).permute(0, 2, 1, 3) \
         .reshape(B, TF_BLOCK, TF_BLOCK).contiguous()
     preds = [[], [], []]
-    src_pyr = me_torch.me_pyramid(center[0], H // 64, W // 64)  # shared by the neighbours
+    src_pyr = me_torch.me_pyramid(center[0], H // 64, W // 64, bd)  # shared by the neighbours
     for ny, nu, nv in neighbors:
-        mvs_fp, _sb = me_torch.me_fullpel_frame(center[0], ny, H // 64, W // 64, src_pyr=src_pyr)
+        mvs_fp, _sb = me_torch.me_fullpel_frame(center[0], ny, H // 64, W // 64, src_pyr=src_pyr,
+                                                bd=bd)
         fp = mvs_fp[TF_BLOCK][:R, :C].reshape(B, 2)
         mv8, pred = me_torch.subpel_pred_lanes(srcb, ny, r_idx * TF_BLOCK, c_idx * TF_BLOCK, fp,
                                                0, bd)
@@ -180,12 +182,10 @@ def filter_frame(center, neighbors, qindex: int, bd: int = 8, device=None):
     device = kernels.resolve_device(device)
     if not neighbors:
         return center
-    if bd != 8:
-        raise NotImplementedError("MCTF of 10-bit frames: ROADMAP queue 1, "
-                                  "'10-bit at the encoder level'")
+    dt = me_torch.plane_np_dtype(bd)
 
     def put(planes):
-        return [torch.from_numpy(np.ascontiguousarray(p, np.uint8)).to(device) for p in planes]
+        return [torch.from_numpy(np.ascontiguousarray(p, dt)).to(device) for p in planes]
 
     out = filter_planes(put(center), [put(f) for f in neighbors], qindex, bd)
     return [p.cpu().numpy() for p in out]

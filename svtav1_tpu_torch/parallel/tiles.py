@@ -82,6 +82,12 @@ def _tile_consts(p: FrameParams, qctx: int, tiles: list):
     return sizes, pens, mode_cost, txt_cost
 
 
+def _refuse_10bit(p: FrameParams) -> None:
+    if p.bd != 8:
+        raise NotImplementedError("the tile encoders of 10-bit frames: ROADMAP queue 1, "
+                                  "'10-bit tile encoders'")
+
+
 def _mesh_params(width: int, height: int, bd: int, ntiles: int, is_key: bool) -> FrameParams:
     """The frame's parameters with ntiles uniform tile columns; raises
     ValueError unless they give ntiles tiles of equal dims."""
@@ -183,6 +189,7 @@ def encode_intra_frame_mesh(src_planes: list, p_base: FrameParams, ntiles: int, 
     from ..pipeline.intra_md import rd_lambda
 
     dev = resolve_device(device)
+    _refuse_10bit(p_base)
     qctx = get_q_ctx(p_base.qindex)
     run, layout, tiles, regions = _mesh_decide_fn(p_base.width, p_base.height, qctx, p_base.bd,
                                                   ntiles, str(dev))
@@ -352,6 +359,7 @@ def encode_inter_frame_mesh(src_planes: list, p_base: FrameParams, refs: dict, n
     from ..pipeline.intra_md import rd_lambda
 
     dev = resolve_device(device)
+    _refuse_10bit(p_base)
     if (1 << p_base.tile_cols_log2) != ntiles or p_base.tile_rows_log2:
         raise ValueError(f"p_base codes {len(p_base.tiles())} tiles, not {ntiles} tile columns")
     qctx = get_q_ctx(p_base.qindex)

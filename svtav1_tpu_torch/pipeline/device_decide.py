@@ -23,6 +23,7 @@ from ..codec.tile_codec import FrameParams, ext_tx_set_type_intra, max_uv_txsize
 from ..constants.av1 import MAX_TXSIZE_RECT, TxType
 from ..ops import quantize as quant_ops
 from ..ops import transforms_torch as TT
+from ..ops.me_torch import plane_np_dtype
 from . import intra_md
 from .intra_device import BSIZE_BY_N, _predict_modes, predict
 
@@ -33,10 +34,11 @@ TX_SEARCH = (int(TxType.DCT_DCT), int(TxType.ADST_ADST), int(TxType.ADST_DCT), i
 
 
 def put_frames(srcs, bd: int, device):
-    """Stack F frames' planes onto the device: (F, H, W) per plane."""
-    if bd != 8:
-        raise NotImplementedError("10-bit encoding: ROADMAP queue 1, '10-bit at the encoder level'")
-    return tuple(torch.from_numpy(np.stack([np.asarray(s[i], np.uint8) for s in srcs])).to(device)
+    """Stack F frames' planes onto the device: (F, H, W) per plane, uint8
+    at 8 bits and int16 at 10 (me_torch.plane_dtype), as the reference
+    stacks them."""
+    dt = plane_np_dtype(bd)
+    return tuple(torch.from_numpy(np.stack([np.asarray(s[i], dt) for s in srcs])).to(device)
                  for i in range(3))
 
 
@@ -218,7 +220,7 @@ def _decide_intra_size(src_y, src_u, src_v, pen, mode_cost, txt_cost,
         return above.to(torch.int32), left.to(torch.int32), tl.to(torch.int32)
 
     above, left, tl = edges(src_y, n)
-    preds = _predict_modes(above, left, tl, ha, hl, n, nmodes=nmodes)  # (B, nm, n, n)
+    preds = _predict_modes(above, left, tl, ha, hl, n, nmodes=nmodes, bd=bd)  # (B, nm, n, n)
     srcb = _blocks_of(src_y, n, R, C)
     rate, dist = _eval_txfm(srcb, preds.reshape(B * nmodes, n, n), dq, bd,
                             rate_fns["y"][0], rep=nmodes)
@@ -247,7 +249,8 @@ def _decide_intra_size(src_y, src_u, src_v, pen, mode_cost, txt_cost,
     au, lu_, tlu = edges(src_u, nc)
     av, lv_, tlv = edges(src_v, nc)
     puv = predict(torch.cat([au, av]), torch.cat([lu_, lv_]), torch.cat([tlu, tlv]),
-                  torch.cat([ha, ha]), torch.cat([hl, hl]), nc, mode=torch.cat([mode32, mode32]))
+                  torch.cat([ha, ha]), torch.cat([hl, hl]), nc, mode=torch.cat([mode32, mode32]),
+                  bd=bd)
     suv = torch.cat([_blocks_of(src_u, nc, R, C), _blocks_of(src_v, nc, R, C)])
     ratec, distc = _eval_txfm(suv, puv, dq, bd, rate_fns["uv"])
     for k in range(2):

@@ -28,7 +28,8 @@ every TU's size before the next frame's qindex, so each inter frame is
 finished (its TU written) before the next one starts. `scene_cut`
 codes a key frame where the source changes abruptly.
 
-This slice supports every preset ("fast", "medium", "slow"), 8-bit, DLF
+This slice supports every preset ("fast", "medium", "slow"), 8- and 10-bit
+(`bd`; CRF at 10 bits waits for 10-bit TPL), DLF
 and CDEF each on or off, translation global motion, CDF inheritance, the
 HDR metadata OBUs of key frames, and uniform tiles (`tile_cols_log2`,
 `tile_rows_log2`) in all-intra streams (`keyint=1`): each tile is decided,
@@ -49,6 +50,7 @@ from ..constants.cdf import FrameContext
 from ..entropy.bitstream import (FrameConfig, SequenceConfig, frame_obu, sequence_header_obu,
                                  show_existing_frame_obu, temporal_delimiter_obu)
 from ..kernels import resolve_device
+from ..ops.me_torch import plane_np_dtype
 from ..utils import profiler
 from . import gop
 
@@ -124,7 +126,7 @@ _UNSUPPORTED = (
     (lambda c: c.enable_restoration, "enable_restoration", "restoration"),
     (lambda c: bool(c.film_grain or c.film_grain_table), "film_grain", "film grain"),
     (lambda c: c.intra_batch > 1, "intra_batch > 1", "intra batching"),
-    (lambda c: c.bd != 8, "bd != 8", "10-bit at the encoder level"),
+    (lambda c: c.bd != 8 and c.rc_mode == "crf", "rc_mode='crf' at bd=10", "10-bit TPL"),
     (lambda c: c.enable_filter_intra, "enable_filter_intra", "filter-intra"),
 )
 
@@ -182,6 +184,8 @@ class Encoder:
             raise ValueError(f"unknown preset {cfg.preset!r}: one of {sorted(PRESETS)}")
         if cfg.rc_mode not in ("cqp", "cbr", "vbr", "crf"):
             raise ValueError(f"unknown rc_mode {cfg.rc_mode!r}: cqp, cbr, vbr or crf")
+        if cfg.bd not in (8, 10):
+            raise ValueError(f"bd {cfg.bd}: the sequence header codes 8 or 10 bits (main profile)")
         if cfg.rc_mode in ("cbr", "vbr") and cfg.target_kbps <= 0:
             raise ValueError(f"{cfg.rc_mode} needs target_kbps")
         if (cfg.tile_cols_log2 or cfg.tile_rows_log2) and cfg.keyint != 1:
@@ -203,7 +207,7 @@ class Encoder:
         self.next_disp = 0  # next display index expected from the caller
         self.anchor = -1  # display idx of the last coded anchor
         self.pending: list = []  # buffered (disp_idx, src_planes)
-        # display idx -> {planes (device uint8 [y, u, v]), order_hint, slot}
+        # display idx -> {planes (device [y, u, v], uint8 or int16 by bd), order_hint, slot}
         self.dpb: dict = {}
         self._cdf_slots: list = [None] * 8  # per-slot saved frame contexts
         # global motion: per-slot saved gm params (PrevGmParams source) and
@@ -579,8 +583,8 @@ class Encoder:
         return slot, refresh
 
     def _stack_refs(self, refs: dict):
-        """(NREF, H, W) uint8 device stacks per plane from DPB entries, in
-        RefFrame id order (LAST first)."""
+        """(NREF, H, W) device stacks per plane from DPB entries (uint8, int16
+        at 10 bits), in RefFrame id order (LAST first)."""
         ref_ids = sorted(refs.keys())
         return tuple(torch.stack([refs[r][pl] for r in ref_ids]) for pl in range(3)), ref_ids
 
@@ -653,7 +657,8 @@ class Encoder:
         # before a key can be referenced after it
         slot, _ = self._dpb_assign(disp_idx, True, "auto")
         if cfg.keyint > 1:
-            self.dpb = {disp_idx: {"planes": [torch.from_numpy(pl.astype(np.uint8)).to(self.device)
+            dt = plane_np_dtype(cfg.bd)
+            self.dpb = {disp_idx: {"planes": [torch.from_numpy(pl.astype(dt)).to(self.device)
                                               for pl in recon],
                                    "order_hint": setup["order_hint"], "slot": slot}}
         self._save_contexts(walk_fc, p, slot, True)

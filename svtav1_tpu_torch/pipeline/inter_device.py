@@ -138,7 +138,7 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
     """Inter candidate evaluation for the (R, C) grid at size n, merged with
     the intra decision `intra_out` = (cost, mode, tx) from device_decide.
 
-    src planes (1, H, W) int32; refs_* (NREF, H, W') uint8 stacks whose
+    src planes (1, H, W) int32; refs_* (NREF, H, W') uint8 (int16 at 10 bits) stacks whose
     luma column ref_off_x (chroma ref_off_x // 2) is the source's column 0
     (a tile's halo-cropped references; 0 and W' = W for a whole frame);
     mv_by_ref: per reference (B, 2) subpel MVs, pred_by_ref (B, 2) MV-rate
@@ -290,8 +290,8 @@ def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int
         lam_t = torch.tensor(lam, dtype=torch.float32, device=dev)
         sy, su, sv = (x.to(torch.int32) for x in (sy8, su8, sv8))
         # the source's ME pyramid, once for every reference (K8 reads the
-        # uint8 planes edge-padded to the SB grid)
-        src_pyr = me_torch.me_pyramid(sy8[0], sbr, sbc)
+        # planes, uint8 or int16 by bd, edge-padded to the SB grid)
+        src_pyr = me_torch.me_pyramid(sy8[0], sbr, sbc, bd)
         srcb = {n: _blocks_of(sy, n, R, C) for n, R, C in layout}
         grid = {n: (torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n,
                     torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n)
@@ -304,7 +304,7 @@ def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int
         sb_pred = []
         for ri in range(nref):
             mvs_fp, mv_sb = me_torch.me_fullpel_frame(sy8[0], refs_y8[ri], sbr, sbc,
-                                                      src_pyr=src_pyr)
+                                                      src_pyr=src_pyr, bd=bd)
             sb_pred.append(mv_sb.reshape(sbr, sbc, 2) * 8)
             for n, R, C in layout:
                 fp = mvs_fp[n][:R, :C].reshape(R * C, 2)
@@ -372,7 +372,7 @@ def _run_decide(src_dev, refs_dev, p: FrameParams, which: int, ref_ids):
 def decide_inter_frame(src_dev, refs_dev, params: FrameParams, which: int, ref_ids=(1, 4)) -> dict:
     """Run the decide; returns {n: dict(cost, is_inter, mode, tx, ref, mvy,
     mvx, ref2, mv2y, mv2x)} numpy grids over the full aligned frame.
-    src_dev: put_frames() planes of one frame; refs_dev: (NREF, H, W) uint8
+    src_dev: put_frames() planes of one frame; refs_dev: (NREF, H, W) uint8 (int16 at 10 bits)
     device stacks (Y, U, V); ref_ids: the RefFrame id per stack index."""
     flat, layout = _run_decide(src_dev, refs_dev, params, which, ref_ids)
     return _unpack_decide(flat.cpu().numpy(), layout)
@@ -456,7 +456,7 @@ def inter_start_commit(pend: PendingInter, enable_dlf: bool = True, enable_cdef:
     pend.lf_search = lf_search
     pend.damping = damping
     pend.packed, pend.strengths = packed, stats
-    pend.dpb_planes = [pl[0] for pl in planes]  # device uint8 planes, F == 1
+    pend.dpb_planes = [pl[0] for pl in planes]  # device uint8 or int16 planes, F == 1
     pend.src_dev = None
     pend.refs_dev = None
     return pend

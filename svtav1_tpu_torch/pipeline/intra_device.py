@@ -87,12 +87,13 @@ def _directional_plain(above, left, topleft, n: int):
 
 
 def predict_plain(above, left, topleft, have_above, have_left, n: int, mode=None,
-                  nmodes: int = NMODES_MAX):
+                  nmodes: int = NMODES_MAX, bd: int = 8):
     """Plain PyTorch version of K1 (intra_device._predict_modes).
 
     above/left (B, n) int32, topleft (B,), have_above/have_left (B,) bool.
     mode None -> (B, nmodes, n, n); mode (B,) int -> (B, n, n), that mode
-    per lane (any of the 13)."""
+    per lane (any of the 13). DC with neither neighbour is 1 << (bd - 1),
+    as the spec predicts it (the reference's 128 is a fault at 10 bits)."""
     B = above.shape[0]
     ha = have_above.to(torch.int32)
     hl = have_left.to(torch.int32)
@@ -102,9 +103,9 @@ def predict_plain(above, left, topleft, have_above, have_left, n: int, mode=None
     dc_both = (sa + sl + n) >> (log2n + 1)
     dc_a = (sa + (n >> 1)) >> log2n
     dc_l = (sl + (n >> 1)) >> log2n
+    dc_none = torch.full_like(dc_a, 1 << (bd - 1))
     dc = torch.where((ha & hl).bool(), dc_both,
-                     torch.where(ha.bool(), dc_a,
-                                 torch.where(hl.bool(), dc_l, torch.full_like(dc_a, 128))))
+                     torch.where(ha.bool(), dc_a, torch.where(hl.bool(), dc_l, dc_none)))
     t = above[:, None, :]
     l = left[:, :, None]
     tl = topleft[:, None, None]
@@ -133,13 +134,13 @@ def predict_plain(above, left, topleft, have_above, have_left, n: int, mode=None
 
 
 def predict(above, left, topleft, have_above, have_left, n: int, mode=None,
-            nmodes: int = NMODES_MAX):
+            nmodes: int = NMODES_MAX, bd: int = 8):
     """Intra predictions of B lanes: K1 for CUDA tensors, the plain version
     for CPU tensors. Same arguments and results as predict_plain."""
     if not 1 <= nmodes <= NMODES_MAX:
         raise ValueError(f"nmodes must be 1..{NMODES_MAX}, got {nmodes}")
     if above.device.type == "cpu":
-        return predict_plain(above, left, topleft, have_above, have_left, n, mode, nmodes)
+        return predict_plain(above, left, topleft, have_above, have_left, n, mode, nmodes, bd)
     B = above.shape[0]
     kernels.check(above, "above", torch.int32, (B, n))
     kernels.check(left, "left", torch.int32, (B, n))
@@ -155,11 +156,11 @@ def predict(above, left, topleft, have_above, have_left, n: int, mode=None,
                    have_above.data_ptr(), have_left.data_ptr(),
                    mode.data_ptr() if mode is not None else None,
                    _weights(n, dev).data_ptr(), _dr(dev).data_ptr(), out.data_ptr(), B, n,
-                   int(math.log2(n)), nmodes, kernels.stream_ptr(above))
+                   int(math.log2(n)), nmodes, bd, kernels.stream_ptr(above))
     return out
 
 
 def _predict_modes(above, left, topleft, have_above, have_left, n: int,
-                   nmodes: int = NMODES_MAX):
+                   nmodes: int = NMODES_MAX, bd: int = 8):
     """(B, nmodes, n, n) in MODES order (reference _predict_modes)."""
-    return predict(above, left, topleft, have_above, have_left, n, nmodes=nmodes)
+    return predict(above, left, topleft, have_above, have_left, n, nmodes=nmodes, bd=bd)

@@ -89,7 +89,8 @@ def _tpl_frame(H: int, W: int, bd: int, device: str):
                                                                                base)))
         edges = (x.to(torch.int32).repeat_interleave(npr, dim=0).contiguous()
                  for x in (above, left, tl))
-        probe = intra_device.predict(*edges, ha5, hl5, TPL_B, mode=probe_modes)  # (B*5, 16, 16)
+        probe = intra_device.predict(*edges, ha5, hl5, TPL_B, mode=probe_modes,
+                                     bd=bd)  # (B*5, 16, 16)
         satd = TT.tpl_cost(srcb, probe, 0, 0, 0, bd, rep=npr).reshape(B, npr)
         intra_cost, intra_pick = satd.min(dim=1)  # the first minimum
         intra_pred = probe.reshape(B, npr, TPL_B, TPL_B)[bi, intra_pick]
@@ -156,7 +157,7 @@ def tpl_window(frames_y: list, qindex: int, bd: int = 8, minigop: int = 1, devic
     of 64. `device=None` means CUDA. Returns per-frame stats dicts (window
     order) with numpy grids."""
     if bd != 8:
-        raise NotImplementedError("10-bit TPL: ROADMAP queue 1, '10-bit at the encoder level'")
+        raise NotImplementedError("TPL of 10-bit frames: ROADMAP queue 1, '10-bit TPL'")
     dev = resolve_device(device)
     H, W = frames_y[0].shape
     run = _tpl_frame(H, W, bd, str(dev))

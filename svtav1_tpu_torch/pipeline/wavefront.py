@@ -313,7 +313,7 @@ def _code_group(src, maps, L: dict, n: int, planes: tuple, idxs: list, dq_dc: in
         modes.append(L["mode"][idx])
         txs.append(L["uv_tx" if chroma else "tx"][idx])
     cat = [torch.cat(parts) for parts in zip(*edges)]
-    pred = predict(*cat, m, mode=torch.cat(modes))
+    pred = predict(*cat, m, mode=torch.cat(modes), bd=bd)
     va, hv = tx_lanes(torch.cat(txs), ntypes)
     lv, rec = code_blocks(torch.cat(blocks), pred, va, hv, dq_dc, dq_ac, bd, rdoq_fn, lam)
     a = 0

@@ -10,6 +10,9 @@ same configuration. The paths (`--path`, one or more, comma-separated):
     vbr   the gop path under one-pass VBR at 1000 kbps
     crf   17 frames of random access (keyint=32, minigop=8, MCTF) under CRF
           with 16-frame lookahead windows
+    gop10 the gop path at 10 bits (the 10-bit clip: the 8-bit clip << 2
+          plus seeded low bits; int16 planes on the card)
+    ra10  17 frames of random access (keyint=32, minigop=8, MCTF) at 10 bits
 
 Prints one JSON line per path: each run's frames/s, the median and
 quartiles, the bytes per frame and the Y-PSNR (equal in every run, or it
@@ -38,6 +41,8 @@ PATHS = {  # name -> (EncoderConfig arguments, frames)
     "fast": (dict(qindex=120, keyint=1, preset="fast", enable_cdef=False), 16),
     "vbr": (dict(MEDIUM, keyint=16, rc_mode="vbr", target_kbps=1000.0, fps=30.0), 16),
     "crf": (dict(MEDIUM, keyint=32, minigop=8, rc_mode="crf", lookahead=16, enable_tf=True), 17),
+    "gop10": (dict(MEDIUM, keyint=16, bd=10), 16),
+    "ra10": (dict(MEDIUM, keyint=32, minigop=8, enable_tf=True, bd=10), 17),
 }
 
 
@@ -70,7 +75,9 @@ def main() -> int:
     from svtav1_tpu_torch.utils.testclip import make_frames
 
     W, H = 1920, 1080
-    clip = make_frames(W, H, max(PATHS[p][1] for p in names), seed=0)
+    n_max = max(PATHS[p][1] for p in names)
+    clips = {bd: make_frames(W, H, n_max, seed=0, bd=bd)
+             for bd in {PATHS[p][0].get("bd", 8) for p in names}}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
 
@@ -89,15 +96,16 @@ def main() -> int:
     ok = True
     for name in names:
         cfg, n = PATHS[name]
-        frames = clip[:n]
-        encode(cfg, frames[: 3 if name == "crf" else 2])
+        frames = clips[cfg.get("bd", 8)][:n]
+        peak = float((1 << cfg.get("bd", 8)) - 1)
+        encode(cfg, frames[: 3 if cfg.get("minigop", 1) > 1 else 2])
         fps, results, stages = [], set(), []
         for _ in range(args.runs):
             pkts, secs, st = encode(cfg, frames)
             fps.append(n / secs)
             stages.append(st)
             shown = [p for p in pkts if p.disp_idx is not None]
-            psnr = [10 * np.log10(255.0 ** 2 / max(float(np.mean(
+            psnr = [10 * np.log10(peak ** 2 / max(float(np.mean(
                 (p.recon[0][:H, :W].astype(np.float64) - frames[p.disp_idx][0]) ** 2)), 1e-12))
                 for p in shown]
             results.add((sum(len(p.tu) for p in pkts) / n, float(np.mean(psnr))))

@@ -27,6 +27,7 @@ Run on a GPU machine from the repository root:
     python -m svtav1_tpu_torch.utils.profile_keyframes --preset fast --no-cdef
     python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 6
     python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 17 --minigop 8 --enable-tf
+    python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 16 --bd 10
 """
 from __future__ import annotations
 
@@ -74,7 +75,11 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
     once, and the arithmetic per element that chip_smoke.py also counts.
     `extra`, what lives on the card: for K2 (lanes with the vertical ADST,
     lanes with the horizontal ADST) of the launch, for K7 the unmasked
-    cells."""
+    cells. The 16-bit forms of K8-K11 (`me_sad16`, ...) read 2-byte
+    samples where their 8-bit forms read one."""
+    sz = 1
+    if name in ("me_sad16", "subpel_pred16", "mc_lanes16", "mc_compound16"):
+        name, sz = name[:-2], 2
     if name == "intra_pred":
         B, n, nmodes, one = args[9], args[10], args[12], args[5] is not None
         out = B * (1 if one else nmodes) * n * n
@@ -110,19 +115,20 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
         mode, src0, (hs, ws, Hs, Ws, hr, wr, Hr, Wr, _ox, sbr, sbc) = args[0], args[1], args[8:19]
         if mode == 0:  # the pyramid of the reference, and of the source unless given
             planes = [(hr, wr, Hr, Wr)] + ([(hs, ws, Hs, Ws)] if src0 is not None else [])
-            return (sum(h * w + me_levels(H, W) for h, w, H, W in planes),
+            return (sum(h * w + me_levels(H, W) for h, w, H, W in planes) * sz,
                     sum(me_levels(H, W) for _h, _w, H, W in planes) * 5)
-        return me_frame_work(hs, ws, Hs, Ws, hr, wr, Hr, Wr, sbr, sbc)
+        return me_frame_work(hs, ws, Hs, Ws, hr, wr, Hr, Wr, sbr, sbc, sz)
     if name == "subpel_pred":
         B, n, fast = args[8], args[11], args[13]
         L = 5 if fast else 7
-        return B * n * n * 9 + 16 * B, B * (L * (n + 8) * n * 16 + L * L * n * n * 19)
+        return B * n * n * (8 + sz) + 16 * B, B * (L * (n + 8) * n * 16 + L * L * n * n * 19)
     if name == "mc_lanes":
         B, nh, nw = args[9], args[13], args[14]
-        return B * 20 + B * nh * nw * 5, B * ((nh + 7) * nw * 16 + nh * nw * 20)
+        return B * 20 + B * nh * nw * (4 + sz), B * ((nh + 7) * nw * 16 + nh * nw * 20)
     if name == "mc_compound":
         B, nh, nw = args[12], args[16], args[17]
-        return B * 32 + B * nh * nw * 6, B * (2 * ((nh + 7) * nw * 16 + nh * nw * 18) + nh * nw * 6)
+        return (B * 32 + B * nh * nw * (4 + 2 * sz),
+                B * (2 * ((nh + 7) * nw * 16 + nh * nw * 18) + nh * nw * 6))
     if name == "tf_filter":
         K, H, W = args[3:6]
         return (K + 2) * H * W * 4, K * H * W * 20
@@ -177,14 +183,17 @@ def me_frame_diffs(sb_rows: int, sb_cols: int) -> int:
     return sb_rows * sb_cols * (33 * 33 * 256 + 25 * 1024 + 25 * 4096 + 2 * 64 * 81 * 64)
 
 
-def me_frame_work(hs, ws, Hs, Ws, hr, wr, Hr, Wr, sb_rows: int, sb_cols: int) -> tuple:
-    """(bytes, int32 operations) of K8's frame search: the uint8 planes and
-    pyramid levels read once, the MVs written (85 blocks and the SB MV per
-    SB), and 3 operations per absolute difference (a subtraction, the
-    absolute value, the sum), the sum of the three searches' and the leaf
-    maps' counts of the launches it replaces."""
+def me_frame_work(hs, ws, Hs, Ws, hr, wr, Hr, Wr, sb_rows: int, sb_cols: int,
+                  sample_bytes: int = 1) -> tuple:
+    """(bytes, int32 operations) of K8's frame search: the planes and
+    pyramid levels (uint8, or int16 at 10 bits: sample_bytes 2) read once,
+    the MVs written (85 blocks and the SB MV per SB), and 3 operations per
+    absolute difference (a subtraction, the absolute value, the sum), the
+    sum of the three searches' and the leaf maps' counts of the launches it
+    replaces."""
     B = sb_rows * sb_cols
-    nbytes = hs * ws + hr * wr + me_levels(Hs, Ws) + me_levels(Hr, Wr) + 86 * B * 8
+    nbytes = ((hs * ws + hr * wr + me_levels(Hs, Ws) + me_levels(Hr, Wr)) * sample_bytes
+              + 86 * B * 8)
     return nbytes, 3 * me_frame_diffs(sb_rows, sb_cols)
 
 
@@ -355,6 +364,9 @@ def main() -> int:
                     help="1: low-delay P frames; 2, 4, 8: hierarchical-B mini-GoPs")
     ap.add_argument("--enable-tf", action="store_true",
                     help="MCTF of the key frame and the mini-GoP anchors")
+    ap.add_argument("--bd", type=int, choices=(8, 10), default=8,
+                    help="bit depth: 10 encodes the 10-bit clip (the 8-bit one << 2 plus "
+                         "seeded low bits) on int16 planes")
     args = ap.parse_args()
 
     import torch
@@ -371,13 +383,13 @@ def main() -> int:
 
     gop = args.keyint > 1
     n = args.keyint - 1 if gop else args.frames
-    frames = make_frames(args.width, args.height, n + 1, seed=args.seed)
+    frames = make_frames(args.width, args.height, n + 1, seed=args.seed, bd=args.bd)
 
     def encoder():
         return Encoder(EncoderConfig(args.width, args.height, qindex=args.qindex,
                                      keyint=args.keyint, minigop=args.minigop,
                                      enable_tf=args.enable_tf, preset=args.preset,
-                                     enable_cdef=not args.no_cdef), device="cuda")
+                                     enable_cdef=not args.no_cdef, bd=args.bd), device="cuda")
 
     enc = encoder()
     if gop:  # a short warm GOP (with minigop > 1 a key frame and a 2-frame mini-GoP)
@@ -440,7 +452,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps(dict(
-        size=[args.width, args.height], preset=args.preset, cdef=not args.no_cdef,
+        size=[args.width, args.height], bd=args.bd, preset=args.preset, cdef=not args.no_cdef,
         keyint=args.keyint, minigop=args.minigop, enable_tf=args.enable_tf, frames=n,
         measured=("key frames" if not gop else "P frames" if args.minigop == 1 else "B frames")
         + (" (and the key frame's MCTF and encode)" if gop and args.enable_tf else ""),

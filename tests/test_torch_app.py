@@ -43,6 +43,25 @@ def test_cli_random_access_verifies_and_writes_the_library_tus(tmp_path, capsys)
                                                              (None, 2)]
 
 
+def test_cli_10bit_y4m_verifies_and_writes_a_10bit_recon(tmp_path, capsys):
+    """A 10-bit y4m (C420p10) in: the IVF holds the library's 10-bit TUs,
+    --verify decodes them, and --recon writes the decoded frames at 10 bits."""
+    from svtav1_tpu_torch.io.y4m import read_y4m
+
+    w = h = 64
+    frames = make_frames(w, h, 3, seed=8, bd=10)
+    src, out, rec = tmp_path / "in.y4m", tmp_path / "out.ivf", tmp_path / "rec.y4m"
+    write_y4m(str(src), frames, w, h, bd=10)
+    rc = app.main(["-i", str(src), "-b", str(out), "--device", "cpu", "--keyint", "3",
+                   "--verify", "--recon", str(rec)])
+    assert rc == 0
+    assert "avg Y-PSNR" in capsys.readouterr().out
+    assert read_ivf(str(out))[0] == _library_tus(frames, w, h, keyint=3, bd=10)
+    got, rw, rh, _fps, rbd = read_y4m(str(rec))
+    assert (rw, rh, rbd, len(got)) == (w, h, 10, 3)
+    assert int(got[0][0].max()) > 255
+
+
 def _library_tus(frames, w, h, **cfg):
     enc = port_enc.Encoder(port_enc.EncoderConfig(w, h, **cfg), device="cpu")
     return [p.tu for f in frames for p in enc.send_frame(*f)] + [p.tu for p in enc.flush()]

@@ -172,3 +172,124 @@ def test_me_fullpel_frame_source_pyramid_and_padding(ref_off_x):
             assert mvs[n].shape == (sbr * 64 // n, sbc * 64 // n, 2)
             np.testing.assert_array_equal(mvs[n].numpy(), want[n].numpy(), err_msg=f"n={n}")
     assert (got[8].numpy() == (3, -6)).all(axis=-1).mean() > 0.5  # the motion was found
+
+
+def _shifted_pair10(h: int, w: int, seed: int, dy: int, dx: int, noise: int):
+    """_shifted_pair at 10 bits: the 8-bit texture times 4 plus seeded low
+    bits, noise scaled alike; samples in 0..1023."""
+    src, ref = _shifted_pair(h, w, seed, dy, dx, noise)
+    g = np.random.default_rng(seed + 1)
+    return tuple(np.clip(4 * p + g.integers(0, 4, p.shape), 0, 1023).astype(np.int32)
+                 for p in (src, ref))
+
+
+@pytest.mark.parametrize("h, w, dy, dx, noise", [
+    (128, 128, 3, -5, 0),
+    (192, 128, 9, 11, 3),
+    (128, 192, 0, 0, 20),
+])
+def test_me_fullpel_frame_10bit_matches_jax(h, w, dy, dx, noise):
+    """K8's plain version on 10-bit planes (0..1023) and on their int16
+    form, the card's dtype, against the reference's int32 route."""
+    src, ref = _shifted_pair10(h, w, seed=h + dy + 10, dy=dy, dx=dx, noise=noise)
+    want, want_sb = me_jax.me_fullpel_frame(jnp.asarray(src), jnp.asarray(ref), h // 64, w // 64)
+    for dt in (np.int32, np.int16):
+        t = torch.from_numpy
+        got, got_sb = me_torch.me_fullpel_frame(t(src.astype(dt)), t(ref.astype(dt)), h // 64,
+                                                w // 64, bd=10)
+        np.testing.assert_array_equal(got_sb.numpy(), np.asarray(want_sb))
+        for n in me_torch.SIZES:
+            np.testing.assert_array_equal(got[n].numpy(), np.asarray(want[n]), err_msg=f"n={n}")
+    pyr = me_torch.me_pyramid(torch.from_numpy(src.astype(np.int16)), h // 64, w // 64, bd=10)
+    with_pyr, _ = me_torch.me_fullpel_frame(torch.from_numpy(src.astype(np.int16)),
+                                            torch.from_numpy(ref.astype(np.int16)), h // 64,
+                                            w // 64, src_pyr=pyr, bd=10)
+    for n in me_torch.SIZES:
+        np.testing.assert_array_equal(with_pyr[n].numpy(), np.asarray(want[n]))
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("fast", [True, False])
+def test_subpel_pred_lanes_10bit_matches_jax(n, fast):
+    """K9's plain version at 10 bits on int16 planes (the card's dtype),
+    both lattices, against the reference; the prediction is K10's MC."""
+    H, W = 64, 96
+    src, ref = _shifted_pair10(H, W, seed=n + fast + 20, dy=1, dx=-2, noise=9)
+    g = np.random.default_rng(n * 7 + fast)
+    R, C = H // n, W // n
+    ys = np.repeat(np.arange(R), C).astype(np.int32) * n
+    xs = np.tile(np.arange(C), R).astype(np.int32) * n
+    mv = g.integers(-3, 4, (R * C, 2)).astype(np.int32)
+    mv[:4] = [[-n - 9, 0], [0, -n - 9], [H + 5, 3], [2, W + 5]]
+    srcb = src[: R * n, : C * n].reshape(R, n, C, n).transpose(0, 2, 1, 3).reshape(-1, n, n)
+    want_mv, want_pred = me_jax.subpel_pred_lanes(jnp.asarray(srcb), jnp.asarray(ref),
+                                                  jnp.asarray(ys), jnp.asarray(xs),
+                                                  jnp.asarray(mv), 0, 10, fast=fast)
+    t = torch.from_numpy
+    ref16 = t(ref.astype(np.int16))
+    got_mv, got_pred = me_torch.subpel_pred_lanes(t(srcb.copy()), ref16, t(ys), t(xs), t(mv), 0,
+                                                  10, fast=fast)
+    np.testing.assert_array_equal(got_mv.numpy(), np.asarray(want_mv))
+    np.testing.assert_array_equal(got_pred.numpy(), np.asarray(want_pred))
+    assert int(got_pred.max()) > 255
+    mc = me_torch.mc_lanes(ref16, t(ys), t(xs), got_mv[:, 0] * 2, got_mv[:, 1] * 2, n, n, 0, 10)
+    np.testing.assert_array_equal(mc.numpy(), got_pred.numpy())
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_int16_planes_equal_the_int32_route(n):
+    """MC and compound MC of int16 planes (the card's 10-bit dtype) equal
+    the same samples as int32, at every clamp and phase."""
+    H, W, B = 40, 56, 48
+    g = np.random.default_rng(n + 31)
+    refs = g.integers(0, 1024, (3, H, W)).astype(np.int32)
+    ys, xs = (g.integers(0, s - n, B).astype(np.int32) for s in (H, W))
+    mv = g.integers(-40 * 16, 40 * 16, (4, B)).astype(np.int32)
+    ri = g.integers(0, 3, (2, B)).astype(np.int32)
+    t = torch.from_numpy
+    for stack in (refs, refs.astype(np.int16)):
+        got = me_torch.mc_lanes(t(stack), t(ys), t(xs), t(mv[0]), t(mv[1]), n, n, 0, 10,
+                                ref_idx=t(ri[0]))
+        comp = me_torch.mc_lanes_compound(t(stack), t(ys), t(xs), *map(t, mv), n, n, 0, 10,
+                                          *map(t, ri))
+        if stack.dtype == np.int32:
+            want, want_comp = got, comp
+        else:
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+            np.testing.assert_array_equal(comp.numpy(), want_comp.numpy())
+    assert int(want.max()) > 255
+
+
+def test_uint8_plane_at_10_bits_raises():
+    """A wrapper given a plane whose dtype cannot hold its bit depth raises
+    (it never casts): uint8 at bd=10, and a depth the kernels lack."""
+    p8 = torch.zeros((64, 64), dtype=torch.uint8)
+    z = torch.zeros(1, dtype=torch.int32)
+    calls = [
+        lambda: me_torch.mc_lanes(p8, z, z, z, z, 8, 8, 0, 10),
+        lambda: me_torch.mc_lanes_compound(p8[None], z, z, z, z, z, z, 8, 8, 0, 10, z, z),
+        lambda: me_torch.subpel_pred_lanes(torch.zeros((1, 8, 8), dtype=torch.int32), p8, z, z,
+                                           torch.zeros((1, 2), dtype=torch.int32), 0, 10),
+        lambda: me_torch.me_fullpel_frame(p8, p8, 1, 1, bd=10),
+        lambda: me_torch.me_pyramid(p8, 1, 1, bd=10),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="uint8 plane cannot hold 10-bit"):
+            call()
+    with pytest.raises(ValueError, match="bit depth 12"):
+        me_torch.mc_lanes(p8.to(torch.int16), z, z, z, z, 8, 8, 0, 12)
+
+
+@pytest.mark.parametrize("which", range(6))
+def test_filter_facts_of_k9_10bit_arithmetic(which):
+    """K9's 10-bit form runs the horizontal 8 taps as four int16 x int8 dot
+    products on the samples themselves: its intermediate (2^16 + sum f p +
+    4) >> 3 over p in [0, 1023] stays a positive int16, in [1031, 31721],
+    so the vertical pass keeps the 8-bit form's int16 pairs."""
+    taps = np.asarray(filter_kernels(which), dtype=np.int64)
+    lo = (65536 + 1023 * np.where(taps < 0, taps, 0).sum(axis=1) + 4) >> 3
+    hi = (65536 + 1023 * np.where(taps > 0, taps, 0).sum(axis=1) + 4) >> 3
+    assert lo.min() >= 1031 and hi.max() <= 31721 < 32768
+    # phase 0's copy: (2^16 + 128 p + 4) >> 3 == 8192 + 16 p
+    p = np.arange(1024)
+    assert ((65536 + 128 * p + 4) >> 3 == 8192 + 16 * p).all()

@@ -38,6 +38,70 @@ def test_filter_frame_matches_jax(neighbours):
     assert changed > 0
 
 
+def exact_box5(x):
+    """tf_jax._box5 with the window sums taken exactly: the 25 shifted
+    integer squares summed in int32, then divided by 25 in float32 as the
+    reference divides its float32 sum (and as the port divides)."""
+    import jax.numpy as jnp
+
+    H, W = x.shape
+    p = jnp.pad(x.astype(jnp.int32), 2, mode="edge")
+    s = sum(p[i : i + H, j : j + W] for i in range(5) for j in range(5))
+    return s.astype(jnp.float32) / 25.0
+
+
+def port_quotients(center, neighbours, qindex: int, bd: int) -> list:
+    """Per plane, the port's unrounded a / ws of every sample (the weighted
+    sum over the weight sum that tf_filter_plain rounds), from the inputs
+    the port's filter hands K12."""
+    from unittest import mock
+
+    seen = []
+    real = tf_torch.tf_filter
+    with mock.patch.object(tf_torch, "tf_filter",
+                           lambda c, p, h2, bd=8: seen.append((c, p, h2)) or real(c, p, h2, bd)):
+        tf_torch.filter_frame(center, neighbours, qindex, bd=bd, device="cpu")
+    out = []
+    for c, preds, h2 in seen:
+        a, ws = c.to(torch.float32), torch.ones_like(c, dtype=torch.float32)
+        for p in preds:
+            d = tf_torch._box5_sum((p - c) * (p - c)).to(torch.float32) / torch.full_like(a, 25.0)
+            w = torch.exp((-d / torch.full_like(a, float(h2))).to(torch.float64)).to(torch.float32)
+            a, ws = a + w * p.to(torch.float32), ws + w
+        out.append((a / ws).numpy())
+    return out
+
+
+@pytest.mark.parametrize("neighbours", [(1, 3), (0, 1, 3, 4)])
+def test_filter_frame_10bit_matches_jax(neighbours):
+    """MCTF at 10 bits (K8-K10 on int16 planes, K12 and K13 at bd=10) on
+    the 10-bit clip (the 8-bit clip << 2 plus seeded low bits) against the
+    reference run with exact window sums: at 10 bits its float32
+    summed-area table already rounds at 128x128 (with neighbours 0, 1, 3, 4
+    a V window sums to 2037.0001 where the samples give 2037). Equal, except
+    where the weighted mean lies within float32 rounding of a half: the
+    reference's XLA fuses each `acc + w * p` into one rounding, the port
+    rounds the product and the sum (the same V sample: 597.5 there,
+    597.49994 here). Both are the deliberate divergences of ROADMAP queue 3
+    entry 6; the low bits of the output carry signal."""
+    from unittest import mock
+
+    frames = [[np.asarray(p, np.int32) for p in f] for f in make_frames(W, H, 5, seed=2, bd=10)]
+    center, neigh = frames[2], [frames[i] for i in neighbours]
+    with mock.patch.object(tf_jax, "_box5", exact_box5):
+        want = [np.asarray(p) for p in tf_jax.filter_frame(center, neigh, 120, bd=10)]
+    got = tf_torch.filter_frame(center, neigh, 120, bd=10, device="cpu")
+    quot = port_quotients(center, neigh, 120, 10)
+    changed = 0
+    for pl in range(3):
+        differ = got[pl] != want[pl]
+        assert (np.abs(got[pl] - want[pl]) <= 1).all(), f"plane {pl}"
+        assert (np.abs(quot[pl][differ] % 1 - 0.5) < 1e-4).all(), f"plane {pl}"
+        assert differ.sum() <= 1, f"plane {pl}: {int(differ.sum())} samples differ"
+        changed += int((got[pl] != center[pl]).sum())
+    assert changed > 0 and int(got[0].max()) > 255 and (got[0] & 3).any()
+
+
 def test_filter_frame_on_a_half_sample_matches_jax():
     """Anchor 4 of the 128x96 clip (padded to 128x128) with neighbours 2 and
     3 at qindex 100: one luma sample's a / ws lies exactly on a half, so it
