@@ -10,7 +10,9 @@ Phases, each fatal on failure:
      differing samples; K9's prediction also against K10 at the MVs it
      returns; K9 also at the MCTF shape, n = 16 on the 49-point lattice;
      K11 at every block size of the commit, 8x8 to 64x64; K14 and K15 at
-     the TPL shapes of a 1088x1920 frame, K15 at qindex 120 and 255; K8 as
+     the TPL shapes of a 1088x1920 frame, K15 at qindex 120 and 255, both
+     also on the 10-bit clip (K14's 16-bit form `subpel_refine16`, K15 at
+     bd=10); K8 as
      its pyramid launch, its frame-search launch and the whole
      me_fullpel_frame, every size and the SB MVs, on the decide's uint8
      1080x1920 planes (510 SBs) and with a reference wider than the
@@ -68,9 +70,13 @@ Phases, each fatal on failure:
      random-access GOP with MCTF (17 frames) on the 10-bit clip, their
      Y-PSNR at peak 1023, every 16-bit form launched and no 8-bit form of
      K8-K11 (and the 8-bit paths no 16-bit form), their first TUs decoded
-     with the others; launch counts are reset just before each path and
-     read just after; the 1080p clip is made once; after the paths, the first TUs of
-     each (and one medium key frame) are decoded, one worker process per
+     with the others; after the CRF path, the same CRF GOP on the 10-bit
+     clip (K14's and K8-K11's 16-bit forms and K15 launched, no 8-bit form
+     of them; qindex, r0, bytes, Y-PSNR at peak 1023, the `tpl` stage's ms
+     per frame and frames/s beside the 8-bit CRF GOP's); launch counts
+     are reset just before each path and read just after; the 1080p clip
+     is made once; after the paths, the first TUs of each (and one medium
+     key frame) are decoded, one worker process per
      sequence; K16 commit_wave runs on every path (each commit's phase B
      in one launch), and its inputs are copied from six launches of the
      paths: the fast key frame's (no RDOQ), the medium key frame's, a P
@@ -95,13 +101,15 @@ Phases, each fatal on failure:
      K8 and K9, K2 and K3 at bd=10);
   5. tiles: a 256x64 GOP (a key frame and 2 P frames in two tile columns)
      through parallel.tiles' encoders on the card and with the plain
-     versions on the CPU, byte for byte, decoded bit-exactly; the 8-tile
+     versions on the CPU, byte for byte, decoded bit-exactly, at 8 and at
+     10 bits; the 8-tile
      1080p medium key frame through the Encoder (1 warm + 1 timed frame)
      beside phase 4's one-tile one (frames/s, bytes, Y-PSNR); the tile
      encoders in two 960-column tiles, filters off, on a 1920x1080 key
      frame and on a key frame and 2 P frames at 1920x1024 (the tallest
      1920-wide size whose tiles are whole superblocks, as the inter tile
-     decide needs): the decide's ms per frame, each frame's seconds,
+     decide needs; also at 10 bits, only the 16-bit forms of K8-K10
+     launched): the decide's ms per frame, each frame's seconds,
      launches and summed bounds per stage; every tile stream is decoded
      after the paths, and also by libaom where the host has it (the
      number of TUs it checked is printed, 0 without libaom);
@@ -111,7 +119,7 @@ Phases, each fatal on failure:
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
      python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
-also times phase 2's K2, K3, K5, K7, K8 and K9 cases (8-bit), K16 on the
+also times phase 2's K2, K3, K5, K7, K8, K9 and K14 cases (8-bit), K16 on the
 captured 8-bit schedules and every captured 8-bit K2, K3, K8 and K9 launch through a kernel
 library built from another checkout with the same C entry points (the parent
 commit's, after its own chip_smoke.py run built it), on the same inputs, and
@@ -156,19 +164,22 @@ KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "subpel_refine": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:373"),
     "tpl_cost": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu", "svtav1_tpu/pipeline/tpl.py:56"),
     "commit_wave": ("svtav1_tpu_torch/csrc/commit.cu", "svtav1_tpu/pipeline/device_commit.py:542"),
-    # the 16-bit forms of K8-K11, on the int16 planes of 10-bit encodes
+    # the 16-bit forms of K8-K11 and K14, on the int16 planes of 10-bit encodes
     "me_sad16": ("svtav1_tpu_torch/csrc/me.cu", "svtav1_tpu/ops/me_jax.py:86"),
     "subpel_pred16": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:300"),
     "mc_lanes16": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:183"),
     "mc_compound16": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:248"),
+    "subpel_refine16": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:373"),
 }
 LD_KERNELS = tuple(KERNEL_SOURCES)[:11] + ("commit_wave",)  # K1-K10, K16: low-delay GOP
 RA_ONLY = ("mc_compound", "tf_filter", "tf_noise")  # K11-K13: the random-access GOP
 CRF_ONLY = ("subpel_refine", "tpl_cost")  # K14-K15: the CRF GOP's TPL
-TEN_BIT = ("me_sad16", "subpel_pred16", "mc_lanes16", "mc_compound16")
-_FORM16 = dict(zip(("me_sad", "subpel_pred", "mc_lanes", "mc_compound"), TEN_BIT))
+# the kernels with a 16-bit form -> that form, as kernels.FORM16 derives them
+_FORM16 = {k: k + "16" for k in KERNEL_SOURCES if k + "16" in KERNEL_SOURCES}
+TEN_BIT = tuple(_FORM16.values())
 LD10_KERNELS = tuple(_FORM16.get(k, k) for k in LD_KERNELS)  # the low-delay GOP at 10 bits
 RA10_KERNELS = LD10_KERNELS + ("mc_compound16", "tf_filter", "tf_noise")
+CRF10_ONLY = ("subpel_refine16", "tpl_cost")  # K14's 16-bit form and K15: the 10-bit CRF GOP
 # CRF: TPL over lookahead windows sets each frame's qindex (random access, MCTF)
 CRF = dict(qindex=120, keyint=32, minigop=8, rc_mode="crf", lookahead=16, enable_tf=True,
            preset="medium")
@@ -311,10 +322,18 @@ def me_frame_ops_ms(diffs, bd):
             diffs / 2 / RATES["vabsdiff2"] * 1e3)
 
 
+def k14_packed_ops_ms(B, n, bd):
+    """K14's operations' least time at the measured packed rates: two steps,
+    each K9's work (k9_packed_ops_ms) on 3 column phases and a 3 x 3
+    lattice."""
+    return 2 * k9_packed_ops_ms(B, n, 3, bd)
+
+
 def packed_bound_ms(name, args):
-    """A K8 or K9 launch's bound (its C arguments) with the operations at the
-    measured packed rates: K9's as k9_packed_ops_ms, the frame search's
-    absolute differences as me_frame_ops_ms, K8's pyramid as counted."""
+    """A K8, K9 or K14 launch's bound (its C arguments) with the operations
+    at the measured packed rates: K9's as k9_packed_ops_ms, K14's as
+    k14_packed_ops_ms, the frame search's absolute differences as
+    me_frame_ops_ms, K8's pyramid as counted."""
     from svtav1_tpu_torch.utils.profile_keyframes import bound_ms, launch_bound, me_frame_diffs
 
     nbytes, ops = launch_bound(name, args)
@@ -322,6 +341,9 @@ def packed_bound_ms(name, args):
         B, n, fast = args[8], args[11], args[13]
         return max(nbytes / HBM_BYTES_PER_S * 1e3,
                    k9_packed_ops_ms(B, n, 5 if fast else 7, 10 if name.endswith("16") else 8))
+    if name in ("subpel_refine", "subpel_refine16"):
+        B, n, bd = args[7], args[10], args[11]
+        return max(nbytes / HBM_BYTES_PER_S * 1e3, k14_packed_ops_ms(B, n, bd))
     if args[0] == 1:  # the frame search
         ops_ms, _ = me_frame_ops_ms(me_frame_diffs(args[17], args[18]),
                                     10 if name == "me_sad16" else 8)
@@ -463,7 +485,7 @@ BASELINE = []  # [the ctypes handle of --baseline-lib] when the option is given
 def load_baseline(path):
     """A kernel library built from another checkout (the parent commit's
     build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
-    kernels.lib() binds its own: K2, K3, K5, K7, K8, K9 and K16 are also
+    kernels.lib() binds its own: K2, K3, K5, K7, K8, K9, K14 and K16 are also
     timed through it, on the same inputs, and must give the same results."""
     import ctypes
 
@@ -493,7 +515,7 @@ def baseline_kernels():
 
 
 def kernel_times(fn, same, reps, baseline=True):
-    """K2's, K3's, K5's, K8's and K9's extra times: `device_ms` (device_ms()), and with
+    """K2's, K3's, K5's, K8's, K9's and K14's extra times: `device_ms` (device_ms()), and with
     --baseline-lib (unless `baseline` is false), after `same` holds the
     baseline library's result against this checkout's, `baseline_ms`
     (timed_ms(), as `ms`) and `baseline_device_ms` through it."""
@@ -1025,57 +1047,78 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
 
 def check_tpl(torch, dev, g, t, record, assert_equal):
     """Phase 2 for K14 subpel_refine and K15 tpl_cost at the TPL shapes of a
-    1080p frame (1088x1920, 8,160 16x16 blocks): K14 from the full-pel MVs
-    of the frame's 16x16 ME and from MVs spread to +-64 px, so that windows
-    cross every edge; K15 mode 0 on the intra probe's 5 x 8,160 lanes (the
-    five lanes of a block share its source) and mode 1 with the recon on
-    8,160 lanes, at qindex 120 and 255. All exact."""
+    1080p frame (1088x1920, 8,160 16x16 blocks), at 8 bits and on the 10-bit
+    clip's int16 planes (K14's 16-bit form `subpel_refine16`, K15 at
+    bd=10): K14 from the full-pel MVs of the frame's 16x16 ME and from MVs
+    spread to +-64 px, so that windows cross every edge; K15 mode 0 on the
+    intra probe's 5 x 8,160 lanes (the five lanes of a block share its
+    source) and mode 1 with the recon on 8,160 lanes, at qindex 120 and 255.
+    All exact. K14 also by device time (a CUDA graph), the 8-bit form also
+    through --baseline-lib; its bound at the measured packed rates, as K9's
+    (k14_packed_ops_ms)."""
+    import numpy as np
+
     from svtav1_tpu_torch.ops import me_torch
     from svtav1_tpu_torch.ops import quantize as quant_ops
     from svtav1_tpu_torch.ops import transforms_torch as TT
     from svtav1_tpu_torch.utils.profile_keyframes import tpl_cost_ops
 
-    (y0, _u0, _v0), (y1, _u1, _v1) = clip_1080p(2)
     H, W, n = 1088, 1920, 16
     R, C = H // n, W // n
     B = R * C
-    ref = me_torch.edge_pad(t(y0, torch.uint8), H, W)
-    src8 = me_torch.edge_pad(t(y1, torch.uint8), H, W)
-    src = src8.to(torch.int32)
     ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n
     xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n
-    srcb = src.reshape(R, n, C, n).permute(0, 2, 1, 3).reshape(B, n, n).contiguous()
-    fp_me = me_torch.me_fullpel_frame(src8, ref, H // 64, W // 64)[0][16].reshape(B, 2) \
-        .contiguous()
-    for fp, label in ((fp_me, "ME MVs"), (t(g.integers(-64, 65, (B, 2))), "MVs +-64 px")):
-        args = (srcb, ref, ys, xs, fp, 0, 8)
-        err = assert_equal("subpel_refine", me_torch.subpel_refine_lanes(*args),
-                           me_torch.subpel_refine_plain(*args))
-        record("subpel_refine", [B, n, n, "2 x 9 points", label], err,
-               timed_ms(lambda: me_torch.subpel_refine_lanes(*args), 20),
-               timed_ms(lambda: me_torch.subpel_refine_plain(*args), 3),
-               nbytes=H * W + B * n * n * 4 + B * 24,
-               ops=B * 2 * (3 * (n + 8) * n * 16 + 9 * n * n * 19), main=label == "ME MVs")
-    pred5 = (srcb.repeat_interleave(5, 0) + t(g.integers(-24, 25, (5 * B, n, n)))).clamp(0, 255) \
-        .to(torch.int32).contiguous()
-    pred1 = (srcb + t(g.integers(-64, 65, (B, n, n)))).clamp(0, 255).to(torch.int32).contiguous()
-    for q in (120, 255):
-        dq = (quant_ops.dc_q(q, 8), quant_ops.ac_q(q, 8))
-        a0 = (srcb, pred5, 0, dq[0], dq[1], 8, 5)
-        err = assert_equal("tpl_cost", TT.tpl_cost(*a0), TT.tpl_cost_plain(*a0))
-        L = 5 * B
-        record("tpl_cost", [L, n, n, "mode 0", "rep 5", f"qindex {q}"], err,
-               timed_ms(lambda: TT.tpl_cost(*a0), 20), timed_ms(lambda: TT.tpl_cost_plain(*a0), 3),
-               nbytes=(B + L) * n * n * 4 + 4 * L, ops=tpl_cost_ops(L, n, False),
-               main=q == 120)
-        a1 = (srcb, pred1, 1, dq[0], dq[1], 8, 1, True)
-        ek, rk = TT.tpl_cost(*a1)
-        ep, rp = TT.tpl_cost_plain(*a1)
-        err = max(assert_equal("tpl_cost", ek, ep), assert_equal("tpl_cost", rk, rp))
-        record("tpl_cost", [B, n, n, "mode 1", "recon", f"qindex {q}"], err,
-               timed_ms(lambda: TT.tpl_cost(*a1), 20), timed_ms(lambda: TT.tpl_cost_plain(*a1), 3),
-               nbytes=3 * B * n * n * 4 + 8 * B, ops=tpl_cost_ops(B, n, True),
-               lanes_err_at_or_above_2_24=int((ek >= 1 << 24).sum().item()))
+    for bd in (8, 10):
+        (y0, _u0, _v0), (y1, _u1, _v1) = clip_1080p(2, bd)
+        dt, maxv = me_torch.plane_dtype(bd), (1 << bd) - 1
+        k14, tag = ("subpel_refine", []) if bd == 8 else ("subpel_refine16", ["10-bit"])
+        ref = me_torch.edge_pad(t(np.asarray(y0, np.int32), dt), H, W)
+        src_p = me_torch.edge_pad(t(np.asarray(y1, np.int32), dt), H, W)
+        src = src_p.to(torch.int32)
+        srcb = src.reshape(R, n, C, n).permute(0, 2, 1, 3).reshape(B, n, n).contiguous()
+        fp_me = me_torch.me_fullpel_frame(src_p, ref, H // 64, W // 64, bd=bd)[0][16] \
+            .reshape(B, 2).contiguous()
+        for fp, label in ((fp_me, "ME MVs"), (t(g.integers(-64, 65, (B, 2))), "MVs +-64 px")):
+            args = (srcb, ref, ys, xs, fp, 0, bd)
+            mv = me_torch.subpel_refine_lanes(*args)
+            err = assert_equal(k14, mv, me_torch.subpel_refine_plain(*args))
+            main = label == "ME MVs"
+
+            def call():
+                return me_torch.subpel_refine_lanes(*args)
+
+            extra = (kernel_times(call, lambda out: assert_equal(k14, out, mv), 20,
+                                  baseline=bd == 8) if main else {})
+            record(k14, [B, n, n, "2 x 9 points", label, *tag], err, timed_ms(call, 20),
+                   timed_ms(lambda: me_torch.subpel_refine_plain(*args), 3),
+                   nbytes=H * W * ref.element_size() + B * n * n * 4 + B * 24,
+                   ops=B * 2 * (3 * (n + 8) * n * 16 + 9 * n * n * 19), main=main,
+                   packed_ops_ms=k14_packed_ops_ms(B, n, bd), **extra)
+        noise5 = t(g.integers(-24, 25, (5 * B, n, n))) << (bd - 8)
+        noise1 = t(g.integers(-64, 65, (B, n, n))) << (bd - 8)
+        pred5 = (srcb.repeat_interleave(5, 0) + noise5).clamp(0, maxv).to(torch.int32) \
+            .contiguous()
+        pred1 = (srcb + noise1).clamp(0, maxv).to(torch.int32).contiguous()
+        for q in (120, 255):
+            dq = (quant_ops.dc_q(q, bd), quant_ops.ac_q(q, bd))
+            a0 = (srcb, pred5, 0, dq[0], dq[1], bd, 5)
+            err = assert_equal("tpl_cost", TT.tpl_cost(*a0), TT.tpl_cost_plain(*a0))
+            L = 5 * B
+            record("tpl_cost", [L, n, n, "mode 0", "rep 5", f"qindex {q}", *tag], err,
+                   timed_ms(lambda: TT.tpl_cost(*a0), 20),
+                   timed_ms(lambda: TT.tpl_cost_plain(*a0), 3),
+                   nbytes=(B + L) * n * n * 4 + 4 * L, ops=tpl_cost_ops(L, n, False),
+                   main=q == 120 and bd == 8, device_ms=device_ms(lambda: TT.tpl_cost(*a0)))
+            a1 = (srcb, pred1, 1, dq[0], dq[1], bd, 1, True)
+            ek, rk = TT.tpl_cost(*a1)
+            ep, rp = TT.tpl_cost_plain(*a1)
+            err = max(assert_equal("tpl_cost", ek, ep), assert_equal("tpl_cost", rk, rp))
+            record("tpl_cost", [B, n, n, "mode 1", "recon", f"qindex {q}", *tag], err,
+                   timed_ms(lambda: TT.tpl_cost(*a1), 20),
+                   timed_ms(lambda: TT.tpl_cost_plain(*a1), 3),
+                   nbytes=3 * B * n * n * 4 + 8 * B, ops=tpl_cost_ops(B, n, True),
+                   lanes_err_at_or_above_2_24=int((ek >= 1 << 24).sum().item()),
+                   largest_err=int(ek.max().item()), device_ms=device_ms(lambda: TT.tpl_cost(*a1)))
 
 
 def check_tiles(torch, dev, g, t, record, assert_equal):
@@ -1638,7 +1681,7 @@ def run_path(torch, label, cfg, n_timed, required, decode, libaom=False):
 
 
 def forms_check(label, launches, bd):
-    """A path launches only the forms of K8-K11 of its bit depth."""
+    """A path launches only the forms of K8-K11 and K14 of its bit depth."""
     wrong = [k for k in (TEN_BIT if bd == 8 else tuple(_FORM16)) if launches[k]]
     if wrong:
         raise SystemExit(f"{label} launched {wrong}, kernels of the other bit depth")
@@ -1802,7 +1845,7 @@ def record_qindex(enc) -> dict:
     return qindex
 
 
-def run_crf(torch):
+def run_crf(torch, bd=8):
     """Phase 4, the CRF path: 17 frames of the bench's clip with CRF (TPL
     over 16-frame lookahead windows), keyint=32, minigop=8 and MCTF at
     medium through send_frame + flush on a fresh Encoder, after a 3-frame
@@ -1810,27 +1853,32 @@ def run_crf(torch):
     TPL frames of 1088x1920). Launch counts set to 0 just before the timed
     run and read just after: every kernel K1-K16 must launch. The first
     three TUs are decoded bit-exactly; each frame's qindex and each
-    window's r0 are printed. Then one 16-frame TPL window alone, its
-    launches and summed kernel bounds counted per TPL frame."""
+    window's r0 are printed, and the `tpl` stage's ms per frame. Then one
+    16-frame TPL window alone, its launches and summed kernel bounds counted
+    per TPL frame (also with K8 and K14 at the measured packed rates).
+    bd=10: the same GOP on the 10-bit clip (the 16-bit forms of K8-K11 and
+    K14, no 8-bit form of them; Y-PSNR peak 1023)."""
     import numpy as np
 
     from svtav1_tpu_torch import kernels
     from svtav1_tpu_torch.pipeline import tpl
     from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig, pad_to_aligned
     from svtav1_tpu_torch.utils import profiler
-    from svtav1_tpu_torch.utils.profile_keyframes import count_launches
+    from svtav1_tpu_torch.utils.profile_keyframes import bound_ms, count_launches, launch_bound
 
     W, H, N = 1920, 1080, 17
-    frames = clip_1080p(N)
+    cfg = CRF if bd == 8 else dict(CRF, bd=bd)
+    label = "1080p CRF" if bd == 8 else "1080p 10-bit CRF"
+    frames = clip_1080p(N, bd)
     t0 = time.perf_counter()
-    warm = Encoder(EncoderConfig(W, H, **CRF), device="cuda")
+    warm = Encoder(EncoderConfig(W, H, **cfg), device="cuda")
     for f in frames[:3]:
         warm.send_frame(*f)
     warm.flush()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     del warm
-    enc = Encoder(EncoderConfig(W, H, **CRF), device="cuda")
+    enc = Encoder(EncoderConfig(W, H, **cfg), device="cuda")
     qindex, r0 = record_qindex(enc), []
     real_r0 = enc._tpl_r0
 
@@ -1853,9 +1901,12 @@ def run_crf(torch):
     launches = dict(kernels.launches)
     stages = profiler.report()
     counts = profiler.counts()
-    missing = [k for k in KERNEL_SOURCES if k not in TEN_BIT and launches[k] <= 0]
+    required = ([k for k in KERNEL_SOURCES if k not in TEN_BIT] if bd == 8 else
+                RA10_KERNELS + CRF10_ONLY)
+    missing = [k for k in required if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"CRF path never launched: {missing}")
+        raise SystemExit(f"{label} path never launched: {missing}")
+    forms_check(label, launches, bd)
     coded = [p.disp_idx for p in pkts if p.disp_idx is not None]
     shown = [p.shown_disp_idx for p in pkts if p.shown_disp_idx is not None]
     if sorted(coded) != list(range(N)) or shown != list(range(N)):
@@ -1868,33 +1919,47 @@ def run_crf(torch):
         rec = recon_of[d]
         if rec[0].shape != (H, W) or not all(np.isfinite(pl).all() for pl in rec):
             raise SystemExit(f"frame {d}: recon of the wrong shape or not finite")
-        diff = rec[0][:H, :W].astype(np.float64) - frames[d][0]
-        psnr.append(10 * np.log10(255.0 ** 2 / max(float((diff * diff).mean()), 1e-12)))
-    decode_later("1080p CRF", [(p.tu, p.recon) for p in pkts[:3]])
-    log(json.dumps(dict(phase="path", preset="medium CRF random access", config=CRF, size=[W, H],
+        psnr.append(y_psnr_db(rec[0], frames[d][0], bd))
+    decode_later(label, [(p.tu, p.recon) for p in pkts[:3]])
+    tpl_s = stages.get("tpl")
+    PATHS[label] = dict(fps=N / secs, bytes_per_frame=sum(len(p.tu) for p in pkts) / N,
+                        y_psnr=float(np.mean(psnr)), qindex=[qindex[d] for d in range(N)],
+                        tpl_ms_per_frame=tpl_s and tpl_s / N * 1e3)
+    log(json.dumps(dict(phase="path", preset="medium CRF random access", config=cfg, size=[W, H],
                         frames=N, tus=len(pkts), warm_3_frames_s=warm_s, fps=N / secs,
                         seconds=secs, bytes_per_frame=sum(len(p.tu) for p in pkts) / N,
                         bytes_key=len(pkts[0].tu), y_psnr=float(np.mean(psnr)),
                         qindex_by_frame=[qindex[d] for d in range(N)], r0_by_window=r0,
-                        tpl_frames=sum(len(w) for w in r0), tpl_s=stages.get("tpl"),
+                        tpl_frames=sum(len(w) for w in r0), tpl_s=tpl_s,
+                        tpl_ms_per_frame=tpl_s and tpl_s / N * 1e3,
                         tf_calls=counts.get("tf", 0),
                         launches_per_frame={k: v / N for k, v in launches.items()},
                         stage_seconds=stages)))
     # one 16-frame TPL window alone: wall time, launches and bounds per TPL frame
     lumas = [pad_to_aligned(f[0].astype(np.int32), W, 1088) for f in frames[:16]]
-    box = {}
+    box, seen = {}, []
 
     def window():
-        t1 = time.perf_counter()
-        box["r0"] = tpl.synthesize(tpl.tpl_window(lumas, 120, 8, minigop=8, device="cuda"))
-        torch.cuda.synchronize()
-        box["s"] = time.perf_counter() - t1
+        real = kernels.launch  # count_launches's: K8's and K14's arguments, for packed bounds
+        kernels.launch = lambda nm, *a: seen.append((nm, a)) or real(nm, *a)
+        try:
+            t1 = time.perf_counter()
+            box["r0"] = tpl.synthesize(tpl.tpl_window(lumas, 120, bd, minigop=8, device="cuda"))
+            torch.cuda.synchronize()
+            box["s"] = time.perf_counter() - t1
+        finally:
+            kernels.launch = real
 
     by_stage = count_launches(window)["tpl"]
-    log(json.dumps(dict(phase="tpl window", size=[1920, 1088], frames=16, seconds=box["s"],
+    counted = sum(v[1] for v in by_stage.values())
+    # K8 and K14 at the measured packed rates in place of their int32 counts
+    packed = counted + sum(packed_bound_ms(nm, a) - bound_ms(*launch_bound(nm, a))
+                         for nm, a in seen if nm.startswith(("me_sad", "subpel_refine")))
+    log(json.dumps(dict(phase="tpl window", bd=bd, size=[1920, 1088], frames=16, seconds=box["s"],
                         ms_per_tpl_frame=box["s"] / 16 * 1e3,
                         launches_per_tpl_frame={k: v[0] / 16 for k, v in by_stage.items()},
-                        bound_ms_per_tpl_frame=sum(v[1] for v in by_stage.values()) / 16,
+                        bound_ms_per_tpl_frame=counted / 16,
+                        packed_bound_ms_per_tpl_frame=packed / 16,
                         r0=[float(x) for x in box["r0"]])))
     return launches
 
@@ -1944,26 +2009,29 @@ def run_vbr(torch):
                         stage_seconds=profiler.report())))
 
 
-def mesh_frames(w, h, n):
-    """n frames of the synthetic clip at w x h, each after the first with a
-    patch of new content near the right edge, so that the P frames code
-    intra blocks among the inter ones (tests/test_torch_tiles.py's GOP)."""
+def mesh_frames(w, h, n, bd=8):
+    """n frames of the synthetic clip at w x h (at 10 bits the 10-bit clip),
+    each after the first with a patch of new content near the right edge,
+    so that the P frames code intra blocks among the inter ones
+    (tests/test_torch_tiles.py's GOP)."""
     import numpy as np
 
     from svtav1_tpu_torch.utils.testclip import make_frames
 
-    frames = [[np.asarray(pl, np.int32) for pl in f] for f in make_frames(w, h, n)]
+    frames = [[np.asarray(pl, np.int32) for pl in f] for f in make_frames(w, h, n, bd=bd)]
     yy, xx = np.mgrid[0:40, 0:40]
     for d in range(1, n):
         x = w - 106 + 8 * d
-        frames[d][0][12:52, x : x + 40] = 128 + 60 * np.sin((xx + yy * d) / 3.0)
+        patch = 128 + 60 * np.sin((xx + yy * d) / 3.0)
+        frames[d][0][12:52, x : x + 40] = patch * (1 << (bd - 8))
     return frames
 
 
-def mesh_encode(frames, device, qindex=120):
+def mesh_encode(frames, device, qindex=120, bd=8):
     """A key frame and P frames (LAST: the previous frame's recon) through
-    parallel.tiles' two encoders in MESH_TILES tile columns, the in-loop
-    filters off (the caller's choice): ([(tu, recon)], seconds per frame)."""
+    parallel.tiles' two encoders in MESH_TILES tile columns at depth bd, the
+    in-loop filters off (the caller's choice): ([(tu, recon)], seconds per
+    frame)."""
     from svtav1_tpu_torch.codec.tile_codec import FrameParams
     from svtav1_tpu_torch.constants.av1 import RefFrame
     from svtav1_tpu_torch.entropy.bitstream import (FrameConfig, SequenceConfig, frame_obu,
@@ -1972,13 +2040,13 @@ def mesh_encode(frames, device, qindex=120):
 
     h, w = frames[0][0].shape
     log2 = MESH_TILES.bit_length() - 1
-    seq = SequenceConfig(width=w, height=h, bd=8, enable_cdef=False)
+    seq = SequenceConfig(width=w, height=h, bd=bd, enable_cdef=False)
     last = int(RefFrame.LAST_FRAME)
     out, secs = [], []
     for d, src in enumerate(frames):
         t0 = time.perf_counter()
         if d == 0:
-            p = FrameParams(width=w, height=h, qindex=qindex, frame_is_intra=True,
+            p = FrameParams(width=w, height=h, qindex=qindex, bd=bd, frame_is_intra=True,
                             tile_cols_log2=log2)
             pay, rec, p = tiles.encode_intra_frame_mesh(src, p, MESH_TILES, device=device)
             fr = FrameConfig(qindex=qindex, disable_cdf_update=False, show_frame=True,
@@ -1987,7 +2055,7 @@ def mesh_encode(frames, device, qindex=120):
         else:
             hints = [0] * 8
             hints[last] = d - 1
-            p = FrameParams(width=w, height=h, qindex=qindex, bd=8, frame_is_intra=False,
+            p = FrameParams(width=w, height=h, qindex=qindex, bd=bd, frame_is_intra=False,
                             order_hint=d, ref_hints=tuple(hints), tile_cols_log2=log2)
             pay, rec, p, _mi = tiles.encode_inter_frame_mesh(src, p, {last: out[-1][1]},
                                                              MESH_TILES, device=device)
@@ -2041,7 +2109,7 @@ class DecideTimer:
         return wrapped
 
 
-def y_psnr(pairs, frames):
+def y_psnr(pairs, frames, bd=8):
     import numpy as np
 
     out = []
@@ -2049,45 +2117,45 @@ def y_psnr(pairs, frames):
         h, w = f[0].shape
         if rec[0].shape != (h, w) or not all(np.isfinite(pl).all() for pl in rec):
             raise SystemExit("tile recon of the wrong shape or not finite")
-        d = rec[0].astype(np.float64) - f[0]
-        out.append(10 * np.log10(255.0 ** 2 / max(float((d * d).mean()), 1e-12)))
+        out.append(y_psnr_db(rec[0], f[0], bd))
     return float(np.mean(out))
 
 
-def run_mesh(torch, label, frames, required):
-    """A 1080p-wide mesh clip on the card: a warm run, a timed run (the
-    decide's ms per frame on the card, the frames' wall seconds; launch
-    counts set to 0 just before it and read just after), and a counted run
-    (each launch's bound, summed per stage: the commit's, and every other
-    launch, the decide's). The timed run's first TUs are queued for the
-    decoders."""
+def run_mesh(torch, label, frames, required, bd=8):
+    """A 1080p-wide mesh clip on the card at depth bd: a warm run, a timed
+    run (the decide's ms per frame on the card, the frames' wall seconds;
+    launch counts set to 0 just before it and read just after; only the
+    forms of K8-K10 of its depth), and a counted run (each launch's bound,
+    summed per stage: the commit's, and every other launch, the decide's).
+    The timed run's first TUs are queued for the decoders."""
     from svtav1_tpu_torch import kernels
     from svtav1_tpu_torch.utils import profiler
     from svtav1_tpu_torch.utils.profile_keyframes import count_launches
 
     n = len(frames)
-    mesh_encode(frames, "cuda")
+    mesh_encode(frames, "cuda", bd=bd)
     torch.cuda.synchronize()
     kernels.reset_launches()
     profiler.reset()
     with DecideTimer(torch) as timer:
-        pairs, secs = mesh_encode(frames, "cuda")
+        pairs, secs = mesh_encode(frames, "cuda", bd=bd)
     launches = dict(kernels.launches)
     waves = profiler.counts().get("commit/waves", 0)
     missing = [k for k in required if launches[k] <= 0]
     if missing:
         raise SystemExit(f"{label} never launched: {missing}")
-    counted = count_launches(lambda: mesh_encode(frames, "cuda"), default="decide")
+    forms_check(label, launches, bd)
+    counted = count_launches(lambda: mesh_encode(frames, "cuda", bd=bd), default="decide")
     bounds = {st: dict(launches_per_frame=sum(v[0] for v in ks.values()) / n,
                        bound_ms_per_frame=sum(v[1] for v in ks.values()) / n,
                        kernels={k: v[0] / n for k, v in ks.items()})
               for st, ks in counted.items()}
     decode_later(f"{label}", pairs, libaom=True)
     h, w = frames[0][0].shape
-    log(json.dumps(dict(phase="tiles", path=label, size=[w, h], tiles=MESH_TILES, frames=n,
+    log(json.dumps(dict(phase="tiles", path=label, bd=bd, size=[w, h], tiles=MESH_TILES, frames=n,
                         decide_ms=timer.ms, frame_s=secs, waves=waves,
                         bytes=[len(tu) for tu, _ in pairs],
-                        y_psnr=y_psnr(pairs, frames), stages=bounds,
+                        y_psnr=y_psnr(pairs, frames, bd), stages=bounds,
                         launches_per_frame={k: v / n for k, v in launches.items() if v})))
 
 
@@ -2098,17 +2166,23 @@ def run_tiles(torch):
     through the Encoder beside the one-tile one of phase 4; the two-column
     mesh at full width, a 1920x1080 key frame and a 1920x1024 key frame
     with 2 P frames (the tallest 1920-wide size whose tile heights are
-    whole superblocks, as the inter mesh needs)."""
-    small = mesh_frames(256, 64, 3)
-    card, _ = mesh_encode(small, "cuda")
-    cpu, _ = mesh_encode(small, "cpu")
-    if [tu for tu, _ in card] != [tu for tu, _ in cpu]:
-        raise SystemExit("256x64 mesh: the card's TUs differ from the plain versions'")
-    decode_all("256x64 mesh", card)
-    checked = aom_check("256x64 mesh", card)
-    log(json.dumps(dict(phase="tiles", path="256x64 mesh GOP", tiles=MESH_TILES,
-                        bytes=[len(tu) for tu, _ in card], tus_equal_cpu=True,
-                        decode_bit_exact=True, libaom_checked_tus=checked)))
+    whole superblocks, as the inter mesh needs). The 256x64 GOP and the
+    1920x1024 GOP also at 10 bits, on the 10-bit clip."""
+    import numpy as np
+
+    for bd in (8, 10):
+        label = "256x64 mesh GOP" if bd == 8 else "256x64 10-bit mesh GOP"
+        small = mesh_frames(256, 64, 3, bd)
+        card, _ = mesh_encode(small, "cuda", bd=bd)
+        cpu, _ = mesh_encode(small, "cpu", bd=bd)
+        if [tu for tu, _ in card] != [tu for tu, _ in cpu]:
+            raise SystemExit(f"{label}: the card's TUs differ from the plain versions'")
+        decode_all(label, card)
+        checked = aom_check(label, card)
+        log(json.dumps(dict(phase="tiles", path=label, bd=bd, tiles=MESH_TILES,
+                            bytes=[len(tu) for tu, _ in card], tus_equal_cpu=True,
+                            decode_bit_exact=True, libaom_checked_tus=checked,
+                            y_psnr=y_psnr(card, small, bd))))
 
     run_path(torch, "medium, 8 tiles", TILES, 1, KEY_KERNELS, True, libaom=True)
     one, eight = PATHS["medium"], PATHS["medium, 8 tiles"]
@@ -2119,9 +2193,14 @@ def run_tiles(torch):
 
     intra = ("intra_pred", "txfm_quant_recon", "txb_rate", "commit_wave")
     run_mesh(torch, "1920x1080 mesh key frame", clip_1080p(1), intra)
-    gop = [[pl[: 1024 >> (i > 0)] for i, pl in enumerate(f)] for f in clip_1080p(3)]
-    run_mesh(torch, "1920x1024 mesh GOP", gop,
-             intra + ("rdoq", "me_sad", "subpel_pred", "mc_lanes"))
+    for bd in (8, 10):
+        gop = [[np.asarray(pl[: 1024 >> (i > 0)], np.int32) for i, pl in enumerate(f)]
+               for f in clip_1080p(3, bd)]
+        inter = ("rdoq", "me_sad", "subpel_pred", "mc_lanes")
+        if bd == 10:
+            inter = tuple(_FORM16.get(k, k) for k in inter)
+        run_mesh(torch, "1920x1024 mesh GOP" if bd == 8 else "1920x1024 10-bit mesh GOP", gop,
+                 intra + inter, bd)
 
 
 class K16Capture:
@@ -2662,6 +2741,10 @@ def main() -> int:
     phase("decide capture", check_captured, torch)
     phase("10-bit decide capture", check_captured, torch, 10)
     crf_launches = phase("CRF GOP", run_crf, torch)
+    crf10_launches = phase("10-bit CRF GOP", run_crf, torch, 10)
+    log(json.dumps(dict(phase="CRF GOP, 10 bits against 8",
+                        **{k: [PATHS["1080p 10-bit CRF"][k], PATHS["1080p CRF"][k]]
+                           for k in PATHS["1080p CRF"]})))
     phase("VBR GOP", run_vbr, torch)
     phase("tiles", run_tiles, torch)
     phase("1080p decodes", decode_queued)
@@ -2679,6 +2762,8 @@ def main() -> int:
     for name, (src, repl) in KERNEL_SOURCES.items():
         c = checks[name]
         used, path = ((crf_launches, "1080p CRF random-access GOP") if name in CRF_ONLY else
+                      (crf10_launches, "1080p 10-bit CRF random-access GOP")
+                      if name == "subpel_refine16" else
                       (ra_launches, "1080p random-access GOP") if name in RA_ONLY else
                       (ra10_launches, "1080p 10-bit random-access GOP")
                       if name == "mc_compound16" else

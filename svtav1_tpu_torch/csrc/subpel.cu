@@ -350,12 +350,18 @@ int subpel_pred(const int* src_b, const T* ref, const int* ys, const int* xs, co
 //
 // Bound: operations (18 predictions of n^2 samples, each 8 vertical
 // multiply-adds, a difference and a sum, and the horizontal pass of 3
-// column phases per step over n+8 rows, against (n+8)^2 uint8 and n^2 int32
-// reads). Design: one block per lane, patch and source in shared memory as
-// K9; per step the horizontal pass runs once per candidate column into
-// shared memory and serves that column's three rows.
-__global__ void subpel_refine_kernel(const int* __restrict__ src_b,
-                                     const uint8_t* __restrict__ ref,
+// column phases per step over n+8 rows, against (n+8)^2 reference and n^2
+// int32 reads). Design: one block per lane, patch and source in shared
+// memory as K9; per step the horizontal pass runs once per candidate column
+// into shared memory and serves that column's three rows.
+//
+// 10 bits (subpel_refine16_launch): the same kernel on int16 planes, a
+// template on the sample type. The patch is int16 in shared memory at both
+// depths (0..1023 need no bias); hpass accumulates in int from 2^(bd+6) and
+// vpass takes its offsets and clip from bd, and a 16x16 SAD (at most
+// 256 x 1023) fits an int.
+template <typename T>
+__global__ void subpel_refine_kernel(const int* __restrict__ src_b, const T* __restrict__ ref,
                                      const int* __restrict__ ys, const int* __restrict__ xs,
                                      const int* __restrict__ mv_fp, const int* __restrict__ ftab,
                                      int* __restrict__ mv_out, int H, int W, int n, int bd) {
@@ -423,19 +429,37 @@ __global__ void subpel_refine_kernel(const int* __restrict__ src_b,
   }
 }
 
+template <typename T>
+int subpel_refine(const int* src_b, const T* ref, const int* ys, const int* xs, const int* mv_fp,
+                  const int* ftab, int* mv_out, int B, int H, int W, int n, int bd,
+                  cudaStream_t st) {
+  if (B == 0) return 0;
+  const int P = n + 8;
+  const int threads = n * n >= 256 ? 256 : n * n;
+  const size_t shm = (size_t)P * n * sizeof(int) + (size_t)(P * P + n * n) * sizeof(short);
+  subpel_refine_kernel<T><<<B, threads, shm, st>>>(src_b, ref, ys, xs, mv_fp, ftab, mv_out, H, W,
+                                                   n, bd);
+  return launch_status();
+}
+
 }  // namespace
 
 extern "C" int subpel_refine_launch(const int* src_b, const uint8_t* ref, const int* ys,
                                     const int* xs, const int* mv_fp, const int* ftab,
                                     int* mv_out, int B, int H, int W, int n, int bd,
                                     void* stream) {
-  if (B == 0) return 0;
-  const int P = n + 8;
-  const int threads = n * n >= 256 ? 256 : n * n;
-  const size_t shm = (size_t)P * n * sizeof(int) + (size_t)(P * P + n * n) * sizeof(short);
-  subpel_refine_kernel<<<B, threads, shm, (cudaStream_t)stream>>>(src_b, ref, ys, xs, mv_fp, ftab,
-                                                                  mv_out, H, W, n, bd);
-  return launch_status();
+  if (bd != 8) return (int)cudaErrorInvalidValue;  // uint8 references: 8-bit only
+  return subpel_refine<uint8_t>(src_b, ref, ys, xs, mv_fp, ftab, mv_out, B, H, W, n, bd,
+                                (cudaStream_t)stream);
+}
+
+extern "C" int subpel_refine16_launch(const int* src_b, const int16_t* ref, const int* ys,
+                                      const int* xs, const int* mv_fp, const int* ftab,
+                                      int* mv_out, int B, int H, int W, int n, int bd,
+                                      void* stream) {
+  if (bd != 10) return (int)cudaErrorInvalidValue;  // the 10-bit offsets and clip
+  return subpel_refine<int16_t>(src_b, ref, ys, xs, mv_fp, ftab, mv_out, B, H, W, n, bd,
+                                (cudaStream_t)stream);
 }
 
 extern "C" int subpel_pred_launch(const int* src_b, const uint8_t* ref, const int* ys, const int* xs,

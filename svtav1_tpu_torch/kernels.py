@@ -42,17 +42,20 @@ KERNELS = {
     "subpel_pred": ("subpel.cu", "subpel_pred_launch"),
     "mc_lanes": ("mc.cu", "mc_lanes_launch"),
     "mc_compound": ("mc.cu", "mc_compound_launch"),
-    # the 16-bit forms of K8-K11: the same kernels on int16 planes (10-bit)
+    # the 16-bit forms of K8-K11 and K14: the same kernels on int16 planes (10-bit)
     "me_sad16": ("me.cu", "me_sad16_launch"),
     "subpel_pred16": ("subpel.cu", "subpel_pred16_launch"),
     "mc_lanes16": ("mc.cu", "mc_lanes16_launch"),
     "mc_compound16": ("mc.cu", "mc_compound16_launch"),
+    "subpel_refine16": ("subpel.cu", "subpel_refine16_launch"),
     "tf_filter": ("tf.cu", "tf_filter_launch"),
     "tf_noise": ("tf.cu", "tf_noise_launch"),
     "subpel_refine": ("subpel.cu", "subpel_refine_launch"),
     "tpl_cost": ("txfm_quant_recon.cu", "tpl_cost_launch"),
     "commit_wave": ("commit.cu", "commit_wave_launch"),
 }
+# the kernels with a 16-bit form -> that form (`name` + "16")
+FORM16 = {k: k + "16" for k in KERNELS if k + "16" in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,6 +106,7 @@ ARGTYPES = {
     "tf_noise_launch": [_P, _P, _I, _I, _I, _P],
     # src_b, ref, ys, xs, mv_fp, ftab, mv_out, B, H, W, n, bd, stream
     "subpel_refine_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "subpel_refine16_launch": [_P] * 7 + [_I] * 5 + [_P],
     # src, pred, tables, satd|NULL, err|NULL, recon|NULL, mode, L, rep, n, b0, b1, b2, sh_row,
     # sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
     "tpl_cost_launch": [_P] * 6 + [_I] * 14 + [_P],

@@ -35,10 +35,10 @@ negative positions with `>>` and phases with `& 15` as it does.
 Planes on the card are uint8 at 8 bits and int16 at 10 bits
 (`plane_dtype`), as the reference stacks them. K8, K9, K10 and K11 each
 have a 16-bit form, built from the same source and counted under its own
-name (`me_sad16`, `subpel_pred16`, `mc_lanes16`, `mc_compound16`); the
-wrapper picks it by `bd`. A plane of another dtype raises, and a uint8
-plane above 8 bits raises on the CPU too: no wrapper casts. K14 is 8-bit
-only (TPL runs at 8 bits).
+name (`me_sad16`, `subpel_pred16`, `mc_lanes16`, `mc_compound16`), and so
+does K14 (`subpel_refine16`); the wrapper picks it by `bd`. A plane of
+another dtype raises, and a uint8 plane above 8 bits raises on the CPU too:
+no wrapper casts.
 """
 from __future__ import annotations
 
@@ -85,7 +85,7 @@ def plane_np_dtype(bd: int):
 def _kname(name: str, bd: int) -> str:
     """The kernel of `name` for planes of depth bd: the 16-bit form above 8."""
     plane_dtype(bd)
-    return name if bd == 8 else name + "16"
+    return name if bd == 8 else kernels.FORM16[name]
 
 
 def check_plane(p, name: str, bd: int) -> None:
@@ -596,17 +596,14 @@ def subpel_refine_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int):
     the TPL's subpel step.
 
     src_b (B, n, n) int32 source blocks at (ys, xs) of the (H, W) reference
-    plane `ref` (uint8 on the card: the kernel is 8-bit only), mv_fp (B, 2)
-    full-pel MVs. Each step MCs the nine candidates around the current MV
-    (offsets dy major, dx minor, from (-1, -1) to (1, 1), times 4 then 2
-    eighth-pels) and takes the first SAD minimum, so a corner that ties the
-    centre wins. Returns (B, 2) int32 1/8-pel MVs."""
+    plane `ref` (plane_dtype(bd) on the card; `subpel_refine16` at 10
+    bits), mv_fp (B, 2) full-pel MVs. Each step MCs the nine candidates
+    around the current MV (offsets dy major, dx minor, from (-1, -1) to
+    (1, 1), times 4 then 2 eighth-pels) and takes the first SAD minimum, so
+    a corner that ties the centre wins. Returns (B, 2) int32 1/8-pel MVs."""
     check_plane(ref, "ref", bd)
     if src_b.device.type == "cpu":
         return subpel_refine_plain(src_b, ref, ys, xs, mv_fp, which, bd)
-    if bd != 8:
-        raise ValueError("subpel_refine_lanes: the kernel (K14) takes 8-bit references; 10-bit "
-                         "TPL is ROADMAP queue 1 '10-bit TPL'")
     kernels.check(src_b, "src_b", torch.int32)
     B, n = src_b.shape[0], src_b.shape[-1]
     if n < 8:
@@ -615,7 +612,7 @@ def subpel_refine_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int):
     mv8 = torch.empty((B, 2), dtype=torch.int32, device=src_b.device)
     if B == 0:
         return mv8
-    kernels.launch("subpel_refine", src_b.data_ptr(), ref.data_ptr(), ys.data_ptr(),
+    kernels.launch(_kname("subpel_refine", bd), src_b.data_ptr(), ref.data_ptr(), ys.data_ptr(),
                    xs.data_ptr(), mv_fp.data_ptr(),
                    _ftab(filter_for_dim(which, n), str(src_b.device)).data_ptr(), mv8.data_ptr(),
                    B, ref.shape[-2], ref.shape[-1], n, bd, kernels.stream_ptr(mv8))

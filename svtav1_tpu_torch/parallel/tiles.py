@@ -82,12 +82,6 @@ def _tile_consts(p: FrameParams, qctx: int, tiles: list):
     return sizes, pens, mode_cost, txt_cost
 
 
-def _refuse_10bit(p: FrameParams) -> None:
-    if p.bd != 8:
-        raise NotImplementedError("the tile encoders of 10-bit frames: ROADMAP queue 1, "
-                                  "'10-bit tile encoders'")
-
-
 def _mesh_params(width: int, height: int, bd: int, ntiles: int, is_key: bool) -> FrameParams:
     """The frame's parameters with ntiles uniform tile columns; raises
     ValueError unless they give ntiles tiles of equal dims."""
@@ -116,7 +110,7 @@ def _slabs(planes, regions, sub: int):
 def _mesh_decide_fn(width: int, height: int, qctx: int, bd: int, ntiles: int, device: str):
     """The intra decide of an ntiles-column key frame with its per-frame
     constants on `device`. Returns (run, layout, tiles, regions):
-    run(sy8, su8, sv8, dqv, lam) takes (T, h, w) tile slabs and returns
+    run(sy_pl, su_pl, sv_pl, dqv, lam) takes (T, h, w) tile slabs and returns
     (packed (T, L) float32: per size the cost, mode and tx grids of each
     tile; total, the frame's summed cost)."""
     from ..pipeline.device_decide import _decide_intra_size, _rate_fns
@@ -132,9 +126,9 @@ def _mesh_decide_fn(width: int, height: int, qctx: int, bd: int, ntiles: int, de
                   torch.as_tensor(txt_cost[n], device=dev), _rate_fns(qctx, n, dev))
               for n in sizes}
 
-    def run(sy8, su8, sv8, dqv, lam):
-        T = sy8.shape[0]
-        sy, su, sv = (x.to(torch.int32) for x in (sy8, su8, sv8))
+    def run(sy_pl, su_pl, sv_pl, dqv, lam):
+        T = sy_pl.shape[0]
+        sy, su, sv = (x.to(torch.int32) for x in (sy_pl, su_pl, sv_pl))
         dq = (int(dqv[0]), int(dqv[1]))
         lam_t = torch.tensor(lam, dtype=torch.float32, device=dev)
         packed = []
@@ -189,7 +183,6 @@ def encode_intra_frame_mesh(src_planes: list, p_base: FrameParams, ntiles: int, 
     from ..pipeline.intra_md import rd_lambda
 
     dev = resolve_device(device)
-    _refuse_10bit(p_base)
     qctx = get_q_ctx(p_base.qindex)
     run, layout, tiles, regions = _mesh_decide_fn(p_base.width, p_base.height, qctx, p_base.bd,
                                                   ntiles, str(dev))
@@ -237,10 +230,11 @@ def _mesh_inter_fn(width: int, height: int, qctx: int, bd: int, ntiles: int, nre
     """The inter decide of an ntiles-column frame against nref references,
     per-tile ME on halo-cropped reference slabs, with its per-frame
     constants on `device`. Returns (run, layout, tiles, regions):
-    run(sy8, su8, sv8, ry8, ru8, rv8, dqv, lam) takes (T, h, w) tile slabs
-    and (T, NREF, h, w + 2 * HALO) uint8 reference crops (chroma halves
-    both) and returns (packed (T, L) float32: per size the ten decision
-    grids of each tile; total, the frame's summed cost)."""
+    run(sy_pl, su_pl, sv_pl, ry, ru, rv, dqv, lam) takes (T, h, w) tile slabs
+    and (T, NREF, h, w + 2 * HALO) reference crops in
+    me_torch.plane_dtype(bd) (chroma halves both) and returns (packed
+    (T, L) float32: per size the ten decision grids of each tile; total,
+    the frame's summed cost)."""
     from ..codec import rate_torch
     from ..ops import me_torch
     from ..pipeline.device_decide import _blocks_of, _decide_intra_size, _rate_fns, fc_for_qctx
@@ -274,11 +268,11 @@ def _mesh_inter_fn(width: int, height: int, qctx: int, bd: int, ntiles: int, nre
     comp = t(rate_torch.mv_component_cost_lut(fc, MAX_MV_ABS))
     sbr, sbc = rh // 64, rw // 64
 
-    def run(sy8, su8, sv8, ry8, ru8, rv8, dqv, lam):
-        T = sy8.shape[0]
+    def run(sy_pl, su_pl, sv_pl, ry, ru, rv, dqv, lam):
+        T = sy_pl.shape[0]
         dq = (int(dqv[0]), int(dqv[1]))
         lam_t = torch.tensor(lam, dtype=torch.float32, device=dev)
-        sy, su, sv = (x.to(torch.int32) for x in (sy8, su8, sv8))
+        sy, su, sv = (x.to(torch.int32) for x in (sy_pl, su_pl, sv_pl))
         # the 7-mode intra candidates of every tile in one batch per size
         intra = {}
         for n, R, C in layout:
@@ -292,17 +286,17 @@ def _mesh_inter_fn(width: int, height: int, qctx: int, bd: int, ntiles: int, nre
             mv_by_ref = {n: [] for n in sizes}
             mc_by_ref = {n: [] for n in sizes}
             sb_pred = []
-            src_pyr = me_torch.me_pyramid(sy8[ti], sbr, sbc) if nref > 1 else None
+            src_pyr = me_torch.me_pyramid(sy_pl[ti], sbr, sbc, bd) if nref > 1 else None
             for ri in range(nref):
-                ref8 = ry8[ti, ri]
-                mvs_fp, mv_sb = me_torch.me_fullpel_frame(sy8[ti], ref8, sbr, sbc, ref_off_x=HALO,
-                                                          src_pyr=src_pyr)
+                ref = ry[ti, ri]
+                mvs_fp, mv_sb = me_torch.me_fullpel_frame(sy_pl[ti], ref, sbr, sbc, ref_off_x=HALO,
+                                                          src_pyr=src_pyr, bd=bd)
                 sb_pred.append(mv_sb.reshape(sbr, sbc, 2) * 8)
                 for n, R, C in layout:
                     fp = mvs_fp[n][:R, :C].reshape(R * C, 2)
                     ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n
                     xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n
-                    mv8, mc8 = me_torch.subpel_pred_lanes(_blocks_of(sy_t, n, R, C), ref8, ys,
+                    mv8, mc8 = me_torch.subpel_pred_lanes(_blocks_of(sy_t, n, R, C), ref, ys,
                                                           xs + HALO, fp, which, bd)
                     mv_by_ref[n].append(mv8.clamp(-MAX_MV_ABS, MAX_MV_ABS))
                     mc_by_ref[n].append(mc8)
@@ -312,7 +306,7 @@ def _mesh_inter_fn(width: int, height: int, qctx: int, bd: int, ntiles: int, nre
                          .reshape(R * C, 2) for sb in sb_pred]
                 cost_a, mode_a, tx_a = intra[n]
                 outs = _decide_inter_size(
-                    sy_t, su[ti : ti + 1], sv[ti : ti + 1], ry8[ti], ru8[ti], rv8[ti],
+                    sy_t, su[ti : ti + 1], sv[ti : ti + 1], ry[ti], ru[ti], rv[ti],
                     mv_by_ref[n], preds, (cost_a[ti], mode_a[ti], tx_a[ti]),
                     (joint, comp, cand_bits, inter_txt[n]), n, intra_consts[n][3], dq, bd, R, C,
                     lam_t, which, mc_by_ref[n], ref_off_x=HALO)
@@ -324,7 +318,7 @@ def _mesh_inter_fn(width: int, height: int, qctx: int, bd: int, ntiles: int, nre
 
 
 def _halo_crops(ref_planes, regions, sub: int):
-    """(T, NREF, h, w + 2 * halo) uint8 crops of a (NREF, H, W) device stack
+    """(T, NREF, h, w + 2 * halo) crops of a (NREF, H, W) device stack
     around each tile, the frame's edge columns replicated (np.pad edge)."""
     W = ref_planes.shape[-1]
     halo = HALO >> sub
@@ -354,12 +348,12 @@ def encode_inter_frame_mesh(src_planes: list, p_base: FrameParams, refs: dict, n
     from ..codec import array_plan
     from ..codec.tile_codec import Plan
     from ..codec.tile_walk_native import run_tile_ops
+    from ..ops import me_torch
     from ..pipeline import device_commit, device_decide
     from ..pipeline.device_decide import MODES, TX_SEARCH, qparams_np
     from ..pipeline.intra_md import rd_lambda
 
     dev = resolve_device(device)
-    _refuse_10bit(p_base)
     if (1 << p_base.tile_cols_log2) != ntiles or p_base.tile_rows_log2:
         raise ValueError(f"p_base codes {len(p_base.tiles())} tiles, not {ntiles} tile columns")
     qctx = get_q_ctx(p_base.qindex)
@@ -373,7 +367,8 @@ def encode_inter_frame_mesh(src_planes: list, p_base: FrameParams, refs: dict, n
     lam = float(rd_lambda(p.qindex, p.bd))
     dqv, lam_op = qparams_np(p.qindex, p.bd)
     src_dev = device_decide.put_frames([src_planes], p.bd, dev)
-    stacks = [torch.stack([torch.as_tensor(refs[r][pl]).to(dev, torch.uint8) for r in ref_ids])
+    dt = me_torch.plane_dtype(p.bd)
+    stacks = [torch.stack([torch.as_tensor(refs[r][pl]).to(dev, dt) for r in ref_ids])
               for pl in range(3)]
     crops = [_halo_crops(stacks[pl], regions, int(pl > 0)) for pl in range(3)]
     packed, total = run(_slabs(src_dev[0], regions, 0), _slabs(src_dev[1], regions, 1),

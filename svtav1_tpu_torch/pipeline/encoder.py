@@ -29,7 +29,7 @@ finished (its TU written) before the next one starts. `scene_cut`
 codes a key frame where the source changes abruptly.
 
 This slice supports every preset ("fast", "medium", "slow"), 8- and 10-bit
-(`bd`; CRF at 10 bits waits for 10-bit TPL), DLF
+(`bd`, on every path: CRF's TPL and the tile encoders too), DLF
 and CDEF each on or off, translation global motion, CDF inheritance, the
 HDR metadata OBUs of key frames, and uniform tiles (`tile_cols_log2`,
 `tile_rows_log2`) in all-intra streams (`keyint=1`): each tile is decided,
@@ -126,7 +126,6 @@ _UNSUPPORTED = (
     (lambda c: c.enable_restoration, "enable_restoration", "restoration"),
     (lambda c: bool(c.film_grain or c.film_grain_table), "film_grain", "film grain"),
     (lambda c: c.intra_batch > 1, "intra_batch > 1", "intra batching"),
-    (lambda c: c.bd != 8 and c.rc_mode == "crf", "rc_mode='crf' at bd=10", "10-bit TPL"),
     (lambda c: c.enable_filter_intra, "enable_filter_intra", "filter-intra"),
 )
 

@@ -42,8 +42,9 @@ def _tpl_frame(H: int, W: int, bd: int, device: str):
     """One dispenser step with up to two references:
     run(src, ref0_src, ref0_rec, ref1_src, ref1_rec, dq) -> (intra_cost,
     inter_cost, srcrf, recrf, mv, ref_pick, recon), the (H/16, W/16) grids of
-    the frame and its (H, W) TPL recon plane. Planes are (H, W) uint8 on the
-    device; an absent reference is None. ref_pick: 0/1 for the chosen
+    the frame and its (H, W) TPL recon plane. Planes are (H, W)
+    me_torch.plane_dtype(bd) on the device (uint8 at 8 bits, int16 at 10);
+    an absent reference is None. ref_pick: 0/1 for the chosen
     reference, -1 where intra wins. The inter cost grid holds
     min(inter, intra); the costs are float32 as in the reference."""
     R, C = H // TPL_B, W // TPL_B
@@ -65,17 +66,17 @@ def _tpl_frame(H: int, W: int, bd: int, device: str):
         return plane.reshape(R, TPL_B, C, TPL_B).permute(0, 2, 1, 3).reshape(B, TPL_B, TPL_B) \
             .contiguous()
 
-    def ref_cost(src8, src_pyr, srcb, ref_src8, ref_rec8):
-        fp = me_torch.me_fullpel_frame(src8, ref_src8, sbr, sbc, src_pyr=src_pyr)[0][16][:R, :C] \
-            .reshape(B, 2)
-        mv8 = me_torch.subpel_refine_lanes(srcb, ref_src8, ys, xs, fp, 0, bd)
+    def ref_cost(src_pl, src_pyr, srcb, ref_src, ref_rec):
+        fp = me_torch.me_fullpel_frame(src_pl, ref_src, sbr, sbc, src_pyr=src_pyr,
+                                       bd=bd)[0][16][:R, :C].reshape(B, 2)
+        mv8 = me_torch.subpel_refine_lanes(srcb, ref_src, ys, xs, fp, 0, bd)
         mvy, mvx = mv8[:, 0] * 2, mv8[:, 1] * 2
-        pred_rec = me_torch.mc_lanes(ref_rec8, ys, xs, mvy, mvx, TPL_B, TPL_B, 0, bd)
-        pred_src = me_torch.mc_lanes(ref_src8, ys, xs, mvy, mvx, TPL_B, TPL_B, 0, bd)
+        pred_rec = me_torch.mc_lanes(ref_rec, ys, xs, mvy, mvx, TPL_B, TPL_B, 0, bd)
+        pred_src = me_torch.mc_lanes(ref_src, ys, xs, mvy, mvx, TPL_B, TPL_B, 0, bd)
         return TT.tpl_cost(srcb, pred_rec, 0, 0, 0, bd), mv8, pred_rec, pred_src
 
-    def run(src8, r0src8, r0rec8, r1src8, r1rec8, dq):
-        src = src8.to(torch.int32)
+    def run(src_pl, r0src, r0rec, r1src, r1rec, dq):
+        src = src_pl.to(torch.int32)
         srcb = blocks(src)
 
         # intra probe, open-loop from source neighbours, with the
@@ -98,12 +99,12 @@ def _tpl_frame(H: int, W: int, bd: int, device: str):
         # inter per reference: ME on the sources, MC from the TPL recon
         zeros = torch.zeros((B, TPL_B, TPL_B), dtype=torch.int32, device=dev)
         zmv = torch.zeros((B, 2), dtype=torch.int32, device=dev)
-        refs = ((r0src8, r0rec8), (r1src8, r1rec8))
+        refs = ((r0src, r0rec), (r1src, r1rec))
         # the source's ME pyramid, once for both references
-        src_pyr = (me_torch.me_pyramid(src8, sbr, sbc)
-                   if r0src8 is not None and r1src8 is not None else None)
-        per_ref = [ref_cost(src8, src_pyr, srcb, s8, r8) if s8 is not None
-                   else (absent, zmv, zeros, zeros) for s8, r8 in refs]
+        src_pyr = (me_torch.me_pyramid(src_pl, sbr, sbc, bd)
+                   if r0src is not None and r1src is not None else None)
+        per_ref = [ref_cost(src_pl, src_pyr, srcb, rs, rr) if rs is not None
+                   else (absent, zmv, zeros, zeros) for rs, rr in refs]
         (c0, mv0, prec0, psrc0), (c1, mv1, prec1, psrc1) = per_ref
         pick1 = c1 < c0
         inter_cost = torch.minimum(c0, c1)
@@ -125,7 +126,7 @@ def _tpl_frame(H: int, W: int, bd: int, device: str):
         return (intra_cost.to(torch.float32).reshape(R, C),
                 torch.minimum(inter_cost, intra_cost).to(torch.float32).reshape(R, C),
                 srcrf.reshape(R, C), recrf.reshape(R, C), mv8.reshape(R, C, 2),
-                ref_pick.reshape(R, C), recon.to(torch.uint8))
+                ref_pick.reshape(R, C), recon.to(me_torch.plane_dtype(bd)))
 
     return run
 
@@ -153,19 +154,18 @@ def tpl_window(frames_y: list, qindex: int, bd: int = 8, minigop: int = 1, devic
     coding prediction structure (minigop > 1: dyadic hierarchy; each coded
     frame MEs against its true past/future anchors and their TPL recons).
 
-    frames_y: list of (H, W) int 8-bit source luma planes, H and W multiples
-    of 64. `device=None` means CUDA. Returns per-frame stats dicts (window
-    order) with numpy grids."""
-    if bd != 8:
-        raise NotImplementedError("TPL of 10-bit frames: ROADMAP queue 1, '10-bit TPL'")
+    frames_y: list of (H, W) int source luma planes of depth bd (8 or 10),
+    H and W multiples of 64. `device=None` means CUDA. Returns per-frame
+    stats dicts (window order) with numpy grids."""
     dev = resolve_device(device)
     H, W = frames_y[0].shape
     run = _tpl_frame(H, W, bd, str(dev))
     dq = (quant_ops.dc_q(qindex, bd), quant_ops.ac_q(qindex, bd))
     srcs, recs, out = {}, {}, {}
     sched = window_schedule(len(frames_y), minigop)
+    dt = me_torch.plane_np_dtype(bd)
     for (cur, rp, rf) in sched:
-        srcs[cur] = torch.from_numpy(np.asarray(frames_y[cur], np.uint8)).to(dev)
+        srcs[cur] = torch.from_numpy(np.asarray(frames_y[cur], dt)).to(dev)
         *grids, recs[cur] = run(srcs[cur], srcs.get(rp), recs.get(rp), srcs.get(rf), recs.get(rf),
                                 dq)
         out[cur] = grids

@@ -75,10 +75,12 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
     once, and the arithmetic per element that chip_smoke.py also counts.
     `extra`, what lives on the card: for K2 (lanes with the vertical ADST,
     lanes with the horizontal ADST) of the launch, for K7 the unmasked
-    cells. The 16-bit forms of K8-K11 (`me_sad16`, ...) read 2-byte
-    samples where their 8-bit forms read one."""
+    cells. The 16-bit forms of K8-K11 and K14 (`me_sad16`, ...) read
+    2-byte samples where their 8-bit forms read one."""
+    from ..kernels import FORM16
+
     sz = 1
-    if name in ("me_sad16", "subpel_pred16", "mc_lanes16", "mc_compound16"):
+    if name in FORM16.values():
         name, sz = name[:-2], 2
     if name == "intra_pred":
         B, n, nmodes, one = args[9], args[10], args[12], args[5] is not None
@@ -137,7 +139,7 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
         return H * W * 4 + 16, H * W * 20
     if name == "subpel_refine":
         B, H, W, n = args[7:11]
-        return H * W + B * n * n * 4 + B * 24, B * 2 * (3 * (n + 8) * n * 16 + 9 * n * n * 19)
+        return H * W * sz + B * n * n * 4 + B * 24, B * 2 * (3 * (n + 8) * n * 16 + 9 * n * n * 19)
     if name == "tpl_cost":
         recon, mode, L, rep, n = args[5:10]
         return ((L // rep + L) * n * n * 4 + (4 if mode == 0 else 8) * L

@@ -13,28 +13,25 @@ planes int16 on the device, as the reference stacks them).
   worker is reused (the comparison would fail if one were).
 - Port-only clips, held by the port's decoder and libaom: random access
   with MCTF, the DC rule's clip, a two-tile key frame and two-pass VBR.
-- The 10-bit settings still outside the port raise, naming their ROADMAP
-  items.
+- A uint8 reference at 10 bits, and the 10-bit settings still outside the
+  port, raise (the latter naming their ROADMAP items).
 """
-import contextlib
-import inspect
 from unittest import mock
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
-from svtav1_tpu.pipeline import device_commit as ref_commit
-from svtav1_tpu.pipeline import device_decide as ref_decide
 from svtav1_tpu.pipeline import encoder as ref_enc
 from svtav1_tpu_torch.codec.mvp import MiState
-from svtav1_tpu_torch.codec.tile_codec import FrameParams
 from svtav1_tpu_torch.constants.av1 import PredMode
 from svtav1_tpu_torch.decode.decoder import Decoder
+from svtav1_tpu_torch.ops import me_torch
 from svtav1_tpu_torch.pipeline import encoder as port_enc
 from svtav1_tpu_torch.pipeline.firstpass import FirstPassCollector
 from svtav1_tpu_torch.utils.testclip import make_frames
-from torch_encode_parity import check_libaom, displayed, encode_all, packets_decode
+from torch_encode_parity import (check_libaom, displayed, encode_all, gop_decodes,
+                                 packets_decode, reference_with_spec_rules)
 
 
 def _clip10(w, h, n, seed=7):
@@ -48,48 +45,6 @@ def _clip10(w, h, n, seed=7):
         v = (base[t : t + h : 2, 2 * t : 2 * t + w : 2] // 3 + 320).astype(np.int32)
         out.append((y, u, v))
     return out
-
-
-@contextlib.contextmanager
-def reference_with_spec_rules(bd: int):
-    """Within the block, the JAX package follows the two spec rules the port
-    keeps: its _predict_modes (as its decide and commit call it) predicts DC
-    with neither neighbour as 1 << (bd - 1), and its _filter_device, when a
-    frame's luma levels come out 0, returns the frame filtered with no
-    deblocking at all (the decoder filters no plane then) and the searched
-    level's index. Yields the number of frames that took the second rule.
-    The package itself stays as it is."""
-    real_pm = ref_decide._predict_modes
-    real_fd = ref_commit._filter_device
-    sig = inspect.signature(real_fd)
-    level0 = [0]
-
-    def predict_modes(above, left, topleft, have_above, have_left, n, *a, **kw):
-        out = real_pm(above, left, topleft, have_above, have_left, n, *a, **kw)
-        none = ~(jnp.asarray(have_above).astype(bool) | jnp.asarray(have_left).astype(bool))
-        return out.at[:, 0].set(jnp.where(none[:, None, None], 1 << (bd - 1), out[:, 0]))
-
-    def filter_device(*args, **kw):
-        a = sig.bind(*args, **kw)
-        a.apply_defaults()
-        a = dict(a.arguments)
-        out = real_fd(**a)
-        levels, lf_search = a["levels"], a["lf_search"]
-        if not (levels[2] or levels[3]):
-            return out
-        picks = np.asarray(out[1])[:, 4]
-        off = [lf_search[k] == 0 if lf_search else levels[0] == levels[1] == 0 for k in picks]
-        if not any(off):
-            return out
-        assert all(off), "a batch mixing level-0 and filtered frames"
-        level0[0] += len(off)
-        packed, stats, planes = real_fd(**dict(a, levels=(0, 0, 0, 0), lf_search=()))
-        return packed, stats.at[:, 4].set(out[1][:, 4]), planes
-
-    with mock.patch.object(ref_decide, "_predict_modes", predict_modes), \
-            mock.patch.object(ref_commit, "_predict_modes", predict_modes), \
-            mock.patch.object(ref_commit, "_filter_device", filter_device):
-        yield level0
 
 
 def test_reference_10bit_clip_matches_jax_and_decodes():
@@ -117,25 +72,6 @@ def test_reference_10bit_clip_matches_jax_and_decodes():
     check_libaom(tus, shown)
 
 
-def _decode_gop(pkts, w: int, h: int) -> None:
-    """The port's decoder reproduces every coded frame's recon and shows
-    every frame once in display order; libaom decodes the TUs to the shown
-    frames."""
-    dec = Decoder()
-    recon_of, shown = {}, []
-    for f, p in enumerate(pkts):
-        dy, _, _, drec = dec.decode_tu(p.tu)
-        if p.recon is not None:
-            for i in range(3):
-                np.testing.assert_array_equal(drec[i], p.recon[i], err_msg=f"TU {f} plane {i}")
-            recon_of[p.disp_idx] = p.recon
-        if p.shown_disp_idx is not None:
-            assert p.shown_disp_idx == len(shown)
-            np.testing.assert_array_equal(dy, recon_of[p.shown_disp_idx][0][:h, :w])
-            shown.append(displayed(recon_of[p.shown_disp_idx], w, h))
-    check_libaom([p.tu for p in pkts], shown)
-
-
 def test_random_access_with_mctf_decodes():
     """A key frame and a mini-GoP of 4 with MCTF at 10 bits (64x64)."""
     w = h = 64
@@ -144,7 +80,7 @@ def test_random_access_with_mctf_decodes():
                                                    enable_tf=True, bd=10), device="cpu")
     pkts = encode_all(port, frames)
     assert sorted(p.disp_idx for p in pkts if p.disp_idx is not None) == list(range(5))
-    _decode_gop(pkts, w, h)
+    gop_decodes(pkts, w, h)
 
 
 def test_dc_with_no_neighbour_decodes():
@@ -194,19 +130,26 @@ def test_two_tile_key_frame_and_two_pass_vbr_decode():
     packets_decode(pkts, frames)
 
 
-def test_10bit_settings_outside_the_port_raise():
-    """CRF at 10 bits waits for 10-bit TPL (K14); the tile encoders of
-    parallel/tiles.py for 10-bit tile encoders."""
-    from svtav1_tpu_torch.parallel import tiles
+def _refine_with_uint8_reference():
+    z = torch.zeros((1, 16, 16), dtype=torch.int32)
+    i = torch.zeros(1, dtype=torch.int32)
+    me_torch.subpel_refine_lanes(z, torch.zeros((64, 64), dtype=torch.uint8), i, i,
+                                 torch.zeros((1, 2), dtype=torch.int32), 0, 10)
 
-    with pytest.raises(NotImplementedError, match="'10-bit TPL'"):
-        port_enc.Encoder(port_enc.EncoderConfig(64, 64, keyint=16, rc_mode="crf", bd=10),
-                         device="cpu")
-    w, h = 128, 64
-    p = FrameParams(width=w, height=h, qindex=120, bd=10, frame_is_intra=True, tile_cols_log2=1)
-    src = [np.zeros((h, w), np.int32), np.zeros((h // 2, w // 2), np.int32),
-           np.zeros((h // 2, w // 2), np.int32)]
-    with pytest.raises(NotImplementedError, match="'10-bit tile encoders'"):
-        tiles.encode_intra_frame_mesh(src, p, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="'10-bit tile encoders'"):
-        tiles.encode_inter_frame_mesh(src, p, {1: src}, 2, device="cpu")
+
+def _encoder_with(**kw):
+    port_enc.Encoder(port_enc.EncoderConfig(64, 64, keyint=16, bd=10, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("call, exc, match", [
+    (_refine_with_uint8_reference, ValueError, "uint8 plane cannot hold 10-bit"),
+    (lambda: _encoder_with(enable_restoration=True), NotImplementedError, "restoration"),
+    (lambda: _encoder_with(film_grain=10), NotImplementedError, "film grain"),
+], ids=["uint8_reference", "restoration", "film_grain"])
+def test_10bit_settings_outside_the_port_raise(call, exc, match):
+    """CRF (10-bit TPL, K14's 16-bit form) and the tile encoders run at 10
+    bits; a uint8 reference cannot hold 10-bit samples, so K14's wrapper
+    refuses one, and the settings still outside the port raise at 10 bits,
+    naming their ROADMAP items."""
+    with pytest.raises(exc, match=match):
+        call()

@@ -46,7 +46,6 @@ def test_slice_without_deblocking_decodes():
     (dict(film_grain=10), "film grain"),
     (dict(tile_cols_log2=1, keyint=16), "tiles"),
     (dict(intra_batch=2), "intra batching"),
-    (dict(bd=10, rc_mode="crf"), "10-bit TPL"),
 ])
 def test_settings_outside_the_slice_raise(override, item):
     """Settings outside the port raise NotImplementedError naming their

@@ -2,10 +2,12 @@
 encoders (svtav1_tpu_torch.parallel.tiles) against svtav1_tpu's
 mesh-sharded ones on a jax.sharding.Mesh of 2 of the 8 virtual devices of
 tests/conftest.py, the port batching the same 2 tiles with the plain
-versions of its kernels; the Encoder's 2x2-tile key frame against
-svtav1_tpu's Encoder (it follows the intra mesh case, whose per-tile
-commit programs the reference then reuses); and K8 with a reference wider
-than the source. Everything is compared exactly (payloads, recon, MVs,
+versions of its kernels, at 8 bits and at 10 (the reference under the
+port's DC rule, torch_encode_parity.reference_with_spec_rules: every
+tile's top-left block has no neighbour); the Encoder's 2x2-tile key frame
+against svtav1_tpu's Encoder (it follows the intra mesh case, whose
+per-tile commit programs the reference then reuses); and K8 with a
+reference wider than the source. Everything is compared exactly (payloads, recon, MVs,
 frame_mi), except the decide's float32 costs, summed in another order
 (rtol 1e-5), and the blocks of ROADMAP queue 3's deliberate penalty-grid
 divergence (_assert_decides_agree). Every stream is also decoded by the
@@ -35,7 +37,8 @@ from svtav1_tpu_torch.ops import me_torch
 from svtav1_tpu_torch.parallel import tiles as port_tiles
 from svtav1_tpu_torch.pipeline import encoder as port_enc
 from svtav1_tpu_torch.utils.testclip import make_frames
-from torch_encode_parity import check_libaom, encode_all, packets_decode
+from torch_encode_parity import (check_libaom, encode_all, packets_decode,
+                                 reference_with_spec_rules)
 
 W, H, QINDEX = 256, 64, 110  # two 128x64 tile columns (tests/test_multichip.py's recipe)
 
@@ -80,7 +83,7 @@ def _record_runs(mp, module, name: str) -> list:
     return runs
 
 
-def _assert_decides_agree(ref_runs, port_runs, fields, is_key: bool) -> None:
+def _assert_decides_agree(ref_runs, port_runs, fields, is_key: bool, bd: int = 8) -> None:
     """The decide grids of every tile agree: equal modes, tx types and MVs,
     costs within rtol 1e-5 (float32 sums in another order). The one
     deliberate divergence (ROADMAP queue 3, the directional-mode penalty
@@ -92,7 +95,8 @@ def _assert_decides_agree(ref_runs, port_runs, fields, is_key: bool) -> None:
     from svtav1_tpu_torch.constants.cdf import get_q_ctx
 
     assert len(ref_runs) == len(port_runs) > 0
-    p = FrameParams(width=W, height=H, qindex=QINDEX, frame_is_intra=is_key, tile_cols_log2=1)
+    p = FrameParams(width=W, height=H, qindex=QINDEX, bd=bd, frame_is_intra=is_key,
+                    tile_cols_log2=1)
     pens = port_tiles._tile_consts(p, get_q_ctx(QINDEX), p.tiles())[1]
     for (rp, r_total, layout), (pp, p_total, p_layout) in zip(ref_runs, port_runs):
         assert layout == p_layout
@@ -115,33 +119,49 @@ def _assert_decides_agree(ref_runs, port_runs, fields, is_key: bool) -> None:
         np.testing.assert_allclose(p_total, r_total + moved, rtol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def intra_run():
+def _intra_run(planes, bd: int) -> dict:
     """A 256x64 key frame in two 128x64 tiles through both packages' intra
     tile encoders, with each decide's grids recorded."""
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, reference_with_spec_rules(bd):
         ref_runs = _record_runs(mp, ref_tiles, "_mesh_decide_fn")
         port_runs = _record_runs(mp, port_tiles, "_mesh_decide_fn")
-        y, u, v = _clip()
-        want = ref_tiles.encode_intra_frame_mesh(
-            [y, u, v], RefParams(width=W, height=H, qindex=QINDEX, frame_is_intra=True,
-                                 tile_cols_log2=1), _mesh())
-        p = FrameParams(width=W, height=H, qindex=QINDEX, frame_is_intra=True, tile_cols_log2=1)
-        got = port_tiles.encode_intra_frame_mesh([y, u, v], p, 2, device="cpu")
-    return dict(want=want, got=got, ref_runs=ref_runs, port_runs=port_runs)
+        kw = dict(width=W, height=H, qindex=QINDEX, bd=bd, frame_is_intra=True, tile_cols_log2=1)
+        want = ref_tiles.encode_intra_frame_mesh(list(planes), RefParams(**kw), _mesh())
+        got = port_tiles.encode_intra_frame_mesh(list(planes), FrameParams(**kw), 2, device="cpu")
+    return dict(want=want, got=got, ref_runs=ref_runs, port_runs=port_runs, bd=bd)
 
 
-def test_intra_mesh_matches_jax(intra_run):
+@pytest.fixture(scope="module")
+def intra_run():
+    return _intra_run(_clip(), 8)
+
+
+@pytest.fixture(scope="module")
+def intra_run10():
+    """The key frame at 10 bits: the synthetic clip's first frame."""
+    return _intra_run([np.asarray(pl, np.int32) for pl in make_frames(W, H, 1, bd=10)[0]], 10)
+
+
+def _check_intra_mesh(run) -> None:
     """Payloads, recon and the decide grids equal the reference's mesh
     encode."""
-    want_pl, want_rec, want_p = intra_run["want"]
-    got_pl, got_rec, got_p = intra_run["got"]
+    want_pl, want_rec, want_p = run["want"]
+    got_pl, got_rec, got_p = run["got"]
     assert len(got_pl) == 2 and got_pl == want_pl
     for i in range(3):
         np.testing.assert_array_equal(got_rec[i], want_rec[i], err_msg=f"plane {i}")
-    _assert_decides_agree(intra_run["ref_runs"], intra_run["port_runs"], ("cost", "mode", "tx"),
-                          True)
+    _assert_decides_agree(run["ref_runs"], run["port_runs"], ("cost", "mode", "tx"), True,
+                          run["bd"])
     assert got_p.tile_cols_log2 == want_p.tile_cols_log2 == 1
+
+
+def test_intra_mesh_matches_jax(intra_run):
+    _check_intra_mesh(intra_run)
+
+
+def test_intra_mesh_10bit_matches_jax(intra_run10):
+    _check_intra_mesh(intra_run10)
+    assert int(intra_run10["got"][1][0].max()) > 255
 
 
 def test_four_tile_key_frame_matches_jax():
@@ -162,52 +182,49 @@ def test_four_tile_key_frame_matches_jax():
     packets_decode(got, frames)
 
 
-def _gop_clip():
+def _gop_clip(bd: int = 8):
     """Three frames of the synthetic moving clip at 256x64, the two later
     ones with a patch of new content in the right tile: the P frames code
     inter blocks of several sizes and intra blocks among them."""
-    frames = [[np.asarray(pl, np.int32) for pl in f] for f in make_frames(W, H, 3)]
+    frames = [[np.asarray(pl, np.int32) for pl in f] for f in make_frames(W, H, 3, bd=bd)]
     yy, xx = np.mgrid[0:40, 0:40]
     for d in (1, 2):
-        frames[d][0][12:52, 150 + 8 * d : 190 + 8 * d] = 128 + 60 * np.sin((xx + yy * d) / 3.0)
+        patch = 128 + 60 * np.sin((xx + yy * d) / 3.0)
+        frames[d][0][12:52, 150 + 8 * d : 190 + 8 * d] = patch * (1 << (bd - 8))
     return frames
 
 
-def _p_params(disp: int) -> dict:
+def _p_params(disp: int, bd: int = 8) -> dict:
     hints = [0] * 8
     hints[int(RefFrame.LAST_FRAME)] = disp - 1
-    return dict(width=W, height=H, qindex=QINDEX, bd=8, frame_is_intra=False, order_hint=disp,
+    return dict(width=W, height=H, qindex=QINDEX, bd=bd, frame_is_intra=False, order_hint=disp,
                 ref_hints=tuple(hints), tile_cols_log2=1)
 
 
-def _cdef(mod, recon, src, mi):
+def _cdef(mod, recon, src, mi, bd: int = 8):
     """The caller's frame-wide CDEF of a mesh frame (search and apply, in
     place); returns its strengths and damping."""
-    ypri, ysec, upri, usec, damping = mod.search_strengths(recon, src, mi, QINDEX, 8)
+    ypri, ysec, upri, usec, damping = mod.search_strengths(recon, src, mi, QINDEX, bd)
     if ypri or ysec or upri or usec:
-        mod.cdef_frame(recon, mi, ypri, ysec, upri, usec, damping, bd=8)
+        mod.cdef_frame(recon, mi, ypri, ysec, upri, usec, damping, bd=bd)
     return ypri, ysec, upri, usec, damping
 
 
-@pytest.fixture(scope="module")
-def inter_run():
+def _inter_run(bd: int) -> dict:
     """A key frame and two P frames at 256x64 in two tiles, coded as the
     reference's own multi-chip dry run codes its GOP (each P frame decided
     against the previous frame's CDEF'd recon, CDEF by the caller), through
     both packages' tile encoders; the port's TUs and recon and the
     packages' per-frame results."""
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, reference_with_spec_rules(bd):
         ref_runs = _record_runs(mp, ref_tiles, "_mesh_inter_fn")
         port_runs = _record_runs(mp, port_tiles, "_mesh_inter_fn")
         mesh = _mesh()
-        frames = _gop_clip()
-        key = port_tiles.encode_intra_frame_mesh(
-            frames[0], FrameParams(width=W, height=H, qindex=QINDEX, frame_is_intra=True,
-                                   tile_cols_log2=1), 2, device="cpu")
-        want_key = ref_tiles.encode_intra_frame_mesh(
-            frames[0], RefParams(width=W, height=H, qindex=QINDEX, frame_is_intra=True,
-                                 tile_cols_log2=1), mesh)
-        seq = SequenceConfig(width=W, height=H, bd=8, enable_cdef=True)
+        frames = _gop_clip(bd)
+        kw = dict(width=W, height=H, qindex=QINDEX, bd=bd, frame_is_intra=True, tile_cols_log2=1)
+        key = port_tiles.encode_intra_frame_mesh(frames[0], FrameParams(**kw), 2, device="cpu")
+        want_key = ref_tiles.encode_intra_frame_mesh(frames[0], RefParams(**kw), mesh)
+        seq = SequenceConfig(width=W, height=H, bd=bd, enable_cdef=True)
         fr = FrameConfig(qindex=QINDEX, disable_cdf_update=False, show_frame=True,
                          tile_cols_log2=1, frame_type=0, order_hint=0)
         tus = [temporal_delimiter_obu() + sequence_header_obu(seq) + frame_obu(seq, fr, key[0])]
@@ -217,13 +234,13 @@ def inter_run():
         last = int(RefFrame.LAST_FRAME)
         frames_out = []
         for disp in (1, 2):
-            src, kw = frames[disp], _p_params(disp)
+            src, kw = frames[disp], _p_params(disp, bd)
             want = ref_tiles.encode_inter_frame_mesh(src, RefParams(**kw), {last: ref_dpb}, mesh)
             got = port_tiles.encode_inter_frame_mesh(src, FrameParams(**kw), {last: port_dpb}, 2,
                                                      device="cpu")
             unfiltered = ([pl.copy() for pl in want[1]], [pl.copy() for pl in got[1]])
-            strengths = (_cdef(ref_cdef, want[1], src, want[3]),
-                         _cdef(port_cdef, got[1], src, got[3]))
+            strengths = (_cdef(ref_cdef, want[1], src, want[3], bd),
+                         _cdef(port_cdef, got[1], src, got[3], bd))
             ypri, ysec, upri, usec, damping = strengths[1]
             fri = FrameConfig(qindex=QINDEX, disable_cdf_update=False, show_frame=True,
                               tile_cols_log2=got[2].tile_cols_log2, frame_type=1,
@@ -237,10 +254,20 @@ def inter_run():
             ref_dpb = [pl.copy() for pl in want[1]]
             port_dpb = [pl.copy() for pl in got[1]]
     return dict(key=(key, want_key), frames=frames_out, tus=tus, recons=recons,
-                ref_runs=ref_runs, port_runs=port_runs)
+                ref_runs=ref_runs, port_runs=port_runs, bd=bd)
 
 
-def test_inter_mesh_matches_jax(inter_run):
+@pytest.fixture(scope="module")
+def inter_run():
+    return _inter_run(8)
+
+
+@pytest.fixture(scope="module")
+def inter_run10():
+    return _inter_run(10)
+
+
+def _check_inter_mesh(inter_run) -> None:
     """On a clip whose P frames hold inter and intra blocks of several
     sizes, the key frame's payloads and the P frames' payloads, recon (as
     the tile encoder returns it, and after the caller's CDEF), frame_mi and
@@ -263,7 +290,15 @@ def test_inter_mesh_matches_jax(inter_run):
         assert fr["strengths"][0] == fr["strengths"][1]
     assert len(inter_run["port_runs"]) == 2
     _assert_decides_agree(inter_run["ref_runs"], inter_run["port_runs"],
-                          port_tiles._INTER_FIELDS, False)
+                          port_tiles._INTER_FIELDS, False, inter_run["bd"])
+
+
+def test_inter_mesh_matches_jax(inter_run):
+    _check_inter_mesh(inter_run)
+
+
+def test_inter_mesh_10bit_matches_jax(inter_run10):
+    _check_inter_mesh(inter_run10)
 
 
 def test_me_fullpel_with_ref_offset_matches_jax():
@@ -292,7 +327,7 @@ def test_me_fullpel_with_ref_offset_matches_jax():
                                   ref_off_x=130)
 
 
-def test_inter_mesh_stream_decodes(inter_run):
+def _check_inter_stream(inter_run) -> None:
     """The port's key frame and P frames decode bit-exactly in the port's
     decoder and, where the host has it, in libaom."""
     dec = Decoder()
@@ -305,11 +340,19 @@ def test_inter_mesh_stream_decodes(inter_run):
     check_libaom(inter_run["tus"], shown)
 
 
-def test_intra_mesh_stream_decodes(intra_run):
+def test_inter_mesh_stream_decodes(inter_run):
+    _check_inter_stream(inter_run)
+
+
+def test_inter_mesh_10bit_stream_decodes(inter_run10):
+    _check_inter_stream(inter_run10)
+
+
+def _check_intra_stream(intra_run) -> None:
     """The port's payloads in one two-tile frame OBU decode to its recon in
     the port's decoder and, where the host has it, in libaom."""
     got_pl, got_rec, _p = intra_run["got"]
-    seq = SequenceConfig(width=W, height=H, bd=8, enable_cdef=False)
+    seq = SequenceConfig(width=W, height=H, bd=intra_run["bd"], enable_cdef=False)
     fr = FrameConfig(qindex=QINDEX, disable_cdf_update=False, show_frame=True, tile_cols_log2=1,
                      frame_type=0)
     tu = temporal_delimiter_obu() + sequence_header_obu(seq) + frame_obu(seq, fr, got_pl)
@@ -317,3 +360,11 @@ def test_intra_mesh_stream_decodes(intra_run):
     for i in range(3):
         np.testing.assert_array_equal(drec[i], got_rec[i], err_msg=f"decode plane {i}")
     check_libaom([tu], [(dy, du, dv)])
+
+
+def test_intra_mesh_stream_decodes(intra_run):
+    _check_intra_stream(intra_run)
+
+
+def test_intra_mesh_10bit_stream_decodes(intra_run10):
+    _check_intra_stream(intra_run10)

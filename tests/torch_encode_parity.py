@@ -15,13 +15,18 @@ Two deliberate divergences (ROADMAP queue 3) shape the comparison:
 Every port TU must also decode in libaom to the port's recon (where the
 host has libaom)."""
 import contextlib
+import inspect
 from unittest import mock
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from svtav1_tpu.filters import dlf_jax
+from svtav1_tpu.pipeline import device_commit as ref_commit
+from svtav1_tpu.pipeline import device_decide as ref_decide
 from svtav1_tpu.pipeline import encoder as ref_enc
+from svtav1_tpu.pipeline import intra_device as ref_intra
 from svtav1_tpu_torch.codec.tile_codec import TileCodec
 from svtav1_tpu_torch.decode.decoder import Decoder
 from svtav1_tpu_torch.pipeline import encoder as port_enc
@@ -67,6 +72,51 @@ def reference_with_display_edge_rule(w: int, h: int):
 
     with mock.patch.object(dlf_jax, "flen_maps_from_sizes", masked):
         yield
+
+
+@contextlib.contextmanager
+def reference_with_spec_rules(bd: int):
+    """Within the block, the JAX package follows the two spec rules the port
+    keeps (ROADMAP queue 3): its _predict_modes (as its decide, its commit
+    and its TPL probe call it) predicts DC with neither neighbour as
+    1 << (bd - 1), and its _filter_device, when a frame's luma levels come
+    out 0, returns the frame filtered with no deblocking at all (the decoder
+    filters no plane then) and the searched level's index. Yields the
+    number of frames that took the second rule. The package itself stays
+    as it is. Its jitted programs keep the rules they were traced with, so
+    a worker must trace every program it compares here inside the block."""
+    real_pm = ref_decide._predict_modes
+    real_fd = ref_commit._filter_device
+    sig = inspect.signature(real_fd)
+    level0 = [0]
+
+    def predict_modes(above, left, topleft, have_above, have_left, n, *a, **kw):
+        out = real_pm(above, left, topleft, have_above, have_left, n, *a, **kw)
+        none = ~(jnp.asarray(have_above).astype(bool) | jnp.asarray(have_left).astype(bool))
+        return out.at[:, 0].set(jnp.where(none[:, None, None], 1 << (bd - 1), out[:, 0]))
+
+    def filter_device(*args, **kw):
+        a = sig.bind(*args, **kw)
+        a.apply_defaults()
+        a = dict(a.arguments)
+        out = real_fd(**a)
+        levels, lf_search = a["levels"], a["lf_search"]
+        if not (levels[2] or levels[3]):
+            return out
+        picks = np.asarray(out[1])[:, 4]
+        off = [lf_search[k] == 0 if lf_search else levels[0] == levels[1] == 0 for k in picks]
+        if not any(off):
+            return out
+        assert all(off), "a batch mixing level-0 and filtered frames"
+        level0[0] += len(off)
+        packed, stats, planes = real_fd(**dict(a, levels=(0, 0, 0, 0), lf_search=()))
+        return packed, stats.at[:, 4].set(out[1][:, 4]), planes
+
+    with mock.patch.object(ref_decide, "_predict_modes", predict_modes), \
+            mock.patch.object(ref_commit, "_predict_modes", predict_modes), \
+            mock.patch.object(ref_intra, "_predict_modes", predict_modes), \
+            mock.patch.object(ref_commit, "_filter_device", filter_device):
+        yield level0
 
 
 def decode_counting_compound(dec: Decoder, tu: bytes):
@@ -181,6 +231,25 @@ def encode_all(enc, frames) -> list:
     for y, u, v in frames:
         pkts += enc.send_frame(y, u, v)
     return pkts + enc.flush()
+
+
+def gop_decodes(pkts, w: int, h: int) -> None:
+    """The port's decoder reproduces every coded frame's recon of a GOP's
+    packets (show-existing TUs included) and shows every frame once in
+    display order; libaom decodes the TUs to the shown frames."""
+    dec = Decoder()
+    recon_of, shown = {}, []
+    for f, p in enumerate(pkts):
+        dy, _, _, drec = dec.decode_tu(p.tu)
+        if p.recon is not None:
+            for i in range(3):
+                np.testing.assert_array_equal(drec[i], p.recon[i], err_msg=f"TU {f} plane {i}")
+            recon_of[p.disp_idx] = p.recon
+        if p.shown_disp_idx is not None:
+            assert p.shown_disp_idx == len(shown)
+            np.testing.assert_array_equal(dy, recon_of[p.shown_disp_idx][0][:h, :w])
+            shown.append(displayed(recon_of[p.shown_disp_idx], w, h))
+    check_libaom([p.tu for p in pkts], shown)
 
 
 def packets_decode(pkts, frames) -> None:
