@@ -20,8 +20,13 @@ Phases, each fatal on failure:
      1024x1216 with ref_off_x=128, with the device work items of one call
      (torch.profiler); K2 also at the decide's 16x16 shape, K3 also on
      16x16 luma and the decide's chroma sizes; K7's search and apply on
-     the clip's noisy 1080p planes with 80% and 20% of the cells unmasked),
-     and time both; K8's and K9's bounds count their operations at the
+     the clip's noisy 1080p planes with 80% and 20% of the cells unmasked;
+     K4 on a 1080p luma plane at three levels in one launch, on its U and V
+     in one launch, and on adversarial tiles (all 64x64 blocks, all 8x8,
+     flat blocks that fire the 14-tap flat2, noise); K10 on the commit's
+     luma lanes, on U and V in one launch, at the decide's chroma sizes and
+     on three planes, and the decide's GLOBALMV lanes as four launches
+     against one), and time both (`device_ms`: a CUDA graph of 20 launches); K8's and K9's bounds count their operations at the
      rates of VABSDIFF4, IDP.2A and IDP.4A measured first (`packed_rates`
      line); then at 10 bits, on the 10-bit clip (the clip << 2 plus seeded
      low bits) as int16 planes at the same shapes: the 16-bit forms of K8
@@ -119,7 +124,9 @@ Phases, each fatal on failure:
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
      python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
-also times phase 2's K2, K3, K5, K7, K8, K9 and K14 cases (8-bit), K16 on the
+also times phase 2's K2, K3, K5, K7, K8, K9 and K14 cases (8-bit), K4's and
+K10's at 8 and 10 bits (through their earlier entry points: K4 as two
+launches per level, K10 as one launch per plane), K16 on the
 captured 8-bit schedules and every captured 8-bit K2, K3, K8 and K9 launch through a kernel
 library built from another checkout with the same C entry points (the parent
 commit's, after its own chip_smoke.py run built it), on the same inputs, and
@@ -485,14 +492,24 @@ BASELINE = []  # [the ctypes handle of --baseline-lib] when the option is given
 def load_baseline(path):
     """A kernel library built from another checkout (the parent commit's
     build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
-    kernels.lib() binds its own: K2, K3, K5, K7, K8, K9, K14 and K16 are also
-    timed through it, on the same inputs, and must give the same results."""
+    kernels.lib() binds its own (K4's and K10's with their earlier
+    arguments): K2-K5, K7-K10, K14 and K16 are also timed through it, on the
+    same inputs, and must give the same results."""
     import ctypes
 
     from svtav1_tpu_torch import kernels
 
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # the entry points of K4 and K10 before their redesign (parent_deblock,
+    # parent_mc call them): dlf_edges_launch(in, out, flen, F, H, W, K, sF,
+    # sR, sC, lim, blim, thr, bd, stream) and mc_lanes(16)_launch(ref, ys,
+    # xs, mvy, mvx, ref_idx, ftab_x, ftab_y, out, B, nref, H, W, n_h, n_w, bd,
+    # stream)
+    parent = {"dlf_edges_launch": [P] * 3 + [I] * 11 + [P],
+              "mc_lanes_launch": [P] * 9 + [I] * 7 + [P],
+              "mc_lanes16_launch": [P] * 9 + [I] * 7 + [P]}
     handle = ctypes.CDLL(os.path.abspath(path))
-    for fn, argtypes in kernels.ARGTYPES.items():
+    for fn, argtypes in {**kernels.ARGTYPES, **parent}.items():
         f = getattr(handle, fn, None)
         if f is not None:
             f.argtypes = argtypes
@@ -760,23 +777,12 @@ def check_kernels(torch, dev):
         k3_case(lv, rate_torch.make_txb_bits_fn(fc, tx_uv, int(TxType.DCT_DCT), 1, 7, 0,
                                                 device=dev), ["chroma"])
 
-    # ---- K4 dlf_edges: a full 1080p luma plane, both passes
+    # ---- K4 dlf_edges: a 1080p luma plane at three levels in one launch,
+    # its U and V in one launch, and the adversarial tiles
     sm = g.choice([8, 16, 32, 64], (1, R8, C8), p=[0.5, 0.3, 0.15, 0.05]).astype(np.int32)
     base = g.integers(60, 190, (1, R8 + 1, C8 + 1))
     plane = np.repeat(np.repeat(base, 8, 1), 8, 2)[:, :1080, :1920] + g.integers(-2, 3, (1, 1080, 1920))
-    pl = t(np.clip(plane, 0, 255))
-    lim, blim, thr = dlf_torch._limits(18, 0)
-    for tr in (False, True):
-        flen = t(dlf_torch.flen_maps_from_sizes(sm, 0, tr, (C8 * 8, R8 * 8)))
-        x = pl.transpose(1, 2) if tr else pl
-        a = dlf_torch.filter_vertical_edges(x, flen, lim, blim, thr, 8)
-        b = dlf_torch.filter_vertical_edges_plain(x, flen, lim, blim, thr, 8)
-        err = assert_equal("dlf_edges", a, b)
-        edges_on = int((flen > 0).sum().item()) * 4
-        record("dlf_edges", [1, 1080, 1920, "horizontal" if tr else "vertical"], err,
-               timed_ms(lambda: dlf_torch.filter_vertical_edges(x, flen, lim, blim, thr, 8), 20),
-               timed_ms(lambda: dlf_torch.filter_vertical_edges_plain(x, flen, lim, blim, thr, 8), 3),
-               nbytes=2 * pl.numel() * 4 + flen.numel() * 4, ops=edges_on * 150, main=not tr)
+    check_deblock(torch, t, record, assert_equal, sm, np.clip(plane, 0, 255), 8)
 
     # ---- K5 rdoq: a 1080p frame's 8x8 luma txbs, and the commit's waves
     txs = {8: TxSize.TX_8X8, 4: TxSize.TX_4X4, 32: TxSize.TX_32X32, 64: TxSize.TX_64X64}
@@ -822,6 +828,113 @@ def check_kernels(torch, dev):
     check_tiles(torch, dev, g, t, record, assert_equal)
     check_10bit(torch, dev, g, t, record, assert_equal)
     return res
+
+
+LF_LADDER = (9, 18, 29)  # the nonzero luma candidates around level 18 (_lf_candidates(18))
+
+
+def parent_deblock(torch, jobs, bd):
+    """K4 of the --baseline-lib library (the parent's per-pass entry, its
+    arguments as the parent's filter_vertical_edges passed them): per job
+    the vertical pass, then the horizontal pass on the transposed view, two
+    launches per level."""
+    from svtav1_tpu_torch import kernels
+
+    out = []
+    for pl, flen_v, flen_h, lim_v, lim_h in jobs:
+        x = pl
+        for lim, flen, tr in ((lim_v, flen_v, False), (lim_h, flen_h, True)):
+            if lim is None:
+                continue
+            v = x.transpose(1, 2) if tr else x
+            o = torch.empty_like(v)
+            err = BASELINE[0].dlf_edges_launch(v.data_ptr(), o.data_ptr(), flen.data_ptr(),
+                                               *v.shape, flen.shape[2], *v.stride(), *lim, bd,
+                                               kernels.stream_ptr(v))
+            if err:
+                raise SystemExit(f"dlf_edges (baseline): cudaError {err}")
+            x = o.transpose(1, 2) if tr else o
+        out.append(x)
+    return out
+
+
+def check_deblock(torch, t, record, assert_equal, sm, plane, bd):
+    """Phase 2 for K4 at bd: the (1, 1080, 1920) luma plane `plane` (size
+    map sm) at LF_LADDER's three levels in one launch (the luma search's
+    launch), its 540x960 U and V (U's maps from sm, V's from sm coarsened to
+    16x16 cells; levels 18 and 12) in one launch, and adversarial tiles at
+    1080p: a size map of all 64s (every edge 14-tap, on the tiles' borders)
+    and of all 8s on the plane, flat 64x64 blocks 10 levels apart (the
+    14-tap filters' flat2: offsets -6 and 5 change), and uniform noise.
+    Each against the plain version, exactly; `device_ms` a CUDA graph of 20
+    launches; with --baseline-lib the parent's K4 on the same jobs, two
+    launches per level (`baseline_device_ms`)."""
+    import numpy as np
+
+    from svtav1_tpu_torch.filters import dlf_torch
+    from svtav1_tpu_torch.utils.profile_keyframes import launch_bound
+
+    g = np.random.default_rng(4 + bd)  # the adversarial planes
+    R8, C8 = sm.shape[1:]
+    tag = [] if bd == 8 else ["10-bit"]
+
+    def maps(smap, pl):
+        return [t(dlf_torch.flen_maps_from_sizes(smap, pl, tr, (C8 * 8, R8 * 8)))
+                for tr in (False, True)]
+
+    def lims(lvl):
+        return dlf_torch._limits(lvl, 0)
+
+    def case(label, jobs, main=False, **extra):
+        got = dlf_torch.deblock(jobs, bd)
+        want = dlf_torch.deblock_plain(jobs, bd)
+        err = assert_equal("dlf_edges", got, want)
+        timed = dict(device_ms=device_ms(lambda: dlf_torch.deblock(jobs, bd)))
+        if BASELINE:
+            for a, b in zip(parent_deblock(torch, jobs, bd), got):
+                assert_equal("dlf_edges (baseline)", a, b)
+            timed["baseline_device_ms"] = device_ms(lambda: parent_deblock(torch, jobs, bd))
+        ptrs = [v for pl, fv, fh, _a, _b in jobs
+                for v in (pl.data_ptr(), fv.data_ptr(), fh.data_ptr(), 0)]
+        nbytes, _ = launch_bound("dlf_edges", (ptrs, None, len(jobs), *jobs[0][0].shape))
+        on = sum(int((fv > 0).sum().item() + (fh > 0).sum().item()) for _p, fv, fh, _a, _b in jobs)
+        F, H, W = jobs[0][0].shape
+        record("dlf_edges", [len(jobs), F, H, W, label, *tag], err,
+               timed_ms(lambda: dlf_torch.deblock(jobs, bd), 20),
+               timed_ms(lambda: dlf_torch.deblock_plain(jobs, bd), 2),
+               nbytes=nbytes, ops=on * 4 * 150, main=main, launches=1,
+               changed_samples=sum(int((a != jb[0]).sum().item()) for a, jb in zip(got, jobs)),
+               **timed, **extra)
+        return got
+
+    y = t(plane)
+    fy = maps(sm, 0)
+    case("luma, 3 levels", [(y, *fy, lims(lv), lims(lv)) for lv in LF_LADDER], main=bd == 8)
+    # U and V: the planes at half size, V's maps from another size map
+    sm_v = np.ascontiguousarray(np.repeat(np.repeat(sm[:, ::2, ::2], 2, 1), 2, 2)[:, :R8, :C8])
+    u = t(plane[:, ::2, ::2])
+    v = t(plane[:, 1::2, 1::2])
+    case("U and V", [(u, *maps(sm, 1), lims(18), lims(18)), (v, *maps(sm_v, 2), lims(12), lims(12))])
+    hi = (1 << bd) - 1
+    for label, smap, pl, levels in (
+            ("all 64x64, 14-tap edges on the tile borders", np.full_like(sm, 64), plane, LF_LADDER),
+            ("all 8x8", np.full_like(sm, 8), plane, LF_LADDER),
+            ("flat 64x64 blocks (flat2)", np.full_like(sm, 64),
+             np.repeat(np.repeat(100 + 10 * g.integers(0, 2, (1, R8 // 8 + 1, C8 // 8 + 1)), 64,
+                                 1), 64, 2)[:, :1080, :1920] << (bd - 8), (40, 63)),
+            ("uniform noise", sm, g.integers(0, hi + 1, plane.shape), (63,))):
+        x = t(pl)
+        fm = maps(smap, 0)
+        jobs = [(x, *fm, lims(lv), lims(lv)) for lv in levels]
+        extra = {}
+        if "flat2" in label:  # the vertical pass alone changes offsets -6 and 5 of the edges
+            one = dlf_torch.deblock([(x, fm[0], fm[1], lims(levels[0]), None)], bd)[0]
+            cols = np.arange(64, 1920, 64)
+            extra["flat2_samples"] = int((one[:, :, cols - 6] != x[:, :, cols - 6]).sum().item()
+                                         + (one[:, :, cols + 5] != x[:, :, cols + 5]).sum().item())
+            if not extra["flat2_samples"]:
+                raise SystemExit("dlf_edges: the flat planes did not fire flat2")
+        case(label, jobs, **extra)
 
 
 def check_cdef(torch, g, t, record, assert_equal, yp, up, vp, dirs, var):
@@ -918,25 +1031,135 @@ def check_motion(torch, dev, g, t, record, assert_equal):
                **kernel_times(lambda: me_torch.subpel_pred_lanes(*args),
                               k9_same(assert_equal, mk, pk), 20))
 
-    # ---- K10 mc_lanes: the commit's 32,400 luma 8x8 and chroma 4x4 lanes
-    # from a 2-reference stack, MVs reaching past every edge
-    stacks = [t(np.stack([p, q]), torch.uint8) for p, q in ((y0, y1), (u0, _u1))]
-    for pl, (n, plane_h, plane_w) in enumerate(((8, 1080, 1920), (4, 540, 960))):
-        R, C = plane_h // n, plane_w // n
+    # ---- K10 mc_lanes: the commit's 32,400 luma 8x8 lanes and U+V 4x4 lanes
+    # from 2-reference stacks, MVs reaching past every edge; the decide's
+    # chroma sizes, three planes, the GLOBALMV lanes
+    stacks = [t(np.stack(pair), torch.uint8) for pair in ((y0, y1), (u0, _u1), (v0, _v1))]
+    draws = [[t(g.integers(*span, R * C)) for span in ((-24 * 16, 24 * 16),) * 2 + ((0, 2),)]
+             for R, C in ((135, 240), (135, 240))]  # the luma and the chroma lanes' MVs, refs
+    check_mc(torch, dev, t, record, assert_equal, stacks, draws, 8)
+
+
+def k10_packed_ops_ms(P, B, nh, nw, bd=8):
+    """K10's operations' least time at the measured packed rates: per plane
+    and lane, two IDP.4A (10 bits: four IDP.2A) per horizontal intermediate
+    sample of its n_h + 7 rows, and four IDP.2A per output sample."""
+    horizontal = (2 / RATES["idp4a"]) if bd == 8 else (4 / RATES["idp2a"])
+    return P * B * ((nh + 7) * nw * horizontal + 4 * nh * nw / RATES["idp2a"]) * 1e3
+
+
+def parent_mc(torch, refs, ys, xs, mvy, mvx, n, which, bd, ri):
+    """K10 of the --baseline-lib library (the parent's entry point, one
+    plane per launch): (P, B, n, n) int32."""
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.ops import me_torch
+    from svtav1_tpu_torch.ops.convolve import filter_for_dim
+
+    B = ys.shape[0]
+    out = torch.empty((len(refs), B, n, n), dtype=torch.int32, device=ys.device)
+    ftab = me_torch._ftab(filter_for_dim(which, n), str(ys.device)).data_ptr()
+    fn = BASELINE[0].mc_lanes_launch if bd == 8 else BASELINE[0].mc_lanes16_launch
+    for p, ref in enumerate(refs):
+        err = fn(ref.data_ptr(), ys.data_ptr(), xs.data_ptr(), mvy.data_ptr(), mvx.data_ptr(),
+                 None if ri is None else ri.data_ptr(), ftab, ftab, out[p].data_ptr(), B,
+                 1 if ref.dim() == 2 else ref.shape[0], ref.shape[-2], ref.shape[-1], n, n, bd,
+                 kernels.stream_ptr(out))
+        if err:
+            raise SystemExit(f"mc_lanes (baseline): cudaError {err}")
+    return out
+
+
+GLOBALMV = {}  # the decide's GLOBALMV lanes: four K10 launches against one (check_mc)
+
+
+def check_mc(torch, dev, t, record, assert_equal, stacks, draws, bd):
+    """Phase 2 for K10 at bd on the 1080p clip's 2-reference stacks
+    (`stacks`: Y, U, V): the commit's 32,400 8x8 luma lanes (one plane) and
+    4x4 chroma lanes on U and V (two planes; `draws`: each case's MVs in 1/16
+    pel and ref indices), the decide's chroma lanes of its 16x16, 32x32 and
+    64x64 blocks (8x8, 16x16, 32x32 on U and V at the winners' MVs), the 4x4
+    lanes on three planes, and at 8 bits the decide's GLOBALMV lanes of the
+    four sizes as four launches against one 8x8 launch whose blocks the
+    sizes take (the view copies into the candidates' buffer counted in
+    both). Each against the plain version, exactly; `device_ms` a CUDA
+    graph of 20 launches; with --baseline-lib the parent's K10, one launch
+    per plane (`baseline_device_ms`)."""
+    import numpy as np
+
+    from svtav1_tpu_torch.ops import me_torch
+    from svtav1_tpu_torch.pipeline import inter_device
+    from svtav1_tpu_torch.utils.profile_keyframes import launch_bound
+
+    name = "mc_lanes" if bd == 8 else "mc_lanes16"
+    tag = [] if bd == 8 else ["10-bit"]
+    g = np.random.default_rng(10 + bd)  # the cases the parent's run did not have
+
+    def grid(R, C, n):
+        return (torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n,
+                torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n)
+
+    def case(label, refs, n, mvy, mvx, ri, main=False):
+        R, C = refs[0].shape[-2] // n, refs[0].shape[-1] // n
         B = R * C
-        ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n
-        xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n
-        mvy = t(g.integers(-24 * 16, 24 * 16, B))
-        mvx = t(g.integers(-24 * 16, 24 * 16, B))
-        ri = t(g.integers(0, 2, B))
-        args = (stacks[pl], ys, xs, mvy, mvx, n, n, 0, 8, ri)
-        err = assert_equal("mc_lanes", me_torch.mc_lanes(*args), me_torch.mc_lanes_plain(*args))
-        record("mc_lanes", [B, n, n, "luma" if pl == 0 else "chroma", "2 refs"], err,
-               timed_ms(lambda: me_torch.mc_lanes(*args), 20),
-               timed_ms(lambda: me_torch.mc_lanes_plain(*args), 3),
-               nbytes=B * 20 + B * n * n + B * n * n * 4,
-               ops=B * ((n + 7) * n * 16 + n * n * 16 + n * n * 4), main=pl == 0,
-               device_ms=device_ms(lambda: me_torch.mc_lanes(*args)))
+        ys, xs = grid(R, C, n)
+        args = (refs, ys, xs, mvy[:B], mvx[:B], n, n, 0, bd, ri[:B])
+        got = me_torch.mc_lanes_planes(*args)
+        err = assert_equal(name, got, me_torch.mc_lanes_planes_plain(*args))
+        timed = dict(device_ms=device_ms(lambda: me_torch.mc_lanes_planes(*args)))
+        if BASELINE:
+            base = (refs, ys, xs, mvy[:B], mvx[:B], n, 0, bd, ri[:B])
+            assert_equal(name + " (baseline)", parent_mc(torch, *base), got)
+            timed["baseline_device_ms"] = device_ms(lambda: parent_mc(torch, *base))
+        P = len(refs)
+        c_args = [None] * 20
+        c_args[11], c_args[12], c_args[16], c_args[17] = P, B, n, n
+        nbytes, ops = launch_bound(name, c_args)
+        record(name, [P, B, n, n, label, "2 refs", *tag], err,
+               timed_ms(lambda: me_torch.mc_lanes_planes(*args), 20),
+               timed_ms(lambda: me_torch.mc_lanes_planes_plain(*args), 3), nbytes=nbytes,
+               ops=ops, main=main, packed_ops_ms=k10_packed_ops_ms(P, B, n, n, bd), launches=1,
+               **timed)
+
+    case("commit luma", stacks[:1], 8, *draws[0], main=True)
+    case("commit U and V", stacks[1:], 4, *draws[1])
+    for nc in (8, 16, 32):  # the decide's chroma of its 16x16 to 64x64 blocks
+        B = (540 // nc) * (960 // nc)
+        mv = [t(g.integers(-24 * 16, 24 * 16, B)) for _ in range(2)]
+        case("decide U and V", stacks[1:], nc, *mv, t(g.integers(0, 2, B)))
+    third = stacks[1].flip(0).contiguous()
+    case("three planes", [*stacks[1:], third], 4, *draws[1])
+    if bd != 8:
+        return
+
+    # the decide's GLOBALMV lanes: K10 per size (n = 8 .. 64 over the frame,
+    # the global MV on reference 0), or globalmv_lanes8's one launch
+    gm8 = t(np.array([-13, 22]))
+    layout = [(n, 1080 // n, 1920 // n) for n in (8, 16, 32, 64)]
+    bufs = {n: torch.empty((R * C, 3, n, n), dtype=torch.int32, device=dev) for n, R, C in layout}
+    lanes = {n: (*grid(R, C, n), (gm8 * 2).expand(R * C, 2).contiguous(),
+                 torch.zeros(R * C, dtype=torch.int32, device=dev)) for n, R, C in layout}
+
+    def four():
+        for n, R, C in layout:
+            ys, xs, mv, zero = lanes[n]
+            bufs[n][:, 2].copy_(me_torch.mc_lanes(stacks[0], ys, xs, mv[:, 0], mv[:, 1], n, n, 0,
+                                                  8, ref_idx=zero))
+
+    def one():
+        g8 = inter_device.globalmv_lanes8(stacks[0], gm8, 135, 240, 0, 8)
+        for n, R, C in layout:
+            bufs[n][:, 2].view(R, C, n // 8, 8, n // 8, 8).copy_(
+                inter_device._lanes8_blocks(g8, n, R, C))
+
+    four()
+    want = {n: b[:, 2].clone() for n, b in bufs.items()}
+    one()
+    err = max(assert_equal("mc_lanes (GLOBALMV)", bufs[n][:, 2], want[n]) for n in want)
+    GLOBALMV.update(four_launches_device_ms=device_ms(four), one_launch_device_ms=device_ms(one),
+                    max_abs_err=err)
+    GLOBALMV["one_launch_faster"] = GLOBALMV["one_launch_device_ms"] < GLOBALMV[
+        "four_launches_device_ms"]
+    log(json.dumps(dict(check="mc_lanes GLOBALMV", **GLOBALMV)))
 
 
 def check_random_access(torch, dev, g, t, record, assert_equal):
@@ -1218,24 +1441,20 @@ def check_10bit(torch, dev, g, t, record, assert_equal):
                packed_ops_ms=k9_packed_ops_ms(B, n, L, 10),
                device_ms=device_ms(lambda: me_torch.subpel_pred_lanes(*args)))
 
-    # ---- K10 mc_lanes16 and K11 mc_compound16 from int16 stacks, MVs past
-    # every edge
+    # ---- K10 mc_lanes16 (check_mc) and K11 mc_compound16 from int16 stacks, MVs
+    # past every edge
     def lanes(n, plane_h, plane_w, nmv):
         R, C = plane_h // n, plane_w // n
         B = R * C
         ys, xs = grid(R, C, n)
         return B, ys, xs, [t(g.integers(-24 * 16, 24 * 16, B)) for _ in range(nmv)]
 
-    for pl, (n, plane_h, plane_w) in enumerate(((8, 1080, 1920), (4, 540, 960))):
-        stack = t16(np.stack([clip[0][pl], clip[1][pl]]))
-        B, ys, xs, (mvy, mvx) = lanes(n, plane_h, plane_w, 2)
-        args = (stack, ys, xs, mvy, mvx, n, n, 0, 10, t(g.integers(0, 2, B)))
-        err = assert_equal("mc_lanes16", me_torch.mc_lanes(*args), me_torch.mc_lanes_plain(*args))
-        record("mc_lanes16", [B, n, n, "luma" if pl == 0 else "chroma", "2 refs", "10-bit"], err,
-               timed_ms(lambda: me_torch.mc_lanes(*args), 20),
-               timed_ms(lambda: me_torch.mc_lanes_plain(*args), 3),
-               *bound_of("mc_lanes16", lambda: me_torch.mc_lanes(*args)), main=pl == 0,
-               device_ms=device_ms(lambda: me_torch.mc_lanes(*args)))
+    stacks = [t16(np.stack([clip[0][pl], clip[1][pl]])) for pl in range(3)]
+    draws = []
+    for n, plane_h, plane_w in ((8, 1080, 1920), (4, 540, 960)):
+        _B, _ys, _xs, mv = lanes(n, plane_h, plane_w, 2)
+        draws.append([*mv, t(g.integers(0, 2, _B))])
+    check_mc(torch, dev, t, record, assert_equal, stacks, draws, 10)
     for n in (8, 16, 32, 64):
         for pl, (nb, plane_h, plane_w) in enumerate(((n, 1080, 1920), (n // 2, 540, 960))):
             stack = t16(np.stack([clip[i][pl] for i in (1, 0, 3)]))
@@ -1368,25 +1587,12 @@ def check_10bit(torch, dev, g, t, record, assert_equal):
            timed_ms(lambda: rate_torch.rdoq_plain(*rargs), 3), nbytes=3 * B * 64 * 4,
            ops=B * 64 * 80, changed_levels=int((a != lk).sum().item()))
 
-    # ---- K4 at 10 bits: a 10-bit 1080p luma plane of flat blocks, both passes
+    # ---- K4 at 10 bits: a 10-bit 1080p luma plane of flat blocks, as at 8 bits
     sm = g.choice([8, 16, 32, 64], (1, R8, C8), p=[0.5, 0.3, 0.15, 0.05]).astype(np.int32)
     base = g.integers(240, 760, (1, R8 + 1, C8 + 1))
     plane = np.repeat(np.repeat(base, 8, 1), 8, 2)[:, :1080, :1920] \
         + g.integers(-8, 9, (1, 1080, 1920))
-    pl = t(np.clip(plane, 0, 1023))
-    lim, blim, thr = dlf_torch._limits(18, 0)
-    for tr in (False, True):
-        flen = t(dlf_torch.flen_maps_from_sizes(sm, 0, tr, (C8 * 8, R8 * 8)))
-        x = pl.transpose(1, 2) if tr else pl
-        a = dlf_torch.filter_vertical_edges(x, flen, lim, blim, thr, 10)
-        err = assert_equal("dlf_edges", a,
-                           dlf_torch.filter_vertical_edges_plain(x, flen, lim, blim, thr, 10))
-        record("dlf_edges", [1, 1080, 1920, "horizontal" if tr else "vertical", "10-bit"], err,
-               timed_ms(lambda: dlf_torch.filter_vertical_edges(x, flen, lim, blim, thr, 10), 20),
-               timed_ms(lambda: dlf_torch.filter_vertical_edges_plain(x, flen, lim, blim, thr,
-                                                                      10), 3),
-               nbytes=2 * pl.numel() * 4 + flen.numel() * 4,
-               ops=int((flen > 0).sum().item()) * 4 * 150, changed_samples=int((a != x).sum()))
+    check_deblock(torch, t, record, assert_equal, sm, np.clip(plane, 0, 1023), 10)
 
     # ---- K6 and K7 at 10 bits (coeff_shift 2) on the clip's noisy planes
     yp = t(y0.astype(np.int32)[None])
@@ -2754,7 +2960,7 @@ def main() -> int:
     if smi.returncode:
         raise SystemExit(f"nvidia-smi failed: {smi.stderr}")
     # phase 2 again in short, so that the end of the output holds every number
-    log(json.dumps({"phase2": CHECKS}))
+    log(json.dumps({"phase2": CHECKS, "globalmv": GLOBALMV}))
     log(json.dumps(dict(phase="done", seconds=time.perf_counter() - t_start,
                         phase_seconds=seconds)))
     log(smi.stdout.strip().splitlines()[0])

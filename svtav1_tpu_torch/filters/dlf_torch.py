@@ -3,9 +3,15 @@ CUDA kernel `csrc/dlf_edges.cu` (K4), with a plain PyTorch version beside it.
 
 Planes carry a leading frame dimension (F, H, W) int32. Filter-length maps
 are built on the host from per-8px-cell block-size maps (all-intra frames:
-an edge filters iff it is a transform edge), as in the reference.
+an edge filters iff it is a transform edge), as in the reference. K4
+deblocks whole planes, both passes, for up to three jobs in one launch
+(`deblock`): the luma level search's candidate levels, or U and V.
+`filter_vertical_edges_plain`, one pass of the reference, is the plain
+version's building block.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -207,24 +213,47 @@ def filter_vertical_edges_plain(planes, flen4, lim: int, blim: int, thr: int, bd
     return planes
 
 
-def filter_vertical_edges(planes, flen4, lim: int, blim: int, thr: int, bd: int = 8):
-    """Deblock every vertical edge of (F, H, W) int32 planes (out of place):
-    K4 for CUDA tensors, the plain version for CPU tensors. A transposed
-    view (planes.transpose(1, 2)) filters the horizontal edges; the kernel
-    takes its strides and writes the result in the input's layout."""
-    if planes.device.type == "cpu":
-        return filter_vertical_edges_plain(planes, flen4, lim, blim, thr, bd)
-    F, H, W = planes.shape
-    K = flen4.shape[2]
-    kernels.check(flen4, "flen4", torch.int32, (F, H // 4, K))
-    if planes.dtype != torch.int32:
-        raise ValueError(f"planes: expected torch.int32, got {planes.dtype}")
-    if K == 0:
-        return planes.clone()
-    out = torch.empty_like(planes)  # same strides for a dense (transposed) view
-    if out.stride() != planes.stride():
-        raise ValueError("planes: expected a dense (possibly transposed) layout")
-    sF, sR, sC = planes.stride()
-    kernels.launch("dlf_edges", planes.data_ptr(), out.data_ptr(), flen4.data_ptr(), F, H, W, K,
-                   sF, sR, sC, int(lim), int(blim), int(thr), bd, kernels.stream_ptr(planes))
+def deblock_plain(jobs, bd: int = 8):
+    """Plain PyTorch version of K4 (`deblock`): per job the vertical pass,
+    then the horizontal pass through the transpose (dlf_jax's
+    filter_vertical_edges_j both ways, as the reference's _filter_device)."""
+    out = []
+    for planes, flen_v, flen_h, lim_v, lim_h in jobs:
+        pl = planes
+        if lim_v is not None:
+            pl = filter_vertical_edges_plain(pl, flen_v, *lim_v, bd)
+        if lim_h is not None:
+            pl = filter_vertical_edges_plain(pl.transpose(1, 2), flen_h, *lim_h, bd).transpose(1, 2)
+        out.append(pl)
+    return torch.stack(out)
+
+
+def deblock(jobs, bd: int = 8):
+    """Deblock whole planes, both passes, for up to three jobs in one K4
+    launch (CUDA tensors) or by the plain version (CPU tensors).
+
+    jobs: (planes (F, H, W) int32, flen_v (F, H//4, W//4 - 1), flen_h (F,
+    W//4, H//4 - 1) int32 maps (flen_maps_from_sizes without and with the
+    transpose), limits_v, limits_h), the limits (lim, blim, thr) of the
+    pass's level (`_limits`), None for a pass at level 0; every job's
+    planes of one shape, H and W multiples of 4. Returns (J, F, H, W) int32:
+    job j's planes with their vertical, then their horizontal edges
+    filtered."""
+    if jobs[0][0].device.type == "cpu":
+        return deblock_plain(jobs, bd)
+    F, H, W = jobs[0][0].shape
+    if not 1 <= len(jobs) <= 3 or H % 4 or W % 4:
+        raise ValueError("deblock: 1 to 3 jobs on planes whose sides are multiples of 4")
+    out = torch.empty((len(jobs), F, H, W), dtype=torch.int32, device=jobs[0][0].device)
+    ptrs, lv = [], []
+    for j, (planes, flen_v, flen_h, lim_v, lim_h) in enumerate(jobs):
+        kernels.check(planes, "planes", torch.int32, (F, H, W))
+        kernels.check(flen_v, "flen_v", torch.int32, (F, H // 4, W // 4 - 1))
+        kernels.check(flen_h, "flen_h", torch.int32, (F, W // 4, H // 4 - 1))
+        ptrs += [planes.data_ptr(), flen_v.data_ptr(), flen_h.data_ptr(), out[j].data_ptr()]
+        for lim in (lim_v, lim_h):
+            lv += [0, 0, 0, 0] if lim is None else [1, *(int(x) for x in lim)]
+    kernels.launch("dlf_edges", (ctypes.c_longlong * len(ptrs))(*ptrs),
+                   (ctypes.c_int * len(lv))(*lv), len(jobs), F, H, W, bd,
+                   kernels.stream_ptr(out))
     return out

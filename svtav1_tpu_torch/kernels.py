@@ -72,8 +72,8 @@ ARGTYPES = {
     # the same with group_threads, the threads per transform block (16, 32 or 256;
     # chip_smoke.py times them against each other)
     "txb_rate_launch_group": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # in, out, flen, F, H, W, K, sF, sR, sC, lim, blim, thr, bd, stream
-    "dlf_edges_launch": [_P, _P, _P] + [_I] * 11 + [_P],
+    # ptrs (host: J x in, flen_v, flen_h, out), lv (host: J x 8 limits), J, F, H, W, bd, stream
+    "dlf_edges_launch": [_P, _P] + [_I] * 5 + [_P],
     # levels, coeff, flut, ilut, scan, out, B, h, w, log2w, ls, dq_dc, dq_ac,
     # lam, dscale, skip_delta, stream
     "rdoq_launch": [_P] * 6 + [_I] * 7 + [_F] * 3 + [_P],
@@ -92,10 +92,10 @@ ARGTYPES = {
     # src_b, ref, ys, xs, mv_fp, ftab, mv_out, pred_out, B, H, W, n, bd, fast, stream
     "subpel_pred_launch": [_P] * 8 + [_I] * 6 + [_P],
     "subpel_pred16_launch": [_P] * 8 + [_I] * 6 + [_P],
-    # ref, ys, xs, mvy, mvx, ref_idx|NULL, ftab_x, ftab_y, out, B, nref, H, W, n_h, n_w, bd,
-    # stream
-    "mc_lanes_launch": [_P] * 9 + [_I] * 7 + [_P],
-    "mc_lanes16_launch": [_P] * 9 + [_I] * 7 + [_P],
+    # ref0, ref1|NULL, ref2|NULL, ys, xs, mvy, mvx, ref_idx|NULL, ftab_x, ftab_y, out, P, B,
+    # nref, H, W, n_h, n_w, bd, stream
+    "mc_lanes_launch": [_P] * 11 + [_I] * 8 + [_P],
+    "mc_lanes16_launch": [_P] * 11 + [_I] * 8 + [_P],
     # ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1, ftab_x, ftab_y, out, B, nref, H, W,
     # n_h, n_w, bd, stream
     "mc_compound_launch": [_P] * 12 + [_I] * 7 + [_P],

@@ -19,7 +19,9 @@ version beside each:
   ({-4..4}) or 49-point ({-6..6}) 1/8-pel lattice from one (n+8)^2 patch per
   block, with the winner's normative prediction.
 - K10 `mc_lanes` (`csrc/mc.cu`): normative separable subpel MC with a
-  per-lane phase, from one plane or a (NREF, H, W) stack by ref index.
+  per-lane phase, from one plane or a (NREF, H, W) stack by ref index;
+  `mc_lanes_planes` runs the same lanes on up to three planes of one shape
+  (U and V, or TPL's reference pair) in one launch.
 - K11 `mc_compound` (`csrc/mc.cu`): compound-average MC, the two conv-buf
   (offset-carrying, COMPOUND_ROUND1) predictions of a lane from two
   references of the stack and the normative average, in one launch.
@@ -226,6 +228,14 @@ def mc_lanes_plain(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: i
         - ((1 << (offset_bits - ROUND1)) + (1 << (offset_bits - ROUND1 - 1)))
     assert 2 * FILTER_BITS - ROUND0 - ROUND1 == 0  # no third rounding for 8/10-bit
     return res.clamp(0, (1 << bd) - 1).to(torch.int32)
+
+
+def mc_lanes_planes_plain(refs, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int,
+                          bd: int, ref_idx=None):
+    """Plain PyTorch version of K10 on several planes; same arguments and
+    result as mc_lanes_planes: mc_lanes_plain once per plane."""
+    return torch.stack([mc_lanes_plain(r, ys, xs, mv_q16_y, mv_q16_x, n_h, n_w, which, bd,
+                                       ref_idx) for r in refs])
 
 
 def compound_average_plain(conv0, conv1, bd: int):
@@ -531,6 +541,9 @@ def _frame_search(src_y, ref_y, src_pyr, ref_pyr, dims, sb_rows: int, sb_cols: i
     return out, buf[o:].view(B, 2)
 
 
+MC_WIDTHS = (4, 8, 16, 32, 64)  # K10's lane widths
+
+
 def mc_lanes(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int, bd: int,
              ref_idx=None):
     """Batched normative subpel MC with per-lane phases (K10).
@@ -538,25 +551,43 @@ def mc_lanes(ref, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int, bd
     ref: (H, W) plane or (NREF, H, W) stack with ref_idx (B,) given;
     plane_dtype(bd) on the card. ys/xs (B,) block top-left in plane coords;
     MVs in 1/16 pel of this plane. Returns (B, n_h, n_w) int32 predictions;
-    dims <= 4 use the 4-tap filter variant (spec 7.11.3.4)."""
-    check_plane(ref, "ref", bd)
+    dims <= 4 use the 4-tap filter variant (spec 7.11.3.4). On the card
+    n_w is one of MC_WIDTHS."""
+    return mc_lanes_planes([ref], ys, xs, mv_q16_y, mv_q16_x, n_h, n_w, which, bd, ref_idx)[0]
+
+
+def mc_lanes_planes(refs, ys, xs, mv_q16_y, mv_q16_x, n_h: int, n_w: int, which: int, bd: int,
+                    ref_idx=None):
+    """K10 on up to three planes of one shape and dtype (`refs`, each an (H,
+    W) plane or an (NREF, H, W) stack) that share the lanes: positions, MVs,
+    ref indices and dimensions, as mc_lanes takes them. One launch; returns
+    (P, B, n_h, n_w) int32, equal to P calls of mc_lanes."""
+    for r in refs:
+        check_plane(r, "ref", bd)
     if ys.device.type == "cpu":
-        return mc_lanes_plain(ref, ys, xs, mv_q16_y, mv_q16_x, n_h, n_w, which, bd, ref_idx)
+        return mc_lanes_planes_plain(refs, ys, xs, mv_q16_y, mv_q16_x, n_h, n_w, which, bd,
+                                     ref_idx)
+    ref = refs[0]
+    if not 1 <= len(refs) <= 3 or any(r.shape != ref.shape for r in refs):
+        raise ValueError("mc_lanes_planes: 1 to 3 planes of one shape")
+    if n_w not in MC_WIDTHS or n_h < 1:
+        raise ValueError(f"mc_lanes: lanes {MC_WIDTHS} samples wide, got {n_w}")
     B = ys.shape[0]
     nref = 1 if ref.dim() == 2 else ref.shape[0]
     if ref.dim() == 3 and ref_idx is None:
         raise ValueError("mc_lanes: a reference stack needs ref_idx")
     args = [_i32(a) for a in (ys, xs, mv_q16_y, mv_q16_x)]
     ri = _i32(ref_idx) if ref_idx is not None else None
-    out = torch.empty((B, n_h, n_w), dtype=torch.int32, device=ys.device)
+    out = torch.empty((len(refs), B, n_h, n_w), dtype=torch.int32, device=ys.device)
     if B == 0:
         return out
     dev = str(ys.device)
-    kernels.launch(_kname("mc_lanes", bd), ref.data_ptr(), *[a.data_ptr() for a in args],
+    planes = [r.data_ptr() for r in refs] + [None] * (3 - len(refs))
+    kernels.launch(_kname("mc_lanes", bd), *planes, *[a.data_ptr() for a in args],
                    ri.data_ptr() if ri is not None else None,
                    _ftab(filter_for_dim(which, n_w), dev).data_ptr(),
-                   _ftab(filter_for_dim(which, n_h), dev).data_ptr(), out.data_ptr(), B, nref,
-                   ref.shape[-2], ref.shape[-1], n_h, n_w, bd, kernels.stream_ptr(out))
+                   _ftab(filter_for_dim(which, n_h), dev).data_ptr(), out.data_ptr(), len(refs),
+                   B, nref, ref.shape[-2], ref.shape[-1], n_h, n_w, bd, kernels.stream_ptr(out))
     return out
 
 

@@ -167,10 +167,10 @@ def filter_planes(center, neighbors, qindex: int, bd: int = 8):
                                                0, bd)
         preds[0].append(_blocks_to_plane(pred, R, C, TF_BLOCK))
         # chroma MC at the luma 1/8-pel MV (1/16 pel of the chroma plane)
-        for pi, ref_c in ((1, nu), (2, nv)):
-            pc = me_torch.mc_lanes(ref_c, r_idx * nc, c_idx * nc, mv8[:, 0], mv8[:, 1], nc, nc,
-                                   0, bd)
-            preds[pi].append(_blocks_to_plane(pc, R, C, nc))
+        puv = me_torch.mc_lanes_planes([nu, nv], r_idx * nc, c_idx * nc, mv8[:, 0], mv8[:, 1],
+                                       nc, nc, 0, bd)
+        for pi in (1, 2):
+            preds[pi].append(_blocks_to_plane(puv[pi - 1], R, C, nc))
     return [tf_filter(c, torch.stack(p), h2, bd) for c, p in zip((cy, cu, cv), preds)]
 
 

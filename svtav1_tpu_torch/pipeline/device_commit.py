@@ -258,8 +258,8 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
         pred = me_torch.mc_lanes(refs[0], ry_, rx_, mv[:, 0] * 2, mv[:, 1] * 2, n, n, which, bd,
                                  ref_idx=ri)
         xc, yc = x // 2, y // 2
-        puv = torch.cat([me_torch.mc_lanes(refs[pl], ryc, rxc, mv[:, 0], mv[:, 1], nc, nc, which,
-                                           bd, ref_idx=ri) for pl in (1, 2)])
+        puv = me_torch.mc_lanes_planes([refs[1], refs[2]], ryc, rxc, mv[:, 0], mv[:, 1], nc, nc,
+                                       which, bd, ref_idx=ri).reshape(2 * NI, nc, nc)
         if len(L["cmp"]):
             # K11 on the compound lanes: luma at the two 1/8-pel MVs, chroma
             # at the same values in 1/16 of the chroma plane
@@ -432,7 +432,8 @@ def _filter_device(ry, ru, rv, src_y8, skip8, flens: list, levels: tuple, sharpn
                    bd: int, damping: int, enable_cdef: bool, disp_dims=None, cdef_cands: int = 0,
                    lf_search: tuple = ()):
     """In-loop filters on the device (reference _filter_device): DLF (K4,
-    vertical then horizontal edges per plane), then CDEF search and apply
+    vertical then horizontal edges, one launch for the luma at every
+    searched level and one for U and V), then CDEF search and apply
     (K6, K7), then display-edge replication (spec 7.11.3.4 MC clamp;
     encoder.replicate_display_edges twin) when disp_dims=(width, height),
     then the pack to one uint8 (bd 8) or int16 buffer.
@@ -454,35 +455,45 @@ def _filter_device(ry, ru, rv, src_y8, skip8, flens: list, levels: tuple, sharpn
     planes = [ry, ru, rv]
     lf_pick = torch.full((F,), -1, dtype=torch.int32, device=dev)
     if any(levels) or lf_search:
-        def dlf_plane(pl, fi, lvl_v, lvl_h):
-            if lvl_v:
-                lim, blim, thr = dlf_torch._limits(lvl_v, sharpness)
-                pl = dlf_torch.filter_vertical_edges(pl, flens[fi], lim, blim, thr, bd)
-            if lvl_h:
-                lim, blim, thr = dlf_torch._limits(lvl_h, sharpness)
-                plT = dlf_torch.filter_vertical_edges(pl.transpose(1, 2), flens[fi + 1],
-                                                      lim, blim, thr, bd)
-                pl = plT.transpose(1, 2)
-            return pl
+        def lims(lvl):  # a pass's limits; None leaves the pass out (level 0)
+            return dlf_torch._limits(lvl, sharpness) if lvl else None
 
         if lf_search:
+            # K4 at every nonzero candidate level in one launch; level 0 is ry
             src_y = src_y8.to(torch.int32)
-            cands = [dlf_plane(planes[0], 0, lvl, lvl) for lvl in lf_search]
+            nz = [lvl for lvl in lf_search if lvl]
+            ydb = (dlf_torch.deblock([(ry, flens[0], flens[1], lims(lvl), lims(lvl))
+                                      for lvl in nz], bd) if nz else None)
+            cands = [ydb[nz.index(lvl)] if lvl else ry for lvl in lf_search]
             sses = torch.stack([((c - src_y).to(torch.int64) ** 2).sum(dim=(1, 2))
                                 for c in cands])  # (K, F)
             lf_pick = torch.argmin(sses, dim=0).to(torch.int32)
-            y_out = torch.stack(cands)[lf_pick.long(), torch.arange(F, device=dev)]
+            if ydb is None:
+                y_out = ry
+            else:
+                pick = lf_pick.long()
+                at = torch.tensor([nz.index(lvl) if lvl else 0 for lvl in lf_search], device=dev)
+                zero = torch.tensor([lvl == 0 for lvl in lf_search], device=dev)
+                y_out = torch.where(zero[pick][:, None, None], ry,
+                                    ydb[at[pick], torch.arange(F, device=dev)])
             luma_on = lf_pick != (lf_search.index(0) if 0 in lf_search else -1)
         else:
-            y_out = dlf_plane(planes[0], 0, levels[0], levels[1])
+            y_out = (dlf_torch.deblock([(ry, flens[0], flens[1], lims(levels[0]),
+                                         lims(levels[1]))], bd)[0]
+                     if levels[0] or levels[1] else ry)
             luma_on = torch.full((F,), bool(levels[0] or levels[1]), device=dev)
+        # U and V in one K4 launch, each at its level
+        uv = [(pl, flens[fi], flens[fi + 1], lims(lvl), lims(lvl))
+              for pl, fi, lvl in ((planes[1], 2, levels[2]), (planes[2], 4, levels[3])) if lvl]
+        duv = iter(dlf_torch.deblock(uv, bd) if uv else ())
+        uv_out = [next(duv) if lvl else pl for pl, lvl in ((planes[1], levels[2]),
+                                                            (planes[2], levels[3]))]
         # a frame whose luma levels are both 0 codes no chroma level and the
         # decoder filters none of its planes (spec 5.9.11, 7.14.1); the
         # reference filters its chroma all the same (ROADMAP queue 3)
         keep = luma_on[:, None, None]
-        planes = [y_out,
-                  torch.where(keep, dlf_plane(planes[1], 2, levels[2], levels[2]), planes[1]),
-                  torch.where(keep, dlf_plane(planes[2], 4, levels[3], levels[3]), planes[2])]
+        planes = [y_out, torch.where(keep, uv_out[0], planes[1]),
+                  torch.where(keep, uv_out[1], planes[2])]
     if enable_cdef:
         planes, strengths = cdef_torch.cdef_frames(
             [pl.contiguous() for pl in planes], src_y8.to(torch.int32), ~skip8, damping, bd=bd,

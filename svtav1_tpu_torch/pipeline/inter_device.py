@@ -131,10 +131,32 @@ def _mv_rate(mv, pred, joint, comp):
     return joint[(ady != 0).long(), (adx != 0).long()] + comp[0, ady] + comp[1, adx]
 
 
+def globalmv_lanes8(refs_y, gm8, R8: int, C8: int, which: int, bd: int):
+    """The GLOBALMV prediction of the frame's (R8, C8) grid of 8x8 lanes
+    from refs_y[0] at the global MV gm8 (1/8 pel), as (R8, C8, 8, 8) int32
+    (one K10 launch). Every size's GLOBALMV lanes are blocks of it: a lane's
+    samples depend on its position, the MV and the 8-tap filter only."""
+    dev = refs_y.device
+    B = R8 * C8
+    ys = torch.arange(R8, device=dev, dtype=torch.int32).repeat_interleave(C8) * 8
+    xs = torch.arange(C8, device=dev, dtype=torch.int32).repeat(R8) * 8
+    mv = (gm8.to(torch.int32) * 2).expand(B, 2)
+    return me_torch.mc_lanes(refs_y, ys, xs, mv[:, 0], mv[:, 1], 8, 8, which, bd,
+                             ref_idx=torch.zeros(B, dtype=torch.int32, device=dev)) \
+        .view(R8, C8, 8, 8)
+
+
+def _lanes8_blocks(lanes8, n: int, R: int, C: int):
+    """The (R, C) grid of n x n blocks of globalmv_lanes8's output, as an
+    (R, C, n/8, 8, n/8, 8) view (no copy)."""
+    k = n // 8
+    return lanes8[: R * k, : C * k].view(R, k, C, k, 8, 8).permute(0, 2, 1, 4, 3, 5)
+
+
 def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, pred_by_ref,
                        intra_out, consts, n: int, rate_fns, dq, bd: int, R: int, C: int, lam,
                        which: int, mc_by_ref, comp_pair=None, tx_ntypes: int = 4, gm8=None,
-                       ref_off_x: int = 0):
+                       glob8=None, ref_off_x: int = 0):
     """Inter candidate evaluation for the (R, C) grid at size n, merged with
     the intra decision `intra_out` = (cost, mode, tx) from device_decide.
 
@@ -158,12 +180,12 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
     nref = len(mv_by_ref)
     r_idx = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C)
     c_idx = torch.arange(C, device=dev, dtype=torch.int32).repeat(R)
-    ys, xs = r_idx * n, c_idx * n
     srcb = _blocks_of(src_y, n, R, C)
     joint, comp, cand_bits, txt_cost = consts
 
-    # GLOBALMV lane: the frame's global MV for ref 0 (a block copy of ref 0
-    # when global motion is off)
+    # GLOBALMV lane: the frame's global MV for ref 0, its prediction the
+    # blocks of glob8, the frame's 8x8 lanes at that MV (a block copy of
+    # ref 0 when global motion is off)
     glob_mv = (torch.zeros((B, 2), dtype=torch.int32, device=dev) if gm8 is None
                else gm8[None, :].expand(B, 2).to(torch.int32))
     mvs = [*mv_by_ref, glob_mv]
@@ -176,9 +198,7 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
     if gm8 is None:
         glob_pred = _blocks_of(refs_y[0:1, :, ref_off_x:].to(torch.int32), n, R, C)
     else:
-        glob_pred = me_torch.mc_lanes(refs_y, ys, xs + ref_off_x, glob_mv[:, 0] * 2,
-                                      glob_mv[:, 1] * 2, n, n, which, bd,
-                                      ref_idx=torch.zeros(B, dtype=torch.int32, device=dev))
+        glob_pred = _lanes8_blocks(glob8, n, R, C)
     preds = [*mc_by_ref, glob_pred]
     if comp_pair is not None:
         ri0, ri1 = comp_pair
@@ -195,7 +215,9 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
     cand_ref = torch.tensor(refs_1, dtype=torch.int32, device=dev)
     cand_ref2 = torch.tensor(refs_2, dtype=torch.int32, device=dev)
     cand_mbits = torch.stack(bits, dim=1)  # (B, NC)
-    pred = torch.stack(preds, dim=1)  # (B, NC, n, n)
+    pred = torch.empty((B, NC, n, n), dtype=torch.int32, device=dev)
+    for i, p in enumerate(preds):  # copied once each, the GLOBALMV blocks from their view
+        pred[:, i].view(p.shape).copy_(p)
     rate, dist = _eval_txfm(srcb, pred.reshape(B * NC, n, n), dq, bd, rate_fns["y"][0], rep=NC)
     cost_nc = dist.reshape(B, NC) + lam * (rate.reshape(B, NC) + cand_mbits)
     pick = torch.argmin(cost_nc, dim=1)
@@ -219,10 +241,9 @@ def _decide_inter_size(src_y, src_u, src_v, refs_y, refs_u, refs_v, mv_by_ref, p
             tx_i = torch.where(take, j, tx_i)
 
     # chroma at the winner's MV (DCT approximation, as the intra decide does)
-    ysc, xsc = r_idx * nc, c_idx * nc
-    for srcc, refc in ((src_u, refs_u), (src_v, refs_v)):
-        pc = me_torch.mc_lanes(refc, ysc, xsc + ref_off_x // 2, mv_i[:, 0], mv_i[:, 1], nc, nc,
-                               which, bd, ref_idx=ref_i)
+    puv = me_torch.mc_lanes_planes([refs_u, refs_v], r_idx * nc, c_idx * nc + ref_off_x // 2,
+                                   mv_i[:, 0], mv_i[:, 1], nc, nc, which, bd, ref_idx=ref_i)
+    for srcc, pc in ((src_u, puv[0]), (src_v, puv[1])):
         ratec, distc = _eval_txfm(_blocks_of(srcc, nc, R, C), pc, dq, bd, rate_fns["uv"])
         cost_i = cost_i + distc + lam * ratec
     cost_i = cost_i + lam * 1.0  # skip flag
@@ -313,6 +334,8 @@ def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int
                 mv_by_ref[n].append(mv8.clamp(-MAX_MV_ABS, MAX_MV_ABS))
                 mc_by_ref[n].append(mc8)
 
+        # the GLOBALMV lanes of every size: blocks of one K10 launch at 8x8
+        glob8 = globalmv_lanes8(refs_y8, gm8, ah // 8, aw // 8, which, bd) if use_gm else None
         packed = []
         for n, R, C in layout:
             pen, mode_cost, txt_cost, rate_fns = intra_consts[n]
@@ -325,7 +348,8 @@ def _decide_inter_program(width: int, height: int, qctx: int, bd: int, nref: int
             outs = _decide_inter_size(
                 sy, su, sv, refs_y8, refs_u8, refs_v8, mv_by_ref[n], preds, intra_out,
                 (joint, comp, cand_bits, inter_txt[n]), n, rate_fns, dq, bd, R, C, lam_t, which,
-                mc_by_ref[n], comp_pair=comp_pair, tx_ntypes=sf[1], gm8=gm8 if use_gm else None)
+                mc_by_ref[n], comp_pair=comp_pair, tx_ntypes=sf[1], gm8=gm8 if use_gm else None,
+                glob8=glob8)
             packed += [outs[0]] + [o.to(torch.float32) for o in outs[1:]]
         return torch.cat(packed)
 

@@ -71,8 +71,8 @@ def _tpl_frame(H: int, W: int, bd: int, device: str):
                                        bd=bd)[0][16][:R, :C].reshape(B, 2)
         mv8 = me_torch.subpel_refine_lanes(srcb, ref_src, ys, xs, fp, 0, bd)
         mvy, mvx = mv8[:, 0] * 2, mv8[:, 1] * 2
-        pred_rec = me_torch.mc_lanes(ref_rec, ys, xs, mvy, mvx, TPL_B, TPL_B, 0, bd)
-        pred_src = me_torch.mc_lanes(ref_src, ys, xs, mvy, mvx, TPL_B, TPL_B, 0, bd)
+        pred_rec, pred_src = me_torch.mc_lanes_planes([ref_rec, ref_src], ys, xs, mvy, mvx,
+                                                      TPL_B, TPL_B, 0, bd)
         return TT.tpl_cost(srcb, pred_rec, 0, 0, 0, bd), mv8, pred_rec, pred_src
 
     def run(src_pl, r0src, r0rec, r1src, r1rec, dq):

@@ -100,9 +100,12 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
         B, h, w = args[4:7] if name == "txb_rate" else args[6:9]
         return ((B * h * w * 4 + 4 * B, B * h * w * 30) if name == "txb_rate"
                 else (3 * B * h * w * 4, B * h * w * 80))
-    if name == "dlf_edges":
-        F, H, W, K = args[3:7]
-        return 2 * F * H * W * 4 + F * (H // 4) * K * 4, 0
+    if name == "dlf_edges":  # each distinct plane and map read once, each job's planes written
+        ptrs, (J, F, H, W) = list(args[0]), args[2:6]
+        jobs = [ptrs[4 * j : 4 * j + 4] for j in range(J)]
+        maps = F * (H // 4) * (W // 4 - 1) * 4 + F * (W // 4) * (H // 4 - 1) * 4
+        return (len({jb[0] for jb in jobs}) * F * H * W * 4 + J * F * H * W * 4
+                + len({(jb[1], jb[2]) for jb in jobs}) * maps), 0
     if name == "cdef_dir":
         F, H, W = args[3:6]
         cells = F * (H // 8) * (W // 8)
@@ -124,9 +127,10 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
         B, n, fast = args[8], args[11], args[13]
         L = 5 if fast else 7
         return B * n * n * (8 + sz) + 16 * B, B * (L * (n + 8) * n * 16 + L * L * n * n * 19)
-    if name == "mc_lanes":
-        B, nh, nw = args[9], args[13], args[14]
-        return B * 20 + B * nh * nw * (4 + sz), B * ((nh + 7) * nw * 16 + nh * nw * 20)
+    if name == "mc_lanes":  # P planes: the lanes' positions, MVs and ref indices read once
+        P, B, nh, nw = args[11], args[12], args[16], args[17]
+        return (B * 20 + P * B * nh * nw * (4 + sz),
+                P * B * ((nh + 7) * nw * 16 + nh * nw * 20))
     if name == "mc_compound":
         B, nh, nw = args[12], args[16], args[17]
         return (B * 32 + B * nh * nw * (4 + 2 * sz),

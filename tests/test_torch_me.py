@@ -126,6 +126,35 @@ def test_mc_lanes_matches_jax(n, bd, stack):
 
 
 
+
+@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_mc_lanes_planes_matches_jax(n, bd):
+    """K10's multi-plane entry (the lanes of one launch on U, V and a third
+    plane of one shape, a 2-reference stack each) against the reference's
+    mc_lanes run once per plane, at the shapes test_mc_lanes_matches_jax
+    compiles, MVs past every edge."""
+    H, W, B = 40, 56, 64
+    g = np.random.default_rng(n * 7 + bd)
+    planes = g.integers(0, 1 << bd, (3, 2, H, W)).astype(np.int32)
+    ys = g.integers(0, H - n, B).astype(np.int32)
+    xs = g.integers(0, W - n, B).astype(np.int32)
+    mvy = g.integers(-40 * 16, 40 * 16, B).astype(np.int32)
+    mvx = g.integers(-40 * 16, 40 * 16, B).astype(np.int32)
+    mvy[:4] = [-(H + 9) * 16 - 5, (H + 9) * 16 + 3, 7, -3]
+    mvx[:4] = [11, -13, -(W + 9) * 16 - 1, (W + 9) * 16 + 15]
+    ridx = g.integers(0, 2, B).astype(np.int32)
+    dt = np.uint8 if bd == 8 else np.int16
+    t = torch.from_numpy
+    got = me_torch.mc_lanes_planes([t(p.astype(dt)) for p in planes], t(ys), t(xs), t(mvy),
+                                   t(mvx), n, n, 0, bd, ref_idx=t(ridx))
+    assert got.shape == (3, B, n, n)
+    for pl in range(3):
+        want = me_jax.mc_lanes(jnp.asarray(planes[pl]), jnp.asarray(ys), jnp.asarray(xs),
+                               jnp.asarray(mvy), jnp.asarray(mvx), n, n, 0, bd,
+                               ref_idx=jnp.asarray(ridx))
+        np.testing.assert_array_equal(got[pl].numpy(), np.asarray(want), err_msg=f"plane {pl}")
+
 @pytest.mark.parametrize("which", range(6))
 def test_filter_facts_of_k9_packed_arithmetic(which):
     """K9 runs the horizontal 8 taps as two int8 x int8 dot products on
