@@ -9,8 +9,14 @@ Phases, each fatal on failure:
      bits; all others exact, K5 counting its differing lanes and K12 its
      differing samples; K9's prediction also against K10 at the MVs it
      returns; K9 also at the MCTF shape, n = 16 on the 49-point lattice;
+     K1 at the key frame's decide shape, a P frame's four luma sizes and
+     their U+V lanes, the TPL probe, the commit waves' lanes and tails of
+     1, 7 and 33 lanes at every size, with and without `mode`, at 8 and 10
+     bits;
      K11 at every block size of the commit, 8x8 to 64x64; K14 and K15 at
-     the TPL shapes of a 1088x1920 frame, K15 at qindex 120 and 255, both
+     the TPL shapes of a 1088x1920 frame (K15 mode 0 on the probe's 40,800
+     lanes and on 8,160, mode 1 with the recon on 8,160), K15 at qindex
+     120 and 255, both
      also on the 10-bit clip (K14's 16-bit form `subpel_refine16`, K15 at
      bd=10); K8 as
      its pyramid launch, its frame-search launch and the whole
@@ -124,9 +130,9 @@ Phases, each fatal on failure:
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
      python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
-also times phase 2's K2, K3, K5, K7, K8, K9 and K14 cases (8-bit), K4's and
-K10's at 8 and 10 bits (through their earlier entry points: K4 as two
-launches per level, K10 as one launch per plane), K16 on the
+also times phase 2's K1, K2, K3, K5, K7, K8, K9 and K14 cases (8-bit), K15's,
+K4's and K10's at 8 and 10 bits (K2 and K15 through the arguments they
+had, ParentLib), K16 on the
 captured 8-bit schedules and every captured 8-bit K2, K3, K8 and K9 launch through a kernel
 library built from another checkout with the same C entry points (the parent
 commit's, after its own chip_smoke.py run built it), on the same inputs, and
@@ -486,35 +492,88 @@ def k3_close(name, a, b):
     return err
 
 
-BASELINE = []  # [the ctypes handle of --baseline-lib] when the option is given
+BASELINE = []  # [ParentLib(the ctypes handle of --baseline-lib)] when the option is given
+
+
+def parent_stage_tables(n):
+    """The packed stage tables that the parent's K15 reads (its removed
+    txfm.cuh): a 32-int header (the offsets of the forward column, forward
+    row and inverse DCT tables at 0, 2 and 4, their stage counts at 6 + t,
+    the column and row cos bits at 27 and 28), then per stage and output
+    (ia, wa, ib, wb, sh, clamp2); on the card, made once per size."""
+    import numpy as np
+    import torch
+
+    from svtav1_tpu_torch.ops import transforms as T
+    from svtav1_tpu_torch.ops import transforms_torch as TT
+
+    if n not in PARENT_TABLES:
+        tables = TT.numpy_stage_tables(n)
+        cbc, cbr = TT._cos_bits(n)
+        hdr = np.full(32, -1, np.int64)
+        hdr[6:12] = 0
+        hdr[27], hdr[28] = cbc, cbr
+        data, off = [], 32
+        for tab, key in ((0, (f"fdct{n}", cbc)), (2, (f"fdct{n}", cbr)),
+                         (4, (f"idct{n}", T.INV_COS_BIT))):
+            hdr[tab], hdr[6 + tab] = off, len(tables[key])
+            for stage in tables[key]:
+                st = np.stack(stage, axis=1).astype(np.int64).ravel()
+                data.append(st)
+                off += st.size
+        PARENT_TABLES[n] = torch.as_tensor(np.concatenate([hdr] + data).astype(np.int32),
+                                           device="cuda")
+    return PARENT_TABLES[n]
+
+
+PARENT_TABLES = {}
+
+
+class ParentLib:
+    """The --baseline-lib handle with the parent's K2 and K15 entry points
+    taking this checkout's arguments: K2 took `tables` (ignored) and log2n,
+    K15 read packed stage tables (parent_stage_tables) and took log2n."""
+
+    def __init__(self, handle):
+        self.handle = handle
+
+    def __getattr__(self, name):
+        return getattr(self.handle, name)
+
+    def txfm_quant_recon_launch(self, *a):
+        n = a[11]
+        return self.handle.txfm_quant_recon_launch(*a[:4], None, *a[4:-1], n.bit_length() - 1,
+                                                   a[-1])
+
+    def tpl_cost_launch(self, *a):
+        n = a[8]
+        return self.handle.tpl_cost_launch(*a[:2], parent_stage_tables(n).data_ptr(), *a[2:-1],
+                                           n.bit_length() - 1, a[-1])
 
 
 def load_baseline(path):
     """A kernel library built from another checkout (the parent commit's
     build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
-    kernels.lib() binds its own (K4's and K10's with their earlier
-    arguments): K2-K5, K7-K10, K14 and K16 are also timed through it, on the
+    kernels.lib() binds its own (K2's and K15's with their earlier
+    arguments): K1-K5, K7-K10, K14-K16 are also timed through it, on the
     same inputs, and must give the same results."""
     import ctypes
 
     from svtav1_tpu_torch import kernels
 
     P, I = ctypes.c_void_p, ctypes.c_int
-    # the entry points of K4 and K10 before their redesign (parent_deblock,
-    # parent_mc call them): dlf_edges_launch(in, out, flen, F, H, W, K, sF,
-    # sR, sC, lim, blim, thr, bd, stream) and mc_lanes(16)_launch(ref, ys,
-    # xs, mvy, mvx, ref_idx, ftab_x, ftab_y, out, B, nref, H, W, n_h, n_w, bd,
-    # stream)
-    parent = {"dlf_edges_launch": [P] * 3 + [I] * 11 + [P],
-              "mc_lanes_launch": [P] * 9 + [I] * 7 + [P],
-              "mc_lanes16_launch": [P] * 9 + [I] * 7 + [P]}
+    # K2's and K15's entry points before this checkout's: `tables` after the
+    # fourth and second pointer, log2n before the stream (ParentLib adapts
+    # them)
+    parent = {"txfm_quant_recon_launch": [P] * 9 + [I] * 14 + [P],
+              "tpl_cost_launch": [P] * 6 + [I] * 14 + [P]}
     handle = ctypes.CDLL(os.path.abspath(path))
     for fn, argtypes in {**kernels.ARGTYPES, **parent}.items():
         f = getattr(handle, fn, None)
         if f is not None:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-    BASELINE.append(handle)
+    BASELINE.append(ParentLib(handle))
 
 
 @contextlib.contextmanager
@@ -532,7 +591,7 @@ def baseline_kernels():
 
 
 def kernel_times(fn, same, reps, baseline=True):
-    """K2's, K3's, K5's, K8's, K9's and K14's extra times: `device_ms` (device_ms()), and with
+    """A kernel's extra times: `device_ms` (device_ms()), and with
     --baseline-lib (unless `baseline` is false), after `same` holds the
     baseline library's result against this checkout's, `baseline_ms`
     (timed_ms(), as `ms`) and `baseline_device_ms` through it."""
@@ -567,10 +626,10 @@ def check_kernels(torch, dev):
     def t(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(dtype).to(dev)
 
-    def edges(B, n):
-        above = t(g.integers(0, 256, (B, n)))
-        left = t(g.integers(0, 256, (B, n)))
-        tl = t(g.integers(0, 256, B))
+    def edges(B, n, bd=8):
+        above = t(g.integers(0, 1 << bd, (B, n)))
+        left = t(g.integers(0, 1 << bd, (B, n)))
+        tl = t(g.integers(0, 1 << bd, B))
         ha = t(g.random(B) < 0.9, torch.bool)
         hl = t(g.random(B) < 0.9, torch.bool)
         return above, left, tl, ha, hl
@@ -601,24 +660,46 @@ def check_kernels(torch, dev):
             raise SystemExit(f"{name}: kernel disagrees with its plain version (max err {err})")
         return err
 
-    # ---- K1 intra_pred: decide n=8 over 1080p (all 13 modes), commit waves
-    R8, C8 = 135, 240
+    # ---- K1 intra_pred at the shapes of the 1080p paths: the key frame's
+    # decide (8x8, 13 modes), a P frame's four luma sizes (7 modes) and their
+    # U+V lanes (one mode each), the TPL probe (40,800 16x16 lanes of its 5
+    # modes), the commit waves' lanes; tails of 1, 7 and 33 lanes at every
+    # size, with and without `mode`, at 8 and 10 bits (checked, not timed).
+    # Device time and, with --baseline-lib, the parent's kernel on the same
+    # inputs (kernel_times).
+    def k1_case(label, B, n, nmodes, modes=None, main=False, bd=8, timed=True):
+        e = edges(B, n, bd)
+        mode = None if modes is None else t(np.resize(np.asarray(modes), B))
+        kw = dict(mode=mode, nmodes=nmodes, bd=bd)
+        got = intra_device.predict(*e, n, **kw)
+        err = assert_equal("intra_pred", got, intra_device.predict_plain(*e, n, **kw))
+        if not timed:
+            return
+        out = B * (1 if mode is not None else nmodes) * n * n
+        record("intra_pred", [B, nmodes if mode is None else 1, n, n, label], err,
+               timed_ms(lambda: intra_device.predict(*e, n, **kw), 20),
+               timed_ms(lambda: intra_device.predict_plain(*e, n, **kw), 3),
+               nbytes=B * (2 * n + 1) * 4 + 2 * B + (4 * B if mode is not None else 0) + out * 4,
+               ops=out * 10, main=main,
+               **kernel_times(lambda: intra_device.predict(*e, n, **kw),
+                              lambda o: assert_equal("intra_pred (baseline)", o, got), 20))
+
+    R8, C8 = 135, 240  # the 1080p frame's 8x8 grid
     B = R8 * C8
-    e = edges(B, 8)
-    err = assert_equal("intra_pred", intra_device.predict(*e, 8), intra_device.predict_plain(*e, 8))
-    record("intra_pred", [B, 13, 8, 8], err,
-           timed_ms(lambda: intra_device.predict(*e, 8), 20),
-           timed_ms(lambda: intra_device.predict_plain(*e, 8), 5),
-           nbytes=B * (2 * 8 + 1) * 4 + 2 * B + B * 13 * 64 * 4, ops=B * 13 * 64 * 10, main=True)
+    k1_case("key frame decide", B, 8, 13, main=True)
+    for n, (R, C) in ((8, (R8, C8)), (16, (68, 120)), (32, (34, 60)), (64, (17, 30))):
+        k1_case("P frame decide, luma", R * C, n, 7)
+        k1_case("P frame decide, U+V", 2 * R * C, n // 2, 7,
+                modes=np.tile(g.integers(0, 7, R * C), 2))
+    k1_case("TPL probe", 5 * 8160, 16, 13, modes=(0, 1, 2, 3, 9))
     for n, lanes in ((8, R8), (4, 2 * R8), (32, 34), (16, 2 * 34), (64, 17)):  # wave lanes
-        e = edges(lanes, n)
-        mode = t(g.integers(0, 13, lanes))
-        err = assert_equal("intra_pred", intra_device.predict(*e, n, mode=mode),
-                           intra_device.predict_plain(*e, n, mode=mode))
-        record("intra_pred", [lanes, n, n, "13 modes"], err,
-               timed_ms(lambda: intra_device.predict(*e, n, mode=mode), 20),
-               timed_ms(lambda: intra_device.predict_plain(*e, n, mode=mode), 3),
-               lanes * (2 * n + 2) * 4 + lanes * n * n * 4, lanes * n * n * 10)
+        k1_case("commit wave", lanes, n, 13, modes=g.integers(0, 13, lanes))
+    for bd in (8, 10):
+        for n in (4, 8, 16, 32, 64):
+            for lanes in (1, 7, 33):
+                k1_case("tail", lanes, n, 13, bd=bd, timed=False)
+                k1_case("tail", lanes, n, 13, modes=g.integers(0, 13, lanes), bd=bd,
+                        timed=False)
 
     # ---- K2 txfm_quant_recon: decide n=8 x 13 modes (SSE), n=64, commit
     q = 120
@@ -833,31 +914,6 @@ def check_kernels(torch, dev):
 LF_LADDER = (9, 18, 29)  # the nonzero luma candidates around level 18 (_lf_candidates(18))
 
 
-def parent_deblock(torch, jobs, bd):
-    """K4 of the --baseline-lib library (the parent's per-pass entry, its
-    arguments as the parent's filter_vertical_edges passed them): per job
-    the vertical pass, then the horizontal pass on the transposed view, two
-    launches per level."""
-    from svtav1_tpu_torch import kernels
-
-    out = []
-    for pl, flen_v, flen_h, lim_v, lim_h in jobs:
-        x = pl
-        for lim, flen, tr in ((lim_v, flen_v, False), (lim_h, flen_h, True)):
-            if lim is None:
-                continue
-            v = x.transpose(1, 2) if tr else x
-            o = torch.empty_like(v)
-            err = BASELINE[0].dlf_edges_launch(v.data_ptr(), o.data_ptr(), flen.data_ptr(),
-                                               *v.shape, flen.shape[2], *v.stride(), *lim, bd,
-                                               kernels.stream_ptr(v))
-            if err:
-                raise SystemExit(f"dlf_edges (baseline): cudaError {err}")
-            x = o.transpose(1, 2) if tr else o
-        out.append(x)
-    return out
-
-
 def check_deblock(torch, t, record, assert_equal, sm, plane, bd):
     """Phase 2 for K4 at bd: the (1, 1080, 1920) luma plane `plane` (size
     map sm) at LF_LADDER's three levels in one launch (the luma search's
@@ -867,8 +923,8 @@ def check_deblock(torch, t, record, assert_equal, sm, plane, bd):
     and of all 8s on the plane, flat 64x64 blocks 10 levels apart (the
     14-tap filters' flat2: offsets -6 and 5 change), and uniform noise.
     Each against the plain version, exactly; `device_ms` a CUDA graph of 20
-    launches; with --baseline-lib the parent's K4 on the same jobs, two
-    launches per level (`baseline_device_ms`)."""
+    launches; with --baseline-lib the parent's K4 on the same jobs
+    (kernel_times)."""
     import numpy as np
 
     from svtav1_tpu_torch.filters import dlf_torch
@@ -889,11 +945,12 @@ def check_deblock(torch, t, record, assert_equal, sm, plane, bd):
         got = dlf_torch.deblock(jobs, bd)
         want = dlf_torch.deblock_plain(jobs, bd)
         err = assert_equal("dlf_edges", got, want)
-        timed = dict(device_ms=device_ms(lambda: dlf_torch.deblock(jobs, bd)))
-        if BASELINE:
-            for a, b in zip(parent_deblock(torch, jobs, bd), got):
+
+        def same(out):
+            for a, b in zip(out, got):
                 assert_equal("dlf_edges (baseline)", a, b)
-            timed["baseline_device_ms"] = device_ms(lambda: parent_deblock(torch, jobs, bd))
+
+        timed = kernel_times(lambda: dlf_torch.deblock(jobs, bd), same, 20)
         ptrs = [v for pl, fv, fh, _a, _b in jobs
                 for v in (pl.data_ptr(), fv.data_ptr(), fh.data_ptr(), 0)]
         nbytes, _ = launch_bound("dlf_edges", (ptrs, None, len(jobs), *jobs[0][0].shape))
@@ -1048,27 +1105,6 @@ def k10_packed_ops_ms(P, B, nh, nw, bd=8):
     return P * B * ((nh + 7) * nw * horizontal + 4 * nh * nw / RATES["idp2a"]) * 1e3
 
 
-def parent_mc(torch, refs, ys, xs, mvy, mvx, n, which, bd, ri):
-    """K10 of the --baseline-lib library (the parent's entry point, one
-    plane per launch): (P, B, n, n) int32."""
-    from svtav1_tpu_torch import kernels
-    from svtav1_tpu_torch.ops import me_torch
-    from svtav1_tpu_torch.ops.convolve import filter_for_dim
-
-    B = ys.shape[0]
-    out = torch.empty((len(refs), B, n, n), dtype=torch.int32, device=ys.device)
-    ftab = me_torch._ftab(filter_for_dim(which, n), str(ys.device)).data_ptr()
-    fn = BASELINE[0].mc_lanes_launch if bd == 8 else BASELINE[0].mc_lanes16_launch
-    for p, ref in enumerate(refs):
-        err = fn(ref.data_ptr(), ys.data_ptr(), xs.data_ptr(), mvy.data_ptr(), mvx.data_ptr(),
-                 None if ri is None else ri.data_ptr(), ftab, ftab, out[p].data_ptr(), B,
-                 1 if ref.dim() == 2 else ref.shape[0], ref.shape[-2], ref.shape[-1], n, n, bd,
-                 kernels.stream_ptr(out))
-        if err:
-            raise SystemExit(f"mc_lanes (baseline): cudaError {err}")
-    return out
-
-
 GLOBALMV = {}  # the decide's GLOBALMV lanes: four K10 launches against one (check_mc)
 
 
@@ -1082,8 +1118,8 @@ def check_mc(torch, dev, t, record, assert_equal, stacks, draws, bd):
     four sizes as four launches against one 8x8 launch whose blocks the
     sizes take (the view copies into the candidates' buffer counted in
     both). Each against the plain version, exactly; `device_ms` a CUDA
-    graph of 20 launches; with --baseline-lib the parent's K10, one launch
-    per plane (`baseline_device_ms`)."""
+    graph of 20 launches; with --baseline-lib the parent's K10 on the same
+    inputs (kernel_times)."""
     import numpy as np
 
     from svtav1_tpu_torch.ops import me_torch
@@ -1105,11 +1141,8 @@ def check_mc(torch, dev, t, record, assert_equal, stacks, draws, bd):
         args = (refs, ys, xs, mvy[:B], mvx[:B], n, n, 0, bd, ri[:B])
         got = me_torch.mc_lanes_planes(*args)
         err = assert_equal(name, got, me_torch.mc_lanes_planes_plain(*args))
-        timed = dict(device_ms=device_ms(lambda: me_torch.mc_lanes_planes(*args)))
-        if BASELINE:
-            base = (refs, ys, xs, mvy[:B], mvx[:B], n, 0, bd, ri[:B])
-            assert_equal(name + " (baseline)", parent_mc(torch, *base), got)
-            timed["baseline_device_ms"] = device_ms(lambda: parent_mc(torch, *base))
+        timed = kernel_times(lambda: me_torch.mc_lanes_planes(*args),
+                             lambda o: assert_equal(name + " (baseline)", o, got), 20)
         P = len(refs)
         c_args = [None] * 20
         c_args[11], c_args[12], c_args[16], c_args[17] = P, B, n, n
@@ -1275,9 +1308,11 @@ def check_tpl(torch, dev, g, t, record, assert_equal):
     bd=10): K14 from the full-pel MVs of the frame's 16x16 ME and from MVs
     spread to +-64 px, so that windows cross every edge; K15 mode 0 on the
     intra probe's 5 x 8,160 lanes (the five lanes of a block share its
-    source) and mode 1 with the recon on 8,160 lanes, at qindex 120 and 255.
-    All exact. K14 also by device time (a CUDA graph), the 8-bit form also
-    through --baseline-lib; its bound at the measured packed rates, as K9's
+    source) and on 8,160 lanes (a reference's inter cost), and mode 1 with
+    the recon on 8,160 lanes, at qindex 120 and 255. All exact. K14 and K15
+    also by device time (a CUDA graph) and through --baseline-lib (K14's
+    8-bit form; K15 at both depths, the parent's entry bound by
+    ParentLib); K14's bound at the measured packed rates, as K9's
     (k14_packed_ops_ms)."""
     import numpy as np
 
@@ -1324,24 +1359,33 @@ def check_tpl(torch, dev, g, t, record, assert_equal):
         pred1 = (srcb + noise1).clamp(0, maxv).to(torch.int32).contiguous()
         for q in (120, 255):
             dq = (quant_ops.dc_q(q, bd), quant_ops.ac_q(q, bd))
-            a0 = (srcb, pred5, 0, dq[0], dq[1], bd, 5)
-            err = assert_equal("tpl_cost", TT.tpl_cost(*a0), TT.tpl_cost_plain(*a0))
-            L = 5 * B
-            record("tpl_cost", [L, n, n, "mode 0", "rep 5", f"qindex {q}", *tag], err,
-                   timed_ms(lambda: TT.tpl_cost(*a0), 20),
-                   timed_ms(lambda: TT.tpl_cost_plain(*a0), 3),
-                   nbytes=(B + L) * n * n * 4 + 4 * L, ops=tpl_cost_ops(L, n, False),
-                   main=q == 120 and bd == 8, device_ms=device_ms(lambda: TT.tpl_cost(*a0)))
+            for L, rep, pred in ((5 * B, 5, pred5), (B, 1, pred1)):  # the probe; per reference
+                a0 = (srcb, pred, 0, dq[0], dq[1], bd, rep)
+                satd = TT.tpl_cost(*a0)
+                err = assert_equal("tpl_cost", satd, TT.tpl_cost_plain(*a0))
+                record("tpl_cost", [L, n, n, "mode 0", f"rep {rep}", f"qindex {q}", *tag], err,
+                       timed_ms(lambda: TT.tpl_cost(*a0), 20),
+                       timed_ms(lambda: TT.tpl_cost_plain(*a0), 3),
+                       nbytes=(L // rep + L) * n * n * 4 + 4 * L, ops=tpl_cost_ops(L, n, False),
+                       main=q == 120 and bd == 8 and rep == 5,
+                       **kernel_times(lambda: TT.tpl_cost(*a0),
+                                      lambda o: assert_equal("tpl_cost (baseline)", o, satd), 20))
             a1 = (srcb, pred1, 1, dq[0], dq[1], bd, 1, True)
             ek, rk = TT.tpl_cost(*a1)
             ep, rp = TT.tpl_cost_plain(*a1)
             err = max(assert_equal("tpl_cost", ek, ep), assert_equal("tpl_cost", rk, rp))
+
+            def same1(o):
+                assert_equal("tpl_cost (baseline)", o[0], ek)
+                assert_equal("tpl_cost (baseline)", o[1], rk)
+
             record("tpl_cost", [B, n, n, "mode 1", "recon", f"qindex {q}", *tag], err,
                    timed_ms(lambda: TT.tpl_cost(*a1), 20),
                    timed_ms(lambda: TT.tpl_cost_plain(*a1), 3),
                    nbytes=3 * B * n * n * 4 + 8 * B, ops=tpl_cost_ops(B, n, True),
                    lanes_err_at_or_above_2_24=int((ek >= 1 << 24).sum().item()),
-                   largest_err=int(ek.max().item()), device_ms=device_ms(lambda: TT.tpl_cost(*a1)))
+                   largest_err=int(ek.max().item()),
+                   **kernel_times(lambda: TT.tpl_cost(*a1), same1, 20))
 
 
 def check_tiles(torch, dev, g, t, record, assert_equal):
@@ -2693,7 +2737,7 @@ def replay_k2(torch, c):
     from svtav1_tpu_torch.ops import transforms_torch as TT
 
     pred, src, va, ha = c["pred"], c["src"], c["va"], c["ha"]
-    dq_dc, dq_ac, bd, rep, tabs = c["rest"]
+    dq_dc, dq_ac, bd, rep = c["rest"]
     L, n = pred.shape[0], pred.shape[-1]
     adj, dev, i32 = min(n, 32), pred.device, torch.int32
     stage = c["k2_stage"]
@@ -2703,20 +2747,18 @@ def replay_k2(torch, c):
         co = torch.empty((L, adj, adj), dtype=i32, device=dev) if c["coeff"] else None
         rec = torch.empty((L, n, n), dtype=i32, device=dev) if c["recon"] else None
         sse = torch.empty((L,), dtype=torch.int64, device=dev) if c["sse"] else None
-        TT._launch(stage, src, pred, va, ha, lv, co, rec, sse, dq_dc, dq_ac, bd, rep, tabs)
+        TT._launch(stage, src, pred, va, ha, lv, co, rec, sse, dq_dc, dq_ac, bd, rep)
         return [None if stage == 2 else lv, co, rec, sse]
 
     def plain():
         args = (va, ha, dq_dc, dq_ac, bd)
         if stage == 0:
-            lv, rec, sse = TT.txfm_quant_recon_plain(src, pred, *args, rep=rep, want_sse=c["sse"],
-                                                     tables=tabs)
+            lv, rec, sse = TT.txfm_quant_recon_plain(src, pred, *args, rep=rep, want_sse=c["sse"])
             return [lv, None, rec if c["recon"] else None, sse]
         if stage == 1:
-            lv, co = TT.txfm_quant_plain(src, pred, *args, tables=tabs)
+            lv, co = TT.txfm_quant_plain(src, pred, *args)
             return [lv, co if c["coeff"] else None, None, None]
-        return [None, None, TT.recon_from_levels_plain(c["lv_in"], pred, *args, tables=tabs),
-                None]
+        return [None, None, TT.recon_from_levels_plain(c["lv_in"], pred, *args), None]
 
     return run, plain
 

@@ -11,7 +11,8 @@ Every stage output is
 in int32 that wraps (the products in `unsigned`, as common.cuh's
 wrap_mad2), clamped to [lo, hi] where the table's clamp flag is set in an
 inverse network. Outputs that copy one input are renamed, not computed.
-ADST4 is the sinpi code of csrc/txfm.cuh with the sinpi values as literals.
+ADST4 is the sinpi code of the plain version's _adst4 (ops/transforms_torch.py)
+with the sinpi values as literals.
 `TxNets<n>` picks a line's network from its ADST flag.
 
 Run from the repository root after a change to the stage tables:
@@ -46,7 +47,7 @@ __device__ __forceinline__ int cl(int v, int lo, int hi) { return v < lo ? lo : 
 """
 
 ADST4 = """
-// ADST4 (sinpi; csrc/txfm.cuh adst4) at cos bit {cb}
+// ADST4 (sinpi; ops/transforms_torch.py _adst4) at cos bit {cb}
 __device__ __forceinline__ void {fn}(int (&x)[4]) {{
   const unsigned x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
   const unsigned s1p = {s1}u, s2p = {s2}u, s3p = {s3}u, s4p = {s4}u;

@@ -1,8 +1,8 @@
-// K1's block body as device code: the thirteen key-frame AV1 intra
-// predictors of one n x n block from filled edges. K1 (intra_pred.cu) runs
-// intra_pred_block once per CTA; K16 (commit.cu) calls intra_pred_sample for
-// each sample of a task, so the two predict bit-identically. See
-// intra_pred.cu for what it replaces.
+// K1's per-sample formulas as device code: the thirteen key-frame AV1 intra
+// predictors of one n x n block from filled edges. K1 (intra_pred.cu) and
+// K16 (commit.cu) both call intra_pred_sample / intra_dr_sample and
+// intra_dc, so the two predict bit-identically. See intra_pred.cu for what
+// it replaces.
 #pragma once
 #include "common.cuh"
 
@@ -77,33 +77,5 @@ static __device__ __forceinline__ int intra_pred_sample(const int* A, const int*
       return (pl <= pt && pl <= ptl) ? l : (pt <= ptl ? t : t_l);
     }
     default: return intra_dr_sample(A, L, t_l, n, dr + 3 * (m - 7), i, j);
-  }
-}
-
-// Predict one block with the whole CTA: mode >= 0 writes that mode's n*n
-// samples to o, mode < 0 all nmodes modes (nmodes*n*n, in MODES order).
-// A / L are the n above and left samples, t_l the top-left one. Ends
-// without a barrier: the caller syncs before reading o.
-static __device__ void intra_pred_block(const int* A, const int* L, int t_l, bool ha, bool hl,
-                                        int mode, const int* __restrict__ weights,
-                                        const int* __restrict__ dr, int* o, int n, int log2n,
-                                        int nmodes, int bd) {
-  __shared__ int s_dc;
-  if (threadIdx.x == 0) {
-    int sa = 0, sl = 0;
-    for (int i = 0; i < n; ++i) {
-      sa += A[i];
-      sl += L[i];
-    }
-    s_dc = intra_dc(sa, sl, ha, hl, n, log2n, bd);
-  }
-  __syncthreads();
-  const int nn = n * n;
-  const int total = (mode >= 0 ? 1 : nmodes) * nn;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int m = mode >= 0 ? mode : idx / nn;
-    const int pix = idx - (mode >= 0 ? 0 : m * nn);
-    o[idx] = intra_pred_sample(A, L, t_l, s_dc, m, weights, dr, n, pix >> log2n,
-                               pix & (n - 1));
   }
 }

@@ -30,9 +30,8 @@
 // shared memory with 16-byte loads; levels and coefficients move as 16-byte
 // rows. Arithmetic is int32 that wraps, like the reference. b0/b1/b2 are the
 // forward shifts as round_shift_array bits (> 0 rounds right, < 0 shifts
-// left). K16 (commit.cu) runs the same networks, one block per warp; K15
-// below keeps txfm.cuh's table-driven networks.
-#include "txfm.cuh"
+// left). K16 (commit.cu) runs the same networks, one block per warp, and
+// K15 (below) the same lines with its cost epilogues.
 #include "txfm_nets.cuh"
 
 #include <algorithm>
@@ -65,19 +64,57 @@ __device__ __forceinline__ void load4(const int* p, int (&v)[4], bool vec) {
   }
 }
 
+// The sum of v over a lane's N threads (a warp shuffle; at 64 points the
+// CTA's two warps of a lane meet in part[]).
+template <int N>
+__device__ __forceinline__ unsigned long long lane_sum(unsigned long long v,
+                                                       unsigned long long* part) {
+#pragma unroll
+  for (int o = (N < 32 ? N : 32) / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if constexpr (N == 64) {
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+    __syncthreads();
+    v = part[(threadIdx.x >> 5) & ~1] + part[(threadIdx.x >> 5) | 1];
+  }
+  return v;
+}
+
+// The arguments of one launch of K2 or K15, as the launcher gathers them.
+// K2: src|NULL, pred, v_adst, h_adst, levels, coeff|NULL, recon|NULL,
+// sse|NULL. K15: src, pred, satd (stage 1) or err (stage 0), recon|NULL;
+// DCT_DCT. nsrc: the source slots in shared memory (0 without src). `vec`:
+// src, levels and coeff are 16-byte aligned. The kernels take them as
+// separate __restrict__ parameters: passed as one struct, K2 took 4-7% more
+// time at the decide's 8x8 to 32x32 shapes (H100, 45 registers at 8 points
+// against 40).
+struct Lines {
+  const int* src;
+  const int* pred;
+  const uint8_t* v_adst;
+  const uint8_t* h_adst;
+  int* levels;
+  int* coeff;
+  int* recon;
+  unsigned long long* sse;
+  int* satd;
+  unsigned long long* err;
+  int stage, L, rep, nsrc;
+  bool vec;
+  int b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd;
+};
+
 // Lanes [blockIdx.x * lpc, + lpc) with N threads each (lpc = blockDim.x / N,
 // at most txq_threads(N) / N); thread t of a lane holds column t in the
-// column passes and row t in the row passes. `vec`:
-// src, levels and coeff are 16-byte aligned. nsrc: the source slots in
-// shared memory (0 without src).
-template <int N>
-__global__ void __launch_bounds__(N == 64 ? 128 : 256)
-    txq_lines_kernel(const int* __restrict__ src, const int* __restrict__ pred,
-                     const uint8_t* __restrict__ v_adst, const uint8_t* __restrict__ h_adst,
-                     int* __restrict__ levels, int* __restrict__ coeff, int* __restrict__ recon,
-                     unsigned long long* __restrict__ sse, int stage, int L, int rep, int nsrc,
-                     bool vec, int b0, int b1, int b2, int sh_row, int sh_col, int dq_dc,
-                     int dq_ac, int ls, int bd) {
+// column passes and row t in the row passes. TPL: K15's epilogues in place of
+// the levels, coefficients and SSE.
+template <int N, bool TPL>
+__device__ __forceinline__ void txq_lines(
+    const int* __restrict__ src, const int* __restrict__ pred,
+    const uint8_t* __restrict__ v_adst, const uint8_t* __restrict__ h_adst,
+    int* __restrict__ levels, int* __restrict__ coeff, int* __restrict__ recon,
+    unsigned long long* __restrict__ sse, int* __restrict__ satd,
+    unsigned long long* __restrict__ err, int stage, int L, int rep, int nsrc, bool vec, int b0,
+    int b1, int b2, int sh_row, int sh_col, int dq_dc, int dq_ac, int ls, int bd) {
   constexpr int TPB = txq_threads(N), NN = N * N;
   constexpr int ADJ = N < 32 ? N : 32;  // coded rows and columns
   constexpr int TS = N + 1;             // transpose row stride
@@ -93,9 +130,9 @@ __global__ void __launch_bounds__(N == 64 ? 128 : 256)
   const int lane = valid ? lane_raw : L - 1;  // the tail's idle lines redo the last lane
   const int s0 = l0 / rep;
   int* tile = txq_smem + nsrc * NN + (threadIdx.x / N) * ADJ * TS;
-  const int* P = pred + (size_t)lane * NN;
+  const int* __restrict__ P = pred + (size_t)lane * NN;
   const int* S = txq_smem + (lane / rep - s0) * NN;
-  const bool va = v_adst[lane] != 0, ha = h_adst[lane] != 0;
+  const bool va = !TPL && v_adst[lane] != 0, ha = !TPL && h_adst[lane] != 0;
   const int dqmax = (1 << (bd + 7)) - 1;
 
   if (nsrc) {  // the CTA's sources, once
@@ -112,7 +149,7 @@ __global__ void __launch_bounds__(N == 64 ? 128 : 256)
 
   int p[KEEP_PRED ? N : 1];
   int y[N];  // this thread's row
-  int* lrow = levels + (size_t)lane * ADJ * ADJ + t * ADJ;
+  int* lrow = TPL ? nullptr : levels + (size_t)lane * ADJ * ADJ + t * ADJ;
   if (stage != 2) {
     int x[N];  // this thread's column
 #pragma unroll
@@ -125,11 +162,13 @@ __global__ void __launch_bounds__(N == 64 ? 128 : 256)
 #pragma unroll
     for (int k = 0; k < ADJ; ++k) tile[k * TS + t] = apply_shift(x[k], b1);
     group_sync<N>();
+    // K15: stage 1 sums |co|, stage 0 ((co - dqc) >> 2)^2, exactly (int64)
+    unsigned long long cost = 0;
     if (N < 64 || t < 32) {
 #pragma unroll
       for (int c = 0; c < N; ++c) y[c] = tile[t * TS + c];
       Nets::fwd_row(y, ha);
-      int* crow = coeff ? coeff + (size_t)lane * ADJ * ADJ + t * ADJ : nullptr;
+      int* crow = !TPL && coeff ? coeff + (size_t)lane * ADJ * ADJ + t * ADJ : nullptr;
 #pragma unroll
       for (int j0 = 0; j0 < ADJ; j0 += 4) {
         int lq[4], cq[4];
@@ -138,13 +177,30 @@ __global__ void __launch_bounds__(N == 64 ? 128 : 256)
           const int j = j0 + u;
           const int dq = (t == 0 && j == 0) ? dq_dc : dq_ac;
           cq[u] = apply_shift(y[j], b2);
+          if (TPL && stage == 1) {
+            cost += (unsigned)abs(cq[u]);
+            continue;
+          }
           lq[u] = quant_level(cq[u], dq, ls);
           y[j] = dequant_level(lq[u], dq, ls, dqmax);
+          if constexpr (TPL) {
+            const long long e = (cq[u] - y[j]) >> 2;
+            cost += (unsigned long long)(e * e);
+          }
         }
-        if (valid) {
+        if (!TPL && valid) {
           store4(lrow + j0, lq, vec);
           if (crow) store4(crow + j0, cq, vec);
         }
+      }
+    }
+    if constexpr (TPL) {
+      cost = lane_sum<N>(cost, s_part);
+      if (t == 0 && valid) {
+        if (stage == 1)
+          satd[lane] = (int)(unsigned)cost >> 2;
+        else
+          err[lane] = cost;
       }
     }
     if (stage == 1 || (!recon && !sse)) return;
@@ -159,7 +215,8 @@ __global__ void __launch_bounds__(N == 64 ? 128 : 256)
       load4(lrow + j0, lq, vec);
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        y[j0 + u] = dequant_level(lq[u], (t == 0 && j0 + u == 0) ? dq_dc : dq_ac, ls, dqmax);
+        y[j0 + u] =
+            dequant_level(lq[u], (t == 0 && j0 + u == 0) ? dq_dc : dq_ac, ls, dqmax);
     }
   }
   // inverse rows (64 points: rows >= 32 and columns >= 32 are zero)
@@ -171,7 +228,8 @@ __global__ void __launch_bounds__(N == 64 ? 128 : 256)
     const int cb = bd + 6 > 16 ? bd + 6 : 16;
 #pragma unroll
     for (int j = 0; j < N; ++j)
-      tile[t * TS + j] = clampi(round_shift(y[j], sh_row), -(1 << (cb - 1)), (1 << (cb - 1)) - 1);
+      tile[t * TS + j] =
+          clampi(round_shift(y[j], sh_row), -(1 << (cb - 1)), (1 << (cb - 1)) - 1);
   }
   group_sync<N>();
   // inverse columns, the add, the clip, the SSE
@@ -187,165 +245,122 @@ __global__ void __launch_bounds__(N == 64 ? 128 : 256)
     if constexpr (KEEP_PRED) pv = p[r]; else pv = __ldg(P + r * N + t);
     const int rec = clampi(pv + round_shift(z[r], sh_col), 0, pmax);
     if (recon && valid) recon[(size_t)lane * NN + r * N + t] = rec;
-    if (sse) {
+    if (!TPL && sse) {
       const int d = rec - S[r * N + t];
       acc += (unsigned)(d * d);
     }
   }
-  if (!sse) return;
-  unsigned long long tot = acc;
-#pragma unroll
-  for (int o = (N < 32 ? N : 32) / 2; o > 0; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
-  if constexpr (N == 64) {
-    if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = tot;
-    __syncthreads();
-    tot = s_part[(threadIdx.x >> 5) & ~1] + s_part[(threadIdx.x >> 5) | 1];
-  }
+  if (TPL || !sse) return;
+  const unsigned long long tot = lane_sum<N>(acc, s_part);
   if (t == 0 && valid) sse[lane] = tot;
 }
 
 template <int N>
-int launch_txq(const int* src, const int* pred, const uint8_t* v_adst, const uint8_t* h_adst,
-               int* levels, int* coeff, int* recon, unsigned long long* sse, int stage, int L,
-               int rep, int b0, int b1, int b2, int sh_row, int sh_col, int dq_dc, int dq_ac,
-               int ls, int bd, cudaStream_t stream) {
-  constexpr int ADJ = N < 32 ? N : 32;
-  static int sms = 0;  // the SM count, and the dynamic shared-memory limit raised, once
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(txq_lines_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         100 * 1024);
-  }
-  // lanes per CTA: fewer for a small launch (two CTAs per SM where L allows),
-  // whole warps always
-  int lpc = txq_threads(N) / N;
-  while (lpc > std::max(1, 32 / N) && (L + lpc - 1) / lpc < 2 * sms) lpc /= 2;
-  const bool with_src = src != nullptr && stage != 2;
-  const int nsrc = with_src ? std::min(lpc, (lpc - 1) / rep + 2) : 0;
-  const auto al = [](const void* q) { return q == nullptr || ((uintptr_t)q & 15) == 0; };
-  const bool vec = al(src) && al(levels) && al(coeff);
-  const size_t shm = ((size_t)nsrc * N * N + (size_t)lpc * ADJ * (N + 1)) * sizeof(int);
-  txq_lines_kernel<N><<<(L + lpc - 1) / lpc, lpc * N, shm, stream>>>(
-      with_src ? src : nullptr, pred, v_adst, h_adst, levels, coeff, recon, sse, stage, L, rep,
-      nsrc, vec, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd);
-  return launch_status();
+__global__ void __launch_bounds__(N == 64 ? 128 : 256) txq_lines_kernel(
+    const int* __restrict__ src, const int* __restrict__ pred,
+    const uint8_t* __restrict__ v_adst, const uint8_t* __restrict__ h_adst,
+    int* __restrict__ levels, int* __restrict__ coeff, int* __restrict__ recon,
+    unsigned long long* __restrict__ sse, int* __restrict__ satd,
+    unsigned long long* __restrict__ err, int stage, int L, int rep, int nsrc, bool vec, int b0,
+    int b1, int b2, int sh_row, int sh_col, int dq_dc, int dq_ac, int ls, int bd) {
+  txq_lines<N, false>(src, pred, v_adst, h_adst, levels, coeff, recon, sse, satd, err, stage, L,
+                      rep, nsrc, vec, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd);
 }
 
 // K15 tpl_cost: the TPL dispenser's two transform-domain costs of square
-// DCT_DCT blocks, on txfm.cuh's table-driven networks and K2's quantizer:
-//   mode 0: satd = sum |fwd_txfm2d(src - pred)| >> 2 (int32);
-//   mode 1: the quantization error err = sum ((co - dqc) >> 2)^2 (exact,
-//           int64) of the coefficients co and their dequantized levels dqc
-//           (levels clipped to +-32767), and optionally the recon
+// DCT_DCT blocks on K2's lines (the same networks, staging and quantizer):
+//   mode 0 (stage 1): satd = sum |fwd_txfm2d(src - pred)| >> 2 (int32 that
+//           wraps, as the reference's sum);
+//   mode 1 (stage 0): the quantization error err = sum ((co - dqc) >> 2)^2
+//           (exact, int64) of the coefficients co and their dequantized
+//           levels dqc (levels clipped to +-32767), and optionally the recon
 //           inv_txfm2d_add(dqc, pred), clipped to the bit depth.
 // Replaces the cost expressions of svtav1_tpu/pipeline/tpl.py:82-83, :101-102
 // (mode 0) and :115-123 (mode 1, `recon_err`) inside _tpl_frame_jit.run.
 //
-// Bound: integer operations (the two or four 1-D passes of K2 per block
-// against 2 int32 reads and one output per sample). Design: one block per
-// lane with the block in shared memory (txfm.cuh); the reductions are a warp
-// shuffle and one shared atomic per warp, so the coefficients never reach
-// device memory.
-__global__ void tpl_cost_kernel(const int* __restrict__ src, const int* __restrict__ pred,
-                                const int* __restrict__ tb, int* __restrict__ satd,
-                                unsigned long long* __restrict__ err, int* __restrict__ recon,
-                                int mode, int rep, int n, int log2n, int b0, int b1, int b2,
-                                int sh_row, int sh_col, int dq_dc, int dq_ac, int ls, int bd) {
-  extern __shared__ int smem[];
-  __shared__ unsigned long long s_acc;
-  const int nn = n * n;
-  int* X = smem;
-  int* Y = smem + nn;
-  const int lane = blockIdx.x;
-  const int* S = src + (size_t)(lane / rep) * nn;
-  const int* P = pred + (size_t)lane * nn;
-  if (threadIdx.x == 0) s_acc = 0ull;
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
-    X[idx] = apply_shift(S[idx] - P[idx], b0);
-  __syncthreads();
-  pass1d(X, Y, tb, 0, n, log2n, true, 0, tb + 12, tb[27], false);
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) X[idx] = apply_shift(X[idx], b1);
-  __syncthreads();
-  pass1d(X, Y, tb, 2, n, log2n, false, 0, tb + 17, tb[28], false);
-  unsigned long long acc = 0;
-  const int dqmax = (1 << (bd + 7)) - 1;
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-    const int co = apply_shift(X[idx], b2);
-    if (mode == 0) {
-      acc += (unsigned)abs(co);
-      continue;
-    }
-    const int dq = idx == 0 ? dq_dc : dq_ac;
-    const int absc = (int)((unsigned)abs(co) << ls);
-    int lv = floordiv((int)((unsigned)absc + (unsigned)(dq >> 1)), dq);
-    lv = clampi(co > 0 ? lv : (co < 0 ? -lv : 0), -32767, 32767);
-    int d = min((abs(lv) * dq) >> ls, dqmax);
-    d = lv > 0 ? d : (lv < 0 ? -d : 0);
-    const long long e = (co - d) >> 2;
-    acc += (unsigned long long)(e * e);
-    X[idx] = clampi(d, -(1 << (bd + 7)), (1 << (bd + 7)) - 1);
+// Bound: integer operations (the two or four 1-D DCT passes per block
+// against 2 int32 reads and one output per sample). Design: K2's, each
+// thread's partial sum reduced by a warp shuffle over its lane's threads, so
+// the coefficients never reach device memory; its own entry so that a
+// profile tells it from K2.
+template <int N>
+__global__ void __launch_bounds__(256) tpl_cost_kernel(
+    const int* __restrict__ src, const int* __restrict__ pred,
+    const uint8_t* __restrict__ v_adst, const uint8_t* __restrict__ h_adst,
+    int* __restrict__ levels, int* __restrict__ coeff, int* __restrict__ recon,
+    unsigned long long* __restrict__ sse, int* __restrict__ satd,
+    unsigned long long* __restrict__ err, int stage, int L, int rep, int nsrc, bool vec, int b0,
+    int b1, int b2, int sh_row, int sh_col, int dq_dc, int dq_ac, int ls, int bd) {
+  txq_lines<N, true>(src, pred, v_adst, h_adst, levels, coeff, recon, sse, satd, err, stage, L,
+                     rep, nsrc, vec, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd);
+}
+
+// One launch of L lanes of N points: lanes per CTA (fewer for a small launch,
+// two CTAs per SM where L allows; whole warps always), the source slots and
+// the alignment; the dynamic shared-memory limit raised once per kernel.
+template <int N, bool TPL>
+int launch_lines(Lines a, cudaStream_t stream) {
+  constexpr int ADJ = N < 32 ? N : 32;
+  auto kernel = txq_lines_kernel<N>;
+  if constexpr (TPL) kernel = tpl_cost_kernel<N>;
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 100 * 1024);
   }
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-  if ((threadIdx.x & 31) == 0) atomicAdd(&s_acc, acc);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    if (mode == 0)
-      satd[lane] = (int)(unsigned)s_acc >> 2;
-    else
-      err[lane] = s_acc;
-  }
-  if (mode == 0 || !recon) return;
-  pass1d(X, Y, tb, 4, n, log2n, false, bd == 8 ? 16 : 18, tb + 22, 12, true);
-  const int cb = bd + 6 > 16 ? bd + 6 : 16;
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
-    X[idx] = clampi(round_shift(X[idx], sh_row), -(1 << (cb - 1)), (1 << (cb - 1)) - 1);
-  __syncthreads();
-  pass1d(X, Y, tb, 4, n, log2n, true, 16, tb + 22, 12, true);
-  const int pmax = (1 << bd) - 1;
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
-    recon[(size_t)lane * nn + idx] = clampi(P[idx] + round_shift(X[idx], sh_col), 0, pmax);
+  const int L = a.L;
+  int lpc = txq_threads(N) / N;
+  while (lpc > std::max(1, 32 / N) && (L + lpc - 1) / lpc < 2 * sms) lpc /= 2;
+  if (a.stage == 2) a.src = nullptr;
+  a.nsrc = a.src ? std::min(lpc, (lpc - 1) / a.rep + 2) : 0;
+  const auto al = [](const void* q) { return q == nullptr || ((uintptr_t)q & 15) == 0; };
+  a.vec = al(a.src) && al(a.levels) && al(a.coeff);
+  const size_t shm = ((size_t)a.nsrc * N * N + (size_t)lpc * ADJ * (N + 1)) * sizeof(int);
+  kernel<<<(L + lpc - 1) / lpc, lpc * N, shm, stream>>>(
+      a.src, a.pred, a.v_adst, a.h_adst, a.levels, a.coeff, a.recon, a.sse, a.satd, a.err,
+      a.stage, L, a.rep, a.nsrc, a.vec, a.b0, a.b1, a.b2, a.sh_row, a.sh_col, a.dq_dc, a.dq_ac,
+      a.ls, a.bd);
+  return launch_status();
 }
 
 }  // namespace
 
-extern "C" int tpl_cost_launch(const int* src, const int* pred, const int* tables, int* satd,
+extern "C" int tpl_cost_launch(const int* src, const int* pred, int* satd,
                                unsigned long long* err, int* recon, int mode, int L, int rep,
                                int n, int b0, int b1, int b2, int sh_row, int sh_col, int dq_dc,
-                               int dq_ac, int ls, int bd, int log2n, void* stream) {
+                               int dq_ac, int ls, int bd, void* stream) {
   if (L == 0) return 0;
-  const int nn = n * n;
-  const int threads = nn >= 256 ? 256 : (nn < 32 ? 32 : nn);
-  const size_t shm = 2 * (size_t)nn * sizeof(int);
-  tpl_cost_kernel<<<L, threads, shm, (cudaStream_t)stream>>>(
-      src, pred, tables, satd, err, recon, mode, rep, n, log2n, b0, b1, b2, sh_row, sh_col,
-      dq_dc, dq_ac, ls, bd);
-  return launch_status();
-}
-
-// `tables` (the packed stage tables) is K15's and K16's; K2's networks are
-// compiled in (txfm_nets.cuh).
-extern "C" int txfm_quant_recon_launch(const int* src, const int* pred, const uint8_t* v_adst,
-                                       const uint8_t* h_adst, const int* tables, int* levels,
-                                       int* coeff, int* recon, unsigned long long* sse,
-                                       int stage, int L, int rep, int n, int b0, int b1,
-                                       int b2, int sh_row, int sh_col, int dq_dc, int dq_ac,
-                                       int ls, int bd, int log2n, void* stream) {
-  (void)tables;
-  (void)log2n;
-  if (L == 0) return 0;
+  const Lines a{src, pred, nullptr, nullptr, nullptr, nullptr, mode == 0 ? nullptr : recon,
+                nullptr, satd, err, mode == 0 ? 1 : 0, L, rep, 0, false, b0, b1, b2, sh_row,
+                sh_col, dq_dc, dq_ac, ls, bd};
   const auto s = (cudaStream_t)stream;
-#define TXQ(N)                                                                                \
-  launch_txq<N>(src, pred, v_adst, h_adst, levels, coeff, recon, sse, stage, L, rep, b0, b1, \
-                b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd, s)
   switch (n) {
-    case 4: return TXQ(4);
-    case 8: return TXQ(8);
-    case 16: return TXQ(16);
-    case 32: return TXQ(32);
-    case 64: return TXQ(64);
+    case 4: return launch_lines<4, true>(a, s);
+    case 8: return launch_lines<8, true>(a, s);
+    case 16: return launch_lines<16, true>(a, s);
+    case 32: return launch_lines<32, true>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef TXQ
+}
+
+extern "C" int txfm_quant_recon_launch(const int* src, const int* pred, const uint8_t* v_adst,
+                                       const uint8_t* h_adst, int* levels, int* coeff,
+                                       int* recon, unsigned long long* sse, int stage, int L,
+                                       int rep, int n, int b0, int b1, int b2, int sh_row,
+                                       int sh_col, int dq_dc, int dq_ac, int ls, int bd,
+                                       void* stream) {
+  if (L == 0) return 0;
+  const Lines a{src, pred, v_adst, h_adst, levels, coeff, recon, sse, nullptr, nullptr, stage,
+                L, rep, 0, false, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd};
+  const auto s = (cudaStream_t)stream;
+  switch (n) {
+    case 4: return launch_lines<4, false>(a, s);
+    case 8: return launch_lines<8, false>(a, s);
+    case 16: return launch_lines<16, false>(a, s);
+    case 32: return launch_lines<32, false>(a, s);
+    case 64: return launch_lines<64, false>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

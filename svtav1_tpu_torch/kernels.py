@@ -64,9 +64,9 @@ ARGTYPES = {
     # above, left, tl, have_above, have_left, mode|NULL, weights, dr, out, B, n, log2n,
     # nmodes, bd, stream
     "intra_pred_launch": [_P] * 9 + [_I] * 5 + [_P],
-    # src|NULL, pred, v_adst, h_adst, tables, levels, coeff|NULL, recon|NULL, sse|NULL,
-    # stage, L, rep, n, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
-    "txfm_quant_recon_launch": [_P] * 9 + [_I] * 14 + [_P],
+    # src|NULL, pred, v_adst, h_adst, levels, coeff|NULL, recon|NULL, sse|NULL, stage, L,
+    # rep, n, b0, b1, b2, sh_row, sh_col, dq_dc, dq_ac, ls, bd, stream
+    "txfm_quant_recon_launch": [_P] * 8 + [_I] * 13 + [_P],
     # levels, flut, ilut, out, B, h, w, log2w, tx_class, stream
     "txb_rate_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # the same with group_threads, the threads per transform block (16, 32 or 256;
@@ -107,9 +107,9 @@ ARGTYPES = {
     # src_b, ref, ys, xs, mv_fp, ftab, mv_out, B, H, W, n, bd, stream
     "subpel_refine_launch": [_P] * 7 + [_I] * 5 + [_P],
     "subpel_refine16_launch": [_P] * 7 + [_I] * 5 + [_P],
-    # src, pred, tables, satd|NULL, err|NULL, recon|NULL, mode, L, rep, n, b0, b1, b2, sh_row,
-    # sh_col, dq_dc, dq_ac, ls, bd, log2n, stream
-    "tpl_cost_launch": [_P] * 6 + [_I] * 14 + [_P],
+    # src, pred, satd|NULL, err|NULL, recon|NULL, mode, L, rep, n, b0, b1, b2, sh_row, sh_col,
+    # dq_dc, dq_ac, ls, bd, stream
+    "tpl_cost_launch": [_P] * 5 + [_I] * 13 + [_P],
     # frame_desc, tasks, owner, sync, T, F, R8, C8, dq_dc, dq_ac, bd, rdoq, lam, max_n, grid,
     # stream
     "commit_wave_launch": [_P] * 4 + [_I] * 8 + [_F] + [_I] * 2 + [_P],

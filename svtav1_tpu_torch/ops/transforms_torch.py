@@ -5,8 +5,8 @@ the CUDA kernel `csrc/txfm_quant_recon.cu` (K2), with a plain PyTorch version
 beside it. K2 also runs as its two halves around RDOQ: `txfm_quant` (levels
 and unquantized coefficients) and `recon_from_levels`. K15 `tpl_cost`, a
 second entry point of the same source, fuses the TPL's two transform-domain
-costs (the SATD proxy; the quantization error with the recon) on K2's
-DCT networks and quantizer.
+costs (the SATD proxy; the quantization error with the recon) on K2's lines:
+the same compiled DCT networks, staging and quantizer.
 
 Each wrapper launches K2 for CUDA tensors and takes the plain version only
 for CPU tensors. Both run the same int32 stage networks as the
@@ -28,7 +28,6 @@ from . import quantize as quant_ops
 from . import transforms as T
 
 SIZES = (4, 8, 16, 32, 64)
-_HDR = 32
 
 
 def _cos_bits(n: int) -> tuple[int, int]:
@@ -48,8 +47,9 @@ def numpy_stage_tables(n: int) -> dict:
 
 
 class StageTables:
-    """The stage networks of one block size on one device: per-table stage
-    tensors for the plain version and the packed int32 buffer K2 reads."""
+    """The stage networks of one block size on one device, as the plain
+    version's per-table stage tensors (the kernels run the same networks
+    compiled in, csrc/txfm_nets.cuh)."""
 
     def __init__(self, n: int, tables: dict, device):
         self.n = n
@@ -68,42 +68,11 @@ class StageTables:
                                  dtype=torch.int32, device=device),
                  torch.as_tensor(np.asarray(clamp2), dtype=torch.bool, device=device))
                 for ia, wa, ib, wb, sh, clamp2 in stages]
-        self.packed = torch.as_tensor(self._pack(tables), device=device)
-
-    def _pack(self, tables: dict) -> np.ndarray:
-        """Header (see csrc/txfm_quant_recon.cu) + stage data, int32."""
-        n, cbc, cbr, cbi = self.n, self.cb_col, self.cb_row, T.INV_COS_BIT
-        order = [(f"fdct{n}", cbc), (f"fadst{n}", cbc), (f"fdct{n}", cbr), (f"fadst{n}", cbr),
-                 (f"idct{n}", cbi), (f"iadst{n}", cbi)]
-        hdr = np.full(_HDR, -1, np.int64)
-        data = []
-        off = _HDR
-        for t, key in enumerate(order):
-            if key not in tables:
-                hdr[6 + t] = 0
-                continue
-            hdr[t] = off
-            hdr[6 + t] = len(tables[key])
-            for ia, wa, ib, wb, sh, clamp2 in tables[key]:
-                st = np.stack([ia, wa, ib, wb, sh, clamp2], axis=1).astype(np.int64)
-                data.append(st.ravel())
-                off += st.size
-        hdr[12:17] = T.sinpi_arr(cbc)
-        hdr[17:22] = T.sinpi_arr(cbr)
-        hdr[22:27] = T.sinpi_arr(cbi)
-        hdr[27], hdr[28] = cbc, cbr
-        return np.concatenate([hdr] + data).astype(np.int32)
-
-
-def stage_tables_from_numpy(tables: dict, n: int, device) -> StageTables:
-    """Device stage tables of block size n from numpy_stage_tables(n)'s
-    arrays (or the same arrays built by another builder)."""
-    return StageTables(n, tables, device)
 
 
 @functools.lru_cache(maxsize=None)
 def _tables(n: int, device: str) -> StageTables:
-    return stage_tables_from_numpy(numpy_stage_tables(n), n, device)
+    return StageTables(n, numpy_stage_tables(n), device)
 
 
 def tables_for(n: int, device) -> StageTables:
@@ -207,14 +176,20 @@ def _quant_plain(x, dq_dc: int, dq_ac: int):
     return (torch.sign(x) * lv).clamp(-32767, 32767).to(torch.int32)
 
 
+def _dequant_plain(lv, dq_dc: int, dq_ac: int, bd: int):
+    """dequantize_j of (L, n, n) levels, |dqc| at most 2^(bd + 7) - 1."""
+    n = lv.shape[-1]
+    dq = _dq_grid(n, dq_dc, dq_ac, lv.device)
+    return torch.sign(lv) * ((lv.abs() * dq) >> quant_ops.tx_scale(n, n)) \
+        .clamp(max=(1 << (bd + 7)) - 1)
+
+
 def _inverse_plain(lv, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
                    tabs: StageTables):
     """dequantize_j + inv_txfm2d_add_sel_j: (L, n, n) levels -> recon."""
     n = pred.shape[-1]
     sh_row, sh_col = T.INV_SHIFTS[(n, n)]
-    dq = _dq_grid(n, dq_dc, dq_ac, lv.device)
-    dqc = torch.sign(lv) * ((lv.abs() * dq) >> quant_ops.tx_scale(n, n)).clamp(max=(1 << (bd + 7)) - 1)
-    y = _clamp_bits(dqc, bd + 8)
+    y = _clamp_bits(_dequant_plain(lv, dq_dc, dq_ac, bd), bd + 8)
     y = _sel_kinds(y, h_adst, tabs, "i", T.INV_COS_BIT, 16 if bd == 8 else 18)
     y = _round_shift(y, sh_row).transpose(-1, -2)
     y = _clamp_bits(y, max(bd + 6, 16))
@@ -224,12 +199,11 @@ def _inverse_plain(lv, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
 
 
 def txfm_quant_recon_plain(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
-                           rep: int = 1, want_recon: bool = True, want_sse: bool = False,
-                           tables: StageTables | None = None):
+                           rep: int = 1, want_recon: bool = True, want_sse: bool = False):
     """Plain PyTorch version of K2; same arguments and results as
     txfm_quant_recon."""
     n = pred.shape[-1]
-    tabs = tables if tables is not None else tables_for(n, pred.device)
+    tabs = tables_for(n, pred.device)
     lv = _quant_plain(_forward_plain(src, pred, v_adst, h_adst, bd, rep, tabs), dq_dc, dq_ac)
     recon = _inverse_plain(lv, pred, v_adst, h_adst, dq_dc, dq_ac, bd, tabs)
     adj = min(n, 32)
@@ -241,24 +215,22 @@ def txfm_quant_recon_plain(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd
     return levels, (recon if want_recon else None), sse
 
 
-def txfm_quant_plain(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
-                     tables: StageTables | None = None):
+def txfm_quant_plain(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int):
     """Plain PyTorch version of K2's forward half; same arguments and
     results as txfm_quant."""
     n = pred.shape[-1]
-    tabs = tables if tables is not None else tables_for(n, pred.device)
+    tabs = tables_for(n, pred.device)
     x = _forward_plain(src, pred, v_adst, h_adst, bd, 1, tabs)
     adj = min(n, 32)
     return (_quant_plain(x, dq_dc, dq_ac)[:, :adj, :adj].contiguous(),
             x[:, :adj, :adj].contiguous())
 
 
-def recon_from_levels_plain(levels, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
-                            tables: StageTables | None = None):
+def recon_from_levels_plain(levels, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int):
     """Plain PyTorch version of K2's inverse half; same arguments and
     results as recon_from_levels."""
     L, n = pred.shape[0], pred.shape[-1]
-    tabs = tables if tables is not None else tables_for(n, pred.device)
+    tabs = tables_for(n, pred.device)
     adj = levels.shape[-1]
     lv = levels
     if adj < n:
@@ -278,10 +250,7 @@ def tpl_cost_plain(src, pred, mode: int, dq_dc: int, dq_ac: int, bd: int, rep: i
     if mode == 0:
         return (co.abs().sum(dim=(-2, -1)).to(torch.int32) >> 2).contiguous()
     lv = _quant_plain(co, dq_dc, dq_ac)
-    dq = _dq_grid(n, dq_dc, dq_ac, lv.device)
-    dqc = torch.sign(lv) * ((lv.abs() * dq) >> quant_ops.tx_scale(n, n)) \
-        .clamp(max=(1 << (bd + 7)) - 1)
-    e = ((co - dqc) >> 2).to(torch.int64)
+    e = ((co - _dequant_plain(lv, dq_dc, dq_ac, bd)) >> 2).to(torch.int64)
     err = (e * e).sum(dim=(-2, -1))
     recon = _inverse_plain(lv, pred, va, ha, dq_dc, dq_ac, bd, tabs) if want_recon else None
     return err, recon
@@ -293,7 +262,7 @@ def tpl_cost_plain(src, pred, mode: int, dq_dc: int, dq_ac: int, bd: int, rep: i
 
 
 def _launch(stage: int, src, pred, v_adst, h_adst, levels, coeff, recon, sse, dq_dc: int,
-            dq_ac: int, bd: int, rep: int, tabs: StageTables) -> None:
+            dq_ac: int, bd: int, rep: int) -> None:
     L, n = pred.shape[0], pred.shape[-1]
     s0, s1, s2 = T.FWD_SHIFTS[(n, n)]
     sh_row, sh_col = T.INV_SHIFTS[(n, n)]
@@ -302,25 +271,23 @@ def _launch(stage: int, src, pred, v_adst, h_adst, levels, coeff, recon, sse, dq
         return t.data_ptr() if t is not None else None
 
     kernels.launch("txfm_quant_recon", ptr(src), pred.data_ptr(), v_adst.data_ptr(),
-                   h_adst.data_ptr(), tabs.packed.data_ptr(), levels.data_ptr(), ptr(coeff),
-                   ptr(recon), ptr(sse), stage, L, rep, n, -s0, -s1, -s2, sh_row, sh_col,
-                   int(dq_dc), int(dq_ac), quant_ops.tx_scale(n, n), bd, int(math.log2(n)),
-                   kernels.stream_ptr(pred))
+                   h_adst.data_ptr(), levels.data_ptr(), ptr(coeff), ptr(recon), ptr(sse),
+                   stage, L, rep, n, -s0, -s1, -s2, sh_row, sh_col, int(dq_dc), int(dq_ac),
+                   quant_ops.tx_scale(n, n), bd, kernels.stream_ptr(pred))
 
 
-def _check_lanes(pred, v_adst, h_adst, tables):
+def _check_lanes(pred, v_adst, h_adst):
     L, n = pred.shape[0], pred.shape[-1]
     if n not in SIZES or pred.shape[1:] != (n, n):
         raise ValueError(f"txfm_quant_recon: square blocks of {SIZES} only, got {tuple(pred.shape)}")
     kernels.check(pred, "pred", torch.int32)
     kernels.check(v_adst, "v_adst", torch.bool, (L,))
     kernels.check(h_adst, "h_adst", torch.bool, (L,))
-    return L, n, tables if tables is not None else tables_for(n, pred.device)
+    return L, n
 
 
 def txfm_quant_recon(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
-                     rep: int = 1, want_recon: bool = True, want_sse: bool = False,
-                     tables: StageTables | None = None):
+                     rep: int = 1, want_recon: bool = True, want_sse: bool = False):
     """Transform, quantize and reconstruct L square blocks.
 
     src (L // rep, n, n) int32 source blocks (lane i uses src[i // rep]);
@@ -330,8 +297,8 @@ def txfm_quant_recon(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
     recon (L, n, n) int32 or None, sse (L,) int64 or None)."""
     if pred.device.type == "cpu":
         return txfm_quant_recon_plain(src, pred, v_adst, h_adst, dq_dc, dq_ac, bd, rep,
-                                      want_recon, want_sse, tables)
-    L, n, tabs = _check_lanes(pred, v_adst, h_adst, tables)
+                                      want_recon, want_sse)
+    L, n = _check_lanes(pred, v_adst, h_adst)
     if L % rep or src.shape[0] != L // rep:
         raise ValueError("txfm_quant_recon: src must hold L // rep blocks")
     kernels.check(src, "src", torch.int32, (L // rep, n, n))
@@ -340,39 +307,37 @@ def txfm_quant_recon(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
     levels = torch.empty((L, adj, adj), dtype=torch.int32, device=dev)
     recon = torch.empty((L, n, n), dtype=torch.int32, device=dev) if want_recon else None
     sse = torch.empty((L,), dtype=torch.int64, device=dev) if want_sse else None
-    _launch(0, src, pred, v_adst, h_adst, levels, None, recon, sse, dq_dc, dq_ac, bd, rep, tabs)
+    _launch(0, src, pred, v_adst, h_adst, levels, None, recon, sse, dq_dc, dq_ac, bd, rep)
     return levels, recon, sse
 
 
-def txfm_quant(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
-               tables: StageTables | None = None):
+def txfm_quant(src, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int):
     """K2's forward half: transform and quantize L blocks (src and pred
     (L, n, n) int32). Returns (levels, coeff), both (L, adj, adj) int32: the
     levels clipped to +-32767 and the unquantized coefficients of the coded
     region (adj = min(n, 32)), as RDOQ takes them."""
     if pred.device.type == "cpu":
-        return txfm_quant_plain(src, pred, v_adst, h_adst, dq_dc, dq_ac, bd, tables)
-    L, n, tabs = _check_lanes(pred, v_adst, h_adst, tables)
+        return txfm_quant_plain(src, pred, v_adst, h_adst, dq_dc, dq_ac, bd)
+    L, n = _check_lanes(pred, v_adst, h_adst)
     kernels.check(src, "src", torch.int32, (L, n, n))
     adj = min(n, 32)
     levels = torch.empty((L, adj, adj), dtype=torch.int32, device=pred.device)
     coeff = torch.empty_like(levels)
-    _launch(1, src, pred, v_adst, h_adst, levels, coeff, None, None, dq_dc, dq_ac, bd, 1, tabs)
+    _launch(1, src, pred, v_adst, h_adst, levels, coeff, None, None, dq_dc, dq_ac, bd, 1)
     return levels, coeff
 
 
-def recon_from_levels(levels, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int,
-                      tables: StageTables | None = None):
+def recon_from_levels(levels, pred, v_adst, h_adst, dq_dc: int, dq_ac: int, bd: int):
     """K2's inverse half: dequantize (L, adj, adj) levels (zero outside the
     coded region), inverse transform, add pred (L, n, n) and clip. Returns
     the recon (L, n, n) int32."""
     if pred.device.type == "cpu":
-        return recon_from_levels_plain(levels, pred, v_adst, h_adst, dq_dc, dq_ac, bd, tables)
-    L, n, tabs = _check_lanes(pred, v_adst, h_adst, tables)
+        return recon_from_levels_plain(levels, pred, v_adst, h_adst, dq_dc, dq_ac, bd)
+    L, n = _check_lanes(pred, v_adst, h_adst)
     adj = min(n, 32)
     kernels.check(levels, "levels", torch.int32, (L, adj, adj))
     recon = torch.empty((L, n, n), dtype=torch.int32, device=pred.device)
-    _launch(2, None, pred, v_adst, h_adst, levels, None, recon, None, dq_dc, dq_ac, bd, 1, tabs)
+    _launch(2, None, pred, v_adst, h_adst, levels, None, recon, None, dq_dc, dq_ac, bd, 1)
     return recon
 
 
@@ -396,7 +361,6 @@ def tpl_cost(src, pred, mode: int, dq_dc: int, dq_ac: int, bd: int, rep: int = 1
         raise ValueError("tpl_cost: src must hold L // rep blocks")
     kernels.check(pred, "pred", torch.int32)
     kernels.check(src, "src", torch.int32, (L // rep, n, n))
-    tabs = tables_for(n, pred.device)
     dev = pred.device
     satd = torch.empty((L,), dtype=torch.int32, device=dev) if mode == 0 else None
     err = torch.empty((L,), dtype=torch.int64, device=dev) if mode == 1 else None
@@ -408,10 +372,9 @@ def tpl_cost(src, pred, mode: int, dq_dc: int, dq_ac: int, bd: int, rep: int = 1
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    kernels.launch("tpl_cost", src.data_ptr(), pred.data_ptr(), tabs.packed.data_ptr(), ptr(satd),
-                   ptr(err), ptr(recon), mode, L, rep, n, -s0, -s1, -s2, sh_row, sh_col,
-                   int(dq_dc), int(dq_ac), quant_ops.tx_scale(n, n), bd, int(math.log2(n)),
-                   kernels.stream_ptr(pred))
+    kernels.launch("tpl_cost", src.data_ptr(), pred.data_ptr(), ptr(satd), ptr(err), ptr(recon),
+                   mode, L, rep, n, -s0, -s1, -s2, sh_row, sh_col, int(dq_dc), int(dq_ac),
+                   quant_ops.tx_scale(n, n), bd, kernels.stream_ptr(pred))
     return satd if mode == 0 else (err, recon)
 
 

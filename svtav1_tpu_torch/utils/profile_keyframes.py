@@ -28,6 +28,10 @@ Run on a GPU machine from the repository root:
     python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 6
     python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 17 --minigop 8 --enable-tf
     python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 16 --bd 10
+    python -m svtav1_tpu_torch.utils.profile_keyframes --keyint 17 --minigop 8 --enable-tf \
+        --rc crf --lookahead 16
+--rc crf codes the GOP under CRF: TPL over lookahead windows (stage tpl, on
+K1, K8, K10, K14, K15) sets each frame's qindex, inside the measurement.
 """
 from __future__ import annotations
 
@@ -87,7 +91,7 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
         out = B * (1 if one else nmodes) * n * n
         return B * (2 * n + 1) * 4 + 2 * B + 4 * B * one + out * 4, out * 10
     if name == "txfm_quant_recon":
-        coeff, recon, sse, stage, L, rep, n = args[6:13]
+        coeff, recon, sse, stage, L, rep, n = args[5:12]
         adj = min(n, 32)
         ops = k2_ops(n, L, *extra, forward=stage != 2, inverse=stage != 1)
         if stage == 1:
@@ -145,7 +149,7 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
         B, H, W, n = args[7:11]
         return H * W * sz + B * n * n * 4 + B * 24, B * 2 * (3 * (n + 8) * n * 16 + 9 * n * n * 19)
     if name == "tpl_cost":
-        recon, mode, L, rep, n = args[5:10]
+        recon, mode, L, rep, n = args[4:9]
         return ((L // rep + L) * n * n * 4 + (4 if mode == 0 else 8) * L
                 + (L * n * n * 4 if recon else 0)), tpl_cost_ops(L, n, bool(recon))
     raise ValueError(name)
@@ -373,6 +377,9 @@ def main() -> int:
     ap.add_argument("--bd", type=int, choices=(8, 10), default=8,
                     help="bit depth: 10 encodes the 10-bit clip (the 8-bit one << 2 plus "
                          "seeded low bits) on int16 planes")
+    ap.add_argument("--rc", choices=("cqp", "crf"), default="cqp",
+                    help="rate control: crf runs TPL over lookahead windows (needs --keyint > 1)")
+    ap.add_argument("--lookahead", type=int, default=16, help="CRF's TPL window in frames")
     args = ap.parse_args()
 
     import torch
@@ -395,7 +402,8 @@ def main() -> int:
         return Encoder(EncoderConfig(args.width, args.height, qindex=args.qindex,
                                      keyint=args.keyint, minigop=args.minigop,
                                      enable_tf=args.enable_tf, preset=args.preset,
-                                     enable_cdef=not args.no_cdef, bd=args.bd), device="cuda")
+                                     enable_cdef=not args.no_cdef, bd=args.bd, rc_mode=args.rc,
+                                     lookahead=args.lookahead), device="cuda")
 
     enc = encoder()
     if gop:  # a short warm GOP (with minigop > 1 a key frame and a 2-frame mini-GoP)
@@ -459,9 +467,11 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps(dict(
         size=[args.width, args.height], bd=args.bd, preset=args.preset, cdef=not args.no_cdef,
-        keyint=args.keyint, minigop=args.minigop, enable_tf=args.enable_tf, frames=n,
+        keyint=args.keyint, minigop=args.minigop, enable_tf=args.enable_tf, rc=args.rc,
+        lookahead=args.lookahead if args.rc == "crf" else None, frames=n,
         measured=("key frames" if not gop else "P frames" if args.minigop == 1 else "B frames")
-        + (" (and the key frame's MCTF and encode)" if gop and args.enable_tf else ""),
+        + (" (and the key frame's MCTF and encode)" if gop and args.enable_tf
+           else " (and the key frame's encode)" if gop and args.rc == "crf" else ""),
         waves_per_frame=waves,
         wall_s_per_frame=wall / n,
         traced_wall_s_per_frame=traced_wall / n, device_busy_s_per_frame=busy_s / n,

@@ -140,6 +140,44 @@ def test_plain_halves_match_jax(n):
     np.testing.assert_array_equal(rec.numpy(), np.asarray(rec_ref))
 
 
+@pytest.mark.parametrize("qindex", [0, 120, 255])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_tpl_cost_is_k2_halves_with_cost_epilogues(n, bd, qindex):
+    """The identity K15 rests on: tpl_cost is K2 on DCT_DCT lanes with its
+    own epilogues. Mode 0 is sum |coeff| >> 2 of txfm_quant's coefficients
+    (the sum wrapping in int32), mode 1's error sum ((coeff - dqc) >> 2)^2 in
+    int64 of the same call's coefficients and dequantized levels, its recon
+    recon_from_levels of those levels. The residuals reach 2^14 / min(n, 16),
+    so that at qindex 0 levels clip at +-32767."""
+    rng = np.random.default_rng(1000 * n + 10 * bd + qindex)
+    amp, L = (1 << 14) // min(n, 16), 8
+    src = rng.integers(0, amp, (L, n, n))
+    pred = rng.integers(0, amp, (L, n, n))
+    src[0] = rng.integers(0, 2, (n, n)) * amp  # +-amp checkerboards and a flat lane
+    pred[0] = amp - src[0]
+    src[1], pred[1] = amp, 0
+    pred[2:5] = np.clip(src[2:5] + rng.integers(-40, 41, (3, n, n)), 0, amp)
+    s_t, p_t = torch.from_numpy(src.astype(np.int32)), torch.from_numpy(pred.astype(np.int32))
+    dq_dc, dq_ac = quant_ref.dc_q(qindex, bd), quant_ref.ac_q(qindex, bd)
+    va, ha = TT.tx_flags(int(TxType.DCT_DCT), L, "cpu")
+    lv, co = TT.txfm_quant_plain(s_t, p_t, va, ha, dq_dc, dq_ac, bd)
+    lv64, co64 = lv.numpy().astype(np.int64), co.numpy().astype(np.int64)
+    if qindex == 0:
+        assert (np.abs(lv64) == 32767).any()
+    satd = TT.tpl_cost_plain(s_t, p_t, 0, dq_dc, dq_ac, bd)
+    want = (np.abs(co64).sum(axis=(1, 2)) & 0xFFFFFFFF).astype(np.uint32).view(np.int32) >> 2
+    np.testing.assert_array_equal(satd.numpy(), want)
+    dq = np.full((n, n), dq_ac, np.int64)
+    dq[0, 0] = dq_dc
+    ls = quant_ref.tx_scale(n, n)
+    dqc = np.sign(lv64) * np.minimum((np.abs(lv64) * dq) >> ls, (1 << (bd + 7)) - 1)
+    err, rec = TT.tpl_cost_plain(s_t, p_t, 1, dq_dc, dq_ac, bd, want_recon=True)
+    np.testing.assert_array_equal(err.numpy(), (((co64 - dqc) >> 2) ** 2).sum(axis=(1, 2)))
+    np.testing.assert_array_equal(
+        rec.numpy(), TT.recon_from_levels_plain(lv, p_t, va, ha, dq_dc, dq_ac, bd).numpy())
+
+
 @pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
 def test_generated_networks_match_committed_header(n):
     """csrc/txfm_nets.cuh is gen_txfm_nets' output: every (name, cos_bit)
