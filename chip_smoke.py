@@ -13,7 +13,8 @@ Phases, each fatal on failure:
      their U+V lanes, the TPL probe, the commit waves' lanes and tails of
      1, 7 and 33 lanes at every size, with and without `mode`, at 8 and 10
      bits;
-     K11 at every block size of the commit, 8x8 to 64x64; K14 and K15 at
+     K11 at every block size of the commit, 8x8 to 64x64 luma lanes and
+     their U and V lanes in one launch (the planes form); K14 and K15 at
      the TPL shapes of a 1088x1920 frame (K15 mode 0 on the probe's 40,800
      lanes and on 8,160, mode 1 with the recon on 8,160), K15 at qindex
      120 and 255, both
@@ -39,7 +40,7 @@ Phases, each fatal on failure:
      (`me_sad16`, its operations at the better of the int32 count and the
      measured rate of the scalar VABSDIFF, one per absolute difference), K9
      (`subpel_pred16`, also at the MCTF shape), K10 (`mc_lanes16`) and K11
-     (`mc_compound16`, 8x8 to 64x64), and K1-K7, K12 and K13 once each at
+     (`mc_compound16`, as K11), and K1-K7, K12 and K13 once each at
      bd=10 (K1 with lanes that have neither neighbour: DC 512), all exact;
   3. conformance: encode a CIF key frame on the card at the fast preset
      without CDEF and one at the default medium preset, a 3-frame CIF GOP
@@ -130,9 +131,9 @@ Phases, each fatal on failure:
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
      python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
-also times phase 2's K1, K2, K3, K5, K7, K8, K9 and K14 cases (8-bit), K15's,
-K4's and K10's at 8 and 10 bits (K2 and K15 through the arguments they
-had, ParentLib), K16 on the
+also times phase 2's K1, K2, K3, K5, K7, K8 and K9 cases (8-bit), K4's, K10's,
+K11's, K14's and K15's at 8 and 10 bits (K11 through the parent's one-plane
+entry, a launch per plane: ParentK11), K16 on the
 captured 8-bit schedules and every captured 8-bit K2, K3, K8 and K9 launch through a kernel
 library built from another checkout with the same C entry points (the parent
 commit's, after its own chip_smoke.py run built it), on the same inputs, and
@@ -343,10 +344,10 @@ def k14_packed_ops_ms(B, n, bd):
 
 
 def packed_bound_ms(name, args):
-    """A K8, K9 or K14 launch's bound (its C arguments) with the operations
-    at the measured packed rates: K9's as k9_packed_ops_ms, K14's as
-    k14_packed_ops_ms, the frame search's absolute differences as
-    me_frame_ops_ms, K8's pyramid as counted."""
+    """A K8, K9, K11 or K14 launch's bound (its C arguments) with the
+    operations at the measured packed rates: K9's as k9_packed_ops_ms, K11's
+    as k11_packed_ops_ms, K14's as k14_packed_ops_ms, the frame search's
+    absolute differences as me_frame_ops_ms, K8's pyramid as counted."""
     from svtav1_tpu_torch.utils.profile_keyframes import bound_ms, launch_bound, me_frame_diffs
 
     nbytes, ops = launch_bound(name, args)
@@ -357,6 +358,9 @@ def packed_bound_ms(name, args):
     if name in ("subpel_refine", "subpel_refine16"):
         B, n, bd = args[7], args[10], args[11]
         return max(nbytes / HBM_BYTES_PER_S * 1e3, k14_packed_ops_ms(B, n, bd))
+    if name in ("mc_compound", "mc_compound16"):
+        P, B, nh, nw, bd = args[14], args[15], args[19], args[20], args[21]
+        return max(nbytes / HBM_BYTES_PER_S * 1e3, k11_packed_ops_ms(P, B, nh, nw, bd))
     if args[0] == 1:  # the frame search
         ops_ms, _ = me_frame_ops_ms(me_frame_diffs(args[17], args[18]),
                                     10 if name == "me_sad16" else 8)
@@ -492,47 +496,15 @@ def k3_close(name, a, b):
     return err
 
 
-BASELINE = []  # [ParentLib(the ctypes handle of --baseline-lib)] when the option is given
+BASELINE = []  # [ParentK11(the ctypes handle of --baseline-lib)] when the option is given
 
 
-def parent_stage_tables(n):
-    """The packed stage tables that the parent's K15 reads (its removed
-    txfm.cuh): a 32-int header (the offsets of the forward column, forward
-    row and inverse DCT tables at 0, 2 and 4, their stage counts at 6 + t,
-    the column and row cos bits at 27 and 28), then per stage and output
-    (ia, wa, ib, wb, sh, clamp2); on the card, made once per size."""
-    import numpy as np
-    import torch
-
-    from svtav1_tpu_torch.ops import transforms as T
-    from svtav1_tpu_torch.ops import transforms_torch as TT
-
-    if n not in PARENT_TABLES:
-        tables = TT.numpy_stage_tables(n)
-        cbc, cbr = TT._cos_bits(n)
-        hdr = np.full(32, -1, np.int64)
-        hdr[6:12] = 0
-        hdr[27], hdr[28] = cbc, cbr
-        data, off = [], 32
-        for tab, key in ((0, (f"fdct{n}", cbc)), (2, (f"fdct{n}", cbr)),
-                         (4, (f"idct{n}", T.INV_COS_BIT))):
-            hdr[tab], hdr[6 + tab] = off, len(tables[key])
-            for stage in tables[key]:
-                st = np.stack(stage, axis=1).astype(np.int64).ravel()
-                data.append(st)
-                off += st.size
-        PARENT_TABLES[n] = torch.as_tensor(np.concatenate([hdr] + data).astype(np.int32),
-                                           device="cuda")
-    return PARENT_TABLES[n]
-
-
-PARENT_TABLES = {}
-
-
-class ParentLib:
-    """The --baseline-lib handle with the parent's K2 and K15 entry points
-    taking this checkout's arguments: K2 took `tables` (ignored) and log2n,
-    K15 read packed stage tables (parent_stage_tables) and took log2n."""
+class ParentK11:
+    """The --baseline-lib handle with the parent's K11 entry points (one
+    stack per launch: ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1,
+    ftab_x, ftab_y, out, B, nref, H, W, n_h, n_w, bd, stream) taking this
+    checkout's planes form: one launch per plane, into that plane's part of
+    the output."""
 
     def __init__(self, handle):
         self.handle = handle
@@ -540,40 +512,45 @@ class ParentLib:
     def __getattr__(self, name):
         return getattr(self.handle, name)
 
-    def txfm_quant_recon_launch(self, *a):
-        n = a[11]
-        return self.handle.txfm_quant_recon_launch(*a[:4], None, *a[4:-1], n.bit_length() - 1,
-                                                   a[-1])
+    @staticmethod
+    def _per_plane(fn, *a):
+        planes, lanes, (fx, fy, out) = a[:3], a[3:11], a[11:14]
+        P, B, nref, H, W, nh, nw, bd = a[14:22]
+        for p in range(P):
+            err = fn(planes[p], *lanes, fx, fy, out + p * B * nh * nw * 4, B, nref, H, W, nh, nw,
+                     bd, a[22])
+            if err:
+                return err
+        return 0
 
-    def tpl_cost_launch(self, *a):
-        n = a[8]
-        return self.handle.tpl_cost_launch(*a[:2], parent_stage_tables(n).data_ptr(), *a[2:-1],
-                                           n.bit_length() - 1, a[-1])
+    def mc_compound_launch(self, *a):
+        return self._per_plane(self.handle.mc_compound_launch, *a)
+
+    def mc_compound16_launch(self, *a):
+        return self._per_plane(self.handle.mc_compound16_launch, *a)
 
 
 def load_baseline(path):
     """A kernel library built from another checkout (the parent commit's
     build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
-    kernels.lib() binds its own (K2's and K15's with their earlier
-    arguments): K1-K5, K7-K10, K14-K16 are also timed through it, on the
-    same inputs, and must give the same results."""
+    kernels.lib() binds its own (K11's with its one-plane arguments): K1-K5,
+    K7-K11, K14-K16 are also timed through it, on the same inputs, and must
+    give the same results."""
     import ctypes
 
     from svtav1_tpu_torch import kernels
 
     P, I = ctypes.c_void_p, ctypes.c_int
-    # K2's and K15's entry points before this checkout's: `tables` after the
-    # fourth and second pointer, log2n before the stream (ParentLib adapts
-    # them)
-    parent = {"txfm_quant_recon_launch": [P] * 9 + [I] * 14 + [P],
-              "tpl_cost_launch": [P] * 6 + [I] * 14 + [P]}
+    # K11's entry points before this checkout's planes form (ParentK11 adapts them)
+    parent = {"mc_compound_launch": [P] * 12 + [I] * 7 + [P],
+              "mc_compound16_launch": [P] * 12 + [I] * 7 + [P]}
     handle = ctypes.CDLL(os.path.abspath(path))
     for fn, argtypes in {**kernels.ARGTYPES, **parent}.items():
         f = getattr(handle, fn, None)
         if f is not None:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-    BASELINE.append(ParentLib(handle))
+    BASELINE.append(ParentK11(handle))
 
 
 @contextlib.contextmanager
@@ -1105,6 +1082,61 @@ def k10_packed_ops_ms(P, B, nh, nw, bd=8):
     return P * B * ((nh + 7) * nw * horizontal + 4 * nh * nw / RATES["idp2a"]) * 1e3
 
 
+def k11_packed_ops_ms(P, B, nh, nw, bd=8):
+    """K11's operations' least time at the measured packed rates: two K10
+    passes (k10_packed_ops_ms) and the blend's 6 int32 operations a sample."""
+    return (2 * k10_packed_ops_ms(P, B, nh, nw, bd)
+            + P * B * nh * nw * 6 / INT32_OPS_PER_S * 1e3)
+
+
+def check_compound(torch, dev, g, t, record, assert_equal, clip, bd):
+    """Phase 2 for K11 (`mc_compound`; `mc_compound16` on the int16 planes
+    at bd=10) at every size of the commit's compound lanes over a 1080p
+    frame: 8x8 to 64x64 luma lanes and their U and V lanes (4x4 to 32x32)
+    in one launch of the planes form, from 3-reference stacks of the clip
+    with MVs past every edge and random ref indices. Each exact against its
+    plain version; timed (`device_ms`, a CUDA graph; with --baseline-lib the
+    parent's kernel on the same inputs, a launch per plane); its bound with
+    the operations at the measured packed rates (k11_packed_ops_ms; the
+    int32 count as int32_bound_ms)."""
+    import numpy as np
+
+    from svtav1_tpu_torch.ops import me_torch
+    from svtav1_tpu_torch.utils.profile_keyframes import launch_bound
+
+    name, tag = ("mc_compound", []) if bd == 8 else ("mc_compound16", ["10-bit"])
+    dt = me_torch.plane_dtype(bd)
+    for n in (8, 16, 32, 64):
+        for pl, (nb, plane_h, plane_w) in enumerate(((n, 1080, 1920), (n // 2, 540, 960))):
+            stacks = [t(np.stack([clip[i][p] for i in (1, 0, 3)]).astype(np.int32), dt)
+                      for p in ((0,) if pl == 0 else (1, 2))]
+            R, C = plane_h // nb, plane_w // nb
+            B = R * C
+            ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * nb
+            xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * nb
+            mv = [t(g.integers(-24 * 16, 24 * 16, B)) for _ in range(4)]
+            r0, r1 = t(g.integers(0, 3, B)), t(g.integers(0, 3, B))
+            args = (stacks, ys, xs, *mv, nb, nb, 0, bd, r0, r1)
+
+            def call(args=args):
+                return me_torch.mc_lanes_compound_planes(*args)
+
+            got = call()
+            err = assert_equal(name, got, me_torch.mc_compound_planes_plain(*args))
+            P = len(stacks)
+            c_args = [None] * 23
+            c_args[14], c_args[15], c_args[19], c_args[20] = P, B, nb, nb
+            nbytes, ops = launch_bound(name, c_args)
+            reps = 20 if n == 8 else 5
+            record(name, [P, B, nb, nb, "luma" if pl == 0 else "U and V", "3 refs", *tag], err,
+                   timed_ms(call, reps),
+                   timed_ms(lambda: me_torch.mc_compound_planes_plain(*args), 3 if n == 8 else 2),
+                   nbytes=nbytes, ops=ops, main=n == 8 and pl == 0,
+                   packed_ops_ms=k11_packed_ops_ms(P, B, nb, nb, bd), launches=1,
+                   **kernel_times(call, lambda o: assert_equal(name + " (baseline)", o, got),
+                                  reps))
+
+
 GLOBALMV = {}  # the decide's GLOBALMV lanes: four K10 launches against one (check_mc)
 
 
@@ -1196,10 +1228,8 @@ def check_mc(torch, dev, t, record, assert_equal, stacks, draws, bd):
 
 
 def check_random_access(torch, dev, g, t, record, assert_equal):
-    """Phase 2 for K11 mc_compound, K12 tf_filter, K13 tf_noise and K9 at
-    the MCTF shape: the commit's 32,400 8x8 luma and 4x4 chroma compound
-    lanes from a 3-reference stack with MVs past every edge, and every
-    16x16, 32x32 and 64x64 lane of the frame with its chroma; one MCTF call
+    """Phase 2 for K11 mc_compound (check_compound), K12 tf_filter, K13
+    tf_noise and K9 at the MCTF shape: one MCTF call
     at 1080p (1088x1920 luma, 544x960 chroma, K = 5 neighbours; the noise
     sums of the luma; the 49-point subpel search of the 16x16 blocks). All
     exact."""
@@ -1208,44 +1238,7 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
     from svtav1_tpu_torch.ops import me_torch, tf_torch
 
     clip = clip_1080p(6)
-    # ---- K11 mc_compound: luma 8x8 and chroma 4x4 lanes, 3 references
-    for pl, (n, plane_h, plane_w) in enumerate(((8, 1080, 1920), (4, 540, 960))):
-        stack = t(np.stack([clip[i][pl] for i in (1, 0, 3)]), torch.uint8)
-        R, C = plane_h // n, plane_w // n
-        B = R * C
-        ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * n
-        xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * n
-        mv = [t(g.integers(-24 * 16, 24 * 16, B)) for _ in range(4)]
-        r0, r1 = t(g.integers(0, 3, B)), t(g.integers(0, 3, B))
-        args = (stack, ys, xs, *mv, n, n, 0, 8, r0, r1)
-        err = assert_equal("mc_compound", me_torch.mc_lanes_compound(*args),
-                           me_torch.mc_compound_plain(*args))
-        record("mc_compound", [B, n, n, "luma" if pl == 0 else "chroma", "3 refs"], err,
-               timed_ms(lambda: me_torch.mc_lanes_compound(*args), 20),
-               timed_ms(lambda: me_torch.mc_compound_plain(*args), 3),
-               nbytes=B * 32 + 2 * B * n * n + B * n * n * 4,
-               ops=B * (2 * ((n + 7) * n * 16 + n * n * 18) + n * n * 6), main=pl == 0,
-               device_ms=device_ms(lambda: me_torch.mc_lanes_compound(*args)))
-    # the commit's larger blocks: every 16x16, 32x32 and 64x64 lane of the
-    # frame with its chroma lanes (a 64x64 lane takes the launcher's path
-    # above the default 48 KB of shared memory)
-    for n in (16, 32, 64):
-        for pl, (nb, plane_h, plane_w) in enumerate(((n, 1080, 1920), (n // 2, 540, 960))):
-            stack = t(np.stack([clip[i][pl] for i in (1, 0, 3)]), torch.uint8)
-            R, C = plane_h // nb, plane_w // nb
-            B = R * C
-            ys = torch.arange(R, device=dev, dtype=torch.int32).repeat_interleave(C) * nb
-            xs = torch.arange(C, device=dev, dtype=torch.int32).repeat(R) * nb
-            mv = [t(g.integers(-24 * 16, 24 * 16, B)) for _ in range(4)]
-            r0, r1 = t(g.integers(0, 3, B)), t(g.integers(0, 3, B))
-            args = (stack, ys, xs, *mv, nb, nb, 0, 8, r0, r1)
-            err = assert_equal("mc_compound", me_torch.mc_lanes_compound(*args),
-                               me_torch.mc_compound_plain(*args))
-            record("mc_compound", [B, nb, nb, "luma" if pl == 0 else "chroma", "3 refs"], err,
-                   timed_ms(lambda: me_torch.mc_lanes_compound(*args), 5),
-                   timed_ms(lambda: me_torch.mc_compound_plain(*args), 2),
-                   nbytes=B * 32 + 2 * B * nb * nb + B * nb * nb * 4,
-                   ops=B * (2 * ((nb + 7) * nb * 16 + nb * nb * 18) + nb * nb * 6))
+    check_compound(torch, dev, g, t, record, assert_equal, clip, 8)
 
     # ---- one MCTF call: centre frame 2, neighbours 0, 1, 3, 4, 5
     H, W = 1088, 1920
@@ -1310,9 +1303,8 @@ def check_tpl(torch, dev, g, t, record, assert_equal):
     intra probe's 5 x 8,160 lanes (the five lanes of a block share its
     source) and on 8,160 lanes (a reference's inter cost), and mode 1 with
     the recon on 8,160 lanes, at qindex 120 and 255. All exact. K14 and K15
-    also by device time (a CUDA graph) and through --baseline-lib (K14's
-    8-bit form; K15 at both depths, the parent's entry bound by
-    ParentLib); K14's bound at the measured packed rates, as K9's
+    also by device time (a CUDA graph) and through --baseline-lib, at both
+    depths; K14's bound at the measured packed rates, as K9's
     (k14_packed_ops_ms)."""
     import numpy as np
 
@@ -1345,8 +1337,8 @@ def check_tpl(torch, dev, g, t, record, assert_equal):
             def call():
                 return me_torch.subpel_refine_lanes(*args)
 
-            extra = (kernel_times(call, lambda out: assert_equal(k14, out, mv), 20,
-                                  baseline=bd == 8) if main else {})
+            extra = (kernel_times(call, lambda out: assert_equal(k14 + " (baseline)", out, mv), 20)
+                     if main else {})
             record(k14, [B, n, n, "2 x 9 points", label, *tag], err, timed_ms(call, 20),
                    timed_ms(lambda: me_torch.subpel_refine_plain(*args), 3),
                    nbytes=H * W * ref.element_size() + B * n * n * 4 + B * 24,
@@ -1410,8 +1402,8 @@ def check_10bit(torch, dev, g, t, record, assert_equal):
     seeded low bits, int16 planes as the encoder keeps them) at the shapes
     of the 8-bit rows: the 16-bit forms of K8 (the decide's 1080x1920 planes,
     510 SBs), K9 (every size, both lattices, and the MCTF shape), K10 (the
-    commit's 8x8 luma and 4x4 chroma lanes, 2 references) and K11 (8x8 to
-    64x64 lanes, 3 references); K1-K7, K12 and K13 once at bd=10 (K1 with
+    commit's 8x8 luma and 4x4 chroma lanes, 2 references) and K11
+    (check_compound); K1-K7, K12 and K13 once at bd=10 (K1 with
     lanes that have neither neighbour: DC is 512), each against its plain
     version, exactly. K16 runs at 10 bits in commit_wave ("P10")."""
     import numpy as np
@@ -1499,22 +1491,7 @@ def check_10bit(torch, dev, g, t, record, assert_equal):
         _B, _ys, _xs, mv = lanes(n, plane_h, plane_w, 2)
         draws.append([*mv, t(g.integers(0, 2, _B))])
     check_mc(torch, dev, t, record, assert_equal, stacks, draws, 10)
-    for n in (8, 16, 32, 64):
-        for pl, (nb, plane_h, plane_w) in enumerate(((n, 1080, 1920), (n // 2, 540, 960))):
-            stack = t16(np.stack([clip[i][pl] for i in (1, 0, 3)]))
-            B, ys, xs, mv = lanes(nb, plane_h, plane_w, 4)
-            args = (stack, ys, xs, *mv, nb, nb, 0, 10, t(g.integers(0, 3, B)),
-                    t(g.integers(0, 3, B)))
-            err = assert_equal("mc_compound16", me_torch.mc_lanes_compound(*args),
-                               me_torch.mc_compound_plain(*args))
-            reps = 20 if n == 8 else 5
-            record("mc_compound16", [B, nb, nb, "luma" if pl == 0 else "chroma", "3 refs",
-                                     "10-bit"], err,
-                   timed_ms(lambda: me_torch.mc_lanes_compound(*args), reps),
-                   timed_ms(lambda: me_torch.mc_compound_plain(*args), 2),
-                   *bound_of("mc_compound16", lambda: me_torch.mc_lanes_compound(*args)),
-                   main=n == 8 and pl == 0,
-                   device_ms=device_ms(lambda: me_torch.mc_lanes_compound(*args), reps))
+    check_compound(torch, dev, g, t, record, assert_equal, clip, 10)
 
     # ---- one MCTF call at 10 bits: K13, K9 at the MCTF shape, K12 on the
     # filter's own compensated neighbours

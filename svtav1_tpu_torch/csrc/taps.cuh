@@ -1,7 +1,7 @@
-// The packed 8-tap subpel passes of K9 (subpel.cu) and K10 (mc.cu): the
-// horizontal intermediate of a patch row by IDP.4A (8 bits, samples biased to
-// signed bytes) or IDP.2A (10 bits, int16 samples), phase 0 as a copy, and the
-// vertical pass's start and clip per sample type. They rest on three facts of
+// The packed 8-tap subpel passes of K9 and K14 (subpel.cu) and of K10 and K11
+// (mc.cu): the horizontal intermediate of a patch row by IDP.4A (8 bits,
+// samples biased to signed bytes) or IDP.2A (10 bits, int16 samples), phase 0
+// as a copy, and the vertical pass's start and clip per sample type. They rest on three facts of
 // the filter tables that tests/test_torch_me.py holds: every tap but phase 0's
 // 128 fits int8, every phase sums to 128, and the horizontal intermediate is a
 // positive int16 at 8 and at 10 bits.

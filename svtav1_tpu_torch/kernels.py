@@ -96,10 +96,10 @@ ARGTYPES = {
     # nref, H, W, n_h, n_w, bd, stream
     "mc_lanes_launch": [_P] * 11 + [_I] * 8 + [_P],
     "mc_lanes16_launch": [_P] * 11 + [_I] * 8 + [_P],
-    # ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1, ftab_x, ftab_y, out, B, nref, H, W,
-    # n_h, n_w, bd, stream
-    "mc_compound_launch": [_P] * 12 + [_I] * 7 + [_P],
-    "mc_compound16_launch": [_P] * 12 + [_I] * 7 + [_P],
+    # ref0, ref1|NULL, ref2|NULL (stacks), ys, xs, mv0y, mv0x, mv1y, mv1x, ref0_idx,
+    # ref1_idx, ftab_x, ftab_y, out, P, B, nref, H, W, n_h, n_w, bd, stream
+    "mc_compound_launch": [_P] * 14 + [_I] * 8 + [_P],
+    "mc_compound16_launch": [_P] * 14 + [_I] * 8 + [_P],
     # center, preds, out, K, H, W, h2, bd, stream
     "tf_filter_launch": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
     # y, out, H, W, thr, stream

@@ -22,11 +22,13 @@ version beside each:
   per-lane phase, from one plane or a (NREF, H, W) stack by ref index;
   `mc_lanes_planes` runs the same lanes on up to three planes of one shape
   (U and V, or TPL's reference pair) in one launch.
-- K11 `mc_compound` (`csrc/mc.cu`): compound-average MC, the two conv-buf
-  (offset-carrying, COMPOUND_ROUND1) predictions of a lane from two
-  references of the stack and the normative average, in one launch.
+- K11 `mc_compound` (`csrc/mc.cu`): compound-average MC on K10's lanes
+  and strips, the two conv-buf (offset-carrying, COMPOUND_ROUND1)
+  predictions of a lane from two references of the stack and the normative
+  average, in one launch; `mc_lanes_compound_planes` runs the same lanes on
+  up to three planes of one shape (U and V) in one launch.
 - K14 `subpel_refine` (`csrc/subpel.cu`): the TPL's two-step 9-point
-  subpel refinement by SAD, from one (n+8)^2 patch per block like K9.
+  subpel refinement by SAD on K9's lanes, from one (n+8)^2 patch per block.
 
 MVs are (row, col); the searches work in full pels and return 1/8 pel, MC
 takes 1/16 pel of the plane it reads. Each wrapper launches its kernel for
@@ -256,6 +258,14 @@ def mc_compound_plain(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h: int, n_w: int, 
     c0 = mc_lanes_plain(refs, ys, xs, mv0y, mv0x, n_h, n_w, which, bd, ref0_idx, conv_buf=True)
     c1 = mc_lanes_plain(refs, ys, xs, mv1y, mv1x, n_h, n_w, which, bd, ref1_idx, conv_buf=True)
     return compound_average_plain(c0, c1, bd)
+
+
+def mc_compound_planes_plain(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h: int, n_w: int,
+                             which: int, bd: int, ref0_idx, ref1_idx):
+    """Plain PyTorch version of K11 on several planes; same arguments and
+    result as mc_lanes_compound_planes: mc_compound_plain once per plane."""
+    return torch.stack([mc_compound_plain(r, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h, n_w, which, bd,
+                                          ref0_idx, ref1_idx) for r in refs])
 
 
 def extract_patches(ref, ys, xs, h: int, w: int):
@@ -637,8 +647,8 @@ def subpel_refine_lanes(src_b, ref, ys, xs, mv_fp, which: int, bd: int):
         return subpel_refine_plain(src_b, ref, ys, xs, mv_fp, which, bd)
     kernels.check(src_b, "src_b", torch.int32)
     B, n = src_b.shape[0], src_b.shape[-1]
-    if n < 8:
-        raise ValueError("subpel_refine_lanes: blocks of 8x8 and up (8-tap filters)")
+    if n not in SIZES:
+        raise ValueError("subpel_refine_lanes: 8x8, 16x16, 32x32 or 64x64 blocks")
     ys, xs, mv_fp = _i32(ys), _i32(xs), _i32(mv_fp)
     mv8 = torch.empty((B, 2), dtype=torch.int32, device=src_b.device)
     if B == 0:
@@ -657,22 +667,39 @@ def mc_lanes_compound(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h: int, n_w: int, 
     normative average. refs: (NREF, H, W) stack (plane_dtype(bd) on the
     card); ys/xs (B,) block top-left in plane coords; MVs in 1/16 pel of
     this plane. Returns (B, n_h, n_w) int32; dims <= 4 use the 4-tap filter
-    variant."""
-    check_plane(refs, "refs", bd)
+    variant. On the card n_w is one of MC_WIDTHS."""
+    return mc_lanes_compound_planes([refs], ys, xs, mv0y, mv0x, mv1y, mv1x, n_h, n_w, which, bd,
+                                    ref0_idx, ref1_idx)[0]
+
+
+def mc_lanes_compound_planes(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h: int, n_w: int,
+                             which: int, bd: int, ref0_idx, ref1_idx):
+    """K11 on up to three (NREF, H, W) stacks of one shape and dtype (`refs`,
+    the U and V of the references) that share the lanes: positions, MVs, ref
+    indices and dimensions, as mc_lanes_compound takes them. One launch;
+    returns (P, B, n_h, n_w) int32, equal to P calls of mc_lanes_compound."""
+    for r in refs:
+        check_plane(r, "refs", bd)
     if ys.device.type == "cpu":
-        return mc_compound_plain(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h, n_w, which, bd,
-                                 ref0_idx, ref1_idx)
-    if refs.dim() != 3:
+        return mc_compound_planes_plain(refs, ys, xs, mv0y, mv0x, mv1y, mv1x, n_h, n_w, which,
+                                        bd, ref0_idx, ref1_idx)
+    ref = refs[0]
+    if not 1 <= len(refs) <= 3 or any(r.shape != ref.shape for r in refs):
+        raise ValueError("mc_lanes_compound_planes: 1 to 3 stacks of one shape")
+    if ref.dim() != 3:
         raise ValueError("mc_lanes_compound: a (NREF, H, W) reference stack")
+    if n_w not in MC_WIDTHS or n_h < 1:
+        raise ValueError(f"mc_lanes_compound: lanes {MC_WIDTHS} samples wide, got {n_w}")
     B = ys.shape[0]
     args = [_i32(a) for a in (ys, xs, mv0y, mv0x, mv1y, mv1x, ref0_idx, ref1_idx)]
-    out = torch.empty((B, n_h, n_w), dtype=torch.int32, device=ys.device)
+    out = torch.empty((len(refs), B, n_h, n_w), dtype=torch.int32, device=ys.device)
     if B == 0:
         return out
     dev = str(ys.device)
-    kernels.launch(_kname("mc_compound", bd), refs.data_ptr(), *[a.data_ptr() for a in args],
+    planes = [r.data_ptr() for r in refs] + [None] * (3 - len(refs))
+    kernels.launch(_kname("mc_compound", bd), *planes, *[a.data_ptr() for a in args],
                    _ftab(filter_for_dim(which, n_w), dev).data_ptr(),
-                   _ftab(filter_for_dim(which, n_h), dev).data_ptr(), out.data_ptr(), B,
-                   refs.shape[0], refs.shape[-2], refs.shape[-1], n_h, n_w, bd,
+                   _ftab(filter_for_dim(which, n_h), dev).data_ptr(), out.data_ptr(), len(refs),
+                   B, ref.shape[0], ref.shape[-2], ref.shape[-1], n_h, n_w, bd,
                    kernels.stream_ptr(out))
     return out

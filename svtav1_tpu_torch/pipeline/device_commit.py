@@ -270,10 +270,10 @@ def _commit_device(src_y8, src_u8, src_v8, sched: dict, R8: int, C8: int,
             pred[ci] = me_torch.mc_lanes_compound(refs[0], ry_[ci], rx_[ci], m1[:, 0] * 2,
                                                   m1[:, 1] * 2, m2[:, 0] * 2, m2[:, 1] * 2, n, n,
                                                   which, bd, r1, r2)
-            for k, pl in enumerate((1, 2)):
-                puv[k * NI + ci] = me_torch.mc_lanes_compound(
-                    refs[pl], ryc[ci], rxc[ci], m1[:, 0], m1[:, 1], m2[:, 0], m2[:, 1], nc, nc,
-                    which, bd, r1, r2)
+            cuv = me_torch.mc_lanes_compound_planes(
+                [refs[1], refs[2]], ryc[ci], rxc[ci], m1[:, 0], m1[:, 1], m2[:, 0], m2[:, 1], nc,
+                nc, which, bd, r1, r2)
+            puv[ci], puv[NI + ci] = cuv[0], cuv[1]
         rq_y, rq_uv = (wavefront.rdoq_fns(rdoq_qctx, n, dev) if rdoq_qctx is not None
                        else (None, None))
         va, hv = wavefront.tx_lanes(L["tx"][:NI], tx_ntypes if n <= 16 else 1)

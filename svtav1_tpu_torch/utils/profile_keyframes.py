@@ -135,10 +135,10 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
         P, B, nh, nw = args[11], args[12], args[16], args[17]
         return (B * 20 + P * B * nh * nw * (4 + sz),
                 P * B * ((nh + 7) * nw * 16 + nh * nw * 20))
-    if name == "mc_compound":
-        B, nh, nw = args[12], args[16], args[17]
-        return (B * 32 + B * nh * nw * (4 + 2 * sz),
-                B * (2 * ((nh + 7) * nw * 16 + nh * nw * 18) + nh * nw * 6))
+    if name == "mc_compound":  # P planes: the lanes' positions, MVs and ref indices read once
+        P, B, nh, nw = args[14], args[15], args[19], args[20]
+        return (B * 32 + P * B * nh * nw * (4 + 2 * sz),
+                P * B * (2 * ((nh + 7) * nw * 16 + nh * nw * 18) + nh * nw * 6))
     if name == "tf_filter":
         K, H, W = args[3:6]
         return (K + 2) * H * W * 4, K * H * W * 20

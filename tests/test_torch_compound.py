@@ -108,3 +108,21 @@ def test_b_frame_decide_matches_jax():
                 np.testing.assert_array_equal(got[n][key], want[n][key], err_msg=f"n={n} {key}")
         compound += int((want[n]["ref2"] >= 0).sum())
     assert compound > 0
+
+
+@pytest.mark.parametrize("n, bd", CASES)
+def test_mc_lanes_compound_planes_equals_the_plain_version_per_plane(n, bd):
+    """The planes form (on the card one launch, the commit's U and V) on
+    CPU tensors: two and three stacks of one shape that share the lanes give
+    mc_compound_plain of each stack."""
+    refs, ys, xs, mv, ri = _lanes(n, bd, seed=3 * n + bd)
+    dt = np.uint8 if bd == 8 else np.int16
+    stacks = [refs, refs[::-1], (refs * 7 + 31) % (1 << bd)]
+    stacks = [torch.from_numpy(np.ascontiguousarray(s.astype(dt))) for s in stacks]
+    lanes = (*_t(ys, xs, *mv), n, n, 0, bd, *_t(ri[0], ri[1]))
+    for P in (2, 3):
+        got = me_torch.mc_lanes_compound_planes(stacks[:P], *lanes)
+        assert got.shape == (P, len(ys), n, n) and got.dtype == torch.int32
+        for k in range(P):
+            assert torch.equal(got[k], me_torch.mc_compound_plain(stacks[k], *lanes)), (P, k)
+    assert not torch.equal(got[0], got[1])

@@ -322,3 +322,29 @@ def test_filter_facts_of_k9_10bit_arithmetic(which):
     # phase 0's copy: (2^16 + 128 p + 4) >> 3 == 8192 + 16 p
     p = np.arange(1024)
     assert ((65536 + 128 * p + 4) >> 3 == 8192 + 16 * p).all()
+
+
+@pytest.mark.parametrize("which, bd", [pytest.param(w, bd, id=f"{w}-bd{bd}")
+                                       for bd in (8, 10) for w in range(6)])
+def test_filter_facts_of_k11_compound_arithmetic(which, bd):
+    """K11 runs K10's packed passes with the compound path's vertical start
+    2^offset_bits + 2^(COMPOUND_ROUND1 - 1) and shift COMPOUND_ROUND1: over
+    intermediates anywhere in their positive int16 range, the vertical sum
+    (four IDP.2A into an int32) and the conv-buf prediction it shifts down
+    stay positive and inside int32, and so does the blend's sum of two
+    predictions. At 10 bits the prediction's range passes int16, so the
+    kernel keeps the first one per thread as an int32."""
+    taps = np.asarray(filter_kernels(which), dtype=np.int64)
+    pos, neg = np.where(taps > 0, taps, 0).sum(axis=1), np.where(taps < 0, taps, 0).sum(axis=1)
+    pmax = (1 << bd) - 1
+    h_lo = ((1 << (bd + 6)) + pmax * neg + 4) >> 3  # the horizontal intermediate, per phase
+    h_hi = ((1 << (bd + 6)) + pmax * pos + 4) >> 3
+    lo, hi = int(h_lo.min()), int(h_hi.max())
+    assert 0 < lo and hi < 1 << 15
+    init = (1 << (bd + 2 * 7 - 3)) + (1 << (7 - 1))
+    v_lo = init + pos * lo + neg * hi  # per vertical phase, intermediates at the extremes
+    v_hi = init + pos * hi + neg * lo
+    assert v_lo.min() > 0 and v_hi.max() < 1 << 31
+    conv_lo, conv_hi = int((v_lo >> 7).min()), int((v_hi >> 7).max())
+    assert conv_lo >= 0 and 2 * conv_hi < 1 << 31
+    assert (conv_hi >= 1 << 15) == (bd == 10), conv_hi

@@ -260,3 +260,60 @@ def test_crf_q_rules_match_the_reference():
                     for hl in range(5):
                         args = (cq, r0, is_key, layer, hl)
                         assert tpl.crf_qindex(*args) == ref_tpl.crf_qindex(*args), args
+
+
+@pytest.mark.parametrize("kind", ["textured", "flat", "textured-bd10"])
+def test_subpel_refine_design_premise(kind):
+    """K14's design on the CPU: both steps' candidates of every block, from
+    full-pel MVs that put windows across every edge, lie on the 49-point
+    {-6..6} step-2 lattice of the (n+8)^2 patch staged at mv_fp - 4 (index j
+    at offset 2j - 6); the nine of step 1 at {1, 3, 5}^2, step 2's around its
+    winner, whose SAD is the centre's (index 4); and the two first-minimum
+    steps walked on the lattice's SADs give subpel_refine_plain's MVs. Flat
+    blocks tie everywhere: each step takes its (-1, -1) corner."""
+    bd = 10 if kind.endswith("bd10") else 8
+    h, w, n = 64, 96, 16
+    g = np.random.default_rng(11)
+    tex = _textured(h + 8, w + 8, seed=4)
+    if bd == 10:
+        tex = tex * 4 + g.integers(0, 4, tex.shape).astype(np.int32)
+    if kind == "flat":
+        tex[:] = 100
+    ref = torch.from_numpy(np.ascontiguousarray(tex[4 : 4 + h, 4 : 4 + w]))
+    R, C = h // n, w // n
+    B = R * C
+    ys = torch.from_numpy(np.repeat(np.arange(R), C).astype(np.int32) * n)
+    xs = torch.from_numpy(np.tile(np.arange(C), R).astype(np.int32) * n)
+    src_b = torch.from_numpy(np.clip(tex[3 : 3 + h, 5 : 5 + w] + g.integers(-3, 4, (h, w)), 0,
+                                     (1 << bd) - 1).astype(np.int32)
+                             .reshape(R, n, C, n).transpose(0, 2, 1, 3).reshape(B, n, n).copy())
+    mv_fp = torch.from_numpy(g.integers(-24, 25, (B, 2)).astype(np.int32))
+    patch = me_torch.extract_patches(ref, ys + mv_fp[:, 0] - 4, xs + mv_fp[:, 1] - 4, n + 8, n + 8)
+    sad = torch.empty((7, 7, B), dtype=torch.int64)  # the lattice's SADs
+    for jy in range(7):
+        for jx in range(7):
+            fy0, fx0 = 4 * jy - 12, 4 * jx - 12  # 1/16 pel
+            p = me_torch._mc_patch_static(patch, fy0 >> 4, fx0 >> 4, fy0 & 15, fx0 & 15, n, 0, bd)
+            sad[jy, jx] = (p - src_b).abs().sum(dim=(-2, -1))
+    bi = torch.arange(B)
+    cy, cx = torch.full((B,), 3), torch.full((B,), 3)
+    centre = None
+    for step, d in enumerate((2, 1)):
+        cand = [(cy + (a - 1) * d, cx + (c - 1) * d) for a in range(3) for c in range(3)]
+        for jy, jx in cand:
+            assert bool(((jy >= 0) & (jy <= 6) & (jx >= 0) & (jx <= 6)).all())
+        if step == 0:
+            assert all(set(v.tolist()) == {i} for v, i in zip(cand[4], (3, 3)))
+        s9 = torch.stack([sad[jy, jx, bi] for jy, jx in cand])
+        if centre is not None:
+            assert torch.equal(s9[4], centre)  # step 2's centre: step 1's least SAD
+        k = torch.argmin(s9, dim=0)  # the first minimum
+        centre = s9.min(dim=0).values
+        cy, cx = cy + (k // 3 - 1) * d, cx + (k % 3 - 1) * d
+    got = mv_fp * 8 + torch.stack([2 * cy - 6, 2 * cx - 6], dim=1).to(torch.int32)
+    want = me_torch.subpel_refine_plain(src_b, ref, ys, xs, mv_fp, 0, bd)
+    assert torch.equal(got, want)
+    if kind == "flat":
+        assert torch.equal(got, mv_fp * 8 - 6)
+    else:
+        assert len({tuple(v) for v in (got - mv_fp * 8).tolist()}) > 3  # the search moved
