@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   2. run each kernel and its plain PyTorch version on the card at the
      shapes its path gives it and hold them equal (K3: rtol 1e-5, atol 1e-3
      bits; all others exact, K5 counting its differing lanes and K12 its
-     differing samples; K9's prediction also against K10 at the MVs it
-     returns; K9 also at the MCTF shape, n = 16 on the 49-point lattice;
+     differing samples; K13's decay h2 also against the host's float32;
+     K9's prediction also against K10 at the MVs it returns; K9 also at
+     the MCTF shape, n = 16 on the 49-point lattice;
      K1 at the key frame's decide shape, a P frame's four luma sizes and
      their U+V lanes, the TPL probe, the commit waves' lanes and tails of
      1, 7 and 33 lanes at every size, with and without `mode`, at 8 and 10
@@ -40,8 +41,9 @@ Phases, each fatal on failure:
      (`me_sad16`, its operations at the better of the int32 count and the
      measured rate of the scalar VABSDIFF, one per absolute difference), K9
      (`subpel_pred16`, also at the MCTF shape), K10 (`mc_lanes16`) and K11
-     (`mc_compound16`, as K11), and K1-K7, K12 and K13 once each at
-     bd=10 (K1 with lanes that have neither neighbour: DC 512), all exact;
+     (`mc_compound16`, as K11), K12 and K13 (`tf_filter16`,
+     `tf_noise16`, as at 8 bits), and K1-K7 once each at bd=10 (K1 with
+     lanes that have neither neighbour: DC 512), all exact;
   3. conformance: encode a CIF key frame on the card at the fast preset
      without CDEF and one at the default medium preset, a 3-frame CIF GOP
      (a key frame and 2 P frames, keyint=6) at medium, and CIF
@@ -81,9 +83,9 @@ Phases, each fatal on failure:
      printed; then the 10-bit low-delay GOP (16 frames) and the 10-bit
      random-access GOP with MCTF (17 frames) on the 10-bit clip, their
      Y-PSNR at peak 1023, every 16-bit form launched and no 8-bit form of
-     K8-K11 (and the 8-bit paths no 16-bit form), their first TUs decoded
+     K8-K13 (and the 8-bit paths no 16-bit form), their first TUs decoded
      with the others; after the CRF path, the same CRF GOP on the 10-bit
-     clip (K14's and K8-K11's 16-bit forms and K15 launched, no 8-bit form
+     clip (K8-K14's 16-bit forms and K15 launched, no 8-bit form
      of them; qindex, r0, bytes, Y-PSNR at peak 1023, the `tpl` stage's ms
      per frame and frames/s beside the 8-bit CRF GOP's); launch counts
      are reset just before each path and read just after; the 1080p clip
@@ -132,8 +134,9 @@ Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
      python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
 also times phase 2's K1, K2, K3, K5, K7, K8 and K9 cases (8-bit), K4's, K10's,
-K11's, K14's and K15's at 8 and 10 bits (K11 through the parent's one-plane
-entry, a launch per plane: ParentK11), K16 on the
+K11's, K14's and K15's at 8 and 10 bits, K12's and K13's at 8 and 10 bits
+through the parent's own entry points (K12 a launch per plane on int32
+planes built outside the timed region, K13 on the int32 luma), K16 on the
 captured 8-bit schedules and every captured 8-bit K2, K3, K8 and K9 launch through a kernel
 library built from another checkout with the same C entry points (the parent
 commit's, after its own chip_smoke.py run built it), on the same inputs, and
@@ -178,12 +181,14 @@ KERNEL_SOURCES = {  # name -> (source, the TPU-side function it replaces)
     "subpel_refine": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:373"),
     "tpl_cost": ("svtav1_tpu_torch/csrc/txfm_quant_recon.cu", "svtav1_tpu/pipeline/tpl.py:56"),
     "commit_wave": ("svtav1_tpu_torch/csrc/commit.cu", "svtav1_tpu/pipeline/device_commit.py:542"),
-    # the 16-bit forms of K8-K11 and K14, on the int16 planes of 10-bit encodes
+    # the 16-bit forms of K8-K14, on the int16 planes of 10-bit encodes
     "me_sad16": ("svtav1_tpu_torch/csrc/me.cu", "svtav1_tpu/ops/me_jax.py:86"),
     "subpel_pred16": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:300"),
     "mc_lanes16": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:183"),
     "mc_compound16": ("svtav1_tpu_torch/csrc/mc.cu", "svtav1_tpu/ops/me_jax.py:248"),
     "subpel_refine16": ("svtav1_tpu_torch/csrc/subpel.cu", "svtav1_tpu/ops/me_jax.py:373"),
+    "tf_filter16": ("svtav1_tpu_torch/csrc/tf.cu", "svtav1_tpu/ops/tf_jax.py:71"),
+    "tf_noise16": ("svtav1_tpu_torch/csrc/tf.cu", "svtav1_tpu/ops/tf_jax.py:30"),
 }
 LD_KERNELS = tuple(KERNEL_SOURCES)[:11] + ("commit_wave",)  # K1-K10, K16: low-delay GOP
 RA_ONLY = ("mc_compound", "tf_filter", "tf_noise")  # K11-K13: the random-access GOP
@@ -192,7 +197,8 @@ CRF_ONLY = ("subpel_refine", "tpl_cost")  # K14-K15: the CRF GOP's TPL
 _FORM16 = {k: k + "16" for k in KERNEL_SOURCES if k + "16" in KERNEL_SOURCES}
 TEN_BIT = tuple(_FORM16.values())
 LD10_KERNELS = tuple(_FORM16.get(k, k) for k in LD_KERNELS)  # the low-delay GOP at 10 bits
-RA10_KERNELS = LD10_KERNELS + ("mc_compound16", "tf_filter", "tf_noise")
+RA10_ONLY = ("mc_compound16", "tf_filter16", "tf_noise16")  # K11-K13 at 10 bits
+RA10_KERNELS = LD10_KERNELS + RA10_ONLY
 CRF10_ONLY = ("subpel_refine16", "tpl_cost")  # K14's 16-bit form and K15: the 10-bit CRF GOP
 # CRF: TPL over lookahead windows sets each frame's qindex (random access, MCTF)
 CRF = dict(qindex=120, keyint=32, minigop=8, rc_mode="crf", lookahead=16, enable_tf=True,
@@ -496,61 +502,32 @@ def k3_close(name, a, b):
     return err
 
 
-BASELINE = []  # [ParentK11(the ctypes handle of --baseline-lib)] when the option is given
-
-
-class ParentK11:
-    """The --baseline-lib handle with the parent's K11 entry points (one
-    stack per launch: ref, ys, xs, mv0y, mv0x, mv1y, mv1x, ref0, ref1,
-    ftab_x, ftab_y, out, B, nref, H, W, n_h, n_w, bd, stream) taking this
-    checkout's planes form: one launch per plane, into that plane's part of
-    the output."""
-
-    def __init__(self, handle):
-        self.handle = handle
-
-    def __getattr__(self, name):
-        return getattr(self.handle, name)
-
-    @staticmethod
-    def _per_plane(fn, *a):
-        planes, lanes, (fx, fy, out) = a[:3], a[3:11], a[11:14]
-        P, B, nref, H, W, nh, nw, bd = a[14:22]
-        for p in range(P):
-            err = fn(planes[p], *lanes, fx, fy, out + p * B * nh * nw * 4, B, nref, H, W, nh, nw,
-                     bd, a[22])
-            if err:
-                return err
-        return 0
-
-    def mc_compound_launch(self, *a):
-        return self._per_plane(self.handle.mc_compound_launch, *a)
-
-    def mc_compound16_launch(self, *a):
-        return self._per_plane(self.handle.mc_compound16_launch, *a)
+BASELINE = []  # [the ctypes handle of --baseline-lib] when the option is given
 
 
 def load_baseline(path):
     """A kernel library built from another checkout (the parent commit's
     build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
-    kernels.lib() binds its own (K11's with its one-plane arguments): K1-K5,
-    K7-K11, K14-K16 are also timed through it, on the same inputs, and must
-    give the same results."""
+    kernels.lib() binds its own (K12's and K13's with the parent's
+    arguments): K1-K5, K7-K11, K14-K16 are also timed through it, on the
+    same inputs, and must give the same results; check_mctf calls the
+    parent's K12 and K13 itself."""
     import ctypes
 
     from svtav1_tpu_torch import kernels
 
     P, I = ctypes.c_void_p, ctypes.c_int
-    # K11's entry points before this checkout's planes form (ParentK11 adapts them)
-    parent = {"mc_compound_launch": [P] * 12 + [I] * 7 + [P],
-              "mc_compound16_launch": [P] * 12 + [I] * 7 + [P]}
+    # K12's and K13's entry points before this checkout's: one plane of int32 samples and
+    # its (K, H, W) int32 predictions; the int32 luma into two zeroed int64 sums
+    parent = {"tf_filter_launch": [P] * 3 + [I] * 3 + [ctypes.c_float, I, P],
+              "tf_noise_launch": [P, P, I, I, I, P]}
     handle = ctypes.CDLL(os.path.abspath(path))
     for fn, argtypes in {**kernels.ARGTYPES, **parent}.items():
         f = getattr(handle, fn, None)
         if f is not None:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-    BASELINE.append(ParentK11(handle))
+    BASELINE.append(handle)
 
 
 @contextlib.contextmanager
@@ -1229,13 +1206,10 @@ def check_mc(torch, dev, t, record, assert_equal, stacks, draws, bd):
 
 def check_random_access(torch, dev, g, t, record, assert_equal):
     """Phase 2 for K11 mc_compound (check_compound), K12 tf_filter, K13
-    tf_noise and K9 at the MCTF shape: one MCTF call
-    at 1080p (1088x1920 luma, 544x960 chroma, K = 5 neighbours; the noise
-    sums of the luma; the 49-point subpel search of the 16x16 blocks). All
-    exact."""
-    import numpy as np
-
-    from svtav1_tpu_torch.ops import me_torch, tf_torch
+    tf_noise (check_mctf) and K9 at the MCTF shape: one MCTF call at 1080p
+    (1088x1920 luma, 544x960 chroma, K = 5 neighbours; the 49-point subpel
+    search of the 16x16 blocks). All exact."""
+    from svtav1_tpu_torch.ops import me_torch
 
     clip = clip_1080p(6)
     check_compound(torch, dev, g, t, record, assert_equal, clip, 8)
@@ -1244,13 +1218,8 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
     H, W = 1088, 1920
     planes = [[me_torch.edge_pad(t(f[pl], torch.uint8), H >> (pl > 0), W >> (pl > 0))
                for pl in range(3)] for f in clip]
+    check_mctf(torch, record, assert_equal, planes, 8)
     cy = planes[2][0].to(torch.int32).contiguous()
-    # K13 tf_noise
-    a, b = tf_torch.noise_sums(cy), tf_torch.noise_sums_plain(cy)
-    err = max(assert_equal("tf_noise", a[0], b[0]), assert_equal("tf_noise", a[1], b[1]))
-    record("tf_noise", [H, W], err, timed_ms(lambda: tf_torch.noise_sums(cy), 20),
-           timed_ms(lambda: tf_torch.noise_sums_plain(cy), 5), nbytes=H * W * 4 + 16,
-           ops=H * W * 20, main=True, flat_samples=int(a[1].item()))
     # K9 at the MCTF shape: 16x16 blocks, 49-point lattice, from the
     # full-pel MVs of the ME against neighbour 3
     R, C = H // 16, W // 16
@@ -1272,26 +1241,168 @@ def check_random_access(torch, dev, g, t, record, assert_equal):
            packed_ops_ms=k9_packed_ops_ms(B, 16, 7),
            **kernel_times(lambda: me_torch.subpel_pred_lanes(*args),
                           k9_same(assert_equal, mk, pk), 20))
-    # K12 tf_filter on the compensated neighbours of the whole filter
-    # (K8-K10 on the card), luma and chroma, K = 5
+
+
+def k12_weight_shares(torch, center, preds_y, preds_uv, h2):
+    """Where K12's weights of one call come from, as shares of every sample
+    and neighbour: `zero`, window sums s at or past the cut where the
+    weight rounds to 0; `table`, s below min(TF_TABLE, cut); `computed`,
+    the rest (the expression per sample). Plain tensor ops on the card."""
+    from svtav1_tpu_torch.ops import tf_torch
+
+    H, W = center[0].shape
+    R, C = H // 16, W // 16
+    stacks = ([tf_torch._blocks_to_plane(p, R, C, 16) for p in preds_y],
+              [tf_torch._blocks_to_plane(p[0], R, C, 8) for p in preds_uv],
+              [tf_torch._blocks_to_plane(p[1], R, C, 8) for p in preds_uv])
+    total = zero = table = 0
+    for c, preds in zip(center, stacks):
+        c = c.to(torch.int32)
+        for p in preds:
+            s = tf_torch._box5_sum((p - c) * (p - c))
+            d = s.to(torch.float32) / torch.full_like(s, 25, dtype=torch.float32)
+            z = -d / torch.full_like(d, float(h2)) <= -104.0
+            total += s.numel()
+            zero += int(z.sum().item())
+            table += int(((s < tf_torch.TF_TABLE) & ~z).sum().item())
+    return dict(zero=zero / total, table=table / total, computed=(total - zero - table) / total)
+
+
+def check_mctf(torch, record, assert_equal, planes, bd):
+    """K13 and K12 on one MCTF call of the clip (centre frame 2, neighbours
+    0, 1, 3, 4, 5; uint8 planes at 8 bits, int16 at 10: `tf_noise16`,
+    `tf_filter16`), each exact against its plain version on the card: K13's
+    sums, and its decay h2 also against the host's float32; K12's one
+    three-plane launch on the filter's own block-layout predictions, and
+    `filter_planes` run again under torch.cuda.set_sync_debug_mode("error")
+    (no host synchronisation from K13 to K12) with the same planes. Device
+    time (kernel_times), the bound with the plane dtype (the int32 count as
+    `int32_bytes_bound_ms`), where K12's weights came from
+    (k12_weight_shares); with --baseline-lib the parent's K12 (three
+    one-plane launches on (K, H, W) int32 planes built outside the timed
+    region) and K13 (on the int32 luma: into zeroed sums, and the launch
+    alone) on the same inputs; K12 also with a table of 256 entries, its
+    weights computed per sample (`per_sample_weights_device_ms`)."""
+    import ctypes
+
+    import numpy as np
+
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.ops import tf_torch
+
+    sz, tag = (1, []) if bd == 8 else (2, ["10-bit"])
+    noise, filt = ("tf_noise", "tf_filter") if bd == 8 else ("tf_noise16", "tf_filter16")
+    center, neighbours = planes[2], [planes[i] for i in (0, 1, 3, 4, 5)]
+    y = center[0]
+    H, W = y.shape
+    parent = BASELINE[0] if BASELINE else None
+
+    def parent_times(fn):
+        return dict(baseline_ms=timed_ms(fn, 20), baseline_device_ms=device_ms(fn))
+
+    # ---- K13: the sums, and the decay at qindex 120
+    a, b = tf_torch.noise_sums(y, bd), tf_torch.noise_sums_plain(y, bd)
+    err = max(assert_equal(noise, a[0], b[0]), assert_equal(noise, a[1], b[1]))
+    h2 = tf_torch.noise_decay(y, 120, bd)
+    err = max(err, assert_equal(noise + " (h2)", h2, tf_torch.noise_decay_plain(y, 120, bd)))
+    host = tf_torch.tf_decay(max(tf_torch.estimate_noise(y, bd), np.float32(0.5 * (1 << (bd - 8)))),
+                             np.float32(tf_torch.tf_strength(120, bd)))
+    if np.float32(h2.item()) != host:
+        raise SystemExit(f"{noise}: h2 {h2.item()} on the card, {host} on the host")
+    extra = kernel_times(lambda: tf_torch.noise_decay(y, 120, bd), None, 20, baseline=False)
+    if parent:
+        y32 = y.to(torch.int32).contiguous()
+        sums = torch.zeros(2, dtype=torch.int64, device=y.device)
+
+        def parent_launch():
+            if parent.tf_noise_launch(y32.data_ptr(), sums.data_ptr(), H, W, 40 << (bd - 8),
+                                      torch.cuda.current_stream().cuda_stream):
+                raise SystemExit("the parent's tf_noise failed to launch")
+
+        def parent_call():
+            sums.zero_()
+            parent_launch()
+
+        parent_call()
+        assert_equal(noise + " (baseline)", sums, torch.stack([b[0], b[1]]))
+        extra.update(parent_times(parent_call), baseline_launch_device_ms=device_ms(parent_launch))
+    record(noise, [H, W, "sums and h2"] + tag, err,
+           timed_ms(lambda: tf_torch.noise_decay(y, 120, bd), 20),
+           timed_ms(lambda: tf_torch.noise_decay_plain(y, 120, bd), 5),
+           nbytes=H * W * sz + 20, ops=H * W * 20, main=True, flat_samples=int(a[1].item()),
+           h2=h2.item(), int32_bytes_bound_ms=bound(H * W * 4 + 16, H * W * 20)[0], **extra)
+
+    # ---- K12 on the compensated neighbours of the whole filter (K8-K10 on the card)
     captured = []
-    real = tf_torch.tf_filter
-    tf_torch.tf_filter = lambda c, p, h, bd=8: captured.append((c, p, h)) or real(c, p, h, bd)
+    real = tf_torch.tf_filter_planes
+    tf_torch.tf_filter_planes = lambda c, py, puv, h, bd=8: captured.append((c, py, puv, h)) or \
+        real(c, py, puv, h, bd)
     try:
-        tf_torch.filter_planes(planes[2], [planes[i] for i in (0, 1, 3, 4, 5)], 120)
+        out = tf_torch.filter_planes(center, neighbours, 120, bd)
     finally:
-        tf_torch.tf_filter = real
-    for (c, p, h2), label in zip(captured, ("luma", "chroma U", "chroma V")):
-        a, b = tf_torch.tf_filter(c, p, h2, 8), tf_torch.tf_filter_plain(c, p, h2, 8)
-        torch.cuda.synchronize()
-        differing = int((a != b).sum().item())
-        err = assert_equal("tf_filter", a, b)
-        K, h_, w_ = p.shape
-        record("tf_filter", [K, h_, w_, label], err,
-               timed_ms(lambda: tf_torch.tf_filter(c, p, h2, 8), 20),
-               timed_ms(lambda: tf_torch.tf_filter_plain(c, p, h2, 8), 3),
-               nbytes=(K + 2) * h_ * w_ * 4, ops=K * h_ * w_ * 20, main=label == "luma",
-               differing_samples=differing, changed_samples=int((a != c).sum().item()))
+        tf_torch.tf_filter_planes = real
+    (c, py, puv, h2c), = captured
+    assert_equal(noise + " (h2 of filter_planes)", h2c, h2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = tf_torch.filter_planes(center, neighbours, 120, bd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = tf_torch.tf_filter_planes_plain(c, py, puv, h2c, bd)
+    differing = sum(int((o != w).sum().item()) for o, w in zip(out, want))
+    changed = sum(int((o != p.to(torch.int32)).sum().item()) for o, p in zip(out, c))
+    err = max(assert_equal(filt, o, w) for o, w in zip(out, want))
+    for o, w in zip(again, out):
+        assert_equal(filt + " (filter_planes under the sync check)", o, w)
+    K, samples = len(py), H * W * 3 // 2
+
+    def k12():
+        return tf_torch.tf_filter_planes(c, py, puv, h2c, bd)
+
+    extra = kernel_times(k12, None, 20, baseline=False)
+    # the same launch with a table of 256 entries, the least it takes: nearly every weight
+    # computed per sample (the FP64 exp and the two divisions), exact all the same
+    work = tf_torch._scratch(str(y.device))
+    ptrs = [p.data_ptr() for p in py] + [p.data_ptr() for p in puv]
+    ptr_arr = (ctypes.c_longlong * len(ptrs))(*ptrs)
+    per_sample = torch.empty(samples, dtype=torch.int32, device=y.device)
+
+    def k12_per_sample():
+        kernels.launch(filt, *(p.data_ptr() for p in c), ptr_arr, per_sample.data_ptr(),
+                       h2c.data_ptr(), work["table"].data_ptr(), work["filter"].data_ptr(), K,
+                       H // 16, W // 16, bd, 256, torch.cuda.current_stream().cuda_stream)
+
+    k12_per_sample()
+    n = H * W
+    for o, w in zip((per_sample[:n], per_sample[n : n + n // 4], per_sample[n + n // 4 :]), want):
+        assert_equal(filt + " (weights per sample)", o.view_as(w), w)
+    extra.update(per_sample_weights_device_ms=device_ms(k12_per_sample))
+    if parent:
+        R, C = H // 16, W // 16
+        stacks = [torch.stack([tf_torch._blocks_to_plane(p, R, C, 16) for p in py]),
+                  torch.stack([tf_torch._blocks_to_plane(p[0], R, C, 8) for p in puv]),
+                  torch.stack([tf_torch._blocks_to_plane(p[1], R, C, 8) for p in puv])]
+        c32 = [p.to(torch.int32).contiguous() for p in c]
+        outs = [torch.empty_like(p) for p in c32]
+        h2f = h2c.item()
+
+        def parent_k12():  # three one-plane launches
+            for p, st, o in zip(c32, stacks, outs):
+                if parent.tf_filter_launch(p.data_ptr(), st.data_ptr(), o.data_ptr(), K,
+                                           p.shape[0], p.shape[1], h2f, bd,
+                                           torch.cuda.current_stream().cuda_stream):
+                    raise SystemExit("the parent's tf_filter failed to launch")
+
+        parent_k12()
+        for o, w in zip(outs, want):
+            assert_equal(filt + " (baseline)", o, w)
+        extra.update(parent_times(parent_k12))
+    record(filt, [K, H, W, "Y+U+V"] + tag, err, timed_ms(k12, 20),
+           timed_ms(lambda: tf_torch.tf_filter_planes_plain(c, py, puv, h2c, bd), 3),
+           nbytes=samples * (sz + 4 * K + 4) + 4, ops=K * samples * 20, main=True,
+           differing_samples=differing, changed_samples=changed,
+           int32_bytes_bound_ms=bound((K + 2) * samples * 4, K * samples * 20)[0],
+           weight_shares=k12_weight_shares(torch, c, py, puv, h2c), **extra)
 
 
 def check_tpl(torch, dev, g, t, record, assert_equal):
@@ -1493,17 +1604,12 @@ def check_10bit(torch, dev, g, t, record, assert_equal):
     check_mc(torch, dev, t, record, assert_equal, stacks, draws, 10)
     check_compound(torch, dev, g, t, record, assert_equal, clip, 10)
 
-    # ---- one MCTF call at 10 bits: K13, K9 at the MCTF shape, K12 on the
-    # filter's own compensated neighbours
+    # ---- one MCTF call at 10 bits: K13 and K12 (check_mctf), K9 at the MCTF shape
     H, W = 1088, 1920
     planes = [[me_torch.edge_pad(t16(f[pl]), H >> (pl > 0), W >> (pl > 0)) for pl in range(3)]
               for f in clip]
+    check_mctf(torch, record, assert_equal, planes, 10)
     cy = planes[2][0].to(torch.int32).contiguous()
-    a, b = tf_torch.noise_sums(cy, 10), tf_torch.noise_sums_plain(cy, 10)
-    err = max(assert_equal("tf_noise", a[0], b[0]), assert_equal("tf_noise", a[1], b[1]))
-    record("tf_noise", [H, W, "10-bit"], err, timed_ms(lambda: tf_torch.noise_sums(cy, 10), 20),
-           timed_ms(lambda: tf_torch.noise_sums_plain(cy, 10), 5), nbytes=H * W * 4 + 16,
-           ops=H * W * 20, flat_samples=int(a[1].item()))
     R, C = H // 16, W // 16
     B = R * C
     fp = me_torch.me_fullpel_frame(planes[2][0], planes[3][0], H // 64, W // 64, bd=10)[0][16]
@@ -1519,22 +1625,6 @@ def check_10bit(torch, dev, g, t, record, assert_equal):
            *bound_of("subpel_pred16", lambda: me_torch.subpel_pred_lanes(*args)),
            packed_ops_ms=k9_packed_ops_ms(B, 16, 7, 10),
            device_ms=device_ms(lambda: me_torch.subpel_pred_lanes(*args)))
-    captured = []
-    real = tf_torch.tf_filter
-    tf_torch.tf_filter = lambda c, p, h, bd=8: captured.append((c, p, h)) or real(c, p, h, bd)
-    try:
-        tf_torch.filter_planes(planes[2], [planes[i] for i in (0, 1, 3, 4, 5)], 120, 10)
-    finally:
-        tf_torch.tf_filter = real
-    for (c, p, h2), label in zip(captured, ("luma", "chroma U", "chroma V")):
-        a, b = tf_torch.tf_filter(c, p, h2, 10), tf_torch.tf_filter_plain(c, p, h2, 10)
-        err = assert_equal("tf_filter", a, b)
-        K, h_, w_ = p.shape
-        record("tf_filter", [K, h_, w_, label, "10-bit"], err,
-               timed_ms(lambda: tf_torch.tf_filter(c, p, h2, 10), 20),
-               timed_ms(lambda: tf_torch.tf_filter_plain(c, p, h2, 10), 3),
-               nbytes=(K + 2) * h_ * w_ * 4, ops=K * h_ * w_ * 20,
-               changed_samples=int((a != c).sum().item()))
 
     # ---- K1 at 10 bits: the decide's 8x8 grid, all 13 modes; a tenth of
     # the lanes without a neighbour
@@ -1908,7 +1998,7 @@ def run_path(torch, label, cfg, n_timed, required, decode, libaom=False):
 
 
 def forms_check(label, launches, bd):
-    """A path launches only the forms of K8-K11 and K14 of its bit depth."""
+    """A path launches only the forms of K8-K14 of its bit depth."""
     wrong = [k for k in (TEN_BIT if bd == 8 else tuple(_FORM16)) if launches[k]]
     if wrong:
         raise SystemExit(f"{label} launched {wrong}, kernels of the other bit depth")
@@ -1990,7 +2080,7 @@ def run_random_access(torch, bd=8):
     frame 4, which has compound candidates) are decoded bit-exactly; Y-PSNR
     over the shown frames in display order (a show-existing TU shows the
     recon of its frame). bd=10: the same GOP on the 10-bit clip (the
-    16-bit forms of K8-K11, K12 and K13 at bd=10; Y-PSNR peak 1023)."""
+    16-bit forms of K8-K13; Y-PSNR peak 1023)."""
     import numpy as np
 
     from svtav1_tpu_torch import kernels
@@ -2083,8 +2173,8 @@ def run_crf(torch, bd=8):
     window's r0 are printed, and the `tpl` stage's ms per frame. Then one
     16-frame TPL window alone, its launches and summed kernel bounds counted
     per TPL frame (also with K8 and K14 at the measured packed rates).
-    bd=10: the same GOP on the 10-bit clip (the 16-bit forms of K8-K11 and
-    K14, no 8-bit form of them; Y-PSNR peak 1023)."""
+    bd=10: the same GOP on the 10-bit clip (the 16-bit forms of K8-K14, no
+    8-bit form of them; Y-PSNR peak 1023)."""
     import numpy as np
 
     from svtav1_tpu_torch import kernels
@@ -2991,7 +3081,7 @@ def main() -> int:
                       if name == "subpel_refine16" else
                       (ra_launches, "1080p random-access GOP") if name in RA_ONLY else
                       (ra10_launches, "1080p 10-bit random-access GOP")
-                      if name == "mc_compound16" else
+                      if name in RA10_ONLY else
                       (ld10_launches, "1080p 10-bit low-delay GOP") if name in TEN_BIT else
                       (launches, "1080p low-delay GOP"))
         row = dict(name=name, route="cuda", source=src, replaces=repl,

@@ -100,33 +100,6 @@ struct FrameDesc {
   SizeDesc size[kSizes];
 };
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ int ld_relaxed(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// Wait until *flag == want: relaxed polls (an acquire load at gpu scope
-// also invalidates the SM's L1, which every spinning warp would do on every
-// poll), then one acquire. A flag that is not set within 2^24 polls (some
-// seconds; a whole commit takes milliseconds) is a fault of the task table
-// or of the kernel: trap, so that the launch fails instead of hanging.
-__device__ __forceinline__ void wait_flag(const int* flag, int want) {
-  for (int i = 0; ld_relaxed(flag) != want; ++i)
-    if (i == 1 << 24) __trap();
-  ld_acquire(flag);
-}
-
 // The warp's shared memory, sized by the table's largest luma block max_n
 // (adj = min(max_n, 32), the coded width), in ints: the two edges; a work
 // area (the transposes, adj rows of N + 1; RDOQ's magnitudes and gains);

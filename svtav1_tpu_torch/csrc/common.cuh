@@ -22,6 +22,34 @@ __device__ __forceinline__ int wrap_mad2(int a, int wa, int b, int wb, int rnd) 
   return (int)((unsigned)a * (unsigned)wa + (unsigned)b * (unsigned)wb + (unsigned)rnd);
 }
 
+// Flags between the CTAs of one launch (K12, K16): loads and stores at gpu scope.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Wait until *flag == want: relaxed polls (an acquire load at gpu scope
+// also invalidates the SM's L1, which every spinning warp would do on every
+// poll), then one acquire. A flag that is not set within 2^24 polls (some
+// seconds; K16's commit and K12's table take milliseconds) is a fault of the
+// caller or of the kernel: trap, so that the launch fails instead of hanging.
+__device__ __forceinline__ void wait_flag(const int* flag, int want) {
+  for (int i = 0; ld_relaxed(flag) != want; ++i)
+    if (i == 1 << 24) __trap();
+  ld_acquire(flag);
+}
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }

@@ -42,7 +42,8 @@ KERNELS = {
     "subpel_pred": ("subpel.cu", "subpel_pred_launch"),
     "mc_lanes": ("mc.cu", "mc_lanes_launch"),
     "mc_compound": ("mc.cu", "mc_compound_launch"),
-    # the 16-bit forms of K8-K11 and K14: the same kernels on int16 planes (10-bit)
+    # the 16-bit forms of K8-K11 and K14 (K12's and K13's below): the same kernels on
+    # int16 planes (10-bit)
     "me_sad16": ("me.cu", "me_sad16_launch"),
     "subpel_pred16": ("subpel.cu", "subpel_pred16_launch"),
     "mc_lanes16": ("mc.cu", "mc_lanes16_launch"),
@@ -50,6 +51,8 @@ KERNELS = {
     "subpel_refine16": ("subpel.cu", "subpel_refine16_launch"),
     "tf_filter": ("tf.cu", "tf_filter_launch"),
     "tf_noise": ("tf.cu", "tf_noise_launch"),
+    "tf_filter16": ("tf.cu", "tf_filter16_launch"),
+    "tf_noise16": ("tf.cu", "tf_noise16_launch"),
     "subpel_refine": ("subpel.cu", "subpel_refine_launch"),
     "tpl_cost": ("txfm_quant_recon.cu", "tpl_cost_launch"),
     "commit_wave": ("commit.cu", "commit_wave_launch"),
@@ -100,10 +103,13 @@ ARGTYPES = {
     # ref1_idx, ftab_x, ftab_y, out, P, B, nref, H, W, n_h, n_w, bd, stream
     "mc_compound_launch": [_P] * 14 + [_I] * 8 + [_P],
     "mc_compound16_launch": [_P] * 14 + [_I] * 8 + [_P],
-    # center, preds, out, K, H, W, h2, bd, stream
-    "tf_filter_launch": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
-    # y, out, H, W, thr, stream
-    "tf_noise_launch": [_P, _P, _I, _I, _I, _P],
+    # cy, cu, cv, ptrs (host: K luma, K U+V predictions), out, h2, table, scratch, K, R, C,
+    # bd, cap, stream
+    "tf_filter_launch": [_P] * 8 + [_I] * 5 + [_P],
+    "tf_filter16_launch": [_P] * 8 + [_I] * 5 + [_P],
+    # y, acc, sums, h2, H, W, bd, scale, strength, stream
+    "tf_noise_launch": [_P] * 4 + [_I] * 3 + [_F, _F, _P],
+    "tf_noise16_launch": [_P] * 4 + [_I] * 3 + [_F, _F, _P],
     # src_b, ref, ys, xs, mv_fp, ftab, mv_out, B, H, W, n, bd, stream
     "subpel_refine_launch": [_P] * 7 + [_I] * 5 + [_P],
     "subpel_refine16_launch": [_P] * 7 + [_I] * 5 + [_P],

@@ -79,8 +79,8 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
     once, and the arithmetic per element that chip_smoke.py also counts.
     `extra`, what lives on the card: for K2 (lanes with the vertical ADST,
     lanes with the horizontal ADST) of the launch, for K7 the unmasked
-    cells. The 16-bit forms of K8-K11 and K14 (`me_sad16`, ...) read
-    2-byte samples where their 8-bit forms read one."""
+    cells. The 16-bit forms of K8-K14 (`me_sad16`, ...) read 2-byte samples
+    where their 8-bit forms read one."""
     from ..kernels import FORM16
 
     sz = 1
@@ -139,12 +139,13 @@ def launch_bound(name: str, args: tuple, extra=None) -> tuple[float, float]:
         P, B, nh, nw = args[14], args[15], args[19], args[20]
         return (B * 32 + P * B * nh * nw * (4 + 2 * sz),
                 P * B * (2 * ((nh + 7) * nw * 16 + nh * nw * 18) + nh * nw * 6))
-    if name == "tf_filter":
-        K, H, W = args[3:6]
-        return (K + 2) * H * W * 4, K * H * W * 20
-    if name == "tf_noise":
-        H, W = args[2:4]
-        return H * W * 4 + 16, H * W * 20
+    if name == "tf_filter":  # Y, U, V: the centre in its dtype, K int32 predictions, output
+        K, R, C = args[8:11]
+        samples = R * C * 384
+        return samples * (sz + 4 * K + 4) + 4, K * samples * 20
+    if name == "tf_noise":  # the luma, the two sums and h2
+        H, W = args[4:6]
+        return H * W * sz + 20, H * W * 20
     if name == "subpel_refine":
         B, H, W, n = args[7:11]
         return H * W * sz + B * n * n * 4 + B * 24, B * 2 * (3 * (n + 8) * n * 16 + 9 * n * n * 19)
