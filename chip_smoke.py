@@ -27,7 +27,10 @@ Phases, each fatal on failure:
      source at the 1920x1024 tile GOP's tile shape, 1024x960 against
      1024x1216 with ref_off_x=128, with the device work items of one call
      (torch.profiler); K2 also at the decide's 16x16 shape, K3 also on
-     16x16 luma and the decide's chroma sizes; K7's search and apply on
+     16x16 luma and the decide's chroma sizes; K6 on the clip's 1080p
+     luma, a 1080p plane of extreme cells, both as a batch of two frames
+     and the luma at a pointer 4 bytes off 16-byte alignment (its scalar
+     loads), at 8 and 10 bits; K7's search and apply on
      the clip's noisy 1080p planes with 80% and 20% of the cells unmasked;
      K4 on a 1080p luma plane at three levels in one launch, on its U and V
      in one launch, and on adversarial tiles (all 64x64 blocks, all 8x8,
@@ -133,17 +136,17 @@ Phases, each fatal on failure:
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
 non-zero without a card or outside the repository).
      python3 chip_smoke.py --baseline-lib OTHER/build/libsvtav1_torch_kernels.so
-also times phase 2's K1, K2, K3, K5, K7, K8 and K9 cases (8-bit), K4's, K10's,
-K11's, K14's and K15's at 8 and 10 bits, K12's and K13's at 8 and 10 bits
-through the parent's own entry points (K12 a launch per plane on int32
-planes built outside the timed region, K13 on the int32 luma), K16 on the
-captured 8-bit schedules and every captured 8-bit K2, K3, K8 and K9 launch through a kernel
-library built from another checkout with the same C entry points (the parent
-commit's, after its own chip_smoke.py run built it), on the same inputs, and
-holds its results equal too (`baseline_ms`, `baseline_device_ms`).
+also times phase 2's K1, K2, K3, K5, K7, K8 and K9 cases (8-bit), K4's, K6's,
+K10's, K11's, K12's, K13's, K14's and K15's at 8 and 10 bits, K16 on the
+captured 8-bit schedules and every captured 8-bit K2, K3, K8 and K9 launch
+through a kernel library built from another checkout with the same C entry
+points (the parent commit's, after its own chip_smoke.py run built it), on
+the same inputs, and holds its results equal too (`baseline_ms`,
+`baseline_device_ms`).
 """
 import contextlib
 import functools
+import itertools
 import json
 import os
 import statistics
@@ -508,21 +511,14 @@ BASELINE = []  # [the ctypes handle of --baseline-lib] when the option is given
 def load_baseline(path):
     """A kernel library built from another checkout (the parent commit's
     build/libsvtav1_torch_kernels.so) with the same C entry points, bound as
-    kernels.lib() binds its own (K12's and K13's with the parent's
-    arguments): K1-K5, K7-K11, K14-K16 are also timed through it, on the
-    same inputs, and must give the same results; check_mctf calls the
-    parent's K12 and K13 itself."""
+    kernels.lib() binds its own: K1-K16 are also timed through it, on the
+    same inputs, and must give the same results."""
     import ctypes
 
     from svtav1_tpu_torch import kernels
 
-    P, I = ctypes.c_void_p, ctypes.c_int
-    # K12's and K13's entry points before this checkout's: one plane of int32 samples and
-    # its (K, H, W) int32 predictions; the int32 luma into two zeroed int64 sums
-    parent = {"tf_filter_launch": [P] * 3 + [I] * 3 + [ctypes.c_float, I, P],
-              "tf_noise_launch": [P, P, I, I, I, P]}
     handle = ctypes.CDLL(os.path.abspath(path))
-    for fn, argtypes in {**kernels.ARGTYPES, **parent}.items():
+    for fn, argtypes in kernels.ARGTYPES.items():
         f = getattr(handle, fn, None)
         if f is not None:
             f.argtypes = argtypes
@@ -842,18 +838,10 @@ def check_kernels(torch, dev):
                **kernel_times(lambda: rate_torch.rdoq(*args),
                               lambda got: assert_equal("rdoq (baseline)", got, a), 20))
 
-    # ---- K6 cdef_dir on the clip's 1080p luma (32,400 cells); K7
-    # cdef_filter: the 7-candidate luma search and the luma and chroma applies
+    # ---- K6 cdef_dir on the clip's 1080p luma (32,400 cells) and its other
+    # cases; K7 cdef_filter: the 7-candidate luma search and the applies
     yp = t(y_clip.astype(np.int32)[None])
-    a = cdef_torch.find_dir(yp)
-    b = cdef_torch.find_dir_plain(yp)
-    err = max(assert_equal("cdef_dir", a[0], b[0]), assert_equal("cdef_dir", a[1], b[1]))
-    cells = R8 * C8
-    record("cdef_dir", [1, R8, C8], err,
-           timed_ms(lambda: cdef_torch.find_dir(yp), 20),
-           timed_ms(lambda: cdef_torch.find_dir_plain(yp), 3),
-           nbytes=yp.numel() * 4 + 2 * cells * 4, ops=cells * (64 * 8 + 15 * 8 * 3), main=True)
-    dirs, var = a
+    dirs, var = check_cdef_dir(torch, t, record, assert_equal, yp, 8)
     check_cdef(torch, g, t, record, assert_equal, yp, t(u_clip.astype(np.int32)[None]),
                t(v_clip.astype(np.int32)[None]), dirs, var)
 
@@ -946,6 +934,67 @@ def check_deblock(torch, t, record, assert_equal, sm, plane, bd):
             if not extra["flat2_samples"]:
                 raise SystemExit("dlf_edges: the flat planes did not fire flat2")
         case(label, jobs, **extra)
+
+
+def check_cdef_dir(torch, t, record, assert_equal, y, bd):
+    """K6 cdef_dir at bd (coeff_shift bd - 8) against find_dir_plain, every
+    cell exact: the clip's 1080p luma `y` ((1, 1080, 1920) int32), a 1080p
+    plane of extreme cells (`testclip.cdef_extreme_plane`: flat, checkered,
+    striped and stepped cells of 0 and 2^bd - 1), both as one batch of
+    F = 2, and the luma at a data pointer 4 bytes off 16-byte alignment (the
+    kernel's scalar loads). Each case timed (`ms` one call, `device_ms` a
+    CUDA graph of 20 launches, which finds the plane in L2) and, with
+    --baseline-lib, the parent's K6 on the same inputs, held equal; the
+    luma also with the plane read cold (`cold_device_ms`: the graph's
+    launches take 8 copies in turn, 66 MB, more than L2 holds) and beside a
+    launch on one cell (`one_cell_device_ms`: the fixed cost of a launch in
+    a graph). Returns the luma's (dirs, var)."""
+    from svtav1_tpu_torch.filters import cdef_torch
+    from svtav1_tpu_torch.utils.testclip import cdef_extreme_plane
+
+    cs, tag = bd - 8, [] if bd == 8 else ["10-bit"]
+    _, H, W = y.shape
+    extremes = t(cdef_extreme_plane(1, H, W, bd, seed=bd))
+    spare = torch.empty(y.numel() + 4, dtype=torch.int32, device=y.device)
+    unaligned = spare[1 : 1 + y.numel()].view_as(y)
+    unaligned.copy_(y)
+    if unaligned.data_ptr() % 16 != 4:
+        raise SystemExit(f"cdef_dir: the unaligned case's pointer is {unaligned.data_ptr() % 16} "
+                         "bytes off 16-byte alignment, not 4")
+    luma = None
+    for label, plane in (("clip luma", y), ("extreme cells", extremes),
+                         ("clip luma and extreme cells, F = 2", torch.cat([y, extremes])),
+                         ("clip luma, pointer 4 bytes off 16-byte alignment", unaligned)):
+        got, want = cdef_torch.find_dir(plane, cs), cdef_torch.find_dir_plain(plane, cs)
+        err = max(assert_equal("cdef_dir", a, b) for a, b in zip(got, want))
+        if label == "extreme cells" and len(torch.unique(got[0])) != 8:
+            raise SystemExit("cdef_dir: the extreme cells do not reach every direction")
+
+        def same(o, want=want):
+            for a, b in zip(o, want):
+                assert_equal("cdef_dir (baseline)", a, b)
+
+        F, R, C = got[0].shape
+        extra = kernel_times(lambda: cdef_torch.find_dir(plane, cs), same, 20)
+        if luma is None:  # the first case is the clip's luma
+            luma = got
+            copies, turn = [y.clone() for _ in range(8)], itertools.count()
+            cell = y[:, :8, :8].contiguous()
+
+            def cold():
+                return cdef_torch.find_dir(copies[next(turn) % 8], cs)
+
+            extra.update(cold_device_ms=device_ms(cold),
+                         one_cell_device_ms=device_ms(lambda: cdef_torch.find_dir(cell, cs)))
+            if BASELINE:
+                with baseline_kernels():
+                    extra.update(baseline_cold_device_ms=device_ms(cold))
+        record("cdef_dir", [F, R, C, label] + tag, err,
+               timed_ms(lambda: cdef_torch.find_dir(plane, cs), 20),
+               timed_ms(lambda: cdef_torch.find_dir_plain(plane, cs), 3),
+               nbytes=plane.numel() * 4 + 2 * F * R * C * 4, ops=F * R * C * (64 * 8 + 15 * 8 * 3),
+               main=bd == 8 and plane is y, **extra)
+    return luma
 
 
 def check_cdef(torch, g, t, record, assert_equal, yp, up, vp, dirs, var):
@@ -1276,13 +1325,11 @@ def check_mctf(torch, record, assert_equal, planes, bd):
     three-plane launch on the filter's own block-layout predictions, and
     `filter_planes` run again under torch.cuda.set_sync_debug_mode("error")
     (no host synchronisation from K13 to K12) with the same planes. Device
-    time (kernel_times), the bound with the plane dtype (the int32 count as
-    `int32_bytes_bound_ms`), where K12's weights came from
-    (k12_weight_shares); with --baseline-lib the parent's K12 (three
-    one-plane launches on (K, H, W) int32 planes built outside the timed
-    region) and K13 (on the int32 luma: into zeroed sums, and the launch
-    alone) on the same inputs; K12 also with a table of 256 entries, its
-    weights computed per sample (`per_sample_weights_device_ms`)."""
+    time and, with --baseline-lib, the parent's K12 and K13 on the same
+    inputs, held equal (kernel_times); the bound with the plane dtype (the
+    int32 count as `int32_bytes_bound_ms`), where K12's weights came from
+    (k12_weight_shares); K12 also with a table of 256 entries, its weights
+    computed per sample (`per_sample_weights_device_ms`)."""
     import ctypes
 
     import numpy as np
@@ -1295,10 +1342,6 @@ def check_mctf(torch, record, assert_equal, planes, bd):
     center, neighbours = planes[2], [planes[i] for i in (0, 1, 3, 4, 5)]
     y = center[0]
     H, W = y.shape
-    parent = BASELINE[0] if BASELINE else None
-
-    def parent_times(fn):
-        return dict(baseline_ms=timed_ms(fn, 20), baseline_device_ms=device_ms(fn))
 
     # ---- K13: the sums, and the decay at qindex 120
     a, b = tf_torch.noise_sums(y, bd), tf_torch.noise_sums_plain(y, bd)
@@ -1309,23 +1352,12 @@ def check_mctf(torch, record, assert_equal, planes, bd):
                              np.float32(tf_torch.tf_strength(120, bd)))
     if np.float32(h2.item()) != host:
         raise SystemExit(f"{noise}: h2 {h2.item()} on the card, {host} on the host")
-    extra = kernel_times(lambda: tf_torch.noise_decay(y, 120, bd), None, 20, baseline=False)
-    if parent:
-        y32 = y.to(torch.int32).contiguous()
-        sums = torch.zeros(2, dtype=torch.int64, device=y.device)
 
-        def parent_launch():
-            if parent.tf_noise_launch(y32.data_ptr(), sums.data_ptr(), H, W, 40 << (bd - 8),
-                                      torch.cuda.current_stream().cuda_stream):
-                raise SystemExit("the parent's tf_noise failed to launch")
+    def same_noise(got):  # the sums and h2 of noise_decay's launch
+        for o, w in zip((got[0][0], got[0][1], got[1]), (b[0], b[1], h2)):
+            assert_equal(noise + " (baseline)", o, w)
 
-        def parent_call():
-            sums.zero_()
-            parent_launch()
-
-        parent_call()
-        assert_equal(noise + " (baseline)", sums, torch.stack([b[0], b[1]]))
-        extra.update(parent_times(parent_call), baseline_launch_device_ms=device_ms(parent_launch))
+    extra = kernel_times(lambda: tf_torch._noise(y, bd, 120), same_noise, 20)
     record(noise, [H, W, "sums and h2"] + tag, err,
            timed_ms(lambda: tf_torch.noise_decay(y, 120, bd), 20),
            timed_ms(lambda: tf_torch.noise_decay_plain(y, 120, bd), 5),
@@ -1359,7 +1391,11 @@ def check_mctf(torch, record, assert_equal, planes, bd):
     def k12():
         return tf_torch.tf_filter_planes(c, py, puv, h2c, bd)
 
-    extra = kernel_times(k12, None, 20, baseline=False)
+    def same_planes(got):
+        for o, w in zip(got, want):
+            assert_equal(filt + " (baseline)", o, w)
+
+    extra = kernel_times(k12, same_planes, 20)
     # the same launch with a table of 256 entries, the least it takes: nearly every weight
     # computed per sample (the FP64 exp and the two divisions), exact all the same
     work = tf_torch._scratch(str(y.device))
@@ -1377,26 +1413,6 @@ def check_mctf(torch, record, assert_equal, planes, bd):
     for o, w in zip((per_sample[:n], per_sample[n : n + n // 4], per_sample[n + n // 4 :]), want):
         assert_equal(filt + " (weights per sample)", o.view_as(w), w)
     extra.update(per_sample_weights_device_ms=device_ms(k12_per_sample))
-    if parent:
-        R, C = H // 16, W // 16
-        stacks = [torch.stack([tf_torch._blocks_to_plane(p, R, C, 16) for p in py]),
-                  torch.stack([tf_torch._blocks_to_plane(p[0], R, C, 8) for p in puv]),
-                  torch.stack([tf_torch._blocks_to_plane(p[1], R, C, 8) for p in puv])]
-        c32 = [p.to(torch.int32).contiguous() for p in c]
-        outs = [torch.empty_like(p) for p in c32]
-        h2f = h2c.item()
-
-        def parent_k12():  # three one-plane launches
-            for p, st, o in zip(c32, stacks, outs):
-                if parent.tf_filter_launch(p.data_ptr(), st.data_ptr(), o.data_ptr(), K,
-                                           p.shape[0], p.shape[1], h2f, bd,
-                                           torch.cuda.current_stream().cuda_stream):
-                    raise SystemExit("the parent's tf_filter failed to launch")
-
-        parent_k12()
-        for o, w in zip(outs, want):
-            assert_equal(filt + " (baseline)", o, w)
-        extra.update(parent_times(parent_k12))
     record(filt, [K, H, W, "Y+U+V"] + tag, err, timed_ms(k12, 20),
            timed_ms(lambda: tf_torch.tf_filter_planes_plain(c, py, puv, h2c, bd), 3),
            nbytes=samples * (sz + 4 * K + 4) + 4, ops=K * samples * 20, main=True,
@@ -1707,13 +1723,7 @@ def check_10bit(torch, dev, g, t, record, assert_equal):
 
     # ---- K6 and K7 at 10 bits (coeff_shift 2) on the clip's noisy planes
     yp = t(y0.astype(np.int32)[None])
-    dirs, var = cdef_torch.find_dir(yp, 2)
-    wd, wv = cdef_torch.find_dir_plain(yp, 2)
-    err = max(assert_equal("cdef_dir", dirs, wd), assert_equal("cdef_dir", var, wv))
-    record("cdef_dir", [1, R8, C8, "10-bit"], err,
-           timed_ms(lambda: cdef_torch.find_dir(yp, 2), 20),
-           timed_ms(lambda: cdef_torch.find_dir_plain(yp, 2), 3),
-           nbytes=yp.numel() * 4 + 2 * B * 4, ops=B * (64 * 8 + 15 * 8 * 3))
+    dirs, var = check_cdef_dir(torch, t, record, assert_equal, yp, 10)
     noisy = [(t(p.astype(np.int32)[None]) + t(g.integers(-12, 13, (1, *p.shape))))
              .clamp(0, 1023).to(torch.int32).contiguous() for p in (y0, u0, v0)]
     mask = t(g.random((1, R8, C8)) < 0.8, torch.bool)

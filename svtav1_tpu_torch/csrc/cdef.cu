@@ -5,10 +5,30 @@
 // eight with the largest cost) and the variance (best cost minus the cost of
 // the orthogonal direction, >> 10). Replaces
 // svtav1_tpu/filters/cdef_jax.py::find_dir_j (:26-65), which keeps each cost
-// as a split (hi, lo) int32 pair because a TPU has no int64; here the costs
-// are int64. Bound: bytes (64 int32 samples read per cell, two written; the
-// 8 x 15 partial sums are some 1,000 integer operations per cell). Design:
-// one thread per cell, the cell's samples in registers.
+// as a split (hi, lo) int32 pair because a TPU has no int64. Bound: bytes,
+// F·H·W·4 read and 2·cells·4 written (0.0026 ms for a 1080p luma plane on
+// the H100); its 1,000 or so integer operations per cell are below that.
+// Exact for samples in [0, 2^(8 + coeff_shift) - 1], the range of every
+// recon plane (the plain version, find_dir_plain, is int64 for any int32).
+// Design, against what held the first port's thread-per-cell kernel back:
+// - Two threads per cell on one code path. The costs of directions 0-3 of
+//   the cell rotated by 90 degrees (y[i][j] = x[j][7 - i]) are the costs of
+//   directions 4-7 of the cell: the bins come out reversed and the weights
+//   are symmetric. So lane 0 of a pair runs directions 0-3 on the cell and
+//   lane 1 the same instructions on the rotated cell, read from a rotated
+//   copy: twice the threads in flight (64,800 at 1080p), half the chain
+//   each. The pair swaps its four costs with shuffles; both lanes take the
+//   first of the eight with the largest cost and lane 0 writes.
+// - 16-byte loads. A CTA stages a band of 8 rows by kDirCells cells with
+//   coalesced int4 loads, 8 in flight per thread (scalar loads where the
+//   plane is not 16-byte aligned), as int8 x = (p >> coeff_shift) - 128 in
+//   shared memory: the cells as they are and rotated, in padded row-major
+//   bands that the staging stores and the lanes' 8-byte row reads touch
+//   without bank conflicts.
+// - 32-bit costs: the partials, costs, argmax and subtraction are int32
+//   (the bound is kDirCostMax below), where the first port kept int64.
+// - A shorter chain: directions 1-3 take the columns two at a time, so the
+//   column pairs are summed once for all three.
 //
 // K7 is two entry points. cdef_search gives, per strength candidate of a
 // ladder (K <= 8) and frame, the int64 SSE of the luma plane's masked
@@ -51,69 +71,162 @@ __constant__ int c_dirs[8][2][2] = {
     {{1, 1}, {2, 2}},   {{1, 0}, {2, 1}},  {{1, 0}, {2, 0}}, {{1, 0}, {2, -1}}};
 __constant__ int c_pri_taps[2][2] = {{4, 2}, {3, 3}};
 __constant__ int c_sec_taps[2] = {2, 1};
-// find_dir cost weights per direction and partial-sum bin (filters/cdef.py
-// _cost_weights)
-__constant__ int c_cw[8][15] = {
-    {840, 420, 280, 210, 168, 140, 120, 105, 120, 140, 168, 210, 280, 420, 840},
-    {420, 210, 140, 105, 105, 105, 105, 105, 140, 210, 420, 0, 0, 0, 0},
-    {105, 105, 105, 105, 105, 105, 105, 105, 0, 0, 0, 0, 0, 0, 0},
-    {420, 210, 140, 105, 105, 105, 105, 105, 140, 210, 420, 0, 0, 0, 0},
+
+__device__ __forceinline__ int msb(int v) { return v > 0 ? 31 - __clz(v) : 0; }
+
+// K6's staging: a CTA's band of 8 rows by kDirCells cells, as words of four
+// int8 samples. Rows of kDirPitch words: rows 4 apart lie 16 banks apart.
+// The rotated band starts kDirBand words on, 16 banks on from the first.
+constexpr int kDirCells = 16;
+constexpr int kDirPitch = 2 * kDirCells + 4;
+constexpr int kDirBand = 8 * kDirPitch + 16;
+static_assert((4 * kDirPitch) % 32 == 16 && kDirBand % 32 == 16, "K6's staging banks");
+
+// A bin of n samples weighs 840 / n, and |x| <= 128 makes |partial| <= 128 n,
+// so a direction's cost is at most sum_k 128^2 n_k (840 / n_k) n_k = 2^14 · 840
+// · 64 over its 64 samples: an int32 holds every partial, cost and
+// difference of costs (flat cells of 0 reach the bound).
+constexpr long long kDirCostMax = 128LL * 128 * 840 * 64;
+static_assert(kDirCostMax == 880803840LL && kDirCostMax < (1LL << 31), "K6's costs in int32");
+
+// find_dir's weights of directions 0-3 per partial-sum bin (filters/cdef.py
+// _cost_weights); directions 4-7 repeat them
+__constant__ int c_cw[4][15] = {
     {840, 420, 280, 210, 168, 140, 120, 105, 120, 140, 168, 210, 280, 420, 840},
     {420, 210, 140, 105, 105, 105, 105, 105, 140, 210, 420, 0, 0, 0, 0},
     {105, 105, 105, 105, 105, 105, 105, 105, 0, 0, 0, 0, 0, 0, 0},
     {420, 210, 140, 105, 105, 105, 105, 105, 140, 210, 420, 0, 0, 0, 0}};
 
-__device__ __forceinline__ int msb(int v) { return v > 0 ? 31 - __clz(v) : 0; }
-
-// Partial-sum bin of sample (i, j) for direction d (filters/cdef.py
-// _partial_matrices).
-__device__ __forceinline__ int bin(int d, int i, int j) {
-  switch (d) {
-    case 0: return i + j;
-    case 1: return i + (j >> 1);
-    case 2: return i;
-    case 3: return 3 + i - (j >> 1);
-    case 4: return 7 + i - j;
-    case 5: return 3 - (i >> 1) + j;
-    case 6: return j;
-    default: return (i >> 1) + j;
-  }
+template <int D, int N>
+__device__ __forceinline__ int weigh(const int (&p)[15]) {
+  int s = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) s += p[k] * p[k] * c_cw[D][k];
+  return s;
 }
 
-__global__ void cdef_dir_kernel(const int* __restrict__ plane, int* __restrict__ dirs,
-                                int* __restrict__ var, int F, int H, int W, int coeff_shift) {
-  const int R = H >> 3, C = W >> 3;
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= F * R * C) return;
-  const int f = cell / (R * C), rc = cell - f * R * C;
-  const int r = rc / C, c = rc - r * C;
-  const int* P = plane + ((size_t)f * H + r * 8) * W + c * 8;
-  int x[64];
+// The costs of directions 0-3 of an 8x8 cell of samples in [-128, 127]
+// (filters/cdef.py _partial_matrices: bins i + j, i + j / 2, i, 3 + i - j / 2)
+__device__ __forceinline__ void dir_costs(const int (&x)[8][8], int (&cost)[4]) {
+  int p[15];
+#pragma unroll
+  for (int k = 0; k < 15; ++k) p[k] = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) x[i * 8 + j] = (P[(size_t)i * W + j] >> coeff_shift) - 128;
-  long long cost[8];
+    for (int j = 0; j < 8; ++j) p[i + j] += x[i][j];
+  cost[0] = weigh<0, 15>(p);
+  int two[8][4];  // directions 1-3 take the columns two at a time
 #pragma unroll
-  for (int d = 0; d < 8; ++d) {
-    int part[15];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int k = 0; k < 15; ++k) part[k] = 0;
+    for (int m = 0; m < 4; ++m) two[i][m] = x[i][2 * m] + x[i][2 * m + 1];
+#pragma unroll
+  for (int k = 0; k < 11; ++k) p[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) p[i + m] += two[i][m];
+  cost[1] = weigh<1, 11>(p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) p[i] = two[i][0] + two[i][1] + two[i][2] + two[i][3];
+  cost[2] = weigh<2, 8>(p);
+#pragma unroll
+  for (int k = 0; k < 11; ++k) p[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) p[3 + i - m] += two[i][m];
+  cost[3] = weigh<3, 11>(p);
+}
+
+__device__ __forceinline__ unsigned pack4(int a, int b, int c, int d) {
+  return (unsigned)(a & 255) | (unsigned)(b & 255) << 8 | (unsigned)(c & 255) << 16 |
+         (unsigned)d << 24;
+}
+
+// Grid (ceil(C / kDirCells), H / 8, F), 2 kDirCells threads: thread t is lane
+// t & 1 of cell t >> 1 of the band and stages the cell's columns 4 (t & 1) to
+// 4 (t & 1) + 3.
+__global__ void __launch_bounds__(2 * kDirCells)
+    cdef_dir_kernel(const int* __restrict__ plane, int* __restrict__ dirs,
+                    int* __restrict__ var, int H, int W, int coeff_shift, bool vec) {
+  __shared__ __align__(16) unsigned band[2 * kDirBand];
+  const int C = W >> 3, r = blockIdx.y, f = blockIdx.z;
+  const int t = threadIdx.x, cell = t >> 1, lane = t & 1;
+  const int c = blockIdx.x * kDirCells + cell;
+  if (c < C) {
+    const int* P = plane + ((size_t)f * H + r * 8) * W + c * 8 + lane * 4;
+    int v[8][4];
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int4 q = __ldg(reinterpret_cast<const int4*>(P + (size_t)i * W));
+        v[i][0] = q.x;
+        v[i][1] = q.y;
+        v[i][2] = q.z;
+        v[i][3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[i][k] = __ldg(P + (size_t)i * W + k);
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) part[bin(d, i, j)] += x[i * 8 + j];
-    long long s = 0;
+      for (int k = 0; k < 4; ++k) v[i][k] = (v[i][k] >> coeff_shift) - 128;
 #pragma unroll
-    for (int k = 0; k < 15; ++k) s += (long long)part[k] * part[k] * c_cw[d][k];
-    cost[d] = s;
+    for (int i = 0; i < 8; ++i)  // row i of the band: this thread's four samples
+      band[i * kDirPitch + t] = pack4(v[i][0], v[i][1], v[i][2], v[i][3]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // column 4 lane + k, top down: row 7 - 4 lane - k rotated
+      const uint2 w = make_uint2(pack4(v[0][k], v[1][k], v[2][k], v[3][k]),
+                                 pack4(v[4][k], v[5][k], v[6][k], v[7][k]));
+      *reinterpret_cast<uint2*>(band + kDirBand + (7 - 4 * lane - k) * kDirPitch + 2 * cell) = w;
+    }
   }
-  int best = 0;
+  __syncthreads();
+  if (c >= C) return;
+  const unsigned* rows = band + lane * kDirBand + 2 * cell;  // the cell, or the rotated cell
+  int x[8][8];
 #pragma unroll
-  for (int d = 1; d < 8; ++d)
-    if (cost[d] > cost[best]) best = d;
-  dirs[cell] = best;
-  var[cell] = (int)((cost[best] - cost[(best + 4) & 7]) >> 10);
+  for (int i = 0; i < 8; ++i) {
+    const uint2 w = *reinterpret_cast<const uint2*>(rows + i * kDirPitch);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[i][j] = (int)(signed char)((j < 4 ? w.x : w.y) >> (8 * (j & 3)));
+  }
+  int own[4], lo[4], hi[4];
+  dir_costs(x, own);
+  const unsigned pair = 3u << (t & 30);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int other = __shfl_xor_sync(pair, own[k], 1);
+    lo[k] = lane ? other : own[k];  // directions 0-3
+    hi[k] = lane ? own[k] : other;  // directions 4-7
+  }
+  // the first direction of the largest cost, and the cost of the one 4 on
+  int best = 0, bc = lo[0], oc = hi[0];
+#pragma unroll
+  for (int k = 1; k < 4; ++k)
+    if (lo[k] > bc) {
+      best = k;
+      bc = lo[k];
+      oc = hi[k];
+    }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (hi[k] > bc) {
+      best = 4 + k;
+      bc = hi[k];
+      oc = lo[k];
+    }
+  if (lane == 0) {
+    const size_t o = ((size_t)f * (H >> 3) + r) * C + c;
+    dirs[o] = best;
+    var[o] = (bc - oc) >> 10;
+  }
 }
 
 // CDEF's constrain(diff, s, damping), given the strength's shift
@@ -376,10 +489,11 @@ __global__ void __launch_bounds__(256)
 
 extern "C" int cdef_dir_launch(const int* plane, int* dirs, int* var, int F, int H, int W,
                                int coeff_shift, void* stream) {
-  const int cells = F * (H >> 3) * (W >> 3);
-  if (cells == 0) return 0;
-  cdef_dir_kernel<<<(cells + 127) / 128, 128, 0, (cudaStream_t)stream>>>(plane, dirs, var, F, H,
-                                                                       W, coeff_shift);
+  if (F * (H >> 3) * (W >> 3) == 0) return 0;
+  const bool vec = ((uintptr_t)plane & 15) == 0 && (W & 3) == 0;
+  const dim3 grid(((W >> 3) + kDirCells - 1) / kDirCells, H >> 3, F);
+  cdef_dir_kernel<<<grid, 2 * kDirCells, 0, (cudaStream_t)stream>>>(plane, dirs, var, H, W,
+                                                                   coeff_shift, vec);
   return launch_status();
 }
 

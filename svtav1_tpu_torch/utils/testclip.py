@@ -29,3 +29,28 @@ def make_frames(w: int, h: int, n: int, noise: float = 3.0, seed: int = 0, bd: i
                        for p in (y, u, v))
         frames.append((y, u, v))
     return frames
+
+
+def cdef_extreme_cells(bd: int = 8) -> np.ndarray:
+    """(24, 8, 8) int32 cells at the edges of CDEF's direction search, samples
+    0 and 2^bd - 1: flat, checkerboards, row and column stripes, 45-degree
+    steps along both diagonals and steps of slopes 2 and 1/2 (the odd
+    directions), each also inverted (flat 0 gives the largest cost any cell
+    can have)."""
+    i, j = np.mgrid[0:8, 0:8]
+    shapes = [np.zeros((8, 8), bool), (i + j) % 2 == 1, i % 2 == 1, j % 2 == 1,
+              i + j >= 8, i + j >= 4, i >= j, i >= j + 3,
+              2 * i >= j + 4, i >= 2 * j - 4, 2 * i + j >= 10, i + 2 * j >= 10]
+    return np.stack([s ^ inv for s in shapes for inv in (False, True)]).astype(np.int32) \
+        * ((1 << bd) - 1)
+
+
+def cdef_extreme_plane(F: int, H: int, W: int, bd: int = 8, seed: int = 0) -> np.ndarray:
+    """(F, H, W) int32 planes of whole 8x8 cells from `cdef_extreme_cells`:
+    every cell once in order, then cells drawn from `seed`."""
+    cells = cdef_extreme_cells(bd)
+    n = F * (H // 8) * (W // 8)
+    pick = np.concatenate([np.arange(len(cells)),
+                           np.random.default_rng(seed).integers(0, len(cells), n)])[:n]
+    return (cells[pick].reshape(F, H // 8, W // 8, 8, 8).transpose(0, 1, 3, 2, 4)
+            .reshape(F, H, W))

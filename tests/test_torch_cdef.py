@@ -1,7 +1,10 @@
 """K6 (cdef_dir) and K7 (cdef_search, cdef_apply) plain versions against
-filters/cdef_jax.py: find_dir_j, and cdef_frames_j's strength search and
-apply on luma and chroma, on noisy copies of synthetic-clip frames with a
-random skip map. Directions, variances, strengths and planes are exact.
+filters/cdef_jax.py: find_dir_j (also on cells of extreme samples), and
+cdef_frames_j's strength search and apply on luma and chroma, on noisy
+copies of synthetic-clip frames with a random skip map. Directions,
+variances, strengths and planes are exact. K6's design without JAX: the
+90-degree rotation that its second lane runs, its int32 cost bound, and
+its two-lane int32 arithmetic against the int64 references.
 K7's two entry points against the plain filter (cdef_filter_plain) and the
 sequence of filter calls that cdef_frames made before them; K7's bound."""
 import jax.numpy as jnp
@@ -11,7 +14,8 @@ import torch
 
 from svtav1_tpu.filters import cdef_jax
 from svtav1_tpu_torch.filters import cdef_torch
-from svtav1_tpu_torch.utils.testclip import make_frames
+from svtav1_tpu_torch.filters.cdef import _CWEIGHTS, _PMATS, find_dir_batch
+from svtav1_tpu_torch.utils.testclip import cdef_extreme_cells, cdef_extreme_plane, make_frames
 
 
 def _inputs(w, h, noise, seed):
@@ -25,16 +29,98 @@ def _inputs(w, h, noise, seed):
     return src, rec, nonskip
 
 
-@pytest.mark.parametrize("size", [(64, 64), (128, 96)])
+@pytest.mark.parametrize("size", [(64, 64), (128, 96), "extremes"])
 def test_find_dir_plain_matches_jax(size):
-    w, h = size
-    _, rec, _ = _inputs(w, h, 6, seed=w)
-    cells = rec[0].reshape(2, h // 8, 8, w // 8, 8).transpose(0, 1, 3, 2, 4)
-    d_ref, v_ref = cdef_jax.find_dir_j(jnp.asarray(cells))
-    d, v = cdef_torch.find_dir(torch.from_numpy(rec[0]))
-    np.testing.assert_array_equal(d.numpy(), np.asarray(d_ref))
-    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
-    assert len(np.unique(d.numpy())) == 8
+    """The clip's noisy luma; "extremes": cells of 0 and the largest sample
+    (flat, checkerboards, stripes, 45-degree steps) at the (64, 64) shape, at
+    8 bits and at 10 (the reference fed the cells >> 2)."""
+    if size == "extremes":
+        cases = [(cdef_extreme_plane(2, 64, 64, bd, seed=bd), bd - 8) for bd in (8, 10)]
+    else:
+        w, h = size
+        cases = [(_inputs(w, h, 6, seed=w)[1][0], 0)]
+    for plane, cs in cases:
+        F, h, w = plane.shape
+        cells = plane.reshape(F, h // 8, 8, w // 8, 8).transpose(0, 1, 3, 2, 4) >> cs
+        d_ref, v_ref = cdef_jax.find_dir_j(jnp.asarray(cells))
+        d, v = cdef_torch.find_dir(torch.from_numpy(plane), cs)
+        np.testing.assert_array_equal(d.numpy(), np.asarray(d_ref))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+        assert len(np.unique(d.numpy())) == 8
+
+
+def _costs(cells, cs=0):
+    """(N, 8) int64 costs of the eight directions of (N, 8, 8) cells
+    (filters/cdef.py's bins and weights)."""
+    x = (cells.reshape(-1, 64).astype(np.int64) >> cs) - 128
+    return np.stack([((x @ _PMATS[d]) ** 2 * _CWEIGHTS[d]).sum(axis=1) for d in range(8)], 1)
+
+
+def _two_lanes(cells, cs=0):
+    """K6's arithmetic in int32: lane 0 takes directions 0-3 of each cell,
+    lane 1 directions 0-3 of the cell rotated by 90 degrees as directions
+    4-7; the first direction of the largest of the eight costs, and var."""
+    def four(c):
+        x = ((c.reshape(-1, 64).astype(np.int32) >> cs) - 128).astype(np.int32)
+        return np.stack([((x @ _PMATS[d].astype(np.int32)) ** 2
+                          * _CWEIGHTS[d].astype(np.int32)).sum(axis=1, dtype=np.int32)
+                         for d in range(4)], 1)
+
+    costs = np.concatenate([four(cells), four(np.rot90(cells, axes=(1, 2)))], axis=1)
+    assert costs.dtype == np.int32
+    best = costs.argmax(axis=1)
+    rows = np.arange(len(best))
+    return best, (costs[rows, best] - costs[rows, (best + 4) & 7]) >> 10
+
+
+def _design_cells(bd):
+    rng = np.random.default_rng(bd)
+    smooth = make_frames(64, 64, 1, seed=bd, bd=bd)[0][0].astype(np.int32)
+    return np.concatenate([rng.integers(0, 1 << bd, (2000, 8, 8)).astype(np.int32),
+                           smooth.reshape(8, 8, 8, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8),
+                           cdef_extreme_cells(bd)])
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_rotation_gives_directions_4_to_7(bd):
+    """The costs of directions 0-3 of a cell rotated by 90 degrees, either
+    way, are the costs of directions 4-7 of the cell: K6's second lane runs
+    the first lane's instructions on the rotated cell."""
+    cells, cs = _design_cells(bd), bd - 8
+    costs = _costs(cells, cs)
+    for k in (1, -1):
+        rot = _costs(np.rot90(cells, k, axes=(1, 2)), cs)
+        np.testing.assert_array_equal(rot[:, :4], costs[:, 4:])
+        np.testing.assert_array_equal(rot[:, 4:], costs[:, :4])
+
+
+def test_costs_fit_in_int32():
+    """The largest cost over flat cells of 0, 255 and 1023 (10 bits,
+    coeff_shift 2) is 2^14 * 840 * 64 = 880,803,840 < 2^31, reached by
+    flat 0; no cell of the design sets exceeds it."""
+    flat = [(np.full((1, 8, 8), v, np.int32), cs) for v, cs in ((0, 0), (255, 0), (1023, 2))]
+    top = max(int(_costs(c, cs).max()) for c, cs in flat)
+    assert top == 2 ** 14 * 840 * 64 == 880_803_840 < 2 ** 31
+    assert int(_costs(flat[0][0]).max()) == top
+    for bd in (8, 10):
+        assert int(_costs(_design_cells(bd), bd - 8).max()) <= top
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_two_lane_int32_model_matches_find_dir(bd):
+    """K6's two-lane int32 arithmetic gives the directions and variances of
+    filters/cdef.find_dir_batch and cdef_torch.find_dir_plain (int64)."""
+    cells, cs = _design_cells(bd), bd - 8
+    d, v = _two_lanes(cells, cs)
+    wd, wv = find_dir_batch(cells, cs)
+    np.testing.assert_array_equal(d, wd)
+    np.testing.assert_array_equal(v, wv)
+    n = len(cells) // 8 * 8  # whole rows of 8 cells as a (1, 8, 8 n) plane
+    plane = cells[:n].reshape(1, n // 8, 8, 8, 8).transpose(0, 1, 3, 2, 4).reshape(1, n, 64)
+    pd, pv = cdef_torch.find_dir_plain(torch.from_numpy(np.ascontiguousarray(plane)), cs)
+    np.testing.assert_array_equal(pd.numpy().reshape(-1), d[:n])
+    np.testing.assert_array_equal(pv.numpy().reshape(-1), v[:n])
+    assert len(np.unique(d)) == 8
 
 
 @pytest.mark.parametrize("size", [(64, 64), (128, 96)])
