@@ -63,10 +63,16 @@ Phases, each fatal on failure:
      and a scene cut spliced at frame 4 with keyint=1000, which must be
      coded as a key frame; at 10 bits, the 3-frame CIF low-delay GOP and
      the 5-frame CIF random-access GOP with MCTF, their bytes against the
-     CPU's too;
+     CPU's too; then 5 CIF key frames in batches of 4, a CIF mini-GoP of 4
+     with loop restoration and a CIF low-delay GOP with film grain, their
+     bytes against the CPU's as the others';
   4. the paths: 1 warm + 1 timed 1920x1080 key frame at the fast preset
      without CDEF (K1-K4 launched), 1 warm + 2 timed key frames at the
-     medium preset (K1-K7 launched), then the main path, the bench's clip:
+     medium preset (K1-K7 launched), then the clip's first 8 frames as key
+     frames in one batch (intra_batch=8: K16 launched once) and one by one,
+     three runs each in turns after a warm run of each, every TU and recon
+     equal, frames/s, stage seconds, launches and peak device memory, at 8
+     and at 10 bits; then the main path, the bench's clip:
      16 frames of 1920x1080 with keyint=16 (a key frame and 15 low-delay P
      frames) at the medium preset with DLF, RDOQ, CDEF and global motion on,
      through send_frame + flush on a fresh Encoder after a 2-frame warm
@@ -83,7 +89,13 @@ Phases, each fatal on failure:
      16-frame TPL window timed alone with its launches and kernel bounds;
      then one-pass VBR at 1000 kbps on the 16-frame low-delay GOP (every
      inter frame finished before the next starts), its achieved bitrate
-     printed; then the 10-bit low-delay GOP (16 frames) and the 10-bit
+     printed, and after it film grain on the main path's first 4 frames
+     (the recon equal to the run without grain, the decoder's output the
+     recon plus the signalled grain) and loop restoration on its key frame
+     and first P frame and on the 10-bit clip's key frame (the restoration
+     types from the frame headers, the stages' seconds, bytes and Y-PSNR
+     beside the frames without restoration; the filters K4, K6 and K7
+     launched); the 10-bit low-delay GOP (16 frames) and the 10-bit
      random-access GOP with MCTF (17 frames) on the 10-bit clip, their
      Y-PSNR at peak 1023, every 16-bit form launched and no 8-bit form of
      K8-K13 (and the 8-bit paths no 16-bit form), their first TUs decoded
@@ -95,11 +107,12 @@ Phases, each fatal on failure:
      is made once; after the paths, the first TUs of each (and one medium
      key frame) are decoded, one worker process per
      sequence; K16 commit_wave runs on every path (each commit's phase B
-     in one launch), and its inputs are copied from six launches of the
+     in one launch), and its inputs are copied from seven launches of the
      paths: the fast key frame's (no RDOQ), the medium key frame's, a P
      frame's of the low-delay GOP, a B frame's of the random-access GOP
-     (one with compound lanes), and the key frame's and a P frame's of the
-     10-bit GOP; on each
+     (one with compound lanes), the key frame's and a P frame's of the
+     10-bit GOP, and the 8-frame batch's of the batched all-intra path; on
+     each
      schedule K16 and the wave loop of
      K1, K2 and K5 run from the same state and must give the same levels,
      recon, frontier maps and skip map; both phase-B times of this call
@@ -1760,22 +1773,24 @@ def encode_clip(cfg, frames, device):
     return [(p.tu, p.recon) for p in pkts]
 
 
-DECODES = []  # [(label, [(tu, recon)])] of the 1080p paths, decoded after them
+DECODES = []  # [(label, [(tu, recon)], libaom, grains)] of the 1080p paths, decoded after them
 
 
-def decode_later(label, pairs, libaom=False):
+def decode_later(label, pairs, libaom=False, grains=None):
     """Queue a 1080p path's first TUs for decode_queued: the paths' timings
     stay free of the decoder, and the sequences decode side by side; with
-    libaom the tile streams also go through libaom."""
-    DECODES.append((label, pairs, libaom))
+    libaom the tile streams also go through libaom; with grains (the film
+    grain parameters the encoder signalled for each TU) the decoder's
+    output must be the recon plus that grain."""
+    DECODES.append((label, pairs, libaom, grains))
 
 
-def decode_task(label, pairs, libaom):
+def decode_task(label, pairs, libaom, grains):
     """decode_all (and aom_check) in a worker process: (error message or
     None, seconds, TUs libaom checked or None)."""
     t0 = time.perf_counter()
     try:
-        decode_all(label, pairs)
+        decode_all(label, pairs, grains)
         checked = aom_check(label, pairs) if libaom else None
     except (SystemExit, AssertionError) as err:  # a pool worker must not exit
         return f"{label}: {err}", time.perf_counter() - t0, None
@@ -1790,13 +1805,15 @@ def decode_queued():
     procs = max(1, min(len(DECODES), os.cpu_count() or 1))
     with multiprocessing.get_context("spawn").Pool(procs) as pool:
         results = pool.starmap(decode_task, DECODES)
-    for (label, pairs, libaom), (err, secs, checked) in zip(DECODES, results):
+    for (label, pairs, libaom, grains), (err, secs, checked) in zip(DECODES, results):
         if err:
             raise SystemExit(err)
         rec = dict(phase="decode", path=label, tus=len(pairs), seconds=secs,
                    decode_bit_exact=True)
         if libaom:
             rec["libaom_checked_tus"] = checked
+        if grains:
+            rec["output_recon_plus_grain"] = True
         log(json.dumps(rec))
 
 
@@ -1813,16 +1830,20 @@ def aom_check(label, pairs) -> int:
     return checked
 
 
-def decode_all(label, pairs):
+def decode_all(label, pairs, grains=None):
     """Decode the TUs in order with one decoder; each recon must equal the
-    encoder's bit for bit (a show-existing TU, recon None, decodes none)."""
+    encoder's bit for bit (a show-existing TU, recon None, decodes none).
+    With grains (one film grain parameter set per TU), each TU's output must
+    be its recon's displayed part plus that grain (film_grain.apply_grain)
+    and differ from the recon."""
     import numpy as np
 
     from svtav1_tpu_torch.decode.decoder import Decoder
+    from svtav1_tpu_torch.filters.film_grain import apply_grain
 
     dec = Decoder()
     for i, (tu, rec) in enumerate(pairs):
-        _, _, _, drec = dec.decode_tu(tu)
+        *out, drec = dec.decode_tu(tu)
         if rec is None or drec is None:
             if rec is not None or drec is not None:
                 raise SystemExit(f"{label} TU {i}: a frame TU and a show-existing TU disagree")
@@ -1831,6 +1852,16 @@ def decode_all(label, pairs):
             if not np.array_equal(drec[p], rec[p]):
                 raise SystemExit(f"{label} frame {i} plane {p}: decoder recon differs from the "
                                  "encoder's")
+        if grains is not None:
+            h, w = out[0].shape
+            shown = [np.ascontiguousarray(pl[: h >> (p > 0), : w >> (p > 0)])
+                     for p, pl in enumerate(rec)]
+            want = apply_grain(tuple(shown), grains[i], dec.seq.bd)
+            if not all(np.array_equal(a, b) for a, b in zip(out, want)):
+                raise SystemExit(f"{label} frame {i}: the decoder's output is not the recon "
+                                 "plus the signalled grain")
+            if all(np.array_equal(a, b) for a, b in zip(out, shown)):
+                raise SystemExit(f"{label} frame {i}: the grain changed no sample")
 
 
 def cif_clips():
@@ -1840,7 +1871,9 @@ def cif_clips():
     random access with MCTF, CBR, VBR and two-pass VBR low-delay GOPs, and
     a scene cut spliced at frame 4 of a 1000-frame key interval; then at 10
     bits (the clip << 2 plus seeded low bits) the 3-frame low-delay GOP and
-    the 5-frame random-access GOP with MCTF."""
+    the 5-frame random-access GOP with MCTF; then 5 key frames in batches of
+    4 (a partial last batch), a 5-frame mini-GoP of 4 with loop
+    restoration, and a 3-frame low-delay GOP with film grain."""
     from svtav1_tpu_torch.pipeline.firstpass import FirstPassCollector
     from svtav1_tpu_torch.utils.testclip import make_frames
 
@@ -1866,7 +1899,11 @@ def cif_clips():
             ("10-bit medium GOP", dict(GOP, keyint=6, bd=10),
              make_frames(352, 288, 3, seed=0, bd=10)),
             ("10-bit medium random access", dict(ra, bd=10),
-             make_frames(352, 288, 5, seed=0, bd=10))]
+             make_frames(352, 288, 5, seed=0, bd=10)),
+            ("batched all-intra", dict(MEDIUM, intra_batch=4), make_frames(352, 288, 5, seed=0)),
+            ("restoration random access", dict(GOP, minigop=4, enable_restoration=True),
+             make_frames(352, 288, 5, seed=0)),
+            ("film grain", dict(GOP, keyint=6, film_grain=10), make_frames(352, 288, 3, seed=0))]
 
 
 CPU_WORKERS = 2  # phase 3's CPU encodes: processes side by side, the cores split among them
@@ -2336,6 +2373,185 @@ def run_vbr(torch):
                         stage_seconds=profiler.report())))
 
 
+BATCH = 8  # the batched all-intra path: frames per batch, one batch
+
+
+def run_intra_batch(torch, bd=8):
+    """Phase 4, all-intra batched: the bench clip's first 8 frames at
+    keyint=1, medium, coded as one batch (intra_batch=8: one decide, one K16
+    launch and one filter pass for the 8 frames) and one by one
+    (intra_batch=1), each run on a fresh Encoder: a warm run of each, then
+    three runs of each in turns. Every run's TUs and recon must equal the
+    first unbatched run's. Per mode: frames/s, stage seconds, waves,
+    launches and torch.cuda.max_memory_allocated (launch counts set to 0
+    just before each run and read just after). The first TUs are queued for
+    the 1080p decodes."""
+    import numpy as np
+
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
+    from svtav1_tpu_torch.utils import profiler
+
+    W, H = 1920, 1080
+    frames = clip_1080p(BATCH, bd)
+    cfg = dict(MEDIUM, bd=bd)
+    label = "1080p all-intra batched" if bd == 8 else "1080p 10-bit all-intra batched"
+
+    def run(batch):
+        enc = Encoder(EncoderConfig(W, H, intra_batch=batch, **cfg), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiler.reset()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        pkts = []
+        for f in frames:
+            pkts += enc.send_frame(*f)
+        pkts += enc.flush()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return pkts, dict(fps=BATCH / secs, stage_seconds=profiler.report(),
+                          waves=profiler.counts().get("commit/waves", 0),
+                          launches={k: v for k, v in kernels.launches.items() if v},
+                          max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    run(BATCH)
+    want, _ = run(1)
+    runs = {1: [], BATCH: []}
+    for _ in range(3):
+        for batch in (1, BATCH):
+            pkts, rec = run(batch)
+            if [p.disp_idx for p in pkts] != list(range(BATCH)):
+                raise SystemExit(f"{label}: packets out of order")
+            for a, b in zip(pkts, want):
+                if a.tu != b.tu or not all(np.array_equal(x, y) for x, y in zip(a.recon,
+                                                                                b.recon)):
+                    raise SystemExit(f"{label}: intra_batch={batch} frame {a.disp_idx} differs "
+                                     "from the unbatched encode")
+            runs[batch].append(rec)
+    last = runs[BATCH][-1]
+    missing = [k for k in KEY_KERNELS if last["launches"].get(k, 0) <= 0]
+    if missing:
+        raise SystemExit(f"{label} never launched: {missing}")
+    if last["launches"]["commit_wave"] != 1:
+        raise SystemExit(f"{label}: K16 launched {last['launches']['commit_wave']} times for "
+                         "one batch")
+    decode_later(label, [(p.tu, p.recon) for p in want[: 2 if bd == 8 else 1]])
+    fps = {str(b): [r["fps"] for r in runs[b]] for b in runs}
+    log(json.dumps(dict(phase="path", preset=label, config=dict(cfg, intra_batch=BATCH),
+                        size=[W, H], frames=BATCH, runs_in_turns=3, fps_by_batch=fps,
+                        median_fps={b: statistics.median(v) for b, v in fps.items()},
+                        bytes_per_frame=sum(len(p.tu) for p in want) / BATCH,
+                        y_psnr=float(np.mean([y_psnr_db(p.recon[0], frames[p.disp_idx][0], bd)
+                                              for p in want])),
+                        tus_equal_unbatched=True, waves=last["waves"],
+                        waves_unbatched=runs[1][-1]["waves"],
+                        launches_per_batch=last["launches"],
+                        launches_unbatched_per_frame={k: v / BATCH for k, v in
+                                                      runs[1][-1]["launches"].items()},
+                        max_memory_allocated={str(b): runs[b][-1]["max_memory_allocated"]
+                                              for b in runs},
+                        stage_seconds={str(b): runs[b][-1]["stage_seconds"] for b in runs})))
+
+
+def run_restoration(torch):
+    """Phase 4, loop restoration at 1080p (the synchronous route: the decide,
+    the commit, deblocking and CDEF on the card, then the restoration
+    search, the plan walk and the restoration filter on the host): the
+    main path's key frame and first P frame at 8 bits and the 10-bit clip's
+    key frame, each beside the same frames without restoration. Per frame
+    and plane the restoration types, read from the TUs' frame headers; the
+    stages' seconds, bytes and Y-PSNR. Launch counts set to 0 just before
+    and read just after each restoration run: the commit's kernels and the
+    filters K4, K6 and K7 run. The TUs are queued for the 1080p decodes."""
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.decode.decoder import frame_headers
+    from svtav1_tpu_torch.utils import profiler
+
+    W, H = 1920, 1080
+    for bd, n in ((8, 2), (10, 1)):
+        frames = clip_1080p(n, bd)
+        cfg = dict(GOP, bd=bd)
+        plain = encode_clip(cfg, frames, "cuda")
+        torch.cuda.synchronize()
+        profiler.reset()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        pairs = encode_clip(dict(cfg, enable_restoration=True), frames, "cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        # the P frame adds phase A's K5 and the decide's K8-K10
+        required = KEY_KERNELS + (("rdoq", "me_sad", "subpel_pred", "mc_lanes") if n > 1 else ())
+        missing = [k for k in required if k not in launches]
+        label = "1080p restoration" if bd == 8 else "1080p 10-bit restoration"
+        if missing:
+            raise SystemExit(f"{label}: never launched {missing}")
+        stages = profiler.report()
+
+        def psnr(ps):
+            return [y_psnr_db(rec[0], f[0], bd) for (_, rec), f in zip(ps, frames)]
+
+        decode_later(label, pairs)
+        log(json.dumps(dict(phase="path", preset=label, config=dict(cfg, enable_restoration=True),
+                            size=[W, H], frames=n, seconds=secs,
+                            lr_types=[list(fi.lr_types) for fi in frame_headers(
+                                [tu for tu, _ in pairs])],
+                            bytes=[len(tu) for tu, _ in pairs],
+                            bytes_no_restoration=[len(tu) for tu, _ in plain],
+                            y_psnr=psnr(pairs), y_psnr_no_restoration=psnr(plain),
+                            restoration_stage_seconds={
+                                k: stages.get(k, 0.0) for k in ("filter", "lr_search",
+                                                                "lr_apply", "entropy_walk")},
+                            launches=launches, stage_seconds=stages)))
+
+
+def run_film_grain(torch):
+    """Phase 4, film grain at 1080p: the main path's first 4 frames (a key
+    frame and 3 P frames) with film_grain=10 (the grain estimated from the
+    first source frame); the recon must equal the run without grain. The
+    first two TUs are queued for the 1080p decodes with the grain the
+    encoder signalled: the decoder's output must be the recon plus that
+    grain."""
+    import numpy as np
+
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
+
+    W, H, N = 1920, 1080, 4
+    frames = clip_1080p(N)
+    plain = encode_clip(GOP, frames, "cuda")
+    enc = Encoder(EncoderConfig(W, H, film_grain=10, **GOP), device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pkts = []
+    for f in frames:
+        pkts += enc.send_frame(*f)
+    pkts += enc.flush()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    missing = [k for k in LD_KERNELS if kernels.launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"1080p film grain never launched: {missing}")
+    for p, (_, rec) in zip(pkts, plain):
+        if not all(np.array_equal(a, b) for a, b in zip(p.recon, rec)):
+            raise SystemExit(f"1080p film grain: frame {p.disp_idx}'s recon differs from the "
+                             "encode without grain")
+    grains = [enc._grain_for(p.disp_idx) for p in pkts]
+    decode_later("1080p film grain", [(p.tu, p.recon) for p in pkts[:2]], grains=grains[:2])
+    g = grains[0]
+    log(json.dumps(dict(phase="path", preset="1080p film grain", config=dict(GOP, film_grain=10),
+                        size=[W, H], frames=N, fps=N / secs,
+                        bytes=[len(p.tu) for p in pkts],
+                        bytes_no_grain=[len(tu) for tu, _ in plain],
+                        recon_equal_without_grain=True,
+                        grain=dict(y_points=len(g.y_points), cb_points=len(g.cb_points),
+                                   cr_points=len(g.cr_points), ar_coeff_lag=g.ar_coeff_lag,
+                                   scaling_shift=g.scaling_shift,
+                                   seeds=[x.grain_seed for x in grains]))))
+
+
 def mesh_frames(w, h, n, bd=8):
     """n frames of the synthetic clip at w x h (at 10 bits the 10-bit clip),
     each after the first with a patch of new content near the right edge,
@@ -2535,7 +2751,8 @@ class K16Capture:
     schedule that `expect` names, the inputs of the first K16 launch that
     fits it (a commit without inter lanes for "fast", "key" and "key10",
     with inter lanes for "P" and "P10"; for "B" the first with compound
-    lanes, or else the phase's last with inter lanes) are copied before it
+    lanes, or else the phase's last with inter lanes; for "batch8" a batch
+    of key frames in one launch) are copied before it
     runs: the frontier maps and the lanes' level and recon slots (the rest
     is only read)."""
 
@@ -2559,7 +2776,9 @@ class K16Capture:
     def __call__(self, src, maps, lanes, table, *args, **kw):
         inter = src[0].is_cuda and any(L["NI"] for L in lanes.values())
         for label in self.want if src[0].is_cuda else ():
-            if inter == (label in ("P", "B", "P10")):
+            # "batch8": a batch of key frames, the others one frame each
+            if (inter == (label in ("P", "B", "P10"))
+                    and label.startswith("batch") == (src[0].shape[0] > 1)):
                 cap = dict(src=src, maps=maps, lanes=lanes, table=table, args=args)
                 cap["maps"], cap["lanes"] = self.state(cap)
                 K16_CAPTURED[label] = cap
@@ -2648,13 +2867,16 @@ def check_commit_wave(torch, capture):
     dev = torch.device("cuda", 0)
     handoff = statistics.median(wavefront.handoff_ms(dev) for _ in range(3))
     out = {}
-    for label in ("fast", "key", "P", "B", "key10", "P10"):
+    for label in ("fast", "key", "P", "B", "key10", "P10", "batch8"):
         cap = K16_CAPTURED.get(label)
         if cap is None:
             raise SystemExit(f"commit_wave: no {label} schedule reached K16 in phase 4")
         src, table, args = cap["src"], cap["table"], cap["args"]
         pm, pl = capture.state(cap)
+        t_plain = time.perf_counter()
         wavefront.commit_wave_plain(src, pm, pl, table, *args)
+        torch.cuda.synchronize()
+        t_plain = (time.perf_counter() - t_plain) * 1e3
 
         def same(km, kl, name):
             """Max error against the wave loop's state; exits where unequal."""
@@ -2686,7 +2908,9 @@ def check_commit_wave(torch, capture):
             err = max(err, same(lm, ll, "the parent's commit_wave"))
         km, kl = capture.state(cap)
         ms = timed_ms(lambda: capture.real(src, km, kl, table, *args), 5)
-        plain_ms = timed_ms(lambda: wavefront.commit_wave_plain(src, pm, pl, table, *args), 2)
+        # the wave loop over a batch of 8 key frames takes seconds: timed once
+        plain_ms = (t_plain if label == "batch8" else
+                    timed_ms(lambda: wavefront.commit_wave_plain(src, pm, pl, table, *args), 2))
         extra = dict(device_ms=queued_ms(new, 10))
         if parent is not None:
             extra["baseline_device_ms"] = queued_ms(parent, 10)
@@ -2695,7 +2919,8 @@ def check_commit_wave(torch, capture):
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           handoff_ms=handoff, chain_ms=work["chain_ms"],
                           latency_bound_ms=max(b_ms, work["chain_ms"]), **extra)
-        log(json.dumps(dict(phase="commit_wave", schedule=label, waves=len(table.waves),
+        log(json.dumps(dict(phase="commit_wave", schedule=label, frames=int(src[0].shape[0]),
+                            waves=len(table.waves),
                             depth=work["depth"], tasks=len(table.tasks),
                             edges=len(wavefront.predecessors(table)[1]),
                             max_tasks=table.max_tasks,
@@ -3053,6 +3278,10 @@ def main() -> int:
     phase("fast", run_path, torch, "fast", FAST, 1, FAST_KERNELS, False)
     capture.expect("key")
     phase("medium", run_path, torch, "medium", MEDIUM, 2, KEY_KERNELS, True)
+    capture.expect("batch8")
+    phase("all-intra batched", run_intra_batch, torch)
+    capture.expect()
+    phase("10-bit all-intra batched", run_intra_batch, torch, 10)
     capture.expect("P")
     launches = phase("low-delay GOP", run_gop, torch)
     capture.expect("B")
@@ -3071,6 +3300,8 @@ def main() -> int:
                         **{k: [PATHS["1080p 10-bit CRF"][k], PATHS["1080p CRF"][k]]
                            for k in PATHS["1080p CRF"]})))
     phase("VBR GOP", run_vbr, torch)
+    phase("film grain", run_film_grain, torch)
+    phase("restoration", run_restoration, torch)
     phase("tiles", run_tiles, torch)
     phase("1080p decodes", decode_queued)
 

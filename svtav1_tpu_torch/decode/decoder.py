@@ -286,6 +286,36 @@ def parse_frame_header(payload: bytes, seq: SeqInfo, slot_hints=None,
                      reference_select=reference_select, film_grain=film_grain)
 
 
+def _obus(data: bytes):
+    """(obu_type, payload) of each OBU of a temporal unit."""
+    pos = 0
+    while pos < len(data):
+        header = data[pos]
+        assert (header & 0x80) == 0 and (header >> 1) & 1  # forbidden bit, has_size
+        size, pos = read_leb128(data, pos + 1)
+        yield (header >> 3) & 0xF, data[pos : pos + size]
+        pos += size
+
+
+def frame_headers(tus) -> list:
+    """The FrameInfo of every coded frame of a stream's temporal units, in
+    coding order, parsed without decoding the tiles: the slots' order
+    hints and global motion follow refresh_frame_flags, as in
+    Decoder._decode_frame."""
+    seq, hints, gms, out = None, [0] * 8, [[(0, 0)] * 8] * 8, []
+    for tu in tus:
+        for obu_type, payload in _obus(tu):
+            if obu_type == int(ObuType.OBU_SEQUENCE_HEADER):
+                seq = parse_sequence_header(payload)
+            elif obu_type == int(ObuType.OBU_FRAME):
+                fi = parse_frame_header(payload, seq, slot_hints=hints, slot_gms=gms)
+                out.append(fi)
+                for slot in range(8):
+                    if (fi.refresh_frame_flags >> slot) & 1:
+                        hints[slot], gms[slot] = fi.order_hint, fi.gm_mvs
+    return out
+
+
 @dataclass
 class Decoder:
     """Stateful decoder: sequence header + 8-slot DPB across temporal units."""
@@ -301,17 +331,8 @@ class Decoder:
         (y, u, v) is the frame DISPLAYED by this TU (None for hidden frames);
         recon_planes is the recon of the frame DECODED by this TU (None for
         show_existing_frame TUs)."""
-        pos = 0
         out = (None, None, None, None)
-        while pos < len(data):
-            header = data[pos]
-            obu_type = (header >> 3) & 0xF
-            has_size = (header >> 1) & 1
-            assert (header & 0x80) == 0 and has_size
-            pos += 1
-            size, pos = read_leb128(data, pos)
-            payload = data[pos : pos + size]
-            pos += size
+        for obu_type, payload in _obus(data):
             if obu_type == int(ObuType.OBU_SEQUENCE_HEADER):
                 self.seq = parse_sequence_header(payload)
             elif obu_type == int(ObuType.OBU_FRAME):

@@ -266,17 +266,29 @@ def check_ladder(ladder) -> None:
                              "secondary one needs the decoder's direction forcing")
 
 
-def cdef_frames(planes, src_y, nonskip8, damping: int, bd: int = 8, n_cand: int = 0):
+def sampled_cells(mask, stride: int):
+    """Every stride-th set cell, in raster order, of each frame's (F, R, C)
+    bool mask: the units that the reference's host CDEF search
+    (filters/cdef.search_strengths) samples from the non-skip 8x8 units. A
+    plain PyTorch mask."""
+    rank = torch.cumsum(mask.reshape(mask.shape[0], -1).to(torch.int32), dim=1) - 1
+    return mask & (rank.reshape(mask.shape) % stride == 0)
+
+
+def cdef_frames(planes, src_y, nonskip8, damping: int, bd: int = 8, n_cand: int = 0,
+                search_mask=None):
     """Search and apply CDEF for a batch of frames on their device
     (cdef_jax.cdef_frames_j). planes [y, u, v] (F, H, W) int32 post-DLF;
     src_y (F, H, W) int32; nonskip8 (F, H // 8, W // 8) bool. The ladder is
     SEARCH_CANDIDATES, or its first n_cand entries; each frame takes the
-    candidate of least masked luma SSE (ties to the first). Returns
+    candidate of least luma SSE over the cells of search_mask (default
+    nonskip8; ties to the first) and filters the cells of nonskip8. Returns
     (new planes, strengths (F, 4) int32 [y_pri, y_sec, uv_pri, uv_sec]).
     On the card: K6, then K7's two launches."""
     coeff_shift = max(bd - 8, 0)
     ladder = SEARCH_CANDIDATES[:n_cand] if n_cand else SEARCH_CANDIDATES
     check_ladder(ladder)
     dirs, var = find_dir(planes[0], coeff_shift)
-    sse = cdef_search(planes[0], dirs, var, nonskip8, src_y, ladder, damping, coeff_shift)
+    sse = cdef_search(planes[0], dirs, var, nonskip8 if search_mask is None else search_mask,
+                      src_y, ladder, damping, coeff_shift)
     return cdef_apply(planes, dirs, var, nonskip8, sse, ladder, damping, coeff_shift)

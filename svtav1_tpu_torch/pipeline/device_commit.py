@@ -428,27 +428,13 @@ def commit_regions(src_dev, params: FrameParams, leaves, dec, plans: list, regio
     return ry, ru, rv, skip8
 
 
-def _filter_device(ry, ru, rv, src_y8, skip8, flens: list, levels: tuple, sharpness: int,
-                   bd: int, damping: int, enable_cdef: bool, disp_dims=None, cdef_cands: int = 0,
-                   lf_search: tuple = ()):
-    """In-loop filters on the device (reference _filter_device): DLF (K4,
-    vertical then horizontal edges, one launch for the luma at every
-    searched level and one for U and V), then CDEF search and apply
-    (K6, K7), then display-edge replication (spec 7.11.3.4 MC clamp;
-    encoder.replicate_display_edges twin) when disp_dims=(width, height),
-    then the pack to one uint8 (bd 8) or int16 buffer.
-
-    flens: the six filter-length maps (plane, pass) as (F, rows/4, K) int32
-    device tensors; src_y8 (F, H, W) source luma; skip8 (F, H/8, W/8) bool.
-    lf_search: candidate luma levels (ascending); each is applied and the
-    one with the least luma SSE against the source wins per frame (ties to
-    the smaller level; the SSE is an exact int64 sum). Empty: apply
-    levels[0] / levels[1]. Returns (packed, stats (F, 5) int32 device tensor
-    [cdef y_pri, y_sec, uv_pri, uv_sec, lf_pick] with lf_pick the chosen
-    lf_search index or -1, the [y, u, v] (F, H, W) uint8 (bd 8) or int16
-    planes that `packed` concatenates: with disp_dims they can enter a
-    device DPB as they are)."""
-    from ..filters import cdef_torch, dlf_torch
+def _deblock_device(ry, ru, rv, src_y8, flens: list, levels: tuple, sharpness: int, bd: int,
+                    lf_search: tuple = ()):
+    """_filter_device's DLF (K4, vertical then horizontal edges, one launch
+    for the luma at every searched level and one for U and V) on the
+    (F, H, W) int32 recon planes. Returns ([y, u, v] int32 planes, lf_pick
+    (F,) int32: the chosen lf_search index or -1)."""
+    from ..filters import dlf_torch
 
     F = ry.shape[0]
     dev = ry.device
@@ -494,6 +480,34 @@ def _filter_device(ry, ru, rv, src_y8, skip8, flens: list, levels: tuple, sharpn
         keep = luma_on[:, None, None]
         planes = [y_out, torch.where(keep, uv_out[0], planes[1]),
                   torch.where(keep, uv_out[1], planes[2])]
+    return planes, lf_pick
+
+
+def _filter_device(ry, ru, rv, src_y8, skip8, flens: list, levels: tuple, sharpness: int,
+                   bd: int, damping: int, enable_cdef: bool, disp_dims=None, cdef_cands: int = 0,
+                   lf_search: tuple = ()):
+    """In-loop filters on the device (reference _filter_device): DLF (K4,
+    vertical then horizontal edges, one launch for the luma at every
+    searched level and one for U and V), then CDEF search and apply
+    (K6, K7), then display-edge replication (spec 7.11.3.4 MC clamp;
+    encoder.replicate_display_edges twin) when disp_dims=(width, height),
+    then the pack to one uint8 (bd 8) or int16 buffer.
+
+    flens: the six filter-length maps (plane, pass) as (F, rows/4, K) int32
+    device tensors; src_y8 (F, H, W) source luma; skip8 (F, H/8, W/8) bool.
+    lf_search: candidate luma levels (ascending); each is applied and the
+    one with the least luma SSE against the source wins per frame (ties to
+    the smaller level; the SSE is an exact int64 sum). Empty: apply
+    levels[0] / levels[1]. Returns (packed, stats (F, 5) int32 device tensor
+    [cdef y_pri, y_sec, uv_pri, uv_sec, lf_pick] with lf_pick the chosen
+    lf_search index or -1, the [y, u, v] (F, H, W) uint8 (bd 8) or int16
+    planes that `packed` concatenates: with disp_dims they can enter a
+    device DPB as they are)."""
+    from ..filters import cdef_torch
+
+    F = ry.shape[0]
+    dev = ry.device
+    planes, lf_pick = _deblock_device(ry, ru, rv, src_y8, flens, levels, sharpness, bd, lf_search)
     if enable_cdef:
         planes, strengths = cdef_torch.cdef_frames(
             [pl.contiguous() for pl in planes], src_y8.to(torch.int32), ~skip8, damping, bd=bd,
@@ -536,10 +550,70 @@ def _size_maps(leaves, F: int, R8: int, C8: int) -> np.ndarray:
     return sm
 
 
+def flen_maps(leaves, p: FrameParams, device) -> list:
+    """_filter_device's six DLF filter-length maps (plane, pass) of F frames
+    from their leaf lists, as int32 tensors on `device`. With
+    TX_MODE_LARGEST every filtered edge is a prediction-block edge, so the
+    skip/ref terms of the normative mask never suppress an edge and the
+    leaf size map alone gives the maps, for intra and inter frames alike."""
+    from ..filters import dlf_torch
+
+    sm = _size_maps(leaves, len(leaves), p.aligned_height // 8, p.aligned_width // 8)
+    return [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr, (p.width, p.height)),
+                            dtype=torch.int32, device=device)
+            for plane in range(3) for tr in (False, True)]
+
+
+def restoration_filters(ry, ru, rv, src_y8, skip8, leaves, p: FrameParams,
+                        enable_cdef: bool) -> list:
+    """The in-loop filters of the restoration route, on the device: DLF at
+    the frame's levels p.lf_levels (K4, no level search), then CDEF (K6,
+    K7) at the strengths the reference's host search picks
+    (filters/cdef.search_strengths: the whole ladder, the luma SSE over
+    every fourth non-skip 8x8 unit in raster order), and no
+    display-edge replication, since the restoration filter follows. The
+    (F, H, W) int32 recon planes, source luma and skip map are _filter_device's;
+    leaves: each frame's leaf list. Returns per frame (the CDEF output,
+    filt): host int32 planes, and filt = dict(lf_levels, cdef=(y_pri,
+    y_sec, uv_pri, uv_sec, damping), deblocked=the deblocked planes,
+    which the restoration search and filter read at stripe boundaries)."""
+    from ..filters import cdef as cdef_mod
+    from ..filters import cdef_torch
+
+    F = ry.shape[0]
+    with profiler.stage("filter"):
+        planes, _ = _deblock_device(ry, ru, rv, src_y8, flen_maps(leaves, p, ry.device),
+                                    p.lf_levels, p.lf_sharpness, p.bd)
+        damping, cdef_out = 3, planes
+        strengths = torch.zeros((F, 4), dtype=torch.int32, device=ry.device)
+        if enable_cdef:
+            damping = cdef_mod.pick_damping(p.qindex)
+            nonskip = ~skip8
+            cdef_out, strengths = cdef_torch.cdef_frames(
+                [pl.contiguous() for pl in planes], src_y8.to(torch.int32), nonskip, damping,
+                bd=p.bd, search_mask=cdef_torch.sampled_cells(nonskip, 4))
+        odt = torch.uint8 if p.bd == 8 else torch.int16
+        packed = torch.cat([pl.to(odt).reshape(F, -1) for pl in planes + cdef_out],
+                           dim=1).cpu().numpy()
+        strengths = strengths.cpu().numpy()
+    shapes = [tuple(pl.shape[1:]) for pl in planes] * 2
+    out = []
+    for f in range(F):
+        off, got = 0, []
+        for shp in shapes:
+            n = shp[0] * shp[1]
+            got.append(packed[f, off : off + n].reshape(shp).astype(np.int32))
+            off += n
+        out.append((got[3:], dict(lf_levels=tuple(p.lf_levels),
+                                  cdef=tuple(int(v) for v in strengths[f]) + (damping,),
+                                  deblocked=got[:3])))
+    return out
+
+
 def encode_intra_frames(src_frames: list, params: FrameParams, device,
                         apply_filters: bool = False, enable_dlf: bool = True,
                         enable_cdef: bool = True, use_arrays: bool | None = None,
-                        walk_fcs: list | None = None):
+                        walk_fcs: list | None = None, restoration: bool = False):
     """Device intra encoder over a BATCH of independent frames on `device`:
     per tile (tiles are prediction boundaries, so each region runs alone),
     batched open-loop decide at all sizes, host partition DP per frame and
@@ -551,19 +625,21 @@ def encode_intra_frames(src_frames: list, params: FrameParams, device,
     native walker (None when it is unavailable — the caller then walks the
     Plan). Tile 0 of frame f adapts walk_fcs[f] in place (its end state is
     the frame's stored context); later tiles restart from the
-    frame-initial state, as the spec decodes them.
+    frame-initial state, as the spec decodes them. restoration: the
+    filters of the restoration route instead (restoration_filters, CDEF
+    when enable_cdef), without payloads: the plan walk follows the
+    restoration search.
 
     Returns [(plan, recon, filt, payloads), ...] per frame: filt =
     dict(lf_levels, cdef=(y_pri, y_sec, uv_pri, uv_sec, damping)) when
-    apply_filters else None. src_frames: list of [y, u, v] plane lists
-    (aligned dims)."""
+    apply_filters (restoration: restoration_filters' filt) else None.
+    src_frames: list of [y, u, v] plane lists (aligned dims)."""
     from ..codec import array_plan
     from ..codec.tile_walk_native import run_tile_ops
     from ..constants.cdf import FrameContext
     from ..entropy import native
     from ..filters import cdef as cdef_mod
     from ..filters import dlf as dlf_mod
-    from ..filters import dlf_torch
     from . import device_decide
     from .intra_md import rd_lambda
 
@@ -573,7 +649,9 @@ def encode_intra_frames(src_frames: list, params: FrameParams, device,
     lam = float(rd_lambda(p.qindex, p.bd))
     aw, ah = p.aligned_width, p.aligned_height
     src_dev = device_decide.put_frames(src_frames, p.bd, device)
-    if use_arrays is None:
+    if restoration:
+        use_arrays = False
+    elif use_arrays is None:
         use_arrays = native.available() and not p.enable_filter_intra
     plans = [Plan() for _ in range(F)]
     if walk_fcs is None:
@@ -621,16 +699,15 @@ def encode_intra_frames(src_frames: list, params: FrameParams, device,
             rv[:, y0 // 2 : (y0 + rh) // 2, x0 // 2 : (x0 + rw) // 2] = c
             skip8[:, y0 // 8 : (y0 + rh) // 8, x0 // 8 : (x0 + rw) // 8] = s8
 
+    if restoration:
+        return [(plans[f], recon, filt, None) for f, (recon, filt) in enumerate(
+            restoration_filters(ry, ru, rv, src_dev[0], skip8, leaves_all, p, enable_cdef))]
     filt = [None] * F
     with profiler.stage("filter"):
         if apply_filters:
             levels = (dlf_mod.pick_filter_levels(p.qindex, p.bd, True, p.height)
                       if enable_dlf else (0, 0, 0, 0))
-            sm = _size_maps(leaves_all, F, ah // 8, aw // 8)
-            flens = [torch.as_tensor(
-                dlf_torch.flen_maps_from_sizes(sm, plane, tr, (p.width, p.height)),
-                dtype=torch.int32, device=ry.device)
-                     for plane in range(3) for tr in (False, True)]
+            flens = flen_maps(leaves_all, p, ry.device)
             damping = cdef_mod.pick_damping(p.qindex)
             lf_search = _lf_candidates(levels[0]) if p.sf_dlf_search else ()
             packed, stats, _planes = _filter_device(

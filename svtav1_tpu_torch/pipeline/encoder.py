@@ -28,14 +28,34 @@ every TU's size before the next frame's qindex, so each inter frame is
 finished (its TU written) before the next one starts. `scene_cut`
 codes a key frame where the source changes abruptly.
 
+All-intra streams (`keyint=1`, CQP, no scene cut, no restoration) with
+`intra_batch > 1` queue that many frames and code them as one batch: one
+decide, one K16 commit launch and one filter pass over the batch
+(`device_commit.encode_intra_frames`), then each frame's header and TU in
+display order; elsewhere `intra_batch` is ignored, as in the reference.
+
+`enable_restoration` takes the reference's synchronous route: the decide,
+the commit, deblocking and CDEF run on the device (CDEF's strengths from
+the reference's host search, device_commit.restoration_filters), the
+deblocked and CDEF-filtered planes come to the host, and the host runs the
+loop-restoration search per plane (filters/restoration.py), the plan walk
+with the restoration units, and the restoration filter; the result enters
+the device DPB. Compound prediction is off there, as in the reference.
+
+`film_grain` (a strength, the grain estimated once from the first source
+frame) or `film_grain_table` (an aomenc "filmgrn1" table) signal film grain
+parameters in every frame header (filters/film_grain.py); the recon does
+not change, a decoder adds the grain to its output.
+
 This slice supports every preset ("fast", "medium", "slow"), 8- and 10-bit
 (`bd`, on every path: CRF's TPL and the tile encoders too), DLF
 and CDEF each on or off, translation global motion, CDF inheritance, the
 HDR metadata OBUs of key frames, and uniform tiles (`tile_cols_log2`,
 `tile_rows_log2`) in all-intra streams (`keyint=1`): each tile is decided,
 committed and walked on its own, the filters run over the whole frame.
-Inter frames are single-tile, as in the reference (ValueError). Every other
-setting raises NotImplementedError naming the ROADMAP item that brings it.
+Inter frames are single-tile, as in the reference (ValueError).
+Filter-intra raises NotImplementedError naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -123,9 +143,6 @@ PRESET_RDOQ = {"fast": False, "medium": True, "slow": True}
 
 # setting -> (is it outside this slice?, the ROADMAP queue 1 item that brings it)
 _UNSUPPORTED = (
-    (lambda c: c.enable_restoration, "enable_restoration", "restoration"),
-    (lambda c: bool(c.film_grain or c.film_grain_table), "film_grain", "film grain"),
-    (lambda c: c.intra_batch > 1, "intra_batch > 1", "intra batching"),
     (lambda c: c.enable_filter_intra, "enable_filter_intra", "filter-intra"),
 )
 
@@ -198,11 +215,23 @@ class Encoder:
         self.cfg = cfg
         self._sf = PRESETS[cfg.preset]
         self._rdoq = PRESET_RDOQ[cfg.preset] and cfg.enable_rdoq
+        self._grain_table = None
+        if cfg.film_grain_table:
+            from ..filters.film_grain import load_fgs_table
+
+            self._grain_table = load_fgs_table(cfg.film_grain_table)
+        self._grain_est = None  # the noise model's parameters (estimated once)
+        self._grain_src0 = None  # the first source frame, held for the estimate
         self.seq = SequenceConfig(width=cfg.width, height=cfg.height, bd=cfg.bd,
                                   enable_cdef=cfg.enable_cdef,
                                   enable_restoration=cfg.enable_restoration,
                                   enable_filter_intra=cfg.enable_filter_intra,
-                                  film_grain_params_present=False)
+                                  film_grain_params_present=bool(
+                                      cfg.film_grain or cfg.film_grain_table))
+        # all-intra batches: frames wait in _ibatch until intra_batch are queued
+        self._ibatch: list = []
+        self._batching = (cfg.intra_batch > 1 and cfg.keyint <= 1 and cfg.rc_mode == "cqp"
+                          and not cfg.scene_cut and not cfg.enable_restoration)
         self.next_disp = 0  # next display index expected from the caller
         self.anchor = -1  # display idx of the last coded anchor
         self.pending: list = []  # buffered (disp_idx, src_planes)
@@ -255,11 +284,45 @@ class Encoder:
 
     TF_PAST, TF_FUT = 2, 3  # MCTF window (the reference's derive_tf_window_params)
 
+    def _grain_for(self, disp_idx: int):
+        """Film grain parameters of one display frame (None when grain is
+        off). A table's segments select by display index; otherwise the
+        flat-block noise model runs once on the first source frame, with
+        the synthetic table of the strength as the clean-source fallback.
+        The seed advances per frame, so the grain pattern changes from frame
+        to frame."""
+        cfg = self.cfg
+        if not (cfg.film_grain or self._grain_table):
+            return None
+        from dataclasses import replace
+
+        from ..filters import film_grain as fg
+
+        if self._grain_table is not None:
+            p = fg.select_params(self._grain_table, disp_idx)
+            if p is None or not p.apply_grain:
+                return None
+            return replace(p, update_grain=1,
+                           grain_seed=(p.grain_seed + disp_idx * 3083) & 0xFFFF)
+        if self._grain_est is None:
+            est = None
+            if self._grain_src0 is not None:
+                est = fg.estimate_params(self._grain_src0, bd=cfg.bd,
+                                         strength_scale=cfg.film_grain / 8.0)
+            self._grain_est = est or fg.synthetic_params(cfg.film_grain)
+            self._grain_src0 = None
+        return replace(self._grain_est, grain_seed=(7391 + disp_idx * 3083) & 0xFFFF)
+
     def send_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray) -> list:
         """Feed one display-order frame; returns the ready packets (coding
         order). An inter frame's packet is returned by a later call (or by
         flush); with MCTF, frames first wait in a short lookahead queue so
-        that key frames and anchors are filtered with future neighbours."""
+        that key frames and anchors are filtered with future neighbours;
+        with intra batching, frames wait until a batch is full."""
+        if (self.cfg.film_grain and self._grain_table is None
+                and self._grain_est is None and self._grain_src0 is None):
+            # the grain is estimated on the source as it comes in, before MCTF
+            self._grain_src0 = (np.asarray(y), np.asarray(u), np.asarray(v))
         if not self._tf:
             return self._send_frame_inner(y, u, v)
         self._tf_q.append(tuple(np.asarray(p, np.int32) for p in (y, u, v)))
@@ -306,6 +369,11 @@ class Encoder:
         is_key = cfg.keyint <= 1 or d % cfg.keyint == 0
         if self.scene is not None and self.scene.is_cut(src[0]) and d > 0:
             is_key = True
+        if self._batching:
+            self._ibatch.append((d, src))
+            if len(self._ibatch) >= cfg.intra_batch:
+                return self._encode_intra_batch()
+            return []
         if self._crf:
             self._crf_pending.append((d, src, is_key))
             if len(self._crf_pending) >= max(cfg.lookahead, cfg.minigop + 1):
@@ -325,6 +393,8 @@ class Encoder:
 
     def flush(self) -> list:
         packets = self._tf_drain(final=True) if self._tf else []
+        if self._ibatch:  # a partial last batch
+            packets += self._encode_intra_batch()
         if self._crf:
             return packets + self._drain_crf(final=True) + self._pipe_drain()
         return packets + self._drain_pending() + self._pipe_drain()
@@ -332,9 +402,10 @@ class Encoder:
     def encode_frame(self, y, u, v):
         """Synchronous helper of low-delay configurations (minigop == 1, no
         MCTF, no CRF): returns (tu_bytes, recon_planes) of this display frame."""
-        if self.cfg.minigop != 1 or self._tf or self._crf:
+        if self.cfg.minigop != 1 or self._tf or self._crf or self._batching:
             raise ValueError("encode_frame codes low-delay frames one at a time (minigop=1, "
-                             "no MCTF, no CRF lookahead); use send_frame and flush")
+                             "no MCTF, no CRF lookahead, no intra batching); use send_frame "
+                             "and flush")
         pkts = self.send_frame(y, u, v) + self._pipe_drain()
         if len(pkts) != 1:
             raise RuntimeError(f"encode_frame expected one packet, got {len(pkts)}")
@@ -611,7 +682,51 @@ class Encoder:
             self._cdf_slots[slot] = saved_ctx
             self._gm_slots[slot] = tuple(p.gm_mvs)
 
+    def _walk(self, p, plan, walk_fc) -> list:
+        """The entropy payloads of a plan, one per tile: tile 0 adapts
+        walk_fc in place (its end state is the stored frame context), later
+        tiles restart from the frame-initial state."""
+        with profiler.stage("entropy_walk"):
+            fc_init = walk_fc.clone()
+            return [TileCodec(p, walk_fc if i == 0 else fc_init.clone(), tile=t).encode(plan)
+                    for i, t in enumerate(p.tiles())]
+
+    def _restore(self, p, plan, recon: list, filt: dict, src: list, walk_fc) -> list:
+        """The host half of the restoration route (the reference's
+        _encode_one under enable_restoration), after the device filters
+        (device_commit.restoration_filters): the loop-restoration search of
+        each plane on the CDEF output `recon` against the deblocked planes,
+        the plan walk with the restoration units, then the restoration
+        filter. recon is filtered in place; returns the payloads."""
+        from ..filters import restoration as lr_mod
+        from .intra_md import rd_lambda
+
+        cfg = self.cfg
+        deblocked = filt["deblocked"]
+
+        def plane_args(plane):
+            sub = 1 if plane else 0
+            return (p.lr_unit_size(plane), (cfg.width + sub) >> sub, (cfg.height + sub) >> sub,
+                    sub, p.bd, plane > 0)
+
+        with profiler.stage("lr_search"):
+            lam = float(rd_lambda(p.qindex, p.bd))
+            found = [lr_mod.search_plane(src[pl], recon[pl], deblocked[pl], *plane_args(pl), lam)
+                     for pl in range(3)]
+            p.lr_types = tuple(ftype for ftype, _ in found)
+            plan.lr_units = [units for _, units in found]
+        payloads = self._walk(p, plan, walk_fc)
+        with profiler.stage("lr_apply"):
+            for pl in range(3):
+                if p.lr_types[pl] != lr_mod.RESTORE_NONE:
+                    recon[pl] = lr_mod.apply_lr_plane(recon[pl], deblocked[pl], plan.lr_units[pl],
+                                                      *plane_args(pl))
+        return payloads
+
     def _encode_key(self, disp_idx: int, src: list, qindex_override=None) -> Packet:
+        """Decide, commit and filter one key frame, then _finish_key. Under
+        restoration the restoration route's filters run and _restore
+        follows."""
         from . import device_commit
 
         cfg = self.cfg
@@ -619,17 +734,48 @@ class Encoder:
         p = setup["p"]
         self._gm_estimate(p, disp_idx, True, None, src)
         walk_fc = FrameContext(p.qindex)
-        plan, recon, filt, payloads = device_commit.encode_intra_frames(
-            [src], p, self.device, apply_filters=cfg.enable_dlf or cfg.enable_cdef,
-            enable_dlf=cfg.enable_dlf, enable_cdef=cfg.enable_cdef, walk_fcs=[walk_fc])[0]
-        if payloads is None:
-            with profiler.stage("entropy_walk"):
-                # tile 0 adapts walk_fc in place; later tiles restart from the
-                # frame-initial state
-                fc_init = walk_fc.clone()
-                payloads = [TileCodec(p, walk_fc if i == 0 else fc_init.clone(), tile=t)
-                            .encode(plan) for i, t in enumerate(p.tiles())]
+        if cfg.enable_restoration:
+            plan, recon, filt, _ = device_commit.encode_intra_frames(
+                [src], p, self.device, enable_cdef=cfg.enable_cdef, walk_fcs=[walk_fc],
+                restoration=True)[0]
+            payloads = self._restore(p, plan, recon, filt, src, walk_fc)
+        else:
+            plan, recon, filt, payloads = device_commit.encode_intra_frames(
+                [src], p, self.device, apply_filters=cfg.enable_dlf or cfg.enable_cdef,
+                enable_dlf=cfg.enable_dlf, enable_cdef=cfg.enable_cdef, walk_fcs=[walk_fc])[0]
+        return self._finish_key(disp_idx, setup, plan, recon, filt, payloads, walk_fc)
 
+    def _encode_intra_batch(self) -> list:
+        """Code the queued all-intra frames as one batch: one qindex, one
+        device_commit.encode_intra_frames call (the decide, one K16 launch
+        and one filter pass over the batch), then each frame's _finish_key
+        in display order."""
+        from . import device_commit
+
+        cfg = self.cfg
+        batch, self._ibatch = self._ibatch, []
+        q = self._frame_qindex(True, 0)
+        setups = [self._frame_setup(d, True, 0, None, None, q) for d, _ in batch]
+        walk_fcs = [FrameContext(q) for _ in batch]
+        outs = device_commit.encode_intra_frames(
+            [src for _, src in batch], setups[0]["p"], self.device,
+            apply_filters=cfg.enable_dlf or cfg.enable_cdef, enable_dlf=cfg.enable_dlf,
+            enable_cdef=cfg.enable_cdef, walk_fcs=walk_fcs)
+        packets = []
+        for (d, _), setup, out, walk_fc in zip(batch, setups, outs, walk_fcs):
+            packets.append(self._finish_key(d, setup, *out, walk_fc))
+            self.anchor = d
+        return packets
+
+    def _finish_key(self, disp_idx: int, setup: dict, plan, recon: list, filt, payloads,
+                    walk_fc) -> Packet:
+        """A committed key frame's header, TU, DPB entry and saved contexts.
+        filt: the filter levels and CDEF strengths the frame was filtered
+        with (None: unfiltered); payloads None: walk the plan here."""
+        cfg = self.cfg
+        p = setup["p"]
+        if payloads is None:
+            payloads = self._walk(p, plan, walk_fc)
         cdef_y, cdef_uv, cdef_damping = ((0, 0),), ((0, 0),), 3
         hdr_lf = p.lf_levels
         if filt is not None:
@@ -649,19 +795,23 @@ class Encoder:
                          lr_types=p.lr_types, lr_unit_shift=p.lr_unit_shift,
                          lr_uv_shift=p.lr_uv_shift,
                          reference_select=p.reference_select, skip_mode_allowed=False,
-                         gm_mvs=p.gm_mvs, prev_gm_mvs=None, film_grain=None)
+                         gm_mvs=p.gm_mvs, prev_gm_mvs=None,
+                         film_grain=self._grain_for(disp_idx))
         tu = self._write_tu(fr, payloads, self._metadata_obus())
         # keys park in slot 7 (they refresh all slots) so the GOLDEN
         # reference survives the rotating non-key slots 0..6; nothing coded
         # before a key can be referenced after it
         slot, _ = self._dpb_assign(disp_idx, True, "auto")
         if cfg.keyint > 1:
-            dt = plane_np_dtype(cfg.bd)
-            self.dpb = {disp_idx: {"planes": [torch.from_numpy(pl.astype(dt)).to(self.device)
-                                              for pl in recon],
+            self.dpb = {disp_idx: {"planes": self._upload(recon),
                                    "order_hint": setup["order_hint"], "slot": slot}}
         self._save_contexts(walk_fc, p, slot, True)
         return Packet(tu=tu, disp_idx=disp_idx, recon=recon, shown_disp_idx=disp_idx)
+
+    def _upload(self, recon: list) -> list:
+        """Host recon planes as device DPB planes (uint8, int16 at 10 bits)."""
+        dt = plane_np_dtype(self.cfg.bd)
+        return [torch.from_numpy(pl.astype(dt)).to(self.device) for pl in recon]
 
     # --------------------------------------------------- pipelined inter path
 
@@ -684,7 +834,8 @@ class Encoder:
         frames on the host (overlapping the device), then dispatch commit and
         filters and queue the host finish. Under rate control the next
         frame's qindex needs this frame's size, so the frame is finished at
-        once."""
+        once. Under restoration the frame is coded synchronously
+        (_encode_restored)."""
         from . import inter_device
 
         cfg = self.cfg
@@ -694,34 +845,68 @@ class Encoder:
         refs_dev, ref_ids = self._stack_refs(setup["refs"])
         pend = inter_device.inter_start_decide(src, p, refs_dev, p.interp_filter, ref_ids)
         out = self._pipe_drain()  # host walks of older frames overlap the decide
+        st = dict(setup=setup, show=show, disp_idx=disp_idx)
+        if cfg.enable_restoration:
+            return out + [self._encode_restored(st, pend, src, dpb_slot)]
         pend = inter_device.inter_start_commit(pend, enable_dlf=cfg.enable_dlf,
                                                enable_cdef=cfg.enable_cdef)
-        slot, refresh = self._dpb_assign(disp_idx, False, dpb_slot)
-        self.dpb[disp_idx] = {"planes": pend.dpb_planes, "order_hint": setup["order_hint"],
-                              "slot": slot}
-        self._pipe.append(("frame", dict(pend=pend, setup=setup, show=show, disp_idx=disp_idx,
-                                         slot=slot, refresh=refresh)))
+        self._dpb_enter(st, dpb_slot, pend.dpb_planes)
+        self._pipe.append(("frame", dict(st, pend=pend)))
         if self.rc is not None:
             out += self._pipe_drain()
         return out
 
-    def _pipe_finish(self, st: dict) -> Packet:
-        from ..entropy.bitstream import skip_mode_allowed
+    def _encode_restored(self, st: dict, pend, src: list, dpb_slot) -> Packet:
+        """The restoration route's inter frame, synchronously: the commit
+        and the restoration route's filters on the device
+        (inter_device.inter_commit_restoration), _restore on the host, the
+        DPB entry uploaded to the device, then _finish_inter."""
         from . import inter_device
 
+        p = st["setup"]["p"]
+        walk_fc, primary_ref = self._inter_context(p, st["setup"]["ref_slot"])
+        plan, recon, filt = inter_device.inter_commit_restoration(
+            pend, enable_cdef=self.cfg.enable_cdef)
+        payloads = self._restore(p, plan, recon, filt, src, walk_fc)
+        replicate_display_edges(recon, self.cfg.width, self.cfg.height)
+        self._dpb_enter(st, dpb_slot, self._upload(recon))
+        return self._finish_inter(st, walk_fc, primary_ref, recon, filt, payloads)
+
+    def _dpb_enter(self, st: dict, dpb_slot, planes: list) -> None:
+        """An inter frame's DPB slot, refresh flag (into st) and DPB entry of
+        its device planes."""
+        st["slot"], st["refresh"] = self._dpb_assign(st["disp_idx"], False, dpb_slot)
+        self.dpb[st["disp_idx"]] = {"planes": planes, "order_hint": st["setup"]["order_hint"],
+                                    "slot": st["slot"]}
+
+    def _inter_context(self, p, ref_slot) -> tuple:
+        """(frame-initial CDFs, primary_ref_frame) of an inter frame: the
+        LAST reference's saved context under CDF inheritance, else the
+        defaults and PRIMARY_REF_NONE."""
+        if self.cfg.cdf_inheritance:
+            saved = self._cdf_slots[ref_slot[0]]
+            if saved is not None:
+                return saved.clone(), 0  # LAST
+        return FrameContext(p.qindex), 7
+
+    def _pipe_finish(self, st: dict) -> Packet:
+        from . import inter_device
+
+        setup = st["setup"]
+        walk_fc, primary_ref = self._inter_context(setup["p"], setup["ref_slot"])
+        _, recon, filt, payloads = inter_device.inter_finish(st["pend"], walk_fc)
+        return self._finish_inter(st, walk_fc, primary_ref, recon, filt, payloads)
+
+    def _finish_inter(self, st: dict, walk_fc, primary_ref: int, recon: list, filt: dict,
+                      payloads: list) -> Packet:
+        """An inter frame's header, TU and saved contexts."""
+        from ..entropy.bitstream import skip_mode_allowed
+
         cfg = self.cfg
-        setup, pend = st["setup"], st["pend"]
+        setup = st["setup"]
         p, ref_slot = setup["p"], setup["ref_slot"]
         slot, refresh = st["slot"], st["refresh"]
         disp_idx, show = st["disp_idx"], st["show"]
-        primary_ref = 7  # PRIMARY_REF_NONE
-        walk_fc = FrameContext(p.qindex)
-        if cfg.cdf_inheritance:
-            saved = self._cdf_slots[ref_slot[0]]
-            if saved is not None:
-                walk_fc = saved.clone()
-                primary_ref = 0  # LAST
-        plan, recon, filt, payloads = inter_device.inter_finish(pend, walk_fc)
         ypri, ysec, upri, usec, cdef_damping = filt["cdef"]
         fr = FrameConfig(qindex=p.qindex, disable_cdf_update=p.disable_cdf_update,
                          show_frame=show,
@@ -734,13 +919,15 @@ class Encoder:
                          cdef_uv=((upri, usec),),
                          primary_ref_frame=primary_ref,
                          frame_end_update_cdf=cfg.cdf_inheritance,
+                         lr_types=p.lr_types, lr_unit_shift=p.lr_unit_shift,
+                         lr_uv_shift=p.lr_uv_shift,
                          reference_select=p.reference_select,
                          skip_mode_allowed=bool(p.reference_select) and skip_mode_allowed(
                              p.order_hint, p.order_hint_bits, list(p.ref_hints[1:])),
                          gm_mvs=p.gm_mvs,
                          prev_gm_mvs=(self._gm_slots[ref_slot[primary_ref]]
                                       if primary_ref != 7 else None),
-                         film_grain=None)
+                         film_grain=self._grain_for(disp_idx))
         tu = self._write_tu(fr, payloads[0])
         if refresh:
             self._save_contexts(walk_fc, p, slot, False)

@@ -27,7 +27,9 @@ Partition RD and the commit are shared with the intra pipeline
 codes the inter blocks from K10 predictions, and the compound blocks from
 K11's). A frame runs in three phases so that its host work can overlap the
 next frame's device work: inter_start_decide, inter_start_commit (the DPB
-planes stay on the device) and inter_finish.
+planes stay on the device) and inter_finish. The restoration route instead
+follows inter_start_decide with inter_commit_restoration: the commit and
+its filters, the recon on the host for the restoration search.
 """
 from __future__ import annotations
 
@@ -434,20 +436,21 @@ def inter_start_decide(src_planes, params: FrameParams, refs_dev, which: int,
     return pend
 
 
-def inter_start_commit(pend: PendingInter, enable_dlf: bool = True, enable_cdef: bool = True,
-                       sharpness: int = 0) -> PendingInter:
+def _commit(pend: PendingInter, array_out: bool):
+    """The commit half of a started frame: fetch the decide (the frame's one
+    mandatory sync), the host partition DP, then the commit on the device
+    (commit_regions; the levels' fetch is left to finish_levels with
+    array_out). Sets pend.plan, pend.tree and pend.region; returns (leaves,
+    commit_regions' output)."""
     from ..codec.tile_codec import Plan
     from ..constants.cdf import FrameContext
-    from ..filters import cdef as cdef_mod
-    from ..filters import dlf_torch
     from . import device_commit
     from .intra_md import rd_lambda
 
     p = pend.p
     fc = FrameContext(p.qindex)
     lam = float(rd_lambda(p.qindex, p.bd))
-    aw, ah = p.aligned_width, p.aligned_height
-    region = (0, 0, aw, ah)
+    region = (0, 0, p.aligned_width, p.aligned_height)
     with profiler.stage("decide"):
         flat = pend.flat.cpu().numpy()
     del pend.flat
@@ -456,26 +459,30 @@ def inter_start_commit(pend: PendingInter, enable_dlf: bool = True, enable_cdef:
         partitions, leaves, tree = device_decide.partition_dp(dec, p, fc, lam, region)
     plan = Plan()
     plan.partitions.update(partitions)
-    ry, ru, rv, skip8, aux = device_commit.commit_regions(
+    out = device_commit.commit_regions(
         pend.src_dev, p, [leaves], [dec], [plan], region, refs_dev=pend.refs_dev,
-        ref_ids=pend.ref_ids, which=pend.which, array_out=True, fetch_levels=False)
-    # DLF filter-length maps from the leaf size map alone: with
-    # TX_MODE_LARGEST every filtered edge is a prediction-block edge, so the
-    # skip/ref terms of the normative mask never suppress an edge
+        ref_ids=pend.ref_ids, which=pend.which, array_out=array_out, fetch_levels=False)
+    pend.plan, pend.tree, pend.region = plan, tree, region
+    return leaves, out
+
+
+def inter_start_commit(pend: PendingInter, enable_dlf: bool = True, enable_cdef: bool = True,
+                       sharpness: int = 0) -> PendingInter:
+    from ..filters import cdef as cdef_mod
+    from . import device_commit
+
+    p = pend.p
+    leaves, (ry, ru, rv, skip8, aux) = _commit(pend, array_out=True)
     with profiler.stage("filter"):
         levels = p.lf_levels if (enable_dlf and any(p.lf_levels)) else (0, 0, 0, 0)
-        sm = device_commit._size_maps([leaves], 1, ah // 8, aw // 8)
-        flens = [torch.as_tensor(dlf_torch.flen_maps_from_sizes(sm, plane, tr, (p.width, p.height)),
-                                 dtype=torch.int32, device=ry.device)
-                 for plane in range(3) for tr in (False, True)]
+        flens = device_commit.flen_maps([leaves], p, ry.device)
         damping = cdef_mod.pick_damping(p.qindex)
         lf_search = device_commit._lf_candidates(levels[0]) if p.sf_dlf_search else ()
         packed, stats, planes = device_commit._filter_device(
             ry, ru, rv, pend.src_dev[0], skip8, flens, tuple(levels), sharpness, p.bd, damping,
             enable_cdef, disp_dims=(p.width, p.height), cdef_cands=4 if p.sf_cdef_fast else 0,
             lf_search=lf_search)
-    pend.plan, pend.tree, pend.aux = plan, tree, aux
-    pend.region = region
+    pend.aux = aux
     pend.lf_levels = tuple(levels)
     pend.lf_search = lf_search
     pend.damping = damping
@@ -484,6 +491,24 @@ def inter_start_commit(pend: PendingInter, enable_dlf: bool = True, enable_cdef:
     pend.src_dev = None
     pend.refs_dev = None
     return pend
+
+
+def inter_commit_restoration(pend: PendingInter, enable_cdef: bool = True) -> tuple:
+    """The restoration route's inter frame, synchronously, after
+    inter_start_decide (the reference's encode_inter_frame_device(...,
+    use_arrays=False, apply_filters=False) and its host DLF and CDEF): the
+    commit, then device_commit.restoration_filters on the device. The plan
+    walk is left to the caller, after the restoration search. Returns
+    (plan, the CDEF output as host int32 planes, filt with the deblocked
+    planes)."""
+    from . import device_commit
+
+    leaves, (ry, ru, rv, skip8) = _commit(pend, array_out=False)
+    [(recon, filt)] = device_commit.restoration_filters(ry, ru, rv, pend.src_dev[0], skip8,
+                                                        [leaves], pend.p, enable_cdef)
+    pend.src_dev = None
+    pend.refs_dev = None
+    return pend.plan, recon, filt
 
 
 def inter_finish(pend: PendingInter, walk_fc) -> tuple:

@@ -32,6 +32,10 @@ Run on a GPU machine from the repository root:
         --rc crf --lookahead 16
 --rc crf codes the GOP under CRF: TPL over lookahead windows (stage tpl, on
 K1, K8, K10, K14, K15) sets each frame's qindex, inside the measurement.
+    python -m svtav1_tpu_torch.utils.profile_keyframes --frames 8 --intra-batch 8
+codes the N key frames as batches of --intra-batch frames (send_frame +
+flush: one decide, one K16 launch and one filter pass per batch), after a
+warm run of the same frames.
 """
 from __future__ import annotations
 
@@ -381,6 +385,8 @@ def main() -> int:
     ap.add_argument("--rc", choices=("cqp", "crf"), default="cqp",
                     help="rate control: crf runs TPL over lookahead windows (needs --keyint > 1)")
     ap.add_argument("--lookahead", type=int, default=16, help="CRF's TPL window in frames")
+    ap.add_argument("--intra-batch", type=int, default=1,
+                    help="key frames (--keyint 1): code them in batches of this many frames")
     args = ap.parse_args()
 
     import torch
@@ -396,6 +402,7 @@ def main() -> int:
     from .testclip import make_frames
 
     gop = args.keyint > 1
+    batched = not gop and args.intra_batch > 1
     n = args.keyint - 1 if gop else args.frames
     frames = make_frames(args.width, args.height, n + 1, seed=args.seed, bd=args.bd)
 
@@ -404,11 +411,16 @@ def main() -> int:
                                      keyint=args.keyint, minigop=args.minigop,
                                      enable_tf=args.enable_tf, preset=args.preset,
                                      enable_cdef=not args.no_cdef, bd=args.bd, rc_mode=args.rc,
-                                     lookahead=args.lookahead), device="cuda")
+                                     lookahead=args.lookahead, intra_batch=args.intra_batch),
+                       device="cuda")
 
     enc = encoder()
     if gop:  # a short warm GOP (with minigop > 1 a key frame and a 2-frame mini-GoP)
         for f in frames[: 2 if args.minigop == 1 else 3]:
+            enc.send_frame(*f)
+        enc.flush()
+    elif batched:  # the measured frames' batches, warm
+        for f in frames[1:]:
             enc.send_frame(*f)
         enc.flush()
     else:
@@ -429,8 +441,8 @@ def main() -> int:
         or n more key frames."""
         t0 = time.perf_counter()
         for f in frames[1:]:
-            enc.send_frame(*f) if gop else enc.encode_frame(*f)
-        if gop:
+            enc.send_frame(*f) if gop or batched else enc.encode_frame(*f)
+        if gop or batched:
             enc.flush()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
@@ -470,6 +482,7 @@ def main() -> int:
         size=[args.width, args.height], bd=args.bd, preset=args.preset, cdef=not args.no_cdef,
         keyint=args.keyint, minigop=args.minigop, enable_tf=args.enable_tf, rc=args.rc,
         lookahead=args.lookahead if args.rc == "crf" else None, frames=n,
+        intra_batch=args.intra_batch if batched else 1,
         measured=("key frames" if not gop else "P frames" if args.minigop == 1 else "B frames")
         + (" (and the key frame's MCTF and encode)" if gop and args.enable_tf
            else " (and the key frame's encode)" if gop and args.rc == "crf" else ""),

@@ -1,8 +1,11 @@
 """Compare the deterministic records of two `chip_smoke.py` logs, a parent
 commit's and a change's: what a change that only makes a kernel faster must
 leave as it was. Those are the fields of DETERMINISTIC (bytes, Y-PSNR,
-qindex and r0, achieved kbps, waves, decode and CPU-equality flags,
-kernels' errors and differing counts) on every record the two logs share.
+qindex and r0, achieved kbps, waves, K16's tasks and depth, decode and
+CPU-equality flags, kernels' errors and differing counts, the batched
+path's launches and equality with the unbatched one, the restoration types
+and the bytes and Y-PSNR beside them, the grain parameters) on every
+record the two logs share.
 A record is a JSON line: `check` lines are matched by kernel and shape,
 `phase` lines by phase, preset or path, bit depth and their order among
 equal keys. Times, rates and records only one log has are not compared.
@@ -26,6 +29,10 @@ DETERMINISTIC = (
     "exit_code", "checked_tus", "max_abs_err", "differing_samples", "changed_samples",
     "differing_lanes", "changed_levels", "flat_samples", "h2", "cells_on",
     "lanes_without_neighbour",
+    # the batched all-intra, restoration and film grain paths
+    "tus_equal_unbatched", "waves_unbatched", "launches_per_batch", "lr_types",
+    "bytes_no_restoration", "y_psnr_no_restoration", "bytes_no_grain",
+    "recon_equal_without_grain", "output_recon_plus_grain", "grain", "tasks", "depth",
 )
 
 

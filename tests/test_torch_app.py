@@ -2,9 +2,10 @@
 in, an IVF out whose TUs are the library encoder's, every TU decoded and
 checked with --verify (CQP random access, CRF, two-pass VBR); the first
 pass's stats file and the HDR metadata OBUs of key-frame TUs are the JAX
-package's bytes; and flags whose settings are not in the port yet raise
-NotImplementedError naming their ROADMAP item (tiles with inter frames,
-which the reference refuses too, its ValueError)."""
+package's bytes; --enable-restoration, --intra-batch, --film-grain and
+--fgs-table encode streams that the port's decoder and libaom decode; and
+tiles with inter frames, which the reference refuses too, raise its
+ValueError."""
 import numpy as np
 import pytest
 
@@ -116,11 +117,7 @@ REFUSED = {"tiles": (ValueError, "inter frames are single-tile")}
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--enable-restoration"], "restoration"),
     (["--keyint", "8", "--tile-columns", "1"], "tiles"),
-    (["--intra-batch", "2"], "intra batching"),
-    (["--film-grain", "10"], "film grain"),
-    (["--fgs-table", "grain.tbl"], "film grain"),
 ])
 def test_flags_outside_the_port_raise(tmp_path, flags, item):
     src = tmp_path / "in.y4m"
@@ -129,3 +126,34 @@ def test_flags_outside_the_port_raise(tmp_path, flags, item):
     with pytest.raises(exc, match=match):
         app.main(["-i", str(src), "-b", str(tmp_path / "out.ivf"), "--device", "cpu", *flags])
     assert not (tmp_path / "out.ivf").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--keyint", "4", "--enable-restoration"],
+    ["--intra-batch", "2"],
+    ["--keyint", "4", "--film-grain", "10"],
+    ["--keyint", "4", "--fgs-table", "grain.tbl"],
+], ids=["restoration", "intra_batch", "film_grain", "fgs_table"])
+def test_flags_encode(tmp_path, flags):
+    """Each flag encodes a 3-frame clip with --verify (the encoder's recon
+    against the port's decoder; three frames in batches of 2 leave a
+    partial batch); the IVF decodes, in the port's decoder and in libaom,
+    to three shown frames (with grain: the recon plus the grain). The
+    grain table is one the test writes."""
+    from svtav1_tpu_torch.decode.decoder import Decoder
+    from svtav1_tpu_torch.filters import film_grain as fg
+    from torch_encode_parity import check_libaom
+
+    w = h = 64
+    src, out = tmp_path / "in.y4m", tmp_path / "out.ivf"
+    write_y4m(str(src), make_frames(w, h, 3, seed=9), w, h)
+    if "--fgs-table" in flags:
+        flags = flags[:-1] + [str(tmp_path / flags[-1])]
+        fg.save_fgs_table(flags[-1], [(0, 9999999, fg.synthetic_params(20))])
+    assert app.main(["-i", str(src), "-b", str(out), "--device", "cpu", "--verify",
+                     *flags]) == 0
+    tus = read_ivf(str(out))[0]
+    dec = Decoder()
+    shown = [d[:3] for d in map(dec.decode_tu, tus) if d[0] is not None]
+    assert len(shown) == 3 and all(y.shape == (h, w) for y, _, _ in shown)
+    check_libaom(tus, shown)

@@ -137,19 +137,24 @@ def _refine_with_uint8_reference():
                                  torch.zeros((1, 2), dtype=torch.int32), 0, 10)
 
 
-def _encoder_with(**kw):
-    port_enc.Encoder(port_enc.EncoderConfig(64, 64, keyint=16, bd=10, **kw), device="cpu")
-
-
 @pytest.mark.parametrize("call, exc, match", [
     (_refine_with_uint8_reference, ValueError, "uint8 plane cannot hold 10-bit"),
-    (lambda: _encoder_with(enable_restoration=True), NotImplementedError, "restoration"),
-    (lambda: _encoder_with(film_grain=10), NotImplementedError, "film grain"),
-], ids=["uint8_reference", "restoration", "film_grain"])
+], ids=["uint8_reference"])
 def test_10bit_settings_outside_the_port_raise(call, exc, match):
     """CRF (10-bit TPL, K14's 16-bit form) and the tile encoders run at 10
     bits; a uint8 reference cannot hold 10-bit samples, so K14's wrapper
-    refuses one, and the settings still outside the port raise at 10 bits,
-    naming their ROADMAP items."""
+    refuses one."""
     with pytest.raises(exc, match=match):
         call()
+
+
+@pytest.mark.parametrize("override", [dict(enable_restoration=True), dict(film_grain=10)],
+                         ids=["restoration", "film_grain"])
+def test_10bit_settings_encode(override):
+    """Restoration and film grain at 10 bits: a key frame and a P frame
+    that the port's decoder reproduces (with grain: the recon plus the
+    grain), and libaom too."""
+    frames = make_frames(64, 64, 2, seed=5, bd=10)
+    enc = port_enc.Encoder(port_enc.EncoderConfig(64, 64, keyint=16, bd=10, **override),
+                           device="cpu")
+    gop_decodes(encode_all(enc, frames), 64, 64, grain="film_grain" in override)

@@ -7,7 +7,13 @@ three-phase frames) give identical TUs and recon at 128x96 and at 122x90
 device DPB, clamped MC at the display edge; its aligned size is 128x96, so
 the JAX package's commit programs compiled for the first case serve it
 too), and the port's decoder reproduces the recon. One P frame's decide outputs are compared directly:
-integers exact, costs to float32 summation order."""
+integers exact, costs to float32 summation order.
+
+The same GOP with loop restoration (the synchronous route: the port's
+device deblocking and CDEF against the reference's host ones, then the
+restoration search on the host) and with film grain gives identical TUs
+and recon too; it reuses the reference's programs of the first case. The port-only cases of both settings are in
+test_torch_restoration_grain.py."""
 import jax
 import numpy as np
 import pytest
@@ -19,7 +25,7 @@ from svtav1_tpu_torch.codec.tile_codec import FrameParams
 from svtav1_tpu_torch.pipeline import device_decide, inter_device
 from svtav1_tpu_torch.pipeline import encoder as port_enc
 from svtav1_tpu_torch.utils.testclip import make_frames
-from torch_encode_parity import gop_matches_jax_and_decodes
+from torch_encode_parity import gop_matches_jax_and_decodes, lr_types_of, noisy_frames
 
 GOP = dict(qindex=120, keyint=4, preset="medium")
 W, H = 128, 96
@@ -28,6 +34,27 @@ W, H = 128, 96
 @pytest.mark.parametrize("size", [(W, H), (122, 90)])
 def test_gop_matches_jax_and_decodes(size):
     gop_matches_jax_and_decodes(*size, GOP, 4)
+
+
+def test_restoration_gop_matches_jax_and_decodes():
+    """Loop restoration, the port's device filters against the reference's
+    host DLF and CDEF, on the noisy clip (the synthetic clip's frames all
+    code RESTORE_NONE at qindex 120): some plane of some frame codes
+    another restoration type. Seed 1: with the noisy clip's default seed
+    the key frame's decide parts from the reference's with or without
+    restoration (the directional-mode penalty grid, ROADMAP queue 3 entry
+    3)."""
+    pkts = gop_matches_jax_and_decodes(W, H, dict(GOP, enable_restoration=True), 4,
+                                       clip=noisy_frames(W, H, 4, seed=1))
+    types = lr_types_of([p.tu for p in pkts])
+    assert len(types) == 4 and any(any(t) for t in types), types
+
+
+def test_film_grain_gop_matches_jax_and_decodes():
+    """Film grain parameters estimated from the first source frame: the
+    decoders' output is the recon plus the grain (gop_matches_jax_and_decodes
+    holds libaom's output to the port decoder's)."""
+    gop_matches_jax_and_decodes(W, H, dict(GOP, film_grain=10), 4)
 
 
 def test_p_frame_decide_matches_jax():
@@ -112,3 +139,4 @@ def test_p_frame_plan_walk_matches_native_array_walk():
             == run_tile_ops(p, FrameContext(p.qindex), ops, aux["levels_i32"], tile))
     for a, b in zip(rec_a, rec_b):
         assert torch.equal(a, b)
+

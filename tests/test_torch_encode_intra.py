@@ -14,7 +14,7 @@ import pytest
 from svtav1_tpu_torch.decode.decoder import Decoder
 from svtav1_tpu_torch.pipeline import encoder as port_enc
 from svtav1_tpu_torch.utils.testclip import make_frames
-from torch_encode_parity import matches_jax_and_decodes
+from torch_encode_parity import encode_all, gop_decodes, matches_jax_and_decodes
 
 SLICE = dict(qindex=120, keyint=1, preset="fast", enable_cdef=False)
 
@@ -42,10 +42,7 @@ def test_slice_without_deblocking_decodes():
 
 @pytest.mark.parametrize("override, item", [
     (dict(enable_filter_intra=True), "filter-intra"),
-    (dict(enable_restoration=True), "restoration"),
-    (dict(film_grain=10), "film grain"),
     (dict(tile_cols_log2=1, keyint=16), "tiles"),
-    (dict(intra_batch=2), "intra batching"),
 ])
 def test_settings_outside_the_slice_raise(override, item):
     """Settings outside the port raise NotImplementedError naming their
@@ -56,6 +53,18 @@ def test_settings_outside_the_slice_raise(override, item):
                   else (NotImplementedError, item))
     with pytest.raises(exc, match=match):
         port_enc.Encoder(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    dict(enable_restoration=True), dict(film_grain=10), dict(intra_batch=2),
+], ids=["restoration", "film_grain", "intra_batch"])
+def test_settings_encode(override):
+    """Restoration, film grain and intra batching encode key frames that
+    the port's decoder reproduces (with grain: the recon plus the grain),
+    and libaom too."""
+    frames = make_frames(64, 64, 2, seed=3)
+    enc = port_enc.Encoder(port_enc.EncoderConfig(64, 64, **{**SLICE, **override}), device="cpu")
+    gop_decodes(encode_all(enc, frames), 64, 64, grain="film_grain" in override)
 
 
 def test_plan_walk_matches_native_array_walk():

@@ -33,3 +33,24 @@ def test_a_changed_value_is_reported_on_its_record():
     res = smoke_records.compare(parent, change)
     assert [(d["record"][2], d["record"][3], d["field"]) for d in res["differ"]] == [
         ("medium GOP", 10, "bytes_per_frame"), ("1080p GOP", 8, "decode_bit_exact")]
+
+
+def test_new_path_records_are_compared():
+    """The batched all-intra, restoration and film grain records: their
+    restoration types, launches per batch and grain parameters count as
+    deterministic, their frames/s do not."""
+    lr = dict(phase="path", preset="1080p restoration", config=dict(qindex=120, keyint=16),
+              lr_types=[[1, 0, 0], [0, 0, 0]], bytes=[17000, 3900], seconds=90.0)
+    batch = dict(phase="path", preset="1080p all-intra batched", config=dict(keyint=1),
+                 launches_per_batch={"commit_wave": 1}, median_fps={"1": 12.0, "8": 15.0})
+    grain = dict(phase="path", preset="1080p film grain", config=dict(keyint=16),
+                 grain=dict(y_points=14, seeds=[7391]), fps=6.0)
+    parent = _log(lr, batch, grain)
+    same = smoke_records.compare(parent, _log(dict(lr, seconds=80.0),
+                                              dict(batch, median_fps={"1": 11.0, "8": 16.0}),
+                                              dict(grain, fps=7.0)))
+    assert same["differ"] == [] and same["records"] == 3 and same["values"] == 2 + 1 + 1
+    moved = smoke_records.compare(parent, _log(dict(lr, lr_types=[[0, 0, 0], [0, 0, 0]]),
+                                               dict(batch, launches_per_batch={"commit_wave": 8}),
+                                               dict(grain, grain=dict(y_points=13, seeds=[7391]))))
+    assert [d["field"] for d in moved["differ"]] == ["lr_types", "launches_per_batch", "grain"]

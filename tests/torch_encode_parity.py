@@ -133,6 +133,22 @@ def decode_counting_compound(dec: Decoder, tu: bytes):
     return out, count[0]
 
 
+def noisy_frames(w: int, h: int, n: int, seed: int = 9, bd: int = 8) -> list:
+    """The noisy clip of the reference's tests/test_restoration.py (a ramp
+    plus Gaussian noise, flat chroma), on which the loop-restoration search
+    picks a filter where the synthetic clip picks none; at 10 bits the
+    samples are shifted left by 2."""
+    rng = np.random.default_rng(seed)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    out = []
+    for i in range(n):
+        y = np.clip((xx + yy * 2 + i * 3) % 256 + rng.normal(0, 6, (h, w)), 0, 255)
+        planes = (y.astype(np.int32), np.full((h // 2, w // 2), 120, np.int32),
+                  np.full((h // 2, w // 2), 130, np.int32))
+        out.append(tuple(p << (bd - 8) for p in planes))
+    return out
+
+
 def displayed(planes, w: int, h: int) -> list:
     """The displayed w x h part of 4:2:0 recon planes."""
     return [planes[0][:h, :w], planes[1][: (h + 1) >> 1, : (w + 1) >> 1],
@@ -174,7 +190,8 @@ def gop_matches_jax_and_decodes(w: int, h: int, cfg: dict, frames: int, clip=Non
     send_frame + flush: identical TUs and recon in coding order,
     show-existing TUs included, every frame shown once in display order;
     and the port's decoder, fed the TUs in order, reproduces every recon
-    and displays each frame's recon; libaom decodes the port's TUs to the
+    and displays each frame's recon (with film grain: the recon plus the
+    grain, which must change it); libaom decodes the port's TUs to the
     shown frames. A TU that codes a compound block may differ in its bytes
     (the compound-mode context map, see the module note). Returns the
     port's packets."""
@@ -195,9 +212,9 @@ def gop_matches_jax_and_decodes(w: int, h: int, cfg: dict, frames: int, clip=Non
     assert [s for _, s in order if s is not None] == list(range(frames))
     dec = Decoder()
     recon_of = {}
-    shown = []
+    shown = Shown(w, h, grain=bool(cfg.get("film_grain") or cfg.get("film_grain_table")))
     for f, (a, b) in enumerate(zip(got, want)):
-        (dy, _, _, drec), compound = decode_counting_compound(dec, a.tu)
+        (dy, du, dv, drec), compound = decode_counting_compound(dec, a.tu)
         if not compound:
             assert a.tu == b.tu, f"TU {f}: {len(a.tu)} vs {len(b.tu)} bytes"
         if b.recon is None:
@@ -208,11 +225,34 @@ def gop_matches_jax_and_decodes(w: int, h: int, cfg: dict, frames: int, clip=Non
                 np.testing.assert_array_equal(drec[i], a.recon[i], err_msg=f"decode TU {f} plane {i}")
             recon_of[a.disp_idx] = a.recon
         if a.shown_disp_idx is not None:
-            np.testing.assert_array_equal(dy, recon_of[a.shown_disp_idx][0][:h, :w],
-                                          err_msg=f"TU {f} shows frame {a.shown_disp_idx}")
-            shown.append(displayed(recon_of[a.shown_disp_idx], w, h))
-    check_libaom([p.tu for p in got], shown)
+            shown.add(f, (dy, du, dv), recon_of[a.shown_disp_idx])
+    shown.check([p.tu for p in got])
     return got
+
+
+class Shown:
+    """The frames a stream shows, in display order, checked as they come:
+    the decoder's output equals the shown frame's recon, or, with film
+    grain, is that recon plus the grain; `check` then holds libaom's
+    output to them and, with grain, requires the grain to have changed
+    some frame."""
+
+    def __init__(self, w: int, h: int, grain: bool = False):
+        self.w, self.h, self.grain = w, h, grain
+        self.planes, self.grained = [], 0
+
+    def add(self, f: int, out, recon) -> None:
+        want = displayed(recon, self.w, self.h)
+        if self.grain:
+            self.grained += any(not np.array_equal(a, b) for a, b in zip(out, want))
+            self.planes.append(out)
+        else:
+            np.testing.assert_array_equal(out[0], want[0], err_msg=f"TU {f} shows another frame")
+            self.planes.append(want)
+
+    def check(self, tus) -> None:
+        check_libaom(tus, self.planes)
+        assert not self.grain or self.grained, "film grain changed no shown frame"
 
 
 def check_libaom(tus, shown) -> None:
@@ -233,23 +273,45 @@ def encode_all(enc, frames) -> list:
     return pkts + enc.flush()
 
 
-def gop_decodes(pkts, w: int, h: int) -> None:
+def gop_decodes(pkts, w: int, h: int, grain: bool = False) -> None:
     """The port's decoder reproduces every coded frame's recon of a GOP's
     packets (show-existing TUs included) and shows every frame once in
-    display order; libaom decodes the TUs to the shown frames."""
+    display order (with film grain, its recon plus the grain); libaom
+    decodes the TUs to the shown frames."""
     dec = Decoder()
-    recon_of, shown = {}, []
+    recon_of, shown = {}, Shown(w, h, grain)
     for f, p in enumerate(pkts):
-        dy, _, _, drec = dec.decode_tu(p.tu)
+        dy, du, dv, drec = dec.decode_tu(p.tu)
         if p.recon is not None:
             for i in range(3):
                 np.testing.assert_array_equal(drec[i], p.recon[i], err_msg=f"TU {f} plane {i}")
             recon_of[p.disp_idx] = p.recon
         if p.shown_disp_idx is not None:
-            assert p.shown_disp_idx == len(shown)
-            np.testing.assert_array_equal(dy, recon_of[p.shown_disp_idx][0][:h, :w])
-            shown.append(displayed(recon_of[p.shown_disp_idx], w, h))
-    check_libaom([p.tu for p in pkts], shown)
+            assert p.shown_disp_idx == len(shown.planes)
+            shown.add(f, (dy, du, dv), recon_of[p.shown_disp_idx])
+    shown.check([p.tu for p in pkts])
+
+
+def lr_types_of(tus) -> list:
+    """The lr_types (Y, U, V) of each frame header of a stream, in coding
+    order."""
+    from svtav1_tpu_torch.decode.decoder import frame_headers
+
+    return [tuple(fi.lr_types) for fi in frame_headers(tus)]
+
+
+def mi_from_plan(plan, params):
+    """The frame-wide mi grid of a plan's decisions (the reference's
+    pipeline/encoder.mi_from_plan), which its host DLF and CDEF read."""
+    from svtav1_tpu_torch.codec.mvp import MiState
+
+    plan.materialize()
+    mi = MiState(params.mi_rows, params.mi_cols)
+    for (r, c, bsize), d in plan.blocks.items():
+        mi.set_block(r, c, bsize, d.y_mode, d.ref_frame, int(d.ref_frame1),
+                     (int(d.mv[0]), int(d.mv[1])),
+                     mv1=(int(d.mv1[0]), int(d.mv1[1])), skip=d.skip)
+    return mi
 
 
 def packets_decode(pkts, frames) -> None:
