@@ -143,7 +143,18 @@ Phases, each fatal on failure:
      launches and summed bounds per stage; every tile stream is decoded
      after the paths, and also by libaom where the host has it (the
      number of TUs it checked is printed, 0 without libaom);
-  6. phase 2's records again in short, each phase's seconds, the card's
+  6. host mode decision (`mode_decision="numpy"`, filter-intra on): a
+     3-frame CIF low-delay GOP at medium through the Encoder on the card
+     while worker processes encode it with the plain versions on the CPU
+     (bytes equal) and the 10-bit and restoration CIF key frames on the
+     card (decoded there); the GOP's TUs decoded bit-exactly, with the
+     blocks coded with filter-intra counted (more than 0); every frame
+     launches K4, K6 and K7 and no other kernel; per frame the launches
+     and the `host_md`, `filter` and `entropy_walk` seconds, and the host
+     MD seconds scaled to a 1080p frame beside the card's name and power
+     limit. CIF, not 1080p: a host-MD CIF key frame takes 30-40 s on the
+     host, a 1080p one 20.45 times as many pixels;
+  7. phase 2's records again in short, each phase's seconds, the card's
      name and power limit, the kernel table, and last the device line.
 
 Run: python3 chip_smoke.py   (needs one CUDA card, nvcc and gcc; exits
@@ -2552,6 +2563,170 @@ def run_film_grain(torch):
                                    seeds=[x.grain_seed for x in grains]))))
 
 
+# the host mode decision (the reference's default route) with filter-intra, low delay
+HOST_MD = dict(qindex=120, keyint=16, preset="medium", mode_decision="numpy",
+               enable_filter_intra=True)
+HOST_MD_SIZE = (352, 288)  # CIF: a host-MD 1080p key frame takes minutes on the host
+HOST_MD_KERNELS = ("dlf_edges", "cdef_dir", "cdef_search", "cdef_apply")  # K4, K6, K7
+
+
+def host_md_clips():
+    """[(label, config, frames)] of the host mode-decision phase at CIF: a
+    3-frame low-delay GOP (a key frame and 2 P frames), a 10-bit key frame
+    and a key frame with loop restoration."""
+    from svtav1_tpu_torch.utils.testclip import make_frames
+
+    w, h = HOST_MD_SIZE
+    return [("CIF host MD GOP", HOST_MD, make_frames(w, h, 3, seed=0)),
+            ("CIF host MD 10-bit key frame", dict(HOST_MD, bd=10),
+             make_frames(w, h, 1, seed=0, bd=10)),
+            ("CIF host MD restoration key frame", dict(HOST_MD, enable_restoration=True),
+             make_frames(w, h, 1, seed=0))]
+
+
+def filter_intra_decode(label, pairs) -> int:
+    """decode_all of a stream, and the luma blocks the decoder predicted
+    with filter-intra."""
+    from unittest import mock
+
+    from svtav1_tpu_torch.ops import intra as intra_ops
+
+    count = [0]
+    real = intra_ops.filter_intra_pred
+
+    def spy(*args, **kw):
+        count[0] += 1
+        return real(*args, **kw)
+
+    with mock.patch.object(intra_ops, "filter_intra_pred", spy):
+        decode_all(label, pairs)
+    return count[0]
+
+
+def host_md_encode(clip, device, threads=None, decode=False):
+    """One host-route clip through Encoder.send_frame on `device`, frame by
+    frame (each send_frame returns its frame's TU on this route): launch
+    counts set to 0 just before the first frame and read after each; per
+    frame the stage seconds and launches. With decode, the TUs are decoded
+    here (filter_intra_decode). In a worker process the errors come back
+    as a message."""
+    import torch
+
+    from svtav1_tpu_torch import kernels
+    from svtav1_tpu_torch.pipeline.encoder import Encoder, EncoderConfig
+    from svtav1_tpu_torch.utils import profiler
+
+    label, cfg, frames = clip
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        h, w = frames[0][0].shape
+        enc = Encoder(EncoderConfig(w, h, **cfg), device=device)
+        profiler.reset()
+        kernels.reset_launches()
+        pairs, per_frame = [], []
+        t0 = time.perf_counter()
+        for f in frames:
+            s0, l0, t1 = profiler.report(), dict(kernels.launches), time.perf_counter()
+            pkts = enc.send_frame(*f)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            s1 = profiler.report()
+            pairs += [(p.tu, p.recon) for p in pkts]
+            per_frame.append(dict(
+                seconds=time.perf_counter() - t1,
+                stages={k: round(s1[k] - s0.get(k, 0.0), 4) for k in s1
+                        if s1[k] != s0.get(k, 0.0)},
+                launches={k: v - l0[k] for k, v in kernels.launches.items() if v != l0[k]}))
+        pairs += [(p.tu, p.recon) for p in enc.flush()]
+        secs = time.perf_counter() - t0
+        out = dict(tus=[tu for tu, _ in pairs], frames=per_frame, seconds=secs)
+        if decode:
+            out["filter_intra_blocks"] = filter_intra_decode(label, pairs)
+        else:
+            out["pairs"] = pairs
+        return out
+    except (SystemExit, Exception) as err:  # a pool worker must not exit
+        return dict(error=f"{label} on {device}: {err!r}")
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode:
+        raise SystemExit(f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def run_host_md(torch):
+    """The host mode-decision phase (mode_decision="numpy", filter-intra,
+    CIF): the 3-frame GOP on the card in this process while worker
+    processes encode it with the plain versions on the CPU and the 10-bit
+    and restoration key frames on the card (each decoding its own TUs).
+    The GOP's TUs must equal the CPU's byte for byte and decode to the
+    recon; it must code filter-intra blocks; every frame launches K4, K6
+    and K7, and no other kernel (the host decides and reconstructs). Per
+    frame the host_md, filter and entropy_walk seconds and the launches,
+    and the host MD time scaled to a 1080p frame by its pixels beside the
+    card's name and power limit."""
+    import multiprocessing
+
+    import numpy as np
+
+    clips = host_md_clips()
+    gop = clips[0]
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(len(clips)) as pool:
+        cpu_run = pool.apply_async(host_md_encode, (gop, "cpu", 2))
+        keys = [pool.apply_async(host_md_encode, (c, "cuda", 1, True)) for c in clips[1:]]
+        card = host_md_encode(gop, "cuda")
+        if "error" in card:
+            raise SystemExit(card["error"])
+        card_s = time.perf_counter() - t0
+        fi_blocks = filter_intra_decode(gop[0], card["pairs"])
+        runs = [cpu_run.get(timeout=900)] + [k.get(timeout=900) for k in keys]
+    for r in runs:
+        if "error" in r:
+            raise SystemExit(r["error"])
+    cpu, key_runs = runs[0], runs[1:]
+    if card["tus"] != cpu["tus"]:
+        raise SystemExit(f"{gop[0]}: the card's TUs differ from the CPU's")
+    if fi_blocks <= 0:
+        raise SystemExit(f"{gop[0]}: no block coded with filter-intra")
+    for (label, _cfg, _f), r in zip(clips, [card] + key_runs):
+        for i, fr in enumerate(r["frames"]):
+            missing = [k for k in HOST_MD_KERNELS if fr["launches"].get(k, 0) <= 0]
+            other = [k for k in fr["launches"] if k not in HOST_MD_KERNELS]
+            if missing or other:
+                raise SystemExit(f"{label} frame {i}: K4, K6 and K7 not all launched "
+                                 f"({missing} missing) or other kernels launched ({other})")
+    w, h = HOST_MD_SIZE
+    scale = 1920 * 1080 / (w * h)
+    md = [fr["stages"].get("host_md", 0.0) for fr in card["frames"]]
+    for (label, cfg, frames), r in zip(clips, [card] + key_runs):
+        bd = cfg.get("bd", 8)
+        rec = dict(phase="path", preset=label, config=cfg, size=[w, h], frames=len(frames),
+                   tus=len(r["tus"]), bytes=[len(tu) for tu in r["tus"]], seconds=r["seconds"],
+                   decode_bit_exact=True,
+                   filter_intra_blocks=fi_blocks if r is card else r["filter_intra_blocks"],
+                   launches_per_frame=[fr["launches"] for fr in r["frames"]],
+                   stage_seconds_per_frame=[
+                       {k: v for k, v in fr["stages"].items()
+                        if k in ("host_md", "filter", "entropy_walk", "lr_search", "lr_apply")}
+                       for fr in r["frames"]])
+        if r is card:
+            rec.update(tus_equal_cpu=True, encode_s=dict(cuda=card_s, cpu=cpu["seconds"]),
+                       y_psnr=float(np.mean([y_psnr_db(rc[0], f[0], bd)
+                                             for (_, rc), f in zip(card["pairs"], frames)])))
+        log(json.dumps(rec))
+    log(json.dumps(dict(phase="host MD at 1080p, extrapolated", card=smi_line(),
+                        cif_host_md_s=dict(key=md[0], p=float(np.mean(md[1:]))),
+                        pixels_ratio=scale,
+                        host_md_1080p_s=dict(key=md[0] * scale,
+                                             p=float(np.mean(md[1:])) * scale))))
+
+
 def mesh_frames(w, h, n, bd=8):
     """n frames of the synthetic clip at w x h (at 10 bits the 10-bit clip),
     each after the first with a patch of new content near the right edge,
@@ -3303,17 +3478,15 @@ def main() -> int:
     phase("film grain", run_film_grain, torch)
     phase("restoration", run_restoration, torch)
     phase("tiles", run_tiles, torch)
+    phase("host mode decision", run_host_md, torch)
     phase("1080p decodes", decode_queued)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    if smi.returncode:
-        raise SystemExit(f"nvidia-smi failed: {smi.stderr}")
+    smi = smi_line()
     # phase 2 again in short, so that the end of the output holds every number
     log(json.dumps({"phase2": CHECKS, "globalmv": GLOBALMV}))
     log(json.dumps(dict(phase="done", seconds=time.perf_counter() - t_start,
                         phase_seconds=seconds)))
-    log(smi.stdout.strip().splitlines()[0])
+    log(smi)
     table = []
     for name, (src, repl) in KERNEL_SOURCES.items():
         c = checks[name]

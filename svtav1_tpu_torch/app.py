@@ -2,17 +2,16 @@
 app.py (itself the analog of the reference's Source/App SvtAv1EncApp).
 
 Usage: python -m svtav1_tpu_torch.app -i input.y4m -b output.ivf [-q 120]
-       [-n N] [--keyint K] [--minigop 1|2|4|8] [--enable-tf] [--preset P]
-       [--rc cqp|cbr|vbr|crf] [--tbr KBPS] [--lookahead N] [--scd]
+       [-n N] [--md jax|numpy] [--keyint K] [--minigop 1|2|4|8] [--enable-tf]
+       [--preset P] [--rc cqp|cbr|vbr|crf] [--tbr KBPS] [--lookahead N] [--scd]
        [--pass 1|2 --stats FILE] [--recon recon.y4m] [--verify]
        [--device cuda|cpu] [-c config.cfg]
 
-The flags are the reference CLI's, with two differences: there is no
-`--md` (the port has one mode-decision path, the device one) and
+The flags are the reference CLI's, with two differences: `--md` defaults
+to `jax`, the device route, where the reference's defaults to `numpy`,
+the host mode decision (both values mean what they mean there), and
 `--device` picks the device (CUDA by default; `cpu` runs the kernels'
-plain PyTorch versions). A flag whose setting is not yet in the port
-raises NotImplementedError naming the ROADMAP item that brings it.
-`--verify` decodes every TU with the port's decoder and requires its recon
+plain PyTorch versions). `--verify` decodes every TU with the port's decoder and requires its recon
 to equal the encoder's. `--pass 1 --stats FILE` runs the first-pass
 analysis only and writes its stats; `--pass 2 --stats FILE` (with
 `--rc vbr --tbr KBPS`) encodes with them.
@@ -86,6 +85,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--recon", default=None, help="write decoder-checked recon .y4m")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs the plain PyTorch versions)")
+    ap.add_argument("--md", default="jax", choices=["jax", "numpy"],
+                    help="mode decision: jax = the device route, numpy = the host route")
     ap.add_argument("--keyint", type=int, default=1, help="key frame interval (1 = all-intra)")
     ap.add_argument("--minigop", type=int, default=1, choices=[1, 2, 4, 8],
                     help="mini-GoP size (1 = low-delay, >1 = hierarchical-B)")
@@ -156,8 +157,8 @@ def main(argv=None) -> int:
     stats_in = read_stats(args.stats) if args.enc_pass == 2 else None
     cll = tuple(int(v) for v in args.content_light.split(",")) if args.content_light else None
     mdcv = _parse_mastering(args.mastering_display) if args.mastering_display else None
-    enc = Encoder(EncoderConfig(width=w, height=h, qindex=args.qindex, keyint=args.keyint,
-                                minigop=args.minigop, bd=bd, rc_mode=args.rc,
+    enc = Encoder(EncoderConfig(width=w, height=h, qindex=args.qindex, mode_decision=args.md,
+                                keyint=args.keyint, minigop=args.minigop, bd=bd, rc_mode=args.rc,
                                 target_kbps=args.tbr, fps=fps[0] / max(fps[1], 1),
                                 lookahead=args.lookahead, stats_in=stats_in,
                                 scene_cut=args.scd, intra_batch=args.intra_batch,

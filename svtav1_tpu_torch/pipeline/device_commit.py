@@ -45,6 +45,7 @@ import torch
 
 from ..codec.tile_codec import (BlockDecision, FrameParams, Plan, chroma_tx_type,
                                 chroma_tx_type_inter, max_uv_txsize)
+from ..ops.me_torch import plane_np_dtype
 from ..utils import profiler
 from . import wavefront
 from .device_decide import MODES, SIZES, TX_SEARCH
@@ -565,18 +566,19 @@ def flen_maps(leaves, p: FrameParams, device) -> list:
 
 
 def restoration_filters(ry, ru, rv, src_y8, skip8, leaves, p: FrameParams,
-                        enable_cdef: bool) -> list:
-    """The in-loop filters of the restoration route, on the device: DLF at
-    the frame's levels p.lf_levels (K4, no level search), then CDEF (K6,
+                        enable_cdef: bool, deblocked: bool = True) -> list:
+    """The in-loop filters of the reference's host route, on the device: DLF
+    at the frame's levels p.lf_levels (K4, no level search), then CDEF (K6,
     K7) at the strengths the reference's host search picks
     (filters/cdef.search_strengths: the whole ladder, the luma SSE over
-    every fourth non-skip 8x8 unit in raster order), and no
-    display-edge replication, since the restoration filter follows. The
-    (F, H, W) int32 recon planes, source luma and skip map are _filter_device's;
-    leaves: each frame's leaf list. Returns per frame (the CDEF output,
-    filt): host int32 planes, and filt = dict(lf_levels, cdef=(y_pri,
-    y_sec, uv_pri, uv_sec, damping), deblocked=the deblocked planes,
-    which the restoration search and filter read at stripe boundaries)."""
+    every fourth non-skip 8x8 unit in raster order), and no display-edge
+    replication (the restoration filter, or the caller, follows). The
+    (F, H, W) int32 recon planes, source luma and skip map are
+    _filter_device's; leaves: each frame's leaf list. Returns per frame
+    (the CDEF output, filt): host int32 planes, and filt = dict(lf_levels,
+    cdef=(y_pri, y_sec, uv_pri, uv_sec, damping)) with, when `deblocked`,
+    deblocked=the deblocked planes, which the restoration search and
+    filter read at stripe boundaries."""
     from ..filters import cdef as cdef_mod
     from ..filters import cdef_torch
 
@@ -592,21 +594,54 @@ def restoration_filters(ry, ru, rv, src_y8, skip8, leaves, p: FrameParams,
             cdef_out, strengths = cdef_torch.cdef_frames(
                 [pl.contiguous() for pl in planes], src_y8.to(torch.int32), nonskip, damping,
                 bd=p.bd, search_mask=cdef_torch.sampled_cells(nonskip, 4))
+        fetch = (planes + cdef_out) if deblocked else cdef_out
         odt = torch.uint8 if p.bd == 8 else torch.int16
-        packed = torch.cat([pl.to(odt).reshape(F, -1) for pl in planes + cdef_out],
-                           dim=1).cpu().numpy()
+        packed = torch.cat([pl.to(odt).reshape(F, -1) for pl in fetch], dim=1).cpu().numpy()
         strengths = strengths.cpu().numpy()
-    shapes = [tuple(pl.shape[1:]) for pl in planes] * 2
     out = []
     for f in range(F):
         off, got = 0, []
-        for shp in shapes:
-            n = shp[0] * shp[1]
-            got.append(packed[f, off : off + n].reshape(shp).astype(np.int32))
-            off += n
-        out.append((got[3:], dict(lf_levels=tuple(p.lf_levels),
-                                  cdef=tuple(int(v) for v in strengths[f]) + (damping,),
-                                  deblocked=got[:3])))
+        for pl in fetch:
+            shp = tuple(pl.shape[1:])
+            got.append(packed[f, off : off + shp[0] * shp[1]].reshape(shp).astype(np.int32))
+            off += shp[0] * shp[1]
+        filt = dict(lf_levels=tuple(p.lf_levels),
+                    cdef=tuple(int(v) for v in strengths[f]) + (damping,))
+        if deblocked:
+            filt["deblocked"] = got[:3]
+        out.append((got[-3:], filt))
+    return out
+
+
+def plan_filters(plan: Plan, recon: list, src_y, p: FrameParams, device, enable_cdef: bool,
+                 deblocked: bool = False) -> tuple:
+    """DLF and CDEF of a host mode decision's frame on the device: the
+    reference's _encode_one under mode_decision="numpy" runs
+    filters/dlf.loop_filter_frame at p.lf_levels, then
+    cdef.search_strengths and cdef_frame, on the mi grid of the plan
+    (mi_from_plan); here restoration_filters runs on the uploaded recon
+    with the plan's blocks as its leaves and their skip flags as its 8x8
+    skip map. The host mode decision codes square blocks of 8x8 to 64x64
+    with their largest transform, so the leaf size map gives every edge,
+    as on the device route. recon: host [y, u, v] int32 planes (aligned
+    dims); src_y: the source luma. Returns (the CDEF output as host int32
+    planes, filt) as restoration_filters gives them for one frame."""
+    from ..constants.av1 import BLOCK_W
+
+    dt = plane_np_dtype(p.bd)
+    skip8 = np.zeros((p.aligned_height // 8, p.aligned_width // 8), bool)
+    leaves = []
+    for (mi_row, mi_col, bsize), d in plan.blocks.items():
+        n = int(BLOCK_W[bsize])
+        leaves.append((mi_row, mi_col, n))
+        r8, c8, n8 = mi_row // 2, mi_col // 2, n // 8
+        skip8[r8 : r8 + n8, c8 : c8 + n8] = bool(d.skip)
+    with profiler.stage("filter"):
+        ry, ru, rv, src_y8 = (torch.from_numpy(np.asarray(pl, dt)[None]).to(device)
+                              for pl in (*recon, src_y))
+        skip8 = torch.from_numpy(skip8[None]).to(device)
+    [out] = restoration_filters(ry.to(torch.int32), ru.to(torch.int32), rv.to(torch.int32),
+                                src_y8, skip8, [leaves], p, enable_cdef, deblocked)
     return out
 
 

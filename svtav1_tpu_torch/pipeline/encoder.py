@@ -47,15 +47,25 @@ frame) or `film_grain_table` (an aomenc "filmgrn1" table) signal film grain
 parameters in every frame header (filters/film_grain.py); the recon does
 not change, a decoder adds the grain to its output.
 
+`mode_decision` picks the route: "jax" (the default) is the device route
+above; "numpy" is the reference's host route, its default: every frame is
+decided and reconstructed on the host (pipeline/intra_md.py,
+pipeline/inter_md.py; filter-intra, `enable_filter_intra`, exists only
+there), frame by frame without pipelining, then DLF at the by-q levels and
+CDEF at the host search's strengths run on the device over the host plan
+(device_commit.plan_filters: K4, K6, K7), then the plan walk (or, under
+restoration, _restore). The host route has no intra batching, global
+motion, compound prediction or tiles, as in the reference; MCTF and CRF's
+TPL still run on the device.
+
 This slice supports every preset ("fast", "medium", "slow"), 8- and 10-bit
 (`bd`, on every path: CRF's TPL and the tile encoders too), DLF
 and CDEF each on or off, translation global motion, CDF inheritance, the
 HDR metadata OBUs of key frames, and uniform tiles (`tile_cols_log2`,
-`tile_rows_log2`) in all-intra streams (`keyint=1`): each tile is decided,
-committed and walked on its own, the filters run over the whole frame.
-Inter frames are single-tile, as in the reference (ValueError).
-Filter-intra raises NotImplementedError naming the ROADMAP item that
-brings it.
+`tile_rows_log2`) in all-intra streams (`keyint=1`) of the device route:
+each tile is decided, committed and walked on its own, the filters run
+over the whole frame. Inter frames are single-tile, as in the reference
+(ValueError).
 """
 from __future__ import annotations
 
@@ -81,13 +91,16 @@ class EncoderConfig:
     height: int
     qindex: int = 120  # base_q_idx (CQP)
     bd: int = 8
+    # "jax": the device route; "numpy": the host mode decision (the
+    # reference's default, which the port keeps as an option)
+    mode_decision: str = "jax"
     tile_cols_log2: int = 0
     tile_rows_log2: int = 0
     keyint: int = 1  # key frame every N frames (1 = all-intra)
     minigop: int = 1  # 1 = low-delay; 2/4/8 = hierarchical-B mini-GoPs
     enable_dlf: bool = True  # in-loop deblocking (by-q levels)
     enable_cdef: bool = True  # CDEF (frame-wide searched strength set)
-    enable_filter_intra: bool = False  # recursive filter-intra
+    enable_filter_intra: bool = False  # recursive filter-intra (host route only)
     rc_mode: str = "cqp"  # "cqp" | "cbr" | "vbr" | "crf" (TPL r0-based q assignment)
     enable_restoration: bool = False  # loop restoration (Wiener + self-guided)
     scene_cut: bool = False  # adaptive key frames on scene changes
@@ -140,12 +153,6 @@ PRESETS = {
 }
 # preset -> batched RDOQ in the commit (the reference's PRESETS "rdoq")
 PRESET_RDOQ = {"fast": False, "medium": True, "slow": True}
-
-# setting -> (is it outside this slice?, the ROADMAP queue 1 item that brings it)
-_UNSUPPORTED = (
-    (lambda c: c.enable_filter_intra, "enable_filter_intra", "filter-intra"),
-)
-
 
 @dataclass
 class Packet:
@@ -204,13 +211,15 @@ class Encoder:
             raise ValueError(f"bd {cfg.bd}: the sequence header codes 8 or 10 bits (main profile)")
         if cfg.rc_mode in ("cbr", "vbr") and cfg.target_kbps <= 0:
             raise ValueError(f"{cfg.rc_mode} needs target_kbps")
+        if cfg.mode_decision not in ("jax", "numpy"):
+            raise ValueError(f"unknown mode_decision {cfg.mode_decision!r}: jax or numpy")
+        if cfg.enable_filter_intra and cfg.mode_decision == "jax":
+            raise ValueError("filter-intra uses the numpy mode-decision path")
+        if (cfg.tile_cols_log2 or cfg.tile_rows_log2) and cfg.mode_decision != "jax":
+            raise ValueError("multi-tile encoding requires the jax mode-decision backend")
         if (cfg.tile_cols_log2 or cfg.tile_rows_log2) and cfg.keyint != 1:
             raise ValueError("round-1 profile: inter frames are single-tile")
-        for outside, what, item in _UNSUPPORTED:
-            if outside(cfg):
-                raise NotImplementedError(
-                    f"{what} is not in this slice of svtav1_tpu_torch; it comes with "
-                    f"ROADMAP queue 1 '{item}'")
+        self._host_md = cfg.mode_decision == "numpy"
         self.device = resolve_device(device)
         self.cfg = cfg
         self._sf = PRESETS[cfg.preset]
@@ -230,8 +239,9 @@ class Encoder:
                                       cfg.film_grain or cfg.film_grain_table))
         # all-intra batches: frames wait in _ibatch until intra_batch are queued
         self._ibatch: list = []
-        self._batching = (cfg.intra_batch > 1 and cfg.keyint <= 1 and cfg.rc_mode == "cqp"
-                          and not cfg.scene_cut and not cfg.enable_restoration)
+        self._batching = (cfg.intra_batch > 1 and cfg.keyint <= 1 and not self._host_md
+                          and cfg.rc_mode == "cqp" and not cfg.scene_cut
+                          and not cfg.enable_restoration)
         self.next_disp = 0  # next display index expected from the caller
         self.anchor = -1  # display idx of the last coded anchor
         self.pending: list = []  # buffered (disp_idx, src_planes)
@@ -242,7 +252,8 @@ class Encoder:
         # the source lumas a later frame can still name as its LAST ref
         self._gm_slots: list = [((0, 0),) * 8] * 8
         self._gm_src: dict = {}
-        self._use_gm = bool(cfg.enable_gm and not (cfg.tile_cols_log2 or cfg.tile_rows_log2)
+        self._use_gm = bool(cfg.enable_gm and not self._host_md
+                            and not (cfg.tile_cols_log2 or cfg.tile_rows_log2)
                             and cfg.keyint != 1)
         self._golden_disp = None  # last key's display idx (GOLDEN ref)
         self._slot_occupant: dict = {}  # DPB slot -> display idx
@@ -628,7 +639,7 @@ class Encoder:
 
             lf_levels = dlf.pick_filter_levels(qindex, cfg.bd, is_key, cfg.height)
         ref_select = int(cfg.enable_compound and not is_key and future_idx is not None
-                         and not cfg.enable_restoration)
+                         and not self._host_md and not cfg.enable_restoration)
         p = FrameParams(width=cfg.width, height=cfg.height, qindex=qindex, bd=cfg.bd,
                         tile_cols_log2=cfg.tile_cols_log2, tile_rows_log2=cfg.tile_rows_log2,
                         frame_is_intra=is_key, order_hint=order_hint,
@@ -691,13 +702,42 @@ class Encoder:
             return [TileCodec(p, walk_fc if i == 0 else fc_init.clone(), tile=t).encode(plan)
                     for i, t in enumerate(p.tiles())]
 
+    def _payloads(self, p, plan, recon: list, filt: dict, src: list, walk_fc) -> list:
+        """The payloads of a plan whose recon has been through DLF and CDEF:
+        _restore under restoration, else the plan walk."""
+        if self.cfg.enable_restoration:
+            return self._restore(p, plan, recon, filt, src, walk_fc)
+        return self._walk(p, plan, walk_fc)
+
+    def _host_plan(self, src: list, p, refs: dict | None) -> tuple:
+        """The host route's frame (the reference's _encode_one under
+        mode_decision="numpy"): the host mode decision (intra_md for a key
+        frame, inter_md on the references downloaded as host int32 planes),
+        then the plan's DLF and CDEF on the device
+        (device_commit.plan_filters). Returns (plan, recon, filt) as the
+        restoration route's commit does."""
+        from . import device_commit, inter_md, intra_md
+
+        with profiler.stage("host_md"):
+            if refs is None:
+                plan, recon = intra_md.encode_intra_frame(src, p)
+            else:
+                host_refs = {r: [pl.cpu().numpy().astype(np.int32) for pl in planes]
+                             for r, planes in refs.items()}
+                plan, recon = inter_md.encode_inter_frame(src, p, host_refs)
+        recon, filt = device_commit.plan_filters(plan, recon, src[0], p, self.device,
+                                                 self.cfg.enable_cdef,
+                                                 deblocked=self.cfg.enable_restoration)
+        return plan, recon, filt
+
     def _restore(self, p, plan, recon: list, filt: dict, src: list, walk_fc) -> list:
         """The host half of the restoration route (the reference's
         _encode_one under enable_restoration), after the device filters
-        (device_commit.restoration_filters): the loop-restoration search of
-        each plane on the CDEF output `recon` against the deblocked planes,
-        the plan walk with the restoration units, then the restoration
-        filter. recon is filtered in place; returns the payloads."""
+        (device_commit.restoration_filters, or plan_filters on the host
+        route): the loop-restoration search of each plane on the CDEF output
+        `recon` against the deblocked planes, the plan walk with the
+        restoration units, then the restoration filter. recon is filtered
+        in place; returns the payloads."""
         from ..filters import restoration as lr_mod
         from .intra_md import rd_lambda
 
@@ -726,7 +766,7 @@ class Encoder:
     def _encode_key(self, disp_idx: int, src: list, qindex_override=None) -> Packet:
         """Decide, commit and filter one key frame, then _finish_key. Under
         restoration the restoration route's filters run and _restore
-        follows."""
+        follows; the host route decides on the host (_host_plan)."""
         from . import device_commit
 
         cfg = self.cfg
@@ -734,7 +774,10 @@ class Encoder:
         p = setup["p"]
         self._gm_estimate(p, disp_idx, True, None, src)
         walk_fc = FrameContext(p.qindex)
-        if cfg.enable_restoration:
+        if self._host_md:
+            plan, recon, filt = self._host_plan(src, p, None)
+            payloads = self._payloads(p, plan, recon, filt, src, walk_fc)
+        elif cfg.enable_restoration:
             plan, recon, filt, _ = device_commit.encode_intra_frames(
                 [src], p, self.device, enable_cdef=cfg.enable_cdef, walk_fcs=[walk_fc],
                 restoration=True)[0]
@@ -834,20 +877,22 @@ class Encoder:
         frames on the host (overlapping the device), then dispatch commit and
         filters and queue the host finish. Under rate control the next
         frame's qindex needs this frame's size, so the frame is finished at
-        once. Under restoration the frame is coded synchronously
-        (_encode_restored)."""
+        once. Under restoration, and on the host route, the frame is coded
+        synchronously (_encode_sync)."""
         from . import inter_device
 
         cfg = self.cfg
         setup = self._frame_setup(disp_idx, False, layer, past_idx, future_idx, qindex_override)
         p = setup["p"]
         self._gm_estimate(p, disp_idx, False, past_idx, src)
+        st = dict(setup=setup, show=show, disp_idx=disp_idx)
+        if self._host_md:  # nothing is in flight on this route
+            return [self._encode_sync(st, None, src, dpb_slot)]
         refs_dev, ref_ids = self._stack_refs(setup["refs"])
         pend = inter_device.inter_start_decide(src, p, refs_dev, p.interp_filter, ref_ids)
         out = self._pipe_drain()  # host walks of older frames overlap the decide
-        st = dict(setup=setup, show=show, disp_idx=disp_idx)
         if cfg.enable_restoration:
-            return out + [self._encode_restored(st, pend, src, dpb_slot)]
+            return out + [self._encode_sync(st, pend, src, dpb_slot)]
         pend = inter_device.inter_start_commit(pend, enable_dlf=cfg.enable_dlf,
                                                enable_cdef=cfg.enable_cdef)
         self._dpb_enter(st, dpb_slot, pend.dpb_planes)
@@ -856,18 +901,21 @@ class Encoder:
             out += self._pipe_drain()
         return out
 
-    def _encode_restored(self, st: dict, pend, src: list, dpb_slot) -> Packet:
-        """The restoration route's inter frame, synchronously: the commit
-        and the restoration route's filters on the device
-        (inter_device.inter_commit_restoration), _restore on the host, the
-        DPB entry uploaded to the device, then _finish_inter."""
+    def _encode_sync(self, st: dict, pend, src: list, dpb_slot) -> Packet:
+        """An inter frame coded synchronously: on the host route (pend None)
+        _host_plan, else the restoration route's commit and filters on the
+        device (inter_device.inter_commit_restoration); then _payloads, the
+        DPB entry uploaded to the device, and _finish_inter."""
         from . import inter_device
 
         p = st["setup"]["p"]
         walk_fc, primary_ref = self._inter_context(p, st["setup"]["ref_slot"])
-        plan, recon, filt = inter_device.inter_commit_restoration(
-            pend, enable_cdef=self.cfg.enable_cdef)
-        payloads = self._restore(p, plan, recon, filt, src, walk_fc)
+        if pend is None:
+            plan, recon, filt = self._host_plan(src, p, st["setup"]["refs"])
+        else:
+            plan, recon, filt = inter_device.inter_commit_restoration(
+                pend, enable_cdef=self.cfg.enable_cdef)
+        payloads = self._payloads(p, plan, recon, filt, src, walk_fc)
         replicate_display_edges(recon, self.cfg.width, self.cfg.height)
         self._dpb_enter(st, dpb_slot, self._upload(recon))
         return self._finish_inter(st, walk_fc, primary_ref, recon, filt, payloads)

@@ -33,6 +33,8 @@ DETERMINISTIC = (
     "tus_equal_unbatched", "waves_unbatched", "launches_per_batch", "lr_types",
     "bytes_no_restoration", "y_psnr_no_restoration", "bytes_no_grain",
     "recon_equal_without_grain", "output_recon_plus_grain", "grain", "tasks", "depth",
+    # the host mode decision
+    "filter_intra_blocks", "launches_per_frame",
 )
 
 

@@ -2,7 +2,8 @@
 in, an IVF out whose TUs are the library encoder's, every TU decoded and
 checked with --verify (CQP random access, CRF, two-pass VBR); the first
 pass's stats file and the HDR metadata OBUs of key-frame TUs are the JAX
-package's bytes; --enable-restoration, --intra-batch, --film-grain and
+package's bytes; --md numpy writes the library's TUs of the host mode
+decision; --enable-restoration, --intra-batch, --film-grain and
 --fgs-table encode streams that the port's decoder and libaom decode; and
 tiles with inter frames, which the reference refuses too, raise its
 ValueError."""
@@ -101,6 +102,22 @@ def test_cli_two_pass_stats_match_the_jax_app_and_second_pass_verifies(tmp_path)
     assert read_ivf(str(out))[0] == _library_tus(
         frames, w, h, rc_mode="vbr", target_kbps=300.0, keyint=5,
         stats_in=firstpass.read_stats(str(stats)))
+
+
+def test_cli_host_mode_decision_writes_the_library_tus(tmp_path, capsys):
+    """--md numpy: the IVF holds the library's TUs of the host route
+    (mode_decision="numpy"), not the device route's, and --verify decodes
+    them."""
+    w = h = 64
+    frames = make_frames(w, h, 2, seed=9)
+    src, out = tmp_path / "in.y4m", tmp_path / "out.ivf"
+    write_y4m(str(src), frames, w, h)
+    assert app.main(["-i", str(src), "-b", str(out), "--device", "cpu", "--keyint", "2",
+                     "--md", "numpy", "--verify"]) == 0
+    assert "avg Y-PSNR" in capsys.readouterr().out
+    tus = read_ivf(str(out))[0]
+    assert tus == _library_tus(frames, w, h, keyint=2, mode_decision="numpy")
+    assert tus != _library_tus(frames, w, h, keyint=2)
 
 
 def test_metadata_obus_match_the_jax_encoder():

@@ -43,15 +43,18 @@ def test_slice_without_deblocking_decodes():
 @pytest.mark.parametrize("override, item", [
     (dict(enable_filter_intra=True), "filter-intra"),
     (dict(tile_cols_log2=1, keyint=16), "tiles"),
+    (dict(tile_cols_log2=1, mode_decision="numpy"), "tiles on the host route"),
 ])
 def test_settings_outside_the_slice_raise(override, item):
-    """Settings outside the port raise NotImplementedError naming their
-    ROADMAP item; tiles with inter frames, which the reference refuses
-    too, raise its ValueError."""
+    """The settings the reference refuses raise its ValueError: filter-intra
+    on the device route (it exists only on the host route,
+    mode_decision="numpy"), tiles with inter frames, and tiles on the host
+    route."""
     cfg = port_enc.EncoderConfig(64, 64, **{**SLICE, **override})
-    exc, match = ((ValueError, "inter frames are single-tile") if item == "tiles"
-                  else (NotImplementedError, item))
-    with pytest.raises(exc, match=match):
+    match = {"filter-intra": "filter-intra uses the numpy mode-decision path",
+             "tiles": "inter frames are single-tile",
+             "tiles on the host route": "multi-tile encoding requires the jax"}[item]
+    with pytest.raises(ValueError, match=match):
         port_enc.Encoder(cfg, device="cpu")
 
 

@@ -194,10 +194,11 @@ def gop_matches_jax_and_decodes(w: int, h: int, cfg: dict, frames: int, clip=Non
     grain, which must change it); libaom decodes the port's TUs to the
     shown frames. A TU that codes a compound block may differ in its bytes
     (the compound-mode context map, see the module note). Returns the
-    port's packets."""
+    port's packets. cfg may name the route (`mode_decision`, the device
+    route "jax" by default); both encoders take it."""
     if clip is None:
         clip = make_frames(w, h, frames)
-    ref = ref_enc.Encoder(ref_enc.EncoderConfig(w, h, mode_decision="jax", **cfg))
+    ref = ref_enc.Encoder(ref_enc.EncoderConfig(w, h, **{"mode_decision": "jax", **cfg}))
     port = port_enc.Encoder(port_enc.EncoderConfig(w, h, **cfg), device="cpu")
     want, got = [], []
     with reference_with_display_edge_rule(w, h):
